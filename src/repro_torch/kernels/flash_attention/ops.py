@@ -1,0 +1,118 @@
+"""K2 wrapper: model-layout prefill attention through the hand-written CUDA
+kernel (``kernels/csrc/flash_attention.cu``).
+
+``flash_attention`` takes (B,Sq,H,Dk) queries over unexpanded
+(B,Skv,Kv,Dk)/(B,Skv,Kv,Dv) keys/values with the reference's masking
+surface (causal/non-causal, ``window``, ALiBi ``slopes``, the chunked-prefill
+``q_start``, which the kernel takes at run time).  A CPU tensor goes to the
+plain version (``ref.py``); a CUDA tensor goes to the kernel, or the call
+raises — there is no fallback.  ``flash_attention.launches`` counts kernel
+launches.  The kernel reads q/k/v through their strides, so the wrapper
+makes no transposed copies.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.runtime import NO_WINDOW, check_launch, load_library
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# head dims the kernel is instantiated for (Dk and Dv independently);
+# 224, 256 and MLA's 576/512 are still to come (ROADMAP)
+HEAD_DIMS = (16, 32, 64, 128)
+_fn = None
+
+
+def flash_attention_unsupported(*, causal: bool = True, window=None,
+                                slopes=None, q_start: int = 0
+                                ) -> Optional[str]:
+    """Reason the kernel cannot serve a prefill-attention call, else None —
+    the same gaps as the reference's guard."""
+    if not causal:
+        if window is not None:
+            return "sliding-window masking on non-causal attention"
+        if q_start:
+            return "chunked-prefill q_start offsets on non-causal attention"
+        if slopes is not None:
+            return "ALiBi slopes on non-causal attention"
+    return None
+
+
+def _launcher():
+    global _fn
+    if _fn is None:
+        fn = load_library("flash_attention").flash_attention_launch
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [I, P, P, P, P, P, I, I, I, I, I, I, I,
+                       ctypes.POINTER(ctypes.c_longlong), I, I, I,
+                       ctypes.c_float, P]
+        fn.restype = I
+        _fn = fn
+    return _fn
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    slopes=None, q_start: int = 0):
+    """q (B,Sq,H,Dk); k (B,Skv,Kv,Dk); v (B,Skv,Kv,Dv) -> (B,Sq,H,Dv).
+
+    ``window``: optional int.  ``slopes``: optional (H,) f32.  ``q_start``:
+    absolute position of the first query (queries [q_start, q_start+Sq)
+    over keys [0, Skv))."""
+    reason = flash_attention_unsupported(causal=causal, window=window,
+                                         slopes=slopes, q_start=q_start)
+    if reason is not None:
+        raise ValueError(f"flash_attention does not support {reason}")
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             slopes=slopes, q_start=q_start)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    B, Sq, H, Dk = q.shape
+    Skv, Kv = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    if k.shape != (B, Skv, Kv, Dk) or v.shape[:3] != (B, Skv, Kv):
+        raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    if H % Kv:
+        raise ValueError(f"flash_attention: {H} heads over {Kv} kv heads")
+    if Dk not in HEAD_DIMS or Dv not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention: no kernel yet for head dims Dk={Dk}, Dv={Dv} "
+            f"(built for {HEAD_DIMS}; ROADMAP lists the rest)")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
+                         f"{v.dtype}; the kernel takes float32 or bfloat16")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("flash_attention: head dims must be contiguous")
+    if not (k.device == v.device == q.device):
+        raise ValueError("flash_attention: operands on different devices")
+    sl = None
+    if slopes is not None:
+        sl = slopes.to(device=q.device, dtype=torch.float32).contiguous()
+        if sl.shape != (H,):
+            raise ValueError(f"flash_attention: slopes {tuple(sl.shape)}, "
+                             f"want ({H},)")
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
+                                      *v.stride()[:3])
+    win = NO_WINDOW if window is None else int(window)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _launcher()(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if sl is None else sl.data_ptr(), out.data_ptr(), B, Sq, Skv,
+        H, Kv, Dk, Dv, strides, win, int(bool(causal)), int(q_start),
+        1.0 / math.sqrt(Dk), stream)
+    if err < 0:
+        raise ValueError(f"flash_attention: the kernel does not take "
+                         f"Dk={Dk}, Dv={Dv}")
+    check_launch("flash_attention", err)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

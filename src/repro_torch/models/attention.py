@@ -1,0 +1,291 @@
+"""GQA attention (bias / qk-norm / sliding window / ALiBi): the counterpart
+of the GQA half of the reference's ``repro/models/attention.py``.
+
+Compute paths, as in the reference:
+
+* ``dense``  — materialise (S, T) logits when S*T is small;
+* ``flash``  — python double loop over (q-chunk, kv-chunk) pairs with an
+               online softmax, skipping pairs above the causal diagonal;
+* ``decode`` — single-query attention over a KV cache (grouped einsum, no
+               KV head expansion).
+
+These three are the PLAIN path.  The reference's ``_use_pallas_*``
+predicates become device dispatch under ``backend="kernel"``: a CUDA tensor
+goes to the hand-written kernels (``kernels.flash_attention`` in prefill,
+``kernels.decode_attention`` in decode), a CPU tensor to the plain path.
+``backend="plain"`` runs the plain path on any device (the oracle).
+
+Differences from the reference, both from eager PyTorch:
+
+* decode takes a PER-ROW position vector ``pos`` (B,): pooled rows are a
+  real batch here, not a vmapped batch of one;
+* the decode step writes the new token's K/V into the cache IN PLACE, at
+  ``pos`` clamped into range like ``dynamic_update_slice`` clamps, and
+  only on the rows ``active`` selects (the others keep their old values).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import decode_attention, flash_attention
+from repro_torch.kernels.runtime import NO_WINDOW, resolve_backend
+from repro_torch.models.layers import (ParamBuilder, alibi_slopes,
+                                       apply_rope, param_dtype,
+                                       rms_norm_simple, rope_angles)
+
+_NEG_INF = -1e30
+_BIG_WINDOW = NO_WINDOW
+Q_CHUNK = 2048
+KV_CHUNK = 1024
+DENSE_MAX_T = 2048  # use the dense path when kv length <= this
+
+
+# ---------------------------------------------------------------------------
+# Mask / bias
+# ---------------------------------------------------------------------------
+
+
+def _mask_bias(q_pos, kv_pos, window, slopes=None):
+    """Additive f32 bias (H|1, S, T): causal + sliding window + ALiBi."""
+    diff = q_pos[:, None] - kv_pos[None, :]  # (S, T); >= 0: past/self
+    ok = (diff >= 0) & (diff < window)
+    bias = torch.where(ok, 0.0, _NEG_INF).to(torch.float32)[None]
+    if slopes is not None:
+        bias = bias + slopes[:, None, None] * (-diff.abs())[None].float()
+    return bias
+
+
+# ---------------------------------------------------------------------------
+# Plain softmax attention on (B, S, H, D) with expanded KV heads
+# ---------------------------------------------------------------------------
+
+
+def _dense_attn(q, k, v, bias):
+    """q (B,S,H,D), k (B,T,H,D), v (B,T,H,Dv), bias (H|1,S,T)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float())
+    logits = logits * scale + bias[None]
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhst,bthd->bshd", probs.to(v.dtype), v)
+
+
+def _flash_attn(q, k, v, q_pos, kv_pos, window, slopes=None, q_start=0):
+    """Double-chunked online-softmax attention; (q-chunk, kv-chunk) pairs
+    above the causal diagonal are skipped (queries at ``q_start +
+    arange(S)`` over keys ``arange(T)``)."""
+    B, S, H, D = q.shape
+    T = k.shape[1]
+    Dv = v.shape[-1]
+    scale = 1.0 / math.sqrt(D)
+    n_q = (S + Q_CHUNK - 1) // Q_CHUNK
+    n_kv = (T + KV_CHUNK - 1) // KV_CHUNK
+    outs = []
+    for qi in range(n_q):
+        q_lo, q_hi = qi * Q_CHUNK, min(S, (qi + 1) * Q_CHUNK)
+        qc = q[:, q_lo:q_hi]
+        qp = q_pos[q_lo:q_hi]
+        m = torch.full((B, H, q_hi - q_lo), _NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, H, q_hi - q_lo), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((B, q_hi - q_lo, H, Dv), dtype=torch.float32,
+                          device=q.device)
+        for ki in range(n_kv):
+            k_lo, k_hi = ki * KV_CHUNK, min(T, (ki + 1) * KV_CHUNK)
+            if k_lo > q_start + q_hi - 1:
+                continue  # above the causal diagonal
+            kc, vc = k[:, k_lo:k_hi], v[:, k_lo:k_hi]
+            kp = kv_pos[k_lo:k_hi]
+            logits = torch.einsum("bshd,bthd->bhst", qc.float(),
+                                  kc.float()) * scale
+            logits = logits + _mask_bias(qp, kp, window, slopes)[None]
+            new_m = torch.maximum(m, logits.amax(dim=-1))
+            corr = torch.exp(m - new_m)
+            p = torch.exp(logits - new_m[..., None])
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr.transpose(1, 2)[..., None] + torch.einsum(
+                "bhst,bthd->bshd", p.to(v.dtype), vc).float()
+            m = new_m
+        out = acc / l.transpose(1, 2)[..., None].clamp_min(1e-30)
+        outs.append(out.to(q.dtype))
+    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+
+
+def attention_core(q, k, v, q_pos, kv_pos, window=None, slopes=None,
+                   q_start=0):
+    """Plain causal prefill attention: dense vs flash from the shapes."""
+    window = _BIG_WINDOW if window is None else window
+    S, T = q.shape[1], k.shape[1]
+    if T <= DENSE_MAX_T and S * T <= DENSE_MAX_T * DENSE_MAX_T // 4:
+        return _dense_attn(q, k, v, _mask_bias(q_pos, kv_pos, window,
+                                               slopes))
+    return _flash_attn(q, k, v, q_pos, kv_pos, window, slopes, q_start)
+
+
+def _use_kernel(backend: str, x) -> bool:
+    """Device dispatch: the hand-written kernel serves a CUDA tensor under
+    ``backend="kernel"``; a CPU tensor, or ``backend="plain"``, takes the
+    plain path.  A CUDA call the kernel cannot serve raises in the kernel
+    wrapper — it never drops to the plain path."""
+    return resolve_backend(backend) == "kernel" and x.is_cuda
+
+
+def decode_attention_plain(q, ck, cv, pos, window=None, slopes=None):
+    """Plain single-step causal attention over a cache without KV-head
+    expansion (the reference's ``decode_attention_xla``, with per-row
+    positions).  q (B,1,H,D); ck (B,T,Kv,D); cv (B,T,Kv,Dv); pos (B,)."""
+    B, _, H, D = q.shape
+    T, Kv = ck.shape[1], ck.shape[2]
+    G = H // Kv
+    window = _BIG_WINDOW if window is None else window
+    qg = q.reshape(B, Kv, G, D)
+    scale = 1.0 / math.sqrt(D)
+    logits = torch.einsum("bkgd,btkd->bkgt", qg.float(), ck.float()) * scale
+    kv_pos = torch.arange(T, device=q.device)
+    diff = pos.reshape(B, 1) - kv_pos[None, :]  # (B, T)
+    ok = (diff >= 0) & (diff < window)
+    if slopes is not None:
+        logits = logits + (slopes.reshape(Kv, G)[None, :, :, None]
+                           * (-diff.abs()).float()[:, None, None, :])
+    logits = torch.where(ok[:, None, None, :], logits, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", probs.to(cv.dtype), cv)
+    return out.reshape(B, 1, H, cv.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# GQA attention module
+# ---------------------------------------------------------------------------
+
+
+def init_gqa(pb: ParamBuilder, cfg: ModelConfig, width: Optional[int] = None):
+    d = width or cfg.d_model
+    H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = param_dtype(cfg)
+    c = pb.child()
+    c.dense("wq", (d, H, hd), dt)
+    c.dense("wk", (d, Kv, hd), dt)
+    c.dense("wv", (d, Kv, hd), dt)
+    c.dense("wo", (H, hd, cfg.d_model), dt)
+    if cfg.qkv_bias:
+        c.zeros("bq", (H, hd), dt)
+        c.zeros("bk", (Kv, hd), dt)
+        c.zeros("bv", (Kv, hd), dt)
+    if cfg.qk_norm:
+        c.ones("q_norm", (hd,), torch.float32)
+        c.ones("k_norm", (hd,), torch.float32)
+    return c.params
+
+
+def _q_proj(params, cfg, x):
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(x.dtype)
+    return q
+
+
+def _kv_proj(params, cfg, x):
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(x.dtype))
+    if cfg.qkv_bias:
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    return k, v
+
+
+def _slopes(cfg: ModelConfig, device):
+    return alibi_slopes(cfg.n_heads, device) if cfg.pos_kind == "alibi" \
+        else None
+
+
+def apply_gqa_full(params, cfg: ModelConfig, x, positions, window=None,
+                   prefix_kv=None, backend: str = "kernel"):
+    """Full-sequence causal attention (prefill).  x (B,S,d); positions (S,).
+
+    Returns (out, (k, v)) with k/v in the un-expanded (B,S,Kv,hd) layout
+    for caching.  ``prefix_kv``: optional (k, v) of an already-prefilled
+    prefix (chunked prefill); the chunk's queries attend over prefix +
+    chunk keys, ``positions`` must be ``P + arange(S)``, and the returned
+    cache entry holds only the chunk's k/v."""
+    q_start = 0
+    q = _q_proj(params, cfg, x)
+    k, v = _kv_proj(params, cfg, x)
+    if cfg.qk_norm:
+        q = rms_norm_simple(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm_simple(k, params["k_norm"], cfg.norm_eps)
+    if cfg.pos_kind == "rope":
+        cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    kv_out = (k, v)
+    if prefix_kv is not None:
+        pk, pv = prefix_kv
+        q_start = pk.shape[1]
+        k = torch.cat([pk.to(k.dtype), k], dim=1)
+        v = torch.cat([pv.to(v.dtype), v], dim=1)
+        kv_pos = torch.arange(k.shape[1], device=x.device)
+    else:
+        kv_pos = positions
+    slopes = _slopes(cfg, x.device)
+    if _use_kernel(backend, x):
+        # kernel contract: queries at q_start + arange(S) over keys at
+        # arange(T) — what the (chunked-)prefill call sites pass; GQA
+        # groups are mapped inside the kernel (no KV head expansion)
+        out = flash_attention(q, k, v, causal=True, window=window,
+                              slopes=slopes, q_start=q_start)
+    else:
+        G = cfg.n_heads // cfg.n_kv_heads
+        k_exp = torch.repeat_interleave(k, G, dim=2) if G > 1 else k
+        v_exp = torch.repeat_interleave(v, G, dim=2) if G > 1 else v
+        out = attention_core(q, k_exp, v_exp, positions, kv_pos, window,
+                             slopes, q_start=q_start)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    return y, kv_out
+
+
+def write_token(cache, new, pos, active=None):
+    """In-place write of one token per row: ``cache[b, pos[b]] = new[b, 0]``
+    with ``pos`` clamped into [0, T-1] (``dynamic_update_slice``'s clamp).
+    Rows where ``active`` is False keep their old value."""
+    B, T = cache.shape[0], cache.shape[1]
+    rows = torch.arange(B, device=cache.device)
+    pc = pos.to(torch.long).clamp(0, T - 1)
+    val = new[:, 0].to(cache.dtype)
+    if active is not None:
+        mask = active.reshape((B,) + (1,) * (val.dim() - 1))
+        val = torch.where(mask, val, cache[rows, pc])
+    cache[rows, pc] = val
+
+
+def apply_gqa_decode(params, cfg: ModelConfig, x, cache_k, cache_v, pos,
+                     window=None, active=None, backend: str = "kernel"):
+    """Single-token decode.  x (B,1,d); cache (B,T,Kv,hd); pos (B,).
+
+    Writes the new token's K/V into the cache at ``pos`` (in place; only
+    on ``active`` rows when given) and attends over the updated cache.
+    Returns (y, cache_k, cache_v) — the same cache tensors."""
+    q = _q_proj(params, cfg, x)
+    k, v = _kv_proj(params, cfg, x)
+    if cfg.qk_norm:
+        q = rms_norm_simple(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm_simple(k, params["k_norm"], cfg.norm_eps)
+    if cfg.pos_kind == "rope":
+        cos, sin = rope_angles(pos.reshape(-1, 1), cfg.head_dim,
+                               cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    write_token(cache_k, k, pos, active)
+    write_token(cache_v, v, pos, active)
+    slopes = _slopes(cfg, x.device)
+    if _use_kernel(backend, x):
+        out = decode_attention(q, cache_k, cache_v, pos, window=window,
+                               slopes=slopes)
+    else:
+        out = decode_attention_plain(q, cache_k, cache_v, pos, window,
+                                     slopes)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    return y, cache_k, cache_v

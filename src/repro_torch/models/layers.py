@@ -1,0 +1,233 @@
+"""Foundational layers: param init helpers, norms, RoPE/ALiBi, embedding,
+LM head and MLP — the counterparts of the reference's
+``repro/models/layers.py``, as plain functions on tensors.
+
+``params`` is a nested dict of tensors under the reference's tree paths.
+The reference's sharding context has no counterpart yet (device groups are
+ROADMAP A10), so the functions here take no ``sh`` argument.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config dtype name ("bfloat16", "float32")."""
+    return _DTYPES[name]
+
+
+def param_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch_dtype(cfg.param_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Param creation (torch twin of the reference's init, drawn from a
+# torch.Generator: same tree, shapes, dtypes and scales, other values)
+# ---------------------------------------------------------------------------
+
+
+class ParamBuilder:
+    """Collects named leaves drawn from one ``torch.Generator``.
+
+    ``dense`` draws a truncated normal on [-2, 2] times ``scale`` (default
+    1/sqrt(fan_in)) in f32 on the generator's device, then casts and moves
+    the leaf to ``device`` — the reference's ``dense_init``.  ``lead``
+    prepends stacked dims (the layer axis of a segment) to every leaf; the
+    fan-in stays the per-layer one, as the reference's vmapped init."""
+
+    def __init__(self, gen: torch.Generator, device, lead=()):
+        self.gen = gen
+        self.device = torch.device(device)
+        self.lead = tuple(lead)
+        self.params: Dict[str, object] = {}
+
+    def dense(self, name, shape: Sequence[int], dtype, scale=None):
+        fan_in = shape[0] if len(shape) > 1 else shape[-1]
+        scale = scale if scale is not None else 1.0 / math.sqrt(max(1, fan_in))
+        w = torch.empty(self.lead + tuple(shape), dtype=torch.float32,
+                        device=self.gen.device)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                    generator=self.gen)
+        w.mul_(scale)
+        self.params[name] = w.to(device=self.device, dtype=dtype)
+
+    def zeros(self, name, shape, dtype):
+        self.params[name] = torch.zeros(self.lead + tuple(shape), dtype=dtype,
+                                        device=self.device)
+
+    def ones(self, name, shape, dtype):
+        self.params[name] = torch.ones(self.lead + tuple(shape), dtype=dtype,
+                                       device=self.device)
+
+    def sub(self, name, init_fn, *args, **kw):
+        self.params[name] = init_fn(self, *args, **kw)
+
+    def child(self) -> "ParamBuilder":
+        return ParamBuilder(self.gen, self.device, self.lead)
+
+
+# ---------------------------------------------------------------------------
+# Normalisation
+# ---------------------------------------------------------------------------
+
+
+def init_norm(pb: ParamBuilder, cfg: ModelConfig, width: Optional[int] = None):
+    d = width or cfg.d_model
+    c = pb.child()
+    if cfg.norm_kind in ("rmsnorm", "layernorm"):
+        c.ones("scale", (d,), torch.float32)
+    if cfg.norm_kind == "layernorm":
+        c.zeros("bias", (d,), torch.float32)
+    return c.params
+
+
+def apply_norm(params, cfg: ModelConfig, x):
+    """Normalisation with f32 statistics but element ops in x.dtype (the
+    reference's choice: no full-width f32 copy of the residual stream)."""
+    d = x.shape[-1]
+    if cfg.norm_kind == "rmsnorm":
+        xf = x.float()
+        inv = torch.rsqrt((xf * xf).sum(-1) / d + cfg.norm_eps)
+        return x * inv[..., None].to(x.dtype) * params["scale"].to(x.dtype)
+    mean = x.float().sum(-1) / d
+    centered = x - mean[..., None].to(x.dtype)
+    cf = centered.float()
+    var = (cf * cf).sum(-1) / d
+    out = centered * torch.rsqrt(var + cfg.norm_eps)[..., None].to(x.dtype)
+    if cfg.norm_kind == "layernorm":
+        out = out * params["scale"].to(x.dtype) + params["bias"].to(x.dtype)
+    return out
+
+
+def rms_norm_simple(x, scale, eps=1e-6):
+    xf = x.float()
+    inv = torch.rsqrt((xf * xf).sum(-1) / x.shape[-1] + eps)
+    return x * inv[..., None].to(x.dtype) * scale.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary / ALiBi positions
+# ---------------------------------------------------------------------------
+
+
+def rope_angles(positions, dim: int, theta: float):
+    """cos/sin tables (f32) for ``positions`` (any shape — (S,) for a
+    shared arange, (B, S) for per-row positions), rotating ``dim`` dims."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                        device=positions.device) / dim
+    freqs = 1.0 / torch.pow(float(theta), exps)  # f32 pow, no host tensor
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: (..., S, H, D); cos/sin: (..., S, D/2) broadcast over heads.
+    Tables in f32, rotation in x.dtype."""
+    x1, x2 = x.chunk(2, dim=-1)
+    c = cos[..., None, :].to(x.dtype)
+    s = sin[..., None, :].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _alibi_slopes(n_heads: int, device: str):
+    return torch.as_tensor(_alibi_numpy(n_heads), device=device)
+
+
+def alibi_slopes(n_heads: int, device=None):
+    """Standard ALiBi geometric slopes (BLOOM), (H,) f32 — built once per
+    device, so the attention calls copy nothing from the host."""
+    return _alibi_slopes(n_heads, str(torch.device(device or "cpu")))
+
+
+def _alibi_numpy(n_heads: int):
+    p = 2 ** int(np.floor(np.log2(n_heads)))
+    base = 2.0 ** (-8.0 / p)
+    slopes = base ** np.arange(1, p + 1)
+    if p < n_heads:
+        extra_base = 2.0 ** (-4.0 / p)
+        extra = extra_base ** np.arange(1, 2 * (n_heads - p) + 1, 2)
+        slopes = np.concatenate([slopes, extra])
+    return slopes.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head
+# ---------------------------------------------------------------------------
+
+
+def init_embedding(pb: ParamBuilder, cfg: ModelConfig):
+    c = pb.child()
+    dt = param_dtype(cfg)
+    c.dense("tok", (cfg.padded_vocab, cfg.d_model), dt, scale=1.0)
+    if cfg.frontend == "frames":
+        c.dense("frame_proj", (cfg.frame_dim, cfg.d_model), dt)
+    if not cfg.tie_embeddings:
+        c.dense("head", (cfg.d_model, cfg.padded_vocab), dt)
+    c.sub("final_norm", init_norm, cfg)
+    return c.params
+
+
+def embed_tokens(params, cfg: ModelConfig, tokens):
+    return F.embedding(tokens, params["tok"])
+
+
+def vocab_pad_bias(cfg: ModelConfig, device=None):
+    """Additive bias masking padded vocab columns (finite -1e30)."""
+    if cfg.padded_vocab == cfg.vocab_size:
+        return None
+    idx = torch.arange(cfg.padded_vocab, device=device)
+    return torch.where(idx < cfg.vocab_size, 0.0, -1e30).to(torch.float32)
+
+
+def lm_head(params, cfg: ModelConfig, h):
+    h = apply_norm(params["final_norm"], cfg, h)
+    w = params["tok"].t() if cfg.tie_embeddings else params["head"]
+    logits = torch.matmul(h, w.to(h.dtype))
+    if cfg.logit_softcap > 0:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    pad = vocab_pad_bias(cfg, h.device)
+    if pad is not None:
+        logits = logits + pad.to(logits.dtype)
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# Gated / plain MLP
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(pb: ParamBuilder, cfg: ModelConfig, width: Optional[int] = None,
+             d_ff: Optional[int] = None):
+    d = width or cfg.d_model
+    f = d_ff or cfg.d_ff
+    c = pb.child()
+    dt = param_dtype(cfg)
+    if cfg.norm_kind == "layernorm":  # plain gelu MLP
+        c.dense("wi", (d, f), dt)
+        c.dense("wo", (f, cfg.d_model), dt)
+    else:  # gated silu (SwiGLU)
+        c.dense("wg", (d, f), dt)
+        c.dense("wu", (d, f), dt)
+        c.dense("wo", (f, cfg.d_model), dt)
+    return c.params
+
+
+def apply_mlp(params, cfg: ModelConfig, x):
+    if "wi" in params:
+        h = F.gelu(x @ params["wi"].to(x.dtype), approximate="tanh")
+        return h @ params["wo"].to(x.dtype)
+    g = F.silu(x @ params["wg"].to(x.dtype))
+    u = x @ params["wu"].to(x.dtype)
+    return (g * u) @ params["wo"].to(x.dtype)

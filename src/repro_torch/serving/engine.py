@@ -1,0 +1,1349 @@
+"""Geo-distributed serving engine with continuous batching across sessions
+— the counterpart of the reference's ``repro/serving/engine.py`` for dense
+decoders on the slab layout.
+
+Executes real block-level forward passes according to a BPRR placement
+with client-centric (hub-spoke) communication and client-side input
+caches, while a virtual clock accounts time with the validated performance
+models (eq. (1)).  The clock, admission, routing and failover decisions are
+the reference's line for line (they depend only on ``repro_torch.core``,
+a copy of the reference's numpy core), so they come out bit-identical.
+
+Each server keeps ONE stacked cache pool (``kv_cache.CachePool``) whose
+rows are per-session slots; the pooled steps run all rows with fixed
+shapes and write the pool in place.  A decode round (``decode_mode=
+"fused"``) keeps the hidden states on the device from the batched embed to
+the round tail: one embed, one gather+step+scatter per (hop, server), one
+lm_head+argmax tail, and ONE host sync — the token readback.  Prefill rows
+are staged in device tensors, never through host memory.
+
+Entry points run on the card (``device="cuda"``) unless the caller passes
+``device="cpu"``; ``backend="kernel"`` sends attention on CUDA tensors to
+the hand-written kernels.  Not in this slice: paged pools (ROADMAP A8),
+stochastic sampling (A6), other block families (A9), device groups and τ
+calibration (A10).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.perf_model import Placement, Problem, Route
+from repro_torch.core.placement import petals_bp
+from repro_torch.core.routing import petals_route, shortest_path_route
+from repro_torch.kernels.runtime import resolve_backend
+from repro_torch.models.blocks import decoder_block_full
+from repro_torch.models.layers import embed_tokens, lm_head
+from repro_torch.models.model import block_param_range, layer_params
+from repro_torch.serving.faults import (FailureDetector, FaultPlan,
+                                        NoCapacityError, recovery_replay_cost)
+from repro_torch.serving.kv_cache import (CachePool, bucket_for,
+                                          default_prefill_buckets, kind_runs,
+                                          make_pool_decode_step,
+                                          make_pool_prefill_step,
+                                          make_pool_round_step, state_specs)
+from repro_torch.serving.sampling import (SamplingSpec, make_round_tail,
+                                          sample_tokens)
+
+
+def to_device(a, device) -> torch.Tensor:
+    """A host array as a tensor on ``device`` without a host sync: on the
+    card it is staged through pinned memory and copied asynchronously on
+    the current stream (a plain ``torch.as_tensor(..., device="cuda")``
+    blocks until the stream drains)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+@dataclass
+class EngineSession:
+    """Client-side state for one session: its route, token buffer, per-hop
+    input history (the failover replay cache), and the virtual-clock
+    accounting (prefill / per-token / end times per eq. (1))."""
+
+    sid: int
+    client: int
+    route: Route
+    prompt_len: int
+    n_new: int
+    arrival: float = 0.0
+    start: float = 0.0
+    pos: int = 0  # next cache write position
+    tokens: List[int] = field(default_factory=list)  # prompt + generated
+    n_generated: int = 0
+    # admitted | prefilling | active | preempted | failed | done
+    state: str = "admitted"
+    fail_reason: Optional[str] = None
+    n_preemptions: int = 0
+    n_detections: int = 0
+    n_retries: int = 0
+    n_replays: int = 0
+    detect_time: float = 0.0
+    backoff_time: float = 0.0
+    replay_time: float = 0.0
+    n_defer_resumes: int = 0
+    # per-hop input history: entry 0 is the prompt record, then one record
+    # per decoded token — a (1, 1, d) tensor on the host-staged paths or a
+    # lazy ((members, 1, d) hop gather, index) tuple on the fused path
+    hop_inputs: List[List] = field(default_factory=list)
+    sampling: SamplingSpec = field(default_factory=SamplingSpec)
+    virtual_time: float = 0.0
+    prefill_time: float = 0.0
+    per_token_time: float = 0.0
+    end: float = float("inf")
+    # logits behind tokens[-1]: a (V,) tensor or a lazy ((W, V), slot)
+    _logits_box: Optional[object] = None
+    _h: Optional[torch.Tensor] = None  # transient per-round hidden state
+
+    @property
+    def last_logits(self) -> Optional[torch.Tensor]:
+        box = self._logits_box
+        if isinstance(box, tuple):  # lazy (rows, slot) from a fused round
+            rows, g = box
+            box = rows[g]
+            self._logits_box = box
+        return box
+
+    @last_logits.setter
+    def last_logits(self, value):
+        self._logits_box = value
+
+    @property
+    def recovery_time(self) -> float:
+        return self.detect_time + self.backoff_time + self.replay_time
+
+
+class BlockServer:
+    """One 'server': views of the params of its block range + a stacked
+    session pool.  Pooled compute entry points: :meth:`decode_rows`,
+    :meth:`prefill_rows` and the fused :meth:`round_rows`."""
+
+    def __init__(self, sid: int, cfg: ModelConfig, params, a: int, m: int,
+                 *, n_rows: int, max_len: int, cap_slots: int,
+                 slowdown: float = 1.0, backend: str = "kernel",
+                 device="cuda"):
+        self.sid = sid
+        self.backend = backend
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.a, self.m = int(a), int(m)
+        self.specs = state_specs(cfg)[self.a: self.a + self.m]
+        self.kinds = tuple(s.kind for s in self.specs)
+        self.runs = kind_runs(self.kinds)
+        # per-run stacked block params: views, so replicas share storage
+        self.run_params = tuple(
+            block_param_range(params, cfg, kind, self.a + lo, self.a + hi)
+            for kind, lo, hi in self.runs)
+        self.layer_ids = tuple(range(self.a, self.a + self.m))
+        self.pool = CachePool(cfg, self.kinds, n_rows, max_len, cap_slots,
+                              device=self.device)
+        self.alive = True
+        self.crashed = False
+        self.suspected = False
+        self.slowdown = slowdown
+        self._step = make_pool_decode_step(cfg, self.kinds, backend)
+        self._round_step = make_pool_round_step(cfg, self.kinds, backend)
+        self._prefill_pool = make_pool_prefill_step(cfg, self.kinds,
+                                                    backend)
+
+    # -- session admission bookkeeping --------------------------------------
+    def fits(self, sid: int, k_blocks: int) -> bool:
+        return self.pool.fits(sid, k_blocks)
+
+    def admit(self, sid: int, k_blocks: int) -> int:
+        return self.pool.alloc(sid, k_blocks)
+
+    def evict(self, sid: int):
+        self.pool.release(sid)
+
+    def n_sessions(self) -> int:
+        return self.pool.n_sessions()
+
+    def _mask(self, mask: np.ndarray) -> torch.Tensor:
+        return to_device(mask, self.device)
+
+    # -- compute ------------------------------------------------------------
+    def _layer_params(self, l_rel: int):
+        for r, (kind, lo, hi) in enumerate(self.runs):
+            if lo <= l_rel < hi:
+                return layer_params(self.run_params[r], l_rel - lo)
+        raise IndexError(l_rel)
+
+    def prefill_range(self, sid: int, h, lo: int, hi: int, positions):
+        """Prefill blocks [lo, hi) for one session (serial reference path);
+        fills its pool row."""
+        assert self.alive, f"server {self.sid} is dead"
+        row = self.pool.rows[sid]
+        S = h.shape[1]
+        entries = []
+        for l in range(lo, hi):
+            h, cache, _ = decoder_block_full(
+                self._layer_params(l - self.a), self.cfg, h, positions, l,
+                backend=self.backend)
+            entries.append(cache)
+        self.pool.write_prefill_range(lo - self.a, hi - self.a, row,
+                                      entries, S)
+        return h
+
+    def prefill_rows(self, h_rows, layer_active, offset: int = 0):
+        """THE batched prefill: one pooled call prefills a (padded) prompt
+        chunk starting at ``offset`` for every masked row, writing the
+        chunk's K/V into the pool."""
+        assert self.alive, f"server {self.sid} is dead"
+        return self._prefill_pool(self.run_params, self.pool.tree, h_rows,
+                                  layer_active, self.layer_ids, offset)
+
+    def decode_rows(self, h_rows, pos_rows, layer_active):
+        """THE batched step: one pooled call decodes all masked rows."""
+        assert self.alive, f"server {self.sid} is dead"
+        return self._step(self.run_params, self.pool.tree, h_rows, pos_rows,
+                          layer_active, self.layer_ids)
+
+    def round_rows(self, h_round, pos_round, slot_of_row, row_of_slot,
+                   layer_active):
+        """The fused device-resident hop: gather this server's rows out of
+        the round buffers, decode them, scatter the results back."""
+        assert self.alive, f"server {self.sid} is dead"
+        return self._round_step(self.run_params, self.pool.tree, h_round,
+                                pos_round, slot_of_row, row_of_slot,
+                                layer_active, self.layer_ids)
+
+    def decode_range(self, sid: int, h, lo: int, hi: int, pos: int):
+        """Single-session decode of blocks [lo, hi) via the pooled step
+        (the same program as the batched path — bit-for-bit identical)."""
+        if lo >= hi:
+            return h
+        row = self.pool.rows[sid]
+        N = self.pool.n_rows
+        h_rows = h.new_zeros((N,) + tuple(h.shape[1:]))
+        h_rows[row] = h[0]
+        pos_np = np.zeros((N,), np.int64)
+        pos_np[row] = pos
+        mask = np.zeros((self.m, N), bool)
+        mask[lo - self.a: hi - self.a, row] = True
+        h_out = self.decode_rows(h_rows, self._mask(pos_np), self._mask(mask))
+        return h_out[row][None]
+
+    def decode_step_cost(self):
+        raise NotImplementedError(
+            "decode_step_cost: the reference prices the pooled step with "
+            "XLA cost analysis; the port's τ calibration from measured step "
+            "time is ROADMAP A10")
+
+
+@dataclass
+class _PrefillGroup:
+    """Co-admitted sessions sharing one route and one prompt-length bucket,
+    prefilled together in chunk rounds (``bucket is None``: a chunked
+    group of prompts longer than the largest bucket)."""
+
+    route: Route
+    bucket: Optional[int]
+    members: List[EngineSession]
+    offset: int = 0  # tokens prefilled so far (next chunk start)
+    # per-sid per-hop activation chunks, stitched into the client-side
+    # failover cache (EngineSession.hop_inputs) at completion
+    hop_chunks: Dict[int, List[List[torch.Tensor]]] = field(
+        default_factory=dict)
+
+
+class GeoServingSystem:
+    """Client-centric distributed inference with online BPRR and
+    continuous batching across sessions (see the reference's docstring).
+
+    ``prefill_mode``: "batched" (bucket groups) or "serial" (one session
+    per call, exact length — the bit-for-bit reference of the batched
+    path's token streams).  ``prefill_buckets``: prompt-length buckets
+    (default powers of two up to ``max_seq_len``).  ``decode_mode``:
+    "fused" (device-resident rounds, one host sync) or "serial" (per-session
+    embed/lm_head, host-staged hops).  ``backend``: "kernel" (hand-written
+    CUDA kernels on CUDA tensors, plain PyTorch on CPU tensors) or "plain".
+    ``device``: where pools and round buffers live ("cuda" by default);
+    ``params`` must already be there.  ``fault_plan`` / ``detector``:
+    deterministic fault injection on the virtual clock and the timeout /
+    backoff policy that prices failure detection.
+
+    Not in this slice (they raise ``NotImplementedError``):
+    ``cache_layout="paged"`` (ROADMAP A8), ``mesh``/``device_groups`` and
+    ``calibrate_taus`` (A10).
+    """
+
+    def __init__(self, cfg: ModelConfig, params, problem: Problem,
+                 algorithm: str = "proposed", R: Optional[int] = None,
+                 max_new_tokens: int = 64, max_sessions: int = 8,
+                 max_seq_len: Optional[int] = None,
+                 prefill_mode: str = "batched",
+                 prefill_buckets: Optional[Tuple[int, ...]] = None,
+                 decode_mode: str = "fused",
+                 backend: str = "kernel",
+                 cache_layout: str = "slab",
+                 mesh=None, device_groups=None,
+                 fault_plan: Optional[FaultPlan] = None,
+                 detector: Optional[FailureDetector] = None,
+                 device="cuda"):
+        assert problem.L == cfg.n_layers
+        assert prefill_mode in ("batched", "serial"), prefill_mode
+        assert decode_mode in ("fused", "serial"), decode_mode
+        if cache_layout != "slab":
+            raise NotImplementedError(
+                f"cache_layout={cache_layout!r}: paged pools are a later "
+                "slice of the port (ROADMAP A8)")
+        if mesh is not None or device_groups is not None:
+            raise NotImplementedError(
+                "device-group servers (mesh / device_groups) are a later "
+                "slice of the port (ROADMAP A10)")
+        self.backend = resolve_backend(backend)
+        self.device = torch.device(device)
+        self.cfg = cfg
+        self.params = params
+        self.problem = problem
+        self.algorithm = algorithm
+        self.max_new_tokens = max_new_tokens
+        self.max_sessions = int(max_sessions)
+        self.max_seq_len = int(
+            max_seq_len if max_seq_len is not None
+            else problem.workload.l_in + max_new_tokens + 32)
+        self._preempt_order: List[int] = []
+        self.prefill_mode = prefill_mode
+        self.specs = state_specs(cfg)
+        self._recurrent = any(s.recurrent for s in self.specs)
+        if prefill_buckets is None:
+            prefill_buckets = default_prefill_buckets(self.max_seq_len)
+        self.prefill_buckets = tuple(sorted(
+            {min(int(b), self.max_seq_len) for b in prefill_buckets}))
+        assert self.prefill_buckets, "prefill_buckets must be non-empty"
+        self._prefill_groups: List[_PrefillGroup] = []
+        if algorithm == "proposed":
+            from repro_torch.core.placement import auto_R, cg_bp
+            self.R = R if R is not None else auto_R(problem, 0.1, 60.0)
+            self.placement, _ = cg_bp(problem, self.R)
+        else:
+            self.R = R
+            self.placement = petals_bp(problem)
+        self.servers: Dict[int, BlockServer] = {}
+        self._build_servers()
+        self.sessions: Dict[int, EngineSession] = {}
+        self._sid = 0
+        self.decode_mode = decode_mode
+        self._round_tail = make_round_tail(cfg)
+        # fixed round width: the round buffers span W slots whatever the
+        # round's membership, so per-session results are bit-identical solo
+        # or grouped (grown if a round ever exceeds it)
+        self._round_width = max(1, self.max_sessions)
+        # per-round dispatch accounting (the perf contract: ONE embed, ONE
+        # lm_head+argmax tail, one fused dispatch per (hop, server), ONE
+        # host sync per round)
+        self.round_stats = {"rounds": 0, "embed_dispatches": 0,
+                            "tail_dispatches": 0, "hop_dispatches": 0,
+                            "preemptions": 0, "resumes": 0,
+                            "detections": 0, "retries": 0, "replays": 0,
+                            "rejoins": 0, "dispatch_errors": 0,
+                            "detect_s": 0.0, "backoff_s": 0.0,
+                            "replay_s": 0.0}
+        self.fault_plan = fault_plan
+        self.detector = detector if detector is not None else \
+            FailureDetector()
+        self._fault_cursor = 0
+        self._dispatch_faults: set = set()
+        self._base_taus = [float(s.tau) for s in problem.servers]
+
+    # ------------------------------------------------------------------
+    def _embed(self, tokens) -> torch.Tensor:
+        """Embed a host token array (B, S) on the engine's device."""
+        tok = to_device(np.asarray(tokens, np.int64), self.device)
+        return embed_tokens(self.params["embed"], self.cfg, tok)
+
+    def _lm_head(self, h) -> torch.Tensor:
+        return lm_head(self.params["embed"], self.cfg, h)
+
+    def _cap_slots(self, j: int, m: int) -> int:
+        spec = self.problem.servers[j]
+        cap = int(np.floor(
+            (spec.mem_bytes - self.problem.s_m * m) / self.problem.s_c))
+        return max(cap, 0)
+
+    def _build_servers(self):
+        for j in range(self.problem.n_servers):
+            a, m = int(self.placement.a[j]), int(self.placement.m[j])
+            if m <= 0:
+                continue
+            if j in self.servers:
+                continue  # keep live objects (running sessions hold caches)
+            cap = self._cap_slots(j, m)
+            # pool arrays need >= 1 row for fixed shapes, but the
+            # block-slot budget stays honest: cap == 0 admits nothing
+            n_rows = max(1, min(self.max_sessions, cap))
+            self.servers[j] = BlockServer(
+                j, self.cfg, self.params, a, m, n_rows=n_rows,
+                max_len=self.max_seq_len, cap_slots=cap,
+                backend=self.backend, device=self.device)
+
+    def alive_placement(self) -> Placement:
+        a = np.array(self.placement.a)
+        m = np.array(self.placement.m)
+        for j in range(len(m)):
+            if j in self.servers and not self.servers[j].alive:
+                m[j] = 0
+            if j not in self.servers:
+                m[j] = 0
+        return Placement(a=a, m=m)
+
+    def calibrate_taus(self) -> Dict[int, float]:
+        raise NotImplementedError(
+            "calibrate_taus: τ calibration from measured step time on the "
+            "card is ROADMAP A10")
+
+    # ------------------------------------------------------------------
+    # Session lifecycle (continuous batching API)
+    # ------------------------------------------------------------------
+    def create_session(self, tokens: np.ndarray, client: int, route: Route,
+                       n_new: int, arrival: float = 0.0,
+                       frames: Optional[np.ndarray] = None,
+                       sampling: Optional[SamplingSpec] = None) -> int:
+        """Register an admitted session (no compute, no slots yet)."""
+        S = len(tokens)
+        if S + n_new > self.max_seq_len:
+            raise ValueError(
+                f"prompt {S} + n_new {n_new} exceeds max_seq_len "
+                f"{self.max_seq_len}; raise max_seq_len at engine build")
+        if frames is not None:
+            raise ValueError("`frames` is only meaningful for enc-dec stacks")
+        sid = self._sid
+        self._sid += 1
+        self.sessions[sid] = EngineSession(
+            sid=sid, client=client, route=route, prompt_len=S, n_new=n_new,
+            arrival=arrival, tokens=[int(t) for t in np.asarray(tokens)],
+            hop_inputs=[[] for _ in route.servers],
+            sampling=sampling if sampling is not None else SamplingSpec())
+        return sid
+
+    def fits_session(self, sid: int) -> bool:
+        """True iff every route server has a free row AND block-slots."""
+        sess = self.sessions[sid]
+        return all(self.servers[j].alive and self.servers[j].fits(sid, k)
+                   for j, k in zip(sess.route.servers, sess.route.blocks))
+
+    def try_admit_session(self, sid: int, now: float = 0.0) -> bool:
+        """Claim slots and run the prefill to completion."""
+        ok = self.try_admit_sessions([sid], now=now)
+        if ok:
+            self.drain_prefill()
+        return bool(ok)
+
+    def try_admit_sessions(self, sids: List[int], now: float = 0.0
+                           ) -> List[int]:
+        """Claim slots for every session that fits (FIFO per client) and
+        coalesce the admitted ones into bucket groups for batched prefill.
+        Returns the admitted sids."""
+        admitted: List[EngineSession] = []
+        failed_clients: set = set()
+        for sid in sids:
+            sess = self.sessions[sid]
+            faulted = [j for j in sess.route.servers
+                       if j in self._dispatch_faults]
+            if faulted:
+                self._dispatch_faults.difference_update(faulted)
+                self.round_stats["dispatch_errors"] += 1
+                failed_clients.add(sess.client)
+                continue
+            if sess.client in failed_clients or not self.fits_session(sid):
+                failed_clients.add(sess.client)
+                continue
+            for j, k in zip(sess.route.servers, sess.route.blocks):
+                self.servers[j].admit(sid, k)
+            sess.start = now
+            admitted.append(sess)
+        if not admitted:
+            return []
+        if self.prefill_mode == "serial":
+            for sess in admitted:
+                self._prefill_serial(sess)
+                self._finalize_prefill(sess, sess._h[:, -1:])
+            return [s.sid for s in admitted]
+        groups: Dict[Tuple[Route, Optional[int]], List[EngineSession]] = {}
+        for sess in admitted:
+            sess.state = "prefilling"
+            b = bucket_for(self.prefill_buckets, sess.prompt_len, self.specs)
+            groups.setdefault((sess.route, b), []).append(sess)
+        for (route, b), members in groups.items():
+            self._prefill_groups.append(_PrefillGroup(
+                route=route, bucket=b, members=members,
+                hop_chunks={s.sid: [[] for _ in route.servers]
+                            for s in members}))
+        return [s.sid for s in admitted]
+
+    # -- batched prefill ------------------------------------------------
+    def has_pending_prefill(self) -> bool:
+        return bool(self._prefill_groups)
+
+    def prefill_round(self) -> List[int]:
+        """Advance every pending bucket group by ONE chunk round (all hops).
+        Returns the sids whose prompt completed (they emit a token)."""
+        done: List[int] = []
+        still: List[_PrefillGroup] = []
+        for g in self._prefill_groups:
+            done.extend(self._prefill_group_round(g))
+            if any(s.state == "prefilling" and s.prompt_len > g.offset
+                   for s in g.members):
+                still.append(g)
+        self._prefill_groups = still
+        return done
+
+    def drain_prefill(self):
+        while self._prefill_groups:
+            self.prefill_round()
+
+    def _prefill_plan(self, prompt_len: int) -> List[Tuple[int, int, int]]:
+        """Deterministic chunk plan [(offset, span, t_pad), ...] — a
+        function of the prompt length only."""
+        if self._recurrent:
+            return [(0, prompt_len, prompt_len)]
+        b = bucket_for(self.prefill_buckets, prompt_len)
+        if b is not None:
+            return [(0, prompt_len, min(b, self.max_seq_len))]
+        chunk_unit = max(self.prefill_buckets)
+        plan: List[Tuple[int, int, int]] = []
+        off = 0
+        while off < prompt_len:
+            t_pad = min(chunk_unit, self.max_seq_len - off)
+            plan.append((off, min(prompt_len - off, t_pad), t_pad))
+            off += t_pad
+        return plan
+
+    def _prefill_group_round(self, g: _PrefillGroup) -> List[int]:
+        """One chunk round for one bucket group: embed the (padded) chunk of
+        every member, run the pooled prefill per hop on device-staged rows,
+        account the virtual clock, finalize completed members."""
+        active = [s for s in g.members
+                  if s.state == "prefilling" and s.prompt_len > g.offset]
+        if not active:
+            return []
+        lost = [j for j in g.route.servers
+                if j not in self.servers or not self.servers[j].alive
+                or self.servers[j].crashed
+                or any(s.sid not in self.servers[j].pool.rows
+                       for s in active)]
+        if lost:
+            for j in lost:
+                srv = self.servers.get(j)
+                if srv is not None and srv.alive and srv.crashed:
+                    self._detect_crash(j, [
+                        (s, self._expected_hop_prefill(s, j))
+                        for s in active])
+            for s in active:
+                self._abort_session(s, reason="server_lost_mid_prefill")
+            return []
+        ref_len = max(s.prompt_len for s in active)
+        t_pad = next(tp for off, _, tp in self._prefill_plan(ref_len)
+                     if off == g.offset)
+        spans = {s.sid: min(s.prompt_len - g.offset, t_pad) for s in active}
+        for s in active:
+            chunk = s.tokens[g.offset: g.offset + spans[s.sid]]
+            chunk = chunk + [0] * (t_pad - len(chunk))
+            s._h = self._embed([chunk])
+        e = 0
+        for hop, (j, k) in enumerate(zip(g.route.servers, g.route.blocks)):
+            srv = self.servers[j]
+            lo, hi = e, e + k
+            N = srv.pool.n_rows
+            h_buf = active[0]._h.new_zeros((N, t_pad, active[0]._h.shape[-1]))
+            mask = np.zeros((srv.m, N), bool)
+            for s in active:
+                row = srv.pool.rows[s.sid]
+                # client-side failover cache: the UNPADDED chunk entering
+                # this hop (stitched to the full prompt at completion)
+                g.hop_chunks[s.sid][hop].append(s._h[:, : spans[s.sid]])
+                h_buf[row] = s._h[0]
+                mask[lo - srv.a: hi - srv.a, row] = True
+            h_out = srv.prefill_rows(h_buf, srv._mask(mask), offset=g.offset)
+            for s in active:
+                s._h = h_out[srv.pool.rows[s.sid]][None]
+            # eq. (1): the group's chunk travels the hop as ONE message;
+            # each session is charged its own weighted k·τ^I (unchunked
+            # groups bill the nominal l_in, chunked ones the actual span)
+            for s in active:
+                tau = self.problem.servers[j].tau_prefill(
+                    self.problem.workload.l_in if g.bucket is not None
+                    else spans[s.sid])
+                s.prefill_time += (
+                    self.problem.rtt_prefill[s.client, j]
+                    + self.problem.llm.tau_weight(e, e + k)
+                    * tau * srv.slowdown)
+            e += k
+        g.offset += t_pad
+        done: List[int] = []
+        for s in active:
+            if s.prompt_len <= g.offset:
+                for hop in range(len(g.route.servers)):
+                    parts = g.hop_chunks[s.sid][hop]
+                    stitched = (None if not parts
+                                else parts[0] if len(parts) == 1
+                                else torch.cat(parts, dim=1))
+                    s.hop_inputs[hop].append(stitched)
+                self._finalize_prefill(s, s._h[:, spans[s.sid] - 1:
+                                               spans[s.sid]])
+                done.append(s.sid)
+        return done
+
+    def _prefill_serial(self, sess: EngineSession):
+        """One-session-per-call exact-length prefill (the reference path of
+        the bucketed one): per-layer block calls, eq. (1) accounting."""
+        h = self._embed([sess.tokens[: sess.prompt_len]])
+        positions = torch.arange(sess.prompt_len, device=self.device)
+        e = 0
+        for hop, (j, k) in enumerate(zip(sess.route.servers,
+                                         sess.route.blocks)):
+            srv = self.servers[j]
+            sess.hop_inputs[hop].append(h)
+            h = srv.prefill_range(sess.sid, h, e, e + k, positions)
+            sess.prefill_time += (
+                self.problem.rtt_prefill[sess.client, j]
+                + self.problem.llm.tau_weight(e, e + k)
+                * self.problem.servers[j].tau_prefill(
+                    self.problem.workload.l_in) * srv.slowdown)
+            e += k
+        sess._h = h
+
+    def _finalize_prefill(self, sess: EngineSession, h_last):
+        """Prefill done: close the virtual-clock accounting and emit the
+        first generated token from the prompt's last-position logits."""
+        sess.pos = sess.prompt_len
+        sess.virtual_time += sess.prefill_time
+        sess.per_token_time = self._route_per_token(sess)
+        sess.state = "active"
+        sess.end = (sess.start + sess.prefill_time
+                    + max(sess.n_new - 1, 0) * sess.per_token_time)
+        sess.last_logits = self._lm_head(h_last)[0, 0]
+        sess.tokens.append(self._sample_tokens([sess])[0])
+        sess.n_generated = 1
+        sess._h = None
+
+    def _sample_tokens(self, sessions: List[EngineSession]) -> List[int]:
+        """One sampler call for a round's sessions (greedy)."""
+        logits = torch.stack([s.last_logits for s in sessions])
+        temps = np.asarray([s.sampling.row_params()[0] for s in sessions],
+                           np.float32)
+        return [int(t) for t in sample_tokens(logits, temps).tolist()]
+
+    def _route_per_token(self, sess: EngineSession) -> float:
+        t = 0.0
+        e = 0
+        for j, k in zip(sess.route.servers, sess.route.blocks):
+            t += (self.problem.rtt_token[sess.client, j]
+                  + self.problem.llm.tau_weight(e, e + k)
+                  * self.problem.servers[j].tau
+                  * self.servers[j].slowdown)
+            e += k
+        return t
+
+    # ------------------------------------------------------------------
+    # Timeout-based failure detection
+    # ------------------------------------------------------------------
+    def _expected_hop_decode(self, sess: EngineSession, hop: int) -> float:
+        j = sess.route.servers[hop]
+        e_lo, e_hi = self._hop_span(sess, hop)
+        return (self.problem.rtt_token[sess.client, j]
+                + self.problem.llm.tau_weight(e_lo, e_hi)
+                * self.problem.servers[j].tau * self.servers[j].slowdown)
+
+    def _expected_hop_prefill(self, sess: EngineSession, j: int) -> float:
+        e = 0
+        for jj, k in zip(sess.route.servers, sess.route.blocks):
+            if jj == j:
+                return (self.problem.rtt_prefill[sess.client, j]
+                        + self.problem.llm.tau_weight(e, e + k)
+                        * self.problem.servers[j].tau_prefill(
+                            self.problem.workload.l_in)
+                        * self.servers[j].slowdown)
+            e += k
+        return float(self.problem.rtt_prefill[sess.client, j])
+
+    def _detect_crash(self, j: int, affected):
+        """Declare crashed server ``j`` dead by timeout, billing every
+        affected session the missed deadline plus the backoff probes."""
+        srv = self.servers[j]
+        backoff = self.detector.backoff_time()
+        for sess, expected in affected:
+            detect = self.detector.detect_time(expected)
+            sess.detect_time += detect
+            sess.backoff_time += backoff
+            sess.virtual_time += detect + backoff
+            sess.n_detections += 1
+            sess.n_retries += self.detector.max_probes
+            self.round_stats["detections"] += 1
+            self.round_stats["retries"] += self.detector.max_probes
+            self.round_stats["detect_s"] += detect
+            self.round_stats["backoff_s"] += backoff
+        srv.alive = False
+        srv.suspected = True
+
+    def _hop_needs_failover(self, sess: EngineSession, hop: int) -> bool:
+        j = sess.route.servers[hop]
+        srv = self.servers.get(j)
+        return (srv is None or not srv.alive
+                or sess.sid not in srv.pool.rows)
+
+    def decode_round(self, sids: Optional[List[int]] = None) -> Dict[int, int]:
+        """One continuous-batching round: every listed active session (all
+        unfinished active sessions when ``sids`` is None) advances one token
+        through its route.  Returns {sid: new_token}."""
+        explicit = sids is not None
+        if self.fault_plan is not None:
+            clock = [s.virtual_time + s.start
+                     for s in self.sessions.values()
+                     if s.state in ("active", "preempted")]
+            if clock:
+                self.apply_faults(min(clock))
+        self._resume_preempted()
+        if sids is None:
+            sids = [s.sid for s in self.sessions.values()
+                    if s.state == "active" and s.n_generated < s.n_new]
+        group = [self.sessions[sid] for sid in sids
+                 if self.sessions[sid].state == "active"]
+        if not group and not explicit and any(
+                s.state == "preempted" and s.n_generated < s.n_new
+                for s in self.sessions.values()):
+            self._resume_preempted(force=True)
+            group = [s for s in self.sessions.values()
+                     if s.state == "active" and s.n_generated < s.n_new]
+            if not group:
+                self._abort_stuck_head()
+        if not group:
+            return {}
+        if self.decode_mode == "serial":
+            return self._decode_round_serial(group)
+        return self._decode_round_fused(group)
+
+    # ------------------------------------------------------------------
+    # Preemption (capacity-starved failover deferral) and resume
+    # ------------------------------------------------------------------
+    def _pick_victim(self, j: int, protect: set,
+                     finished_only: bool = False) -> Optional[int]:
+        cands = []
+        for sid in self.servers[j].pool.rows:
+            if sid in protect:
+                continue
+            s = self.sessions.get(sid)
+            if s is None or s.state != "active":
+                continue
+            finished = s.n_generated >= s.n_new
+            if finished_only and not finished:
+                continue
+            cands.append((0 if finished else 1, -sid, sid))
+        return min(cands)[2] if cands else None
+
+    def preempt_session(self, sid: int):
+        """Swap a session out: free its rows on every route server; its
+        client-side hop histories are the replay cache for the resume."""
+        sess = self.sessions[sid]
+        assert sess.state == "active", sess.state
+        sess.last_logits  # materialize a lazy fused-round logits box
+        sess.state = "preempted"
+        sess.n_preemptions += 1
+        sess._h = None
+        for j in set(sess.route.servers):
+            if j in self.servers:
+                self.servers[j].evict(sid)
+        self._preempt_order.append(sid)
+        self.round_stats["preemptions"] += 1
+
+    def _resume_preempted(self, force: bool = False):
+        while self._preempt_order:
+            sid = self._preempt_order[0]
+            sess = self.sessions.get(sid)
+            if (sess is None or sess.state != "preempted"
+                    or sess.n_generated >= sess.n_new):
+                self._preempt_order.pop(0)
+                continue
+            if not self._try_resume(sess, evict_finished=force):
+                return
+            self._preempt_order.pop(0)
+            force = False
+
+    def _try_resume(self, sess: EngineSession,
+                    evict_finished: bool = False) -> bool:
+        """Re-admit a preempted session on its route's ALIVE servers and
+        replay its client-side history (billed on the virtual clock)."""
+        e = 0
+        hops = []
+        for hop, (j, k) in enumerate(zip(sess.route.servers,
+                                         sess.route.blocks)):
+            lo, hi = e, e + k
+            e += k
+            if j in self.servers and self.servers[j].alive:
+                hops.append((hop, j, lo, hi))
+        if not hops:
+            sess.state = "active"
+            self.round_stats["resumes"] += 1
+            return True
+        for _, j, lo, hi in hops:
+            while not self.servers[j].fits(sess.sid, hi - lo):
+                if not evict_finished:
+                    return False
+                victim = self._pick_victim(j, protect={sess.sid},
+                                           finished_only=True)
+                if victim is None:
+                    return False
+                self.preempt_session(victim)
+        for _, j, lo, hi in hops:
+            self.servers[j].admit(sess.sid, hi - lo)
+        self._replay_session(sess)
+        cost = 0.0
+        for hop, j, lo, hi in hops:
+            n_tok = max(len(sess.hop_inputs[hop]) - 1, 0)
+            cost += recovery_replay_cost(
+                self.problem, sess.client, [(j, lo, hi)], n_tok,
+                slowdown_of=lambda jj: self.servers[jj].slowdown)
+        sess.replay_time += cost
+        sess.virtual_time += cost
+        sess.n_replays += 1
+        sess.end = (sess.start + sess.virtual_time
+                    + max(sess.n_new - sess.n_generated, 0)
+                    * sess.per_token_time)
+        self.round_stats["replays"] += 1
+        self.round_stats["replay_s"] += cost
+        sess.state = "active"
+        self.round_stats["resumes"] += 1
+        return True
+
+    def _replay_session(self, sess: EngineSession):
+        """Rebuild a preempted session's caches on its alive route servers
+        from the client-side hop histories (hops replay independently)."""
+        S = sess.prompt_len
+        e = 0
+        for hop, (j, k) in enumerate(zip(sess.route.servers,
+                                         sess.route.blocks)):
+            e_lo, e_hi = e, e + k
+            e += k
+            if j not in self.servers or not self.servers[j].alive:
+                continue
+            self._replay_prefill_range(sess, j, e_lo, e_hi,
+                                       sess.hop_inputs[hop][0])
+            for t_idx, h_tok in enumerate(sess.hop_inputs[hop][1:]):
+                self.servers[j].decode_range(
+                    sess.sid, self._hop_record(h_tok), e_lo, e_hi,
+                    S + t_idx)
+
+    # ------------------------------------------------------------------
+    # Decode rounds
+    # ------------------------------------------------------------------
+    def _decode_round_serial(self, group: List[EngineSession]
+                             ) -> Dict[int, int]:
+        """Per-session embed / lm_head dispatches and host-staged row
+        buffers between hops (``_traverse``) — the reference path of the
+        fused round (identical tokens and clock)."""
+        for sess in group:
+            sess._h = self._embed([[sess.tokens[-1]]])
+        self._traverse(group)
+        emit = [s for s in group if s.state == "active"]
+        for sess in emit:
+            sess.pos += 1
+            sess.last_logits = self._lm_head(sess._h)[0, 0]
+        out: Dict[int, int] = {}
+        if emit:
+            for sess, nxt in zip(emit, self._sample_tokens(emit)):
+                sess.tokens.append(nxt)
+                sess.n_generated += 1
+                sess.virtual_time += sess.per_token_time
+                sess._h = None
+                out[sess.sid] = nxt
+        return out
+
+    def _decode_round_fused(self, group: List[EngineSession]
+                            ) -> Dict[int, int]:
+        """Device-resident round over fixed-width (W, ...) buffers: the
+        ONLY host sync is the final batched token readback."""
+        if len(group) > self._round_width:
+            self._round_width = len(group)
+        W = self._round_width
+        slot = {s.sid: i for i, s in enumerate(group)}
+        tok_buf = np.zeros((W, 1), np.int64)
+        pos_buf = np.zeros((W,), np.int64)
+        for i, s in enumerate(group):
+            tok_buf[i, 0] = s.tokens[-1]
+            pos_buf[i] = s.pos
+        h_round = self._embed(tok_buf)
+        self.round_stats["embed_dispatches"] += 1
+        h_round = self._traverse_fused(group, slot, h_round,
+                                       to_device(pos_buf, self.device))
+        emit = [s for s in group if s.state == "active"]
+        out: Dict[int, int] = {}
+        if emit:
+            temps = np.zeros((W,), np.float32)
+            for s in emit:
+                temps[slot[s.sid]] = s.sampling.row_params()[0]
+            toks_dev, logits_rows = self._round_tail(
+                self.params["embed"], h_round, temps)
+            self.round_stats["tail_dispatches"] += 1
+            toks = toks_dev.cpu().numpy()  # THE one host sync of the round
+            for s in emit:
+                g = slot[s.sid]
+                s.pos += 1
+                s._logits_box = (logits_rows, g)  # lazy: sliced on read
+                nxt = int(toks[g])
+                s.tokens.append(nxt)
+                s.n_generated += 1
+                s.virtual_time += s.per_token_time
+                out[s.sid] = nxt
+        self.round_stats["rounds"] += 1
+        return out
+
+    def _hop_span(self, sess: EngineSession, hop: int) -> Tuple[int, int]:
+        e_lo = sum(sess.route.blocks[:hop])
+        return e_lo, e_lo + sess.route.blocks[hop]
+
+    def _traverse_core(self, group: List[EngineSession], process_group):
+        """THE decode traversal skeleton shared by the host-staged and
+        device-resident paths: advance every session through its route,
+        batching per (hop, server), with timeout detection and failover
+        before each hop."""
+        progress = {s.sid: 0 for s in group}
+        while True:
+            pending = [s for s in group
+                       if s.state == "active"
+                       and progress[s.sid] < len(s.route.servers)]
+            if not pending:
+                return
+            crashed_now = sorted({
+                s.route.servers[progress[s.sid]] for s in pending
+                if (srv := self.servers.get(
+                    s.route.servers[progress[s.sid]])) is not None
+                and srv.alive and srv.crashed})
+            for j in crashed_now:
+                self._detect_crash(j, [
+                    (s, self._expected_hop_decode(s, progress[s.sid]))
+                    for s in pending
+                    if s.route.servers[progress[s.sid]] == j])
+            for s in pending:
+                hop = progress[s.sid]
+                while self._hop_needs_failover(s, hop):
+                    try:
+                        self._failover(s, hop)
+                    except NoCapacityError:
+                        if len(group) == 1:
+                            raise
+                        self._defer_session(s)
+                        break
+                    except RuntimeError:
+                        if len(group) == 1:
+                            raise
+                        self._abort_session(s, reason="no_route")
+                        break
+            pending = [s for s in pending if s.state == "active"]
+            groups: Dict[int, List[EngineSession]] = {}
+            for s in pending:
+                groups.setdefault(s.route.servers[progress[s.sid]],
+                                  []).append(s)
+            for j, members in groups.items():
+                process_group(self.servers[j], members, progress)
+                for s in members:
+                    progress[s.sid] += 1
+
+    def _traverse(self, group: List[EngineSession]):
+        """Host-staged traversal (``decode_mode="serial"`` and the legacy
+        per-session ``decode``): per-session hidden states are copied into
+        (N, ...) row buffers before every hop."""
+
+        def process_group(srv, members, progress):
+            N = srv.pool.n_rows
+            h_buf = members[0]._h.new_zeros((N,) + tuple(
+                members[0]._h.shape[1:]))
+            pos_buf = np.zeros((N,), np.int64)
+            mask = np.zeros((srv.m, N), bool)
+            rows = {}
+            for s in members:
+                hop = progress[s.sid]
+                row = srv.pool.rows[s.sid]
+                e_lo, e_hi = self._hop_span(s, hop)
+                s.hop_inputs[hop].append(s._h)
+                h_buf[row] = s._h[0]
+                pos_buf[row] = s.pos
+                mask[e_lo - srv.a: e_hi - srv.a, row] = True
+                rows[s.sid] = row
+            h_out = srv.decode_rows(h_buf, srv._mask(pos_buf),
+                                    srv._mask(mask))
+            for s in members:
+                s._h = h_out[rows[s.sid]][None]
+
+        self._traverse_core(group, process_group)
+
+    def _traverse_fused(self, group: List[EngineSession],
+                        slot: Dict[int, int], h_round, pos_round):
+        """Device-resident traversal: ``h_round`` (W, 1, d) flows hop to hop
+        through the fused gather+step+scatter (``BlockServer.round_rows``);
+        only small index/mask vectors cross to the device, never
+        activations back."""
+
+        def process_group(srv, members, progress):
+            nonlocal h_round
+            N = srv.pool.n_rows
+            W = h_round.shape[0]
+            slot_of_row = np.full((N,), -1, np.int64)
+            row_of_slot = np.full((W,), -1, np.int64)
+            mask = np.zeros((srv.m, N), bool)
+            gidx = []
+            for s in members:
+                hop = progress[s.sid]
+                row = srv.pool.rows[s.sid]
+                e_lo, e_hi = self._hop_span(s, hop)
+                slot_of_row[row] = slot[s.sid]
+                row_of_slot[slot[s.sid]] = row
+                mask[e_lo - srv.a: e_hi - srv.a, row] = True
+                gidx.append(slot[s.sid])
+            # client-side failover cache: ONE device gather of the hop's
+            # member rows; each member keeps a lazy (buffer, index) record
+            h_in = h_round[srv._mask(np.asarray(gidx, np.int64))]
+            for i, s in enumerate(members):
+                s.hop_inputs[progress[s.sid]].append((h_in, i))
+            h_round = srv.round_rows(
+                h_round, pos_round, srv._mask(slot_of_row),
+                srv._mask(row_of_slot), srv._mask(mask))
+            self.round_stats["hop_dispatches"] += 1
+
+        self._traverse_core(group, process_group)
+        return h_round
+
+    def _abort_session(self, sess: EngineSession, reason: str = "no_route"):
+        """Mark a session unservable and free its slots."""
+        sess.state = "failed"
+        if sess.fail_reason is None:
+            sess.fail_reason = reason
+        sess._h = None
+        for j in set(sess.route.servers):
+            if j in self.servers:
+                self.servers[j].evict(sess.sid)
+
+    def _defer_session(self, sess: EngineSession):
+        """Capacity-starved failover: park the session in the resume queue
+        (its in-flight round's partial hop records stripped first), failing
+        it after a bounded number of bounces."""
+        if sess.n_defer_resumes >= 8:
+            self._abort_session(sess, reason="no_capacity")
+            return
+        sess.n_defer_resumes += 1
+        n = min(len(sess.hop_inputs[hop])
+                for hop in range(len(sess.route.blocks)))
+        for hop in range(len(sess.route.blocks)):
+            del sess.hop_inputs[hop][n:]
+        self.preempt_session(sess.sid)
+
+    def _abort_stuck_head(self):
+        while self._preempt_order:
+            sid = self._preempt_order[0]
+            sess = self.sessions.get(sid)
+            if (sess is None or sess.state != "preempted"
+                    or sess.n_generated >= sess.n_new):
+                self._preempt_order.pop(0)
+                continue
+            self._preempt_order.pop(0)
+            self._abort_session(sess, reason="no_capacity")
+            return
+
+    def retire_session(self, sid: int) -> Optional[EngineSession]:
+        """Free the session's rows/block-slots on every server; returns the
+        session record (metrics live on it)."""
+        sess = self.sessions.pop(sid, None)
+        if sess is None:
+            return None
+        if sess.state == "prefilling":
+            for g in self._prefill_groups:
+                g.members = [s for s in g.members if s.sid != sid]
+            self._prefill_groups = [g for g in self._prefill_groups
+                                    if g.members]
+        if sess.state != "failed":
+            sess.state = "done"
+        for j in set(sess.route.servers):
+            if j in self.servers:
+                self.servers[j].evict(sid)
+        return sess
+
+    def concurrency(self) -> int:
+        return sum(1 for s in self.sessions.values()
+                   if s.state in ("active", "prefilling"))
+
+    def slot_usage(self) -> Dict[int, Tuple[int, int]]:
+        return {j: srv.pool.usage() for j, srv in self.servers.items()}
+
+    # ------------------------------------------------------------------
+    # Legacy single-session API (implemented on the pooled machinery)
+    # ------------------------------------------------------------------
+    def submit(self, tokens: np.ndarray, client: int = 0, now: float = 0.0,
+               frames: Optional[np.ndarray] = None,
+               sampling: Optional[SamplingSpec] = None
+               ) -> Tuple[int, torch.Tensor]:
+        """Start a session immediately (prefill).  Returns (sid, logits)."""
+        alive = self.alive_placement()
+        if self.algorithm == "proposed":
+            route, _ = shortest_path_route(self.problem, alive, client)
+        else:
+            route = petals_route(self.problem, alive, client)
+        if route is None:
+            raise RuntimeError("no feasible route")
+        sid = self.create_session(tokens, client, route,
+                                  n_new=self.max_new_tokens, arrival=now,
+                                  frames=frames, sampling=sampling)
+        if not self.try_admit_session(sid, now=now):
+            self.sessions.pop(sid)
+            raise RuntimeError("no free cache slots for immediate admission")
+        return sid, self.sessions[sid].last_logits[None]
+
+    def decode(self, sid: int, token: int) -> torch.Tensor:
+        """One decode step through the session's chain for a caller-chosen
+        token (replaces a provisional sampled tail)."""
+        sess = self.sessions[sid]
+        if len(sess.tokens) == sess.pos + 1:
+            sess.tokens[-1] = int(token)
+        else:
+            sess.tokens.append(int(token))
+        sess.n_generated = len(sess.tokens) - sess.prompt_len
+        sess._h = self._embed([[int(token)]])
+        self._traverse([sess])
+        sess.pos += 1
+        sess.virtual_time += self._route_per_token(sess)
+        logits = self._lm_head(sess._h)
+        sess.last_logits = logits[0, 0]
+        sess._h = None
+        return logits[:, 0]
+
+    def finish(self, sid: int):
+        self.retire_session(sid)
+
+    # ------------------------------------------------------------------
+    # Fault tolerance
+    # ------------------------------------------------------------------
+    def kill_server(self, j: int):
+        """ORACLE fail-stop: flip the server dead with instant, free
+        detection.  Unknown or already-dead ids raise."""
+        srv = self.servers.get(j)
+        if srv is None or not srv.alive:
+            alive = sorted(jj for jj, s in self.servers.items() if s.alive)
+            raise ValueError(
+                f"kill_server({j}): "
+                + ("server is already dead" if srv is not None
+                   else "no such server")
+                + f"; alive servers: {alive}")
+        srv.alive = False
+        srv.crashed = False
+        srv.suspected = True
+
+    def inject_crash(self, j: int):
+        """Timeout-detected crash: the server goes silent; the next dispatch
+        that misses its deadline detects the loss and bills it."""
+        srv = self.servers.get(j)
+        if srv is None or not srv.alive:
+            alive = sorted(jj for jj, s in self.servers.items() if s.alive)
+            raise ValueError(
+                f"inject_crash({j}): unknown or already-dead server; "
+                f"alive servers: {alive}")
+        srv.crashed = True
+
+    def rejoin_server(self, j: int):
+        """A crashed server returns with an EMPTY pool."""
+        srv = self.servers.get(j)
+        if srv is None:
+            raise ValueError(f"rejoin_server({j}): no such server; known "
+                             f"servers: {sorted(self.servers)}")
+        for sid in list(srv.pool.rows):
+            srv.evict(sid)
+        srv.alive = True
+        srv.crashed = False
+        self.round_stats["rejoins"] += 1
+
+    def suspected_servers(self) -> List[int]:
+        return sorted(j for j, srv in self.servers.items() if srv.suspected)
+
+    def apply_faults(self, now: float) -> List:
+        """Apply every FaultPlan event due by virtual time ``now``."""
+        if self.fault_plan is None:
+            return []
+        due, self._fault_cursor = self.fault_plan.due(self._fault_cursor,
+                                                      now)
+        for ev in due:
+            srv = self.servers.get(ev.server)
+            if ev.kind == "crash":
+                if srv is not None and srv.alive and not srv.crashed:
+                    srv.crashed = True
+            elif ev.kind == "rejoin":
+                if srv is not None:
+                    self.rejoin_server(ev.server)
+            elif ev.kind == "straggler_start":
+                self.set_slowdown(ev.server, ev.factor)
+            elif ev.kind == "straggler_end":
+                self.set_slowdown(ev.server, 1.0)
+            elif ev.kind == "dispatch_error":
+                self._dispatch_faults.add(ev.server)
+        return due
+
+    def join_server(self, spec, rtt_token_col, rtt_prefill_col):
+        """Elastic scale-out: add a server and re-run placement (Alg. 2)."""
+        servers = list(self.problem.servers) + [
+            dataclasses.replace(spec, sid=self.problem.n_servers)]
+        rtt_t = np.concatenate(
+            [self.problem.rtt_token, np.asarray(rtt_token_col).reshape(-1, 1)],
+            axis=1)
+        rtt_p = np.concatenate(
+            [self.problem.rtt_prefill,
+             np.asarray(rtt_prefill_col).reshape(-1, 1)], axis=1)
+        self.problem = Problem(self.problem.llm, servers,
+                               self.problem.n_clients, rtt_t, rtt_p,
+                               self.problem.workload)
+        self._base_taus.append(float(spec.tau))
+        if self.algorithm == "proposed":
+            from repro_torch.core.placement import cg_bp
+            self.placement, _ = cg_bp(self.problem, self.R)
+        else:
+            self.placement = petals_bp(self.problem)
+        self._build_servers()
+
+    def _subchain(self, lo: int, hi: int, client: int
+                  ) -> Optional[Tuple[int, ...]]:
+        """Min-cost chain of ALIVE servers covering exactly blocks [lo, hi)."""
+        alive = self.alive_placement()
+        a = np.clip(alive.a, lo, hi)
+        end = np.clip(alive.a + alive.m, lo, hi)
+        m = np.maximum(end - a, 0)
+        m[alive.m <= 0] = 0
+        sub = Placement(a=a - lo, m=m)
+        subproblem = dataclasses.replace(self.problem)
+        kw = dict(n_blocks=hi - lo)
+        if self.problem.llm.block_tau is not None:
+            kw["block_tau"] = self.problem.llm.block_tau[lo:hi]
+        subproblem.llm = dataclasses.replace(self.problem.llm, **kw)
+        route, _ = shortest_path_route(subproblem, sub, client)
+        return route.servers if route is not None else None
+
+    def _replay_prefill_range(self, sess: EngineSession, j: int, lo: int,
+                              hi: int, h_full):
+        """Failover replay of one hop's prompt prefill.  Batched mode
+        follows the session's deterministic chunk plan through the SAME
+        pooled programs that built the original caches (padded positions
+        are causally masked out of every valid one), so the rebuilt caches
+        are bit-identical; serial mode replays exact-length."""
+        srv = self.servers[j]
+        if self.prefill_mode == "serial":
+            return srv.prefill_range(
+                sess.sid, h_full, lo, hi,
+                torch.arange(h_full.shape[1], device=self.device))
+        N = srv.pool.n_rows
+        d = h_full.shape[-1]
+        row = srv.pool.rows[sess.sid]
+        mask = np.zeros((srv.m, N), bool)
+        mask[lo - srv.a: hi - srv.a, row] = True
+        mask = srv._mask(mask)
+        outs = []
+        for off, span, t_pad in self._prefill_plan(h_full.shape[1]):
+            h_buf = h_full.new_zeros((N, t_pad, d))
+            h_buf[row, :span] = h_full[0, off: off + span]
+            h_out = srv.prefill_rows(h_buf, mask, offset=off)
+            outs.append(h_out[row][None, :span])
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+    @staticmethod
+    def _hop_record(rec):
+        """Materialize one decode-token hop record (lazy on the fused
+        path)."""
+        if isinstance(rec, tuple):
+            buf, g = rec
+            return buf[g][None]
+        return rec
+
+    def _failover(self, sess: EngineSession, hop: int):
+        """Replace the lost server at ``hop`` by a chain of alive servers
+        and replay the client-side cached inputs to rebuild their caches
+        (billed on the virtual clock)."""
+        dead_j = sess.route.servers[hop]
+        e_lo = sum(sess.route.blocks[:hop])
+        e_hi = e_lo + sess.route.blocks[hop]
+        chain = self._subchain(e_lo, e_hi, sess.client)
+        if chain is None:
+            raise RuntimeError(
+                f"no surviving servers cover blocks [{e_lo},{e_hi})")
+        inputs = sess.hop_inputs[hop]
+        new_servers = list(sess.route.servers)
+        new_blocks = list(sess.route.blocks)
+        repl_routes = []
+        e = e_lo
+        alive = self.alive_placement()
+        for j in chain:
+            k = int(min(alive.a[j] + alive.m[j], e_hi) - e)
+            repl_routes.append((j, e, e + k))
+            e += k
+        for j, lo, hi2 in repl_routes:
+            if not self.servers[j].fits(sess.sid, hi2 - lo):
+                raise NoCapacityError(
+                    f"failover target {j} has no free cache slots")
+        for j, lo, hi2 in repl_routes:
+            self.servers[j].admit(sess.sid, hi2 - lo)
+        # replay, recording each replacement hop's OWN input history so a
+        # later failure of any replacement hop replays correct activations
+        new_histories: List[List] = [[] for _ in repl_routes]
+        hs = inputs[0]
+        for i, (j, lo, hi2) in enumerate(repl_routes):
+            new_histories[i].append(hs)
+            hs = self._replay_prefill_range(sess, j, lo, hi2, hs)
+        S = sess.prompt_len
+        for t_idx, h_tok in enumerate(inputs[1:]):
+            hh = self._hop_record(h_tok)
+            for i, (j, lo, hi2) in enumerate(repl_routes):
+                new_histories[i].append(hh)
+                hh = self.servers[j].decode_range(sess.sid, hh, lo, hi2,
+                                                  S + t_idx)
+        new_servers[hop: hop + 1] = [j for j, _, _ in repl_routes]
+        new_blocks[hop: hop + 1] = [hi2 - lo for _, lo, hi2 in repl_routes]
+        sess.hop_inputs[hop: hop + 1] = new_histories
+        sess.route = Route(servers=tuple(new_servers),
+                           blocks=tuple(new_blocks))
+        if dead_j in self.servers and \
+                dead_j not in {j for j, _, _ in repl_routes}:
+            self.servers[dead_j].evict(sess.sid)
+        n_replay_tok = len(inputs) - 1
+        cost = recovery_replay_cost(
+            self.problem, sess.client, repl_routes, n_replay_tok,
+            slowdown_of=lambda jj: self.servers[jj].slowdown)
+        sess.replay_time += cost
+        sess.virtual_time += cost
+        sess.n_replays += 1
+        self.round_stats["replays"] += 1
+        self.round_stats["replay_s"] += cost
+        sess.per_token_time = self._route_per_token(sess)
+        sess.end = (sess.start + sess.virtual_time
+                    + max(sess.n_new - sess.n_generated, 0)
+                    * sess.per_token_time)
+
+    # ------------------------------------------------------------------
+    def set_slowdown(self, j: int, factor: float):
+        """Straggler injection: server j runs ``factor``x its calibrated
+        speed (absolute over the construction-time tau)."""
+        servers = list(self.problem.servers)
+        servers[j] = dataclasses.replace(servers[j],
+                                         tau=self._base_taus[j] * factor)
+        self.problem = dataclasses.replace(self.problem)
+        self.problem.servers = servers
+        for sess in self.sessions.values():
+            if (sess.state in ("active", "preempted")
+                    and j in sess.route.servers):
+                sess.per_token_time = self._route_per_token(sess)
+                sess.end = (sess.start + sess.virtual_time
+                            + max(sess.n_new - sess.n_generated, 0)
+                            * sess.per_token_time)
+
+
+def generate(system: GeoServingSystem, tokens: np.ndarray, n_new: int,
+             client: int = 0) -> Tuple[np.ndarray, float]:
+    """End-to-end greedy generation.  Returns (tokens, virtual_time)."""
+    sid, logits = system.submit(tokens, client)
+    out = list(np.asarray(tokens))
+    for _ in range(n_new):
+        nxt = int(torch.argmax(logits[-1] if logits.dim() > 1 else logits))
+        out.append(nxt)
+        logits = system.decode(sid, nxt)
+    vt = system.sessions[sid].virtual_time
+    system.finish(sid)
+    return np.asarray(out), vt
