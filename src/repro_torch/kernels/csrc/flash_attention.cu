@@ -19,7 +19,9 @@
 // diagonal and below the window is never loaded: the key loop runs only
 // over tiles the block's queries can see, from `q_start` and `window`.  The
 // tensor cores are not used yet: a `wgmma`/TMA redesign is the follow-up,
-// and until then this kernel runs at a fraction of the bf16 peak.
+// and until then this kernel runs at a fraction of the bf16 peak.  At
+// Dk = Dv = 224 (zamba2) the tiles take 189,440 bytes of shared memory
+// (opted in at launch) and each thread holds 4 x 28 output accumulators.
 //
 // Layout: q (B, Sq, H, Dk), k (B, Skv, Kv, Dk), v (B, Skv, Kv, Dv) read
 // through their strides (the model's own layout, no transposes); out
@@ -238,6 +240,11 @@ int launch_dk(int dk, int dv, const void* q, const void* k, const void* v,
     REPRO_DK(32)
     REPRO_DK(64)
     REPRO_DK(128)
+    case 224:  // zamba2's shared attention: only the (224, 224) pair
+      if (dv != 224) return kUnsupportedShape;
+      return launch<T, 224, 224>(q, k, v, slopes, out, n_rows, seq_q, seq_kv,
+                                 n_heads, n_kv, st, window, causal, q_start,
+                                 scale, stream);
     default:
       return kUnsupportedShape;
   }
@@ -249,8 +256,8 @@ int launch_dk(int dk, int dv, const void* q, const void* k, const void* v,
 // q (B, Sq, H, Dk), k (B, Skv, Kv, Dk), v (B, Skv, Kv, Dv) with element
 // strides st = {q: b, s, h; k: b, s, h; v: b, s, h} (last dims contiguous);
 // slopes (H,) f32 or null; out (B, Sq, H, Dv) contiguous.  Dk, Dv in
-// {16, 32, 64, 128}.  Returns cudaGetLastError() after the launch, or
-// kUnsupportedShape.
+// {16, 32, 64, 128}, or Dk = Dv = 224.  Returns cudaGetLastError() after
+// the launch, or kUnsupportedShape.
 extern "C" int flash_attention_launch(
     int dtype, const void* q, const void* k, const void* v,
     const void* slopes, void* out, int n_rows, int seq_q, int seq_kv,

@@ -22,9 +22,11 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.runtime import NO_WINDOW, check_launch, load_library
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# head dims the kernel is instantiated for (Dk and Dv independently);
-# 224, 256 and MLA's 576/512 are still to come (ROADMAP)
+# head dims the kernel is instantiated for (Dk and Dv independently), and
+# the extra (Dk, Dv) pairs (zamba2's shared attention); 256 and MLA's
+# 576/512 are still to come (ROADMAP)
 HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIM_PAIRS = ((224, 224),)
 _fn = None
 
 
@@ -80,10 +82,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     if H % Kv:
         raise ValueError(f"flash_attention: {H} heads over {Kv} kv heads")
-    if Dk not in HEAD_DIMS or Dv not in HEAD_DIMS:
+    if not ((Dk in HEAD_DIMS and Dv in HEAD_DIMS)
+            or (Dk, Dv) in HEAD_DIM_PAIRS):
         raise NotImplementedError(
             f"flash_attention: no kernel yet for head dims Dk={Dk}, Dv={Dv} "
-            f"(built for {HEAD_DIMS}; ROADMAP lists the rest)")
+            f"(built for {HEAD_DIMS} and the pairs {HEAD_DIM_PAIRS}; "
+            "ROADMAP lists the rest)")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
                          f"{v.dtype}; the kernel takes float32 or bfloat16")

@@ -3,11 +3,12 @@
 * ``NO_WINDOW`` — the "no sliding window" sentinel shared by every masking
   path (both kernels and the plain PyTorch versions): int32-safe and larger
   than any position, so ``diff < NO_WINDOW`` never masks.
-* ``BACKENDS`` / ``resolve_backend`` — the attention backend threaded from
-  ``serving.GeoServingSystem`` down to the attention calls.  ``"kernel"``
-  (the default) sends a CUDA tensor to the hand-written kernel and a CPU
-  tensor to the kernel's plain PyTorch version; ``"plain"`` runs the plain
-  version on any device (the oracle a kernel is held against on the card).
+* ``BACKENDS`` / ``resolve_backend`` / ``use_kernel`` — the compute
+  backend threaded from ``serving.GeoServingSystem`` down to the attention
+  and scan calls.  ``"kernel"`` (the default) sends a CUDA tensor to the
+  hand-written kernel and a CPU tensor to the kernel's plain PyTorch
+  version; ``"plain"`` runs the plain version on any device (the oracle a
+  kernel is held against on the card).
   There is no fallback: on a CUDA tensor under ``"kernel"`` a wrapper
   launches its kernel or raises.
 * ``load_library`` / ``build_all`` — build ``csrc/<name>.cu`` with ``nvcc``
@@ -33,7 +34,7 @@ NO_WINDOW = 1 << 30
 BACKENDS = ("kernel", "plain")
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNEL_SOURCES = ("decode_attention", "flash_attention")
+KERNEL_SOURCES = ("decode_attention", "flash_attention", "wkv6", "ssd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
@@ -50,6 +51,14 @@ def resolve_backend(backend: str) -> str:
             f"unknown attention backend {backend!r}; supported backends: "
             + ", ".join(BACKENDS))
     return backend
+
+
+def use_kernel(backend: str, x) -> bool:
+    """Device dispatch: a hand-written kernel serves a CUDA tensor under
+    ``backend="kernel"``; a CPU tensor, or ``backend="plain"``, takes the
+    plain path.  A CUDA call a kernel cannot serve raises in the kernel
+    wrapper — it never drops to the plain path."""
+    return resolve_backend(backend) == "kernel" and x.is_cuda
 
 
 def build_dir() -> Path:

@@ -32,7 +32,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import decode_attention, flash_attention
-from repro_torch.kernels.runtime import NO_WINDOW, resolve_backend
+from repro_torch.kernels.runtime import NO_WINDOW, use_kernel
 from repro_torch.models.layers import (ParamBuilder, alibi_slopes,
                                        apply_rope, param_dtype,
                                        rms_norm_simple, rope_angles)
@@ -124,14 +124,6 @@ def attention_core(q, k, v, q_pos, kv_pos, window=None, slopes=None,
         return _dense_attn(q, k, v, _mask_bias(q_pos, kv_pos, window,
                                                slopes))
     return _flash_attn(q, k, v, q_pos, kv_pos, window, slopes, q_start)
-
-
-def _use_kernel(backend: str, x) -> bool:
-    """Device dispatch: the hand-written kernel serves a CUDA tensor under
-    ``backend="kernel"``; a CPU tensor, or ``backend="plain"``, takes the
-    plain path.  A CUDA call the kernel cannot serve raises in the kernel
-    wrapper — it never drops to the plain path."""
-    return resolve_backend(backend) == "kernel" and x.is_cuda
 
 
 def decode_attention_plain(q, ck, cv, pos, window=None, slopes=None):
@@ -231,7 +223,7 @@ def apply_gqa_full(params, cfg: ModelConfig, x, positions, window=None,
     else:
         kv_pos = positions
     slopes = _slopes(cfg, x.device)
-    if _use_kernel(backend, x):
+    if use_kernel(backend, x):
         # kernel contract: queries at q_start + arange(S) over keys at
         # arange(T) — what the (chunked-)prefill call sites pass; GQA
         # groups are mapped inside the kernel (no KV head expansion)
@@ -281,7 +273,7 @@ def apply_gqa_decode(params, cfg: ModelConfig, x, cache_k, cache_v, pos,
     write_token(cache_k, k, pos, active)
     write_token(cache_v, v, pos, active)
     slopes = _slopes(cfg, x.device)
-    if _use_kernel(backend, x):
+    if use_kernel(backend, x):
         out = decode_attention(q, cache_k, cache_v, pos, window=window,
                                slopes=slopes)
     else:

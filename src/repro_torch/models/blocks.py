@@ -1,18 +1,23 @@
-"""Decoder block functions — the BPRR placement granularity; the dense
-decoder half of the reference's ``repro/models/blocks.py``.
+"""Block functions — the BPRR placement granularity; the counterpart of
+the reference's ``repro/models/blocks.py`` for dense decoders, RWKV6 and
+Mamba2/zamba2 stacks.
 
-* ``init_decoder_block(pb, cfg)``                       -> params
-* ``decoder_block_full(params, cfg, h, positions, ...)`` -> (h, cache, aux)
-* ``decoder_block_decode(params, cfg, h, cache, pos, ...)`` -> (h, cache)
+* ``init_<kind>(pb, cfg)``                 -> params
+* ``<kind>_full(params, cfg, h, ...)``     -> (h, state / cache entry)
+* ``<kind>_decode(params, cfg, h, state, ...)`` -> (h, state / cache)
 
-The decode functions update ``cache`` in place (see ``attention``).  Other
-block families (MoE, MLA, RWKV6, Mamba2/zamba2, encoder-decoder) are later
-slices of the port and raise ``NotImplementedError``.
+The attention decode functions update their KV cache in place (see
+``attention``); the recurrent decode functions return new state tensors,
+which the caller writes into its pool.  MoE, MLA and encoder-decoder
+stacks are later slices of the port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.layers import (ParamBuilder, apply_mlp, apply_norm,
                                        init_mlp, init_norm)
 
@@ -20,25 +25,36 @@ _BIG = 1 << 30
 
 
 def check_supported(cfg: ModelConfig):
-    """Raise ``NotImplementedError`` for what this slice of the port does
-    not run yet (dense GQA decoders only)."""
-    if cfg.is_enc_dec or cfg.family in ("hybrid", "ssm"):
+    """Raise ``NotImplementedError`` for what the port does not run yet
+    (dense GQA decoders, RWKV6 and zamba2 hybrids run)."""
+    if cfg.is_enc_dec:
         raise NotImplementedError(
-            f"{cfg.name!r} ({cfg.family}): RWKV6, Mamba2/zamba2 and "
-            "encoder-decoder stacks are a later slice of the port "
-            "(ROADMAP A9)")
+            f"{cfg.name!r}: encoder-decoder stacks are a later slice of the "
+            "port (ROADMAP A9)")
     if cfg.attn_kind == "mla" or cfg.is_moe:
         raise NotImplementedError(
             f"{cfg.name!r}: MLA attention and MoE FFNs are a later slice of "
             "the port (ROADMAP A9)")
-    if cfg.family not in ("dense", "moe", "vlm"):
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
         raise ValueError(f"unknown block family {cfg.family!r} for "
                          f"{cfg.name!r}")
 
 
 def stack_block_kinds(cfg: ModelConfig):
-    """Per-block kind tuple (length ``cfg.n_layers``) in BPRR block order."""
+    """Per-block kind tuple (length ``cfg.n_layers``) in BPRR block order:
+    ``decoder`` for dense stacks, ``rwkv`` for RWKV6, and for zamba2
+    ``mamba`` everywhere except the last block of each shared-attention
+    period, ``mamba_shared`` (a mamba mixer followed by the parameter-
+    shared attention+MLP block)."""
     check_supported(cfg)
+    if cfg.family == "hybrid":
+        period = cfg.shared_attn_period
+        n_mega = (cfg.n_layers // period) * period
+        return tuple(
+            "mamba_shared" if (i < n_mega and i % period == period - 1)
+            else "mamba" for i in range(cfg.n_layers))
+    if cfg.family == "ssm":
+        return ("rwkv",) * cfg.n_layers
     return ("decoder",) * cfg.n_layers
 
 
@@ -116,3 +132,107 @@ def decoder_block_decode(params, cfg: ModelConfig, h, cache, pos,
                                          layer_idx, active=active,
                                          backend=backend)
     return decoder_block_ffn(params, cfg, h), cache
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block (zamba2 backbone)
+# ---------------------------------------------------------------------------
+
+
+def init_mamba_block(pb: ParamBuilder, cfg: ModelConfig):
+    c = pb.child()
+    c.sub("ln", init_norm, cfg)
+    c.sub("mixer", ssm.init_mamba, cfg)
+    return c.params
+
+
+def mamba_block_full(params, cfg: ModelConfig, h, backend: str = "kernel"):
+    x = apply_norm(params["ln"], cfg, h)
+    y, state = ssm.apply_mamba_full(params["mixer"], cfg, x, backend=backend)
+    return h + y, state
+
+
+def mamba_block_decode(params, cfg: ModelConfig, h, state):
+    """One token; the step is elementwise and launches no kernel."""
+    x = apply_norm(params["ln"], cfg, h)
+    y, state = ssm.apply_mamba_decode(params["mixer"], cfg, x, state)
+    return h + y, state
+
+
+# ---------------------------------------------------------------------------
+# Zamba2 shared attention block (one set of params for every invocation)
+# ---------------------------------------------------------------------------
+
+
+def init_zamba_shared(pb: ParamBuilder, cfg: ModelConfig):
+    """Attention+MLP on concat(hidden, embedding0), width 2*d_model."""
+    width = 2 * cfg.d_model
+    c = pb.child()
+    c.sub("ln1", init_norm, cfg, width)
+    c.sub("attn", attn.init_gqa, cfg, width)
+    c.sub("ln2", init_norm, cfg, width)
+    c.sub("ffn", init_mlp, cfg, width)
+    return c.params
+
+
+def zamba_shared_full(params, cfg: ModelConfig, h, emb0, positions,
+                      backend: str = "kernel"):
+    """Returns (h, {"k", "v"}) — a KV cache entry per invocation."""
+    x = apply_norm(params["ln1"], cfg, torch.cat([h, emb0], dim=-1))
+    a, kv = attn.apply_gqa_full(params["attn"], cfg, x, positions,
+                                backend=backend)
+    h = h + a
+    x = apply_norm(params["ln2"], cfg, torch.cat([h, emb0], dim=-1))
+    return h + apply_mlp(params["ffn"], cfg, x), {"k": kv[0], "v": kv[1]}
+
+
+def zamba_shared_decode(params, cfg: ModelConfig, h, emb0, cache, pos,
+                        active=None, backend: str = "kernel"):
+    """One token; writes K/V into ``cache`` in place at ``pos`` (``active``
+    rows only).  Returns (h, cache)."""
+    x = apply_norm(params["ln1"], cfg, torch.cat([h, emb0], dim=-1))
+    a, ck, cv = attn.apply_gqa_decode(params["attn"], cfg, x, cache["k"],
+                                      cache["v"], pos, active=active,
+                                      backend=backend)
+    h = h + a
+    x = apply_norm(params["ln2"], cfg, torch.cat([h, emb0], dim=-1))
+    return h + apply_mlp(params["ffn"], cfg, x), {"k": ck, "v": cv}
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 block
+# ---------------------------------------------------------------------------
+
+
+def init_rwkv_block(pb: ParamBuilder, cfg: ModelConfig):
+    c = pb.child()
+    c.sub("ln1", init_norm, cfg)
+    c.sub("tm", ssm.init_rwkv_tm, cfg)
+    c.sub("ln2", init_norm, cfg)
+    c.sub("cm", ssm.init_rwkv_cm, cfg)
+    return c.params
+
+
+def rwkv_block_full(params, cfg: ModelConfig, h, backend: str = "kernel"):
+    x = apply_norm(params["ln1"], cfg, h)
+    y, tm_state = ssm.apply_rwkv_tm_full(params["tm"], cfg, x,
+                                         backend=backend)
+    h = h + y
+    x = apply_norm(params["ln2"], cfg, h)
+    y, cm_shift = ssm.apply_rwkv_cm(params["cm"], cfg, x)
+    return h + y, {"wkv": tm_state["wkv"], "shift_tm": tm_state["shift"],
+                   "shift_cm": cm_shift}
+
+
+def rwkv_block_decode(params, cfg: ModelConfig, h, state):
+    """One token; the step is elementwise and launches no kernel."""
+    x = apply_norm(params["ln1"], cfg, h)
+    y, tm_state = ssm.apply_rwkv_tm_decode(
+        params["tm"], cfg, x, {"wkv": state["wkv"],
+                               "shift": state["shift_tm"]})
+    h = h + y
+    x = apply_norm(params["ln2"], cfg, h)
+    y, cm_shift = ssm.apply_rwkv_cm(params["cm"], cfg, x,
+                                    shift_state=state["shift_cm"])
+    return h + y, {"wkv": tm_state["wkv"], "shift_tm": tm_state["shift"],
+                   "shift_cm": cm_shift}

@@ -70,6 +70,13 @@ class ParamBuilder:
         self.params[name] = torch.ones(self.lead + tuple(shape), dtype=dtype,
                                        device=self.device)
 
+    def const(self, name, value: torch.Tensor):
+        """A fixed f32 leaf (the reference's ``pb.const``), repeated over
+        the stacked lead dims."""
+        value = value.to(device=self.device, dtype=torch.float32)
+        self.params[name] = value.expand(self.lead + tuple(value.shape)) \
+            .clone()
+
     def sub(self, name, init_fn, *args, **kw):
         self.params[name] = init_fn(self, *args, **kw)
 

@@ -1,11 +1,20 @@
-"""Model API for dense decoders: param init, prefill, decode — the
-counterpart of the reference's ``repro/models/model.py``.
+"""Model API: param init, prefill, decode — the counterpart of the
+reference's ``repro/models/model.py`` for dense decoders, RWKV6 and zamba2
+hybrids.
 
-The reference scans stacked per-layer params with ``lax.scan``; here a
-Python loop walks the layers of the one ``"blocks"`` segment and indexes
-the stacked leaves (views, no copies).  The reference's jit has no
-counterpart: PyTorch runs eagerly.  ``decode_step`` updates the caches in
-place and returns the same cache tree.
+A stack is a list of segments (``stack_plan``) of stacked per-layer
+params, as in the reference:
+
+* dense:   ``[("blocks", decoder, n_layers)]``
+* rwkv6:   ``[("blocks", rwkv, n_layers)]``
+* zamba2:  ``[("mega", period mamba blocks + shared attn, n_mega),
+  ("tail", mamba, n_tail)]`` with the shared attention params in
+  ``params["shared"]``; mega leaves are ``(n_mega, period, ...)``.
+
+The reference scans the segments with ``lax.scan``; here a Python loop
+walks the layers and indexes the stacked leaves (views, no copies).  The
+reference's jit has no counterpart: PyTorch runs eagerly.  ``decode_step``
+updates the caches in place and returns the same cache tree.
 """
 from __future__ import annotations
 
@@ -35,37 +44,100 @@ def tree_map(fn, tree):
 @dataclass(frozen=True)
 class SegmentSpec:
     name: str
-    kind: str
-    n: int
+    kind: str  # decoder | rwkv | mamba | mega
+    n: int  # number of stacked steps
+    blocks_per_step: int = 1
+
+    @property
+    def n_blocks(self) -> int:
+        return self.n * self.blocks_per_step
 
 
 def stack_plan(cfg: ModelConfig) -> List[SegmentSpec]:
     B.check_supported(cfg)
+    if cfg.family == "hybrid":
+        period = cfg.shared_attn_period
+        n_mega, n_tail = divmod(cfg.n_layers, period)
+        plan = [SegmentSpec("mega", "mega", n_mega, blocks_per_step=period)]
+        if n_tail:
+            plan.append(SegmentSpec("tail", "mamba", n_tail))
+        return plan
+    if cfg.family == "ssm":
+        return [SegmentSpec("blocks", "rwkv", cfg.n_layers)]
     return [SegmentSpec("blocks", "decoder", cfg.n_layers)]
+
+
+_SEG_INIT = {"decoder": B.init_decoder_block, "rwkv": B.init_rwkv_block,
+             "mamba": B.init_mamba_block}
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     """Random params with the reference's tree, shapes, dtypes and init
     scales (``model.py:114``), drawn from ``generator`` (other values than
     the reference's PRNG).  For standalone runs on the card; parity tests
-    bridge the reference's own params instead (``repro_torch.weights``)."""
+    bridge the reference's own params instead (``repro_torch.weights``).
+    Each stacked leaf is drawn in f32 and then cast, so the largest leaf
+    costs 4 bytes per element of transient memory."""
     params: Dict = {"embed": init_embedding(ParamBuilder(generator, device),
                                             cfg),
                     "segments": {}}
     for seg in stack_plan(cfg):
-        pb = ParamBuilder(generator, device, lead=(seg.n,))
-        params["segments"][seg.name] = B.init_decoder_block(pb, cfg)
+        if seg.kind == "mega":
+            pb = ParamBuilder(generator, device,
+                              lead=(seg.n, seg.blocks_per_step))
+            params["segments"][seg.name] = {
+                "mamba": B.init_mamba_block(pb, cfg)}
+        else:
+            pb = ParamBuilder(generator, device, lead=(seg.n,))
+            params["segments"][seg.name] = _SEG_INIT[seg.kind](pb, cfg)
+    if cfg.family == "hybrid":
+        params["shared"] = B.init_zamba_shared(
+            ParamBuilder(generator, device), cfg)
     return params
+
+
+def hybrid_mamba_stack(params, cfg: ModelConfig):
+    """All ``n_layers`` mamba block params stacked on axis 0 in BPRR block
+    order (hybrid family): the mega leaves ``(n_mega, per, ...)`` flattened
+    and the tail appended.  With a tail this copies every mamba leaf, as
+    the reference's concatenation does; the serving path slices
+    :func:`block_param_range` instead."""
+    return block_param_range(params, cfg, "mamba", 0, cfg.n_layers)
 
 
 def block_param_range(params, cfg: ModelConfig, kind: str, lo: int, hi: int):
     """Per-layer block params stacked on axis 0 for absolute blocks
-    ``[lo, hi)`` — VIEWS of the stacked leaves, so replicas of a block on
-    several virtual servers share one copy on the device."""
-    if kind != "decoder":
+    ``[lo, hi)``, all of one ``kind`` (``blocks.stack_block_kinds``).
+
+    Decoder and rwkv ranges, and mamba ranges that lie inside the mega
+    segment or inside the tail, are VIEWS of the stacked leaves, so
+    replicas of a block on several virtual servers share one copy on the
+    device.  A mamba range that straddles the mega/tail boundary is the one
+    copy: of just that range.  "mamba_shared" blocks return their mamba
+    mixer params; the shared attention half lives in ``params["shared"]``."""
+    segs = params["segments"]
+    if kind in ("decoder", "rwkv"):
+        return tree_map(lambda x: x[lo:hi], segs["blocks"])
+    if kind not in ("mamba", "mamba_shared"):
         B.check_supported(cfg)
-        raise ValueError(f"unknown block kind {kind!r}; supported: decoder")
-    return tree_map(lambda x: x[lo:hi], params["segments"]["blocks"])
+        raise ValueError(f"unknown block kind {kind!r}; supported: decoder, "
+                         "rwkv, mamba, mamba_shared")
+    n_mega = stack_plan(cfg)[0].n_blocks
+    mega = tree_map(lambda x: x.reshape((-1,) + x.shape[2:]),
+                    segs["mega"]["mamba"])  # views of contiguous leaves
+    if hi <= n_mega:
+        return tree_map(lambda x: x[lo:hi], mega)
+    tail = segs["tail"]
+    if lo >= n_mega:
+        return tree_map(lambda x: x[lo - n_mega:hi - n_mega], tail)
+    return _tree_cat([tree_map(lambda x: x[lo:], mega),
+                      tree_map(lambda x: x[:hi - n_mega], tail)])
+
+
+def _tree_cat(trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_cat([t[k] for t in trees]) for k in trees[0]}
+    return torch.cat(trees, dim=0)
 
 
 def layer_params(stacked, i: int):
@@ -78,32 +150,62 @@ def layer_params(stacked, i: int):
 # ---------------------------------------------------------------------------
 
 
+def _stack_tree(entries):
+    """Stack a list of same-structure cache trees on a new axis 0."""
+    if isinstance(entries[0], dict):
+        return {k: _stack_tree([e[k] for e in entries]) for k in entries[0]}
+    return torch.stack(entries)
+
+
+# cache leaves with a time axis (axis 2 of a stacked (layers, B, T, ...)
+# leaf); the recurrent states ("wkv", "shift_*", "ssm", "conv") have none
+LENGTH_KEYS = frozenset({"k", "v"})
+
+
+def _grow_tree(tree, cache_len: Optional[int], cur_len: int):
+    return {k: (_grow_tree(v, cache_len, cur_len) if isinstance(v, dict)
+                else _grow(v, cache_len, cur_len) if k in LENGTH_KEYS
+                else v)
+            for k, v in tree.items()}
+
+
 def forward_full(params, cfg: ModelConfig, batch, collect_caches=False,
                  cache_len: Optional[int] = None, backend: str = "kernel"):
     """Run the stack over full sequences.  Returns (h_final, aux, caches);
-    caches is {"blocks": {"k", "v": (n_layers, B, T, Kv, hd)}} when
-    ``collect_caches`` (time axis grown to ``cache_len`` when given)."""
+    caches is {segment: stacked cache tree} when ``collect_caches`` (K/V
+    time axes grown to ``cache_len`` when given)."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)
     h = embed_tokens(params["embed"], cfg, tokens)
+    emb0 = h
     caches: Dict = {}
-    aux = {}
     for seg in stack_plan(cfg):
         seg_params = params["segments"][seg.name]
         entries = []
         for i in range(seg.n):
-            h, cache, _ = B.decoder_block_full(
-                layer_params(seg_params, i), cfg, h, positions, i,
-                backend=backend)
+            p = layer_params(seg_params, i)
+            if seg.kind == "decoder":
+                h, cache, _ = B.decoder_block_full(p, cfg, h, positions, i,
+                                                   backend=backend)
+            elif seg.kind == "rwkv":
+                h, cache = B.rwkv_block_full(p, cfg, h, backend=backend)
+            elif seg.kind == "mamba":
+                h, cache = B.mamba_block_full(p, cfg, h, backend=backend)
+            else:  # mega: period mamba blocks, then the shared attention
+                states = []
+                for j in range(seg.blocks_per_step):
+                    h, st = B.mamba_block_full(layer_params(p["mamba"], j),
+                                               cfg, h, backend=backend)
+                    states.append(st)
+                h, kv = B.zamba_shared_full(params["shared"], cfg, h, emb0,
+                                            positions, backend=backend)
+                cache = {"mamba": _stack_tree(states), "attn": kv}
             if collect_caches:
                 entries.append(cache)
         if collect_caches:
-            caches[seg.name] = {
-                key: _grow(torch.stack([e[key] for e in entries]),
-                           cache_len, S)
-                for key in entries[0]}
-    return h, aux, caches
+            caches[seg.name] = _grow_tree(_stack_tree(entries), cache_len, S)
+    return h, {}, caches
 
 
 def _grow(x, cache_len: Optional[int], cur_len: int):
@@ -130,11 +232,18 @@ def prefill(params, cfg: ModelConfig, batch, cache_len: Optional[int] = None,
     return logits[:, 0], caches
 
 
+def _write_state(cache, state):
+    """In place: copy a block's new recurrent state into its cache views."""
+    for key, val in state.items():
+        cache[key].copy_(val)
+
+
 def decode_step(params, cfg: ModelConfig, caches, tokens, pos,
                 backend: str = "kernel"):
     """One decode step.  tokens (B,), pos int or (B,) tensor.  Returns
     (logits, caches); the caches are updated in place."""
     h = embed_tokens(params["embed"], cfg, tokens[:, None])
+    emb0 = h
     Bsz = tokens.shape[0]
     if isinstance(pos, torch.Tensor):
         pos_t = pos.reshape(-1).expand(Bsz)
@@ -144,20 +253,69 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos,
         seg_params = params["segments"][seg.name]
         cache = caches[seg.name]
         for i in range(seg.n):
-            h, _ = B.decoder_block_decode(
-                layer_params(seg_params, i), cfg, h, layer_params(cache, i),
-                pos_t, i, backend=backend)
+            p, c = layer_params(seg_params, i), layer_params(cache, i)
+            if seg.kind == "decoder":
+                h, _ = B.decoder_block_decode(p, cfg, h, c, pos_t, i,
+                                              backend=backend)
+            elif seg.kind in ("rwkv", "mamba"):
+                blk = (B.rwkv_block_decode if seg.kind == "rwkv"
+                       else B.mamba_block_decode)
+                h, st = blk(p, cfg, h, c)
+                _write_state(c, st)
+            else:  # mega
+                for j in range(seg.blocks_per_step):
+                    cj = layer_params(c["mamba"], j)
+                    h, st = B.mamba_block_decode(
+                        layer_params(p["mamba"], j), cfg, h, cj)
+                    _write_state(cj, st)
+                h, _ = B.zamba_shared_decode(params["shared"], cfg, h, emb0,
+                                             c["attn"], pos_t,
+                                             backend=backend)
     logits = lm_head(params["embed"], cfg, h)
     return logits[:, 0], caches
+
+
+def recurrent_state(cfg: ModelConfig, kind: str, lead, device):
+    """Zero recurrent state leaves (f32) of one block kind, with stacked
+    ``lead`` dims (layers, rows, ...)."""
+    f32 = torch.float32
+    if kind == "rwkv":
+        h, hd = cfg.ssm_heads, cfg.ssm_head_dim
+        return {"wkv": torch.zeros(lead + (h, hd, hd), dtype=f32,
+                                   device=device),
+                "shift_tm": torch.zeros(lead + (cfg.d_model,), dtype=f32,
+                                        device=device),
+                "shift_cm": torch.zeros(lead + (cfg.d_model,), dtype=f32,
+                                        device=device)}
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+    return {"ssm": torch.zeros(lead + (cfg.ssm_heads, cfg.ssm_head_dim,
+                                       cfg.ssm_state), dtype=f32,
+                               device=device),
+            "conv": torch.zeros(lead + (cfg.conv_width - 1, conv_dim),
+                                dtype=f32, device=device)}
 
 
 def init_decode_caches(cfg: ModelConfig, batch_size: int, cache_len: int,
                        device="cuda"):
     """Zero-initialised cache tree for decode at a given cache length."""
+    def kv(n):
+        shape = (n, batch_size, cache_len, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=param_dtype(cfg),
+                                 device=device),
+                "v": torch.zeros(shape, dtype=param_dtype(cfg),
+                                 device=device)}
+
     caches: Dict = {}
     for seg in stack_plan(cfg):
-        kv = (seg.n, batch_size, cache_len, cfg.n_kv_heads, cfg.head_dim)
-        caches[seg.name] = {
-            "k": torch.zeros(kv, dtype=param_dtype(cfg), device=device),
-            "v": torch.zeros(kv, dtype=param_dtype(cfg), device=device)}
+        if seg.kind == "decoder":
+            caches[seg.name] = kv(seg.n)
+        elif seg.kind in ("rwkv", "mamba"):
+            caches[seg.name] = recurrent_state(cfg, seg.kind,
+                                                (seg.n, batch_size), device)
+        else:  # mega
+            caches[seg.name] = {
+                "mamba": recurrent_state(
+                    cfg, "mamba", (seg.n, seg.blocks_per_step, batch_size),
+                    device),
+                "attn": kv(seg.n)}
     return caches

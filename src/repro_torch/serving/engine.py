@@ -1,6 +1,6 @@
 """Geo-distributed serving engine with continuous batching across sessions
 — the counterpart of the reference's ``repro/serving/engine.py`` for dense
-decoders on the slab layout.
+decoders, RWKV6 and zamba2 hybrids on the slab layout.
 
 Executes real block-level forward passes according to a BPRR placement
 with client-centric (hub-spoke) communication and client-side input
@@ -15,13 +15,16 @@ shapes and write the pool in place.  A decode round (``decode_mode=
 "fused"``) keeps the hidden states on the device from the batched embed to
 the round tail: one embed, one gather+step+scatter per (hop, server), one
 lm_head+argmax tail, and ONE host sync — the token readback.  Prefill rows
-are staged in device tensors, never through host memory.
+are staged in device tensors, never through host memory.  Stacks with
+recurrent state (RWKV6, Mamba2) prefill in groups of one exact prompt
+length, in one shot; hybrid stacks thread the original embedding
+(``emb0``) to their shared-attention blocks in prefill, decode and replay.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; ``backend="kernel"`` sends attention on CUDA tensors to
 the hand-written kernels.  Not in this slice: paged pools (ROADMAP A8),
-stochastic sampling (A6), other block families (A9), device groups and τ
-calibration (A10).
+stochastic sampling (A6), MLA, MoE and encoder-decoder stacks (A9),
+device groups and τ calibration (A10).
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ from repro_torch.core.perf_model import Placement, Problem, Route
 from repro_torch.core.placement import petals_bp
 from repro_torch.core.routing import petals_route, shortest_path_route
 from repro_torch.kernels.runtime import resolve_backend
-from repro_torch.models.blocks import decoder_block_full
+from repro_torch.models import blocks as B
 from repro_torch.models.layers import embed_tokens, lm_head
 from repro_torch.models.model import block_param_range, layer_params
 from repro_torch.serving.faults import (FailureDetector, FaultPlan,
@@ -101,6 +104,8 @@ class EngineSession:
     # logits behind tokens[-1]: a (V,) tensor or a lazy ((W, V), slot)
     _logits_box: Optional[object] = None
     _h: Optional[torch.Tensor] = None  # transient per-round hidden state
+    # transient original embedding of the tokens in flight (hybrid stacks)
+    _emb0: Optional[torch.Tensor] = None
 
     @property
     def last_logits(self) -> Optional[torch.Tensor]:
@@ -137,6 +142,7 @@ class BlockServer:
         self.specs = state_specs(cfg)[self.a: self.a + self.m]
         self.kinds = tuple(s.kind for s in self.specs)
         self.runs = kind_runs(self.kinds)
+        self.shared = params.get("shared")  # zamba2's shared attention
         # per-run stacked block params: views, so replicas share storage
         self.run_params = tuple(
             block_param_range(params, cfg, kind, self.a + lo, self.a + hi)
@@ -176,46 +182,67 @@ class BlockServer:
                 return layer_params(self.run_params[r], l_rel - lo)
         raise IndexError(l_rel)
 
-    def prefill_range(self, sid: int, h, lo: int, hi: int, positions):
+    def prefill_range(self, sid: int, h, lo: int, hi: int, positions,
+                      emb0=None):
         """Prefill blocks [lo, hi) for one session (serial reference path);
-        fills its pool row."""
+        fills its pool row.  ``emb0``: the original embedding that
+        shared-attention blocks take."""
         assert self.alive, f"server {self.sid} is dead"
         row = self.pool.rows[sid]
         S = h.shape[1]
         entries = []
         for l in range(lo, hi):
-            h, cache, _ = decoder_block_full(
-                self._layer_params(l - self.a), self.cfg, h, positions, l,
-                backend=self.backend)
+            kind = self.kinds[l - self.a]
+            p = self._layer_params(l - self.a)
+            if kind == "decoder":
+                h, cache, _ = B.decoder_block_full(
+                    p, self.cfg, h, positions, l, backend=self.backend)
+            elif kind == "rwkv":
+                h, cache = B.rwkv_block_full(p, self.cfg, h,
+                                             backend=self.backend)
+            else:  # mamba, mamba_shared
+                h, cache = B.mamba_block_full(p, self.cfg, h,
+                                              backend=self.backend)
+                if kind == "mamba_shared":
+                    h, kv = B.zamba_shared_full(
+                        self.shared, self.cfg, h, emb0, positions,
+                        backend=self.backend)
+                    cache = dict(cache, **kv)
             entries.append(cache)
         self.pool.write_prefill_range(lo - self.a, hi - self.a, row,
                                       entries, S)
         return h
 
-    def prefill_rows(self, h_rows, layer_active, offset: int = 0):
+    def prefill_rows(self, h_rows, layer_active, offset: int = 0,
+                     emb0_rows=None):
         """THE batched prefill: one pooled call prefills a (padded) prompt
         chunk starting at ``offset`` for every masked row, writing the
-        chunk's K/V into the pool."""
+        chunk's state into the pool.  ``emb0_rows``: the rows' original
+        embeddings (hybrid stacks)."""
         assert self.alive, f"server {self.sid} is dead"
-        return self._prefill_pool(self.run_params, self.pool.tree, h_rows,
+        return self._prefill_pool(self.run_params, self.shared,
+                                  self.pool.tree, h_rows, emb0_rows,
                                   layer_active, self.layer_ids, offset)
 
-    def decode_rows(self, h_rows, pos_rows, layer_active):
+    def decode_rows(self, h_rows, pos_rows, layer_active, emb0_rows=None):
         """THE batched step: one pooled call decodes all masked rows."""
         assert self.alive, f"server {self.sid} is dead"
-        return self._step(self.run_params, self.pool.tree, h_rows, pos_rows,
-                          layer_active, self.layer_ids)
+        return self._step(self.run_params, self.shared, self.pool.tree,
+                          h_rows, pos_rows, emb0_rows, layer_active,
+                          self.layer_ids)
 
     def round_rows(self, h_round, pos_round, slot_of_row, row_of_slot,
-                   layer_active):
+                   layer_active, emb0_round=None):
         """The fused device-resident hop: gather this server's rows out of
         the round buffers, decode them, scatter the results back."""
         assert self.alive, f"server {self.sid} is dead"
-        return self._round_step(self.run_params, self.pool.tree, h_round,
-                                pos_round, slot_of_row, row_of_slot,
+        return self._round_step(self.run_params, self.shared,
+                                self.pool.tree, h_round, pos_round,
+                                emb0_round, slot_of_row, row_of_slot,
                                 layer_active, self.layer_ids)
 
-    def decode_range(self, sid: int, h, lo: int, hi: int, pos: int):
+    def decode_range(self, sid: int, h, lo: int, hi: int, pos: int,
+                     emb0=None):
         """Single-session decode of blocks [lo, hi) via the pooled step
         (the same program as the batched path — bit-for-bit identical)."""
         if lo >= hi:
@@ -224,11 +251,16 @@ class BlockServer:
         N = self.pool.n_rows
         h_rows = h.new_zeros((N,) + tuple(h.shape[1:]))
         h_rows[row] = h[0]
+        emb0_rows = None
+        if emb0 is not None:
+            emb0_rows = emb0.new_zeros((N,) + tuple(emb0.shape[1:]))
+            emb0_rows[row] = emb0[0]
         pos_np = np.zeros((N,), np.int64)
         pos_np[row] = pos
         mask = np.zeros((self.m, N), bool)
         mask[lo - self.a: hi - self.a, row] = True
-        h_out = self.decode_rows(h_rows, self._mask(pos_np), self._mask(mask))
+        h_out = self.decode_rows(h_rows, self._mask(pos_np), self._mask(mask),
+                                 emb0_rows)
         return h_out[row][None]
 
     def decode_step_cost(self):
@@ -314,6 +346,7 @@ class GeoServingSystem:
         self.prefill_mode = prefill_mode
         self.specs = state_specs(cfg)
         self._recurrent = any(s.recurrent for s in self.specs)
+        self._needs_emb0 = any(s.needs_emb0 for s in self.specs)
         if prefill_buckets is None:
             prefill_buckets = default_prefill_buckets(self.max_seq_len)
         self.prefill_buckets = tuple(sorted(
@@ -548,12 +581,16 @@ class GeoServingSystem:
             chunk = s.tokens[g.offset: g.offset + spans[s.sid]]
             chunk = chunk + [0] * (t_pad - len(chunk))
             s._h = self._embed([chunk])
+            if self._needs_emb0:
+                s._emb0 = s._h
         e = 0
         for hop, (j, k) in enumerate(zip(g.route.servers, g.route.blocks)):
             srv = self.servers[j]
             lo, hi = e, e + k
             N = srv.pool.n_rows
             h_buf = active[0]._h.new_zeros((N, t_pad, active[0]._h.shape[-1]))
+            emb0_buf = h_buf.new_zeros(h_buf.shape) if self._needs_emb0 \
+                else None
             mask = np.zeros((srv.m, N), bool)
             for s in active:
                 row = srv.pool.rows[s.sid]
@@ -561,8 +598,11 @@ class GeoServingSystem:
                 # this hop (stitched to the full prompt at completion)
                 g.hop_chunks[s.sid][hop].append(s._h[:, : spans[s.sid]])
                 h_buf[row] = s._h[0]
+                if emb0_buf is not None:
+                    emb0_buf[row] = s._emb0[0]
                 mask[lo - srv.a: hi - srv.a, row] = True
-            h_out = srv.prefill_rows(h_buf, srv._mask(mask), offset=g.offset)
+            h_out = srv.prefill_rows(h_buf, srv._mask(mask), offset=g.offset,
+                                     emb0_rows=emb0_buf)
             for s in active:
                 s._h = h_out[srv.pool.rows[s.sid]][None]
             # eq. (1): the group's chunk travels the hop as ONE message;
@@ -596,13 +636,15 @@ class GeoServingSystem:
         """One-session-per-call exact-length prefill (the reference path of
         the bucketed one): per-layer block calls, eq. (1) accounting."""
         h = self._embed([sess.tokens[: sess.prompt_len]])
+        emb0 = h if self._needs_emb0 else None
         positions = torch.arange(sess.prompt_len, device=self.device)
         e = 0
         for hop, (j, k) in enumerate(zip(sess.route.servers,
                                          sess.route.blocks)):
             srv = self.servers[j]
             sess.hop_inputs[hop].append(h)
-            h = srv.prefill_range(sess.sid, h, e, e + k, positions)
+            h = srv.prefill_range(sess.sid, h, e, e + k, positions,
+                                  emb0=emb0)
             sess.prefill_time += (
                 self.problem.rtt_prefill[sess.client, j]
                 + self.problem.llm.tau_weight(e, e + k)
@@ -624,6 +666,7 @@ class GeoServingSystem:
         sess.tokens.append(self._sample_tokens([sess])[0])
         sess.n_generated = 1
         sess._h = None
+        sess._emb0 = None
 
     def _sample_tokens(self, sessions: List[EngineSession]) -> List[int]:
         """One sampler call for a round's sessions (greedy)."""
@@ -748,6 +791,7 @@ class GeoServingSystem:
         sess.state = "preempted"
         sess.n_preemptions += 1
         sess._h = None
+        sess._emb0 = None
         for j in set(sess.route.servers):
             if j in self.servers:
                 self.servers[j].evict(sid)
@@ -829,7 +873,7 @@ class GeoServingSystem:
             for t_idx, h_tok in enumerate(sess.hop_inputs[hop][1:]):
                 self.servers[j].decode_range(
                     sess.sid, self._hop_record(h_tok), e_lo, e_hi,
-                    S + t_idx)
+                    S + t_idx, emb0=self._token_emb0(sess, S + t_idx))
 
     # ------------------------------------------------------------------
     # Decode rounds
@@ -841,6 +885,7 @@ class GeoServingSystem:
         fused round (identical tokens and clock)."""
         for sess in group:
             sess._h = self._embed([[sess.tokens[-1]]])
+            sess._emb0 = sess._h
         self._traverse(group)
         emit = [s for s in group if s.state == "active"]
         for sess in emit:
@@ -853,6 +898,7 @@ class GeoServingSystem:
                 sess.n_generated += 1
                 sess.virtual_time += sess.per_token_time
                 sess._h = None
+                sess._emb0 = None
                 out[sess.sid] = nxt
         return out
 
@@ -871,8 +917,10 @@ class GeoServingSystem:
             pos_buf[i] = s.pos
         h_round = self._embed(tok_buf)
         self.round_stats["embed_dispatches"] += 1
+        emb0_round = h_round if self._needs_emb0 else None
         h_round = self._traverse_fused(group, slot, h_round,
-                                       to_device(pos_buf, self.device))
+                                       to_device(pos_buf, self.device),
+                                       emb0_round)
         emit = [s for s in group if s.state == "active"]
         out: Dict[int, int] = {}
         if emit:
@@ -955,6 +1003,8 @@ class GeoServingSystem:
             N = srv.pool.n_rows
             h_buf = members[0]._h.new_zeros((N,) + tuple(
                 members[0]._h.shape[1:]))
+            emb0_buf = h_buf.new_zeros(h_buf.shape) if self._needs_emb0 \
+                else None
             pos_buf = np.zeros((N,), np.int64)
             mask = np.zeros((srv.m, N), bool)
             rows = {}
@@ -964,18 +1014,21 @@ class GeoServingSystem:
                 e_lo, e_hi = self._hop_span(s, hop)
                 s.hop_inputs[hop].append(s._h)
                 h_buf[row] = s._h[0]
+                if emb0_buf is not None:
+                    emb0_buf[row] = s._emb0[0]
                 pos_buf[row] = s.pos
                 mask[e_lo - srv.a: e_hi - srv.a, row] = True
                 rows[s.sid] = row
             h_out = srv.decode_rows(h_buf, srv._mask(pos_buf),
-                                    srv._mask(mask))
+                                    srv._mask(mask), emb0_buf)
             for s in members:
                 s._h = h_out[rows[s.sid]][None]
 
         self._traverse_core(group, process_group)
 
     def _traverse_fused(self, group: List[EngineSession],
-                        slot: Dict[int, int], h_round, pos_round):
+                        slot: Dict[int, int], h_round, pos_round,
+                        emb0_round=None):
         """Device-resident traversal: ``h_round`` (W, 1, d) flows hop to hop
         through the fused gather+step+scatter (``BlockServer.round_rows``);
         only small index/mask vectors cross to the device, never
@@ -1004,7 +1057,7 @@ class GeoServingSystem:
                 s.hop_inputs[progress[s.sid]].append((h_in, i))
             h_round = srv.round_rows(
                 h_round, pos_round, srv._mask(slot_of_row),
-                srv._mask(row_of_slot), srv._mask(mask))
+                srv._mask(row_of_slot), srv._mask(mask), emb0_round)
             self.round_stats["hop_dispatches"] += 1
 
         self._traverse_core(group, process_group)
@@ -1016,6 +1069,7 @@ class GeoServingSystem:
         if sess.fail_reason is None:
             sess.fail_reason = reason
         sess._h = None
+        sess._emb0 = None
         for j in set(sess.route.servers):
             if j in self.servers:
                 self.servers[j].evict(sess.sid)
@@ -1104,12 +1158,14 @@ class GeoServingSystem:
             sess.tokens.append(int(token))
         sess.n_generated = len(sess.tokens) - sess.prompt_len
         sess._h = self._embed([[int(token)]])
+        sess._emb0 = sess._h
         self._traverse([sess])
         sess.pos += 1
         sess.virtual_time += self._route_per_token(sess)
         logits = self._lm_head(sess._h)
         sess.last_logits = logits[0, 0]
         sess._h = None
+        sess._emb0 = None
         return logits[:, 0]
 
     def finish(self, sid: int):
@@ -1227,10 +1283,14 @@ class GeoServingSystem:
         are causally masked out of every valid one), so the rebuilt caches
         are bit-identical; serial mode replays exact-length."""
         srv = self.servers[j]
+        emb0_full = None
+        if self._needs_emb0:
+            emb0_full = self._embed([sess.tokens[: sess.prompt_len]])
         if self.prefill_mode == "serial":
             return srv.prefill_range(
                 sess.sid, h_full, lo, hi,
-                torch.arange(h_full.shape[1], device=self.device))
+                torch.arange(h_full.shape[1], device=self.device),
+                emb0=emb0_full)
         N = srv.pool.n_rows
         d = h_full.shape[-1]
         row = srv.pool.rows[sess.sid]
@@ -1241,9 +1301,21 @@ class GeoServingSystem:
         for off, span, t_pad in self._prefill_plan(h_full.shape[1]):
             h_buf = h_full.new_zeros((N, t_pad, d))
             h_buf[row, :span] = h_full[0, off: off + span]
-            h_out = srv.prefill_rows(h_buf, mask, offset=off)
+            emb0_rows = None
+            if emb0_full is not None:  # recurrent plan: one exact chunk
+                emb0_rows = h_buf.new_zeros(h_buf.shape)
+                emb0_rows[row] = emb0_full[0, off: off + t_pad]
+            h_out = srv.prefill_rows(h_buf, mask, offset=off,
+                                     emb0_rows=emb0_rows)
             outs.append(h_out[row][None, :span])
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+    def _token_emb0(self, sess: EngineSession, pos: int):
+        """The original embedding of the token decoded at ``pos`` (hybrid
+        stacks; None otherwise) — what a replayed decode step needs."""
+        if not self._needs_emb0:
+            return None
+        return self._embed([[sess.tokens[pos]]])
 
     @staticmethod
     def _hop_record(rec):
@@ -1291,10 +1363,11 @@ class GeoServingSystem:
         S = sess.prompt_len
         for t_idx, h_tok in enumerate(inputs[1:]):
             hh = self._hop_record(h_tok)
+            emb0 = self._token_emb0(sess, S + t_idx)
             for i, (j, lo, hi2) in enumerate(repl_routes):
                 new_histories[i].append(hh)
                 hh = self.servers[j].decode_range(sess.sid, hh, lo, hi2,
-                                                  S + t_idx)
+                                                  S + t_idx, emb0=emb0)
         new_servers[hop: hop + 1] = [j for j, _, _ in repl_routes]
         new_blocks[hop: hop + 1] = [hi2 - lo for _, lo, hi2 in repl_routes]
         sess.hop_inputs[hop: hop + 1] = new_histories

@@ -31,7 +31,13 @@ def _imported_modules(path: Path):
 
 def test_files_found():
     assert len(FILES) > 20
-    assert any(p.name == "chip_smoke.py" for p in FILES)
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for path in ("chip_smoke.py", "src/repro_torch/models/ssm.py",
+                 "src/repro_torch/kernels/wkv6/ops.py",
+                 "src/repro_torch/kernels/wkv6/ref.py",
+                 "src/repro_torch/kernels/ssd/ops.py",
+                 "src/repro_torch/kernels/ssd/ref.py"):
+        assert path in names, path
 
 
 @pytest.mark.parametrize("path", FILES,

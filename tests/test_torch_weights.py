@@ -24,7 +24,11 @@ def _flat(tree):
 @pytest.mark.parametrize("arch,dtype", [("llama3_2_1b", "float32"),
                                         ("llama3_2_1b", "bfloat16"),
                                         ("qwen2_5_32b", "float32"),
-                                        ("bloom_176b", "float32")])
+                                        ("bloom_176b", "float32"),
+                                        ("rwkv6_7b", "float32"),
+                                        ("rwkv6_7b", "bfloat16"),
+                                        ("zamba2_7b", "float32"),
+                                        ("zamba2_7b", "bfloat16")])
 def test_bridge_round_trip_bit_exact(arch, dtype):
     cfg = get_reduced_config(arch).replace(param_dtype=dtype)
     params, _ = init_params(jax.random.PRNGKey(0), cfg)
