@@ -5,9 +5,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure raises, so the exit code is not 0):
 
-1. device  — the card's name and power limit; build the four CUDA kernels
-             from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a
-             (one nvcc per source, in parallel).
+1. device  — the card's name and power limit; build the five CUDA kernel
+             sources from ``src/repro_torch/kernels/csrc`` with nvcc for
+             sm_90a (one nvcc per source, in parallel); ptxas registers and
+             spills of each K1 / K2 instantiation.
 2. serve   — three full-width models in bf16 (random weights from a seed),
              one after the other, each served through the port's
              GeoServingSystem + ContinuousBatchingScheduler on 5 virtual
@@ -20,11 +21,15 @@ Phases (any failure raises, so the exit code is not 0):
              after; each kernel must have run, and every decode round must
              make exactly one host sync.
 3. kernels — K1-K4 against their plain PyTorch versions on the card: a
-             feature sweep (attention in bf16 and f32 up to head dim 224;
-             the scans in f32 with ragged S, S = 1 and carried state), and
-             the paths' own captured inputs and one long shape each, timed
-             (kernel, plain, one PyTorch SDPA call where one exists, and
-             the bound).
+             feature sweep (attention in bf16 and f32 up to head dim 224,
+             K1's split-KV edges — long caches, windows across splits,
+             empty splits, fully masked rows, one split — K2 at every
+             (Dk, Dv) pair, misaligned bf16 views that must raise; the
+             scans in f32 with ragged S, S = 1 and
+             carried state), and the paths' own captured inputs and one
+             long shape each, timed (kernel, plain, one PyTorch SDPA call
+             where one exists, and the bound), with K1's split plan and the
+             K2 design that served each row.
 4. parity  — Llama-3.2-1B in f32: engine greedy streams equal the
              monolithic prefill/decode_step streams; first-step logits
              agree with a monolithic forward on the plain attention; a
@@ -164,18 +169,26 @@ def phase_build():
         regs = sorted({int(line.split("Used ")[1].split()[0])
                        for line in report.splitlines() if "Used " in line})
         # ptxas names each kernel ("Compiling entry function '<mangled>'")
-        # and then reports its stack frame and spills
-        spills, entry = [], ""
+        # and then reports its stack frame and spills, then its registers
+        spills, per_kernel, entry, spill = [], [], "", ""
         for line in report.splitlines():
             if "entry function" in line:
-                entry = line.split("'")[1]
-            elif "spill" in line and not line.strip().startswith("0 "):
-                args = entry.split("kernel")[-1].split("EEv")[0]
-                spills.append(f"{args}: {line.strip()}")
+                entry = line.split("'")[1].split("_GLOBAL__N_")[-1]
+                entry = entry.split("_cu_")[-1][8:].split("EEv")[0]
+            elif "spill" in line:
+                spill = line.strip()
+                if not spill.startswith("0 "):
+                    spills.append(f"{entry}: {spill}")
+            elif "Used " in line:
+                per_kernel.append(f"{entry}: {line.split('Used ')[1]}; "
+                                  f"{spill}")
         log(f"[build]   csrc/{name}.cu: {sec:.1f} s, registers/thread "
             f"{regs}, spilling kernels {len(spills)}")
         for line in spills:
             log(f"[build]     spills {line}")
+        if name in ("decode_attention", "flash_attention_sm90"):
+            for line in per_kernel:
+                log(f"[build]     {line}")
     for name in runtime.KERNEL_SOURCES:
         if not runtime.library_path(name).exists():
             raise RuntimeError(f"kernel library {name} was not built")
@@ -451,9 +464,11 @@ def scan_ok(got, want):
 def phase_kernels(torch, captured, launches):
     import torch.nn.functional as F
 
-    from repro_torch.kernels import (attention_ref, decode_attention,
-                                     decode_attention_ref, flash_attention,
-                                     ssd, ssd_chunked, wkv6, wkv6_chunked)
+    from repro_torch.kernels import (DESIGNS, HEAD_DIM_PAIRS, HEAD_DIMS,
+                                     attention_ref, decode_attention,
+                                     decode_attention_ref, decode_plan,
+                                     flash_attention, ssd, ssd_chunked,
+                                     wkv6, wkv6_chunked)
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -465,6 +480,9 @@ def phase_kernels(torch, captured, launches):
     # -- attention feature sweep, kernel vs plain, bf16 and f32 ------------
     worst = {"decode_attention": 0.0, "flash_attention": 0.0}
     n_cases = 0
+    splits = set()
+    pairs = [(a, b) for a in HEAD_DIMS for b in HEAD_DIMS] + \
+        list(HEAD_DIM_PAIRS)
     for dt in (torch.float32, torch.bfloat16):
         tol = TOL[str(dt).split(".")[-1]]
         for (B, H, Kv, Dk, Dv, T, pos, win, kvl, causal, alibi) in [
@@ -479,6 +497,19 @@ def phase_kernels(torch, captured, launches):
             (2, 4, 2, 128, 64, 300, [299, 10], 100, None, True, True),
             (2, 8, 2, 64, 32, 129, [128, 128], None, None, True, False),
             (3, 4, 4, 224, 224, 90, [89, 0, 41], None, None, True, False),
+            # split-KV edges: a long cache with rows at split and tile
+            # edges; a window across splits; kv_len leaving most splits
+            # empty (one row fully masked); a window beyond kv_len (no
+            # reachable key); G = 1 at D = 224; B * Kv >= 264 (one split)
+            (5, 32, 8, 64, 64, 4096, [0, 63, 64, 2047, 4095], None, None,
+             True, False),
+            (2, 32, 8, 64, 64, 4096, [3000, 1100], 1500, None, True, False),
+            (3, 8, 4, 64, 64, 4096, [0, 0, 0], None, [100, 5, 0], False,
+             False),
+            (2, 8, 2, 64, 64, 512, [300, 40], 50, [200, 512], True, False),
+            (2, 4, 4, 224, 224, 1024, [1023, 517], None, None, True, False),
+            (33, 16, 8, 64, 64, 100, list(range(0, 99, 3)), None, None,
+             True, False),
         ]:
             q = rn(B, 1, H, Dk, dt=dt)
             k, v = rn(B, T, Kv, Dk, dt=dt), rn(B, T, Kv, Dv, dt=dt)
@@ -486,9 +517,12 @@ def phase_kernels(torch, captured, launches):
             sl = torch.linspace(0.05, 0.5, H, device=dev) if alibi else None
             kl = torch.tensor(kvl, device=dev) if kvl else None
             kw = dict(window=win, slopes=sl, kv_len=kl, causal=causal)
-            e = _err(decode_attention(q, k, v, p, **kw),
-                     decode_attention_ref(q, k, v, p, **kw))
+            got = decode_attention(q, k, v, p, **kw)
+            e = _err(got, decode_attention_ref(q, k, v, p, **kw))
             torch.cuda.synchronize()
+            if kvl and 0 in kvl and not bool((got[kvl.index(0)] == 0).all()):
+                raise RuntimeError("K1: a fully masked row is not zero")
+            splits.add(decode_plan(B, Kv, T, Dk, Dv, q.element_size())[1])
             if not e <= tol:
                 raise RuntimeError(f"K1 {dt} {(B, H, Kv, Dk, Dv, T)} "
                                    f"win {win} err {e} > {tol}")
@@ -505,7 +539,10 @@ def phase_kernels(torch, captured, launches):
             (1, 70, 200, 4, 1, 64, 128, 50, 130, True, True),
             (2, 64, 192, 32, 8, 64, 64, None, 128, True, False),
             (2, 70, 70, 4, 4, 224, 224, None, 0, True, False),
-        ]:
+            (2, 100, 300, 4, 2, 64, 64, None, 0, False, False),
+            (1, 200, 200, 8, 2, 128, 128, 70, 0, True, True),
+        ] + [(2, 70, 70, 4, 2, a, b, None, 0, True, False)
+             for a, b in pairs]:
             q = rn(B, S, H, Dk, dt=dt)
             k, v = rn(B, Skv, Kv, Dk, dt=dt), rn(B, Skv, Kv, Dv, dt=dt)
             sl = torch.linspace(0.05, 0.5, H, device=dev) if alibi else None
@@ -519,9 +556,23 @@ def phase_kernels(torch, captured, launches):
                                    f"{tol}")
             worst["flash_attention"] = max(worst["flash_attention"], e)
             n_cases += 1
+    # the 16-byte copies need aligned rows: a view one element off raises
+    off = rn(2, 64, 2, 72, dt=torch.bfloat16)[..., 1:65]
+    for name, call in (("K1", lambda: decode_attention(
+            rn(2, 1, 4, 64, dt=torch.bfloat16), off, off,
+            torch.tensor([3, 5], device=dev))),
+                       ("K2", lambda: flash_attention(off, off, off))):
+        try:
+            call()
+        except ValueError:
+            continue
+        raise RuntimeError(f"{name} took a misaligned bf16 view")
     log(f"[kernels] attention sweep: {n_cases} cases within tolerance "
         f"(bf16 {TOL['bfloat16']}, f32 {TOL['float32']} abs), head dims up "
-        f"to 224; worst {worst}")
+        f"to 224, K2 at all {len(pairs)} (Dk, Dv) pairs; K1 split-kv with "
+        f"n_split in {sorted(splits)}; K2 designs {DESIGNS[torch.bfloat16]} "
+        f"(bf16), {DESIGNS[torch.float32]} (f32); misaligned bf16 views "
+        f"raise ValueError; worst {worst}")
 
     # -- scan sweep (K3 WKV6, K4 SSD), kernel vs plain, f32 ----------------
     def wkv_args(B, S, H, hd, state):
@@ -642,7 +693,18 @@ def phase_kernels(torch, captured, launches):
         lib_ms = None if lib is None else device_ms(torch, lib, sets)
         del sets
         shapes = " ".join(f"{tuple(a.shape)}" for a in args[:3])
-        log(f"[kernels] {name} @ {shape_name} {shapes} {args[0].dtype}: "
+        design = ""
+        if name.startswith("decode_attention"):
+            B, T, Kv = args[1].shape[:3]
+            tile, n_split, chunk = decode_plan(
+                B, Kv, T, args[1].shape[-1], args[2].shape[-1],
+                args[0].element_size())
+            design = (f" [split-kv: n_split {n_split}, chunk {chunk}, tile "
+                      f"{tile}]")
+        elif name.startswith("flash_attention"):
+            design = f" [{DESIGNS[args[0].dtype]}]"
+        log(f"[kernels] {name} @ {shape_name}{design} {shapes} "
+            f"{args[0].dtype}: "
             f"max|kernel-plain| {err:.3g}, kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} "
@@ -657,11 +719,11 @@ def phase_kernels(torch, captured, launches):
     for name, path, source, replaces in [
         ("decode_attention", "llama3_2_1b", "decode_attention.cu",
          "src/repro/kernels/decode_attention/decode_attention.py:111"),
-        ("flash_attention", "llama3_2_1b", "flash_attention.cu",
+        ("flash_attention", "llama3_2_1b", "flash_attention_sm90.cu",
          "src/repro/kernels/flash_attention/flash_attention.py:105"),
         ("decode_attention_d224", "zamba2_7b", "decode_attention.cu",
          "src/repro/kernels/decode_attention/decode_attention.py:111"),
-        ("flash_attention_d224", "zamba2_7b", "flash_attention.cu",
+        ("flash_attention_d224", "zamba2_7b", "flash_attention_sm90.cu",
          "src/repro/kernels/flash_attention/flash_attention.py:105"),
         ("wkv6", "rwkv6_7b", "wkv6.cu", "src/repro/kernels/wkv6/wkv6.py:70"),
         ("ssd", "zamba2_7b", "ssd.cu", "src/repro/kernels/ssd/ssd.py:76"),

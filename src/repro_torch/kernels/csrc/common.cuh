@@ -66,6 +66,32 @@ __device__ __forceinline__ void stage_tile(float* dst, int dst_stride,
   }
 }
 
+// 16-byte asynchronous global -> shared copy (sm_80+).  With `valid`
+// false no byte is read and the 16 destination bytes are zero-filled (the
+// ragged edge of a tile); `src` must still be a valid address.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// shared-memory row stride, in 16-byte chunks, for rows of `chunks` chunks:
+// an odd stride puts 8 consecutive rows in 8 distinct bank groups, so
+// 16-byte reads (and ldmatrix) of one chunk column are conflict-free
+__host__ __device__ constexpr int odd_stride(int chunks) {
+  return chunks | 1;
+}
+
 // dtype codes shared with the Python wrappers
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;

@@ -12,16 +12,17 @@
 //
 // What bounds it on the H100: operations.  A tile pair does
 // 2*BQ*BKV*(Dk+Dv) flops for (BQ+BKV)*D loads, so prefill at real lengths is
-// compute bound.  This first design keeps q, K, V, P in shared memory in
-// f32 and register-tiles the two products on the CUDA cores (each thread
-// owns a 4x8 block of the score tile and a 4x(Dv/8) block of the output),
-// with the f32 online softmax of the reference.  Work above the causal
-// diagonal and below the window is never loaded: the key loop runs only
-// over tiles the block's queries can see, from `q_start` and `window`.  The
-// tensor cores are not used yet: a `wgmma`/TMA redesign is the follow-up,
-// and until then this kernel runs at a fraction of the bf16 peak.  At
-// Dk = Dv = 224 (zamba2) the tiles take 189,440 bytes of shared memory
-// (opted in at launch) and each thread holds 4 x 28 output accumulators.
+// compute bound.  This kernel serves the f32 calls only (the parity models,
+// held to 1e-5: a TF32 tensor-core product would miss that); bf16 goes to
+// the tensor-core kernel in flash_attention_sm90.cu.  It keeps q, K, V, P
+// in shared memory in f32 and register-tiles the two products on the CUDA
+// cores (each thread owns a 4x8 block of the score tile and a 4x(Dv/8)
+// block of the output), with the f32 online softmax of the reference, so it
+// is bound by the 67 TFLOP/s f32 rate.  Work above the causal diagonal and
+// below the window is never loaded: the key loop runs only over tiles the
+// block's queries can see, from `q_start` and `window`.  At Dk = Dv = 224
+// (zamba2) the tiles take 189,440 bytes of shared memory (opted in at
+// launch) and each thread holds 4 x 28 output accumulators.
 //
 // Layout: q (B, Sq, H, Dk), k (B, Skv, Kv, Dk), v (B, Skv, Kv, Dv) read
 // through their strides (the model's own layout, no transposes); out
@@ -253,25 +254,18 @@ int launch_dk(int dk, int dv, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q (B, Sq, H, Dk), k (B, Skv, Kv, Dk), v (B, Skv, Kv, Dv) with element
-// strides st = {q: b, s, h; k: b, s, h; v: b, s, h} (last dims contiguous);
-// slopes (H,) f32 or null; out (B, Sq, H, Dv) contiguous.  Dk, Dv in
-// {16, 32, 64, 128}, or Dk = Dv = 224.  Returns cudaGetLastError() after
-// the launch, or kUnsupportedShape.
+// f32 only.  q (B, Sq, H, Dk), k (B, Skv, Kv, Dk), v (B, Skv, Kv, Dv) with
+// element strides st = {q: b, s, h; k: b, s, h; v: b, s, h} (last dims
+// contiguous); slopes (H,) f32 or null; out (B, Sq, H, Dv) contiguous.
+// Dk, Dv in {16, 32, 64, 128}, or Dk = Dv = 224.  Returns
+// cudaGetLastError() after the launch, or kUnsupportedShape.
 extern "C" int flash_attention_launch(
-    int dtype, const void* q, const void* k, const void* v,
-    const void* slopes, void* out, int n_rows, int seq_q, int seq_kv,
-    int n_heads, int n_kv, int dk, int dv, const long long* strides,
-    int window, int causal, int q_start, float scale, void* stream) {
+    const void* q, const void* k, const void* v, const void* slopes,
+    void* out, int n_rows, int seq_q, int seq_kv, int n_heads, int n_kv,
+    int dk, int dv, const long long* strides, int window, int causal,
+    int q_start, float scale, void* stream) {
   if (n_rows * n_heads == 0 || seq_q == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return launch_dk<float>(dk, dv, q, k, v, slopes, out, n_rows, seq_q,
-                            seq_kv, n_heads, n_kv, strides, window, causal,
-                            q_start, scale, s);
-  if (dtype == kBFloat16)
-    return launch_dk<__nv_bfloat16>(dk, dv, q, k, v, slopes, out, n_rows,
-                                    seq_q, seq_kv, n_heads, n_kv, strides,
-                                    window, causal, q_start, scale, s);
-  return kUnsupportedShape;
+  return launch_dk<float>(dk, dv, q, k, v, slopes, out, n_rows, seq_q,
+                          seq_kv, n_heads, n_kv, strides, window, causal,
+                          q_start, scale, static_cast<cudaStream_t>(stream));
 }

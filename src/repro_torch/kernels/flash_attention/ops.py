@@ -1,5 +1,7 @@
 """K2 wrapper: model-layout prefill attention through the hand-written CUDA
-kernel (``kernels/csrc/flash_attention.cu``).
+kernels: bf16 on the tensor cores (``kernels/csrc/flash_attention_sm90.cu``,
+``mma.sync`` bf16 with f32 accumulation), f32 on the CUDA cores
+(``kernels/csrc/flash_attention.cu``, the parity models' 1e-5 path).
 
 ``flash_attention`` takes (B,Sq,H,Dk) queries over unexpanded
 (B,Skv,Kv,Dk)/(B,Skv,Kv,Dv) keys/values with the reference's masking
@@ -7,8 +9,9 @@ surface (causal/non-causal, ``window``, ALiBi ``slopes``, the chunked-prefill
 ``q_start``, which the kernel takes at run time).  A CPU tensor goes to the
 plain version (``ref.py``); a CUDA tensor goes to the kernel, or the call
 raises — there is no fallback.  ``flash_attention.launches`` counts kernel
-launches.  The kernel reads q/k/v through their strides, so the wrapper
-makes no transposed copies.
+launches.  The kernels read q/k/v through their strides, so the wrapper
+makes no transposed copies.  The dtype picks the kernel (``DESIGNS``); a
+bf16 call the tensor-core kernel cannot take raises.
 """
 from __future__ import annotations
 
@@ -21,13 +24,15 @@ import torch
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.runtime import NO_WINDOW, check_launch, load_library
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# which kernel serves each dtype: the bf16 tensor-core kernel, or the f32
+# CUDA-core one
+DESIGNS = {torch.bfloat16: "tc-mma.sync", torch.float32: "cuda-core"}
 # head dims the kernel is instantiated for (Dk and Dv independently), and
 # the extra (Dk, Dv) pairs (zamba2's shared attention); 256 and MLA's
 # 576/512 are still to come (ROADMAP)
 HEAD_DIMS = (16, 32, 64, 128)
 HEAD_DIM_PAIRS = ((224, 224),)
-_fn = None
+_fns = {}
 
 
 def flash_attention_unsupported(*, causal: bool = True, window=None,
@@ -45,17 +50,22 @@ def flash_attention_unsupported(*, causal: bool = True, window=None,
     return None
 
 
-def _launcher():
-    global _fn
-    if _fn is None:
-        fn = load_library("flash_attention").flash_attention_launch
+def _launcher(dtype):
+    """The C launcher of the kernel that serves ``dtype``."""
+    if dtype not in _fns:
+        lib, name = ((load_library("flash_attention_sm90"),
+                      "flash_attention_tc_launch")
+                     if dtype == torch.bfloat16 else
+                     (load_library("flash_attention"),
+                      "flash_attention_launch"))
+        fn = getattr(lib, name)
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [I, P, P, P, P, P, I, I, I, I, I, I, I,
+        fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I,
                        ctypes.POINTER(ctypes.c_longlong), I, I, I,
                        ctypes.c_float, P]
         fn.restype = I
-        _fn = fn
-    return _fn
+        _fns[dtype] = fn
+    return _fns[dtype]
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
@@ -88,13 +98,20 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
             f"flash_attention: no kernel yet for head dims Dk={Dk}, Dv={Dv} "
             f"(built for {HEAD_DIMS} and the pairs {HEAD_DIM_PAIRS}; "
             "ROADMAP lists the rest)")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in DESIGNS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
                          f"{v.dtype}; the kernel takes float32 or bfloat16")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention: head dims must be contiguous")
     if not (k.device == v.device == q.device):
         raise ValueError("flash_attention: operands on different devices")
+    if q.dtype == torch.bfloat16 and (
+            any(x.data_ptr() % 16 for x in (q, k, v))
+            or any(st % 8 for x in (q, k, v) for st in x.stride()[:3])):
+        raise ValueError(
+            "flash_attention: the bf16 kernel copies rows 16 bytes at a time "
+            "and needs 16-byte aligned q/k/v bases and strides (strides q "
+            f"{q.stride()} k {k.stride()} v {v.stride()})")
     sl = None
     if slopes is not None:
         sl = slopes.to(device=q.device, dtype=torch.float32).contiguous()
@@ -106,8 +123,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                                       *v.stride()[:3])
     win = NO_WINDOW if window is None else int(window)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _launcher()(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    err = _launcher(q.dtype)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if sl is None else sl.data_ptr(), out.data_ptr(), B, Sq, Skv,
         H, Kv, Dk, Dv, strides, win, int(bool(causal)), int(q_start),
         1.0 / math.sqrt(Dk), stream)

@@ -34,7 +34,8 @@ NO_WINDOW = 1 << 30
 BACKENDS = ("kernel", "plain")
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNEL_SOURCES = ("decode_attention", "flash_attention", "wkv6", "ssd")
+KERNEL_SOURCES = ("decode_attention", "flash_attention",
+                  "flash_attention_sm90", "wkv6", "ssd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")

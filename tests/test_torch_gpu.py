@@ -15,8 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (attention_ref, decode_attention,
-                                 decode_attention_ref, flash_attention, ssd,
+from repro_torch.kernels import (HEAD_DIM_PAIRS, HEAD_DIMS, attention_ref,
+                                 decode_attention, decode_attention_ref,
+                                 decode_plan, flash_attention, ssd,
                                  ssd_chunked, wkv6, wkv6_chunked)
 
 pytestmark = pytest.mark.gpu
@@ -99,6 +100,100 @@ def test_head_dim_224_kernels_match_plain(cuda, dtype):
     out = decode_attention(qd, ck, cv, p)
     ref = decode_attention_ref(qd, ck, cv, p)
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+# K1 split-KV cases: (B, H, Kv, Dk, Dv, T, pos, window, kv_len, causal)
+SPLIT_CASES = {
+    # a long cache, rows at the split and tile edges
+    "long": (5, 32, 8, 64, 64, 4096, [0, 63, 64, 2047, 4095], None, None,
+             True),
+    # a window that crosses split boundaries (32 splits of 128 positions)
+    "window": (2, 32, 8, 64, 64, 4096, [3000, 1100], 1500, None, True),
+    # kv_len leaves most splits empty; one row fully masked (kv_len 0)
+    "kv_len": (3, 8, 4, 64, 64, 4096, [0, 0, 0], None, [100, 5, 0], False),
+    # row 0: its window [251, 300] lies beyond kv_len 200, no reachable key
+    "masked": (2, 8, 2, 64, 64, 512, [300, 40], 50, [200, 512], True),
+    # zamba2's shared attention: G = 1 at D = 224
+    "d224": (2, 4, 4, 224, 224, 1024, [1023, 517], None, None, True),
+    # B * Kv >= 264: one split, no combine pass
+    "one_split": (33, 16, 8, 64, 64, 100, list(range(0, 99, 3)), None, None,
+                  True),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_decode_split_kv_matches_plain(cuda, dtype, case):
+    B, H, Kv, Dk, Dv, T, pos, window, kv_len, causal = SPLIT_CASES[case]
+    n_split = decode_plan(B, Kv, T, Dk, Dv, torch.tensor([], dtype=dtype)
+                          .element_size())[1]
+    assert (n_split == 1) == (case == "one_split"), n_split
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = _rn(g, B, 1, H, Dk, dtype=dtype)
+    k, v = _rn(g, B, T, Kv, Dk, dtype=dtype), _rn(g, B, T, Kv, Dv,
+                                                  dtype=dtype)
+    kw = dict(window=window, causal=causal,
+              kv_len=None if kv_len is None else torch.tensor(kv_len,
+                                                              device=cuda))
+    p = torch.tensor(pos, device=cuda)
+    out = decode_attention(q, k, v, p, **kw)
+    ref = decode_attention_ref(q, k, v, p, **kw)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    if kv_len is not None and 0 in kv_len:
+        assert (out[kv_len.index(0)] == 0).all()
+    if case == "masked":
+        assert (out[0] == 0).all()
+    # deterministic: the combine pass sums the splits in a fixed order
+    assert torch.equal(out, decode_attention(q, k, v, p, **kw))
+
+
+PAIRS = [(a, b) for a in HEAD_DIMS for b in HEAD_DIMS] + list(HEAD_DIM_PAIRS)
+
+
+@pytest.mark.parametrize("Dk,Dv", PAIRS)
+def test_flash_tensor_core_every_head_dim_pair(cuda, Dk, Dv):
+    """bf16 K2 (tensor cores) at every instantiated (Dk, Dv), S = 70 (not a
+    multiple of the 64-row tile), GQA 4 over 2."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    dt = torch.bfloat16
+    q = _rn(g, 2, 70, 4, Dk, dtype=dt)
+    k, v = _rn(g, 2, 70, 2, Dk, dtype=dt), _rn(g, 2, 70, 2, Dv, dtype=dt)
+    n = flash_attention.launches
+    out = flash_attention(q, k, v)
+    assert flash_attention.launches == n + 1
+    err = (out.float() - attention_ref(q, k, v).float()).abs().max().item()
+    assert err <= TOL[dt]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Skv,H,Kv,Dk,Dv,window,q_start,causal,alibi", [
+    (1, 70, 200, 4, 1, 64, 128, 50, 130, True, True),  # chunk, window, ALiBi
+    (2, 100, 300, 4, 2, 64, 64, None, 0, False, False),  # non-causal
+    (1, 200, 200, 8, 2, 128, 128, 70, 0, True, True),
+])
+def test_flash_masking_features(cuda, dtype, B, S, Skv, H, Kv, Dk, Dv, window,
+                                q_start, causal, alibi):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = _rn(g, B, S, H, Dk, dtype=dtype)
+    k, v = _rn(g, B, Skv, Kv, Dk, dtype=dtype), _rn(g, B, Skv, Kv, Dv,
+                                                    dtype=dtype)
+    sl = torch.linspace(0.05, 0.5, H, device=cuda) if alibi else None
+    kw = dict(causal=causal, window=window, q_start=q_start, slopes=sl)
+    out = flash_attention(q, k, v, **kw)
+    ref = attention_ref(q, k, v, **kw)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+def test_misaligned_bf16_view_raises(cuda):
+    """The 16-byte copies need aligned rows: a view one element off raises
+    ValueError instead of reading across rows."""
+    wide = torch.zeros((2, 64, 2, 72), dtype=torch.bfloat16, device=cuda)
+    off = wide[..., 1:65]
+    q = torch.zeros((2, 1, 4, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        decode_attention(q, off, off, torch.tensor([3, 5], device=cuda))
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(off, off, off)
 
 
 def _strided(g, *shape, fn=lambda x: x):

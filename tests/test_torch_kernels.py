@@ -11,6 +11,9 @@ Tolerance: f32 5e-5 (the reference's kernel-vs-oracle tolerance); bf16
 inputs are compared after both sides compute in f32 from the same bf16
 values, at 2e-2 (one bf16 ulp of the output near 1).
 """
+import inspect
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,8 +25,10 @@ from repro.kernels import decode_attention_ref as r_decode_attention_ref
 from repro.kernels import flash_attention as r_flash_attention
 from repro.models.layers import alibi_slopes as r_alibi_slopes
 from repro_torch.kernels import (decode_attention, decode_attention_ref,
-                                 decode_attention_unsupported,
+                                 decode_attention_unsupported, decode_plan,
                                  flash_attention, flash_attention_unsupported)
+from repro_torch.kernels.decode_attention.ops import (FILL_PAIRS,
+                                                      TARGET_BLOCKS, TILES)
 from repro_torch.models.layers import alibi_slopes
 
 # tier-1 runs several test processes at once: one torch thread each keeps
@@ -305,6 +310,114 @@ def test_decode_attention_guard_raises():
     q, c = torch.zeros((1, 1, 2, 8)), torch.zeros((1, 4, 2, 8))
     with pytest.raises(ValueError, match="window"):
         decode_attention(q, c, c, 0, causal=False, window=8)
+
+
+# ---------------------------------------------------------------------------
+# K1's split-KV plan (host side) and split-then-combine arithmetic
+# ---------------------------------------------------------------------------
+
+PLAN_SHAPES = [  # (B, Kv, T, Dk, Dv, element size)
+    (8, 8, 192, 64, 64, 2),      # the Llama serve path
+    (8, 8, 4096, 64, 64, 2),     # a long cache
+    (8, 32, 192, 224, 224, 2),   # zamba2's shared attention
+    (2, 4, 1024, 224, 224, 4),
+    (1, 1, 200, 24, 16, 4),      # Dk != Dv
+    (1, 1, 5, 16, 16, 2),        # fewer positions than one tile
+    (33, 8, 100, 64, 64, 2),     # B * Kv >= 264
+    (3, 2, 65, 128, 64, 4),
+]
+
+
+@pytest.mark.parametrize("B,Kv,T,Dk,Dv,es", PLAN_SHAPES)
+def test_decode_plan_tiles_cover_the_cache(B, Kv, T, Dk, Dv, es):
+    """The slices [s*chunk, (s+1)*chunk) cut at T are tile-aligned, disjoint
+    and non-empty, and cover [0, T) exactly."""
+    tile, n_split, chunk = decode_plan(B, Kv, T, Dk, Dv, es)
+    assert tile in TILES and chunk % tile == 0 and n_split >= 1
+    slices = [(i * chunk, min(T, (i + 1) * chunk)) for i in range(n_split)]
+    assert all(a % tile == 0 and a < b for a, b in slices)
+    covered = [t for a, b in slices for t in range(a, b)]
+    assert covered == list(range(T))
+    if B * Kv >= FILL_PAIRS:
+        assert n_split == 1
+    else:
+        assert n_split * B * Kv <= 2 * TARGET_BLOCKS
+
+
+@pytest.mark.parametrize("B,Kv", [(33, 8), (8, 33), (264, 1), (1, 300)])
+def test_decode_plan_one_split_when_the_pairs_fill_the_card(B, Kv):
+    for T in (1, 64, 4096, 100_000):
+        assert decode_plan(B, Kv, T, 64, 64, 2)[1] == 1
+
+
+def test_decode_plan_takes_no_tensor_values():
+    """The plan is a function of sizes alone: no pos or kv_len reaches it
+    (reading them on the host would be a sync in every decode round)."""
+    params = list(inspect.signature(decode_plan).parameters)
+    assert params == ["n_rows", "n_kv", "t_len", "dk", "dv", "elem_size"]
+    plan = decode_plan(8, 8, 4096, 64, 64, 2)
+    assert all(type(x) is int for x in plan)
+    assert plan == decode_plan(8, 8, 4096, 64, 64, 2)
+
+
+def _split_combine(q, ck, cv, pos, n_split, *, window=None, kv_len=None,
+                   causal=True):
+    """Test-side plain emulation of K1's split-KV arithmetic in f32: each
+    tile-aligned slice of [0, T) yields a partial (m, l, acc) over its
+    reachable keys (an empty slice gives m = -1e30, l = 0, acc = 0); the
+    partials are merged in split order with exp(m_s - m*) weights and a
+    1e-30 floor on the denominator."""
+    B, _, H, Dk = q.shape
+    T, Kv, Dv = ck.shape[1], ck.shape[2], cv.shape[-1]
+    G = H // Kv
+    tile = 16
+    chunk = math.ceil(math.ceil(T / n_split) / tile) * tile
+    logits = torch.einsum("bkgd,btkd->bkgt", q.reshape(B, Kv, G, Dk),
+                          ck) / math.sqrt(Dk)
+    t = torch.arange(T)
+    diff = pos[:, None] - t[None, :]
+    ok = torch.ones(B, T, dtype=torch.bool)
+    if causal:
+        ok &= (diff >= 0) & (diff < (window or T + 1))
+    if kv_len is not None:
+        ok &= t[None, :] < kv_len[:, None]
+    parts = []
+    for s in range(n_split):
+        in_s = ok & (t[None, :] >= s * chunk) & (t[None, :] < (s + 1) * chunk)
+        msk = in_s[:, None, None, :]
+        lg = torch.where(msk, logits, -1e30)
+        m = lg.amax(-1)
+        p = torch.where(msk, torch.exp(lg - m[..., None]), 0.0)
+        parts.append((m, p.sum(-1), torch.einsum("bkgt,btkd->bkgd", p, cv)))
+    m_star = torch.stack([m for m, _, _ in parts]).amax(0)
+    num = sum(torch.exp(m - m_star)[..., None] * a for m, _, a in parts)
+    den = sum(torch.exp(m - m_star) * l for m, l, _ in parts)
+    out = num / den.clamp_min(1e-30)[..., None]
+    return out.reshape(B, 1, H, Dv)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 5])
+@pytest.mark.parametrize("case", ["causal", "window", "kv_len"])
+def test_split_then_combine_equals_the_plain_version(n_split, case):
+    """Split-KV is exact: at every split count, including splits the mask
+    leaves empty and a fully masked row, the merged partials equal
+    decode_attention_ref."""
+    B, H, Kv, Dk, Dv, T = 4, 8, 2, 24, 16, 80
+    q, ck, cv = (_t(x, "float32") for x in _inputs(
+        12, (B, 1, H, Dk), (B, T, Kv, Dk), (B, T, Kv, Dv)))
+    pos = torch.tensor([79, 40, 3, 60])
+    kw = {"causal": dict(), "window": dict(window=20),
+          "kv_len": dict(kv_len=torch.tensor([80, 0, 10, 33]),
+                         causal=False)}[case]
+    if case == "window":
+        kw["kv_len"] = torch.tensor([80, 80, 80, 30])  # row 3: none in reach
+    got = _split_combine(q, ck, cv, pos, n_split, **kw)
+    ref = decode_attention_ref(q, ck, cv, pos, **kw)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-6,
+                               rtol=1e-6)
+    if case != "causal":
+        empty = 1 if case == "kv_len" else 3
+        assert (got[empty] == 0).all() and (ref[empty] == 0).all()
 
 
 @pytest.mark.parametrize("which", ["decode", "flash"])
