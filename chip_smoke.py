@@ -7,8 +7,10 @@ Phases (any failure raises, so the exit code is not 0):
 
 1. device  — the card's name and power limit; build the five CUDA kernel
              sources from ``src/repro_torch/kernels/csrc`` with nvcc for
-             sm_90a (one nvcc per source, in parallel); ptxas registers and
-             spills of each K1 / K2 instantiation.
+             sm_90a (one nvcc per source, in parallel); the build seconds,
+             ptxas registers and spills of each K1 / K2 / K3 / K4
+             instantiation, and the TF32 tensor-core instructions
+             (HMMA.1688.F32.TF32) in the scans' SASS.
 2. serve   — three full-width models in bf16 (random weights from a seed),
              one after the other, each served through the port's
              GeoServingSystem + ContinuousBatchingScheduler on 5 virtual
@@ -25,11 +27,15 @@ Phases (any failure raises, so the exit code is not 0):
              K1's split-KV edges — long caches, windows across splits,
              empty splits, fully masked rows, one split — K2 at every
              (Dk, Dv) pair, misaligned bf16 views that must raise; the
-             scans in f32 with ragged S, S = 1 and
-             carried state), and the paths' own captured inputs and one
-             long shape each, timed (kernel, plain, one PyTorch SDPA call
-             where one exists, and the bound), with K1's split plan and the
-             K2 design that served each row.
+             chunked scans in f32 with ragged S, S = 1, carried state, S at
+             Q - 1, Q, Q + 1 and 4Q + 3 of each kernel's chunk Q, K3 decays
+             down to lw = -60, walked and parallel chunks, bit-identical
+             repeats, zero-pad state invariance and misaligned views that
+             must raise), and the paths' own captured inputs and one long
+             shape each, timed (kernel, plain, one PyTorch SDPA call where
+             one exists, and the bound), with K1's split plan, the K2
+             design and the scans' chunk plan (Q, launches a call) that
+             served each row.
 4. parity  — Llama-3.2-1B in f32: engine greedy streams equal the
              monolithic prefill/decode_step streams; first-step logits
              agree with a monolithic forward on the plain attention; a
@@ -55,10 +61,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core and f32
-# (non-tensor-core) flop/s
+# published H100 SXM peaks (dense): HBM bytes/s; bf16 and TF32
+# tensor-core, and f32 (non-tensor-core) flop/s
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "tfloat32": 495e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 
 
@@ -156,6 +162,33 @@ def prefill_bound(q, k, v, q_start=0):
 # ---------------------------------------------------------------------------
 
 
+def kernel_label(mangled: str) -> str:
+    """``ssd_chunk_kernel<64, 64, 2>`` from a mangled kernel name (the
+    mangled name where c++filt is missing)."""
+    import re
+
+    try:
+        name = subprocess.run(["c++filt", mangled], capture_output=True,
+                              text=True, check=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        return mangled
+    name = re.sub(r"^void |\(anonymous namespace\)::|repro::", "", name)
+    return name.split("(")[0]
+
+
+def tf32_mma_count(lib) -> str:
+    """HMMA.1688.F32.TF32 instructions in a built library's SASS."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError) as e:
+        return f"not measured (cuobjdump: {e})"
+    return f"{sass.count('HMMA.1688.F32.TF32')} HMMA.1688.F32.TF32"
+
+
 def phase_build():
     from repro_torch.kernels import runtime
 
@@ -173,8 +206,7 @@ def phase_build():
         spills, per_kernel, entry, spill = [], [], "", ""
         for line in report.splitlines():
             if "entry function" in line:
-                entry = line.split("'")[1].split("_GLOBAL__N_")[-1]
-                entry = entry.split("_cu_")[-1][8:].split("EEv")[0]
+                entry = kernel_label(line.split("'")[1])
             elif "spill" in line:
                 spill = line.strip()
                 if not spill.startswith("0 "):
@@ -186,9 +218,12 @@ def phase_build():
             f"{regs}, spilling kernels {len(spills)}")
         for line in spills:
             log(f"[build]     spills {line}")
-        if name in ("decode_attention", "flash_attention_sm90"):
+        if name != "flash_attention":
             for line in per_kernel:
                 log(f"[build]     {line}")
+        if name in ("wkv6", "ssd"):
+            log(f"[build]     csrc/{name}.cu SASS: "
+                f"{tf32_mma_count(runtime.library_path(name))}")
     for name in runtime.KERNEL_SOURCES:
         if not runtime.library_path(name).exists():
             raise RuntimeError(f"kernel library {name} was not built")
@@ -431,8 +466,9 @@ def _err(a, b):
 
 def scan_bound(kind, args):
     """Bytes/flops of one K3 (``wkv6``) or K4 (``ssd``) call: every input
-    read once, out and state written once; the recurrence's f32 flops (two
-    FMAs per state element per token) over the CUDA-core peak."""
+    read once, out and state written once; the recurrence's flops (two FMAs
+    per state element per token) over the TF32 tensor-core peak, the
+    fastest unit an f32 scan can use (its products run there as 3xTF32)."""
     if kind == "wkv6":
         r, k, v, lw, u = args[:5]
         state = args[5] if len(args) > 5 else None
@@ -450,14 +486,14 @@ def scan_bound(kind, args):
         nbytes = 4 * (2 * B * S * H * p + 2 * B * S * n + B * S * H + 2 * H
                       + n_state + (0 if state is None else n_state))
         flops = 4 * B * S * H * p * n
-    return _bound(nbytes, flops, "float32")
+    return _bound(nbytes, flops, "tfloat32")
 
 
 def scan_ok(got, want):
     """K3/K4 tolerance, f32: |kernel - plain| <= 1e-4 + 1e-3 |plain| (the
-    reference's kernel-vs-oracle tolerance: the kernels step token by
-    token, the plain versions chunk — the same sums, associated
-    differently)."""
+    reference's kernel-vs-oracle tolerance: kernel and plain version chunk
+    the sequence differently and the kernels' products run as 3xTF32 — the
+    same sums, associated differently)."""
     return bool(((got - want).abs() <= 1e-4 + 1e-3 * want.abs()).all())
 
 
@@ -468,10 +504,11 @@ def phase_kernels(torch, captured, launches):
                                      attention_ref, decode_attention,
                                      decode_attention_ref, decode_plan,
                                      flash_attention, ssd, ssd_chunked,
-                                     wkv6, wkv6_chunked)
+                                     ssd_plan, wkv6, wkv6_chunked, wkv6_plan)
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(1)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
 
     def rn(*shape, dt=torch.float32, scale=0.5):
         return (torch.randn(*shape, generator=gen, device=dev)
@@ -575,9 +612,12 @@ def phase_kernels(torch, captured, launches):
         f"raise ValueError; worst {worst}")
 
     # -- scan sweep (K3 WKV6, K4 SSD), kernel vs plain, f32 ----------------
-    def wkv_args(B, S, H, hd, state):
+    def wkv_args(B, S, H, hd, state, deep=False):
         lw = torch.clamp(-torch.exp(rn(B, S, H, hd, scale=1.0) * 0.5 - 1),
                          -5.0, -1e-4)
+        if deep:  # decays down to lw = -60 on some channels, -1e-4 on others
+            lw = -60.0 * torch.rand(B, S, H, hd, generator=gen, device=dev)
+            lw[..., :8], lw[..., 8:16] = -60.0, -1e-4
         return (rn(B, S, H, hd, scale=0.4), rn(B, S, H, hd, scale=0.4),
                 rn(B, S, H, hd, scale=0.4), lw, rn(H, hd, scale=0.3)) + \
             ((rn(B, H, hd, hd, scale=0.3),) if state else ())
@@ -589,36 +629,81 @@ def phase_kernels(torch, captured, launches):
                 rn(B, S, n, scale=0.4), dt, A, rn(H, scale=1.0)) + \
             ((rn(B, H, p, n, scale=0.3),) if state else ())
 
+    def pad_zeros(args, n_seq):
+        """The call with 7 zero tokens appended to its sequence operands."""
+        return tuple(torch.cat([a, torch.zeros_like(a[:, :7])], 1)
+                     if i < n_seq else a for i, a in enumerate(args))
+
+    Qw, Qs = wkv6_plan(1, 1, 1, 64).chunk, ssd_plan(1, 1, 1, 64, 64).chunk
     scan_worst = {"wkv6": 0.0, "ssd": 0.0}
     n_cases = 0
-    for kind, fn, plain, cases in [
-        ("wkv6", wkv6, wkv6_chunked,
+    for kind, fn, plain, n_seq, cases in [
+        ("wkv6", wkv6, wkv6_chunked, 4,
          [wkv_args(2, 37, 64, 64, False),   # S not a multiple of a chunk
           wkv_args(4, 1, 64, 64, True),     # one token, carried state
           wkv_args(2, 130, 8, 64, True),
           wkv_args(1, 50, 4, 128, False),
-          wkv_args(3, 21, 4, 16, True)]),
-        ("ssd", ssd, ssd_chunked,
+          wkv_args(3, 21, 4, 16, True),
+          # the chunk edges Q - 1, Q, Q + 1, 4Q + 3 (parallel chunks), the
+          # same walked by a block per (row, head), deep decays
+          wkv_args(2, Qw - 1, 8, 64, True), wkv_args(2, Qw, 8, 64, False),
+          wkv_args(2, Qw + 1, 8, 32, True),
+          wkv_args(1, 4 * Qw + 3, 8, 64, True),
+          wkv_args(5, 4 * Qw + 3, 64, 64, True),
+          wkv_args(2, 130, 8, 64, True, deep=True),
+          wkv_args(8, 115, 64, 64, False, deep=True)]),
+        ("ssd", ssd, ssd_chunked, 4,
          [ssd_args(2, 45, 112, 64, 64, False),
           ssd_args(4, 1, 112, 64, 64, True),
           ssd_args(2, 300, 8, 64, 64, True),  # more than one plain chunk
           ssd_args(1, 40, 4, 32, 128, False),
-          ssd_args(3, 21, 4, 16, 16, True)]),
+          ssd_args(3, 21, 4, 16, 16, True),
+          ssd_args(2, Qs - 1, 8, 64, 64, True),
+          ssd_args(2, Qs, 8, 64, 64, False),
+          ssd_args(2, Qs + 1, 8, 32, 128, True),
+          ssd_args(1, 4 * Qs + 3, 112, 64, 64, True),
+          ssd_args(1, 4 * Qs + 3, 18, 16, 16, False),
+          ssd_args(2, 200, 4, 64, 32, True)]),
     ]:
         for args in cases:
             y, st = fn(*args)
             ry, rst = plain(*args)
+            y2, st2 = fn(*args)
+            _, st_pad = fn(*pad_zeros(args, n_seq))
             torch.cuda.synchronize()
+            shape = f"{kind} {tuple(args[0].shape)} state " \
+                f"{len(args) > (5 if kind == 'wkv6' else 6)}"
             if not (scan_ok(y, ry) and scan_ok(st, rst)):
-                raise RuntimeError(
-                    f"{kind} {tuple(args[0].shape)} state "
-                    f"{len(args) > (5 if kind == 'wkv6' else 6)}: out err "
-                    f"{_err(y, ry)}, state err {_err(st, rst)}")
+                raise RuntimeError(f"{shape}: out err {_err(y, ry)}, state "
+                                   f"err {_err(st, rst)}")
+            if not (bool(torch.isfinite(y).all())
+                    and bool(torch.isfinite(st).all())):
+                raise RuntimeError(f"{shape}: not finite")
+            if not (torch.equal(y, y2) and torch.equal(st, st2)):
+                raise RuntimeError(f"{shape}: two calls differ")
+            if not scan_ok(st_pad, st):
+                raise RuntimeError(f"{shape}: trailing zero tokens moved "
+                                   f"the state by {_err(st_pad, st)}")
             scan_worst[kind] = max(scan_worst[kind], _err(y, ry),
                                    _err(st, rst))
             n_cases += 1
+    # the 16-byte copies need aligned rows: a view one element off raises
+    off = rn(2, 20, 3, 65)[..., 1:]
+    bc = rn(2, 20, 65)[..., 1:]
+    for name, call in (
+            ("K3", lambda: wkv6(off, off, off, off, rn(3, 64))),
+            ("K4", lambda: ssd(off, bc, bc, rn(2, 20, 3).abs(), -rn(3).abs(),
+                               rn(3)))):
+        try:
+            call()
+        except ValueError:
+            continue
+        raise RuntimeError(f"{name} took a misaligned view")
     log(f"[kernels] scan sweep: {n_cases} cases within |kernel - plain| <= "
-        f"1e-4 + 1e-3 |plain| (f32); worst abs {scan_worst}")
+        f"1e-4 + 1e-3 |plain| (f32), chunks Q = {Qw} (K3) and {Qs} (K4), "
+        f"finite at lw = -60, bit-identical on a second call, state "
+        f"unchanged by trailing zero tokens; misaligned views raise "
+        f"ValueError; worst abs {scan_worst}")
 
     # -- the paths' own inputs and one long shape: error + timing ----------
     def sdpa_decode(q, k, v, pos):
@@ -703,6 +788,18 @@ def phase_kernels(torch, captured, launches):
                       f"{tile}]")
         elif name.startswith("flash_attention"):
             design = f" [{DESIGNS[args[0].dtype]}]"
+        elif name == "wkv6":
+            B, S, H, hd = args[0].shape
+            plan = wkv6_plan(B, S, H, hd, n_sm)
+            design = (f" [chunk Q={plan.chunk}, {plan.n_chunks} chunks, "
+                      f"{'walked' if plan.walk else 'in parallel'}, "
+                      f"{plan.launches} launch(es)/call]")
+        elif name == "ssd":
+            B, S, H, p = args[0].shape
+            plan = ssd_plan(B, S, H, p, args[1].shape[-1], n_sm)
+            design = (f" [chunk Q={plan.chunk}, {plan.n_chunks} chunks, "
+                      f"{plan.heads_per_block} heads/block, "
+                      f"{plan.launches} launch(es)/call]")
         log(f"[kernels] {name} @ {shape_name}{design} {shapes} "
             f"{args[0].dtype}: "
             f"max|kernel-plain| {err:.3g}, kernel {ms:.4f} ms, plain "

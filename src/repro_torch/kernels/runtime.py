@@ -138,6 +138,16 @@ def load_library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def require_ints(**sizes) -> None:
+    """Raise TypeError unless every size is a Python int: a launch plan is
+    a function of host-known sizes, never of tensor values (reading one
+    would sync the host)."""
+    for name, v in sizes.items():
+        if type(v) is not int:
+            raise TypeError(f"{name} must be a Python int, got "
+                            f"{type(v).__name__}")
+
+
 def check_launch(name: str, err: int) -> None:
     """Raise if a launch wrapper returned a CUDA error code."""
     if err != 0:

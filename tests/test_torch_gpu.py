@@ -6,10 +6,10 @@ GPU and nvcc; elsewhere they skip.  Run them on the GPU machine with
 This file imports no JAX: the GPU machine has none.  Kernels are held
 against their plain PyTorch versions: the attention kernels at f32 1e-5,
 bf16 2e-2 abs; the scans (K3 WKV6, K4 SSD, f32 only) at atol 1e-4 + rtol
-1e-3, the reference's own kernel-vs-oracle tolerance (the kernels step
-token by token, the plain versions chunk: the same sums, associated
-differently).  The engine on the kernels is held against the engine on the
-plain versions.
+1e-3, the reference's own kernel-vs-oracle tolerance (kernel and plain
+version chunk the sequence differently, and the kernels' products run as
+3xTF32 on the tensor cores: the same sums, associated differently).  The
+engine on the kernels is held against the engine on the plain versions.
 """
 import numpy as np
 import pytest
@@ -18,7 +18,8 @@ import torch
 from repro_torch.kernels import (HEAD_DIM_PAIRS, HEAD_DIMS, attention_ref,
                                  decode_attention, decode_attention_ref,
                                  decode_plan, flash_attention, ssd,
-                                 ssd_chunked, wkv6, wkv6_chunked)
+                                 ssd_chunked, ssd_plan, wkv6, wkv6_chunked,
+                                 wkv6_plan)
 
 pytestmark = pytest.mark.gpu
 
@@ -213,6 +214,15 @@ def _scan_close(a, b):
     (1, 1, 2, 16, True),     # one token, carried state
     (2, 130, 4, 32, True),
     (1, 70, 2, 128, False),
+    # the chunk edges at the kernel's Q = 64: Q - 1, Q, Q + 1, 4Q + 3
+    (2, 63, 3, 64, True),
+    (2, 64, 3, 64, False),
+    (2, 65, 2, 32, True),
+    (1, 259, 2, 64, True),
+    (1, 259, 2, 16, False),
+    # a (row, head) pair per SM or more: each block walks its chunks
+    (5, 130, 64, 64, True),
+    (3, 200, 96, 32, False),
 ])
 def test_wkv6_kernel_matches_plain(cuda, B, S, H, hd, with_state):
     g = torch.Generator(device=cuda).manual_seed(3)
@@ -229,6 +239,9 @@ def test_wkv6_kernel_matches_plain(cuda, B, S, H, hd, with_state):
     ref, ref_st = wkv6_chunked(r, k, v, lw, u, s0)
     _scan_close(out, ref)
     _scan_close(st, ref_st)
+    # deterministic: no atomics, partial sums merged in a fixed order
+    out2, st2 = wkv6(r, k, v, lw, u, s0)
+    assert torch.equal(out, out2) and torch.equal(st, st2)
     # trailing zero tokens leave the carried state unchanged
     z = torch.zeros(B, 5, H, hd, device=cuda)
     _, st_pad = wkv6(*(torch.cat([x, z], 1) for x in (r, k, v, lw)), u, s0)
@@ -240,6 +253,14 @@ def test_wkv6_kernel_matches_plain(cuda, B, S, H, hd, with_state):
     (1, 1, 2, 16, 16, True),
     (2, 300, 4, 64, 32, True),  # more than one plain chunk of 256
     (1, 20, 2, 32, 128, False),
+    # the chunk edges at the kernel's Q = 128: Q - 1, Q, Q + 1, 4Q + 3
+    (2, 127, 3, 64, 64, True),
+    (2, 128, 5, 64, 64, False),
+    (2, 129, 3, 32, 128, True),
+    (1, 515, 3, 64, 64, True),
+    (1, 515, 18, 16, 16, False),
+    # 3 heads a block on 132 SMs (ssd_plan), the last block holding 1
+    (2, 129, 67, 16, 16, True),
 ])
 def test_ssd_kernel_matches_plain(cuda, B, S, H, p, n, with_state):
     g = torch.Generator(device=cuda).manual_seed(4)
@@ -257,12 +278,78 @@ def test_ssd_kernel_matches_plain(cuda, B, S, H, p, n, with_state):
     ref, ref_st = ssd_chunked(x, bm, cm, dt, A, D, s0)
     _scan_close(y, ref)
     _scan_close(st, ref_st)
+    # deterministic: no atomics, partial sums merged in a fixed order
+    y2, st2 = ssd(x, bm, cm, dt, A, D, s0)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
     _, st_pad = ssd(torch.cat([x, torch.zeros_like(x[:, :7])], 1),
                     torch.cat([bm, torch.zeros_like(bm[:, :7])], 1),
                     torch.cat([cm, torch.zeros_like(cm[:, :7])], 1),
                     torch.cat([dt, torch.zeros_like(dt[:, :7])], 1), A, D,
                     s0)
     _scan_close(st_pad, st)
+
+
+@pytest.mark.parametrize("S,with_state", [(40, False), (64, True),
+                                          (200, True)])
+def test_wkv6_kernel_deep_decay(cuda, S, with_state):
+    """K3 with lw down to -60 on some channels and -1e-4 on others: the
+    sub-block factors stay <= 1, so the output is finite and within the
+    tolerance of the plain version and of the float64 recurrence."""
+    from repro_torch.kernels import wkv6_recurrence
+
+    B, H, hd = 2, 3, 64
+    g = torch.Generator(device=cuda).manual_seed(8)
+    r, k, v = (_strided(g, B, S, H, hd, fn=lambda x: x * 0.4)
+               for _ in range(3))
+    lw = _strided(g, B, S, H, hd, fn=lambda x: -60.0 * torch.rand(
+        x.shape, generator=g, device=cuda))
+    lw[..., :8] = -60.0
+    lw[..., 8:16] = -1e-4
+    u = torch.randn(H, hd, generator=g, device=cuda) * 0.3
+    s0 = (torch.randn(B, H, hd, hd, generator=g, device=cuda) * 0.3
+          if with_state else None)
+    out, st = wkv6(r, k, v, lw, u, s0)
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(st).all())
+    ref, ref_st = wkv6_chunked(r, k, v, lw, u, s0)
+    _scan_close(out, ref)
+    _scan_close(st, ref_st)
+    lo, lst = wkv6_recurrence(r, k, v, lw, u, s0)
+    _scan_close(out, lo)
+    _scan_close(st, lst)
+
+
+def test_scan_misaligned_view_raises(cuda):
+    """The scans copy rows 16 bytes at a time: a view one element off
+    raises ValueError instead of reading across rows."""
+    wide = torch.zeros((2, 20, 3, 65), device=cuda)
+    off = wide[..., 1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        wkv6(off, off, off, off, torch.zeros(3, 64, device=cuda))
+    bc = torch.zeros((2, 20, 65), device=cuda)[..., 1:]
+    dt = torch.ones(2, 20, 3, device=cuda)
+    a = -torch.ones(3, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        ssd(off, bc, bc, dt, a, a)
+
+
+def test_scan_plans_count_launches(cuda):
+    """The counter counts calls; a call takes one launch for a single
+    chunk or a walk over the chunks, three (local, carry, output) for
+    parallel chunks."""
+    for S in (1, 64, 65, 300):
+        for rows in (1, 5):  # 128 or 640 (row, head) pairs
+            plan = wkv6_plan(rows, S, 128, 64)
+            n = wkv6.launches
+            zeros = torch.zeros(rows, S, 128, 64, device=cuda)
+            out, st = wkv6(zeros, zeros, zeros, zeros,
+                           torch.zeros(128, 64, device=cuda))
+            assert wkv6.launches == n + 1
+            assert not bool(out.any()) and not bool(st.any())
+            assert plan.launches == (1 if plan.walk else 3)
+            assert plan.walk == (S <= plan.chunk or rows == 5)
+    for S in (1, 128, 129):
+        plan = ssd_plan(1, S, 2, 64, 64)
+        assert plan.launches == (1 if S <= plan.chunk else 3)
 
 
 def test_unsupported_head_dim_raises(cuda):

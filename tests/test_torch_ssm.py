@@ -12,7 +12,9 @@ against the reference's Pallas kernels in interpret mode and its literal
 rtol 1e-3: the chunked and sequential forms associate the decay products
 differently).  Model-level outputs are held at rtol 2e-4 / atol 1e-5.
 The CUDA kernels run only on the card (tests/test_torch_gpu.py,
-chip_smoke.py).
+chip_smoke.py); here CPU emulations of their chunk phases, with the
+3xTF32 split of their tensor-core products, are held against the same
+oracles at the same tolerance.
 """
 import functools
 
@@ -34,8 +36,12 @@ from repro.models import init_params as r_init_params
 from repro.models import prefill as r_prefill
 from repro.models import ssm as RS
 from repro_torch.configs import get_reduced_config as t_get_reduced_config
-from repro_torch.kernels import (ssd, ssd_recurrence, ssd_unsupported, wkv6,
+from repro_torch.kernels import (ssd, ssd_plan, ssd_recurrence,
+                                 ssd_unsupported, wkv6, wkv6_plan,
                                  wkv6_recurrence, wkv6_unsupported)
+from repro_torch.kernels.ssd import CHUNK as SSD_CHUNK
+from repro_torch.kernels.wkv6 import CHUNK as WKV_CHUNK
+from repro_torch.kernels.wkv6 import SUB_BLOCK
 from repro_torch.models import blocks as TB
 from repro_torch.models import decode_step as t_decode_step
 from repro_torch.models import init_params as t_init_params
@@ -219,6 +225,239 @@ def test_scan_no_fallback_off_cpu(which):
             a = torch.zeros((2,), device="meta")
             ssd(x, b, b, dt, a, a)
     assert (wkv6.launches, ssd.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' chunked decompositions, emulated on the CPU
+# ---------------------------------------------------------------------------
+#
+# csrc/wkv6.cu and csrc/ssd.cu run only on the card.  These emulations
+# follow their arithmetic phase by phase (chunk-local states, the carry,
+# the output; for K3 the sub-block reference points) with every tensor-core
+# product as 3xTF32, and are held against the float64 recurrences and the
+# reference's Pallas kernels (interpret mode) at the kernels' tolerance.
+
+LOG2E = 1.4426950408889634
+EMU_SEQ_LENS = [1, 15, 16, 17, 127, 128, 129, 300]
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32: f32 rounded to its top 19 bits, half away from
+    zero (add half of the dropped part to the magnitude, then cut it)."""
+    b = x.contiguous().view(torch.int32)
+    mag = ((b & 0x7FFFFFFF) + 0x1000) & 0x7FFFE000
+    return (mag | (b & -0x80000000)).view(torch.float32)
+
+
+def _mm3(a, b):
+    """a @ b as the kernels' 3xTF32 mma.sync: both operands split into
+    TF32 hi + lo parts, a_lo b_hi + a_hi b_lo + a_hi b_hi summed in f32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _exp2_le0(z):
+    return torch.exp2(torch.clamp(z, max=0.0))
+
+
+def _chunks(x, Q):
+    """(B, S, ...) zero-padded to whole chunks -> (B, nc, Q, ...)."""
+    pad = (-x.shape[1]) % Q
+    x = torch.nn.functional.pad(x, (0, 0) * (x.dim() - 2) + (0, pad))
+    return x.reshape(x.shape[0], -1, Q, *x.shape[2:])
+
+
+def _carry(s_local, a_chunk, state):
+    """start[c] = s; s = a_chunk[c] s + s_local[c] (rows of s scaled)."""
+    s = torch.zeros_like(s_local[:, 0]) if state is None else state
+    starts = []
+    for c in range(s_local.shape[1]):
+        starts.append(s)
+        s = a_chunk[:, c, ..., None] * s + s_local[:, c]
+    return torch.stack(starts, 1), s
+
+
+def _ssd_emulation(x, Bm, Cm, dt, A, D, state=None):
+    """K4 as ssd.cu computes it: chunks of 128, seg in log2 units, local
+    states, carry, output with G = C B^T and the masked decay."""
+    B, S, H, p = x.shape
+    Q = SSD_CHUNK
+    xc = _chunks(x, Q).permute(0, 1, 3, 2, 4)  # (B,nc,H,Q,p)
+    bc, cc = _chunks(Bm, Q), _chunks(Cm, Q)  # (B,nc,Q,n)
+    dtc = _chunks(dt, Q).permute(0, 1, 3, 2)  # (B,nc,H,Q)
+    seg = torch.cumsum(dtc * (A * LOG2E)[:, None], dim=-1)
+    end = seg[..., -1:]
+    w = dtc * _exp2_le0(end - seg)
+    s_local = _mm3((xc * w[..., None]).transpose(-1, -2), bc[:, :, None])
+    start, s = _carry(s_local, _exp2_le0(end)[..., 0, None], state)
+    g = _mm3(cc, bc.transpose(-1, -2))[:, :, None]  # (B,nc,1,Q,Q)
+    mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool))
+    m = torch.where(mask, g * _exp2_le0(seg[..., :, None] - seg[..., None, :]),
+                    0.0)
+    y = _mm3(cc[:, :, None] * _exp2_le0(seg)[..., None],
+             start.transpose(-1, -2)) + _mm3(m, xc * dtc[..., None])
+    y = y + D[:, None, None] * xc
+    return y.permute(0, 1, 3, 2, 4).reshape(B, -1, H, p)[:, :S], s
+
+
+def _wkv6_emulation(r, k, v, lw, u, state=None):
+    """K3 as wkv6.cu computes it: chunks of 64 in sub-blocks of 16, seg in
+    log2 units; sub-block pairs factored about rho = seg at the last token
+    of the earlier block, diagonal sub-blocks per pair in f32; local
+    states, carry, output."""
+    B, S, H, hd = r.shape
+    Q, sub = WKV_CHUNK, SUB_BLOCK
+    rc, kc, vc, lc = (_chunks(t, Q).permute(0, 1, 3, 2, 4)
+                      for t in (r, k, v, lw))  # (B,nc,H,Q,hd)
+    seg = torch.cumsum(lc * LOG2E, dim=-2)
+    segx = torch.cat([torch.zeros_like(seg[..., :1, :]), seg[..., :-1, :]],
+                     dim=-2)
+    end = seg[..., -1:, :]
+    amat = torch.zeros(*rc.shape[:-1], Q)
+    strict = torch.tril(torch.ones(sub, sub, dtype=torch.bool), -1)
+    for J in range(Q // sub):
+        tj = slice(sub * J, sub * J + sub)
+        for I in range(J):
+            ii = slice(sub * I, sub * I + sub)
+            rho = seg[..., sub * I + sub - 1: sub * I + sub, :]
+            amat[..., tj, ii] = _mm3(
+                rc[..., tj, :] * _exp2_le0(segx[..., tj, :] - rho),
+                (kc[..., ii, :] * _exp2_le0(rho - seg[..., ii, :]))
+                .transpose(-1, -2))
+        dec = _exp2_le0(segx[..., tj, None, :] - seg[..., None, tj, :])
+        blk = (rc[..., tj, None, :] * kc[..., None, tj, :] * dec).sum(-1)
+        bonus = (rc[..., tj, :] * u[:, None, :] * kc[..., tj, :]).sum(-1)
+        amat[..., tj, tj] = torch.where(strict, blk, 0.0) + \
+            torch.diag_embed(bonus)
+    s_local = _mm3((kc * _exp2_le0(end - seg)).transpose(-1, -2), vc)
+    start, s = _carry(s_local, _exp2_le0(end[..., 0, :]), state)
+    out = _mm3(rc * _exp2_le0(segx), start) + _mm3(amat, vc)
+    return out.permute(0, 1, 3, 2, 4).reshape(B, -1, H, hd)[:, :S], s
+
+
+def test_tf32_split_emulation():
+    """The emulated cvt.rna: ties round away from zero at the 10th
+    mantissa bit; hi + lo carries ~22 bits of every value."""
+    one = 1.0
+    vals = torch.tensor([one + 2 ** -11, -(one + 2 ** -11), one + 2 ** -12,
+                         one + 3 * 2 ** -12, 2 ** -20 * (one + 2 ** -11)])
+    want = torch.tensor([one + 2 ** -10, -(one + 2 ** -10), one,
+                         one + 2 ** -10, 2 ** -20 * (one + 2 ** -10)])
+    assert torch.equal(_tf32(vals), want)
+    x = torch.from_numpy(np.random.RandomState(0).randn(4096)
+                         .astype(np.float32))
+    hi = _tf32(x)
+    assert bool(((hi - x).abs() <= 2 ** -11 * x.abs()).all())
+    lo = _tf32(x - hi)
+    assert bool(((hi + lo - x).abs() <= 2 ** -21 * x.abs()).all())
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("S", EMU_SEQ_LENS)
+def test_wkv6_kernel_emulation(S, with_state):
+    """K3's chunked two-level decomposition with 3xTF32 products equals the
+    float64 recurrence and the reference's Pallas kernel."""
+    B, H, hd = 2, 2, 16
+    r, k, v, lw, u, s0 = _wkv_inputs(100 + S, B, S, H, hd, with_state)
+    out, st = _wkv6_emulation(*map(T, (r, k, v, lw, u)),
+                              None if s0 is None else T(s0))
+    po, pst = wkv6_recurrence(*map(T, (r, k, v, lw, u)),
+                              None if s0 is None else T(s0))
+    close(out, po, K_RTOL, K_ATOL)
+    close(st, pst, K_RTOL, K_ATOL)
+    ro, rst = r_wkv6(*map(jnp.asarray, (r, k, v, lw, u)),
+                     None if s0 is None else jnp.asarray(s0),
+                     interpret=True)
+    close(out, ro, K_RTOL, K_ATOL)
+    close(st, rst, K_RTOL, K_ATOL)
+
+
+@pytest.mark.parametrize("S,with_state", [(17, False), (129, True),
+                                          (300, True)])
+def test_wkv6_kernel_emulation_deep_decay(S, with_state):
+    """lw down to -60 on some channels and -1e-4 on others: every factor of
+    the sub-block form stays <= 1, so nothing overflows (no inf or nan)
+    and the result holds the oracle's tolerance."""
+    B, H, hd = 2, 2, 16
+    r, k, v, lw, u, s0 = _wkv_inputs(200 + S, B, S, H, hd, with_state)
+    lw = (-60.0 * np.random.RandomState(S).rand(*lw.shape)).astype(
+        np.float32)
+    lw[..., :4] = -60.0
+    lw[..., 4:8] = -1e-4
+    out, st = _wkv6_emulation(*map(T, (r, k, v, lw, u)),
+                              None if s0 is None else T(s0))
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(st).all())
+    po, pst = wkv6_recurrence(*map(T, (r, k, v, lw, u)),
+                              None if s0 is None else T(s0))
+    close(out, po, K_RTOL, K_ATOL)
+    close(st, pst, K_RTOL, K_ATOL)
+    ro, rst = r_wkv6(*map(jnp.asarray, (r, k, v, lw, u)),
+                     None if s0 is None else jnp.asarray(s0),
+                     interpret=True)
+    close(out, ro, K_RTOL, K_ATOL)
+    close(st, rst, K_RTOL, K_ATOL)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("S", EMU_SEQ_LENS)
+def test_ssd_kernel_emulation(S, with_state):
+    """K4's chunked SSD decomposition with 3xTF32 products equals the
+    float64 recurrence and the reference's Pallas kernel."""
+    B, H, p, n = 2, 3, 16, 16
+    x, Bm, Cm, dt, A, D, s0 = _ssd_inputs(100 + S, B, S, H, p, n,
+                                          with_state)
+    y, st = _ssd_emulation(*map(T, (x, Bm, Cm, dt, A, D)),
+                           None if s0 is None else T(s0))
+    py, pst = ssd_recurrence(*map(T, (x, Bm, Cm, dt, A, D)),
+                             None if s0 is None else T(s0))
+    close(y, py, K_RTOL, K_ATOL)
+    close(st, pst, K_RTOL, K_ATOL)
+    ry, rst = r_ssd(*map(jnp.asarray, (x, Bm, Cm, dt, A, D)),
+                    None if s0 is None else jnp.asarray(s0), interpret=True)
+    close(y, ry, K_RTOL, K_ATOL)
+    close(st, rst, K_RTOL, K_ATOL)
+
+
+def test_scan_plans_from_sizes():
+    """The wrappers' launch plans are functions of sizes alone (a tensor
+    value raises), cover [0, S) with whole chunks, take one launch for one
+    chunk and three (local, carry, output) past it, and cover every head."""
+    for S in (1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 300, 2048):
+        wp = wkv6_plan(2, S, 3, 64)
+        sp = ssd_plan(2, S, 112, 64, 64)
+        for plan, Q in ((wp, WKV_CHUNK), (sp, SSD_CHUNK)):
+            assert plan.chunk == Q
+            assert (plan.n_chunks - 1) * Q < S <= plan.n_chunks * Q
+        # 6 (row, head) pairs, fewer than the SMs: parallel chunks past one
+        assert wp.walk == (wp.n_chunks == 1)
+        assert sp.launches == (1 if sp.n_chunks == 1 else 3)
+        for plan, one in ((wp, wp.walk), (sp, sp.n_chunks == 1)):
+            assert plan.launches == (1 if one else 3)
+            assert (plan.scratch is None) == one
+        assert wp.grid == (3, 1 if wp.walk else wp.n_chunks, 2)
+        hg = sp.heads_per_block
+        assert sp.grid[1:] == (sp.n_chunks, 2)
+        assert (sp.grid[0] - 1) * hg < 112 <= sp.grid[0] * hg <= 112 + hg - 1
+        if wp.scratch is not None:
+            assert wp.scratch == ((2, wp.n_chunks, 3, 64, 64),
+                                  (2, wp.n_chunks, 3, 64))
+        if sp.scratch is not None:
+            assert sp.scratch == ((2, sp.n_chunks, 112, 64, 64),
+                                  (2, sp.n_chunks, 112))
+    # the serving path's shapes: K4 in one chunk, seven heads a block; K3's
+    # 512 (row, head) pairs, more than the SMs, so each walks its two chunks
+    assert ssd_plan(8, 115, 112, 64, 64)[1:4] == (1, 7, (16, 1, 8))
+    wp = wkv6_plan(8, 115, 64, 64)
+    assert (wp.n_chunks, wp.walk, wp.launches, wp.scratch) == (2, True, 1,
+                                                               None)
+    # the long row: 64 pairs, 32 chunks in parallel
+    wp = wkv6_plan(1, 2048, 64, 64)
+    assert (wp.walk, wp.grid, wp.launches) == (False, (64, 32, 1), 3)
+    with pytest.raises(TypeError):
+        wkv6_plan(2, torch.tensor(5), 3, 64)
+    with pytest.raises(TypeError):
+        ssd_plan(2, 5, torch.tensor(3), 64, 64)
 
 
 # ---------------------------------------------------------------------------
