@@ -22,6 +22,24 @@ Phases (any failure raises, so the exit code is not 0):
              kernel counters are zeroed just before its run and read just
              after; each kernel must have run, and every decode round must
              make exactly one host sync.
+   paged   — Llama-3.2-1B again on paged pools (page size 16), the same
+             requests: K1 and K2 launched, the greedy streams equal the
+             slab run's, one host sync in every decode round that neither
+             preempts nor resumes; round walls and tokens/s beside the
+             slab run's.
+   oversub — the reference's oversubscription scenario at full width: one
+             server hosting all 16 layers with memory for 2 worst-case
+             sessions, 10 sessions, page size 2, 30 new tokens.  The slab
+             layout must refuse part of the cohort; the paged layout must
+             admit and complete all 10 with >= 1 preemption and resume,
+             with the streams of an uncontended run.
+   sampling — threefry keys, bits and uniforms equal on CUDA and CPU;
+             Llama-3.2-1B serving greedy, temperature 0.7 and top-k 40
+             sessions (and one near-uniform top-k 40 row, so that some
+             draw leaves the argmax): the same seeds twice, fused and
+             serial rounds give the same streams, the greedy sessions
+             those of an all-greedy run, one host sync per fused round;
+             the round tail's device time and host wall.
 3. kernels — K1-K4 against their plain PyTorch versions on the card: a
              feature sweep (attention in bf16 and f32 up to head dim 224,
              K1's split-KV edges — long caches, windows across splits,
@@ -263,15 +281,19 @@ PATH_KERNELS = {
 }
 
 
-def phase_serve(torch, arch, captured):
+def phase_serve(torch, arch, captured, layout="slab", slab=None):
     """Serve one full-width model in bf16 (random weights from a seed)
     through GeoServingSystem + ContinuousBatchingScheduler: 8 Poisson
     requests, prompts of 32-128 tokens (several distinct lengths), 32 new
     tokens each.  The path's kernel counters are zeroed just before the
     scheduler run and read just after; every kernel of the path must have
     launched, every decode round must make exactly one host sync, and every
-    stream must be complete.  One real call of each kernel is kept for the
-    kernel phase (``captured[(arch, name)]``).  Returns the launches."""
+    stream must be complete.  On the slab layout one real call of each
+    kernel is kept for the kernel phase (``captured[(arch, name)]``).
+    ``layout="paged"`` serves the same requests on page-size-16 pools: the
+    greedy streams must equal the slab run's (``slab``), and the one-sync
+    rule holds in every round that preempts or resumes nothing.  Returns
+    the launches, the streams and the round walls."""
     import numpy as np
 
     import repro_torch.core as C
@@ -284,7 +306,7 @@ def phase_serve(torch, arch, captured):
                                      GeoServingSystem)
 
     cfg = get_config(arch)
-    tag = f"[serve {arch}]"
+    tag = f"[serve {arch}]" if layout == "slab" else f"[paged {arch}]"
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
@@ -298,7 +320,9 @@ def phase_serve(torch, arch, captured):
 
     def build():
         return GeoServingSystem(cfg, params, problem, algorithm="proposed",
-                                R=4, max_new_tokens=32, max_sessions=8)
+                                R=4, max_new_tokens=32, max_sessions=8,
+                                cache_layout=layout,
+                                page_size=16 if layout == "paged" else None)
 
     # warm-up: one request through a throwaway engine (cuBLAS handles,
     # kernel libraries loaded); not part of the measured run
@@ -315,7 +339,11 @@ def phase_serve(torch, arch, captured):
                    if m > 0)
     log(f"{tag} placement a={system.placement.a.tolist()} "
         f"m={system.placement.m.tolist()}; rows per server {caps}; "
-        f"max_seq_len {system.max_seq_len}")
+        f"max_seq_len {system.max_seq_len}; {layout} layout"
+        + ("" if layout == "slab" else
+           f", page size {system.page_size}, physical pages per server "
+           f"{ {j: v.pool.pages.n_pages for j, v in system.servers.items()} }"
+           ))
     covered = set()
     for a, b in spans:
         covered.update(range(a, b))
@@ -328,23 +356,20 @@ def phase_serve(torch, arch, captured):
 
     walls = {"prefill": [], "decode": []}
     syncs = {"prefill": [], "decode": []}
+    swaps = {"prefill": [], "decode": []}  # preemptions + resumes a round
+    rs = system.round_stats
 
     def timed(kind, fn):
         """Wall time of one round (ended by a synchronize) and the host
         syncs it made, counted by PyTorch's sync debug mode."""
         def run(*a, **kw):
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                t = time.perf_counter()
-                try:
-                    out = fn(*a, **kw)
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
-                torch.cuda.synchronize()
-                walls[kind].append(time.perf_counter() - t)
-            syncs[kind].append(sum("synchroniz" in str(w.message)
-                                   for w in caught))
+            swapped = rs["preemptions"] + rs["resumes"]
+            t = time.perf_counter()
+            out, n = count_syncs(torch, fn, *a, **kw)
+            torch.cuda.synchronize()
+            walls[kind].append(time.perf_counter() - t)
+            syncs[kind].append(n)
+            swaps[kind].append(rs["preemptions"] + rs["resumes"] - swapped)
             return out
         return run
 
@@ -376,9 +401,10 @@ def phase_serve(torch, arch, captured):
             return real[name](*args, **kw)
         return keep
 
-    attn_mod.decode_attention = keep_decode
-    attn_mod.flash_attention = keep_longest("flash_attention")
-    ssm_mod.wkv6, ssm_mod.ssd = keep_longest("wkv6"), keep_longest("ssd")
+    if layout == "slab":
+        attn_mod.decode_attention = keep_decode
+        attn_mod.flash_attention = keep_longest("flash_attention")
+        ssm_mod.wkv6, ssm_mod.ssd = keep_longest("wkv6"), keep_longest("ssd")
     sched = ContinuousBatchingScheduler(system, R=4)
     rng = np.random.RandomState(0)
     arrivals = poisson_arrivals(8, rate=2.0, seed=1)
@@ -414,16 +440,34 @@ def phase_serve(torch, arch, captured):
             f"deferrals {s.n_deferrals}")
     log(f"{tag} kernel launches in the run: {launches}")
     log(f"{tag} round_stats {system.round_stats}")
-    rs = system.round_stats
+    record = {"launches": launches,
+              "streams": [list(map(int, s.tokens)) for s in served],
+              "tok_s": n_gen / wall,
+              "step_ms": pooled_step_ms(torch, system)}
+    beside = "" if slab is None else \
+        f" (slab: {slab['step_ms']:.3f} ms)"
+    log(f"{tag} one pooled decode step of server 0 ({system.servers[0].m} "
+        f"layers, all {system.servers[0].pool.n_rows} rows at position "
+        f"120), host wall ended by a synchronize: "
+        f"{record['step_ms']:.3f} ms{beside}")
     for kind, w in walls.items():
         if w:
+            record[kind + "_ms"] = 1e3 * sum(w) / len(w)
+            beside = "" if slab is None or kind + "_ms" not in slab else \
+                f" (slab run: mean {slab[kind + '_ms']:.2f} ms)"
             log(f"{tag} {kind} rounds: {len(w)}, wall per round mean "
-                f"{1e3 * sum(w) / len(w):.2f} ms, median "
+                f"{record[kind + '_ms']:.2f} ms{beside}, median "
                 f"{1e3 * sorted(w)[len(w) // 2]:.2f} ms, max "
                 f"{1e3 * max(w):.2f} ms; host syncs per round "
                 f"{min(syncs[kind])}..{max(syncs[kind])}")
+    beside = "" if slab is None else f" (slab run: {slab['tok_s']:.1f})"
     log(f"{tag} run wall {wall:.3f} s, {n_gen / wall:.1f} generated "
-        f"tokens/s (host clock around the whole scheduler run)")
+        f"tokens/s{beside} (host clock around the whole scheduler run)")
+    swapped = [(n, x) for n, x in zip(syncs["decode"], swaps["decode"]) if x]
+    if swapped:
+        log(f"{tag} decode rounds that preempted or resumed: "
+            f"{len(swapped)}, host syncs in them "
+            f"{sorted(n for n, _ in swapped)}")
     if len(ok) != 8:
         raise RuntimeError(f"served {len(ok)}/8")
     if any(len(s.tokens) != int(n) + 32 for s, n in zip(served, lens)):
@@ -438,10 +482,16 @@ def phase_serve(torch, arch, captured):
             rs["tail_dispatches"] != rs["rounds"]:
         raise RuntimeError("a decode round did not take exactly one embed "
                            "and one tail dispatch")
-    if set(syncs["decode"]) != {1}:
-        seen = sorted(set(syncs["decode"]))
-        raise RuntimeError(f"decode rounds made {seen} host syncs; the "
-                           "token readback is the only one")
+    plain_rounds = {n for n, x in zip(syncs["decode"], swaps["decode"])
+                    if not x}
+    if plain_rounds != {1}:
+        raise RuntimeError(f"decode rounds made {sorted(plain_rounds)} host "
+                           "syncs; the token readback is the only one")
+    if slab is not None:
+        same = sum(a == b for a, b in zip(record["streams"], slab["streams"]))
+        log(f"{tag} greedy streams equal to the slab run's: {same}/8")
+        if same != 8:
+            raise RuntimeError("paged streams differ from the slab streams")
     # the engine's wrapped round methods close over it (a reference
     # cycle): collect it, so the model is gone before the next one loads
     del system, sched, params
@@ -449,7 +499,31 @@ def phase_serve(torch, arch, captured):
     torch.cuda.empty_cache()
     log(f"{tag} freed: device memory "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
-    return launches
+    return record
+
+
+def pooled_step_ms(torch, system, reps=20):
+    """Host wall of one pooled decode step on server 0 with every row
+    active at position 120 (each step ended by a synchronize): the cost of
+    a step on the layout, apart from the routes the scheduler chose."""
+    import numpy as np
+
+    from repro_torch.serving.kv_cache import to_device
+
+    srv = system.servers[0]
+    N = srv.pool.n_rows
+    h = system._embed(np.full((N, 1), 5))
+    pos = to_device(np.full((N,), 120, np.int64), system.device)
+    mask = srv._mask(np.ones((srv.m, N), bool))
+    emb0 = h if system._needs_emb0 else None
+    for _ in range(3):
+        srv.decode_rows(h, pos, mask, emb0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        srv.decode_rows(h, pos, mask, emb0)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / reps
 
 
 def _leaves(tree):
@@ -1006,6 +1080,271 @@ def phase_parity_family(torch, arch):
         raise RuntimeError(f"{arch} failover stream {seq} != {ref}")
 
 
+def _llama_bf16(torch, tag):
+    """Full-width Llama-3.2-1B in bf16, random weights from seed 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = get_config("llama3_2_1b")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    torch.cuda.synchronize()
+    log(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}, {cfg.param_dtype}, random weights")
+    return cfg, params
+
+
+def count_syncs(torch, fn, *a, **kw):
+    """(result, host syncs made by ``fn``), by PyTorch's sync debug mode."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_oversub(torch):
+    """The reference's ``oversub`` scenario (benchmarks/engine_validation.py
+    ``oversubscription_scenario``) at full width: one server hosting all
+    16 layers of Llama-3.2-1B with cache memory for exactly 2 worst-case
+    sessions, 10 sessions of 4 prompt tokens and 30 new tokens.  The slab
+    layout must refuse part of the cohort; the paged layout (page size 2)
+    must admit all 10 and complete them, preempting and resuming under
+    page pressure, with the greedy streams of an uncontended run."""
+    import numpy as np
+
+    import repro_torch.core as C
+    from repro_torch.serving import GeoServingSystem
+
+    tag = "[oversub]"
+    cfg, params = _llama_bf16(torch, tag)
+    n_sessions, slab_cap, n_new, L = 10, 2, 30, cfg.n_layers
+    lw = C.Workload(4, n_new)
+    s_c = 0.5 * lw.total_tokens
+
+    def problem(cap):
+        llm = C.LLMSpec("paged", L, 50.0, cache_bytes_per_token=0.5)
+        servers = [C.ServerSpec(0, 50.0 * L + s_c * cap * L, 0.004,
+                                tau_prefill_base=0.002,
+                                tau_prefill_per_token=0.0005)]
+        rtt = np.array([[0.01]])
+        return C.Problem(llm, servers, 1, rtt, 3 * rtt, workload=lw)
+
+    def cohort(layout, cap, page_size=None):
+        system = GeoServingSystem(
+            cfg, params, problem(cap), algorithm="proposed", R=slab_cap,
+            max_new_tokens=n_new, max_sessions=n_sessions,
+            cache_layout=layout, page_size=page_size)
+        rng = np.random.default_rng(0)
+        sids = []
+        for _ in range(n_sessions):
+            route, _ = C.shortest_path_route(system.problem,
+                                             system.alive_placement(), 0)
+            sids.append(system.create_session(
+                rng.integers(2, cfg.vocab_size, size=lw.l_in), 0, route,
+                n_new))
+        return system, sids, system.try_admit_sessions(sids)
+
+    _, _, slab_admitted = cohort("slab", slab_cap)
+    paged, sids, admitted = cohort("paged", slab_cap, page_size=2)
+    pool = paged.servers[0].pool
+    log(f"{tag} slab admitted {len(slab_admitted)}/{n_sessions}; paged "
+        f"admitted {len(admitted)}/{n_sessions} (page size 2, "
+        f"{pool.pages.n_pages} physical pages, {pool.cap_units} page-units)")
+    if len(slab_admitted) >= n_sessions or len(admitted) != n_sessions:
+        raise RuntimeError("the cohort must oversubscribe the slab budget "
+                           "and fit the paged one")
+    paged.drain_prefill()
+    rounds, syncs, t0 = 0, [], time.perf_counter()
+    while any(paged.sessions[s].n_generated < n_new for s in sids):
+        rs = paged.round_stats
+        before = rs["preemptions"] + rs["resumes"]
+        _, n = count_syncs(torch, paged.decode_round)
+        syncs.append((n, rs["preemptions"] + rs["resumes"] - before))
+        rounds += 1
+        if rounds > 2000:
+            raise RuntimeError("the oversubscribed cohort did not converge")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    done = sum(paged.sessions[s].n_generated >= n_new for s in sids)
+    rs = paged.round_stats
+    swap = sorted(n for n, x in syncs if x)
+    log(f"{tag} completed {done}/{n_sessions} in {rounds} decode rounds, "
+        f"{wall:.2f} s; preemptions {rs['preemptions']}, resumes "
+        f"{rs['resumes']}, replays {rs['replays']}; host syncs in the "
+        f"{len(swap)} rounds that preempted or resumed: {swap}; in the "
+        f"others {sorted({n for n, x in syncs if not x})}")
+    if done != n_sessions or rs["preemptions"] < 1 or rs["resumes"] < 1:
+        raise RuntimeError("paged oversub: not all completed, or no "
+                           "preemption and resume")
+    if {n for n, x in syncs if not x} != {1}:
+        raise RuntimeError("a decode round without a swap made more than "
+                           "the token readback's host sync")
+    # the uncontended reference: the same cohort with memory for all 10
+    big, big_sids, big_adm = cohort("slab", n_sessions)
+    if len(big_adm) != n_sessions:
+        raise RuntimeError("the uncontended run must admit everything")
+    big.drain_prefill()
+    while any(big.sessions[s].n_generated < n_new for s in big_sids):
+        big.decode_round()
+    same = sum(list(paged.sessions[a].tokens) == list(big.sessions[b].tokens)
+               for a, b in zip(sids, big_sids))
+    log(f"{tag} streams equal to an uncontended slab run: "
+        f"{same}/{n_sessions}")
+    if same != n_sessions:
+        raise RuntimeError("preempted streams differ from the uncontended "
+                           "ones")
+    return {"slab_admitted": len(slab_admitted),
+            "paged_admitted": len(admitted), "completed": done,
+            "preemptions": rs["preemptions"], "resumes": rs["resumes"]}
+
+
+def phase_sampling(torch, serve_arrivals):
+    """Seeded sampling on the card.  threefry keys, bits and uniforms for
+    seeds (0, 1, 2**31, 2**32-1) x token indices equal the CPU's; then
+    full-width Llama-3.2-1B serves greedy, temperature (T 0.7) and top-k
+    (k 40, T 0.7) sessions, and one hot top-k row (T 100), through the
+    scheduler (at least one sampled stream must leave the greedy one, or
+    the checks would not see the draws): the same seeds twice give
+    the same streams, fused and serial rounds give the same streams, the
+    greedy sessions' streams equal an all-greedy run's, and every fused
+    decode round makes one host sync.  The round tail's time is printed."""
+    import numpy as np
+
+    import repro_torch.core as C
+    from repro_torch.serving import (ContinuousBatchingScheduler,
+                                     GeoServingSystem, SamplingSpec, prng)
+    from repro_torch.serving.sampling import _key_for_row
+
+    tag = "[sampling]"
+    grid = [0, 1, 2 ** 31, 2 ** 32 - 1]
+    seeds = torch.tensor(grid).repeat_interleave(len(grid))
+    index = torch.tensor(grid).repeat(len(grid))
+    keys = [_key_for_row(seeds.to(d), index.to(d)) for d in ("cpu", "cuda")]
+    bits = [prng.random_bits(k, 128256).cpu() for k in keys]
+    unif = [prng.uniform(k, 128256, prng.F32_TINY).cpu().view(torch.int32)
+            for k in keys]
+    ok = (torch.equal(keys[0], keys[1].cpu()) and torch.equal(*bits)
+          and torch.equal(*unif))
+    log(f"{tag} threefry keys, bits and uniforms for {len(seeds)} (seed, "
+        f"index) rows x 128256: CUDA {'==' if ok else '!='} CPU")
+    if not ok:
+        raise RuntimeError("threefry differs between CUDA and the CPU")
+
+    cfg, params = _llama_bf16(torch, tag)
+    problem = serve_problem(C, cfg.name, cfg.n_layers)
+    rng = np.random.RandomState(0)
+    lens = rng.randint(32, 129, 8)
+    prompts = [rng.randint(2, cfg.vocab_size, int(n)) for n in lens]
+    # temperature 0.7 and top-k 40 (at 0.7) beside greedy rows, and one
+    # hot row (top-k 40 at temperature 100, near uniform over the top 40)
+    # whose draws leave the argmax: the random model's bf16 logits are
+    # peaked (first-step top-2 gaps of 2-15 logits, printed below), so the
+    # 0.7 rows mostly draw the argmax
+    mixed = [SamplingSpec(), SamplingSpec("temperature", temperature=0.7,
+                                          seed=11),
+             SamplingSpec("top_k", temperature=0.7, top_k=40,
+                          seed=2 ** 32 - 1),
+             SamplingSpec(), SamplingSpec("temperature", temperature=0.7,
+                                          seed=2 ** 31),
+             SamplingSpec("top_k", temperature=0.7, top_k=40, seed=7),
+             SamplingSpec(), SamplingSpec("top_k", temperature=100.0,
+                                          top_k=40, seed=0)]
+
+    def serve(specs, mode="fused"):
+        system = GeoServingSystem(cfg, params, problem, algorithm="proposed",
+                                  R=4, max_new_tokens=32, max_sessions=8,
+                                  decode_mode=mode)
+        syncs = []
+        run = system.decode_round
+
+        def counted(*a, **kw):
+            out, n = count_syncs(torch, run, *a, **kw)
+            syncs.append(n)
+            return out
+
+        system.decode_round = counted
+        sched = ContinuousBatchingScheduler(system, R=4)
+        for rid, (t, p, sp) in enumerate(zip(serve_arrivals, prompts,
+                                             specs)):
+            sched.submit(rid, p, float(t), n_new=32, sampling=sp)
+        t0 = time.perf_counter()
+        out = [list(map(int, s.tokens)) for s in sched.run()]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tail = system._round_tail
+        del system.decode_round, system, sched
+        return out, syncs, wall, tail
+
+    # how peaked the random model's next-token logits are: the gap between
+    # the two largest logits of each prompt's first step
+    probe = GeoServingSystem(cfg, params, problem, algorithm="proposed",
+                             R=4, max_new_tokens=32, max_sessions=8)
+    gaps = []
+    for p in prompts[:4]:
+        sid, lg = probe.submit(p)
+        top = torch.topk(lg[0].float(), 2).values
+        gaps.append(float(top[0] - top[1]))
+        probe.finish(sid)
+    del probe
+    log(f"{tag} first-step top-2 logit gaps of 4 prompts: "
+        f"{[round(x, 3) for x in gaps]}")
+
+    a, syncs_a, wall_a, tail = serve(mixed)
+    b, _, _, _ = serve(mixed)
+    s, syncs_s, wall_s, _ = serve(mixed, "serial")
+    g, _, wall_g, _ = serve([SamplingSpec()] * 8)
+    greedy = [i for i, sp in enumerate(mixed) if sp.kind == "greedy"]
+    drawn = [i for i, sp in enumerate(mixed) if sp.kind != "greedy"]
+    n_diff = sum(a[i] != g[i] for i in drawn)
+    log(f"{tag} 8 requests (3 greedy, 2 temperature 0.7, 2 top-k 40 at "
+        f"0.7, 1 top-k 40 at 100): "
+        f"repeat {'==' if a == b else '!='}, fused "
+        f"{'==' if a == s else '!='} serial, greedy sessions "
+        f"{'==' if all(a[i] == g[i] for i in greedy) else '!='} the "
+        f"all-greedy run; {n_diff}/{len(drawn)} sampled streams differ "
+        f"from greedy; fused decode rounds {len(syncs_a)}, host syncs per "
+        f"round {sorted(set(syncs_a))}; run walls fused {wall_a:.3f} s, "
+        f"serial {wall_s:.3f} s, all-greedy {wall_g:.3f} s")
+    if a != b or a != s or any(a[i] != g[i] for i in greedy):
+        raise RuntimeError("sampled streams are not reproducible")
+    if n_diff == 0:
+        raise RuntimeError("no sampled stream left the greedy one: the "
+                           "checks above would not see the draws")
+    if set(syncs_a) != {1}:
+        raise RuntimeError(f"fused sampled rounds made {sorted(set(syncs_a))}"
+                           " host syncs")
+
+    # the round tail alone at W = 8, V = 128256: device time (CUDA events)
+    # and host wall (enqueue + synchronize), all-greedy against mixed
+    W = 8
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    h = (torch.randn(W, 1, cfg.d_model, generator=gen, device="cuda")
+         ).to(torch.bfloat16)
+    rows = {"greedy": [SamplingSpec()] * W, "mixed": mixed}
+    for name, specs in rows.items():
+        temps = np.asarray([sp.row_params()[0] for sp in specs], np.float32)
+        topks = np.asarray([sp.row_params()[1] for sp in specs], np.int64)
+        sd = np.asarray([sp.seed for sp in specs], np.int64)
+        ti = np.arange(W, dtype=np.int64)
+        args = (params["embed"], h, temps, topks, sd, ti)
+        ms = device_ms(torch, tail, [args])
+        t0 = time.perf_counter()
+        for _ in range(10):
+            tail(*args)
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 100
+        log(f"{tag} round tail (lm_head + sampler), W {W} x V "
+            f"{cfg.vocab_size}, {name} rows: device {ms:.4f} ms, host wall "
+            f"{host:.3f} ms a call")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1024,9 +1363,17 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     captured = {}
-    launches = {arch: phase_serve(torch, arch, captured)
-                for arch in PATH_KERNELS}
+    serve = {arch: phase_serve(torch, arch, captured)
+             for arch in PATH_KERNELS}
+    paged = phase_serve(torch, "llama3_2_1b", captured, layout="paged",
+                        slab=serve["llama3_2_1b"])
+    phase_oversub(torch)
+    phase_sampling(torch, poisson_arrivals(8, rate=2.0, seed=1))
+    launches = {arch: r["launches"] for arch, r in serve.items()}
     kernels = phase_kernels(torch, captured, launches)
+    for row in kernels:
+        if row["path"] == "llama3_2_1b":
+            row["launches_paged"] = paged["launches"][row["name"]]
     phase_parity(torch)
     for arch in ("rwkv6_7b", "zamba2_7b"):
         phase_parity_family(torch, arch)

@@ -46,7 +46,8 @@ class OnlineBPRR:
 
     def __init__(self, problem: Problem, R: Optional[int] = None,
                  arrival_rate: Optional[float] = None,
-                 slot_scale: float = 1.0):
+                 slot_scale: float = 1.0,
+                 placement: Optional[Placement] = None):
         # page-granular eq. (5)/(20): when the serving engine books pages
         # instead of worst-case slots, each co-resident session reserves
         # s_c / slot_scale cache bytes — scaling the controller's view of
@@ -62,6 +63,12 @@ class OnlineBPRR:
                        guess if np.isfinite(guess) else 60.0)
         self.R = int(R)
         self.placement, self.info = cg_bp(problem, self.R)
+        if placement is not None:
+            # route on the serving engine's placement: its servers host
+            # exactly these block ranges (CG-BP on the page-scaled problem
+            # may place differently, and its routes would then name blocks
+            # a server does not host)
+            self.placement = placement
         self.sessions: Dict[int, Session] = {}
         self._next_sid = itertools.count()
         # flap avoidance: {server: additive per-token cost penalty} for

@@ -1,33 +1,42 @@
-"""The geo serving stack of the port: slab cache pools, the continuous-
-batching engine with failover replay, the scheduler, and the (copied)
-fault model."""
+"""The geo serving stack of the port: slab and paged cache pools
+(PagePool free-list allocation, page-granular eq. (5)/(20) accounting,
+preemption and resume), the continuous-batching engine with failover
+replay, per-session sampling policies on the port's threefry, the
+scheduler, and the (copied) fault model."""
 from repro_torch.serving.engine import (BlockServer, EngineSession,
                                         GeoServingSystem, generate)
 from repro_torch.serving.faults import (FailureDetector, FaultEvent,
                                         FaultPlan, NoCapacityError,
                                         recovery_replay_cost)
 from repro_torch.serving.kv_cache import (SUPPORTED_KINDS, CachePool,
-                                          StateSpec, bucket_for,
+                                          PagePool, StateSpec, bucket_for,
                                           default_prefill_buckets, kind_runs,
+                                          make_paged_decode_step,
+                                          make_paged_prefill_step,
+                                          make_paged_round_step,
                                           make_pool_decode_step,
                                           make_pool_prefill_step,
                                           make_pool_round_step,
                                           new_block_cache,
                                           new_cache_pool_tree,
+                                          new_paged_pool_tree,
+                                          new_state_pool_tree, pages_for,
                                           state_spec_for, state_specs)
 from repro_torch.serving.sampling import (SamplingSpec, make_round_tail,
-                                          sample_tokens)
+                                          make_sampler)
 from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
                                            ServedRequest)
 
 __all__ = [
     "BlockServer", "CachePool", "ContinuousBatchingScheduler",
     "EngineSession", "FailureDetector", "FaultEvent", "FaultPlan",
-    "GeoServingSystem", "NoCapacityError", "SUPPORTED_KINDS",
+    "GeoServingSystem", "NoCapacityError", "PagePool", "SUPPORTED_KINDS",
     "SamplingSpec", "ServedRequest", "StateSpec", "bucket_for",
     "default_prefill_buckets", "generate", "kind_runs",
-    "make_pool_decode_step", "make_pool_prefill_step",
-    "make_pool_round_step", "make_round_tail", "new_block_cache",
-    "new_cache_pool_tree", "recovery_replay_cost", "sample_tokens",
-    "state_spec_for", "state_specs",
+    "make_paged_decode_step", "make_paged_prefill_step",
+    "make_paged_round_step", "make_pool_decode_step",
+    "make_pool_prefill_step", "make_pool_round_step", "make_round_tail",
+    "make_sampler", "new_block_cache", "new_cache_pool_tree",
+    "new_paged_pool_tree", "new_state_pool_tree", "pages_for",
+    "recovery_replay_cost", "state_spec_for", "state_specs",
 ]

@@ -1,6 +1,6 @@
 """Geo-distributed serving engine with continuous batching across sessions
 — the counterpart of the reference's ``repro/serving/engine.py`` for dense
-decoders, RWKV6 and zamba2 hybrids on the slab layout.
+decoders, RWKV6 and zamba2 hybrids on the slab and paged layouts.
 
 Executes real block-level forward passes according to a BPRR placement
 with client-centric (hub-spoke) communication and client-side input
@@ -11,10 +11,15 @@ a copy of the reference's numpy core), so they come out bit-identical.
 
 Each server keeps ONE stacked cache pool (``kv_cache.CachePool``) whose
 rows are per-session slots; the pooled steps run all rows with fixed
-shapes and write the pool in place.  A decode round (``decode_mode=
+shapes and write the pool in place.  ``cache_layout="paged"`` books
+``page_size``-token pages instead of worst-case rows: sessions grow page
+by page while decoding, and under page pressure the engine preempts a
+victim (its pages freed, its client-side hop histories kept) and resumes
+it later through the failover-replay machinery, billed on the virtual
+clock.  A decode round (``decode_mode=
 "fused"``) keeps the hidden states on the device from the batched embed to
 the round tail: one embed, one gather+step+scatter per (hop, server), one
-lm_head+argmax tail, and ONE host sync — the token readback.  Prefill rows
+lm_head+sample tail, and ONE host sync — the token readback.  Prefill rows
 are staged in device tensors, never through host memory.  Stacks with
 recurrent state (RWKV6, Mamba2) prefill in groups of one exact prompt
 length, in one shot; hybrid stacks thread the original embedding
@@ -22,9 +27,10 @@ length, in one shot; hybrid stacks thread the original embedding
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; ``backend="kernel"`` sends attention on CUDA tensors to
-the hand-written kernels.  Not in this slice: paged pools (ROADMAP A8),
-stochastic sampling (A6), MLA, MoE and encoder-decoder stacks (A9),
-device groups and τ calibration (A10).
+the hand-written kernels.  Sessions sample greedily or by seeded
+temperature / top-k (``sampling.SamplingSpec``).  Not in this slice: MLA,
+MoE and encoder-decoder stacks (A9), device groups and τ calibration
+(A10).
 """
 from __future__ import annotations
 
@@ -47,22 +53,15 @@ from repro_torch.serving.faults import (FailureDetector, FaultPlan,
                                         NoCapacityError, recovery_replay_cost)
 from repro_torch.serving.kv_cache import (CachePool, bucket_for,
                                           default_prefill_buckets, kind_runs,
+                                          make_paged_decode_step,
+                                          make_paged_prefill_step,
+                                          make_paged_round_step,
                                           make_pool_decode_step,
                                           make_pool_prefill_step,
-                                          make_pool_round_step, state_specs)
+                                          make_pool_round_step, pages_for,
+                                          state_specs, to_device)
 from repro_torch.serving.sampling import (SamplingSpec, make_round_tail,
-                                          sample_tokens)
-
-
-def to_device(a, device) -> torch.Tensor:
-    """A host array as a tensor on ``device`` without a host sync: on the
-    card it is staged through pinned memory and copied asynchronously on
-    the current stream (a plain ``torch.as_tensor(..., device="cuda")``
-    blocks until the stream drains)."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if torch.device(device).type != "cuda":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
+                                          sample_rows)
 
 
 @dataclass
@@ -81,7 +80,9 @@ class EngineSession:
     pos: int = 0  # next cache write position
     tokens: List[int] = field(default_factory=list)  # prompt + generated
     n_generated: int = 0
-    # admitted | prefilling | active | preempted | failed | done
+    # admitted | prefilling | active | preempted | failed | done —
+    # "preempted": evicted from every route server (page pressure, or a
+    # capacity-starved failover deferral); resumed by replay
     state: str = "admitted"
     fail_reason: Optional[str] = None
     n_preemptions: int = 0
@@ -133,6 +134,7 @@ class BlockServer:
     def __init__(self, sid: int, cfg: ModelConfig, params, a: int, m: int,
                  *, n_rows: int, max_len: int, cap_slots: int,
                  slowdown: float = 1.0, backend: str = "kernel",
+                 cache_layout: str = "slab", page_size: int = 0,
                  device="cuda"):
         self.sid = sid
         self.backend = backend
@@ -148,23 +150,35 @@ class BlockServer:
             block_param_range(params, cfg, kind, self.a + lo, self.a + hi)
             for kind, lo, hi in self.runs)
         self.layer_ids = tuple(range(self.a, self.a + self.m))
+        self.cache_layout = cache_layout
         self.pool = CachePool(cfg, self.kinds, n_rows, max_len, cap_slots,
+                              layout=cache_layout, page_size=page_size,
                               device=self.device)
         self.alive = True
         self.crashed = False
         self.suspected = False
         self.slowdown = slowdown
-        self._step = make_pool_decode_step(cfg, self.kinds, backend)
-        self._round_step = make_pool_round_step(cfg, self.kinds, backend)
-        self._prefill_pool = make_pool_prefill_step(cfg, self.kinds,
+        if cache_layout == "paged":
+            self._step = make_paged_decode_step(cfg, self.kinds, backend,
+                                                page_size)
+            self._round_step = make_paged_round_step(cfg, self.kinds,
+                                                     backend, page_size)
+            self._prefill_pool = make_paged_prefill_step(cfg, self.kinds,
+                                                         backend, page_size)
+        else:
+            self._step = make_pool_decode_step(cfg, self.kinds, backend)
+            self._round_step = make_pool_round_step(cfg, self.kinds,
                                                     backend)
+            self._prefill_pool = make_pool_prefill_step(cfg, self.kinds,
+                                                        backend)
 
     # -- session admission bookkeeping --------------------------------------
-    def fits(self, sid: int, k_blocks: int) -> bool:
-        return self.pool.fits(sid, k_blocks)
+    def fits(self, sid: int, k_blocks: int, n_pages: int = 0,
+             worst_pages: Optional[int] = None) -> bool:
+        return self.pool.fits(sid, k_blocks, n_pages, worst_pages)
 
-    def admit(self, sid: int, k_blocks: int) -> int:
-        return self.pool.alloc(sid, k_blocks)
+    def admit(self, sid: int, k_blocks: int, n_pages: int = 0) -> int:
+        return self.pool.alloc(sid, k_blocks, n_pages)
 
     def evict(self, sid: int):
         self.pool.release(sid)
@@ -174,6 +188,13 @@ class BlockServer:
 
     def _mask(self, mask: np.ndarray) -> torch.Tensor:
         return to_device(mask, self.device)
+
+    def _pools(self) -> tuple:
+        """The pool operands of a step: the state trees, and the device
+        page table on the paged layout."""
+        if self.cache_layout == "paged":
+            return self.pool.tree, self.pool.page_table()
+        return (self.pool.tree,)
 
     # -- compute ------------------------------------------------------------
     def _layer_params(self, l_rel: int):
@@ -221,13 +242,13 @@ class BlockServer:
         embeddings (hybrid stacks)."""
         assert self.alive, f"server {self.sid} is dead"
         return self._prefill_pool(self.run_params, self.shared,
-                                  self.pool.tree, h_rows, emb0_rows,
+                                  *self._pools(), h_rows, emb0_rows,
                                   layer_active, self.layer_ids, offset)
 
     def decode_rows(self, h_rows, pos_rows, layer_active, emb0_rows=None):
         """THE batched step: one pooled call decodes all masked rows."""
         assert self.alive, f"server {self.sid} is dead"
-        return self._step(self.run_params, self.shared, self.pool.tree,
+        return self._step(self.run_params, self.shared, *self._pools(),
                           h_rows, pos_rows, emb0_rows, layer_active,
                           self.layer_ids)
 
@@ -237,7 +258,7 @@ class BlockServer:
         the round buffers, decode them, scatter the results back."""
         assert self.alive, f"server {self.sid} is dead"
         return self._round_step(self.run_params, self.shared,
-                                self.pool.tree, h_round, pos_round,
+                                *self._pools(), h_round, pos_round,
                                 emb0_round, slot_of_row, row_of_slot,
                                 layer_active, self.layer_ids)
 
@@ -301,10 +322,16 @@ class GeoServingSystem:
     ``params`` must already be there.  ``fault_plan`` / ``detector``:
     deterministic fault injection on the virtual clock and the timeout /
     backoff policy that prices failure detection.
+    ``cache_layout``: "slab" books worst-case fixed-width rows at
+    admission; "paged" books the prompt's ``page_size``-token pages
+    (page-granular eq. (5)/(20) accounting), grows sessions page by page
+    and preempts under page pressure — token streams equal the slab
+    layout's, and the virtual clock differs by exactly the billed resume
+    replay.  ``page_size`` must divide ``max_seq_len`` (default: its
+    largest divisor <= 16).
 
     Not in this slice (they raise ``NotImplementedError``):
-    ``cache_layout="paged"`` (ROADMAP A8), ``mesh``/``device_groups`` and
-    ``calibrate_taus`` (A10).
+    ``mesh``/``device_groups`` and ``calibrate_taus`` (A10).
     """
 
     def __init__(self, cfg: ModelConfig, params, problem: Problem,
@@ -316,6 +343,7 @@ class GeoServingSystem:
                  decode_mode: str = "fused",
                  backend: str = "kernel",
                  cache_layout: str = "slab",
+                 page_size: Optional[int] = None,
                  mesh=None, device_groups=None,
                  fault_plan: Optional[FaultPlan] = None,
                  detector: Optional[FailureDetector] = None,
@@ -323,10 +351,7 @@ class GeoServingSystem:
         assert problem.L == cfg.n_layers
         assert prefill_mode in ("batched", "serial"), prefill_mode
         assert decode_mode in ("fused", "serial"), decode_mode
-        if cache_layout != "slab":
-            raise NotImplementedError(
-                f"cache_layout={cache_layout!r}: paged pools are a later "
-                "slice of the port (ROADMAP A8)")
+        assert cache_layout in ("slab", "paged"), cache_layout
         if mesh is not None or device_groups is not None:
             raise NotImplementedError(
                 "device-group servers (mesh / device_groups) are a later "
@@ -342,6 +367,22 @@ class GeoServingSystem:
         self.max_seq_len = int(
             max_seq_len if max_seq_len is not None
             else problem.workload.l_in + max_new_tokens + 32)
+        self.cache_layout = cache_layout
+        if cache_layout == "paged":
+            if page_size is None:  # largest divisor of max_seq_len <= 16
+                page_size = next(p for p in range(min(16, self.max_seq_len),
+                                                  0, -1)
+                                 if self.max_seq_len % p == 0)
+            page_size = int(page_size)
+            if page_size < 1 or self.max_seq_len % page_size != 0:
+                raise ValueError(
+                    f"page_size {page_size} must divide max_seq_len "
+                    f"{self.max_seq_len}")
+        else:
+            page_size = 0
+        self.page_size = page_size
+        # FIFO resume queue (page-pressure preemptions and failover
+        # deferrals)
         self._preempt_order: List[int] = []
         self.prefill_mode = prefill_mode
         self.specs = state_specs(cfg)
@@ -371,7 +412,7 @@ class GeoServingSystem:
         # or grouped (grown if a round ever exceeds it)
         self._round_width = max(1, self.max_sessions)
         # per-round dispatch accounting (the perf contract: ONE embed, ONE
-        # lm_head+argmax tail, one fused dispatch per (hop, server), ONE
+        # lm_head+sample tail, one fused dispatch per (hop, server), ONE
         # host sync per round)
         self.round_stats = {"rounds": 0, "embed_dispatches": 0,
                             "tail_dispatches": 0, "hop_dispatches": 0,
@@ -411,12 +452,19 @@ class GeoServingSystem:
                 continue  # keep live objects (running sessions hold caches)
             cap = self._cap_slots(j, m)
             # pool arrays need >= 1 row for fixed shapes, but the
-            # block-slot budget stays honest: cap == 0 admits nothing
-            n_rows = max(1, min(self.max_sessions, cap))
+            # block-slot budget stays honest: cap == 0 admits nothing.
+            # Paged layout: rows are cheap (the self-KV bytes live in the
+            # shared page arrays), so every session the engine could host
+            # gets a row and the page-unit budget bounds co-residency
+            if self.cache_layout == "paged":
+                n_rows = max(1, self.max_sessions)
+            else:
+                n_rows = max(1, min(self.max_sessions, cap))
             self.servers[j] = BlockServer(
                 j, self.cfg, self.params, a, m, n_rows=n_rows,
                 max_len=self.max_seq_len, cap_slots=cap,
-                backend=self.backend, device=self.device)
+                backend=self.backend, cache_layout=self.cache_layout,
+                page_size=self.page_size, device=self.device)
 
     def alive_placement(self) -> Placement:
         a = np.array(self.placement.a)
@@ -457,10 +505,24 @@ class GeoServingSystem:
             sampling=sampling if sampling is not None else SamplingSpec())
         return sid
 
+    def _prompt_pages(self, sess: EngineSession) -> int:
+        """Pages booked at admission: enough for the prompt (paged)."""
+        return pages_for(sess.prompt_len, self.page_size)
+
+    def _worst_pages(self, sess: EngineSession) -> int:
+        """Fully grown page count — the solo-completability bound admission
+        asserts so preempted sessions can always eventually resume."""
+        return pages_for(sess.prompt_len + sess.n_new, self.page_size)
+
     def fits_session(self, sid: int) -> bool:
-        """True iff every route server has a free row AND block-slots."""
+        """True iff every route server has a free row AND block-slots
+        (slab) / prompt pages plus solo-completability headroom (paged)."""
         sess = self.sessions[sid]
-        return all(self.servers[j].alive and self.servers[j].fits(sid, k)
+        p, w = 0, None
+        if self.cache_layout == "paged":
+            p, w = self._prompt_pages(sess), self._worst_pages(sess)
+        return all(self.servers[j].alive
+                   and self.servers[j].fits(sid, k, p, w)
                    for j, k in zip(sess.route.servers, sess.route.blocks))
 
     def try_admit_session(self, sid: int, now: float = 0.0) -> bool:
@@ -489,8 +551,10 @@ class GeoServingSystem:
             if sess.client in failed_clients or not self.fits_session(sid):
                 failed_clients.add(sess.client)
                 continue
+            n_pages = (self._prompt_pages(sess)
+                       if self.cache_layout == "paged" else 0)
             for j, k in zip(sess.route.servers, sess.route.blocks):
-                self.servers[j].admit(sid, k)
+                self.servers[j].admit(sid, k, n_pages=n_pages)
             sess.start = now
             admitted.append(sess)
         if not admitted:
@@ -669,11 +733,17 @@ class GeoServingSystem:
         sess._emb0 = None
 
     def _sample_tokens(self, sessions: List[EngineSession]) -> List[int]:
-        """One sampler call for a round's sessions (greedy)."""
+        """One sampler call for a round's sessions: per-row (temperature,
+        top_k, seed, token index) inputs; session ``s`` draws the key for
+        token index ``s.n_generated``."""
         logits = torch.stack([s.last_logits for s in sessions])
-        temps = np.asarray([s.sampling.row_params()[0] for s in sessions],
-                           np.float32)
-        return [int(t) for t in sample_tokens(logits, temps).tolist()]
+        temps, topks = zip(*(s.sampling.row_params() for s in sessions))
+        toks = sample_rows(
+            logits, np.asarray(temps, np.float32),
+            np.asarray(topks, np.int64),
+            np.asarray([s.sampling.seed for s in sessions], np.int64),
+            np.asarray([s.n_generated for s in sessions], np.int64))
+        return [int(t) for t in toks.tolist()]
 
     def _route_per_token(self, sess: EngineSession) -> float:
         t = 0.0
@@ -736,7 +806,11 @@ class GeoServingSystem:
     def decode_round(self, sids: Optional[List[int]] = None) -> Dict[int, int]:
         """One continuous-batching round: every listed active session (all
         unfinished active sessions when ``sids`` is None) advances one token
-        through its route.  Returns {sid: new_token}."""
+        through its route.  Returns {sid: new_token}.
+
+        Preempted sessions are resumed (FIFO) when they fit again.  The
+        paged layout first grows every member's pages to cover its write
+        position, preempting victims under page pressure."""
         explicit = sids is not None
         if self.fault_plan is not None:
             clock = [s.virtual_time + s.start
@@ -750,12 +824,20 @@ class GeoServingSystem:
                     if s.state == "active" and s.n_generated < s.n_new]
         group = [self.sessions[sid] for sid in sids
                  if self.sessions[sid].state == "active"]
+        if self.cache_layout == "paged":
+            group = self._ensure_page_capacity(group)
         if not group and not explicit and any(
                 s.state == "preempted" and s.n_generated < s.n_new
                 for s in self.sessions.values()):
+            # nothing resident could decode but swapped-out sessions owe
+            # tokens: force-resume the queue head (evicting finished but
+            # unretired holders); admission's solo-fit bound guarantees
+            # the oldest preempted session eventually fits
             self._resume_preempted(force=True)
             group = [s for s in self.sessions.values()
                      if s.state == "active" and s.n_generated < s.n_new]
+            if self.cache_layout == "paged":
+                group = self._ensure_page_capacity(group)
             if not group:
                 self._abort_stuck_head()
         if not group:
@@ -765,10 +847,15 @@ class GeoServingSystem:
         return self._decode_round_fused(group)
 
     # ------------------------------------------------------------------
-    # Preemption (capacity-starved failover deferral) and resume
+    # Preemption (page pressure, capacity-starved failover deferral),
+    # page growth and resume
     # ------------------------------------------------------------------
     def _pick_victim(self, j: int, protect: set,
                      finished_only: bool = False) -> Optional[int]:
+        """A session to preempt on server ``j``: finished-but-unretired
+        sessions first, then the latest-admitted active one (the earliest
+        always survives, so every round makes progress).  Mid-prefill
+        sessions are never victims."""
         cands = []
         for sid in self.servers[j].pool.rows:
             if sid in protect:
@@ -783,8 +870,9 @@ class GeoServingSystem:
         return min(cands)[2] if cands else None
 
     def preempt_session(self, sid: int):
-        """Swap a session out: free its rows on every route server; its
-        client-side hop histories are the replay cache for the resume."""
+        """Swap a session out: free its rows / pages on every route server;
+        its client-side hop histories are the replay cache for the resume
+        (billed on the virtual clock by ``_try_resume``)."""
         sess = self.sessions[sid]
         assert sess.state == "active", sess.state
         sess.last_logits  # materialize a lazy fused-round logits box
@@ -797,6 +885,45 @@ class GeoServingSystem:
                 self.servers[j].evict(sid)
         self._preempt_order.append(sid)
         self.round_stats["preemptions"] += 1
+
+    def _grow_session(self, sess: EngineSession, need: int,
+                      protect: set) -> bool:
+        """Grow ``sess`` to ``need`` pages on every route server,
+        preempting victims under pressure.  False when even preempting
+        every candidate cannot make room (partial growth is harmless: the
+        pages stay booked)."""
+        for j in sess.route.servers:
+            srv = self.servers.get(j)
+            if srv is None or not srv.alive or sess.sid not in srv.pool.rows:
+                continue  # dead / not-yet-resident hop: _failover re-books
+            pool = srv.pool
+            while not pool.can_grow(sess.sid, need):
+                victim = self._pick_victim(j, protect)
+                if victim is None:
+                    return False
+                self.preempt_session(victim)
+            pool.grow_pages(sess.sid, need)
+        return True
+
+    def _ensure_page_capacity(self, group: List[EngineSession]
+                              ) -> List[EngineSession]:
+        """Before a decode round: every member needs pages covering its
+        write position.  Members grow oldest first; one that cannot fit
+        even after evicting every victim preempts ITSELF.  Returns the
+        surviving group in the caller's order."""
+        kept: List[EngineSession] = []
+        for sess in sorted(group, key=lambda s: s.sid):
+            if sess.state != "active":  # preempted as a victim just now
+                continue
+            need = pages_for(sess.pos + 1, self.page_size)
+            if self._grow_session(sess, need,
+                                  protect={s.sid for s in kept}
+                                  | {sess.sid}):
+                kept.append(sess)
+            else:
+                self.preempt_session(sess.sid)
+        order = {s.sid: i for i, s in enumerate(group)}
+        return sorted(kept, key=lambda s: order[s.sid])
 
     def _resume_preempted(self, force: bool = False):
         while self._preempt_order:
@@ -814,7 +941,11 @@ class GeoServingSystem:
     def _try_resume(self, sess: EngineSession,
                     evict_finished: bool = False) -> bool:
         """Re-admit a preempted session on its route's ALIVE servers and
-        replay its client-side history (billed on the virtual clock)."""
+        replay its client-side history (billed on the virtual clock).  The
+        paged layout books pages covering the replayed positions."""
+        paged = self.cache_layout == "paged"
+        need = pages_for(max(sess.pos, 1), self.page_size) if paged else 0
+        worst = self._worst_pages(sess) if paged else None
         e = 0
         hops = []
         for hop, (j, k) in enumerate(zip(sess.route.servers,
@@ -828,7 +959,7 @@ class GeoServingSystem:
             self.round_stats["resumes"] += 1
             return True
         for _, j, lo, hi in hops:
-            while not self.servers[j].fits(sess.sid, hi - lo):
+            while not self.servers[j].fits(sess.sid, hi - lo, need, worst):
                 if not evict_finished:
                     return False
                 victim = self._pick_victim(j, protect={sess.sid},
@@ -837,7 +968,7 @@ class GeoServingSystem:
                     return False
                 self.preempt_session(victim)
         for _, j, lo, hi in hops:
-            self.servers[j].admit(sess.sid, hi - lo)
+            self.servers[j].admit(sess.sid, hi - lo, n_pages=need)
         self._replay_session(sess)
         cost = 0.0
         for hop, j, lo, hi in hops:
@@ -925,10 +1056,16 @@ class GeoServingSystem:
         out: Dict[int, int] = {}
         if emit:
             temps = np.zeros((W,), np.float32)
+            topks = np.zeros((W,), np.int64)
+            seeds = np.zeros((W,), np.int64)  # the full [0, 2**32) range
+            tindex = np.zeros((W,), np.int64)
             for s in emit:
-                temps[slot[s.sid]] = s.sampling.row_params()[0]
+                g = slot[s.sid]
+                temps[g], topks[g] = s.sampling.row_params()
+                seeds[g] = s.sampling.seed
+                tindex[g] = s.n_generated
             toks_dev, logits_rows = self._round_tail(
-                self.params["embed"], h_round, temps)
+                self.params["embed"], h_round, temps, topks, seeds, tindex)
             self.round_stats["tail_dispatches"] += 1
             toks = toks_dev.cpu().numpy()  # THE one host sync of the round
             for s in emit:
@@ -1123,6 +1260,8 @@ class GeoServingSystem:
                    if s.state in ("active", "prefilling"))
 
     def slot_usage(self) -> Dict[int, Tuple[int, int]]:
+        """{server: (used, capacity)} in the layout's eq. (5) unit:
+        block-slots (slab) or page-units (paged)."""
         return {j: srv.pool.usage() for j, srv in self.servers.items()}
 
     # ------------------------------------------------------------------
@@ -1157,6 +1296,14 @@ class GeoServingSystem:
         else:
             sess.tokens.append(int(token))
         sess.n_generated = len(sess.tokens) - sess.prompt_len
+        if self.cache_layout == "paged":
+            # legacy single-session semantics: growth failure propagates
+            if not self._grow_session(sess,
+                                      pages_for(sess.pos + 1,
+                                                self.page_size),
+                                      protect={sess.sid}):
+                raise RuntimeError(
+                    f"session {sid}: no page capacity for decode")
         sess._h = self._embed([[int(token)]])
         sess._emb0 = sess._h
         self._traverse([sess])
@@ -1347,12 +1494,19 @@ class GeoServingSystem:
             k = int(min(alive.a[j] + alive.m[j], e_hi) - e)
             repl_routes.append((j, e, e + k))
             e += k
+        # paged layout: the replacement hops book pages covering everything
+        # the replay and the in-flight round write ([0, pos])
+        n_pages, worst = 0, None
+        if self.cache_layout == "paged":
+            n_pages = pages_for(min(sess.pos + 1, self.max_seq_len),
+                                self.page_size)
+            worst = self._worst_pages(sess)
         for j, lo, hi2 in repl_routes:
-            if not self.servers[j].fits(sess.sid, hi2 - lo):
+            if not self.servers[j].fits(sess.sid, hi2 - lo, n_pages, worst):
                 raise NoCapacityError(
                     f"failover target {j} has no free cache slots")
         for j, lo, hi2 in repl_routes:
-            self.servers[j].admit(sess.sid, hi2 - lo)
+            self.servers[j].admit(sess.sid, hi2 - lo, n_pages=n_pages)
         # replay, recording each replacement hop's OWN input history so a
         # later failure of any replacement hop replays correct activations
         new_histories: List[List] = [[] for _ in repl_routes]

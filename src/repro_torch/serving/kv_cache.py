@@ -24,14 +24,27 @@ decoder, RWKV6 and Mamba2/zamba2 block kinds of the reference's
   session's results are bit-identical whether it runs alone or among
   neighbours.
 
-The paged layout (``PagePool``, ROADMAP A8) and the MLA, MoE and
-encoder-decoder kinds (ROADMAP A9) are later slices of the port.
+* ``layout="paged"`` (the reference's paged twin): the time axis of every
+  self-KV leaf is carved into ``page_size``-token pages held in shared
+  physical page arrays ``(layers, n_pages + 1, page_size, Kv, hd)``; a
+  :class:`PagePool` free list plus one page table ``(n_rows, max_pages)``
+  per server maps row time-slices to physical pages (page 0 is the trash
+  page of unassigned entries).  Admission books only the pages a prompt
+  needs against ``cap_units = cap_slots × max_pages`` page-units (a
+  session through ``k`` blocks holding ``p`` pages charges ``k·p``);
+  recurrent leaves stay row-resident.  The paged steps gather each row's
+  pages into slab-shaped scratch, run the unchanged slab step on it and
+  scatter the written pages back, so paged results equal slab results.
+
+The MLA, MoE and encoder-decoder kinds (ROADMAP A9) are later slices of
+the port.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -39,6 +52,18 @@ from repro_torch.models import blocks as B
 from repro_torch.models.layers import param_dtype
 from repro_torch.models.model import (LENGTH_KEYS, recurrent_state,
                                       layer_params)
+
+
+def to_device(a, device) -> torch.Tensor:
+    """A host array as a tensor on ``device`` without a host sync: on the
+    card it is staged through its own pinned buffer and copied
+    asynchronously on the current stream (a plain ``torch.as_tensor(...,
+    device="cuda")`` blocks until the stream drains)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
 
 # ---------------------------------------------------------------------------
 # StateSpec: the per-block serving-state contract
@@ -142,21 +167,154 @@ def new_cache_pool_tree(cfg: ModelConfig, kind: str, n_layers: int,
     return new_state_pool_tree(cfg, kind, n_layers, n_rows, max_len, device)
 
 
+# ---------------------------------------------------------------------------
+# Paged layout: free-list page allocator + paged state trees
+# ---------------------------------------------------------------------------
+
+TRASH_PAGE = 0  # physical page id 0: write target of every unassigned entry
+
+
+def pages_for(n_tokens: int, page_size: int) -> int:
+    """Pages needed to hold ``n_tokens`` cache positions (0 for 0)."""
+    n_tokens = int(n_tokens)
+    assert n_tokens >= 0
+    return -(-n_tokens // int(page_size))
+
+
+class PagePool:
+    """Deterministic free-list page allocator (the reference's).
+
+    Physical pages are numbered ``1..n_pages``; id ``TRASH_PAGE == 0`` is
+    the write target of unassigned page-table entries, so the gather and
+    scatter never branch on validity.  ``table`` is the host page table
+    ``(n_rows, max_pages_per_row)``: row ``r``'s time-slice ``[i*page,
+    (i+1)*page)`` lives in physical page ``table[r, i]`` (0 = unassigned).
+    Rows grow monotonically (``grow_to``) and free wholesale
+    (``free_row``).  The free list is LIFO and every operation is a pure
+    function of the call sequence, so the same sequence reproduces the
+    same tables; ``version`` counts the table's changes."""
+
+    def __init__(self, n_pages: int, n_rows: int, max_pages_per_row: int):
+        self.n_pages = int(n_pages)
+        self.n_rows = int(n_rows)
+        self.max_pages_per_row = int(max_pages_per_row)
+        assert self.n_pages >= 0 and self.n_rows >= 1
+        assert self.max_pages_per_row >= 1
+        self.table = np.zeros((self.n_rows, self.max_pages_per_row),
+                              np.int32)
+        self.count = np.zeros((self.n_rows,), np.int32)
+        # LIFO free list; initialized so the first pops hand out 1, 2, 3...
+        self._free: List[int] = list(range(self.n_pages, 0, -1))
+        self.version = 0
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return int(self.count.sum())
+
+    def pages_of(self, row: int) -> List[int]:
+        """The live page ids of ``row`` in table order."""
+        return [int(self.table[row, i])
+                for i in range(int(self.count[row]))]
+
+    def can_grow(self, row: int, n_pages: int) -> bool:
+        return n_pages - int(self.count[row]) <= len(self._free)
+
+    def grow_to(self, row: int, n_pages: int) -> List[int]:
+        """Extend ``row`` to ``n_pages`` pages (no-op when already there);
+        returns the newly assigned page ids.  Raises on free-list
+        exhaustion — callers check ``can_grow``."""
+        have = int(self.count[row])
+        if n_pages <= have:
+            return []
+        if n_pages > self.max_pages_per_row:
+            raise RuntimeError(
+                f"row {row}: {n_pages} pages exceed the per-row table "
+                f"width {self.max_pages_per_row}")
+        if n_pages - have > len(self._free):
+            raise RuntimeError(
+                f"page pool exhausted: row {row} needs {n_pages - have} "
+                f"pages, {len(self._free)} free")
+        fresh = []
+        for i in range(have, n_pages):
+            pid = self._free.pop()
+            self.table[row, i] = pid
+            fresh.append(pid)
+        self.count[row] = n_pages
+        self.version += 1
+        return fresh
+
+    def free_row(self, row: int) -> List[int]:
+        """Return every page of ``row`` to the free list (reverse order, so
+        alloc→free→alloc round-trips reproduce the same page ids).
+        Returns the freed page ids."""
+        freed = []
+        for i in reversed(range(int(self.count[row]))):
+            pid = int(self.table[row, i])
+            self._free.append(pid)
+            freed.append(pid)
+            self.table[row, i] = 0
+        self.count[row] = 0
+        self.version += 1
+        return freed
+
+    def check_invariants(self):
+        """Allocator invariants: entries beyond ``count[r]`` are 0, entries
+        below are in ``[1, n_pages]``; no page is referenced twice; live ∪
+        free partitions ``{1..n_pages}``."""
+        live: List[int] = []
+        for r in range(self.n_rows):
+            c = int(self.count[r])
+            assert 0 <= c <= self.max_pages_per_row
+            assert (self.table[r, c:] == 0).all(), f"row {r}: stale entries"
+            ids = self.table[r, :c].tolist()
+            assert all(1 <= p <= self.n_pages for p in ids), \
+                f"row {r}: out-of-range page id"
+            live.extend(ids)
+        assert len(live) == len(set(live)), "double-booked page"
+        free = self._free
+        assert len(free) == len(set(free)), "duplicate free-list entry"
+        assert not set(live) & set(free), "page both live and free"
+        assert len(live) + len(free) == self.n_pages, "page leak"
+
+
+def new_paged_pool_tree(cfg: ModelConfig, kind: str, n_layers: int,
+                        n_rows: int, page_size: int, n_phys: int,
+                        device="cuda"):
+    """Paged-layout state tree: self-KV leaves become shared physical page
+    arrays ``(n_layers, n_phys, page_size, Kv, hd)`` (``n_phys`` includes
+    the trash page) addressed through the pool's page table; every other
+    leaf keeps its row-resident ``(n_layers, n_rows, ...)`` layout."""
+    tree = _state_tree(cfg, kind, (n_layers, n_rows), page_size, device)
+    for key in LENGTH_KEYS & tree.keys():
+        leaf = tree[key]
+        tree[key] = leaf.new_zeros((n_layers, n_phys) + leaf.shape[2:])
+    return tree
+
+
 class CachePool:
     """Row + block-slot bookkeeping around the stacked state trees of ONE
-    server (slab layout: every row owns a fixed ``max_len`` stripe).
+    server.
 
     * ``self.tree[r]`` is the state of ``self.runs[r]``,
     * ``n_rows`` physical rows (the batch extent of the pooled steps),
-    * ``cap_slots`` block-slots per eq. (5)."""
+    * ``cap_slots`` block-slots per eq. (5).
+
+    ``layout="slab"``: every row owns a fixed ``max_len`` stripe.
+    ``layout="paged"``: self-KV lives in ``page_size``-token pages; the
+    budget is ``cap_units = cap_slots × max_pages`` page-units, a session
+    through ``k`` blocks holding ``p`` pages charges ``k·p``, and the page
+    arrays hold the same byte budget (``cap_units / n_layers`` pages,
+    clamped to what the rows could ever reference)."""
 
     def __init__(self, cfg: ModelConfig, kinds: Sequence[str], n_rows: int,
                  max_len: int, cap_slots: int, layout: str = "slab",
-                 device="cuda"):
-        if layout != "slab":
-            raise NotImplementedError(
-                f"cache layout {layout!r}: paged pools are a later slice of "
-                "the port (ROADMAP A8)")
+                 page_size: int = 0, device="cuda"):
+        if layout not in ("slab", "paged"):
+            raise ValueError(f"cache layout {layout!r}: 'slab' or 'paged'")
         self.cfg = cfg
         self.kinds = tuple(kinds)
         self.runs = kind_runs(self.kinds)
@@ -164,26 +322,94 @@ class CachePool:
         self.n_rows = n_rows
         self.max_len = max_len
         self.cap_slots = int(cap_slots)
+        self.layout = layout
         self.device = torch.device(device)
-        self.tree: Tuple[Dict, ...] = tuple(
-            new_state_pool_tree(cfg, kind, hi - lo, n_rows, max_len, device)
-            for kind, lo, hi in self.runs)
+        if layout == "paged":
+            page_size = int(page_size)
+            if page_size < 1 or max_len % page_size != 0:
+                raise ValueError(
+                    f"page_size {page_size} must be >= 1 and divide "
+                    f"max_len {max_len} (keeps the paged time axis "
+                    "identical to the slab one)")
+            self.page_size = page_size
+            self.max_pages = max_len // page_size
+            self.cap_units = self.cap_slots * self.max_pages
+            n_phys = max(1, min(self.cap_units // max(1, self.n_layers),
+                                n_rows * self.max_pages))
+            self.pages = PagePool(n_phys, n_rows, self.max_pages)
+            self.units_used = 0
+            self.sid_pages: Dict[int, int] = {}  # sid -> pages held
+            self.tree: Tuple[Dict, ...] = tuple(
+                new_paged_pool_tree(cfg, kind, hi - lo, n_rows, page_size,
+                                    n_phys + 1, device)
+                for kind, lo, hi in self.runs)
+            self._table_dev: Optional[Tuple[int, torch.Tensor]] = None
+        else:
+            self.page_size = 0
+            self.tree = tuple(
+                new_state_pool_tree(cfg, kind, hi - lo, n_rows, max_len,
+                                    device)
+                for kind, lo, hi in self.runs)
         self._free: List[int] = list(range(n_rows))
         self.rows: Dict[int, int] = {}  # sid -> row
         self.blocks: Dict[int, int] = {}  # sid -> k block-slots held
         self.slots_used = 0
 
     # -- admission ----------------------------------------------------------
-    def fits(self, sid: int, k_blocks: int) -> bool:
+    def pages_needed(self, n_tokens: int) -> int:
+        """Pages covering ``n_tokens`` cache positions (paged layout)."""
+        return pages_for(n_tokens, self.page_size)
+
+    def fits(self, sid: int, k_blocks: int, n_pages: int = 0,
+             worst_pages: Optional[int] = None) -> bool:
         """No-overbooking check (re-entry of a failover chain charges the
-        additional blocks but needs no new row)."""
+        additional blocks but needs no new row).  Paged layout: ``n_pages``
+        is the page count to book now (the resident count on re-entry) and
+        ``worst_pages`` asserts solo-completability — the fully grown
+        session must fit this server ALONE, so a preempted session can
+        always eventually resume."""
+        if self.layout == "paged":
+            p = self.sid_pages.get(sid, 0) if sid in self.rows \
+                else int(n_pages)
+            k_total = self.blocks.get(sid, 0) + k_blocks
+            if worst_pages is not None:
+                if (k_total * int(worst_pages) > self.cap_units
+                        or int(worst_pages) > min(self.pages.n_pages,
+                                                  self.max_pages)):
+                    return False
+            if sid in self.rows:
+                return self.units_used + k_blocks * p <= self.cap_units
+            return (bool(self._free)
+                    and self.units_used + k_blocks * p <= self.cap_units
+                    and p <= self.pages.free_pages)
         if sid in self.rows:
             return self.slots_used + k_blocks <= self.cap_slots
         return bool(self._free) and (self.slots_used + k_blocks
                                      <= self.cap_slots)
 
-    def alloc(self, sid: int, k_blocks: int) -> int:
-        """Claim one row + ``k_blocks`` slots; raises if over budget."""
+    def alloc(self, sid: int, k_blocks: int, n_pages: int = 0) -> int:
+        """Claim one row + ``k_blocks`` slots (slab) or one row +
+        ``n_pages`` pages charged at ``k_blocks × n_pages`` page-units
+        (paged); raises if over budget."""
+        if self.layout == "paged":
+            p = self.sid_pages[sid] if sid in self.rows else int(n_pages)
+            if self.units_used + k_blocks * p > self.cap_units:
+                raise RuntimeError(
+                    f"page-unit overbooking: {self.units_used}+"
+                    f"{k_blocks}*{p} > {self.cap_units}")
+            if sid in self.rows:  # re-entry: charge the extra blocks
+                self.blocks[sid] += int(k_blocks)
+                self.units_used += int(k_blocks) * p
+                return self.rows[sid]
+            if not self._free:
+                raise RuntimeError("cache pool rows exhausted")
+            row = self._free.pop()
+            self.pages.grow_to(row, p)
+            self.rows[sid] = row
+            self.blocks[sid] = int(k_blocks)
+            self.sid_pages[sid] = p
+            self.units_used += int(k_blocks) * p
+            return row
         if self.slots_used + k_blocks > self.cap_slots:
             raise RuntimeError(
                 f"block-slot overbooking: {self.slots_used}+{k_blocks} > "
@@ -200,19 +426,64 @@ class CachePool:
         self.slots_used += int(k_blocks)
         return row
 
+    # -- page growth (paged layout) -----------------------------------------
+    def can_grow(self, sid: int, n_pages: int) -> bool:
+        """True iff ``sid`` can be extended to ``n_pages`` total pages
+        within both the page-unit budget and the physical free list."""
+        assert self.layout == "paged"
+        extra = int(n_pages) - self.sid_pages[sid]
+        if extra <= 0:
+            return True
+        return (self.units_used + self.blocks[sid] * extra <= self.cap_units
+                and self.pages.can_grow(self.rows[sid], int(n_pages)))
+
+    def grow_pages(self, sid: int, n_pages: int):
+        """Extend ``sid`` to ``n_pages`` total pages (decode growth);
+        raises on overbooking — callers check ``can_grow`` first."""
+        assert self.layout == "paged"
+        extra = int(n_pages) - self.sid_pages[sid]
+        if extra <= 0:
+            return
+        if self.units_used + self.blocks[sid] * extra > self.cap_units:
+            raise RuntimeError(
+                f"page-unit overbooking on grow: {self.units_used}+"
+                f"{self.blocks[sid]}*{extra} > {self.cap_units}")
+        self.pages.grow_to(self.rows[sid], int(n_pages))
+        self.sid_pages[sid] = int(n_pages)
+        self.units_used += self.blocks[sid] * extra
+
     def release(self, sid: int):
         row = self.rows.pop(sid, None)
         if row is None:
             return
-        self.slots_used -= self.blocks.pop(sid, 0)
+        if self.layout == "paged":
+            self.units_used -= self.blocks.pop(sid, 0) * \
+                self.sid_pages.pop(sid, 0)
+            self.pages.free_row(row)
+        else:
+            self.slots_used -= self.blocks.pop(sid, 0)
         self._free.append(row)
         # stale row contents are never observable: a new occupant's prefill
         # overwrites [:prompt_len] of K/V and the recurrent state whole, and
-        # decode attention masks kv_pos > pos
+        # decode attention masks kv_pos > pos.  Freed pages re-enter the
+        # free list with stale contents under the same invariant: a row
+        # reads a page only at masked-in positions it has written itself
 
     def usage(self) -> Tuple[int, int]:
-        """(used, capacity) block-slots."""
+        """(used, capacity): block-slots (slab) or page-units (paged)."""
+        if self.layout == "paged":
+            return self.units_used, self.cap_units
         return self.slots_used, self.cap_slots
+
+    def page_table(self) -> torch.Tensor:
+        """The device copy of the page table (int64), uploaded again only
+        after the table changed — each upload through its own pinned
+        buffer, so no step reads a table a later upload overwrites."""
+        v = self.pages.version
+        if self._table_dev is None or self._table_dev[0] != v:
+            self._table_dev = (v, to_device(
+                self.pages.table.astype(np.int64), self.device))
+        return self._table_dev[1]
 
     def n_sessions(self) -> int:
         return len(self.rows)
@@ -222,7 +493,8 @@ class CachePool:
                             entries: List[Dict], length: int):
         """Insert single-session per-layer cache entries (batch dim 1, one
         per layer in [lo_rel, hi_rel)) into the pool row: K/V at
-        [:length], recurrent state whole."""
+        [:length] (paged: page by page into the row's pages), recurrent
+        state whole."""
         assert len(entries) == hi_rel - lo_rel
         for r, (kind, rlo, rhi) in enumerate(self.runs):
             lo, hi = max(lo_rel, rlo), min(hi_rel, rhi)
@@ -233,7 +505,14 @@ class CachePool:
             for key in t:
                 stacked = torch.stack([e[key][0] for e in sub]).to(
                     t[key].dtype)
-                if key in LENGTH_KEYS:
+                if key in LENGTH_KEYS and self.layout == "paged":
+                    pg = self.page_size
+                    for pi in range(self.pages_needed(length)):
+                        ppid = int(self.pages.table[row, pi])
+                        a, b = pi * pg, min(length, (pi + 1) * pg)
+                        t[key][lo - rlo:hi - rlo, ppid, :b - a] = \
+                            stacked[:, a:b]
+                elif key in LENGTH_KEYS:
                     t[key][lo - rlo:hi - rlo, row, :length] = \
                         stacked[:, :length]
                 else:  # recurrent state: whole overwrite
@@ -426,14 +705,138 @@ def make_pool_round_step(cfg: ModelConfig, kinds: Tuple[str, ...],
 
     def hop(run_params, shared_params, pool_trees, h_round, pos_round,
             emb0_round, slot_of_row, row_of_slot, layer_active, layer_ids):
-        W = h_round.shape[0]
-        n_rows = slot_of_row.shape[0]
-        src = slot_of_row.clamp(0, W - 1)
-        emb0 = None if emb0_round is None else emb0_round[src]
-        h_out = step(run_params, shared_params, pool_trees, h_round[src],
-                     pos_round[src], emb0, layer_active, layer_ids)
-        back = h_out[row_of_slot.clamp(0, n_rows - 1)]
-        keep = (row_of_slot >= 0)[:, None, None]
-        return torch.where(keep, back, h_round)
+        return _round_hop(
+            lambda h, pos, emb0: step(run_params, shared_params, pool_trees,
+                                      h, pos, emb0, layer_active, layer_ids),
+            h_round, pos_round, emb0_round, slot_of_row, row_of_slot)
+
+    return hop
+
+
+def _round_hop(step, h_round, pos_round, emb0_round, slot_of_row,
+               row_of_slot):
+    """Gather a hop's rows out of the round buffers, run ``step(h, pos,
+    emb0)`` over them, scatter the results back."""
+    W = h_round.shape[0]
+    n_rows = slot_of_row.shape[0]
+    src = slot_of_row.clamp(0, W - 1)
+    emb0 = None if emb0_round is None else emb0_round[src]
+    h_out = step(h_round[src], pos_round[src], emb0)
+    back = h_out[row_of_slot.clamp(0, n_rows - 1)]
+    keep = (row_of_slot >= 0)[:, None, None]
+    return torch.where(keep, back, h_round)
+
+
+# ---------------------------------------------------------------------------
+# Paged steps: gather pages -> run the slab step -> scatter back
+# ---------------------------------------------------------------------------
+#
+# The paged entry points reimplement no block math.  They gather each
+# row's pages into scratch whose self-KV leaves have the exact contiguous
+# (layers, n_rows, max_len, Kv, hd) slab shape, run the UNCHANGED slab step
+# on it (which writes the scratch and the row-resident leaves in place),
+# and scatter the written pages back into the physical page arrays.  Paged
+# results equal slab results: positions inside a session's pages hold the
+# same values either way, and positions outside (trash-page garbage where
+# the slab holds stale rows) are read only through the causal masks, whose
+# probabilities are exactly zero in both layouts (K1 reads only [lo, hi);
+# K2 masks with a finite -1e30 and zeroed probabilities).
+
+
+def _gather_paged(runs, pool_trees, page_table, page_size: int):
+    """Slab-shaped scratch: self-KV leaves (L, n_phys, page, ...) ->
+    (L, n_rows, max_pages*page, ...) by one indexed gather per leaf;
+    row-resident leaves pass through (the step writes them in place)."""
+    n_rows, max_pages = page_table.shape
+    scratch = []
+    for r in range(len(runs)):
+        t = dict(pool_trees[r])
+        for key in LENGTH_KEYS & t.keys():
+            X = t[key]
+            t[key] = X[:, page_table].reshape(
+                (X.shape[0], n_rows, max_pages * page_size) + X.shape[3:])
+        scratch.append(t)
+    return tuple(scratch)
+
+
+def _scatter_paged(runs, pool_trees, scratch, page_table, page_size: int,
+                   pos=None):
+    """Fold the step's scratch writes back into the physical page arrays.
+
+    ``pos is None`` (prefill): every table entry writes its page back —
+    rows the step masked out write their own gathered values.  ``pos``
+    (n_rows,) (decode): only the page holding each row's write position
+    goes back (page index ``pos // page_size`` and page id computed on the
+    device).  Unassigned entries all target the trash page 0, whose
+    contents are unspecified but never read at a masked-in position; no
+    real page is written twice in one call (rows own disjoint pages)."""
+    n_rows, max_pages = page_table.shape
+    for r in range(len(runs)):
+        for key in LENGTH_KEYS & pool_trees[r].keys():
+            X = pool_trees[r][key]  # (L, n_phys, page, ...)
+            S = scratch[r][key].view(
+                (X.shape[0], n_rows, max_pages, page_size) + X.shape[3:])
+            if pos is None:
+                X[:, page_table] = S
+            else:
+                pidx = torch.clamp(pos // page_size, 0, max_pages - 1)
+                ppid = page_table.gather(1, pidx[:, None])[:, 0]
+                rows = torch.arange(n_rows, device=pidx.device)
+                X[:, ppid] = S[:, rows, pidx]
+
+
+def make_paged_decode_step(cfg: ModelConfig, kinds: Tuple[str, ...],
+                           backend: str = "kernel", page_size: int = 16):
+    """Paged twin of :func:`make_pool_decode_step`: the same contract with
+    the device page table ``(n_rows, max_pages)`` inserted after the pool
+    trees."""
+    body = make_pool_decode_step(cfg, kinds, backend)
+    runs = kind_runs(kinds)
+
+    def step(run_params, shared_params, pool_trees, page_table, h, pos,
+             emb0, layer_active, layer_ids):
+        scratch = _gather_paged(runs, pool_trees, page_table, page_size)
+        h = body(run_params, shared_params, scratch, h, pos, emb0,
+                 layer_active, layer_ids)
+        _scatter_paged(runs, pool_trees, scratch, page_table, page_size, pos)
+        return h
+
+    return step
+
+
+def make_paged_prefill_step(cfg: ModelConfig, kinds: Tuple[str, ...],
+                            backend: str = "kernel", page_size: int = 16):
+    """Paged twin of :func:`make_pool_prefill_step` (page table inserted
+    after the pool trees)."""
+    body = make_pool_prefill_step(cfg, kinds, backend)
+    runs = kind_runs(kinds)
+
+    def step(run_params, shared_params, pool_trees, page_table, h, emb0,
+             layer_active, layer_ids, offset):
+        scratch = _gather_paged(runs, pool_trees, page_table, page_size)
+        h = body(run_params, shared_params, scratch, h, emb0, layer_active,
+                 layer_ids, offset)
+        _scatter_paged(runs, pool_trees, scratch, page_table, page_size)
+        return h
+
+    return step
+
+
+def make_paged_round_step(cfg: ModelConfig, kinds: Tuple[str, ...],
+                          backend: str = "kernel", page_size: int = 16):
+    """Paged twin of :func:`make_pool_round_step`: the fused hop with the
+    page gather/scatter around the same decode step.  Rows outside the hop
+    take a placeholder position; the page it selects is the row's own (a
+    write of its own gathered values) or the trash page."""
+    step = make_paged_decode_step(cfg, kinds, backend, page_size)
+
+    def hop(run_params, shared_params, pool_trees, page_table, h_round,
+            pos_round, emb0_round, slot_of_row, row_of_slot, layer_active,
+            layer_ids):
+        return _round_hop(
+            lambda h, pos, emb0: step(run_params, shared_params, pool_trees,
+                                      page_table, h, pos, emb0, layer_active,
+                                      layer_ids),
+            h_round, pos_round, emb0_round, slot_of_row, row_of_slot)
 
     return hop

@@ -1,12 +1,21 @@
-"""Token selection for the serving engine: the greedy part of the
-reference's ``repro/serving/sampling.py``.
+"""Token-level sampling policies for the serving engine — the reference's
+``repro/serving/sampling.py`` on the port's threefry (``serving.prng``).
 
-``SamplingSpec`` validates like the reference.  Only greedy decoding runs
-in this slice: the reference draws temperature / top-k tokens from
-threefry keys ``fold_in(PRNGKey(seed), i)``, and matching those streams
-bit for bit is ROADMAP A6 — a row with ``temperature > 0`` raises
-``NotImplementedError`` here.  Greedy is ``argmax(logits)`` with the first
-maximal index winning, as ``jnp.argmax``.
+A session declares its policy at admission via :class:`SamplingSpec`; the
+engine passes the per-row parameters (temperature, top-k, seed, token
+index) to ONE vectorised sampler call per decode round, so co-resident
+sessions with different policies share the round.
+
+Determinism contract (the reference's): the key for a session's ``i``-th
+generated token is ``fold_in(PRNGKey(seed), i)`` — a pure function of
+(seed, token index) — so a session draws the identical stream whether it
+decodes alone or among neighbours, before or after a failover replay or a
+preemption (replay does not re-sample).  Keys and the uniforms under the
+Gumbel draws are the reference's bit for bit; the Gumbel values go through
+``log`` and may differ from XLA's in the last bits (see ``prng``).
+
+``greedy`` is temperature 0 and reduces to ``argmax(logits)`` (the first
+maximal index, as ``jnp.argmax``).
 """
 from __future__ import annotations
 
@@ -16,13 +25,21 @@ import numpy as np
 import torch
 
 from repro_torch.models.layers import lm_head
+from repro_torch.serving import prng
+from repro_torch.serving.kv_cache import to_device
 
 SAMPLING_KINDS = ("greedy", "temperature", "top_k")
 
 
 @dataclass(frozen=True)
 class SamplingSpec:
-    """Per-session token sampling policy (see the reference)."""
+    """Per-session token sampling policy (see the reference).
+
+    * ``greedy``       — argmax (the default; temperature/top_k ignored).
+    * ``temperature``  — softmax sampling at ``temperature``.
+    * ``top_k``        — restrict to the ``top_k`` highest logits, then
+      sample at ``temperature``.
+    """
 
     kind: str = "greedy"
     temperature: float = 1.0
@@ -42,42 +59,82 @@ class SamplingSpec:
             raise ValueError("seed must be in [0, 2**32)")
 
     def row_params(self):
-        """(temperature, top_k): greedy is temperature 0."""
+        """(temperature, top_k): greedy is temperature 0; top_k 0 means
+        the full vocabulary."""
         if self.kind == "greedy":
             return 0.0, 0
         if self.kind == "temperature":
             return float(self.temperature), 0
         return float(self.temperature), int(self.top_k)
 
-
-def _require_greedy(temperature):
-    if np.any(np.asarray(temperature) > 0.0):
-        raise NotImplementedError(
-            "temperature / top-k sampling needs the reference's threefry "
-            "key streams (ROADMAP A6); this slice decodes greedily")
+    def key_for(self, token_index: int) -> torch.Tensor:
+        """PRNG key (2,) of this session's ``token_index``-th generated
+        token; the round tail derives the same key on the device."""
+        return _key_for_row(self.seed, token_index)
 
 
-def sample_tokens(logits, temperature) -> torch.Tensor:
-    """Greedy row sampler: logits (N, V) -> (N,) tokens.  ``temperature``
-    is the host-side (N,) row policy; any row above 0 raises."""
-    _require_greedy(temperature)
-    return torch.argmax(logits.float(), dim=-1)
+def _key_for_row(seed, token_index) -> torch.Tensor:
+    """fold_in(PRNGKey(seed), token_index) — THE key derivation, for
+    scalars or (N,) rows (tensors on any device)."""
+    key = prng.prng_key(seed, getattr(seed, "device", None))
+    return prng.fold_in(key, token_index)
+
+
+def _sample_rows(logits, temperature, top_k, keys) -> torch.Tensor:
+    """The branchless row sampler over (N, V) logits with (N,) temperature
+    / top_k tensors and (N, 2) keys on the logits' device: top-k masks the
+    logits below each row's k-th largest (``top_k`` 0: no mask), the
+    Gumbel-max draw takes ``argmax(masked / max(T, 1e-6) + gumbel)``, and
+    rows at ``T == 0`` take ``argmax(logits)``."""
+    logits = logits.float()
+    v = logits.shape[-1]
+    greedy = torch.argmax(logits, dim=-1)
+    desc = torch.sort(logits, dim=-1, descending=True).values
+    kth = desc.gather(-1, (top_k.long() - 1).clamp(0, v - 1)[:, None])
+    masked = torch.where((top_k[:, None] > 0) & (logits < kth),
+                         float("-inf"), logits)
+    t = torch.clamp(temperature.float(), min=1e-6)[:, None]
+    drawn = torch.argmax(masked / t + prng.gumbel(keys, v), dim=-1)
+    return torch.where(temperature > 0.0, drawn, greedy)
+
+
+def make_sampler():
+    """THE row sampler: (logits (N, V), temperature (N,), top_k (N,),
+    keys (N, 2)) -> (N,) tokens, every operand a tensor on one device."""
+    return _sample_rows
+
+
+def sample_rows(logits, temperature, top_k, seeds, token_index
+                ) -> torch.Tensor:
+    """Sample (N,) tokens from (N, V) logits with host (N,) row policies:
+    ``temperature``, ``top_k``, ``seeds`` and ``token_index``.  A batch
+    without a row above temperature 0 is one argmax: nothing is staged and
+    no Gumbel is drawn.  Otherwise the rows' policies are staged to the
+    logits' device (pinned, asynchronous) and the keys derived there."""
+    temperature = np.asarray(temperature, np.float32)
+    if not np.any(temperature > 0.0):
+        return torch.argmax(logits.float(), dim=-1)
+    dev = logits.device
+    keys = _key_for_row(to_device(np.asarray(seeds, np.int64), dev),
+                        to_device(np.asarray(token_index, np.int64), dev))
+    return _sample_rows(logits, to_device(temperature, dev),
+                        to_device(np.asarray(top_k, np.int64), dev), keys)
 
 
 def make_round_tail(cfg):
     """THE fused decode-round tail: ONE lm_head over the round's W slots
-    and one argmax.
+    and one row-sampler call.
 
-    tail(embed_params, h_round (W, 1, d), temperature (W,))
-        -> (tokens (W,), logits (W, V))
+    tail(embed_params, h_round (W, 1, d), temperature (W,), top_k (W,),
+         seeds (W,), token_index (W,)) -> (tokens (W,), logits (W, V))
 
-    The row temperatures are a host array (no transfer); unused slots
-    carry temperature 0.  Rows are independent throughout, so a slot's result
-    does not depend on its neighbours."""
+    The row policies are host arrays; unused slots carry temperature 0.
+    Rows are independent throughout, so a slot's result does not depend on
+    its neighbours."""
 
-    def tail(embed_params, h_round, temperature):
-        _require_greedy(temperature)
+    def tail(embed_params, h_round, temperature, top_k, seeds, token_index):
         logits = lm_head(embed_params, cfg, h_round)[:, 0]
-        return torch.argmax(logits.float(), dim=-1), logits
+        return sample_rows(logits, temperature, top_k, seeds,
+                           token_index), logits
 
     return tail

@@ -44,6 +44,7 @@ import numpy as np
 from repro_torch.core.online import OnlineBPRR
 from repro_torch.core.perf_model import Problem
 from repro_torch.serving.engine import GeoServingSystem
+from repro_torch.serving.kv_cache import pages_for
 from repro_torch.serving.sampling import SamplingSpec
 
 
@@ -67,8 +68,8 @@ class ServedRequest:
     # "server_lost_mid_prefill", "admission_rejected", ...); None otherwise
     fail_reason: Optional[str] = None
     n_deferrals: int = 0
-    # times the session was swapped out mid-generation (a capacity-starved
-    # failover deferral)
+    # times the session was swapped out mid-generation (page pressure on
+    # the paged layout, or a capacity-starved failover deferral)
     n_preemptions: int = 0
     # failure-recovery accounting mirrored off the engine session (see
     # docs/concurrency.md "Failure model"): timeout detections, backoff
@@ -100,11 +101,22 @@ class _Pending:
 
 
 def _slot_scale(system: GeoServingSystem) -> float:
-    """Eq. (20) capacity multiplier for the controller: 1 on the slab
-    layout, which books a worst-case slot of ``s_c`` bytes per block, so
-    the controller's ⌊(M_j − s_m·m_j)/s_c⌋ capacity is exact (the paged
-    layout's page-granular scale is ROADMAP A8)."""
-    return 1.0
+    """Page-granular eq. (20) capacity multiplier for the controller.
+
+    The slab layout books a worst-case slot of ``s_c`` bytes (``l_in +
+    l_out`` tokens) per block, so the controller's ⌊(M_j − s_m·m_j)/s_c⌋
+    capacity is exact (scale 1).  Paged admission books only the PROMPT's
+    pages — ``pages_for(l_in) · page_size`` tokens — and sessions grow
+    page by page afterwards, preempting under pressure; the controller's
+    CG-BP reservation and eq. (20) waiting times see that admission
+    footprint, so ``s_c`` shrinks by ``total_tokens /
+    prompt_page_tokens``."""
+    if system.cache_layout != "paged":
+        return 1.0
+    wl = system.problem.workload
+    booked_tokens = pages_for(min(int(wl.l_in), system.max_seq_len),
+                              system.page_size) * system.page_size
+    return wl.total_tokens / max(1, booked_tokens)
 
 
 def _problem_with_dead(problem: Problem, dead) -> Problem:
@@ -134,7 +146,8 @@ class ContinuousBatchingScheduler:
         self.system = system
         self.controller = OnlineBPRR(system.problem, R=R,
                                      arrival_rate=arrival_rate,
-                                     slot_scale=_slot_scale(system))
+                                     slot_scale=_slot_scale(system),
+                                     placement=system.placement)
         # fault sync state: servers the controller already knows are dead /
         # suspected (diffed against the engine at every event)
         self._known_dead: frozenset = frozenset()
@@ -311,9 +324,10 @@ class ContinuousBatchingScheduler:
         req = self._requests[idx]
         sess = self.system.sessions[req.sid]
         # continuous batching: co-resident sessions share decode rounds until
-        # the ending session has produced all its tokens.  A deferred
-        # session may sit swapped out ("preempted") between rounds — keep
-        # driving rounds; the engine's resume queue brings it back.
+        # the ending session has produced all its tokens.  A session may
+        # sit swapped out ("preempted": page pressure or a failover
+        # deferral) between rounds — keep driving rounds; the engine's
+        # resume queue brings it back.
         while (sess.state in ("active", "preempted")
                and sess.n_generated < sess.n_new):
             self.system.decode_round()

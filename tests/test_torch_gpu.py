@@ -399,3 +399,112 @@ def test_engine_kernel_equals_plain_backend(cuda, arch):
         ran = [k.launches - b for k, b in zip(PATH_KERNELS[arch], before)]
         assert (min(ran) > 0) == (backend == "kernel"), ran
     assert streams["kernel"] == streams["plain"]
+
+
+def test_page_table_round_trip(cuda):
+    """A paged pool on the card: the device page table equals the host
+    table after every change (each upload staged through its own pinned
+    buffer), a gather/scatter round trip leaves every real page as it
+    was, and a decode scatter writes only the page holding ``pos``."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.serving import CachePool
+    from repro_torch.serving.kv_cache import _gather_paged, _scatter_paged
+
+    cfg = get_reduced_config("llama3_2_1b")
+    pool = CachePool(cfg, ("decoder", "decoder"), n_rows=4, max_len=16,
+                     cap_slots=8, layout="paged", page_size=4, device=cuda)
+    tables = []
+    for sid, pages in ((0, 2), (1, 3), (2, 1)):
+        pool.alloc(sid, 2, n_pages=pages)
+        tables.append(pool.page_table())
+    pool.grow_pages(0, 4)
+    pool.release(1)
+    tables.append(pool.page_table())
+    torch.cuda.synchronize()
+    assert torch.equal(tables[-1].cpu(),
+                       torch.from_numpy(pool.pages.table.astype(np.int64)))
+    assert tables[0].cpu()[pool.rows[0], :2].tolist() == [1, 2]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for key, leaf in pool.tree[0].items():
+        leaf.copy_(torch.randn(leaf.shape, generator=g, device=cuda))
+    before = {k: v.clone() for k, v in pool.tree[0].items()}
+    table = pool.page_table()
+    scratch = _gather_paged(pool.runs, pool.tree, table, 4)
+    assert scratch[0]["k"].shape == (2, 4, 16, cfg.n_kv_heads, cfg.head_dim)
+    assert scratch[0]["k"].is_contiguous()
+    _scatter_paged(pool.runs, pool.tree, scratch, table, 4)
+    for key in before:  # every real page unchanged (page 0 is the trash)
+        assert torch.equal(pool.tree[0][key][:, 1:], before[key][:, 1:])
+    row = pool.rows[0]
+    scratch[0]["k"][:, row] += 1.0
+    pos = torch.zeros(4, dtype=torch.int64, device=cuda)
+    pos[row] = 9  # page index 2 of row 0
+    _scatter_paged(pool.runs, pool.tree, scratch, table, 4, pos)
+    changed = (pool.tree[0]["k"] != before["k"]).flatten(2).any(-1).any(0)
+    assert changed[1:].nonzero().flatten().tolist() == [
+        int(pool.pages.table[row, 2]) - 1]
+
+
+def test_threefry_bits_cuda_equal_cpu(cuda):
+    """Keys, bits and uniforms from the same (seed, index) rows are
+    bit-identical on the card and on the CPU."""
+    from repro_torch.serving import prng
+    from repro_torch.serving.sampling import _key_for_row
+
+    seeds = torch.tensor([0, 1, 2 ** 31, 2 ** 32 - 1]).repeat_interleave(4)
+    index = torch.tensor([0, 1, 2 ** 31, 2 ** 32 - 1]).repeat(4)
+    keys = [_key_for_row(seeds.to(d), index.to(d)) for d in ("cpu", cuda)]
+    assert keys[1].device.type == torch.device(cuda).type
+    assert torch.equal(keys[0], keys[1].cpu())
+    bits = [prng.random_bits(k, 4099).cpu() for k in keys]
+    assert torch.equal(bits[0], bits[1])
+    u = [prng.uniform(k, 4099, prng.F32_TINY).cpu() for k in keys]
+    assert torch.equal(u[0].view(torch.int32), u[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("arch", ["llama3_2_1b", "zamba2_7b"])
+def test_engine_paged_equals_slab(cuda, arch):
+    """A reduced stack on the card under the paged layout, with a session
+    preempted mid-decode and resumed: the slab layout's streams, sampled
+    sessions included, and the kernels of the path ran."""
+    import repro_torch.core as C
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import GeoServingSystem, SamplingSpec
+
+    cfg = get_reduced_config(arch)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    llm = C.LLMSpec("t", cfg.n_layers, block_bytes=100.0,
+                    cache_bytes_per_token=1.0)
+    servers = [C.ServerSpec(j, 2000.0, 0.01 * (j + 1)) for j in range(2)]
+    rtt = np.full((1, 2), 0.02)
+    prob = C.Problem(llm, servers, 1, rtt, 3 * rtt, workload=C.Workload(4, 4))
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(2, cfg.vocab_size, n) for n in (4, 6, 4)]
+    specs = [SamplingSpec(), SamplingSpec("temperature", temperature=3.0,
+                                          seed=5),
+             SamplingSpec("top_k", temperature=2.0, top_k=4, seed=2 ** 32 - 1)]
+    streams = {}
+    for layout in ("slab", "paged"):
+        system = GeoServingSystem(cfg, params, prob, R=2, max_new_tokens=4,
+                                  max_sessions=4, cache_layout=layout,
+                                  page_size=2)
+        route, _ = C.shortest_path_route(system.problem,
+                                         system.alive_placement(), 0)
+        sids = [system.create_session(p, 0, route, 4, sampling=s)
+                for p, s in zip(prompts, specs)]
+        before = [k.launches for k in PATH_KERNELS[arch]]
+        assert system.try_admit_sessions(sids) == sids
+        system.drain_prefill()
+        system.decode_round(sids)
+        if layout == "paged":
+            system.preempt_session(sids[0])
+        while any(system.sessions[s].n_generated < 4 for s in sids):
+            system.decode_round()
+        assert min(k.launches - b for k, b in
+                   zip(PATH_KERNELS[arch], before)) > 0
+        streams[layout] = [list(system.sessions[s].tokens) for s in sids]
+        if layout == "paged":
+            assert system.round_stats["resumes"] == 1
+    assert streams["paged"] == streams["slab"]
