@@ -9,20 +9,29 @@ Phases (any failure raises, so the exit code is not 0):
              sources from ``src/repro_torch/kernels/csrc`` with nvcc for
              sm_90a (one nvcc per source, in parallel); the build seconds,
              ptxas registers and spills of each K1 / K2 / K3 / K4
-             instantiation, and the TF32 tensor-core instructions
+             instantiation (a tensor-core K2 instantiation that spills
+             fails the phase), and the TF32 tensor-core instructions
              (HMMA.1688.F32.TF32) in the scans' SASS.
-2. serve   — three full-width models in bf16 (random weights from a seed),
+2. serve   — five full-width models in bf16 (random weights from a seed),
              one after the other, each served through the port's
              GeoServingSystem + ContinuousBatchingScheduler on 5 virtual
              servers (CG-BP placement split over >= 2 of them, WS-RR
              routing), 8 Poisson requests of 32-128 prompt tokens and 32
              new tokens: Llama-3.2-1B (K1 decode and K2 flash attention),
              RWKV6-7B (K3 WKV6 in prefill), Zamba2-7B (K4 SSD in prefill,
-             K2/K1 at head dim 224 in its shared attention).  Each path's
-             kernel counters are zeroed just before its run and read just
-             after; each kernel must have run, and every decode round must
-             make exactly one host sync.
-   paged   — Llama-3.2-1B again on paged pools (page size 16), the same
+             K2/K1 at head dim 224 in its shared attention), DeepSeek-V2
+             cut to 4 layers (MLA: K2 at (192, 128) with Kv = H in
+             prefill, K1 absorbed at G = 128 in head groups in decode; MoE
+             160 experts top-6 + 2 shared, per-row capacity; the drop
+             fraction is printed) and Gemma-3-4B at full depth with one
+             more prompt of 1280 tokens (head dim 256; its local layers'
+             window of 1024 masks in K2, on the prompt's second chunk at
+             q_start 1024, and in K1).  Each path's kernel counters are
+             zeroed just before its run and read just after; each kernel
+             must have run, and every decode round must make exactly one
+             host sync.
+   paged   — Llama-3.2-1B and DeepSeek-V2 again on paged pools (page
+             size 16; MLA latents paged as one joint buffer), the same
              requests: K1 and K2 launched, the greedy streams equal the
              slab run's, one host sync in every decode round that neither
              preempts nor resumes; round walls and tokens/s beside the
@@ -41,26 +50,31 @@ Phases (any failure raises, so the exit code is not 0):
              those of an all-greedy run, one host sync per fused round;
              the round tail's device time and host wall.
 3. kernels — K1-K4 against their plain PyTorch versions on the card: a
-             feature sweep (attention in bf16 and f32 up to head dim 224,
+             feature sweep (attention in bf16 and f32 up to head dim 576,
              K1's split-KV edges — long caches, windows across splits,
-             empty splits, fully masked rows, one split — K2 at every
-             (Dk, Dv) pair, misaligned bf16 views that must raise; the
+             empty splits, fully masked rows, one split — K1's head groups
+             (MLA G = 128, G = 16 with ALiBi), K2 at every (Dk, Dv) pair
+             of each dtype, misaligned bf16 views that must raise; the
              chunked scans in f32 with ragged S, S = 1, carried state, S at
              Q - 1, Q, Q + 1 and 4Q + 3 of each kernel's chunk Q, K3 decays
              down to lw = -60, walked and parallel chunks, bit-identical
              repeats, zero-pad state invariance and misaligned views that
              must raise), and the paths' own captured inputs and one long
              shape each, timed (kernel, plain, one PyTorch SDPA call where
-             one exists, and the bound), with K1's split plan, the K2
-             design and the scans' chunk plan (Q, launches a call) that
-             served each row.
+             one exists, and the bound), with K1's head groups and split
+             plan, the K2 design and the scans' chunk plan (Q, launches a
+             call) that served each row.
 4. parity  — Llama-3.2-1B in f32: engine greedy streams equal the
              monolithic prefill/decode_step streams; first-step logits
              agree with a monolithic forward on the plain attention; a
              kill_server drill leaves the stream unchanged.  Reduced
              RWKV6 and zamba2 in f32: the engine on the kernels gives the
              monolithic streams on the plain versions, through the
-             scheduler and through a kill_server drill.
+             scheduler and through a kill_server drill.  Reduced
+             DeepSeek-V2 and Llama-4-Scout in f32: the engine on the
+             kernels gives the engine-on-plain streams (scheduler and
+             kill_server drill); the monolithic ones where nothing was
+             dropped.
 
 The last lines are the kernels JSON, the nvidia-smi name/power line, and
 the result JSON.  Without a CUDA device, or outside the repository, the
@@ -128,8 +142,7 @@ def copies(torch, tensors, min_bytes=64 << 20):
     size = sum(t.numel() * t.element_size() for t in tensors
                if torch.is_tensor(t))
     n = max(2, math.ceil(min_bytes / max(size, 1)))
-    return [[t.clone() if torch.is_tensor(t) else t for t in tensors]
-            for _ in range(n)]
+    return [clone_args(torch, tensors) for _ in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -146,10 +159,13 @@ def _bound(nbytes, flops, dtype):
 
 def decode_bound(q, k, v, pos, window=None, kv_len=None):
     """Bytes/flops this decode call needs: the query, each K/V row the
-    mask reaches (data dependent: per row from pos), the output."""
+    mask reaches (data dependent: per row from pos), the output.  Values
+    that are columns of the keys' rows (absorbed MLA decode) are bytes
+    already counted with the keys."""
     B, _, H, Dk = q.shape
     T, Kv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     es = q.element_size()
+    v_bytes = 0 if v.data_ptr() == k.data_ptr() else Dv
     pos_l = [int(p) for p in pos.tolist()]
     kvl = [T] * B if kv_len is None else [int(x) for x in kv_len.tolist()]
     rows = 0
@@ -157,19 +173,22 @@ def decode_bound(q, k, v, pos, window=None, kv_len=None):
         hi = min(p + 1, kl, T)
         lo = 0 if window is None else max(0, p - window + 1)
         rows += max(hi - lo, 0)
-    nbytes = (B * H * Dk + B * H * Dv) * es + rows * Kv * (Dk + Dv) * es \
-        + 4 * B
+    nbytes = (B * H * Dk + B * H * Dv) * es \
+        + rows * Kv * (Dk + v_bytes) * es + 4 * B
     flops = 2 * rows * H * (Dk + Dv)
     return _bound(nbytes, flops, str(q.dtype).split(".")[-1])
 
 
-def prefill_bound(q, k, v, q_start=0):
+def prefill_bound(q, k, v, q_start=0, window=None):
     """Bytes/flops of a causal prefill call: q, k, v read once, out written
-    once; score and P.V flops over the causally valid pairs."""
+    once; score and P.V flops over the causally valid pairs (inside the
+    window when there is one)."""
     B, Sq, H, Dk = q.shape
     Skv, Dv = k.shape[1], v.shape[-1]
     es = q.element_size()
-    pairs = sum(min(q_start + i + 1, Skv) for i in range(Sq))
+    w = Skv + Sq if window is None else window
+    pairs = sum(min(q_start + i + 1, Skv) - max(0, q_start + i - w + 1)
+                for i in range(Sq))
     nbytes = (q.numel() + k.numel() + v.numel() + B * Sq * H * Dv) * es
     flops = 2 * B * H * pairs * (Dk + Dv)
     return _bound(nbytes, flops, str(q.dtype).split(".")[-1])
@@ -242,6 +261,9 @@ def phase_build():
         if name in ("wkv6", "ssd"):
             log(f"[build]     csrc/{name}.cu SASS: "
                 f"{tf32_mma_count(runtime.library_path(name))}")
+        if name == "flash_attention_sm90" and spills:
+            raise RuntimeError("a tensor-core K2 instantiation spills to "
+                               "local memory")
     for name in runtime.KERNEL_SOURCES:
         if not runtime.library_path(name).exists():
             raise RuntimeError(f"kernel library {name} was not built")
@@ -257,12 +279,18 @@ def poisson_arrivals(n, rate, seed):
 def serve_problem(C, name, n_layers):
     """examples/geo_serve.py's 5-server cluster with memory scaled by depth
     (x L/16 from 16 layers up), so CG-BP covers every block with the stack
-    split over at least two servers and 8 rows per server."""
+    split over at least two servers and 8 rows per server.  A stack cut
+    below 16 layers (DeepSeek-V2 at 4) would fit whole on every server at
+    x 1, and at x L/16 leave blocks uncovered: it takes 0.3 of the memory
+    and half the cache bytes per token, where CG-BP places [0,3) [1,4)
+    [0,1) [3,4) [1,2) with >= 8 rows on each server."""
     import numpy as np
 
-    scale = max(1.0, n_layers / 16)
+    scale, cache = max(1.0, n_layers / 16), 0.25
+    if n_layers < 16:
+        scale, cache = 0.3, 0.125
     llm = C.LLMSpec(name, n_layers, block_bytes=50.0,
-                    cache_bytes_per_token=0.25)
+                    cache_bytes_per_token=cache)
     mem = tuple(scale * m for m in (1600.0, 1600.0, 700.0, 700.0, 700.0))
     tau = (0.004, 0.004, 0.02, 0.02, 0.02)
     servers = [C.ServerSpec(j, m, t) for j, (m, t) in enumerate(zip(mem,
@@ -278,18 +306,30 @@ PATH_KERNELS = {
     "llama3_2_1b": ("decode_attention", "flash_attention"),
     "rwkv6_7b": ("wkv6",),
     "zamba2_7b": ("ssd", "decode_attention", "flash_attention"),
+    "deepseek_v2_236b": ("decode_attention", "flash_attention"),
+    "gemma3_4b": ("decode_attention", "flash_attention"),
 }
+# served configurations cut in depth (DeepSeek-V2's 60 layers of ~6.24 B
+# params each, 256 expert slots included, do not fit the card: 4 of them
+# and the embedding and head take ~52 GB), and the extra prompt of a serve:
+# gemma3's 1280 tokens reach past its 1024-token window, so the local
+# layers mask in K2 (the prompt's second chunk, q_start 1024) and in K1
+SERVE_DEPTH = {"deepseek_v2_236b": 4}
+LONG_PROMPT = {"gemma3_4b": 1280}
+# gemma3 prefills in chunks of at most 1024 tokens (the buckets stop there)
+PREFILL_CAP = {"gemma3_4b": 1024}
 
 
 def phase_serve(torch, arch, captured, layout="slab", slab=None):
     """Serve one full-width model in bf16 (random weights from a seed)
     through GeoServingSystem + ContinuousBatchingScheduler: 8 Poisson
     requests, prompts of 32-128 tokens (several distinct lengths), 32 new
-    tokens each.  The path's kernel counters are zeroed just before the
+    tokens each (gemma3: and one prompt of 1280 tokens; DeepSeek-V2 cut
+    to 4 layers).  The path's kernel counters are zeroed just before the
     scheduler run and read just after; every kernel of the path must have
     launched, every decode round must make exactly one host sync, and every
-    stream must be complete.  On the slab layout one real call of each
-    kernel is kept for the kernel phase (``captured[(arch, name)]``).
+    stream must be complete.  On the slab layout real calls of each kernel
+    are kept for the kernel phase (``captured[(arch, name)]``).
     ``layout="paged"`` serves the same requests on page-size-16 pools: the
     greedy streams must equal the slab run's (``slab``), and the one-sync
     rule holds in every round that preempts or resumes nothing.  Returns
@@ -301,28 +341,43 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
     from repro_torch.configs import get_config
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import init_params
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import ssm as ssm_mod
     from repro_torch.serving import (ContinuousBatchingScheduler,
                                      GeoServingSystem)
+    from repro_torch.serving.kv_cache import default_prefill_buckets
 
     cfg = get_config(arch)
+    if arch in SERVE_DEPTH:
+        cfg = cfg.replace(n_layers=SERVE_DEPTH[arch])
     tag = f"[serve {arch}]" if layout == "slab" else f"[paged {arch}]"
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
     torch.cuda.synchronize()
     n_params = sum(x.numel() for x in _leaves(params))
-    log(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{n_params / 1e9:.2f} B params in {cfg.param_dtype}; random init "
-        f"{time.perf_counter() - t0:.1f} s; device memory "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    log(f"{tag} {cfg.name}: {cfg.n_layers} layers"
+        + (f" (of {get_config(arch).n_layers})" if arch in SERVE_DEPTH
+           else "")
+        + f", d_model {cfg.d_model}, {n_params / 1e9:.2f} B params in "
+        f"{cfg.param_dtype}; random init {time.perf_counter() - t0:.1f} s; "
+        f"device memory {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+        f"(init peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB)")
     problem = serve_problem(C, cfg.name, cfg.n_layers)
+    long_len = LONG_PROMPT.get(arch, 0)
+    kw = {}
+    if long_len:
+        kw["max_seq_len"] = long_len + 64
+    if arch in PREFILL_CAP:
+        kw["prefill_buckets"] = default_prefill_buckets(PREFILL_CAP[arch])
 
     def build():
         return GeoServingSystem(cfg, params, problem, algorithm="proposed",
                                 R=4, max_new_tokens=32, max_sessions=8,
                                 cache_layout=layout,
-                                page_size=16 if layout == "paged" else None)
+                                page_size=16 if layout == "paged" else None,
+                                **kw)
 
     # warm-up: one request through a throwaway engine (cuBLAS handles,
     # kernel libraries loaded); not part of the measured run
@@ -376,19 +431,28 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
     system.prefill_round = timed("prefill", system.prefill_round)
     system.decode_round = timed("decode", system.decode_round)
 
-    # keep one real call of each kernel from the main path (a decode step
-    # well into the run; the longest prefill / scan call) for the kernel
-    # phase; copies are taken only on those calls
+    # keep real calls of each kernel from the main path for the kernel
+    # phase; copies are taken only on those calls (no tensor is read here:
+    # a host read would add a sync to the round)
     real = {"decode_attention": attn_mod.decode_attention,
             "flash_attention": attn_mod.flash_attention,
-            "wkv6": ssm_mod.wkv6, "ssd": ssm_mod.ssd}
+            "wkv6": ssm_mod.wkv6, "ssd": ssm_mod.ssd,
+            "apply_moe": moe_mod.apply_moe}
     n_decode = [0]
+    windowed = []  # the last windowed decode calls (gemma3's local layers)
 
     def keep_decode(q, ck, cv, pos, **kw):
         n_decode[0] += 1
         if n_decode[0] == 200:
             captured[(arch, "decode_attention")] = (
-                (q.clone(), ck.clone(), cv.clone(), pos.clone()), kw)
+                clone_args(torch, (q, ck, cv, pos)), kw)
+        # gemma3: the windowed calls of one decode round while the long
+        # prompt's session is 16 tokens in (its row past the window)
+        long = system.sessions.get(long_sid[0])
+        if long is not None and kw.get("window") is not None and \
+                long.n_generated == 16:
+            windowed.append((clone_args(torch, (q, ck, cv, pos)), kw))
+            del windowed[:-4]
         return real["decode_attention"](q, ck, cv, pos, **kw)
 
     def keep_longest(name):
@@ -396,28 +460,60 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
             key = (arch, name)
             if key not in captured or \
                     args[0].shape[1] > captured[key][0][0].shape[1]:
-                captured[key] = (tuple(a.clone() if torch.is_tensor(a)
-                                       else a for a in args), kw)
+                captured[key] = (clone_args(torch, args), kw)
             return real[name](*args, **kw)
         return keep
 
+    def keep_flash(*args, **kw):
+        # gemma3: the long prompt's second chunk on a local layer (window
+        # and q_start both in play); otherwise the longest call
+        if long_len:
+            if kw.get("q_start", 0) > 0 and kw.get("window") is not None \
+                    and (arch, "flash_attention") not in captured:
+                captured[(arch, "flash_attention")] = (
+                    clone_args(torch, args), kw)
+            return real["flash_attention"](*args, **kw)
+        return keep_longest("flash_attention")(*args, **kw)
+
+    moe_count = {"prefill": [0, 0], "decode": [0, 0]}  # [dropped, routed]
+
+    def count_moe(params_, cfg_, x, per_row=False):
+        out, aux = real["apply_moe"](params_, cfg_, x, per_row=per_row)
+        n = x.shape[1] * cfg_.moe_top_k  # (token, choice) pairs of a row
+        c = moe_count["decode" if x.shape[1] == 1 else "prefill"]
+        c[0] = c[0] + (aux["moe_drop_frac"] * n).sum()
+        c[1] += n * (x.shape[0] if per_row else 1)
+        return out, aux
+
     if layout == "slab":
         attn_mod.decode_attention = keep_decode
-        attn_mod.flash_attention = keep_longest("flash_attention")
+        attn_mod.flash_attention = keep_flash
         ssm_mod.wkv6, ssm_mod.ssd = keep_longest("wkv6"), keep_longest("ssd")
+    if cfg.is_moe:
+        moe_mod.apply_moe = count_moe
     sched = ContinuousBatchingScheduler(system, R=4)
     rng = np.random.RandomState(0)
     arrivals = poisson_arrivals(8, rate=2.0, seed=1)
     lens = rng.randint(32, 129, 8)
     if cfg.family in ("ssm", "hybrid"):
         lens[1::3] = lens[0]  # equal lengths form exact-length groups
-    for rid, (t, n) in enumerate(zip(arrivals, lens)):
-        sched.submit(rid, rng.randint(2, cfg.vocab_size, int(n)), float(t),
-                     n_new=32)
+    prompts = [rng.randint(2, cfg.vocab_size, int(n)) for n in lens]
+    if long_len:  # one long prompt, arriving with the first request
+        arrivals = np.append(arrivals, arrivals[0])
+        prompts.append(rng.randint(2, cfg.vocab_size, long_len))
+    lens = [len(p) for p in prompts]
+    n_req = len(prompts)
+    for rid, (t, p) in enumerate(zip(arrivals, prompts)):
+        sched.submit(rid, p, float(t), n_new=32)
+    long_sid = [None]
+    if long_len:  # the engine session of the long prompt, once created
+        system.create_session = tracking(system.create_session, long_len,
+                                         long_sid)
     kern = {name: getattr(K, name) for name in PATH_KERNELS[arch]}
     for fn in kern.values():
         fn.launches = 0
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
         served = sched.run()
@@ -426,19 +522,35 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
         attn_mod.decode_attention = real["decode_attention"]
         attn_mod.flash_attention = real["flash_attention"]
         ssm_mod.wkv6, ssm_mod.ssd = real["wkv6"], real["ssd"]
+        moe_mod.apply_moe = real["apply_moe"]
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kern.items()}
+    if windowed:  # the captured call that reaches furthest past the window
+        captured[(arch, "decode_attention")] = max(
+            windowed, key=lambda c: int(c[0][3].max()))
 
     ok = [s for s in served if not s.dropped]
     n_gen = sum(len(s.tokens) - int(n) for s, n in zip(served, lens))
-    log(f"{tag} served {len(ok)}/8 requests, prompts "
-        f"{sorted(lens.tolist())} tokens, {n_gen} generated tokens")
+    log(f"{tag} served {len(ok)}/{n_req} requests, prompts "
+        f"{sorted(lens)} tokens, {n_gen} generated tokens; device memory "
+        f"peak in the run {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+        "GiB")
     for s in served:
         log(f"{tag}   req {s.rid}: arrival {s.arrival:.3f} start "
             f"{s.start:.3f} wait {s.wait:.4f} first-token "
             f"{s.first_token:.4f} per-token {s.per_token:.4f} (virtual s) "
             f"deferrals {s.n_deferrals}")
     log(f"{tag} kernel launches in the run: {launches}")
+    if cfg.is_moe:
+        fr = {k: (float(d) / r if r else 0.0) for k, (d, r) in
+              moe_count.items()}
+        log(f"{tag} MoE drop fraction over every (token, choice) pair the "
+            f"pooled rows routed (padding and idle rows included): prefill "
+            f"{fr['prefill']:.4f} of {moe_count['prefill'][1]}, decode "
+            f"{fr['decode']:.4f} of {moe_count['decode'][1]} (per-row "
+            "capacity; a decode row keeps all its choices)")
+        if fr["decode"] != 0.0:
+            raise RuntimeError("a decode row dropped a routed choice")
     log(f"{tag} round_stats {system.round_stats}")
     record = {"launches": launches,
               "streams": [list(map(int, s.tokens)) for s in served],
@@ -468,8 +580,8 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
         log(f"{tag} decode rounds that preempted or resumed: "
             f"{len(swapped)}, host syncs in them "
             f"{sorted(n for n, _ in swapped)}")
-    if len(ok) != 8:
-        raise RuntimeError(f"served {len(ok)}/8")
+    if len(ok) != n_req:
+        raise RuntimeError(f"served {len(ok)}/{n_req}")
     if any(len(s.tokens) != int(n) + 32 for s, n in zip(served, lens)):
         raise RuntimeError("a request did not get its 32 tokens")
     if any(not (0 <= int(t) < cfg.vocab_size) for s in served
@@ -487,10 +599,13 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
     if plain_rounds != {1}:
         raise RuntimeError(f"decode rounds made {sorted(plain_rounds)} host "
                            "syncs; the token readback is the only one")
+    if long_len and layout == "slab" and not windowed:
+        raise RuntimeError("no windowed decode call ran beside the long "
+                           "prompt")
     if slab is not None:
         same = sum(a == b for a, b in zip(record["streams"], slab["streams"]))
-        log(f"{tag} greedy streams equal to the slab run's: {same}/8")
-        if same != 8:
+        log(f"{tag} greedy streams equal to the slab run's: {same}/{n_req}")
+        if same != n_req:
             raise RuntimeError("paged streams differ from the slab streams")
     # the engine's wrapped round methods close over it (a reference
     # cycle): collect it, so the model is gone before the next one loads
@@ -500,6 +615,30 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
     log(f"{tag} freed: device memory "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
     return record
+
+
+def tracking(create, length, box):
+    """``create_session`` that records in ``box[0]`` the sid of the session
+    whose prompt has ``length`` tokens."""
+    def create_tracked(tokens, *a, **kw):
+        sid = create(tokens, *a, **kw)
+        if len(tokens) == length:
+            box[0] = sid
+        return sid
+    return create_tracked
+
+
+def clone_args(torch, args):
+    """Clones of a kernel call's tensor arguments.  Values that are a
+    column view of the keys' buffer (absorbed MLA decode: the latent
+    columns of the joint cache) stay a view of the cloned keys, so the
+    kernel reads the captured call's exact layout."""
+    out = [a.clone() if torch.is_tensor(a) else a for a in args]
+    if len(args) > 2 and torch.is_tensor(args[2]) and \
+            args[2].data_ptr() == args[1].data_ptr() and \
+            args[2].stride() == args[1].stride():
+        out[2] = out[1][..., :args[2].shape[-1]]
+    return out
 
 
 def pooled_step_ms(torch, system, reps=20):
@@ -574,11 +713,13 @@ def scan_ok(got, want):
 def phase_kernels(torch, captured, launches):
     import torch.nn.functional as F
 
-    from repro_torch.kernels import (DESIGNS, HEAD_DIM_PAIRS, HEAD_DIMS,
+    from repro_torch.kernels import (DESIGNS, HEAD_DIM_PAIRS,
+                                     HEAD_DIM_PAIRS_F32, HEAD_DIMS,
                                      attention_ref, decode_attention,
                                      decode_attention_ref, decode_plan,
-                                     flash_attention, ssd, ssd_chunked,
-                                     ssd_plan, wkv6, wkv6_chunked, wkv6_plan)
+                                     flash_attention, head_group,
+                                     ssd, ssd_chunked, ssd_plan, wkv6,
+                                     wkv6_chunked, wkv6_plan)
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -592,9 +733,11 @@ def phase_kernels(torch, captured, launches):
     worst = {"decode_attention": 0.0, "flash_attention": 0.0}
     n_cases = 0
     splits = set()
-    pairs = [(a, b) for a in HEAD_DIMS for b in HEAD_DIMS] + \
-        list(HEAD_DIM_PAIRS)
+    square = [(a, b) for a in HEAD_DIMS for b in HEAD_DIMS]
+    pair_sets = {torch.bfloat16: square + list(HEAD_DIM_PAIRS),
+                 torch.float32: square + list(HEAD_DIM_PAIRS_F32)}
     for dt in (torch.float32, torch.bfloat16):
+        pairs = pair_sets[dt]
         tol = TOL[str(dt).split(".")[-1]]
         for (B, H, Kv, Dk, Dv, T, pos, win, kvl, causal, alibi) in [
             (8, 32, 8, 64, 64, 192, [5, 40, 77, 191, 0, 100, 150, 63],
@@ -621,6 +764,14 @@ def phase_kernels(torch, captured, launches):
             (2, 4, 4, 224, 224, 1024, [1023, 517], None, None, True, False),
             (33, 16, 8, 64, 64, 100, list(range(0, 99, 3)), None, None,
              True, False),
+            # head groups: absorbed MLA (one kv head, G = 128 as 32 groups
+            # of 4; reduced G = 4 at 40/32); G = 16 as 2 groups of 8 with
+            # ALiBi; gemma3's D = 256 with window 1024 past T = 1024
+            (3, 128, 1, 576, 512, 300, [299, 17, 128], None, None, True,
+             False),
+            (2, 4, 1, 40, 32, 70, [69, 33], None, None, True, False),
+            (2, 16, 1, 64, 64, 130, [129, 40], 50, None, True, True),
+            (2, 8, 4, 256, 256, 1344, [1300, 600], 1024, None, True, False),
         ]:
             q = rn(B, 1, H, Dk, dt=dt)
             k, v = rn(B, T, Kv, Dk, dt=dt), rn(B, T, Kv, Dv, dt=dt)
@@ -633,7 +784,9 @@ def phase_kernels(torch, captured, launches):
             torch.cuda.synchronize()
             if kvl and 0 in kvl and not bool((got[kvl.index(0)] == 0).all()):
                 raise RuntimeError("K1: a fully masked row is not zero")
-            splits.add(decode_plan(B, Kv, T, Dk, Dv, q.element_size())[1])
+            g = head_group(H // Kv, Dv)
+            splits.add(decode_plan(B * (H // Kv // g), Kv, T, Dk, Dv,
+                                   q.element_size())[1])
             if not e <= tol:
                 raise RuntimeError(f"K1 {dt} {(B, H, Kv, Dk, Dv, T)} "
                                    f"win {win} err {e} > {tol}")
@@ -652,8 +805,14 @@ def phase_kernels(torch, captured, launches):
             (2, 70, 70, 4, 4, 224, 224, None, 0, True, False),
             (2, 100, 300, 4, 2, 64, 64, None, 0, False, False),
             (1, 200, 200, 8, 2, 128, 128, 70, 0, True, True),
-        ] + [(2, 70, 70, 4, 2, a, b, None, 0, True, False)
-             for a, b in pairs]:
+            # gemma3's long prompt: its second chunk at q_start 1024 with
+            # window 1024 (bf16 only: f32 has no 256 instantiation)
+        ] + ([(1, 320, 1344, 8, 4, 256, 256, 1024, 1024, True, False),
+              (2, 100, 100, 8, 8, 192, 128, None, 0, True, False)]
+             if dt == torch.bfloat16 else
+             [(2, 37, 37, 4, 4, 24, 16, None, 0, True, False)]) + [
+            (2, 70, 70, 4, 2, a, b, None, 0, True, False)
+            for a, b in pairs]:
             q = rn(B, S, H, Dk, dt=dt)
             k, v = rn(B, Skv, Kv, Dk, dt=dt), rn(B, Skv, Kv, Dv, dt=dt)
             sl = torch.linspace(0.05, 0.5, H, device=dev) if alibi else None
@@ -780,34 +939,49 @@ def phase_kernels(torch, captured, launches):
         f"ValueError; worst abs {scan_worst}")
 
     # -- the paths' own inputs and one long shape: error + timing ----------
-    def sdpa_decode(q, k, v, pos):
+    def sdpa_decode(q, k, v, pos, window=None, scale=None):
         T = k.shape[1]
-        mask = (torch.arange(T, device=dev)[None, :]
-                <= pos[:, None])[:, None, None, :]
+        diff = pos[:, None] - torch.arange(T, device=dev)[None, :]
+        ok = diff >= 0
+        if window is not None:
+            ok = ok & (diff < window)
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=mask, enable_gqa=True).transpose(1, 2)
+            attn_mask=ok[:, None, None, :], scale=scale,
+            enable_gqa=True).transpose(1, 2)
 
-    def sdpa_prefill(q, k, v):
+    def sdpa_prefill(q, k, v, q_start=0, window=None):
+        if not q_start and window is None:
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True).transpose(1, 2)
+        diff = (q_start + torch.arange(q.shape[1], device=dev))[:, None] \
+            - torch.arange(k.shape[1], device=dev)[None, :]
+        ok = (diff >= 0) & (diff < (window or k.shape[1] + q.shape[1]))
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True).transpose(1, 2)
+            attn_mask=ok, enable_gqa=True).transpose(1, 2)
 
     def attention_rows(arch, suffix):
+        """The path's captured K1 and K2 calls, with their own masking
+        (window, q_start) and scale."""
         (q, k, v, pos), kw = captured[(arch, "decode_attention")]
-        if kw.get("window") is not None or kw.get("slopes") is not None:
+        if kw.get("slopes") is not None or kw.get("kv_len") is not None:
             raise RuntimeError("unexpected masking features on the path")
+        win, scale = kw.get("window"), kw.get("scale")
         (qf, kf, vf), kwf = captured[(arch, "flash_attention")]
-        q_start = kwf.get("q_start", 0)
+        q_start, fwin = kwf.get("q_start", 0), kwf.get("window")
         return [
             ("decode_attention" + suffix, "path", (q, k, v, pos),
-             decode_attention, decode_attention_ref, sdpa_decode,
-             decode_bound(q, k, v, pos), TOL["bfloat16"]),
+             lambda *a: decode_attention(*a, window=win, scale=scale),
+             lambda *a: decode_attention_ref(*a, window=win, scale=scale),
+             lambda *a: sdpa_decode(*a, window=win, scale=scale),
+             decode_bound(q, k, v, pos, window=win), TOL["bfloat16"]),
             ("flash_attention" + suffix, "path", (qf, kf, vf),
-             lambda *a: flash_attention(*a, q_start=q_start),
-             lambda *a: attention_ref(*a, q_start=q_start),
-             sdpa_prefill if q_start == 0 else None,
-             prefill_bound(qf, kf, vf, q_start), TOL["bfloat16"]),
+             lambda *a: flash_attention(*a, q_start=q_start, window=fwin),
+             lambda *a: attention_ref(*a, q_start=q_start, window=fwin),
+             lambda *a: sdpa_prefill(*a, q_start=q_start, window=fwin),
+             prefill_bound(qf, kf, vf, q_start, fwin), TOL["bfloat16"]),
         ]
 
     Tl, Sl = 4096, 2048
@@ -827,7 +1001,9 @@ def phase_kernels(torch, captured, launches):
         ("flash_attention", f"long S={Sl}", long_pre, flash_attention,
          attention_ref, sdpa_prefill, prefill_bound(*long_pre),
          TOL["bfloat16"]),
-    ] + attention_rows("zamba2_7b", "_d224")
+    ] + attention_rows("zamba2_7b", "_d224") + \
+        attention_rows("deepseek_v2_236b", "_mla") + \
+        attention_rows("gemma3_4b", "_d256")
     for kind, fn, plain, long_args in (("wkv6", wkv6, wkv6_chunked,
                                         long_wkv),
                                        ("ssd", ssd, ssd_chunked, long_ssd)):
@@ -844,7 +1020,14 @@ def phase_kernels(torch, captured, launches):
         got, want = kern(*args), plain(*args)
         err = _err(got, want)
         ok = err <= tol if tol is not None else scan_ok(got, want)
-        lib_err = None if lib is None else _err(lib(*args), want)
+        lib_err = None
+        if lib is not None:
+            try:
+                lib_err = _err(lib(*args), want)
+            except RuntimeError as e:  # no SDPA backend takes the shape
+                log(f"[kernels] {name} @ {shape_name}: SDPA refused the "
+                    f"call ({str(e).splitlines()[0][:100]}); library_ms null")
+                lib = None
         del got, want
         sets = copies(torch, list(args))
         ms = device_ms(torch, kern, sets)
@@ -855,13 +1038,16 @@ def phase_kernels(torch, captured, launches):
         design = ""
         if name.startswith("decode_attention"):
             B, T, Kv = args[1].shape[:3]
+            G, Dv = args[0].shape[2] // Kv, args[2].shape[-1]
+            g = head_group(G, Dv)
             tile, n_split, chunk = decode_plan(
-                B, Kv, T, args[1].shape[-1], args[2].shape[-1],
+                B * (G // g), Kv, T, args[1].shape[-1], Dv,
                 args[0].element_size())
-            design = (f" [split-kv: n_split {n_split}, chunk {chunk}, tile "
-                      f"{tile}]")
+            design = (f" [split-kv: {G // g} head group(s) of {g}, n_split "
+                      f"{n_split}, chunk {chunk}, tile {tile}; "
+                      f"{1 if n_split == 1 else 2} CUDA launch(es)/call]")
         elif name.startswith("flash_attention"):
-            design = f" [{DESIGNS[args[0].dtype]}]"
+            design = f" [{DESIGNS[args[0].dtype]}; 1 CUDA launch/call]"
         elif name == "wkv6":
             B, S, H, hd = args[0].shape
             plan = wkv6_plan(B, S, H, hd, n_sm)
@@ -896,13 +1082,24 @@ def phase_kernels(torch, captured, launches):
          "src/repro/kernels/decode_attention/decode_attention.py:111"),
         ("flash_attention_d224", "zamba2_7b", "flash_attention_sm90.cu",
          "src/repro/kernels/flash_attention/flash_attention.py:105"),
+        ("decode_attention_mla", "deepseek_v2_236b", "decode_attention.cu",
+         "src/repro/kernels/decode_attention/decode_attention.py:111"),
+        ("flash_attention_mla", "deepseek_v2_236b",
+         "flash_attention_sm90.cu",
+         "src/repro/kernels/flash_attention/flash_attention.py:105"),
+        ("decode_attention_d256", "gemma3_4b", "decode_attention.cu",
+         "src/repro/kernels/decode_attention/decode_attention.py:111"),
+        ("flash_attention_d256", "gemma3_4b", "flash_attention_sm90.cu",
+         "src/repro/kernels/flash_attention/flash_attention.py:105"),
         ("wkv6", "rwkv6_7b", "wkv6.cu", "src/repro/kernels/wkv6/wkv6.py:70"),
         ("ssd", "zamba2_7b", "ssd.cu", "src/repro/kernels/ssd/ssd.py:76"),
     ]:
         r = rows[(name, "path")]
+        base = next(k for k in ("decode_attention", "flash_attention",
+                                "wkv6", "ssd") if name.startswith(k))
         out.append({"name": name, "route": "cuda", "source": csrc + source,
                     "replaces": replaces,
-                    "launches": launches[path][name.replace("_d224", "")],
+                    "launches": launches[path][base],
                     "max_abs_err": r["err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                     "bound_by": r["bound"][1], "library_ms": r["lib_ms"],
@@ -1078,6 +1275,112 @@ def phase_parity_family(torch, arch):
         f"{'equal' if seq == ref else 'DIFFERENT'}")
     if seq != ref or victim in route.servers:
         raise RuntimeError(f"{arch} failover stream {seq} != {ref}")
+
+
+def phase_parity_moe(torch, arch):
+    """Reduced ``arch`` (MoE; DeepSeek-V2 with MLA) in f32 on the card:
+    the engine on the kernels (K1 absorbed MLA decode at G = 4, 40/32 and
+    K2 at (24, 16) for DeepSeek; GQA K1/K2 for Llama-4-Scout) gives the
+    greedy streams of the same engine on the plain versions, through the
+    scheduler and through a kill_server drill.  The engine's padded
+    prefill buckets give each row its own MoE capacity, unlike a
+    whole-prompt monolithic call, so the monolithic streams are required
+    only when no routed choice was dropped."""
+    import numpy as np
+
+    import repro_torch.core as C
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serving import (ContinuousBatchingScheduler,
+                                     GeoServingSystem)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_reduced_config(arch)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    L = cfg.n_layers
+    llm = C.LLMSpec("toy", L, block_bytes=100.0, cache_bytes_per_token=1.0)
+    servers = [C.ServerSpec(j, mem_bytes=1000.0, tau=0.01 * (j + 1),
+                            tau_prefill_base=0.002,
+                            tau_prefill_per_token=0.0005) for j in range(4)]
+    rtt = np.full((1, 4), 0.02)
+    problem = C.Problem(llm, servers, 1, rtt, rtt * 3,
+                        workload=C.Workload(4, 8))
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(2, cfg.vocab_size, n) for n in (9, 14, 9, 20)]
+    real_moe = moe_mod.apply_moe
+    dropped = [0.0, 0]  # (token, choice) pairs dropped, routed
+
+    def count_moe(p, c, x, per_row=False):
+        out, aux = real_moe(p, c, x, per_row=per_row)
+        n = x.shape[1] * c.moe_top_k * (1 if per_row else x.shape[0])
+        dropped[0] += float((aux["moe_drop_frac"] * n).sum())
+        dropped[1] += n * (x.shape[0] if per_row else 1)
+        return out, aux
+
+    def run(backend):
+        system = GeoServingSystem(cfg, params, problem, algorithm="proposed",
+                                  R=2, max_new_tokens=16, max_sessions=8,
+                                  backend=backend)
+        sched = ContinuousBatchingScheduler(system, R=2)
+        for rid, (t, p) in enumerate(zip(poisson_arrivals(4, 4.0, 2),
+                                         prompts)):
+            sched.submit(rid, p, float(t), n_new=10)
+        streams = [[int(x) for x in s.tokens] for s in sched.run()]
+        system = GeoServingSystem(cfg, params, problem, algorithm="proposed",
+                                  R=2, max_new_tokens=16, max_sessions=8,
+                                  backend=backend)
+        sid, logits = system.submit(prompts[1])
+        seq = [int(torch.argmax(logits[0]))]
+        victim = None
+        for step in range(9):
+            if step == 3:
+                victim = system.sessions[sid].route.servers[0]
+                system.kill_server(victim)
+            seq.append(int(torch.argmax(system.decode(sid, seq[-1])[0])))
+        if victim in system.sessions[sid].route.servers:
+            raise RuntimeError(f"{arch}: the route still uses the killed "
+                               "server")
+        return streams, seq, victim, system.round_stats["replays"]
+
+    n1, n2 = decode_attention.launches, flash_attention.launches
+    moe_mod.apply_moe = count_moe
+    try:
+        kern = run("kernel")
+        k1, k2 = decode_attention.launches - n1, flash_attention.launches - n2
+        plain = run("plain")
+    finally:
+        moe_mod.apply_moe = real_moe
+    log(f"[parity {arch}] f32: kernel engine (K1 {k1}, K2 {k2} launches) "
+        f"vs plain engine: {sum(a == b for a, b in zip(kern[0], plain[0]))}"
+        f"/{len(prompts)} scheduler streams equal; kill_server({kern[2]}) "
+        f"after 3 decode steps, replays {kern[3]}: drill stream "
+        f"{'equal' if kern[1] == plain[1] else 'DIFFERENT'}; MoE drop "
+        f"fraction over the (token, choice) pairs of both runs' pool rows "
+        f"{dropped[0] / max(dropped[1], 1):.4f}")
+    if kern[:2] != plain[:2] or min(k1, k2) <= 0:
+        raise RuntimeError(f"{arch}: the kernel engine differs from the "
+                           "plain engine, or a kernel did not run")
+    if dropped[0] == 0.0:
+        for p, got in zip(prompts, kern[0]):
+            t = torch.as_tensor(p, device="cuda")[None]
+            logits, caches = prefill(params, cfg, {"tokens": t},
+                                     cache_len=len(p) + 14, backend="plain")
+            seq = [int(torch.argmax(logits[0]))]
+            for i in range(9):
+                lg, caches = decode_step(
+                    params, cfg, caches,
+                    torch.tensor([seq[-1]], device="cuda"), len(p) + i,
+                    backend="plain")
+                seq.append(int(torch.argmax(lg[0])))
+            if got[len(p):] != seq:
+                raise RuntimeError(f"{arch}: engine stream differs from the "
+                                   "monolithic one with no drops")
+        log(f"[parity {arch}] no routed choice dropped: the streams equal "
+            "the plain monolithic prefill/decode_step streams")
 
 
 def _llama_bf16(torch, tag):
@@ -1363,20 +1666,25 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     captured = {}
-    serve = {arch: phase_serve(torch, arch, captured)
-             for arch in PATH_KERNELS}
-    paged = phase_serve(torch, "llama3_2_1b", captured, layout="paged",
-                        slab=serve["llama3_2_1b"])
+    serve, paged = {}, {}
+    for arch in PATH_KERNELS:
+        serve[arch] = phase_serve(torch, arch, captured)
+        if arch in ("llama3_2_1b", "deepseek_v2_236b"):
+            paged[arch] = phase_serve(torch, arch, captured, layout="paged",
+                                      slab=serve[arch])
     phase_oversub(torch)
     phase_sampling(torch, poisson_arrivals(8, rate=2.0, seed=1))
     launches = {arch: r["launches"] for arch, r in serve.items()}
     kernels = phase_kernels(torch, captured, launches)
     for row in kernels:
-        if row["path"] == "llama3_2_1b":
-            row["launches_paged"] = paged["launches"][row["name"]]
+        if row["path"] in paged:
+            base = row["name"].split("_attention")[0] + "_attention"
+            row["launches_paged"] = paged[row["path"]]["launches"][base]
     phase_parity(torch)
     for arch in ("rwkv6_7b", "zamba2_7b"):
         phase_parity_family(torch, arch)
+    for arch in ("deepseek_v2_236b", "llama4_scout_17b_a16e"):
+        phase_parity_moe(torch, arch)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

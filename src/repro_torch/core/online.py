@@ -63,11 +63,12 @@ class OnlineBPRR:
                        guess if np.isfinite(guess) else 60.0)
         self.R = int(R)
         self.placement, self.info = cg_bp(problem, self.R)
+        # route on the serving engine's placement: its servers host
+        # exactly these block ranges (CG-BP on the page-scaled problem, or
+        # on a fleet pruned of dead servers, may place differently, and its
+        # routes would then name blocks a server does not host)
+        self.pinned = placement is not None
         if placement is not None:
-            # route on the serving engine's placement: its servers host
-            # exactly these block ranges (CG-BP on the page-scaled problem
-            # may place differently, and its routes would then name blocks
-            # a server does not host)
             self.placement = placement
         self.sessions: Dict[int, Session] = {}
         self._next_sid = itertools.count()
@@ -152,14 +153,26 @@ class OnlineBPRR:
     # ------------------------------------------------------------------
     # Elastic scaling / fault tolerance (slow-time-scale re-placement)
     # ------------------------------------------------------------------
-    def replace_servers(self, problem: Problem, R: Optional[int] = None):
+    def replace_servers(self, problem: Problem, R: Optional[int] = None,
+                        placement: Optional[Placement] = None):
         """Re-run CG-BP after a join/leave/failure (Alg. 2 extension,
         §3.3.3).  Running sessions keep their routes; new requests use the
-        new placement."""
+        new placement.  A controller built on the engine's placement
+        (``placement=`` at construction) instead takes ``placement``, the
+        engine's placement with the dead servers removed
+        (``GeoServingSystem.alive_placement``): the engine does not move
+        blocks after a failure, so a fresh CG-BP could route through
+        blocks no live server hosts."""
         self.problem = self._cache_scaled(problem)
         if R is not None:
             self.R = int(R)
-        self.placement, self.info = cg_bp(self.problem, self.R)
+        if self.pinned:
+            if placement is None:
+                raise ValueError("a controller pinned to the engine's "
+                                 "placement needs the alive placement")
+            self.placement = placement
+        else:
+            self.placement, self.info = cg_bp(self.problem, self.R)
         # capacities / RTTs / placement changed: drop every memoized input
         # (the suspicion map persists — flap avoidance across rejoins)
         self._route_cache = RouteCostCache(self.problem, self.placement,

@@ -7,8 +7,9 @@ use (``runtime.py``)."""
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref,
                                                   decode_attention_unsupported,
-                                                  decode_plan)
+                                                  decode_plan, head_group)
 from repro_torch.kernels.flash_attention import (DESIGNS, HEAD_DIM_PAIRS,
+                                                 HEAD_DIM_PAIRS_F32,
                                                  HEAD_DIMS, attention_ref,
                                                  flash_attention,
                                                  flash_attention_unsupported)
@@ -18,10 +19,11 @@ from repro_torch.kernels.ssd import (ssd, ssd_chunked, ssd_plan,
 from repro_torch.kernels.wkv6 import (wkv6, wkv6_chunked, wkv6_plan,
                                       wkv6_recurrence, wkv6_unsupported)
 
-__all__ = ["BACKENDS", "DESIGNS", "HEAD_DIMS", "HEAD_DIM_PAIRS", "NO_WINDOW",
-           "attention_ref", "decode_attention", "decode_attention_ref",
+__all__ = ["BACKENDS", "DESIGNS", "HEAD_DIMS", "HEAD_DIM_PAIRS",
+           "HEAD_DIM_PAIRS_F32", "NO_WINDOW", "attention_ref",
+           "decode_attention", "decode_attention_ref",
            "decode_attention_unsupported", "decode_plan",
-           "flash_attention", "flash_attention_unsupported",
+           "flash_attention", "flash_attention_unsupported", "head_group",
            "resolve_backend", "ssd", "ssd_chunked", "ssd_plan",
            "ssd_recurrence", "ssd_unsupported", "wkv6", "wkv6_chunked",
            "wkv6_plan", "wkv6_recurrence", "wkv6_unsupported"]

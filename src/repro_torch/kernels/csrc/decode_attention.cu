@@ -17,11 +17,16 @@
 //   range [lo, hi) (from pos, window and kv_len, read on the device) and
 //   streams only those positions of the pool's own (B, T, Kv, D) layout,
 //   through strides: no transposed copy of the cache is made per call.
-// * Parallelism.  The grid is (row * kv-head, split).  The wrapper picks the
-//   number of splits from host-known sizes only (B, Kv, T and the tile;
-//   ops.decode_plan), never from pos or kv_len: reading those on the host
-//   would be a sync in every decode round.  A split that the row's range
-//   does not meet writes an empty partial and exits at once.
+// * Parallelism.  The grid is (row * kv-head * head-group, split).  A kv
+//   head's G query heads run in groups of g <= 8 heads with g * Dv <= 2048
+//   (ops.head_group): all G in one block up to G = 8, and for absorbed MLA
+//   decode (Kv = 1, G = 128, Dk 576, Dv 512) 32 groups of 4, each of which
+//   reads the row's latent cache again (from L2 after the first).  The
+//   wrapper picks g and the number of splits from host-known sizes only
+//   (B, Kv, G, T and the tile; ops.decode_plan), never from pos or kv_len:
+//   reading those on the host would be a sync in every decode round.  A
+//   split that the row's range does not meet writes an empty partial and
+//   exits at once.
 // * Bytes in flight.  K/V tiles stay in shared memory in their storage type
 //   (bf16 as bf16), brought by 16-byte cp.async copies in a two-stage ring:
 //   tile i+1 loads while tile i is scored.  K rows are padded to an odd
@@ -92,17 +97,21 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
     const int* __restrict__ kv_len, const float* __restrict__ slopes,
     T* __restrict__ out, float* __restrict__ part_m,
     float* __restrict__ part_l, float* __restrict__ part_acc, int t_len,
-    int n_kv, int group, int dk, int dv, long long sk_b, long long sk_t,
+    int n_kv, int group, int n_groups, int dk, int dv, long long sk_b,
+    long long sk_t,
     long long sk_h, long long sv_b, long long sv_t, long long sv_h,
     int window, int causal, float scale, int tile, int chunk) {
   constexpr int kEpc = 16 / sizeof(T);
   extern __shared__ __align__(16) unsigned char smem[];
-  const int bk = blockIdx.x;  // b * n_kv + kvh
+  // blockIdx.x = (b * n_kv + kvh) * n_groups + head group; the block owns
+  // `group` consecutive query heads of kv head kvh
+  const int bk = blockIdx.x / n_groups;  // b * n_kv + kvh
   const int b = bk / n_kv, kvh = bk - b * n_kv;
   const int split = blockIdx.y, n_split = gridDim.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_pair = dv / 2, n_items = group * n_pair;
-  const long long head0 = (long long)bk * group;  // b * H + kvh * G
+  const long long head0 = (long long)blockIdx.x * group;  // b * H + head
+  const int hrow0 = (blockIdx.x - b * n_kv * n_groups) * group;  // head
 
   // the positions the mask can reach, within this split's slice
   const int p = pos[b];
@@ -166,7 +175,7 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
   float slope[GM], m[GM], l[GM];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
-    slope[g] = (slopes && g < group) ? slopes[kvh * group + g] : 0.f;
+    slope[g] = (slopes && g < group) ? slopes[hrow0 + g] : 0.f;
     m[g] = kNegInf;
     l[g] = 0.f;
   }
@@ -360,9 +369,9 @@ template <typename T, int GM>
 int launch(const void* q, const void* k, const void* v, const void* pos,
            const void* kv_len, const void* slopes, void* out, void* part_m,
            void* part_l, void* part_acc, int n_rows, int t_len, int n_kv,
-           int group, int dk, int dv, const long long* st, int window,
-           int causal, float scale, int tile, int chunk, int n_split,
-           cudaStream_t stream) {
+           int group, int n_groups, int dk, int dv, const long long* st,
+           int window, int causal, float scale, int tile, int chunk,
+           int n_split, cudaStream_t stream) {
   constexpr size_t kMaxSmem = 232448;  // 227 KB: the per-block opt-in limit
   const size_t smem = smem_bytes(group, GM, dk, dv, tile, sizeof(T));
   if (smem > kMaxSmem) return kUnsupportedShape;
@@ -374,17 +383,18 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
     if (err != cudaSuccess) return (int)err;
     opted_in = true;
   }
-  kern<<<dim3(n_rows * n_kv, n_split), kThreads, smem, stream>>>(
+  kern<<<dim3(n_rows * n_kv * n_groups, n_split), kThreads, smem,
+         stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(pos),
       static_cast<const int*>(kv_len), static_cast<const float*>(slopes),
       static_cast<T*>(out), static_cast<float*>(part_m),
       static_cast<float*>(part_l), static_cast<float*>(part_acc), t_len, n_kv,
-      group, dk, dv, st[0], st[1], st[2], st[3], st[4], st[5], window, causal,
-      scale, tile, chunk);
+      group, n_groups, dk, dv, st[0], st[1], st[2], st[3], st[4], st[5],
+      window, causal, scale, tile, chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return (int)err;
-  const int n_heads_all = n_rows * n_kv * group;
+  const int n_heads_all = n_rows * n_kv * n_groups * group;
   decode_combine_kernel<T><<<n_heads_all, kThreads, 0, stream>>>(
       static_cast<const float*>(part_m), static_cast<const float*>(part_l),
       static_cast<const float*>(part_acc), static_cast<T*>(out), n_heads_all,
@@ -393,22 +403,24 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
 }
 
 template <typename T>
-int launch_group(int group, const void* q, const void* k, const void* v,
-                 const void* pos, const void* kv_len, const void* slopes,
-                 void* out, void* part_m, void* part_l, void* part_acc,
-                 int n_rows, int t_len, int n_kv, int dk, int dv,
-                 const long long* st, int window, int causal, float scale,
-                 int tile, int chunk, int n_split, cudaStream_t stream) {
+int launch_group(int group, int n_groups, const void* q, const void* k,
+                 const void* v, const void* pos, const void* kv_len,
+                 const void* slopes, void* out, void* part_m, void* part_l,
+                 void* part_acc, int n_rows, int t_len, int n_kv, int dk,
+                 int dv, const long long* st, int window, int causal,
+                 float scale, int tile, int chunk, int n_split,
+                 cudaStream_t stream) {
   constexpr int kEpc = 16 / sizeof(T);
   if (dk % kEpc || dv % kEpc || dk <= 0 || dv <= 0 || tile < 16 ||
-      tile > kThreads || kThreads % tile || chunk % tile ||
+      tile > kThreads || kThreads % tile || chunk % tile || n_groups < 1 ||
       group * dv / 2 > kItems * kThreads)
     return kUnsupportedShape;
 #define REPRO_GM(N)                                                         \
   if (group <= N)                                                           \
     return launch<T, N>(q, k, v, pos, kv_len, slopes, out, part_m, part_l, \
-                        part_acc, n_rows, t_len, n_kv, group, dk, dv, st,  \
-                        window, causal, scale, tile, chunk, n_split, stream);
+                        part_acc, n_rows, t_len, n_kv, group, n_groups,    \
+                        dk, dv, st, window, causal, scale, tile, chunk,    \
+                        n_split, stream);
   REPRO_GM(1)
   REPRO_GM(2)
   REPRO_GM(4)
@@ -419,9 +431,10 @@ int launch_group(int group, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q (B, H, Dk) contiguous; k (B, T, Kv, Dk) and v (B, T, Kv, Dv) with
-// element strides st = {k: b, t, h; v: b, t, h} (last dim contiguous, rows
-// 16-byte aligned); pos, kv_len (B,) int32 (kv_len may be null: T); slopes
+// q (B, H, Dk) contiguous, H = Kv * n_groups * group (`group` heads a
+// block); k (B, T, Kv, Dk) and v (B, T, Kv, Dv) with element strides
+// st = {k: b, t, h; v: b, t, h} (last dim contiguous, rows 16-byte
+// aligned); pos, kv_len (B,) int32 (kv_len may be null: T); slopes
 // (H,) f32 or null; out (B, H, Dv) contiguous.  The key axis is cut into
 // n_split slices of `chunk` positions (a multiple of `tile`); with
 // n_split > 1, part_m / part_l (n_split, B*H) and part_acc
@@ -431,21 +444,22 @@ extern "C" int decode_attention_launch(
     int dtype, const void* q, const void* k, const void* v, const void* pos,
     const void* kv_len, const void* slopes, void* out, void* part_m,
     void* part_l, void* part_acc, int n_rows, int t_len, int n_kv, int group,
-    int dk, int dv, const long long* strides, int window, int causal,
-    float scale, int tile, int chunk, int n_split, void* stream) {
+    int n_groups, int dk, int dv, const long long* strides, int window,
+    int causal, float scale, int tile, int chunk, int n_split,
+    void* stream) {
   if (n_rows * n_kv == 0) return 0;
   if (n_split < 1 || (n_split > 1 && !(part_m && part_l && part_acc)))
     return kUnsupportedShape;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return launch_group<float>(group, q, k, v, pos, kv_len, slopes, out,
-                               part_m, part_l, part_acc, n_rows, t_len, n_kv,
-                               dk, dv, strides, window, causal, scale, tile,
-                               chunk, n_split, s);
+    return launch_group<float>(group, n_groups, q, k, v, pos, kv_len,
+                               slopes, out, part_m, part_l, part_acc, n_rows,
+                               t_len, n_kv, dk, dv, strides, window, causal,
+                               scale, tile, chunk, n_split, s);
   if (dtype == kBFloat16)
     return launch_group<__nv_bfloat16>(
-        group, q, k, v, pos, kv_len, slopes, out, part_m, part_l, part_acc,
-        n_rows, t_len, n_kv, dk, dv, strides, window, causal, scale, tile,
-        chunk, n_split, s);
+        group, n_groups, q, k, v, pos, kv_len, slopes, out, part_m, part_l,
+        part_acc, n_rows, t_len, n_kv, dk, dv, strides, window, causal, scale,
+        tile, chunk, n_split, s);
   return kUnsupportedShape;
 }

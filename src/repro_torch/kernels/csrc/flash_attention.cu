@@ -246,6 +246,11 @@ int launch_dk(int dk, int dv, const void* q, const void* k, const void* v,
       return launch<T, 224, 224>(q, k, v, slopes, out, n_rows, seq_q, seq_kv,
                                  n_heads, n_kv, st, window, causal, q_start,
                                  scale, stream);
+    case 24:  // reduced MLA prefill (nope 16 + rope 8, v 16): only (24, 16)
+      if (dv != 16) return kUnsupportedShape;
+      return launch<T, 24, 16>(q, k, v, slopes, out, n_rows, seq_q, seq_kv,
+                               n_heads, n_kv, st, window, causal, q_start,
+                               scale, stream);
     default:
       return kUnsupportedShape;
   }
@@ -257,8 +262,8 @@ int launch_dk(int dk, int dv, const void* q, const void* k, const void* v,
 // f32 only.  q (B, Sq, H, Dk), k (B, Skv, Kv, Dk), v (B, Skv, Kv, Dv) with
 // element strides st = {q: b, s, h; k: b, s, h; v: b, s, h} (last dims
 // contiguous); slopes (H,) f32 or null; out (B, Sq, H, Dv) contiguous.
-// Dk, Dv in {16, 32, 64, 128}, or Dk = Dv = 224.  Returns
-// cudaGetLastError() after the launch, or kUnsupportedShape.
+// Dk, Dv in {16, 32, 64, 128}, or the pairs (224, 224) and (24, 16).
+// Returns cudaGetLastError() after the launch, or kUnsupportedShape.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, const void* slopes,
     void* out, int n_rows, int seq_q, int seq_kv, int n_heads, int n_kv,

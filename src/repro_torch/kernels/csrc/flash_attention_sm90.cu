@@ -36,6 +36,12 @@
 // stages and 89,088 bytes of shared memory (two blocks per SM); at 64,
 // 32 accumulators, 64-key stages and 46,080 bytes.  (Two 16-row tiles per
 // warp, 128-key stages or a three-stage ring measured slower on the H100.)
+// At Dk = Dv = 256 (gemma3) the O accumulators alone take 128 registers a
+// thread; with 32-key stages the whole kernel fits in 239 registers and
+// 101,376 bytes of shared memory without spilling (chip_smoke.py's build
+// phase fails on a spilling instantiation).  MLA's unabsorbed prefill is
+// the first Dk != Dv pair on the tensor cores, (192, 128): the Q.K^T
+// ldmatrix walks Dk, the P.V one Dv, with separate row strides.
 //
 // Layout: q (B, Sq, H, Dk), k (B, Skv, Kv, Dk), v (B, Skv, Kv, Dv) read
 // through their strides (the model's own layout, no transposes; rows
@@ -100,7 +106,7 @@ __device__ __forceinline__ void load_rows(uint4* dst, int stride,
 }
 
 // Query rows a block owns (4 warps x 16) and keys a K/V stage holds: 64,
-// or 32 at head dim 224, so that two blocks fit an SM there.
+// or 32 at head dims above 128, so that two blocks fit an SM there.
 constexpr int kBQ = 64;
 template <int DK, int DV>
 __host__ __device__ constexpr int kv_tile() {
@@ -348,9 +354,9 @@ int launch_dv(int dv, const void* q, const void* k, const void* v,
 // bf16 only.  q (B, Sq, H, Dk), k (B, Skv, Kv, Dk), v (B, Skv, Kv, Dv) with
 // element strides st = {q: b, s, h; k: b, s, h; v: b, s, h} (last dims
 // contiguous, 16-byte aligned rows); slopes (H,) f32 or null; out
-// (B, Sq, H, Dv) contiguous.  Dk, Dv in {16, 32, 64, 128}, or
-// Dk = Dv = 224.  Returns cudaGetLastError() after the launch, or
-// kUnsupportedShape.
+// (B, Sq, H, Dv) contiguous.  Dk, Dv in {16, 32, 64, 128}, or the pairs
+// (224, 224), (256, 256) and (192, 128).  Returns cudaGetLastError() after
+// the launch, or kUnsupportedShape.
 extern "C" int flash_attention_tc_launch(
     const void* q, const void* k, const void* v, const void* slopes,
     void* out, int n_rows, int seq_q, int seq_kv, int n_heads, int n_kv,
@@ -371,6 +377,16 @@ extern "C" int flash_attention_tc_launch(
     case 224:  // zamba2's shared attention: only the (224, 224) pair
       if (dv != 224) return kUnsupportedShape;
       return launch<224, 224>(q, k, v, slopes, out, n_rows, seq_q, seq_kv,
+                              n_heads, n_kv, strides, window, causal,
+                              q_start, scale, s);
+    case 256:  // gemma3: only the (256, 256) pair
+      if (dv != 256) return kUnsupportedShape;
+      return launch<256, 256>(q, k, v, slopes, out, n_rows, seq_q, seq_kv,
+                              n_heads, n_kv, strides, window, causal,
+                              q_start, scale, s);
+    case 192:  // MLA's unabsorbed prefill: only (nope + rope, nope)
+      if (dv != 128) return kUnsupportedShape;
+      return launch<192, 128>(q, k, v, slopes, out, n_rows, seq_q, seq_kv,
                               n_heads, n_kv, strides, window, causal,
                               q_start, scale, s);
     default:

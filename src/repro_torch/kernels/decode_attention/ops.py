@@ -8,10 +8,14 @@ version (``ref.py``); a CUDA tensor goes to the kernel, or the call raises —
 there is no fallback.  ``decode_attention.launches`` counts kernel launches.
 
 The kernel reads the caches through their strides in the pool's own
-layout, so the wrapper copies nothing but the (B, H, Dk) query.  It splits
-the key axis over ``decode_plan(...)`` slices, a pure function of host-known
-sizes (never of ``pos`` or ``kv_len``: reading those would sync the host),
-and allocates the f32 partials the combine pass merges.
+layout, so the wrapper copies nothing but the (B, H, Dk) query (absorbed
+MLA decode passes the joint latent buffer as the keys and its latent
+columns as the values).  A kv head's G query heads run in groups of
+``head_group(G, Dv)`` heads, one block each; the wrapper splits the key
+axis over ``decode_plan(...)`` slices.  Both are pure functions of
+host-known sizes (never of ``pos`` or ``kv_len``: reading those would sync
+the host).  The wrapper allocates the f32 partials the combine pass
+merges.
 """
 from __future__ import annotations
 
@@ -35,7 +39,19 @@ FILL_PAIRS = 256
 # several blocks fit on an SM (228 KB each)
 RING_BYTES = 72 * 1024
 TILES = (64, 32, 16)
+# query heads one block owns: the kernel keeps g <= 8 score rows and
+# g * Dv / 2 output pairs over its 128 threads (8 each)
+MAX_GROUP = 8
+MAX_GROUP_DV = 2048
 _fn = None
+
+
+def head_group(group: int, dv: int) -> int:
+    """Query heads per block: the largest divisor g of the kv head's
+    ``group`` heads with g <= 8 and g * Dv <= 2048 (all of them up to G = 8
+    at Dv <= 256; 4 of MLA's 128 at Dv = 512).  0 when none fits."""
+    return max((g for g in range(1, min(group, MAX_GROUP) + 1)
+                if group % g == 0 and g * dv <= MAX_GROUP_DV), default=0)
 
 
 def decode_plan(n_rows: int, n_kv: int, t_len: int, dk: int, dv: int,
@@ -49,7 +65,8 @@ def decode_plan(n_rows: int, n_kv: int, t_len: int, dk: int, dv: int,
     ``n_split`` slices of ``chunk`` positions (a multiple of ``tile``; the
     last slice is cut at t_len).  ``n_split`` aims at ``TARGET_BLOCKS``
     blocks over the n_rows * n_kv (row, kv-head) pairs, and is 1 once the
-    pairs alone fill the card (``FILL_PAIRS``)."""
+    pairs alone fill the card (``FILL_PAIRS``).  With head groups
+    (``head_group``) the wrapper passes rows x groups as ``n_rows``."""
     epc = 16 // elem_size
     row = 16 * ((dk // epc | 1) + dv // epc)
     fits = [t for t in TILES if 2 * t * row <= RING_BYTES]
@@ -80,7 +97,7 @@ def _launcher():
     if _fn is None:
         fn = load_library("decode_attention").decode_attention_launch
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+        fn.argtypes = [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                        ctypes.POINTER(ctypes.c_longlong), I, I,
                        ctypes.c_float, I, I, I, P]
         fn.restype = I
@@ -141,8 +158,15 @@ def decode_attention(q, ck, cv, pos, *, window=None, slopes=None,
         if sl.shape != (H,):
             raise ValueError(f"decode_attention: slopes {tuple(sl.shape)}, "
                              f"want ({H},)")
+    G = H // Kv
+    g = head_group(G, Dv)
+    if g == 0:
+        raise ValueError(f"decode_attention: no head group of {G} heads at "
+                         f"Dv={Dv} fits a block (g <= {MAX_GROUP}, g * Dv "
+                         f"<= {MAX_GROUP_DV})")
     out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)
-    tile, n_split, chunk = decode_plan(B, Kv, T, Dk, Dv, es)
+    # (row, head-group) pairs play the rows of the split plan
+    tile, n_split, chunk = decode_plan(B * (G // g), Kv, T, Dk, Dv, es)
     part = [None] * 3
     if n_split > 1:
         part = [torch.empty((n_split, B * H), dtype=torch.float32,
@@ -158,12 +182,12 @@ def decode_attention(q, ck, cv, pos, *, window=None, slopes=None,
         pos_t.data_ptr(), None if kvl_t is None else kvl_t.data_ptr(),
         None if sl is None else sl.data_ptr(), out.data_ptr(),
         *(None if x is None else x.data_ptr() for x in part),
-        B, T, Kv, H // Kv, Dk, Dv, strides, win, int(bool(causal)), scale,
+        B, T, Kv, g, G // g, Dk, Dv, strides, win, int(bool(causal)), scale,
         tile, chunk, n_split, stream)
     if err < 0:
         raise ValueError(f"decode_attention: the kernel does not take "
-                         f"Dk={Dk}, Dv={Dv}, G={H // Kv} (G <= 8, "
-                         f"G * Dv <= 2048, shared memory)")
+                         f"Dk={Dk}, Dv={Dv}, {g} heads a block (shared "
+                         "memory)")
     check_launch("decode_attention", err)
     decode_attention.launches += 1
     return out

@@ -27,11 +27,14 @@ from repro_torch.kernels.runtime import NO_WINDOW, check_launch, load_library
 # which kernel serves each dtype: the bf16 tensor-core kernel, or the f32
 # CUDA-core one
 DESIGNS = {torch.bfloat16: "tc-mma.sync", torch.float32: "cuda-core"}
-# head dims the kernel is instantiated for (Dk and Dv independently), and
-# the extra (Dk, Dv) pairs (zamba2's shared attention); 256 and MLA's
-# 576/512 are still to come (ROADMAP)
+# head dims both kernels are instantiated for (Dk and Dv independently),
+# and the extra (Dk, Dv) pairs of each: zamba2's shared attention (224),
+# gemma3 (256) and DeepSeek's unabsorbed MLA prefill (nope + rope, nope) in
+# bf16 at full width, and the reduced MLA (24, 16) in f32
 HEAD_DIMS = (16, 32, 64, 128)
-HEAD_DIM_PAIRS = ((224, 224),)
+HEAD_DIM_PAIRS = ((224, 224), (256, 256), (192, 128))
+HEAD_DIM_PAIRS_F32 = ((224, 224), (24, 16))
+_PAIRS = {torch.bfloat16: HEAD_DIM_PAIRS, torch.float32: HEAD_DIM_PAIRS_F32}
 _fns = {}
 
 
@@ -92,15 +95,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     if H % Kv:
         raise ValueError(f"flash_attention: {H} heads over {Kv} kv heads")
-    if not ((Dk in HEAD_DIMS and Dv in HEAD_DIMS)
-            or (Dk, Dv) in HEAD_DIM_PAIRS):
-        raise NotImplementedError(
-            f"flash_attention: no kernel yet for head dims Dk={Dk}, Dv={Dv} "
-            f"(built for {HEAD_DIMS} and the pairs {HEAD_DIM_PAIRS}; "
-            "ROADMAP lists the rest)")
     if q.dtype not in DESIGNS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
                          f"{v.dtype}; the kernel takes float32 or bfloat16")
+    if not ((Dk in HEAD_DIMS and Dv in HEAD_DIMS)
+            or (Dk, Dv) in _PAIRS[q.dtype]):
+        raise NotImplementedError(
+            f"flash_attention: no {q.dtype} kernel for head dims Dk={Dk}, "
+            f"Dv={Dv} (built for {HEAD_DIMS} and the pairs "
+            f"{_PAIRS[q.dtype]})")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention: head dims must be contiguous")
     if not (k.device == v.device == q.device):

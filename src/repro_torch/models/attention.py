@@ -1,5 +1,5 @@
-"""GQA attention (bias / qk-norm / sliding window / ALiBi): the counterpart
-of the GQA half of the reference's ``repro/models/attention.py``.
+"""GQA attention (bias / qk-norm / sliding window / ALiBi) and DeepSeek's
+MLA: the counterpart of the reference's ``repro/models/attention.py``.
 
 Compute paths, as in the reference:
 
@@ -281,3 +281,145 @@ def apply_gqa_decode(params, cfg: ModelConfig, x, cache_k, cache_v, pos,
                                      slopes)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
     return y, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLA attention module (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+#
+# The serving caches hold each MLA layer as ONE (…, T, lora + rope) buffer
+# whose first ``lora`` columns are the ``latent`` leaf and the rest the
+# ``krope`` leaf (two views): absorbed decode then hands K1 the whole row
+# as the key and the ``latent`` view as the value, through strides, with
+# no per-step concatenation of the cache.
+
+
+def init_mla(pb: ParamBuilder, cfg: ModelConfig):
+    d, H = cfg.d_model, cfg.n_heads
+    nope, rope = cfg.head_dim, cfg.rope_head_dim
+    lora, qlora = cfg.kv_lora_rank, cfg.q_lora_rank
+    dt = param_dtype(cfg)
+    c = pb.child()
+    c.dense("wdq", (d, qlora), dt)
+    c.ones("q_norm", (qlora,), torch.float32)
+    c.dense("wuq", (qlora, H, nope + rope), dt)
+    c.dense("wdkv", (d, lora + rope), dt)
+    c.ones("kv_norm", (lora,), torch.float32)
+    c.dense("wuk", (lora, H, nope), dt)
+    c.dense("wuv", (lora, H, nope), dt)
+    c.dense("wo", (H, nope, d), dt)
+    return c.params
+
+
+def mla_cache_views(buf, lora: int):
+    """The ``latent`` / ``krope`` leaves of one joint MLA cache buffer."""
+    return {"latent": buf[..., :lora], "krope": buf[..., lora:]}
+
+
+def mla_keys(latent, krope):
+    """The (…, T, lora + rope) key rows of an MLA cache, as a view of the
+    joint buffer whose two column blocks ``latent`` and ``krope`` are
+    (``mla_cache_views``); ``ValueError`` for separate leaves (a copy of
+    the cache in every decode step)."""
+    lora, width = latent.shape[-1], latent.shape[-1] + krope.shape[-1]
+    joint = (latent.shape[:-1] == krope.shape[:-1]
+             and latent.stride()[:-1] == krope.stride()[:-1]
+             and latent.stride(-1) == 1 and krope.stride(-1) == 1
+             and latent.stride(-2) >= width
+             and latent.untyped_storage().data_ptr()
+             == krope.untyped_storage().data_ptr()
+             and krope.data_ptr() == latent.data_ptr()
+             + lora * latent.element_size())
+    if not joint:
+        raise ValueError("MLA cache leaves must be the latent/krope views "
+                         "of one (..., T, lora + rope) buffer "
+                         "(attention.mla_cache_views)")
+    return latent.as_strided(latent.shape[:-1] + (width,), latent.stride())
+
+
+def _mla_q(params, cfg: ModelConfig, x, positions):
+    nope, rope = cfg.head_dim, cfg.rope_head_dim
+    cq = x @ params["wdq"].to(x.dtype)
+    cq = rms_norm_simple(cq, params["q_norm"], cfg.norm_eps)
+    q = torch.einsum("bsq,qhk->bshk", cq, params["wuq"].to(x.dtype))
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    cos, sin = rope_angles(positions, rope, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, cos, sin)
+
+
+def mla_latent(params, cfg: ModelConfig, x, positions):
+    """Down-project to the cached representation: latent (B,S,lora) and
+    k_rope (B,S,rope)."""
+    lora, rope = cfg.kv_lora_rank, cfg.rope_head_dim
+    ckv = x @ params["wdkv"].to(x.dtype)
+    latent = rms_norm_simple(ckv[..., :lora], params["kv_norm"],
+                             cfg.norm_eps)
+    cos, sin = rope_angles(positions, rope, cfg.rope_theta)
+    k_rope = apply_rope(ckv[..., lora:][:, :, None, :], cos, sin)[:, :, 0]
+    return latent, k_rope
+
+
+def apply_mla_full(params, cfg: ModelConfig, x, positions, prefix_kv=None,
+                   backend: str = "kernel"):
+    """Full-sequence MLA, unabsorbed (prefill).  Returns (out, (latent,
+    k_rope)) of the chunk for caching.  ``prefix_kv``: optional (latent,
+    k_rope) of an already-prefilled prefix; they are up-projected with the
+    chunk's and the chunk's queries attend over both.  On the kernel K2
+    runs the per-head attention with Kv = H and (Dk, Dv) = (nope + rope,
+    nope); its default 1/sqrt(Dk) is the faithful scale."""
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)
+    latent, k_rope = mla_latent(params, cfg, x, positions)
+    kv_out = (latent, k_rope)
+    q_start = 0
+    if prefix_kv is not None:
+        plat, pkr = prefix_kv
+        q_start = plat.shape[1]
+        latent = torch.cat([plat.to(latent.dtype), latent], dim=1)
+        k_rope = torch.cat([pkr.to(k_rope.dtype), k_rope], dim=1)
+        kv_pos = torch.arange(latent.shape[1], device=x.device)
+    else:
+        kv_pos = positions
+    k_nope = torch.einsum("bsl,lhk->bshk", latent, params["wuk"].to(x.dtype))
+    v = torch.einsum("bsl,lhk->bshk", latent, params["wuv"].to(x.dtype))
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    krope_bc = k_rope[:, :, None, :].expand(k_nope.shape[:3]
+                                            + (k_rope.shape[-1],))
+    k = torch.cat([k_nope, krope_bc], dim=-1)
+    if use_kernel(backend, x):
+        out = flash_attention(q, k, v, causal=True, q_start=q_start)
+    else:
+        out = attention_core(q, k, v, positions, kv_pos, q_start=q_start)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    return y, kv_out
+
+
+def apply_mla_decode(params, cfg: ModelConfig, x, cache_latent, cache_krope,
+                     pos, active=None, backend: str = "kernel"):
+    """Absorbed-form MLA decode: attention in latent space, MQA with one
+    kv head.  x (B,1,d); cache_latent (B,T,lora); cache_krope (B,T,rope);
+    pos (B,).  Writes the new token's latent/k_rope at ``pos`` in place
+    (``active`` rows only) and attends.  On the kernel K1 takes the
+    faithful 1/sqrt(nope + rope) scale; the plain path pre-scales q so the
+    helper's 1/sqrt(lora + rope) lands on it, as the reference's XLA
+    branch does.  Returns (y, cache_latent, cache_krope)."""
+    nope, rope = cfg.head_dim, cfg.rope_head_dim
+    posv = pos.reshape(-1, 1)
+    q_nope, q_rope = _mla_q(params, cfg, x, posv)
+    new_latent, new_krope = mla_latent(params, cfg, x, posv)
+    write_token(cache_latent, new_latent, pos, active)
+    write_token(cache_krope, new_krope, pos, active)
+    # absorb W_uk into the query: q_lat[h] = q_nope[h] @ W_uk[:, h, :]^T
+    q_lat = torch.einsum("bshk,lhk->bshl", q_nope,
+                         params["wuk"].to(x.dtype))
+    q_eff = torch.cat([q_lat, q_rope], dim=-1)  # (B,1,H,lora+rope)
+    keys = mla_keys(cache_latent, cache_krope)[:, :, None, :]
+    values = cache_latent[:, :, None, :]
+    faithful = 1.0 / math.sqrt(nope + rope)
+    if use_kernel(backend, x):
+        ctx = decode_attention(q_eff, keys, values, pos, scale=faithful)
+    else:
+        scale_fix = math.sqrt(q_eff.shape[-1]) * faithful
+        ctx = decode_attention_plain(q_eff * scale_fix, keys, values, pos)
+    v_heads = torch.einsum("bshl,lhk->bshk", ctx, params["wuv"].to(x.dtype))
+    y = torch.einsum("bshk,hkd->bsd", v_heads, params["wo"].to(x.dtype))
+    return y, cache_latent, cache_krope

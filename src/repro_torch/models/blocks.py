@@ -1,15 +1,17 @@
 """Block functions — the BPRR placement granularity; the counterpart of
-the reference's ``repro/models/blocks.py`` for dense decoders, RWKV6 and
-Mamba2/zamba2 stacks.
+the reference's ``repro/models/blocks.py`` for decoders (GQA or MLA
+attention, dense or MoE FFN), RWKV6 and Mamba2/zamba2 stacks.
 
 * ``init_<kind>(pb, cfg)``                 -> params
 * ``<kind>_full(params, cfg, h, ...)``     -> (h, state / cache entry)
 * ``<kind>_decode(params, cfg, h, state, ...)`` -> (h, state / cache)
 
-The attention decode functions update their KV cache in place (see
-``attention``); the recurrent decode functions return new state tensors,
-which the caller writes into its pool.  MoE, MLA and encoder-decoder
-stacks are later slices of the port and raise ``NotImplementedError``.
+The attention decode functions update their KV (or MLA latent) cache in
+place (see ``attention``); the recurrent decode functions return new state
+tensors, which the caller writes into its pool.  ``moe_rows=True`` routes
+each batch row through the MoE alone (the engine's pooled steps, where the
+reference vmaps its rows).  Encoder-decoder stacks are a later slice of
+the port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models import ssm
 from repro_torch.models.layers import (ParamBuilder, apply_mlp, apply_norm,
                                        init_mlp, init_norm)
@@ -25,16 +28,13 @@ _BIG = 1 << 30
 
 
 def check_supported(cfg: ModelConfig):
-    """Raise ``NotImplementedError`` for what the port does not run yet
-    (dense GQA decoders, RWKV6 and zamba2 hybrids run)."""
+    """Raise ``NotImplementedError`` for what the port does not run yet:
+    encoder-decoder stacks (decoders with GQA or MLA attention and dense or
+    MoE FFNs, RWKV6 and zamba2 hybrids run)."""
     if cfg.is_enc_dec:
         raise NotImplementedError(
             f"{cfg.name!r}: encoder-decoder stacks are a later slice of the "
             "port (ROADMAP A9)")
-    if cfg.attn_kind == "mla" or cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name!r}: MLA attention and MoE FFNs are a later slice of "
-            "the port (ROADMAP A9)")
     if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
         raise ValueError(f"unknown block family {cfg.family!r} for "
                          f"{cfg.name!r}")
@@ -73,9 +73,10 @@ def init_decoder_block(pb: ParamBuilder, cfg: ModelConfig):
     check_supported(cfg)
     c = pb.child()
     c.sub("ln1", init_norm, cfg)
-    c.sub("attn", attn.init_gqa, cfg)
+    c.sub("attn", attn.init_mla if cfg.attn_kind == "mla" else attn.init_gqa,
+          cfg)
     c.sub("ln2", init_norm, cfg)
-    c.sub("ffn", init_mlp, cfg)
+    c.sub("ffn", moe.init_moe if cfg.is_moe else init_mlp, cfg)
     if cfg.sandwich_norm:
         c.sub("post_ln1", init_norm, cfg)
         c.sub("post_ln2", init_norm, cfg)
@@ -83,21 +84,29 @@ def init_decoder_block(pb: ParamBuilder, cfg: ModelConfig):
 
 
 def decoder_block_full(params, cfg: ModelConfig, h, positions, layer_idx=0,
-                       prefix_kv=None, backend: str = "kernel"):
-    """Full-sequence decoder block.  Returns (h, cache_entry, aux).
+                       prefix_kv=None, backend: str = "kernel",
+                       moe_rows: bool = False):
+    """Full-sequence decoder block.  Returns (h, cache_entry, aux) — the
+    MoE's aux terms, or {} for a dense FFN.
 
-    ``prefix_kv``: optional already-cached (k, v) prefix for chunked
-    prefill covering [0, P); ``positions`` must then be ``P + arange(S)``.
-    The returned cache entry covers only the positions in ``h``."""
+    ``prefix_kv``: optional already-cached prefix for chunked prefill
+    covering [0, P) — (k, v) for GQA, (latent, krope) for MLA;
+    ``positions`` must then be ``P + arange(S)``.  The returned cache entry
+    covers only the positions in ``h``."""
     win = window_for_layer(cfg, layer_idx)
     x = apply_norm(params["ln1"], cfg, h)
-    a, kv = attn.apply_gqa_full(params["attn"], cfg, x, positions, win,
-                                prefix_kv=prefix_kv, backend=backend)
-    cache = {"k": kv[0], "v": kv[1]}
+    if cfg.attn_kind == "mla":
+        a, kv = attn.apply_mla_full(params["attn"], cfg, x, positions,
+                                    prefix_kv=prefix_kv, backend=backend)
+        cache = {"latent": kv[0], "krope": kv[1]}
+    else:
+        a, kv = attn.apply_gqa_full(params["attn"], cfg, x, positions, win,
+                                    prefix_kv=prefix_kv, backend=backend)
+        cache = {"k": kv[0], "v": kv[1]}
     if cfg.sandwich_norm:
         a = apply_norm(params["post_ln1"], cfg, a)
-    h = h + a
-    return decoder_block_ffn(params, cfg, h), cache, {}
+    h, aux = _ffn(params, cfg, h + a, moe_rows)
+    return h, cache, aux
 
 
 def decoder_block_attn_decode(params, cfg: ModelConfig, h, cache, pos,
@@ -107,31 +116,49 @@ def decoder_block_attn_decode(params, cfg: ModelConfig, h, cache, pos,
     residual.  Writes the cache in place (``active`` rows only)."""
     win = window_for_layer(cfg, layer_idx)
     x = apply_norm(params["ln1"], cfg, h)
-    a, ck, cv = attn.apply_gqa_decode(params["attn"], cfg, x, cache["k"],
-                                      cache["v"], pos, win, active=active,
-                                      backend=backend)
+    if cfg.attn_kind == "mla":
+        a, lat, kr = attn.apply_mla_decode(
+            params["attn"], cfg, x, cache["latent"], cache["krope"], pos,
+            active=active, backend=backend)
+        cache = {"latent": lat, "krope": kr}
+    else:
+        a, ck, cv = attn.apply_gqa_decode(params["attn"], cfg, x, cache["k"],
+                                          cache["v"], pos, win,
+                                          active=active, backend=backend)
+        cache = {"k": ck, "v": cv}
     if cfg.sandwich_norm:
         a = apply_norm(params["post_ln1"], cfg, a)
-    return h + a, {"k": ck, "v": cv}
+    return h + a, cache
 
 
-def decoder_block_ffn(params, cfg: ModelConfig, h):
-    """FFN half: ln2 -> MLP -> residual (position-free)."""
+def _ffn(params, cfg: ModelConfig, h, moe_rows: bool = False):
+    """ln2 -> MLP or MoE -> (sandwich post-norm) -> residual; returns (h,
+    aux)."""
     x = apply_norm(params["ln2"], cfg, h)
-    m = apply_mlp(params["ffn"], cfg, x)
+    aux = {}
+    if cfg.is_moe:
+        m, aux = moe.apply_moe(params["ffn"], cfg, x, per_row=moe_rows)
+    else:
+        m = apply_mlp(params["ffn"], cfg, x)
     if cfg.sandwich_norm:
         m = apply_norm(params["post_ln2"], cfg, m)
-    return h + m
+    return h + m, aux
+
+
+def decoder_block_ffn(params, cfg: ModelConfig, h, moe_rows: bool = False):
+    """FFN half: ln2 -> MLP or MoE -> residual (position-free)."""
+    return _ffn(params, cfg, h, moe_rows)[0]
 
 
 def decoder_block_decode(params, cfg: ModelConfig, h, cache, pos,
-                         layer_idx=0, active=None, backend: str = "kernel"):
+                         layer_idx=0, active=None, backend: str = "kernel",
+                         moe_rows: bool = False):
     """Single-token decoder block.  h (B,1,d); pos (B,).  Returns
     (h, cache) with the cache updated in place."""
     h, cache = decoder_block_attn_decode(params, cfg, h, cache, pos,
                                          layer_idx, active=active,
                                          backend=backend)
-    return decoder_block_ffn(params, cfg, h), cache
+    return decoder_block_ffn(params, cfg, h, moe_rows), cache
 
 
 # ---------------------------------------------------------------------------

@@ -37,14 +37,22 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
+# a leaf above this many elements is drawn in f32 slices of at most
+# _DRAW_SLICE elements and cast slice by slice, so its f32 draw never sits
+# whole beside the cast copy (deepseek's stacked experts: 32 GB in f32)
+_DRAW_WHOLE = 1 << 31
+_DRAW_SLICE = 1 << 28
+
+
 class ParamBuilder:
     """Collects named leaves drawn from one ``torch.Generator``.
 
     ``dense`` draws a truncated normal on [-2, 2] times ``scale`` (default
     1/sqrt(fan_in)) in f32 on the generator's device, then casts and moves
-    the leaf to ``device`` — the reference's ``dense_init``.  ``lead``
-    prepends stacked dims (the layer axis of a segment) to every leaf; the
-    fan-in stays the per-layer one, as the reference's vmapped init."""
+    the leaf to ``device`` — the reference's ``dense_init`` (leaves above
+    ``_DRAW_WHOLE`` elements slice by slice).  ``lead`` prepends stacked
+    dims (the layer axis of a segment) to every leaf; the fan-in stays the
+    per-layer one, as the reference's vmapped init."""
 
     def __init__(self, gen: torch.Generator, device, lead=()):
         self.gen = gen
@@ -55,12 +63,25 @@ class ParamBuilder:
     def dense(self, name, shape: Sequence[int], dtype, scale=None):
         fan_in = shape[0] if len(shape) > 1 else shape[-1]
         scale = scale if scale is not None else 1.0 / math.sqrt(max(1, fan_in))
-        w = torch.empty(self.lead + tuple(shape), dtype=torch.float32,
-                        device=self.gen.device)
+        full = self.lead + tuple(shape)
+        if math.prod(full) <= _DRAW_WHOLE:
+            self.params[name] = self._draw(full, scale).to(
+                device=self.device, dtype=dtype)
+            return
+        out = torch.empty(full, dtype=dtype, device=self.device)
+        rows = out.view(-1, full[-1])
+        step = max(1, _DRAW_SLICE // full[-1])
+        for i in range(0, rows.shape[0], step):
+            n = min(step, rows.shape[0] - i)
+            rows[i:i + n] = self._draw((n, full[-1]), scale).to(
+                device=self.device, dtype=dtype)
+        self.params[name] = out
+
+    def _draw(self, shape, scale):
+        w = torch.empty(shape, dtype=torch.float32, device=self.gen.device)
         torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
                                     generator=self.gen)
-        w.mul_(scale)
-        self.params[name] = w.to(device=self.device, dtype=dtype)
+        return w.mul_(scale)
 
     def zeros(self, name, shape, dtype):
         self.params[name] = torch.zeros(self.lead + tuple(shape), dtype=dtype,

@@ -1,6 +1,6 @@
 """Model API: param init, prefill, decode — the counterpart of the
-reference's ``repro/models/model.py`` for dense decoders, RWKV6 and zamba2
-hybrids.
+reference's ``repro/models/model.py`` for decoders (dense or MoE, GQA or
+MLA), RWKV6 and zamba2 hybrids.
 
 A stack is a list of segments (``stack_plan``) of stacked per-layer
 params, as in the reference:
@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
+from repro_torch.models.attention import mla_cache_views
 from repro_torch.models.layers import (ParamBuilder, embed_tokens,
                                        init_embedding, lm_head, param_dtype)
 
@@ -158,11 +159,17 @@ def _stack_tree(entries):
 
 
 # cache leaves with a time axis (axis 2 of a stacked (layers, B, T, ...)
-# leaf); the recurrent states ("wkv", "shift_*", "ssm", "conv") have none
-LENGTH_KEYS = frozenset({"k", "v"})
+# leaf); the recurrent states ("wkv", "shift_*", "ssm", "conv") have none.
+# An MLA layer's "latent" and "krope" are two column blocks of one buffer
+# (``attention.mla_cache_views``)
+LENGTH_KEYS = frozenset({"k", "v", "latent", "krope"})
 
 
 def _grow_tree(tree, cache_len: Optional[int], cur_len: int):
+    if "latent" in tree:  # MLA: one joint (.., T, lora + rope) buffer
+        buf = torch.cat([tree["latent"], tree["krope"]], dim=-1)
+        return mla_cache_views(_grow(buf, cache_len, cur_len),
+                               tree["latent"].shape[-1])
     return {k: (_grow_tree(v, cache_len, cur_len) if isinstance(v, dict)
                 else _grow(v, cache_len, cur_len) if k in LENGTH_KEYS
                 else v)
@@ -172,22 +179,27 @@ def _grow_tree(tree, cache_len: Optional[int], cur_len: int):
 def forward_full(params, cfg: ModelConfig, batch, collect_caches=False,
                  cache_len: Optional[int] = None, backend: str = "kernel"):
     """Run the stack over full sequences.  Returns (h_final, aux, caches);
-    caches is {segment: stacked cache tree} when ``collect_caches`` (K/V
-    time axes grown to ``cache_len`` when given)."""
+    aux sums the MoE terms over the layers (zero without MoE); caches is
+    {segment: stacked cache tree} when ``collect_caches`` (K/V time axes
+    grown to ``cache_len`` when given)."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)
     h = embed_tokens(params["embed"], cfg, tokens)
     emb0 = h
     caches: Dict = {}
+    aux_total = {"moe_aux_loss": torch.zeros((), device=tokens.device),
+                 "moe_drop_frac": torch.zeros((), device=tokens.device)}
     for seg in stack_plan(cfg):
         seg_params = params["segments"][seg.name]
         entries = []
         for i in range(seg.n):
             p = layer_params(seg_params, i)
             if seg.kind == "decoder":
-                h, cache, _ = B.decoder_block_full(p, cfg, h, positions, i,
-                                                   backend=backend)
+                h, cache, aux = B.decoder_block_full(p, cfg, h, positions,
+                                                     i, backend=backend)
+                for key, val in aux.items():
+                    aux_total[key] = aux_total[key] + val
             elif seg.kind == "rwkv":
                 h, cache = B.rwkv_block_full(p, cfg, h, backend=backend)
             elif seg.kind == "mamba":
@@ -205,7 +217,7 @@ def forward_full(params, cfg: ModelConfig, batch, collect_caches=False,
                 entries.append(cache)
         if collect_caches:
             caches[seg.name] = _grow_tree(_stack_tree(entries), cache_len, S)
-    return h, {}, caches
+    return h, aux_total, caches
 
 
 def _grow(x, cache_len: Optional[int], cur_len: int):
@@ -297,8 +309,14 @@ def recurrent_state(cfg: ModelConfig, kind: str, lead, device):
 
 def init_decode_caches(cfg: ModelConfig, batch_size: int, cache_len: int,
                        device="cuda"):
-    """Zero-initialised cache tree for decode at a given cache length."""
+    """Zero-initialised cache tree for decode at a given cache length (an
+    MLA layer's latent and krope as views of one buffer)."""
     def kv(n):
+        if cfg.attn_kind == "mla":
+            lora = cfg.kv_lora_rank
+            return mla_cache_views(torch.zeros(
+                (n, batch_size, cache_len, lora + cfg.rope_head_dim),
+                dtype=param_dtype(cfg), device=device), lora)
         shape = (n, batch_size, cache_len, cfg.n_kv_heads, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=param_dtype(cfg),
                                  device=device),

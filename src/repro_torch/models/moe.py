@@ -1,0 +1,192 @@
+"""Mixture-of-Experts FFN: top-k token-choice routing with capacity
+dispatch — the counterpart of the reference's ``repro/models/moe.py``.
+
+Dispatch is sort-based, as in the reference: a stable argsort by expert id
+groups the (token, choice) pairs, each expert keeps its first ``C`` of them
+(``_capacity``), the kept tokens are gathered into an ``(E, C, d)`` buffer,
+the expert SwiGLU runs as three batched products, and each token sums its
+kept slots' weighted outputs.  Tokens beyond an expert's capacity are
+dropped; the residual carries them through.
+
+``per_row=True`` is the engine's pooled layout.  The reference's pooled
+steps ``vmap`` a batch-1 block over the pool rows, so each row routes
+alone: its own capacity from its own token count ``T`` (1 in decode), and
+no other row's tokens (a masked row's garbage included) can take its
+slots.  Here the rows are a real batch, so the dispatch ranks within each
+(row, expert) pair — a stable sort on ``row * E + expert`` — into an
+``(E, rows * C, d)`` buffer.  ``per_row=False`` (the monolithic
+``prefill`` / ``decode_step``) pools the whole batch, as the reference
+does outside the engine.
+
+Determinism and the host: the combine gathers each token's ``k`` slots and
+adds them in ascending slot order (the reference's scatter-add order), not
+with ``index_add_``, whose CUDA atomics change the float order from run to
+run.  Counts come from ``scatter_add_`` and the capacity from sizes only,
+so nothing here reads a device value on the host.
+
+The expert products are plain ``torch.bmm`` calls: the reference computes
+them outside any Pallas kernel.  Its pure-EP ``_apply_moe_ep`` needs a
+device mesh (ROADMAP A10); without one its ``_ep_eligible`` is false.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import ParamBuilder, param_dtype
+
+EP_PAD_GROUP = 256  # pad expert allocation to the full-chip EP group size
+EP_MIN_EXPERTS = 64  # only pad expert-rich archs
+
+
+def expert_alloc(E: int) -> int:
+    """Experts allocated in the weights: padded to a multiple of 256 for
+    archs with many experts (deepseek 160 -> 256; the dummy experts receive
+    no tokens); small-E archs stay unpadded."""
+    if E >= EP_MIN_EXPERTS:
+        return ((E + EP_PAD_GROUP - 1) // EP_PAD_GROUP) * EP_PAD_GROUP
+    return E
+
+
+def init_moe(pb: ParamBuilder, cfg: ModelConfig):
+    d, f, E = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    Ea = expert_alloc(E)
+    dt = param_dtype(cfg)
+    c = pb.child()
+    c.dense("router", (d, E), torch.float32)
+    c.dense("wg", (Ea, d, f), dt)
+    c.dense("wu", (Ea, d, f), dt)
+    c.dense("wo", (Ea, f, d), dt)
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        c.dense("swg", (d, fs), dt)
+        c.dense("swu", (d, fs), dt)
+        c.dense("swo", (fs, d), dt)
+    return c.params
+
+
+def _capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    c = int(np.ceil(n_tokens * cfg.moe_top_k / cfg.n_experts
+                    * cfg.capacity_factor))
+    return max(8, int(np.ceil(c / 8) * 8))  # pad to a multiple of 8
+
+
+def _top_k(probs, k: int):
+    """``jax.lax.top_k`` order: descending, the lower index first on ties
+    (a stable descending sort keeps equal values in index order)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def router_topk(params, cfg: ModelConfig, xf):
+    """Softmax router with renormalised top-k weights.  xf: (N, d)."""
+    logits = xf.float() @ params["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = _top_k(probs, cfg.moe_top_k)  # (N, k)
+    top_w = top_w / top_w.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    return top_w, top_e, probs
+
+
+def _sort_dispatch(xf, top_w, top_e, E_slots: int, C: int, rows: int = 1):
+    """Sort-based capacity dispatch of ``rows`` independent row groups of
+    ``T = N / rows`` tokens each.  xf (N, d); top_w/top_e (N, k).
+
+    Returns (xe (E_slots, rows * C, d), slot_of (N, k) — each choice's slot
+    in the flattened buffer, ``E_slots * rows * C`` where dropped —,
+    slot_weight (E_slots * rows * C,), counts (rows, E_slots), kept (rows,)).
+    Slot ``e * rows * C + r * C + i`` holds the i-th token of row ``r``
+    routed to expert ``e``, in (token, choice) order."""
+    N, d = xf.shape
+    k = top_e.shape[-1]
+    T = N // rows
+    dev = xf.device
+    n_slots = E_slots * rows * C
+    token_flat = torch.arange(N, device=dev).repeat_interleave(k)
+    key = (token_flat // T) * E_slots + top_e.reshape(-1)  # row * E + e
+    order = torch.argsort(key, stable=True)
+    sorted_key = key[order]
+    counts = torch.zeros(rows * E_slots, dtype=torch.long, device=dev)
+    counts.scatter_add_(0, key, torch.ones_like(key))
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(N * k, device=dev) - starts[sorted_key]
+    keep = rank < C
+    r_s, e_s = sorted_key // E_slots, sorted_key % E_slots
+    slot = torch.where(keep, e_s * (rows * C) + r_s * C + rank, n_slots)
+    slot_token = torch.full((n_slots + 1,), N, dtype=torch.long, device=dev)
+    slot_token.scatter_(0, slot, token_flat[order])
+    slot_weight = torch.zeros((n_slots + 1,), dtype=torch.float32,
+                              device=dev)
+    slot_weight.scatter_(0, slot, top_w.reshape(-1)[order].float())
+    slot_of = torch.empty_like(slot)
+    slot_of[order] = slot
+    x_pad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
+    xe = x_pad[slot_token[:n_slots]].reshape(E_slots, rows * C, d)
+    counts = counts.reshape(rows, E_slots)
+    kept = counts.clamp(max=C).sum(dim=1)
+    return xe, slot_of.reshape(N, k), slot_weight[:n_slots], counts, kept
+
+
+def _combine(ye, slot_of, slot_weight):
+    """out[t] = sum of its kept slots' weighted outputs, added in ascending
+    slot order starting from zero (the reference's scatter-add order);
+    dropped choices add an exact zero."""
+    d = ye.shape[-1]
+    yf = ye.reshape(-1, d) * slot_weight[:, None].to(ye.dtype)
+    yf = torch.cat([yf, yf.new_zeros((1, d))], dim=0)
+    slots = torch.sort(slot_of, dim=-1).values
+    out = ye.new_zeros((slot_of.shape[0], d))
+    for j in range(slots.shape[1]):
+        out = out + yf[slots[:, j]]
+    return out
+
+
+def _expert_mlp(xe, wg, wu, wo):
+    g = F.silu(torch.bmm(xe, wg.to(xe.dtype)))
+    u = torch.bmm(xe, wu.to(xe.dtype))
+    return torch.bmm(g * u, wo.to(xe.dtype))
+
+
+def _shared_expert(params, cfg: ModelConfig, x, out):
+    if cfg.n_shared_experts:
+        gs = F.silu(x @ params["swg"].to(x.dtype))
+        us = x @ params["swu"].to(x.dtype)
+        out = out + (gs * us) @ params["swo"].to(x.dtype)
+    return out
+
+
+def apply_moe(params, cfg: ModelConfig, x, per_row: bool = False):
+    """x (B, S, d) -> (out (B, S, d), aux): routed top-k experts plus the
+    optional shared expert.
+
+    ``per_row``: route each of the B rows alone, with the capacity of its
+    S tokens (the engine's pooled steps; the reference vmaps its rows
+    there); otherwise the B * S tokens share one capacity.  ``aux`` holds
+    the load-balancing loss and the dropped share of the (token, choice)
+    pairs — 0-d tensors, or (B,) per row under ``per_row``."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.moe_top_k
+    rows = B if per_row else 1
+    T = B * S // rows
+    C = _capacity(cfg, T)
+    xf = x.reshape(B * S, d)
+    top_w, top_e, probs = router_topk(params, cfg, xf)
+    xe, slot_of, slot_weight, counts, kept = _sort_dispatch(
+        xf, top_w, top_e, E, C, rows)
+    ye = _expert_mlp(xe, params["wg"][:E], params["wu"][:E],
+                     params["wo"][:E])
+    out = _combine(ye, slot_of, slot_weight).reshape(B, S, d)
+    out = _shared_expert(params, cfg, x, out)
+    n_choices = max(T * k, 1)
+    frac = counts.float() / n_choices
+    mean_prob = probs.reshape(rows, T, E).mean(dim=1)
+    aux = {"moe_aux_loss": E * (frac * mean_prob).sum(dim=-1),
+           "moe_drop_frac": 1.0 - kept.float() / n_choices}
+    if not per_row:
+        aux = {key: v[0] for key, v in aux.items()}
+    return out, aux
+
+
+__all__ = ["EP_MIN_EXPERTS", "EP_PAD_GROUP", "apply_moe", "expert_alloc",
+           "init_moe", "router_topk"]

@@ -1,6 +1,7 @@
 """Geo-distributed serving engine with continuous batching across sessions
-— the counterpart of the reference's ``repro/serving/engine.py`` for dense
-decoders, RWKV6 and zamba2 hybrids on the slab and paged layouts.
+— the counterpart of the reference's ``repro/serving/engine.py`` for
+decoders (dense or MoE, GQA or MLA), RWKV6 and zamba2 hybrids on the slab
+and paged layouts.
 
 Executes real block-level forward passes according to a BPRR placement
 with client-centric (hub-spoke) communication and client-side input
@@ -28,9 +29,8 @@ length, in one shot; hybrid stacks thread the original embedding
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; ``backend="kernel"`` sends attention on CUDA tensors to
 the hand-written kernels.  Sessions sample greedily or by seeded
-temperature / top-k (``sampling.SamplingSpec``).  Not in this slice: MLA,
-MoE and encoder-decoder stacks (A9), device groups and τ calibration
-(A10).
+temperature / top-k (``sampling.SamplingSpec``).  Not in this slice:
+encoder-decoder stacks (A9), device groups and τ calibration (A10).
 """
 from __future__ import annotations
 
@@ -488,7 +488,20 @@ class GeoServingSystem:
                        n_new: int, arrival: float = 0.0,
                        frames: Optional[np.ndarray] = None,
                        sampling: Optional[SamplingSpec] = None) -> int:
-        """Register an admitted session (no compute, no slots yet)."""
+        """Register an admitted session (no compute, no slots yet).  Raises
+        ``ValueError`` when a hop's blocks are not hosted by its server (a
+        check the reference does not make: its layer masks would skip the
+        missing blocks without a word)."""
+        e = 0
+        for hop, (j, k) in enumerate(zip(route.servers, route.blocks)):
+            srv = self.servers.get(int(j))
+            if srv is None or not (srv.a <= e and e + k <= srv.a + srv.m):
+                hosted = "none" if srv is None else \
+                    f"[{srv.a}, {srv.a + srv.m})"
+                raise ValueError(
+                    f"route hop {hop}: server {int(j)} does not host blocks "
+                    f"[{e}, {e + k}) (it hosts {hosted})")
+            e += k
         S = len(tokens)
         if S + n_new > self.max_seq_len:
             raise ValueError(

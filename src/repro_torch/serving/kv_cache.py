@@ -1,6 +1,6 @@
-"""Serving state pools for the geo engine — the slab layout and the
-decoder, RWKV6 and Mamba2/zamba2 block kinds of the reference's
-``repro/serving/kv_cache.py``.
+"""Serving state pools for the geo engine — the slab and paged layouts and
+the decoder (GQA K/V or MLA latents), RWKV6 and Mamba2/zamba2 block kinds
+of the reference's ``repro/serving/kv_cache.py``.
 
 * ``StateSpec`` names what one BPRR block needs from the serving layer;
   ``state_specs(cfg)`` derives the per-block tuple.
@@ -36,8 +36,13 @@ decoder, RWKV6 and Mamba2/zamba2 block kinds of the reference's
   pages into slab-shaped scratch, run the unchanged slab step on it and
   scatter the written pages back, so paged results equal slab results.
 
-The MLA, MoE and encoder-decoder kinds (ROADMAP A9) are later slices of
-the port.
+An MLA layer's cache is ONE ``(.., max_len, lora + rope)`` buffer whose
+``latent`` and ``krope`` leaves are views (``attention.mla_cache_views``):
+absorbed decode reads it as K1's keys and its latent columns as the
+values, through strides.  The paged layout keeps that buffer whole in its
+page arrays and scratch.  MoE layers route each pool row alone
+(``moe_rows``), as the reference's vmapped rows do.  Encoder-decoder
+kinds (ROADMAP A9) are a later slice of the port.
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
+from repro_torch.models.attention import mla_cache_views, mla_keys
 from repro_torch.models.layers import param_dtype
 from repro_torch.models.model import (LENGTH_KEYS, recurrent_state,
                                       layer_params)
@@ -134,9 +140,15 @@ def _check_kind(kind: str):
 def _state_tree(cfg: ModelConfig, kind: str, lead: Tuple[int, ...],
                 max_len: int, device):
     """Zero serving state of one block kind with ``lead`` dims prepended:
-    K/V (.., max_len, Kv, hd) for ``decoder``; f32 recurrent state for
-    ``rwkv`` / ``mamba``; both for ``mamba_shared``."""
+    K/V (.., max_len, Kv, hd) for ``decoder`` (MLA: the latent and krope
+    views of one (.., max_len, lora + rope) buffer); f32 recurrent state
+    for ``rwkv`` / ``mamba``; both for ``mamba_shared``."""
     _check_kind(kind)
+    if kind == "decoder" and cfg.attn_kind == "mla":
+        lora = cfg.kv_lora_rank
+        return mla_cache_views(torch.zeros(
+            lead + (max_len, lora + cfg.rope_head_dim),
+            dtype=param_dtype(cfg), device=device), lora)
     kv = lead + (max_len, cfg.n_kv_heads, cfg.head_dim)
     attn = {"k": torch.zeros(kv, dtype=param_dtype(cfg), device=device),
             "v": torch.zeros(kv, dtype=param_dtype(cfg), device=device)}
@@ -286,13 +298,34 @@ def new_paged_pool_tree(cfg: ModelConfig, kind: str, n_layers: int,
                         device="cuda"):
     """Paged-layout state tree: self-KV leaves become shared physical page
     arrays ``(n_layers, n_phys, page_size, Kv, hd)`` (``n_phys`` includes
-    the trash page) addressed through the pool's page table; every other
-    leaf keeps its row-resident ``(n_layers, n_rows, ...)`` layout."""
+    the trash page) addressed through the pool's page table (MLA: one
+    ``(.., page_size, lora + rope)`` array, viewed as latent and krope);
+    every other leaf keeps its row-resident ``(n_layers, n_rows, ...)``
+    layout."""
     tree = _state_tree(cfg, kind, (n_layers, n_rows), page_size, device)
-    for key in LENGTH_KEYS & tree.keys():
-        leaf = tree[key]
-        tree[key] = leaf.new_zeros((n_layers, n_phys) + leaf.shape[2:])
+    for names, leaf in _length_leaves(tree):
+        tree.update(_as_leaves(tree, names, leaf.new_zeros(
+            (n_layers, n_phys) + leaf.shape[2:])))
     return tree
+
+
+def _length_leaves(tree):
+    """The time-axis buffers of a state tree as (leaf names, tensor): the
+    MLA pair as its one joint buffer (a view), K and V each alone."""
+    out = []
+    if "latent" in tree:
+        out.append((("latent", "krope"),
+                    mla_keys(tree["latent"], tree["krope"])))
+    out.extend(((key,), tree[key]) for key in ("k", "v") if key in tree)
+    return out
+
+
+def _as_leaves(tree, names, buf):
+    """Leaves named ``names`` over ``buf``, split like ``tree``'s (the
+    inverse of :func:`_length_leaves`)."""
+    if names == ("latent", "krope"):
+        return mla_cache_views(buf, tree["latent"].shape[-1])
+    return {names[0]: buf}
 
 
 class CachePool:
@@ -598,6 +631,9 @@ def make_pool_prefill_step(cfg: ModelConfig, kinds: Tuple[str, ...],
     runs = kind_runs(kinds)
     for kind, _, _ in runs:
         _check_kind(kind)
+    # the self-attention cache leaves a chunked prefill reads as its prefix
+    prefix_keys = ("latent", "krope") if cfg.attn_kind == "mla" \
+        else ("k", "v")
 
     def step(run_params, shared_params, pool_trees, h, emb0, layer_active,
              layer_ids, offset):
@@ -613,11 +649,11 @@ def make_pool_prefill_step(cfg: ModelConfig, kinds: Tuple[str, ...],
                 p = layer_params(run_params[r], i)
                 c = layer_params(pool_trees[r], i)
                 if kind == "decoder":
-                    prefix = None if offset == 0 else (
-                        c["k"][:, :offset], c["v"][:, :offset])
+                    prefix = None if offset == 0 else tuple(
+                        c[key][:, :offset] for key in prefix_keys)
                     h2, chunk, _ = B.decoder_block_full(
                         p, cfg, h, positions, layer_ids[lo + i],
-                        prefix_kv=prefix, backend=backend)
+                        prefix_kv=prefix, backend=backend, moe_rows=True)
                     for key in chunk:
                         _masked_ranged_write(c[key], chunk[key], act,
                                              offset, T)
@@ -666,7 +702,7 @@ def make_pool_decode_step(cfg: ModelConfig, kinds: Tuple[str, ...],
                 if kind == "decoder":
                     h2, _ = B.decoder_block_decode(
                         p, cfg, h, c, pos, layer_ids[lo + i], active=act,
-                        backend=backend)
+                        backend=backend, moe_rows=True)
                 elif kind == "rwkv":
                     h2, st = B.rwkv_block_decode(p, cfg, h, c)
                     _masked_state_write(c, st, act)
@@ -751,10 +787,9 @@ def _gather_paged(runs, pool_trees, page_table, page_size: int):
     scratch = []
     for r in range(len(runs)):
         t = dict(pool_trees[r])
-        for key in LENGTH_KEYS & t.keys():
-            X = t[key]
-            t[key] = X[:, page_table].reshape(
-                (X.shape[0], n_rows, max_pages * page_size) + X.shape[3:])
+        for names, X in _length_leaves(pool_trees[r]):
+            t.update(_as_leaves(t, names, X[:, page_table].reshape(
+                (X.shape[0], n_rows, max_pages * page_size) + X.shape[3:])))
         scratch.append(t)
     return tuple(scratch)
 
@@ -772,10 +807,11 @@ def _scatter_paged(runs, pool_trees, scratch, page_table, page_size: int,
     real page is written twice in one call (rows own disjoint pages)."""
     n_rows, max_pages = page_table.shape
     for r in range(len(runs)):
-        for key in LENGTH_KEYS & pool_trees[r].keys():
-            X = pool_trees[r][key]  # (L, n_phys, page, ...)
-            S = scratch[r][key].view(
-                (X.shape[0], n_rows, max_pages, page_size) + X.shape[3:])
+        for (names, X), (_, S) in zip(_length_leaves(pool_trees[r]),
+                                      _length_leaves(scratch[r])):
+            # X (L, n_phys, page, ...); S the slab-shaped scratch
+            S = S.view((X.shape[0], n_rows, max_pages, page_size)
+                       + X.shape[3:])
             if pos is None:
                 X[:, page_table] = S
             else:

@@ -233,7 +233,8 @@ class ContinuousBatchingScheduler:
                 j, system.detector.suspicion_penalty)
         if dead != self._known_dead:
             self.controller.replace_servers(
-                _problem_with_dead(system.problem, dead))
+                _problem_with_dead(system.problem, dead),
+                placement=system.alive_placement())
         self._known_dead = dead
         self._known_suspected = suspected
 

@@ -15,9 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (HEAD_DIM_PAIRS, HEAD_DIMS, attention_ref,
-                                 decode_attention, decode_attention_ref,
-                                 decode_plan, flash_attention, ssd,
+from repro_torch.kernels import (HEAD_DIM_PAIRS, HEAD_DIM_PAIRS_F32,
+                                 HEAD_DIMS, attention_ref, decode_attention,
+                                 decode_attention_ref, decode_plan,
+                                 flash_attention, head_group, ssd,
                                  ssd_chunked, ssd_plan, wkv6, wkv6_chunked,
                                  wkv6_plan)
 
@@ -361,7 +362,10 @@ def test_unsupported_head_dim_raises(cuda):
 # the kernels each reduced stack's serving path launches
 PATH_KERNELS = {"llama3_2_1b": (decode_attention, flash_attention),
                 "rwkv6_7b": (wkv6,),
-                "zamba2_7b": (ssd, decode_attention, flash_attention)}
+                "zamba2_7b": (ssd, decode_attention, flash_attention),
+                "deepseek_v2_236b": (decode_attention, flash_attention),
+                "llama4_scout_17b_a16e": (decode_attention, flash_attention),
+                "gemma3_4b": (decode_attention, flash_attention)}
 
 
 @pytest.mark.parametrize("arch", list(PATH_KERNELS))
@@ -462,7 +466,8 @@ def test_threefry_bits_cuda_equal_cpu(cuda):
     assert torch.equal(u[0].view(torch.int32), u[1].view(torch.int32))
 
 
-@pytest.mark.parametrize("arch", ["llama3_2_1b", "zamba2_7b"])
+@pytest.mark.parametrize("arch", ["llama3_2_1b", "zamba2_7b",
+                                  "deepseek_v2_236b"])
 def test_engine_paged_equals_slab(cuda, arch):
     """A reduced stack on the card under the paged layout, with a session
     preempted mid-decode and resumed: the slab layout's streams, sampled
@@ -508,3 +513,85 @@ def test_engine_paged_equals_slab(cuda, arch):
         if layout == "paged":
             assert system.round_stats["resumes"] == 1
     assert streams["paged"] == streams["slab"]
+
+
+# ---------------------------------------------------------------------------
+# The MLA and gemma3 shapes: K1 head groups, K2's new pairs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,H,lora,rope,T,pos", [
+    (torch.bfloat16, 128, 512, 64, 300, [299, 17, 128]),  # full width
+    (torch.float32, 4, 32, 8, 70, [69, 0, 33]),           # reduced
+])
+def test_decode_mla_joint_cache(cuda, dtype, H, lora, rope, T, pos):
+    """Absorbed MLA decode as the model calls it: one kv head, the joint
+    (B, T, lora + rope) cache as the keys and its latent columns as the
+    values (strided views), the faithful scale; G = 128 runs as 32 groups
+    of 4 heads.  Deterministic across calls."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B = len(pos)
+    q = _rn(g, B, 1, H, lora + rope, dtype=dtype)
+    buf = _rn(g, B, T, lora + rope, dtype=dtype)
+    keys, values = buf[:, :, None, :], buf[:, :, None, :lora]
+    p = torch.tensor(pos, device=cuda)
+    scale = 1.0 / np.sqrt(128 + rope)
+    n = decode_attention.launches
+    out = decode_attention(q, keys, values, p, scale=scale)
+    assert decode_attention.launches == n + 1
+    ref = decode_attention_ref(q, keys, values, p, scale=scale)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert torch.equal(out, decode_attention(q, keys, values, p,
+                                             scale=scale))
+    assert head_group(H, lora) == min(H, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_d256_window_beyond_1024(cuda, dtype):
+    """gemma3's local layers: head dim 256, window 1024, positions past
+    it (and a global layer's row without a window)."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    B, H, Kv, D, T = 3, 8, 4, 256, 1344
+    q = _rn(g, B, 1, H, D, dtype=dtype)
+    k, v = _rn(g, B, T, Kv, D, dtype=dtype), _rn(g, B, T, Kv, D, dtype=dtype)
+    p = torch.tensor([1300, 1343, 600], device=cuda)
+    for window in (1024, None):
+        out = decode_attention(q, k, v, p, window=window)
+        ref = decode_attention_ref(q, k, v, p, window=window)
+        assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("case", ["d256_window_chunk", "mla_192_128",
+                                  "mla_reduced_f32"])
+def test_flash_new_pairs(cuda, case):
+    """K2 at the new shapes: gemma3's 256 with window 1024 on a chunk at
+    q_start 1024; MLA's (192, 128) with Kv = H in bf16; the reduced MLA
+    (24, 16) in f32."""
+    dtype, B, S, Skv, H, Kv, Dk, Dv, window, q_start = {
+        "d256_window_chunk": (torch.bfloat16, 1, 320, 1344, 8, 4, 256, 256,
+                              1024, 1024),
+        "mla_192_128": (torch.bfloat16, 2, 100, 100, 8, 8, 192, 128, None,
+                        0),
+        "mla_reduced_f32": (torch.float32, 2, 37, 37, 4, 4, 24, 16, None,
+                            0),
+    }[case]
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q = _rn(g, B, S, H, Dk, dtype=dtype)
+    k, v = _rn(g, B, Skv, Kv, Dk, dtype=dtype), _rn(g, B, Skv, Kv, Dv,
+                                                    dtype=dtype)
+    kw = dict(window=window, q_start=q_start)
+    n = flash_attention.launches
+    out = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == n + 1
+    err = (out.float() - attention_ref(q, k, v, **kw).float()).abs().max()
+    assert err.item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("Dk,Dv", HEAD_DIM_PAIRS_F32)
+def test_flash_f32_pairs(cuda, Dk, Dv):
+    g = torch.Generator(device=cuda).manual_seed(10)
+    q = _rn(g, 2, 70, 4, Dk, dtype=torch.float32)
+    k = _rn(g, 2, 70, 2, Dk, dtype=torch.float32)
+    v = _rn(g, 2, 70, 2, Dv, dtype=torch.float32)
+    err = (flash_attention(q, k, v) - attention_ref(q, k, v)).abs().max()
+    assert err.item() <= TOL[torch.float32]

@@ -433,3 +433,95 @@ def test_no_fallback_off_cpu(which):
         else:
             flash_attention(q, c, c)
     assert (decode_attention.launches, flash_attention.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# The shapes of the MLA and gemma3 paths (K1 head groups, K2's new pairs)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,Kv,Dk,Dv,window,q_start", [
+    (2, 40, 4, 4, 24, 16, None, 0),     # reduced MLA prefill, Kv = H
+    (1, 24, 4, 4, 24, 16, None, 16),    # ... a chunk over its prefix
+    (1, 33, 2, 2, 192, 128, None, 0),   # full-width MLA prefill pair
+    (1, 40, 2, 1, 256, 256, 16, 24),    # gemma3: D 256, window, q_start
+])
+def test_flash_attention_new_pairs(dtype, B, S, H, Kv, Dk, Dv, window,
+                                   q_start):
+    Skv = q_start + S
+    q, k, v = _inputs(S * 7 + Dk, (B, S, H, Dk), (B, Skv, Kv, Dk),
+                      (B, Skv, Kv, Dv), dtype=dtype)
+    got = flash_attention(_t(q, dtype), _t(k, dtype), _t(v, dtype),
+                          causal=True, window=window, q_start=q_start)
+    jd = getattr(jnp, dtype)
+    ref = r_flash_attention(jnp.asarray(q, jd), jnp.asarray(k, jd),
+                            jnp.asarray(v, jd), causal=True, window=window,
+                            q_start=q_start, block_q=16, block_kv=16,
+                            interpret=True)
+    _close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Dk,Dv,T,pos,scale", [
+    (2, 4, 40, 32, 48, [47, 20], 1 / math.sqrt(24)),   # reduced MLA
+    (1, 128, 576, 512, 24, [23], 1 / math.sqrt(192)),  # full-width MLA
+])
+def test_decode_attention_mla_head_groups(dtype, B, H, Dk, Dv, T, pos,
+                                          scale):
+    """Absorbed MLA decode (one kv head, G = H) with the faithful scale, at
+    the reduced and the full-width head counts (the kernel runs G = 128 as
+    32 groups of 4)."""
+    q, ck, cv = _inputs(H + T, (B, 1, H, Dk), (B, T, 1, Dk), (B, T, 1, Dv),
+                        dtype=dtype)
+    p = np.array(pos)
+    got = decode_attention(_t(q, dtype), _t(ck, dtype), _t(cv, dtype),
+                           torch.from_numpy(p), scale=scale)
+    jd = getattr(jnp, dtype)
+    ref = r_decode_attention(jnp.asarray(q, jd), jnp.asarray(ck, jd),
+                             jnp.asarray(cv, jd), jnp.asarray(p, jnp.int32),
+                             scale=scale, block_kv=8, interpret=True)
+    _close(got, ref, dtype)
+
+
+def test_decode_attention_d256_window_past_the_window():
+    """gemma3's local layers at a position beyond the window."""
+    B, H, Kv, D, T, window = 2, 4, 2, 256, 80, 32
+    q, ck, cv = _inputs(256, (B, 1, H, D), (B, T, Kv, D), (B, T, Kv, D))
+    pos = np.array([79, 40])
+    got = decode_attention(_t(q, "float32"), _t(ck, "float32"),
+                           _t(cv, "float32"), torch.from_numpy(pos),
+                           window=window)
+    ref = r_decode_attention(jnp.asarray(q), jnp.asarray(ck),
+                             jnp.asarray(cv), jnp.asarray(pos, jnp.int32),
+                             window=window, block_kv=16, interpret=True)
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("G,Dv,want", [
+    (1, 64, 1), (4, 64, 4), (8, 256, 8), (2, 256, 2), (1, 224, 1),
+    (4, 32, 4), (128, 512, 4), (16, 64, 8), (12, 128, 6), (3, 1024, 1),
+    (1, 2048, 1), (1, 4096, 0), (16, 512, 4),
+])
+def test_head_group_fits_a_block(G, Dv, want):
+    """Heads per K1 block: the largest divisor of G with g <= 8 and
+    g * Dv <= 2048 — every G <= 8 shape keeps its single group."""
+    from repro_torch.kernels import head_group
+    from repro_torch.kernels.decode_attention.ops import (MAX_GROUP,
+                                                          MAX_GROUP_DV)
+
+    g = head_group(G, Dv)
+    assert g == want
+    if g:
+        assert G % g == 0 and g <= MAX_GROUP and g * Dv <= MAX_GROUP_DV
+
+
+def test_mla_decode_plan_from_sizes():
+    """The absorbed MLA launch at the serve's shape: 8 rows x 32 groups of
+    4 heads fill the card without splits, in 16-key stages (the 576 + 512
+    column ring); from sizes alone."""
+    from repro_torch.kernels import head_group
+
+    g = head_group(128, 512)
+    tile, n_split, chunk = decode_plan(8 * (128 // g), 1, 192, 576, 512, 2)
+    assert (g, tile, n_split, chunk) == (4, 16, 1, 192)

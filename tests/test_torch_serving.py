@@ -383,3 +383,93 @@ def test_later_slices_raise():
     system = _port()
     with pytest.raises(NotImplementedError, match="A10"):
         system.calibrate_taus()
+
+
+# ---------------------------------------------------------------------------
+# Routes the engine's servers do not host (ROADMAP C1)
+# ---------------------------------------------------------------------------
+
+
+def test_create_session_rejects_unhosted_route():
+    """A hop whose block range its server does not host raises, naming
+    the hop, the server and the range (the reference's layer masks would
+    skip those blocks without a word)."""
+    _, port = engines(lambda C, c: geo_problem(C, c), R=4,
+                      max_new_tokens=16, max_sessions=8)
+    pl, L = port.placement, port.cfg.n_layers
+    j = next(j for j in range(len(pl.m)) if 0 < pl.m[j] < L)
+    route = TC.Route(servers=(j,), blocks=(L,))
+    with pytest.raises(ValueError, match=rf"hop 0: server {j} does not "
+                       rf"host blocks \[0, {L}\) \(it hosts "
+                       rf"\[{pl.a[j]}, {pl.a[j] + pl.m[j]}\)\)"):
+        port.create_session(np.arange(2, 8), 0, route, 4)
+    assert not port.sessions
+    good, _ = TC.shortest_path_route(port.problem, pl, 0)
+    assert port.create_session(np.arange(2, 8), 0, good, 4) == 0
+
+
+def _recording(system):
+    """Wrap ``create_session`` to record (any server dead, route hosted by
+    the live servers) for every route handed to the engine."""
+    seen = []
+    create = system.create_session
+
+    def hosted(route):
+        pl = system.alive_placement()
+        e = 0
+        for j, k in zip(route.servers, route.blocks):
+            if not (pl.m[j] > 0 and pl.a[j] <= e
+                    and e + k <= pl.a[j] + pl.m[j]):
+                return False
+            e += k
+        return True
+
+    def rec(tokens, client, route, *a, **kw):
+        seen.append((any(not s.alive for s in system.servers.values()),
+                     hosted(route)))
+        return create(tokens, client, route, *a, **kw)
+
+    system.create_session = rec
+    return seen
+
+
+@pytest.mark.parametrize("layout", ["slab", "paged"])
+@pytest.mark.parametrize("mem,reference_hosted", [
+    ((500.0, 500.0, 220.0, 220.0, 220.0), False),
+    ((900.0, 900.0, 400.0, 400.0, 400.0), True),
+])
+def test_crash_under_scheduler_routes_stay_hosted(layout, mem,
+                                                  reference_hosted):
+    """Server 0 crashes at t = 1 under the scheduler; after the detection
+    the controller re-routes.  The port routes on the engine's placement
+    minus the dead server, so every route it hands out is hosted.  On the
+    examples/geo_serve.py cluster the reference's CG-BP rerun hands out
+    only unhosted routes after the crash; on a roomier cluster its routes
+    stay hosted, and there the port's streams, clocks and round_stats equal
+    the reference's."""
+    from repro.serving.faults import FaultEvent as REvent
+    from repro.serving.faults import FaultPlan as RPlan
+    from repro_torch.serving.faults import FaultEvent as TEvent
+    from repro_torch.serving.faults import FaultPlan as TPlan
+
+    ref, port = engines(lambda C, c: geo_problem(C, c, mem=mem), R=4,
+                        max_new_tokens=16, max_sessions=8,
+                        cache_layout=layout,
+                        page_size=4 if layout == "paged" else None)
+    ref.fault_plan = RPlan((REvent(1.0, "crash", 0),))
+    port.fault_plan = TPlan((TEvent(1.0, "crash", 0),))
+    r_seen, p_seen = _recording(ref), _recording(port)
+    reqs = geo_requests(64, n=14, n_new=10, rate=3.0)
+    r_out, _ = serve(ref, RS.ContinuousBatchingScheduler, reqs)
+    p_out, _ = serve(port, TS.ContinuousBatchingScheduler, reqs)
+    assert port.round_stats["detections"] == 1
+    assert not port.servers[0].alive
+    after = [h for dead, h in p_seen if dead]
+    assert after and all(h for _, h in p_seen)
+    r_after = [h for dead, h in r_seen if dead]
+    assert r_after and all(r_after) == reference_hosted
+    if reference_hosted:
+        assert_same_results(r_out, p_out)
+        assert ref.round_stats == port.round_stats
+    else:
+        assert not any(r_after)
