@@ -26,12 +26,21 @@ Phases (any failure raises, so the exit code is not 0):
              fraction is printed) and Gemma-3-4B at full depth with one
              more prompt of 1280 tokens (head dim 256; its local layers'
              window of 1024 masks in K2, on the prompt's second chunk at
-             q_start 1024, and in K1).  Each path's kernel counters are
+             q_start 1024, and in K1), and SeamlessM4T-large-v2 at full
+             width and all 48 blocks (24 encoder, 24 decoder; requests
+             with 256 or 512 frames and one of 1000, prompts of 4-16
+             tokens, max_enc_len 1024): K2 non-causal over the frames
+             and in cross prefill, K1 cross decode with a per-row
+             kv_len, the prefill groups keyed by (bucket, encoder
+             length), and its bf16 first-step logits beside an f32 run
+             on the plain versions (ROADMAP C5; printed, failing only on
+             non-finite logits).  Each path's kernel counters are
              zeroed just before its run and read just after; each kernel
              must have run, and every decode round must make exactly one
              host sync.
-   paged   — Llama-3.2-1B and DeepSeek-V2 again on paged pools (page
-             size 16; MLA latents paged as one joint buffer), the same
+   paged   — Llama-3.2-1B, DeepSeek-V2 and SeamlessM4T again on paged
+             pools (page size 16; MLA latents paged as one joint buffer;
+             cross K/V row-resident), the same
              requests: K1 and K2 launched, the greedy streams equal the
              slab run's, one host sync in every decode round that neither
              preempts nor resumes; round walls and tokens/s beside the
@@ -60,7 +69,8 @@ Phases (any failure raises, so the exit code is not 0):
              down to lw = -60, walked and parallel chunks, bit-identical
              repeats, zero-pad state invariance and misaligned views that
              must raise), and the paths' own captured inputs and one long
-             shape each, timed (kernel, plain, one PyTorch SDPA call where
+             shape each (seamless: its cross decode, encoder and cross
+             prefill calls), timed (kernel, plain, one PyTorch SDPA call where
              one exists, and the bound), with K1's head groups and split
              plan, the K2 design and the scans' chunk plan (Q, launches a
              call) that served each row.
@@ -74,7 +84,10 @@ Phases (any failure raises, so the exit code is not 0):
              DeepSeek-V2 and Llama-4-Scout in f32: the engine on the
              kernels gives the engine-on-plain streams (scheduler and
              kill_server drill); the monolithic ones where nothing was
-             dropped.
+             dropped.  Reduced SeamlessM4T in f32 with routes of an
+             encoder-only and a decoder hop: the engine on the kernels
+             gives the plain monolithic streams, through the scheduler
+             and through a kill_server drill of the decoder hop.
 
 The last lines are the kernels JSON, the nvidia-smi name/power line, and
 the result JSON.  Without a CUDA device, or outside the repository, the
@@ -98,6 +111,17 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "tfloat32": 495e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+
+
+def bf16_ulp_ok(got, want):
+    """The enc-dec kernel rows' bound: |kernel - plain| <= 2e-2 + 2^-7
+    |plain| per element, the bf16 tolerance plus one bf16 ulp of the
+    element.  The seamless encoder's outputs, and so the cross attention's,
+    reach 32-128, where one ulp is 0.25-0.5; every other bf16 row is held
+    to the absolute 2e-2."""
+    want = want.float()
+    return bool(((got.float() - want).abs()
+                 <= TOL["bfloat16"] + 2.0 ** -7 * want.abs()).all())
 
 
 def log(*a):
@@ -157,11 +181,12 @@ def _bound(nbytes, flops, dtype):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def decode_bound(q, k, v, pos, window=None, kv_len=None):
+def decode_bound(q, k, v, pos, window=None, kv_len=None, causal=True):
     """Bytes/flops this decode call needs: the query, each K/V row the
-    mask reaches (data dependent: per row from pos), the output.  Values
-    that are columns of the keys' rows (absorbed MLA decode) are bytes
-    already counted with the keys."""
+    mask reaches (data dependent: per row from pos, or from kv_len alone
+    for non-causal cross attention), the output.  Values that are columns
+    of the keys' rows (absorbed MLA decode) are bytes already counted with
+    the keys."""
     B, _, H, Dk = q.shape
     T, Kv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     es = q.element_size()
@@ -170,8 +195,8 @@ def decode_bound(q, k, v, pos, window=None, kv_len=None):
     kvl = [T] * B if kv_len is None else [int(x) for x in kv_len.tolist()]
     rows = 0
     for p, kl in zip(pos_l, kvl):
-        hi = min(p + 1, kl, T)
-        lo = 0 if window is None else max(0, p - window + 1)
+        hi = min(p + 1, kl, T) if causal else min(kl, T)
+        lo = 0 if window is None or not causal else max(0, p - window + 1)
         rows += max(hi - lo, 0)
     nbytes = (B * H * Dk + B * H * Dv) * es \
         + rows * Kv * (Dk + v_bytes) * es + 4 * B
@@ -179,16 +204,17 @@ def decode_bound(q, k, v, pos, window=None, kv_len=None):
     return _bound(nbytes, flops, str(q.dtype).split(".")[-1])
 
 
-def prefill_bound(q, k, v, q_start=0, window=None):
-    """Bytes/flops of a causal prefill call: q, k, v read once, out written
-    once; score and P.V flops over the causally valid pairs (inside the
-    window when there is one)."""
+def prefill_bound(q, k, v, q_start=0, window=None, causal=True):
+    """Bytes/flops of a prefill call: q, k, v read once, out written once;
+    score and P.V flops over the causally valid pairs (inside the window
+    when there is one), or over every (query, key) pair when non-causal."""
     B, Sq, H, Dk = q.shape
     Skv, Dv = k.shape[1], v.shape[-1]
     es = q.element_size()
     w = Skv + Sq if window is None else window
-    pairs = sum(min(q_start + i + 1, Skv) - max(0, q_start + i - w + 1)
-                for i in range(Sq))
+    pairs = Sq * Skv if not causal else sum(
+        min(q_start + i + 1, Skv) - max(0, q_start + i - w + 1)
+        for i in range(Sq))
     nbytes = (q.numel() + k.numel() + v.numel() + B * Sq * H * Dv) * es
     flops = 2 * B * H * pairs * (Dk + Dv)
     return _bound(nbytes, flops, str(q.dtype).split(".")[-1])
@@ -308,6 +334,7 @@ PATH_KERNELS = {
     "zamba2_7b": ("ssd", "decode_attention", "flash_attention"),
     "deepseek_v2_236b": ("decode_attention", "flash_attention"),
     "gemma3_4b": ("decode_attention", "flash_attention"),
+    "seamless_m4t_large_v2": ("decode_attention", "flash_attention"),
 }
 # served configurations cut in depth (DeepSeek-V2's 60 layers of ~6.24 B
 # params each, 256 expert slots included, do not fit the card: 4 of them
@@ -318,6 +345,11 @@ SERVE_DEPTH = {"deepseek_v2_236b": 4}
 LONG_PROMPT = {"gemma3_4b": 1280}
 # gemma3 prefills in chunks of at most 1024 tokens (the buckets stop there)
 PREFILL_CAP = {"gemma3_4b": 1024}
+# the enc-dec serve: decoder caches of 256 positions, cross caches of 1024
+# (max_enc_len); requests carry 256 or 512 frames (5 or 10 s of speech at
+# 50 frames/s), and one more carries 1000 (20 s); prompts of 4-16 tokens
+ENC_DEC_LENS = dict(max_seq_len=256, max_enc_len=1024)
+ENC_LENS, LONG_FRAMES = (256, 512), 1000
 
 
 def phase_serve(torch, arch, captured, layout="slab", slab=None):
@@ -329,7 +361,14 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
     scheduler run and read just after; every kernel of the path must have
     launched, every decode round must make exactly one host sync, and every
     stream must be complete.  On the slab layout real calls of each kernel
-    are kept for the kernel phase (``captured[(arch, name)]``).
+    are kept for the kernel phase (``captured[(arch, name)]``).  The
+    enc-dec stack (seamless) serves requests with frames (256 or 512, and
+    one of 1000) and prompts of 4-16 tokens; its prefill groups, keyed by
+    (bucket, encoder length), are printed, its attention calls are counted
+    apart (causal self attention, non-causal encoder and cross prefill,
+    cross decode with a per-row kv_len; each must have run), and on the
+    slab layout its first-step logits in bf16 are held beside an f32 run
+    on the plain versions (``bf16_vs_f32``).
     ``layout="paged"`` serves the same requests on page-size-16 pools: the
     greedy streams must equal the slab run's (``slab``), and the one-sync
     rule holds in every round that preempts or resumes nothing.  Returns
@@ -340,6 +379,7 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
     from repro_torch.models import attention as attn_mod
+    from repro_torch.models import blocks as blocks_mod
     from repro_torch.models import init_params
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import ssm as ssm_mod
@@ -371,6 +411,8 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
         kw["max_seq_len"] = long_len + 64
     if arch in PREFILL_CAP:
         kw["prefill_buckets"] = default_prefill_buckets(PREFILL_CAP[arch])
+    if cfg.is_enc_dec:
+        kw.update(ENC_DEC_LENS)
 
     def build():
         return GeoServingSystem(cfg, params, problem, algorithm="proposed",
@@ -383,7 +425,9 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
     # kernel libraries loaded); not part of the measured run
     warm = build()
     ws = ContinuousBatchingScheduler(warm, R=4)
-    ws.submit(0, np.arange(2, 50), 0.0, n_new=4)
+    ws.submit(0, np.arange(2, 50), 0.0, n_new=4,
+              frames=(np.zeros((64, cfg.frame_dim), np.float32)
+                      if cfg.is_enc_dec else None))
     ws.run()
     del warm, ws
 
@@ -394,7 +438,9 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
                    if m > 0)
     log(f"{tag} placement a={system.placement.a.tolist()} "
         f"m={system.placement.m.tolist()}; rows per server {caps}; "
-        f"max_seq_len {system.max_seq_len}; {layout} layout"
+        f"max_seq_len {system.max_seq_len}"
+        + (f", max_enc_len {system.max_enc_len}" if cfg.is_enc_dec else "")
+        + f"; {layout} layout"
         + ("" if layout == "slab" else
            f", page size {system.page_size}, physical pages per server "
            f"{ {j: v.pool.pages.n_pages for j, v in system.servers.items()} }"
@@ -430,50 +476,94 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
 
     system.prefill_round = timed("prefill", system.prefill_round)
     system.decode_round = timed("decode", system.decode_round)
+    groups = []  # (bucket, encoder length, members) of each prefill group
+
+    def admitting(admit):
+        def run(*a, **kw):
+            n = len(system._prefill_groups)
+            out = admit(*a, **kw)
+            groups.extend((g.bucket, g.enc_len, len(g.members))
+                          for g in system._prefill_groups[n:])
+            return out
+        return run
+
+    system.try_admit_sessions = admitting(system.try_admit_sessions)
 
     # keep real calls of each kernel from the main path for the kernel
-    # phase; copies are taken only on those calls (no tensor is read here:
-    # a host read would add a sync to the round)
+    # phase (slab layout); copies are taken only on those calls (no tensor
+    # is read here: a host read would add a sync to the round).  Attention
+    # calls are counted by kind: self (causal), cross (non-causal; K1 with
+    # a per-row kv_len) and, for K2, enc (non-causal, inside an encoder
+    # block — flagged by the block's wrapper, not told by shapes)
     real = {"decode_attention": attn_mod.decode_attention,
             "flash_attention": attn_mod.flash_attention,
             "wkv6": ssm_mod.wkv6, "ssd": ssm_mod.ssd,
-            "apply_moe": moe_mod.apply_moe}
-    n_decode = [0]
+            "apply_moe": moe_mod.apply_moe,
+            "encoder_block_full": blocks_mod.encoder_block_full}
+    keep = layout == "slab"
+    calls = {"decode_attention_self": 0, "decode_attention_cross": 0,
+             "flash_attention_self": 0, "flash_attention_enc": 0,
+             "flash_attention_cross": 0}
+    in_encoder = [False]
     windowed = []  # the last windowed decode calls (gemma3's local layers)
 
     def keep_decode(q, ck, cv, pos, **kw):
-        n_decode[0] += 1
-        if n_decode[0] == 200:
+        kind = "self" if kw.get("causal", True) else "cross"
+        calls["decode_attention_" + kind] += 1
+        if kind == "cross" and keep:
+            # the round where the 1000-frame session is 16 tokens in
+            long = next((x for x in system.sessions.values()
+                         if x.enc_len == LONG_FRAMES), None)
+            if long is not None and long.n_generated == 16:
+                captured[(arch, "decode_attention_cross")] = (
+                    clone_args(torch, (q, ck, cv, pos)), kw)
+        elif keep and not cfg.is_enc_dec and \
+                calls["decode_attention_self"] == 200:
             captured[(arch, "decode_attention")] = (
                 clone_args(torch, (q, ck, cv, pos)), kw)
         # gemma3: the windowed calls of one decode round while the long
         # prompt's session is 16 tokens in (its row past the window)
         long = system.sessions.get(long_sid[0])
-        if long is not None and kw.get("window") is not None and \
+        if keep and long is not None and kw.get("window") is not None and \
                 long.n_generated == 16:
             windowed.append((clone_args(torch, (q, ck, cv, pos)), kw))
             del windowed[:-4]
         return real["decode_attention"](q, ck, cv, pos, **kw)
 
     def keep_longest(name):
-        def keep(*args, **kw):
+        def run(*args, **kw):
             key = (arch, name)
             if key not in captured or \
                     args[0].shape[1] > captured[key][0][0].shape[1]:
                 captured[key] = (clone_args(torch, args), kw)
             return real[name](*args, **kw)
-        return keep
+        return run
 
-    def keep_flash(*args, **kw):
-        # gemma3: the long prompt's second chunk on a local layer (window
-        # and q_start both in play); otherwise the longest call
+    def keep_flash(q, k, v, **kw):
+        kind = "self" if kw.get("causal", True) else \
+            "enc" if in_encoder[0] else "cross"
+        calls["flash_attention_" + kind] += 1
+        key = (arch, "flash_attention" if kind == "self"
+               else "flash_attention_" + kind)
         if long_len:
-            if kw.get("q_start", 0) > 0 and kw.get("window") is not None \
-                    and (arch, "flash_attention") not in captured:
-                captured[(arch, "flash_attention")] = (
-                    clone_args(torch, args), kw)
-            return real["flash_attention"](*args, **kw)
-        return keep_longest("flash_attention")(*args, **kw)
+            # gemma3: the long prompt's second chunk on a local layer
+            # (window and q_start both in play)
+            take = kw.get("q_start", 0) > 0 and \
+                kw.get("window") is not None and key not in captured
+        else:  # the call over the most keys (enc-dec: the non-causal ones)
+            take = not (kind == "self" and cfg.is_enc_dec) and (
+                key not in captured
+                or k.shape[1] > captured[key][0][1].shape[1])
+        if keep and take:
+            captured[key] = (clone_args(torch, (q, k, v)), kw)
+        return real["flash_attention"](q, k, v, **kw)
+
+    def flag_encoder(*a, **kw):
+        in_encoder[0] = True
+        try:
+            return real["encoder_block_full"](*a, **kw)
+        finally:
+            in_encoder[0] = False
 
     moe_count = {"prefill": [0, 0], "decode": [0, 0]}  # [dropped, routed]
 
@@ -485,26 +575,35 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
         c[1] += n * (x.shape[0] if per_row else 1)
         return out, aux
 
-    if layout == "slab":
-        attn_mod.decode_attention = keep_decode
-        attn_mod.flash_attention = keep_flash
+    attn_mod.decode_attention = keep_decode
+    attn_mod.flash_attention = keep_flash
+    blocks_mod.encoder_block_full = flag_encoder
+    if keep:
         ssm_mod.wkv6, ssm_mod.ssd = keep_longest("wkv6"), keep_longest("ssd")
     if cfg.is_moe:
         moe_mod.apply_moe = count_moe
     sched = ContinuousBatchingScheduler(system, R=4)
     rng = np.random.RandomState(0)
     arrivals = poisson_arrivals(8, rate=2.0, seed=1)
-    lens = rng.randint(32, 129, 8)
+    lens = rng.randint(4, 17, 8) if cfg.is_enc_dec else \
+        rng.randint(32, 129, 8)
     if cfg.family in ("ssm", "hybrid"):
         lens[1::3] = lens[0]  # equal lengths form exact-length groups
     prompts = [rng.randint(2, cfg.vocab_size, int(n)) for n in lens]
     if long_len:  # one long prompt, arriving with the first request
         arrivals = np.append(arrivals, arrivals[0])
         prompts.append(rng.randint(2, cfg.vocab_size, long_len))
+    frames = [None] * len(prompts)
+    if cfg.is_enc_dec:  # one 1000-frame request, with the first request
+        enc_lens = [int(e) for e in rng.choice(ENC_LENS, 8)] + [LONG_FRAMES]
+        arrivals = np.append(arrivals, arrivals[0])
+        prompts.append(rng.randint(2, cfg.vocab_size, 12))
+        frames = [rng.randn(e, cfg.frame_dim).astype(np.float32)
+                  for e in enc_lens]
     lens = [len(p) for p in prompts]
     n_req = len(prompts)
-    for rid, (t, p) in enumerate(zip(arrivals, prompts)):
-        sched.submit(rid, p, float(t), n_new=32)
+    for rid, (t, p, f) in enumerate(zip(arrivals, prompts, frames)):
+        sched.submit(rid, p, float(t), n_new=32, frames=f)
     long_sid = [None]
     if long_len:  # the engine session of the long prompt, once created
         system.create_session = tracking(system.create_session, long_len,
@@ -523,6 +622,7 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
         attn_mod.flash_attention = real["flash_attention"]
         ssm_mod.wkv6, ssm_mod.ssd = real["wkv6"], real["ssd"]
         moe_mod.apply_moe = real["apply_moe"]
+        blocks_mod.encoder_block_full = real["encoder_block_full"]
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kern.items()}
     if windowed:  # the captured call that reaches furthest past the window
@@ -541,6 +641,22 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
             f"{s.first_token:.4f} per-token {s.per_token:.4f} (virtual s) "
             f"deferrals {s.n_deferrals}")
     log(f"{tag} kernel launches in the run: {launches}")
+    if cfg.is_enc_dec:
+        log(f"{tag} prefill groups (bucket, encoder length, sessions): "
+            f"{groups}")
+        log(f"{tag} attention calls by kind: {calls} (K1 self = causal "
+            "decode, K1 cross = non-causal with a per-row kv_len; K2 self "
+            "= causal decoder prefill, K2 enc = non-causal encoder, K2 "
+            "cross = non-causal cross prefill)")
+        if min(calls.values()) <= 0:
+            raise RuntimeError(f"an enc-dec attention kind never ran: "
+                               f"{calls}")
+        if sum(calls[k] for k in calls if k.startswith("decode")) != \
+                launches["decode_attention"] or \
+                sum(calls[k] for k in calls if k.startswith("flash")) != \
+                launches["flash_attention"]:
+            raise RuntimeError("attention calls and kernel launches differ")
+        launches.update(calls)
     if cfg.is_moe:
         fr = {k: (float(d) / r if r else 0.0) for k, (d, r) in
               moe_count.items()}
@@ -556,11 +672,17 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
               "streams": [list(map(int, s.tokens)) for s in served],
               "tok_s": n_gen / wall,
               "step_ms": pooled_step_ms(torch, system)}
+    # server 0, or on the enc-dec stack the server hosting the most
+    # decoder blocks (an encoder block does no decode work)
+    j = step_server(system)
+    srv = system.servers[j]
+    n_dec = sum(k != "enc" for k in srv.kinds)
     beside = "" if slab is None else \
         f" (slab: {slab['step_ms']:.3f} ms)"
-    log(f"{tag} one pooled decode step of server 0 ({system.servers[0].m} "
-        f"layers, all {system.servers[0].pool.n_rows} rows at position "
-        f"120), host wall ended by a synchronize: "
+    log(f"{tag} one pooled decode step of server {j} ({n_dec} decoding "
+        f"layers, all {srv.pool.n_rows} rows at position 120"
+        + (f", encoder length {STEP_ENC_LEN}" if cfg.is_enc_dec else "")
+        + f"), host wall ended by a synchronize: "
         f"{record['step_ms']:.3f} ms{beside}")
     for kind, w in walls.items():
         if w:
@@ -602,6 +724,9 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
     if long_len and layout == "slab" and not windowed:
         raise RuntimeError("no windowed decode call ran beside the long "
                            "prompt")
+    if cfg.is_enc_dec and layout == "slab":
+        record["c5"] = bf16_vs_f32(torch, cfg, params, prompts[-1],
+                                   frames[-1])
     if slab is not None:
         same = sum(a == b for a, b in zip(record["streams"], slab["streams"]))
         log(f"{tag} greedy streams equal to the slab run's: {same}/{n_req}")
@@ -615,6 +740,46 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
     log(f"{tag} freed: device memory "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
     return record
+
+
+def bf16_vs_f32(torch, cfg, params, toks, frames):
+    """ROADMAP C5 on the enc-dec path: the monolithic first-step logits of
+    one request in bf16 on the kernels against the same weights in f32 on
+    the plain versions (TF32 off).  Prints the max absolute and relative
+    differences and whether the greedy tokens agree; fails only on
+    non-finite logits.  Returns the numbers."""
+    from repro_torch.models import prefill
+    from repro_torch.models.model import tree_map
+
+    batch = {"tokens": torch.as_tensor(toks, device="cuda")[None],
+             "frames": torch.as_tensor(frames, device="cuda")[None]}
+    lb = prefill(params, cfg, batch)[0][0].float()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        p32 = tree_map(lambda x: x.float(), params)
+        cfg32 = cfg.replace(param_dtype="float32", act_dtype="float32")
+        lf = prefill(p32, cfg32, batch, backend="plain")[0][0]
+        del p32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    live = slice(0, cfg.vocab_size)  # padded columns hold -1e30 in both
+    d = (lb[live] - lf[live]).abs().max().item()
+    scale = lf[live].abs().max().item()
+    out = {"max_abs": d, "max_rel": d / scale, "logit_scale": scale,
+           "greedy_equal": int(lb.argmax()) == int(lf.argmax()),
+           "finite": bool(torch.isfinite(lb).all())}
+    log(f"[c5 {cfg.name}] first-step logits of the {len(toks)}-token, "
+        f"{len(frames)}-frame request, {cfg.n_layers} blocks at d_model "
+        f"{cfg.d_model}: bf16 on the kernels vs f32 on the plain versions "
+        f"(same weights): max|diff| "
+        f"{d:.4g} at logit scale {scale:.4g} (relative {d / scale:.3g}); "
+        f"greedy token {'equal' if out['greedy_equal'] else 'DIFFERENT'} "
+        f"({int(lb.argmax())} vs {int(lf.argmax())})")
+    if not out["finite"]:
+        raise RuntimeError("non-finite bf16 logits")
+    return out
 
 
 def tracking(create, length, box):
@@ -641,26 +806,41 @@ def clone_args(torch, args):
     return out
 
 
+STEP_ENC_LEN = 512
+
+
+def step_server(system) -> int:
+    """The server whose pooled step ``pooled_step_ms`` times: 0, or the
+    one hosting the most decoder blocks of an enc-dec stack."""
+    if not system._is_enc_dec:
+        return 0
+    return max(system.servers, key=lambda j: sum(
+        k == "dec" for k in system.servers[j].kinds))
+
+
 def pooled_step_ms(torch, system, reps=20):
-    """Host wall of one pooled decode step on server 0 with every row
-    active at position 120 (each step ended by a synchronize): the cost of
-    a step on the layout, apart from the routes the scheduler chose."""
+    """Host wall of one pooled decode step on ``step_server`` with every
+    row active at position 120 (enc-dec: encoder length 512; each step
+    ended by a synchronize): the cost of a step on the layout, apart from
+    the routes the scheduler chose."""
     import numpy as np
 
     from repro_torch.serving.kv_cache import to_device
 
-    srv = system.servers[0]
+    srv = system.servers[step_server(system)]
     N = srv.pool.n_rows
     h = system._embed(np.full((N, 1), 5))
     pos = to_device(np.full((N,), 120, np.int64), system.device)
     mask = srv._mask(np.ones((srv.m, N), bool))
     emb0 = h if system._needs_emb0 else None
+    encl = to_device(np.full((N,), STEP_ENC_LEN, np.int64), system.device) \
+        if system._is_enc_dec else None
     for _ in range(3):
-        srv.decode_rows(h, pos, mask, emb0)
+        srv.decode_rows(h, pos, mask, emb0, encl)
     torch.cuda.synchronize()
     t = time.perf_counter()
     for _ in range(reps):
-        srv.decode_rows(h, pos, mask, emb0)
+        srv.decode_rows(h, pos, mask, emb0, encl)
         torch.cuda.synchronize()
     return (time.perf_counter() - t) * 1e3 / reps
 
@@ -760,6 +940,9 @@ def phase_kernels(torch, captured, launches):
             (2, 32, 8, 64, 64, 4096, [3000, 1100], 1500, None, True, False),
             (3, 8, 4, 64, 64, 4096, [0, 0, 0], None, [100, 5, 0], False,
              False),
+            # cross decode at G = 1 over a max_enc_len cache of 1024
+            (4, 16, 16, 64, 64, 1024, [3, 0, 17, 5], None,
+             [1, 256, 1000, 1024], False, False),
             (2, 8, 2, 64, 64, 512, [300, 40], 50, [200, 512], True, False),
             (2, 4, 4, 224, 224, 1024, [1023, 517], None, None, True, False),
             (33, 16, 8, 64, 64, 100, list(range(0, 99, 3)), None, None,
@@ -805,6 +988,11 @@ def phase_kernels(torch, captured, launches):
             (2, 70, 70, 4, 4, 224, 224, None, 0, True, False),
             (2, 100, 300, 4, 2, 64, 64, None, 0, False, False),
             (1, 200, 200, 8, 2, 128, 128, 70, 0, True, True),
+            # the enc-dec shapes: non-causal over 1000 frames (no multiple
+            # of a tile), cross prefill of 8 and 13 queries
+            (2, 1000, 1000, 16, 16, 64, 64, None, 0, False, False),
+            (2, 8, 1000, 16, 16, 64, 64, None, 0, False, False),
+            (2, 13, 77, 16, 16, 64, 64, None, 0, False, False),
             # gemma3's long prompt: its second chunk at q_start 1024 with
             # window 1024 (bf16 only: f32 has no 256 instantiation)
         ] + ([(1, 320, 1344, 8, 4, 256, 256, 1024, 1024, True, False),
@@ -984,6 +1172,45 @@ def phase_kernels(torch, captured, launches):
              prefill_bound(qf, kf, vf, q_start, fwin), TOL["bfloat16"]),
         ]
 
+    def sdpa_cross_decode(q, k, v, pos, kv_len):
+        ok = torch.arange(k.shape[1], device=dev)[None, :] < kv_len[:, None]
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=ok[:, None, None, :], enable_gqa=True).transpose(1, 2)
+
+    def sdpa_noncausal(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            enable_gqa=True).transpose(1, 2)
+
+    def encdec_rows(arch):
+        """The enc-dec path's non-causal calls: K1 cross decode over the
+        max_enc_len cache with its per-row kv_len, K2 over the longest
+        encoder input, K2 cross prefill of a prompt chunk over it."""
+        (q, k, v, pos), kw = captured[(arch, "decode_attention_cross")]
+        kvl = kw["kv_len"]
+        if kw.get("causal", True) or kw.get("window") is not None:
+            raise RuntimeError("the cross decode call is not non-causal")
+        rows = [("decode_attention_cross", "path", (q, k, v, pos, kvl),
+                 lambda q, k, v, p, n: decode_attention(
+                     q, k, v, p, kv_len=n, causal=False),
+                 lambda q, k, v, p, n: decode_attention_ref(
+                     q, k, v, p, kv_len=n, causal=False),
+                 sdpa_cross_decode,
+                 decode_bound(q, k, v, pos, kv_len=kvl, causal=False),
+                 bf16_ulp_ok)]
+        for name in ("flash_attention_enc", "flash_attention_cross"):
+            args, kw = captured[(arch, name)]
+            if kw.get("causal", True):
+                raise RuntimeError(f"{name}: the call is not non-causal")
+            rows.append((name, "path", tuple(args),
+                         lambda *a: flash_attention(*a, causal=False),
+                         lambda *a: attention_ref(*a, causal=False),
+                         sdpa_noncausal,
+                         prefill_bound(*args, causal=False),
+                         bf16_ulp_ok))
+        return rows
+
     Tl, Sl = 4096, 2048
     long_dec = (rn(8, 1, 32, 64, dt=torch.bfloat16),
                 rn(8, Tl, 8, 64, dt=torch.bfloat16),
@@ -1003,7 +1230,8 @@ def phase_kernels(torch, captured, launches):
          TOL["bfloat16"]),
     ] + attention_rows("zamba2_7b", "_d224") + \
         attention_rows("deepseek_v2_236b", "_mla") + \
-        attention_rows("gemma3_4b", "_d256")
+        attention_rows("gemma3_4b", "_d256") + \
+        encdec_rows("seamless_m4t_large_v2")
     for kind, fn, plain, long_args in (("wkv6", wkv6, wkv6_chunked,
                                         long_wkv),
                                        ("ssd", ssd, ssd_chunked, long_ssd)):
@@ -1019,7 +1247,13 @@ def phase_kernels(torch, captured, launches):
     for name, shape_name, args, kern, plain, lib, bound, tol in plan:
         got, want = kern(*args), plain(*args)
         err = _err(got, want)
-        ok = err <= tol if tol is not None else scan_ok(got, want)
+        scale = want.float().abs().max().item()
+        if tol is None:
+            ok, tol_s = scan_ok(got, want), "scan"
+        elif callable(tol):
+            ok, tol_s = tol(got, want), "2e-2 + 2^-7 |plain| per element"
+        else:
+            ok, tol_s = err <= tol, f"{tol:.3g}"
         lib_err = None
         if lib is not None:
             try:
@@ -1046,6 +1280,8 @@ def phase_kernels(torch, captured, launches):
             design = (f" [split-kv: {G // g} head group(s) of {g}, n_split "
                       f"{n_split}, chunk {chunk}, tile {tile}; "
                       f"{1 if n_split == 1 else 2} CUDA launch(es)/call]")
+            if name == "decode_attention_cross":
+                design += f" kv_len {args[4].tolist()}"
         elif name.startswith("flash_attention"):
             design = f" [{DESIGNS[args[0].dtype]}; 1 CUDA launch/call]"
         elif name == "wkv6":
@@ -1062,7 +1298,9 @@ def phase_kernels(torch, captured, launches):
                       f"{plan.launches} launch(es)/call]")
         log(f"[kernels] {name} @ {shape_name}{design} {shapes} "
             f"{args[0].dtype}: "
-            f"max|kernel-plain| {err:.3g}, kernel {ms:.4f} ms, plain "
+            f"max|kernel-plain| {err:.3g} (output scale {scale:.3g}, "
+            f"tolerance {tol_s}), "
+            f"kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} "
             f"(library err {lib_err}), bound {bound[0]:.4f} ms "
@@ -1091,6 +1329,15 @@ def phase_kernels(torch, captured, launches):
          "src/repro/kernels/decode_attention/decode_attention.py:111"),
         ("flash_attention_d256", "gemma3_4b", "flash_attention_sm90.cu",
          "src/repro/kernels/flash_attention/flash_attention.py:105"),
+        ("decode_attention_cross", "seamless_m4t_large_v2",
+         "decode_attention.cu",
+         "src/repro/kernels/decode_attention/decode_attention.py:111"),
+        ("flash_attention_enc", "seamless_m4t_large_v2",
+         "flash_attention_sm90.cu",
+         "src/repro/kernels/flash_attention/flash_attention.py:105"),
+        ("flash_attention_cross", "seamless_m4t_large_v2",
+         "flash_attention_sm90.cu",
+         "src/repro/kernels/flash_attention/flash_attention.py:105"),
         ("wkv6", "rwkv6_7b", "wkv6.cu", "src/repro/kernels/wkv6/wkv6.py:70"),
         ("ssd", "zamba2_7b", "ssd.cu", "src/repro/kernels/ssd/ssd.py:76"),
     ]:
@@ -1099,7 +1346,8 @@ def phase_kernels(torch, captured, launches):
                                 "wkv6", "ssd") if name.startswith(k))
         out.append({"name": name, "route": "cuda", "source": csrc + source,
                     "replaces": replaces,
-                    "launches": launches[path][base],
+                    "launches": launches[path].get(name,
+                                                   launches[path][base]),
                     "max_abs_err": r["err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                     "bound_by": r["bound"][1], "library_ms": r["lib_ms"],
@@ -1203,35 +1451,47 @@ def phase_parity(torch):
         raise RuntimeError(f"failover stream {seq} != {ref}")
 
 
-def phase_parity_family(torch, arch):
+def phase_parity_family(torch, arch, n_servers=4, mem=1000.0,
+                        enc_lens=None, victim_hop=0):
     """Reduced ``arch`` in f32 on the card: the engine on the kernels (the
-    scan kernel in prefill, the attention kernels for zamba2) gives the
-    greedy streams of the port's monolithic prefill/decode_step on the
-    plain versions, through the scheduler and through a kill_server
-    drill whose replay overwrites the recurrent state whole."""
+    scan kernel in prefill, the attention kernels for zamba2 and seamless)
+    gives the greedy streams of the port's monolithic prefill/decode_step
+    on the plain versions, through the scheduler and through a kill_server
+    drill of the route's hop ``victim_hop``, whose replay rebuilds that
+    hop's state (the recurrent state whole; seamless: self and cross K/V,
+    the cross K/V from the session's encoder output).  ``enc_lens``: the
+    four requests' encoder lengths (enc-dec stacks; frames from a seed,
+    lengths that group apart), whose path must launch K1 and K2."""
     import numpy as np
 
     import repro_torch.core as C
     from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels import decode_attention, flash_attention
     from repro_torch.models import decode_step, init_params, prefill
     from repro_torch.serving import (ContinuousBatchingScheduler,
                                      GeoServingSystem)
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     cfg = get_reduced_config(arch)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
-    L = cfg.n_layers
-    llm = C.LLMSpec("toy", L, block_bytes=100.0, cache_bytes_per_token=1.0)
-    servers = [C.ServerSpec(j, mem_bytes=1000.0, tau=0.01 * (j + 1),
+    llm = C.LLMSpec("toy", cfg.n_layers, block_bytes=100.0,
+                    cache_bytes_per_token=1.0)
+    servers = [C.ServerSpec(j, mem_bytes=mem, tau=0.01 * (j + 1),
                             tau_prefill_base=0.002,
-                            tau_prefill_per_token=0.0005) for j in range(4)]
-    rtt = np.full((1, 4), 0.02)
+                            tau_prefill_per_token=0.0005)
+               for j in range(n_servers)]
+    rtt = np.full((1, n_servers), 0.02)
     problem = C.Problem(llm, servers, 1, rtt, rtt * 3,
                         workload=C.Workload(4, 8))
 
-    def mono(toks, n_new):
-        t = torch.as_tensor(np.asarray(toks), device="cuda")[None]
-        logits, caches = prefill(params, cfg, {"tokens": t},
+    def mono(toks, frames, n_new):
+        batch = {"tokens": torch.as_tensor(np.asarray(toks),
+                                           device="cuda")[None]}
+        if frames is not None:
+            batch["frames"] = torch.as_tensor(frames, device="cuda")[None]
+        logits, caches = prefill(params, cfg, batch,
                                  cache_len=len(toks) + n_new + 4,
                                  backend="plain")
         seq = [int(torch.argmax(logits[0]))]
@@ -1247,34 +1507,48 @@ def phase_parity_family(torch, arch):
                                 R=2, max_new_tokens=16, max_sessions=8)
 
     rng = np.random.RandomState(5)
-    prompts = [rng.randint(2, cfg.vocab_size, n) for n in (9, 14, 9, 20)]
+    jobs = []
+    for i, n in enumerate((9, 14, 9, 20)):
+        p = rng.randint(2, cfg.vocab_size, n)
+        jobs.append((p, None if enc_lens is None else
+                     rng.randn(enc_lens[i], cfg.frame_dim).astype(
+                         np.float32)))
+    n1, n2 = decode_attention.launches, flash_attention.launches
     sched = ContinuousBatchingScheduler(build(), R=2)
-    for rid, (t, p) in enumerate(zip(poisson_arrivals(4, 4.0, 2), prompts)):
-        sched.submit(rid, p, float(t), n_new=10)
+    for rid, (t, (p, f)) in enumerate(zip(poisson_arrivals(4, 4.0, 2),
+                                          jobs)):
+        sched.submit(rid, p, float(t), n_new=10, frames=f)
     served = sched.run()
-    for s, p in zip(served, prompts):
-        got, ref = [int(x) for x in s.tokens[len(p):]], mono(p, 10)
+    for s, (p, f) in zip(served, jobs):
+        got, ref = [int(x) for x in s.tokens[len(p):]], mono(p, f, 10)
         if got != ref:
             raise RuntimeError(f"{arch} f32 engine stream {got} != plain "
                                f"monolithic {ref}")
     system = build()
-    toks = prompts[1]
-    ref = mono(toks, 10)
-    sid, logits = system.submit(toks)
+    toks, frames = jobs[3]
+    ref = mono(toks, frames, 10)
+    sid, logits = system.submit(toks, frames=frames)
+    route = system.sessions[sid].route
     seq = [int(torch.argmax(logits[0]))]
     for step in range(9):
         if step == 3:
-            victim = system.sessions[sid].route.servers[0]
+            victim = system.sessions[sid].route.servers[victim_hop]
             system.kill_server(victim)
         seq.append(int(torch.argmax(system.decode(sid, seq[-1])[0])))
-    route = system.sessions[sid].route
-    log(f"[parity {arch}] f32: {len(served)} scheduler streams equal the "
-        f"plain monolithic streams; kill_server({victim}) after 3 decode "
-        f"steps: route now {route.servers}, replays "
+    k1, k2 = decode_attention.launches - n1, flash_attention.launches - n2
+    new = system.sessions[sid].route
+    log(f"[parity {arch}] f32 (K1 {k1}, K2 {k2} launches): {len(served)} "
+        f"scheduler streams equal the plain monolithic streams; route "
+        f"{route.servers} x {route.blocks}, kill_server({victim}) after 3 "
+        f"decode steps: route now {new.servers} x {new.blocks}, replays "
         f"{system.round_stats['replays']}; stream "
         f"{'equal' if seq == ref else 'DIFFERENT'}")
-    if seq != ref or victim in route.servers:
+    if seq != ref or victim in new.servers:
         raise RuntimeError(f"{arch} failover stream {seq} != {ref}")
+    if enc_lens is not None and (min(k1, k2) <= 0 or
+                                 system.round_stats["replays"] < 1):
+        raise RuntimeError(f"{arch}: no replay, or an attention kernel did "
+                           "not run")
 
 
 def phase_parity_moe(torch, arch):
@@ -1669,7 +1943,8 @@ def main() -> int:
     serve, paged = {}, {}
     for arch in PATH_KERNELS:
         serve[arch] = phase_serve(torch, arch, captured)
-        if arch in ("llama3_2_1b", "deepseek_v2_236b"):
+        if arch in ("llama3_2_1b", "deepseek_v2_236b",
+                    "seamless_m4t_large_v2"):
             paged[arch] = phase_serve(torch, arch, captured, layout="paged",
                                       slab=serve[arch])
     phase_oversub(torch)
@@ -1679,12 +1954,18 @@ def main() -> int:
     for row in kernels:
         if row["path"] in paged:
             base = row["name"].split("_attention")[0] + "_attention"
-            row["launches_paged"] = paged[row["path"]]["launches"][base]
+            run = paged[row["path"]]["launches"]
+            row["launches_paged"] = run.get(row["name"], run[base])
     phase_parity(torch)
     for arch in ("rwkv6_7b", "zamba2_7b"):
         phase_parity_family(torch, arch)
     for arch in ("deepseek_v2_236b", "llama4_scout_17b_a16e"):
         phase_parity_moe(torch, arch)
+    # seamless: 6 servers of 2 blocks each (routes of an encoder-only hop
+    # and a decoder hop, every block on 3 servers); kill the last hop,
+    # which hosts decoder blocks (an encoder-only hop does no decode work)
+    phase_parity_family(torch, "seamless_m4t_large_v2", n_servers=6,
+                        mem=300.0, enc_lens=(5, 13, 5, 40), victim_hop=-1)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Run the slab serve phases of one checkout's ``chip_smoke.py`` alone:
-full-width Llama-3.2-1B, RWKV6-7B and Zamba2-7B, each through the port's
-scheduler with the round walls, host syncs and tokens/s it prints.
+full-width Llama-3.2-1B, RWKV6-7B and Zamba2-7B (or the ``ARCH`` names
+given), each through the port's scheduler with the round walls, host
+syncs and tokens/s it prints.
 
-    python3 scripts/serve_phases.py CHECKOUT
+    python3 scripts/serve_phases.py CHECKOUT [ARCH ...]
 
 ``CHECKOUT`` is the root of a checkout (this repository's, or another
 commit's unpacked with ``git archive``); its own ``chip_smoke.py`` and
@@ -19,7 +20,7 @@ from pathlib import Path
 
 
 def main() -> int:
-    if len(sys.argv) != 2:
+    if len(sys.argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
     root = Path(sys.argv[1]).resolve()
@@ -34,7 +35,7 @@ def main() -> int:
         print("serve_phases.py: no CUDA device", file=sys.stderr)
         return 2
     smoke.phase_build()
-    for arch in ("llama3_2_1b", "rwkv6_7b", "zamba2_7b"):
+    for arch in sys.argv[2:] or ("llama3_2_1b", "rwkv6_7b", "zamba2_7b"):
         smoke.phase_serve(torch, arch, {})
     return 0
 

@@ -14,11 +14,16 @@ predicates become device dispatch under ``backend="kernel"``: a CUDA tensor
 goes to the hand-written kernels (``kernels.flash_attention`` in prefill,
 ``kernels.decode_attention`` in decode), a CPU tensor to the plain path.
 ``backend="plain"`` runs the plain path on any device (the oracle).
+Cross attention of encoder-decoder stacks (``cross_kv`` in prefill,
+``cross=True`` in decode) is non-causal and windowless; its decode masks
+each row to its own ``kv_len``, the valid part of a cross cache allocated
+longer than the row's encoder output.
 
 Differences from the reference, both from eager PyTorch:
 
-* decode takes a PER-ROW position vector ``pos`` (B,): pooled rows are a
-  real batch here, not a vmapped batch of one;
+* decode takes a PER-ROW position vector ``pos`` (B,), and cross decode
+  a per-row ``kv_len`` (B,): pooled rows are a real batch here, not a
+  vmapped batch of one;
 * the decode step writes the new token's K/V into the cache IN PLACE, at
   ``pos`` clamped into range like ``dynamic_update_slice`` clamps, and
   only on the rows ``active`` selects (the others keep their old values).
@@ -49,10 +54,14 @@ DENSE_MAX_T = 2048  # use the dense path when kv length <= this
 # ---------------------------------------------------------------------------
 
 
-def _mask_bias(q_pos, kv_pos, window, slopes=None):
-    """Additive f32 bias (H|1, S, T): causal + sliding window + ALiBi."""
+def _mask_bias(q_pos, kv_pos, window, slopes=None, causal=True):
+    """Additive f32 bias (H|1, S, T): causal + sliding window + ALiBi
+    (non-causal: ALiBi only)."""
     diff = q_pos[:, None] - kv_pos[None, :]  # (S, T); >= 0: past/self
-    ok = (diff >= 0) & (diff < window)
+    if causal:
+        ok = (diff >= 0) & (diff < window)
+    else:
+        ok = torch.ones_like(diff, dtype=torch.bool)
     bias = torch.where(ok, 0.0, _NEG_INF).to(torch.float32)[None]
     if slopes is not None:
         bias = bias + slopes[:, None, None] * (-diff.abs())[None].float()
@@ -73,9 +82,10 @@ def _dense_attn(q, k, v, bias):
     return torch.einsum("bhst,bthd->bshd", probs.to(v.dtype), v)
 
 
-def _flash_attn(q, k, v, q_pos, kv_pos, window, slopes=None, q_start=0):
-    """Double-chunked online-softmax attention; (q-chunk, kv-chunk) pairs
-    above the causal diagonal are skipped (queries at ``q_start +
+def _flash_attn(q, k, v, q_pos, kv_pos, window, slopes=None, q_start=0,
+                causal=True):
+    """Double-chunked online-softmax attention; causal (q-chunk, kv-chunk)
+    pairs above the diagonal are skipped (queries at ``q_start +
     arange(S)`` over keys ``arange(T)``)."""
     B, S, H, D = q.shape
     T = k.shape[1]
@@ -96,13 +106,14 @@ def _flash_attn(q, k, v, q_pos, kv_pos, window, slopes=None, q_start=0):
                           device=q.device)
         for ki in range(n_kv):
             k_lo, k_hi = ki * KV_CHUNK, min(T, (ki + 1) * KV_CHUNK)
-            if k_lo > q_start + q_hi - 1:
+            if causal and k_lo > q_start + q_hi - 1:
                 continue  # above the causal diagonal
             kc, vc = k[:, k_lo:k_hi], v[:, k_lo:k_hi]
             kp = kv_pos[k_lo:k_hi]
             logits = torch.einsum("bshd,bthd->bhst", qc.float(),
                                   kc.float()) * scale
-            logits = logits + _mask_bias(qp, kp, window, slopes)[None]
+            logits = logits + _mask_bias(qp, kp, window, slopes,
+                                         causal)[None]
             new_m = torch.maximum(m, logits.amax(dim=-1))
             corr = torch.exp(m - new_m)
             p = torch.exp(logits - new_m[..., None])
@@ -116,20 +127,25 @@ def _flash_attn(q, k, v, q_pos, kv_pos, window, slopes=None, q_start=0):
 
 
 def attention_core(q, k, v, q_pos, kv_pos, window=None, slopes=None,
-                   q_start=0):
-    """Plain causal prefill attention: dense vs flash from the shapes."""
+                   causal=True, q_start=0):
+    """Plain prefill attention (causal, or non-causal for the encoder and
+    cross attention): dense vs flash from the shapes."""
     window = _BIG_WINDOW if window is None else window
     S, T = q.shape[1], k.shape[1]
     if T <= DENSE_MAX_T and S * T <= DENSE_MAX_T * DENSE_MAX_T // 4:
         return _dense_attn(q, k, v, _mask_bias(q_pos, kv_pos, window,
-                                               slopes))
-    return _flash_attn(q, k, v, q_pos, kv_pos, window, slopes, q_start)
+                                               slopes, causal))
+    return _flash_attn(q, k, v, q_pos, kv_pos, window, slopes, q_start,
+                       causal)
 
 
-def decode_attention_plain(q, ck, cv, pos, window=None, slopes=None):
-    """Plain single-step causal attention over a cache without KV-head
-    expansion (the reference's ``decode_attention_xla``, with per-row
-    positions).  q (B,1,H,D); ck (B,T,Kv,D); cv (B,T,Kv,Dv); pos (B,)."""
+def decode_attention_plain(q, ck, cv, pos, window=None, slopes=None,
+                           causal=True, kv_len=None):
+    """Plain single-step attention over a cache without KV-head expansion
+    (the reference's ``decode_attention_xla``, with per-row positions).
+    q (B,1,H,D); ck (B,T,Kv,D); cv (B,T,Kv,Dv); pos (B,).  ``kv_len``
+    (B,): valid cache positions per row (cross attention over a cache
+    allocated longer than the encoder output)."""
     B, _, H, D = q.shape
     T, Kv = ck.shape[1], ck.shape[2]
     G = H // Kv
@@ -139,7 +155,12 @@ def decode_attention_plain(q, ck, cv, pos, window=None, slopes=None):
     logits = torch.einsum("bkgd,btkd->bkgt", qg.float(), ck.float()) * scale
     kv_pos = torch.arange(T, device=q.device)
     diff = pos.reshape(B, 1) - kv_pos[None, :]  # (B, T)
-    ok = (diff >= 0) & (diff < window)
+    if causal:
+        ok = (diff >= 0) & (diff < window)
+    else:
+        ok = torch.ones_like(diff, dtype=torch.bool)
+    if kv_len is not None:
+        ok = ok & (kv_pos[None, :] < kv_len.reshape(-1, 1))
     if slopes is not None:
         logits = logits + (slopes.reshape(Kv, G)[None, :, :, None]
                            * (-diff.abs()).float()[:, None, None, :])
@@ -194,47 +215,69 @@ def _slopes(cfg: ModelConfig, device):
         else None
 
 
+def gqa_encoder_kv(params, cfg: ModelConfig, enc_h):
+    """Cross-attention K/V (B,S_enc,Kv,hd) from encoder states (computed
+    once per session)."""
+    return _kv_proj(params, cfg, enc_h)
+
+
+def _attend_full(cfg: ModelConfig, q, k, v, positions, kv_pos, window,
+                 slopes, causal, q_start, backend):
+    """Prefill attention core: K2 on a CUDA tensor under the kernel
+    backend, else the plain path over KV heads expanded to the query
+    heads."""
+    if use_kernel(backend, q):
+        # kernel contract: queries at q_start + arange(S) over keys at
+        # arange(T) — what the (chunked-)prefill call sites pass; GQA
+        # groups are mapped inside the kernel (no KV head expansion)
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               slopes=slopes, q_start=q_start)
+    G = cfg.n_heads // cfg.n_kv_heads
+    k_exp = torch.repeat_interleave(k, G, dim=2) if G > 1 else k
+    v_exp = torch.repeat_interleave(v, G, dim=2) if G > 1 else v
+    return attention_core(q, k_exp, v_exp, positions, kv_pos, window,
+                          slopes, causal=causal, q_start=q_start)
+
+
 def apply_gqa_full(params, cfg: ModelConfig, x, positions, window=None,
-                   prefix_kv=None, backend: str = "kernel"):
-    """Full-sequence causal attention (prefill).  x (B,S,d); positions (S,).
+                   prefix_kv=None, cross_kv=None, backend: str = "kernel"):
+    """Full-sequence attention (prefill).  x (B,S,d); positions (S,).
 
     Returns (out, (k, v)) with k/v in the un-expanded (B,S,Kv,hd) layout
     for caching.  ``prefix_kv``: optional (k, v) of an already-prefilled
     prefix (chunked prefill); the chunk's queries attend over prefix +
     chunk keys, ``positions`` must be ``P + arange(S)``, and the returned
-    cache entry holds only the chunk's k/v."""
+    cache entry holds only the chunk's k/v.  ``cross_kv``: the encoder's
+    (k, v) — non-causal cross attention with no window, returning (out,
+    None)."""
     q_start = 0
+    causal = cross_kv is None
     q = _q_proj(params, cfg, x)
-    k, v = _kv_proj(params, cfg, x)
-    if cfg.qk_norm:
-        q = rms_norm_simple(q, params["q_norm"], cfg.norm_eps)
-        k = rms_norm_simple(k, params["k_norm"], cfg.norm_eps)
-    if cfg.pos_kind == "rope":
-        cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-    kv_out = (k, v)
-    if prefix_kv is not None:
-        pk, pv = prefix_kv
-        q_start = pk.shape[1]
-        k = torch.cat([pk.to(k.dtype), k], dim=1)
-        v = torch.cat([pv.to(v.dtype), v], dim=1)
+    if causal:
+        k, v = _kv_proj(params, cfg, x)
+        if cfg.qk_norm:
+            q = rms_norm_simple(q, params["q_norm"], cfg.norm_eps)
+            k = rms_norm_simple(k, params["k_norm"], cfg.norm_eps)
+        if cfg.pos_kind == "rope":
+            cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+        kv_out = (k, v)
+        if prefix_kv is not None:
+            pk, pv = prefix_kv
+            q_start = pk.shape[1]
+            k = torch.cat([pk.to(k.dtype), k], dim=1)
+            v = torch.cat([pv.to(v.dtype), v], dim=1)
+            kv_pos = torch.arange(k.shape[1], device=x.device)
+        else:
+            kv_pos = positions
+    else:
+        k, v = cross_kv
         kv_pos = torch.arange(k.shape[1], device=x.device)
-    else:
-        kv_pos = positions
-    slopes = _slopes(cfg, x.device)
-    if use_kernel(backend, x):
-        # kernel contract: queries at q_start + arange(S) over keys at
-        # arange(T) — what the (chunked-)prefill call sites pass; GQA
-        # groups are mapped inside the kernel (no KV head expansion)
-        out = flash_attention(q, k, v, causal=True, window=window,
-                              slopes=slopes, q_start=q_start)
-    else:
-        G = cfg.n_heads // cfg.n_kv_heads
-        k_exp = torch.repeat_interleave(k, G, dim=2) if G > 1 else k
-        v_exp = torch.repeat_interleave(v, G, dim=2) if G > 1 else v
-        out = attention_core(q, k_exp, v_exp, positions, kv_pos, window,
-                             slopes, q_start=q_start)
+        kv_out = None
+    out = _attend_full(cfg, q, k, v, positions, kv_pos,
+                       window if causal else None, _slopes(cfg, x.device),
+                       causal, q_start, backend)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
     return y, kv_out
 
@@ -254,31 +297,42 @@ def write_token(cache, new, pos, active=None):
 
 
 def apply_gqa_decode(params, cfg: ModelConfig, x, cache_k, cache_v, pos,
-                     window=None, active=None, backend: str = "kernel"):
+                     window=None, active=None, cross: bool = False,
+                     kv_len=None, backend: str = "kernel"):
     """Single-token decode.  x (B,1,d); cache (B,T,Kv,hd); pos (B,).
 
-    Writes the new token's K/V into the cache at ``pos`` (in place; only
-    on ``active`` rows when given) and attends over the updated cache.
-    Returns (y, cache_k, cache_v) — the same cache tensors."""
+    Self attention writes the new token's K/V into the cache at ``pos``
+    (in place; only on ``active`` rows when given) and attends over the
+    updated cache.  Cross attention (``cross=True``) attends, non-causal
+    and without a window, over the encoder's K/V, which stay unchanged;
+    ``kv_len`` (B,) masks positions at or past each row's encoder length
+    (a cache allocated longer than the encoder output).  Returns (y,
+    cache_k, cache_v) — the same cache tensors."""
     q = _q_proj(params, cfg, x)
-    k, v = _kv_proj(params, cfg, x)
-    if cfg.qk_norm:
+    if not cross:
+        k, v = _kv_proj(params, cfg, x)
+        if cfg.qk_norm:
+            q = rms_norm_simple(q, params["q_norm"], cfg.norm_eps)
+            k = rms_norm_simple(k, params["k_norm"], cfg.norm_eps)
+        if cfg.pos_kind == "rope":
+            cos, sin = rope_angles(pos.reshape(-1, 1), cfg.head_dim,
+                                   cfg.rope_theta)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+        write_token(cache_k, k, pos, active)
+        write_token(cache_v, v, pos, active)
+    elif cfg.qk_norm:
         q = rms_norm_simple(q, params["q_norm"], cfg.norm_eps)
-        k = rms_norm_simple(k, params["k_norm"], cfg.norm_eps)
-    if cfg.pos_kind == "rope":
-        cos, sin = rope_angles(pos.reshape(-1, 1), cfg.head_dim,
-                               cfg.rope_theta)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-    write_token(cache_k, k, pos, active)
-    write_token(cache_v, v, pos, active)
     slopes = _slopes(cfg, x.device)
+    win = None if cross else window
     if use_kernel(backend, x):
-        out = decode_attention(q, cache_k, cache_v, pos, window=window,
-                               slopes=slopes)
+        out = decode_attention(q, cache_k, cache_v, pos, window=win,
+                               slopes=slopes, kv_len=kv_len,
+                               causal=not cross)
     else:
-        out = decode_attention_plain(q, cache_k, cache_v, pos, window,
-                                     slopes)
+        out = decode_attention_plain(q, cache_k, cache_v, pos, win,
+                                     slopes, causal=not cross,
+                                     kv_len=kv_len)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
     return y, cache_k, cache_v
 

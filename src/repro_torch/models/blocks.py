@@ -1,6 +1,7 @@
 """Block functions — the BPRR placement granularity; the counterpart of
 the reference's ``repro/models/blocks.py`` for decoders (GQA or MLA
-attention, dense or MoE FFN), RWKV6 and Mamba2/zamba2 stacks.
+attention, dense or MoE FFN), RWKV6 and Mamba2/zamba2 stacks, and the
+encoder and cross-attention decoder blocks of encoder-decoder stacks.
 
 * ``init_<kind>(pb, cfg)``                 -> params
 * ``<kind>_full(params, cfg, h, ...)``     -> (h, state / cache entry)
@@ -10,8 +11,7 @@ The attention decode functions update their KV (or MLA latent) cache in
 place (see ``attention``); the recurrent decode functions return new state
 tensors, which the caller writes into its pool.  ``moe_rows=True`` routes
 each batch row through the MoE alone (the engine's pooled steps, where the
-reference vmaps its rows).  Encoder-decoder stacks are a later slice of
-the port and raise ``NotImplementedError``.
+reference vmaps its rows).
 """
 from __future__ import annotations
 
@@ -22,31 +22,30 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe
 from repro_torch.models import ssm
 from repro_torch.models.layers import (ParamBuilder, apply_mlp, apply_norm,
-                                       init_mlp, init_norm)
+                                       apply_rope, init_mlp, init_norm,
+                                       rope_angles)
 
 _BIG = 1 << 30
 
 
 def check_supported(cfg: ModelConfig):
-    """Raise ``NotImplementedError`` for what the port does not run yet:
-    encoder-decoder stacks (decoders with GQA or MLA attention and dense or
-    MoE FFNs, RWKV6 and zamba2 hybrids run)."""
-    if cfg.is_enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name!r}: encoder-decoder stacks are a later slice of the "
-            "port (ROADMAP A9)")
-    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
+    """``ValueError`` for a config of no known block family."""
+    if not cfg.is_enc_dec and \
+            cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
         raise ValueError(f"unknown block family {cfg.family!r} for "
                          f"{cfg.name!r}")
 
 
 def stack_block_kinds(cfg: ModelConfig):
     """Per-block kind tuple (length ``cfg.n_layers``) in BPRR block order:
-    ``decoder`` for dense stacks, ``rwkv`` for RWKV6, and for zamba2
-    ``mamba`` everywhere except the last block of each shared-attention
-    period, ``mamba_shared`` (a mamba mixer followed by the parameter-
-    shared attention+MLP block)."""
+    ``decoder`` for dense stacks, ``rwkv`` for RWKV6, for zamba2 ``mamba``
+    everywhere except the last block of each shared-attention period,
+    ``mamba_shared`` (a mamba mixer followed by the parameter-shared
+    attention+MLP block), and ``enc`` then ``dec`` blocks for
+    encoder-decoder stacks."""
     check_supported(cfg)
+    if cfg.is_enc_dec:
+        return ("enc",) * cfg.n_enc_layers + ("dec",) * cfg.n_dec_layers
     if cfg.family == "hybrid":
         period = cfg.shared_attn_period
         n_mega = (cfg.n_layers // period) * period
@@ -159,6 +158,99 @@ def decoder_block_decode(params, cfg: ModelConfig, h, cache, pos,
                                          layer_idx, active=active,
                                          backend=backend)
     return decoder_block_ffn(params, cfg, h, moe_rows), cache
+
+
+# ---------------------------------------------------------------------------
+# Encoder / cross-attention decoder blocks (encoder-decoder stacks)
+# ---------------------------------------------------------------------------
+
+
+def init_encoder_block(pb: ParamBuilder, cfg: ModelConfig):
+    c = pb.child()
+    c.sub("ln1", init_norm, cfg)
+    c.sub("attn", attn.init_gqa, cfg)
+    c.sub("ln2", init_norm, cfg)
+    c.sub("ffn", init_mlp, cfg)
+    return c.params
+
+
+def encoder_block_full(params, cfg: ModelConfig, h, positions,
+                       backend: str = "kernel"):
+    """Bidirectional self-attention encoder block over (B, S_enc, d); it
+    holds no serving state."""
+    x = apply_norm(params["ln1"], cfg, h)
+    q = attn._q_proj(params["attn"], cfg, x)
+    k, v = attn._kv_proj(params["attn"], cfg, x)
+    if cfg.pos_kind == "rope":
+        cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    out = attn._attend_full(cfg, q, k, v, positions, positions, None, None,
+                            False, 0, backend)
+    h = h + torch.einsum("bshk,hkd->bsd", out,
+                         params["attn"]["wo"].to(x.dtype))
+    x = apply_norm(params["ln2"], cfg, h)
+    return h + apply_mlp(params["ffn"], cfg, x)
+
+
+def init_cross_decoder_block(pb: ParamBuilder, cfg: ModelConfig):
+    c = pb.child()
+    c.sub("ln1", init_norm, cfg)
+    c.sub("self_attn", attn.init_gqa, cfg)
+    c.sub("ln_cross", init_norm, cfg)
+    c.sub("cross_attn", attn.init_gqa, cfg)
+    c.sub("ln2", init_norm, cfg)
+    c.sub("ffn", init_mlp, cfg)
+    return c.params
+
+
+def cross_decoder_block_full(params, cfg: ModelConfig, h, positions, enc_h,
+                             prefix_kv=None, enc_kv=None,
+                             backend: str = "kernel"):
+    """Decoder block with cross attention.  Returns (h, {"k", "v", "ck",
+    "cv"}).  ``prefix_kv``: the cached self-attention (k, v) of [0, P)
+    (chunked prefill, as in :func:`decoder_block_full`); ``enc_kv``: the
+    already-projected cross (k, v), which skips the projection of
+    ``enc_h`` (it does not depend on the chunk, so a chunked prefill
+    projects it at offset 0 and reads it back from the pool after)."""
+    x = apply_norm(params["ln1"], cfg, h)
+    a, kv = attn.apply_gqa_full(params["self_attn"], cfg, x, positions,
+                                prefix_kv=prefix_kv, backend=backend)
+    h = h + a
+    x = apply_norm(params["ln_cross"], cfg, h)
+    ck, cv = attn.gqa_encoder_kv(params["cross_attn"], cfg, enc_h) \
+        if enc_kv is None else enc_kv
+    a, _ = attn.apply_gqa_full(params["cross_attn"], cfg, x, positions,
+                               cross_kv=(ck, cv), backend=backend)
+    h = h + a
+    x = apply_norm(params["ln2"], cfg, h)
+    h = h + apply_mlp(params["ffn"], cfg, x)
+    return h, {"k": kv[0], "v": kv[1], "ck": ck, "cv": cv}
+
+
+def cross_decoder_block_decode(params, cfg: ModelConfig, h, cache, pos,
+                               enc_len=None, active=None,
+                               backend: str = "kernel"):
+    """Single-token cross-decoder block: K1 twice, causal self attention
+    (the new K/V written in place on ``active`` rows) and non-causal cross
+    attention over ``ck``/``cv``.  ``enc_len`` (B,): valid encoder
+    positions per row, for cross caches allocated longer than the
+    session's encoder output (the pooled steps); None attends over the
+    whole cross cache (the monolithic decode).  Returns (h, cache)."""
+    x = apply_norm(params["ln1"], cfg, h)
+    a, ck, cv = attn.apply_gqa_decode(params["self_attn"], cfg, x,
+                                      cache["k"], cache["v"], pos,
+                                      active=active, backend=backend)
+    h = h + a
+    x = apply_norm(params["ln_cross"], cfg, h)
+    a, _, _ = attn.apply_gqa_decode(params["cross_attn"], cfg, x,
+                                    cache["ck"], cache["cv"], pos,
+                                    cross=True, kv_len=enc_len,
+                                    backend=backend)
+    h = h + a
+    x = apply_norm(params["ln2"], cfg, h)
+    h = h + apply_mlp(params["ffn"], cfg, x)
+    return h, {"k": ck, "v": cv, "ck": cache["ck"], "cv": cache["cv"]}
 
 
 # ---------------------------------------------------------------------------

@@ -211,6 +211,13 @@ def embed_tokens(params, cfg: ModelConfig, tokens):
     return F.embedding(tokens, params["tok"])
 
 
+def embed_frames(params, cfg: ModelConfig, frames):
+    """Encoder input: precomputed frames (B, S_enc, frame_dim), cast to the
+    param dtype, through ``frame_proj`` (the speech front end is a stub, as
+    in the reference)."""
+    return frames.to(param_dtype(cfg)) @ params["frame_proj"]
+
+
 def vocab_pad_bias(cfg: ModelConfig, device=None):
     """Additive bias masking padded vocab columns (finite -1e30)."""
     if cfg.padded_vocab == cfg.vocab_size:

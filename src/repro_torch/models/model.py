@@ -1,12 +1,15 @@
 """Model API: param init, prefill, decode — the counterpart of the
 reference's ``repro/models/model.py`` for decoders (dense or MoE, GQA or
-MLA), RWKV6 and zamba2 hybrids.
+MLA), RWKV6, zamba2 hybrids and encoder-decoder stacks.
 
 A stack is a list of segments (``stack_plan``) of stacked per-layer
 params, as in the reference:
 
 * dense:   ``[("blocks", decoder, n_layers)]``
 * rwkv6:   ``[("blocks", rwkv, n_layers)]``
+* enc-dec: ``[("enc", enc, n_enc_layers), ("dec", dec, n_dec_layers)]``;
+  the encoder runs over the frames, the decoder over the tokens with
+  cross attention to the encoder output; encoder blocks hold no cache
 * zamba2:  ``[("mega", period mamba blocks + shared attn, n_mega),
   ("tail", mamba, n_tail)]`` with the shared attention params in
   ``params["shared"]``; mega leaves are ``(n_mega, period, ...)``.
@@ -26,8 +29,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import mla_cache_views
-from repro_torch.models.layers import (ParamBuilder, embed_tokens,
-                                       init_embedding, lm_head, param_dtype)
+from repro_torch.models.layers import (ParamBuilder, embed_frames,
+                                       embed_tokens, init_embedding, lm_head,
+                                       param_dtype)
 
 
 def tree_map(fn, tree):
@@ -45,7 +49,7 @@ def tree_map(fn, tree):
 @dataclass(frozen=True)
 class SegmentSpec:
     name: str
-    kind: str  # decoder | rwkv | mamba | mega
+    kind: str  # decoder | enc | dec | rwkv | mamba | mega
     n: int  # number of stacked steps
     blocks_per_step: int = 1
 
@@ -56,6 +60,9 @@ class SegmentSpec:
 
 def stack_plan(cfg: ModelConfig) -> List[SegmentSpec]:
     B.check_supported(cfg)
+    if cfg.is_enc_dec:
+        return [SegmentSpec("enc", "enc", cfg.n_enc_layers),
+                SegmentSpec("dec", "dec", cfg.n_dec_layers)]
     if cfg.family == "hybrid":
         period = cfg.shared_attn_period
         n_mega, n_tail = divmod(cfg.n_layers, period)
@@ -69,7 +76,8 @@ def stack_plan(cfg: ModelConfig) -> List[SegmentSpec]:
 
 
 _SEG_INIT = {"decoder": B.init_decoder_block, "rwkv": B.init_rwkv_block,
-             "mamba": B.init_mamba_block}
+             "mamba": B.init_mamba_block, "enc": B.init_encoder_block,
+             "dec": B.init_cross_decoder_block}
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
@@ -119,10 +127,15 @@ def block_param_range(params, cfg: ModelConfig, kind: str, lo: int, hi: int):
     segs = params["segments"]
     if kind in ("decoder", "rwkv"):
         return tree_map(lambda x: x[lo:hi], segs["blocks"])
+    if kind == "enc":
+        return tree_map(lambda x: x[lo:hi], segs["enc"])
+    if kind == "dec":
+        ne = cfg.n_enc_layers
+        return tree_map(lambda x: x[lo - ne:hi - ne], segs["dec"])
     if kind not in ("mamba", "mamba_shared"):
         B.check_supported(cfg)
         raise ValueError(f"unknown block kind {kind!r}; supported: decoder, "
-                         "rwkv, mamba, mamba_shared")
+                         "rwkv, mamba, mamba_shared, enc, dec")
     n_mega = stack_plan(cfg)[0].n_blocks
     mega = tree_map(lambda x: x.reshape((-1,) + x.shape[2:]),
                     segs["mega"]["mamba"])  # views of contiguous leaves
@@ -181,7 +194,12 @@ def forward_full(params, cfg: ModelConfig, batch, collect_caches=False,
     """Run the stack over full sequences.  Returns (h_final, aux, caches);
     aux sums the MoE terms over the layers (zero without MoE); caches is
     {segment: stacked cache tree} when ``collect_caches`` (K/V time axes
-    grown to ``cache_len`` when given)."""
+    grown to ``cache_len`` when given; an enc-dec stack's cross K/V keep
+    the encoder length).  Enc-dec stacks take ``batch["frames"]`` (B,
+    S_enc, frame_dim) beside the tokens."""
+    if cfg.is_enc_dec:
+        return _forward_encdec(params, cfg, batch, collect_caches,
+                               cache_len, backend)
     tokens = batch["tokens"]
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)
@@ -218,6 +236,34 @@ def forward_full(params, cfg: ModelConfig, batch, collect_caches=False,
         if collect_caches:
             caches[seg.name] = _grow_tree(_stack_tree(entries), cache_len, S)
     return h, aux_total, caches
+
+
+def _forward_encdec(params, cfg: ModelConfig, batch, collect_caches,
+                    cache_len: Optional[int], backend: str):
+    """Encoder over the frames (exact length, non-causal), then the
+    decoder over the tokens with cross attention to the encoder output."""
+    frames, tokens = batch["frames"], batch["tokens"]
+    S = tokens.shape[1]
+    enc_pos = torch.arange(frames.shape[1], device=tokens.device)
+    dec_pos = torch.arange(S, device=tokens.device)
+    enc_h = embed_frames(params["embed"], cfg, frames)
+    segs = params["segments"]
+    for i in range(cfg.n_enc_layers):
+        enc_h = B.encoder_block_full(layer_params(segs["enc"], i), cfg,
+                                     enc_h, enc_pos, backend=backend)
+    h = embed_tokens(params["embed"], cfg, tokens)
+    entries = []
+    for i in range(cfg.n_dec_layers):
+        h, cache = B.cross_decoder_block_full(
+            layer_params(segs["dec"], i), cfg, h, dec_pos, enc_h,
+            backend=backend)
+        entries.append(cache)
+    caches: Dict = {}
+    if collect_caches:
+        caches["dec"] = _grow_tree(_stack_tree(entries), cache_len, S)
+    aux = {"moe_aux_loss": torch.zeros((), device=tokens.device),
+           "moe_drop_frac": torch.zeros((), device=tokens.device)}
+    return h, aux, caches
 
 
 def _grow(x, cache_len: Optional[int], cur_len: int):
@@ -262,6 +308,8 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos,
     else:
         pos_t = torch.full((Bsz,), int(pos), device=tokens.device)
     for seg in stack_plan(cfg):
+        if seg.kind == "enc":
+            continue  # no decode-time work: the cross K/V are cached
         seg_params = params["segments"][seg.name]
         cache = caches[seg.name]
         for i in range(seg.n):
@@ -269,6 +317,9 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos,
             if seg.kind == "decoder":
                 h, _ = B.decoder_block_decode(p, cfg, h, c, pos_t, i,
                                               backend=backend)
+            elif seg.kind == "dec":
+                h, _ = B.cross_decoder_block_decode(p, cfg, h, c, pos_t,
+                                                    backend=backend)
             elif seg.kind in ("rwkv", "mamba"):
                 blk = (B.rwkv_block_decode if seg.kind == "rwkv"
                        else B.mamba_block_decode)
@@ -308,9 +359,10 @@ def recurrent_state(cfg: ModelConfig, kind: str, lead, device):
 
 
 def init_decode_caches(cfg: ModelConfig, batch_size: int, cache_len: int,
-                       device="cuda"):
+                       enc_len: Optional[int] = None, device="cuda"):
     """Zero-initialised cache tree for decode at a given cache length (an
-    MLA layer's latent and krope as views of one buffer)."""
+    MLA layer's latent and krope as views of one buffer; an enc-dec
+    stack's cross K/V at ``enc_len`` positions, ``cache_len`` without)."""
     def kv(n):
         if cfg.attn_kind == "mla":
             lora = cfg.kv_lora_rank
@@ -327,6 +379,14 @@ def init_decode_caches(cfg: ModelConfig, batch_size: int, cache_len: int,
     for seg in stack_plan(cfg):
         if seg.kind == "decoder":
             caches[seg.name] = kv(seg.n)
+        elif seg.kind == "dec":
+            ckv = (seg.n, batch_size, enc_len or cache_len, cfg.n_kv_heads,
+                   cfg.head_dim)
+            caches[seg.name] = dict(kv(seg.n), **{
+                key: torch.zeros(ckv, dtype=param_dtype(cfg), device=device)
+                for key in ("ck", "cv")})
+        elif seg.kind == "enc":
+            continue
         elif seg.kind in ("rwkv", "mamba"):
             caches[seg.name] = recurrent_state(cfg, seg.kind,
                                                 (seg.n, batch_size), device)

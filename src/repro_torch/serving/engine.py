@@ -1,7 +1,7 @@
 """Geo-distributed serving engine with continuous batching across sessions
 — the counterpart of the reference's ``repro/serving/engine.py`` for
-decoders (dense or MoE, GQA or MLA), RWKV6 and zamba2 hybrids on the slab
-and paged layouts.
+decoders (dense or MoE, GQA or MLA), RWKV6, zamba2 hybrids and
+encoder-decoder stacks on the slab and paged layouts.
 
 Executes real block-level forward passes according to a BPRR placement
 with client-centric (hub-spoke) communication and client-side input
@@ -25,12 +25,18 @@ are staged in device tensors, never through host memory.  Stacks with
 recurrent state (RWKV6, Mamba2) prefill in groups of one exact prompt
 length, in one shot; hybrid stacks thread the original embedding
 (``emb0``) to their shared-attention blocks in prefill, decode and replay.
+Encoder-decoder sessions carry their encoder ``frames``: a group's first
+prefill round runs the encoder blocks once per session at the exact
+encoder length (groups are keyed by it), the decoder chunks then attend
+to the encoder output ``enc_out`` (a device tensor kept on the session,
+as the client's cache for failover replay), and decode rounds skip
+encoder-only hops.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; ``backend="kernel"`` sends attention on CUDA tensors to
 the hand-written kernels.  Sessions sample greedily or by seeded
 temperature / top-k (``sampling.SamplingSpec``).  Not in this slice:
-encoder-decoder stacks (A9), device groups and τ calibration (A10).
+device groups and τ calibration (A10).
 """
 from __future__ import annotations
 
@@ -47,7 +53,7 @@ from repro_torch.core.placement import petals_bp
 from repro_torch.core.routing import petals_route, shortest_path_route
 from repro_torch.kernels.runtime import resolve_backend
 from repro_torch.models import blocks as B
-from repro_torch.models.layers import embed_tokens, lm_head
+from repro_torch.models.layers import embed_frames, embed_tokens, lm_head
 from repro_torch.models.model import block_param_range, layer_params
 from repro_torch.serving.faults import (FailureDetector, FaultPlan,
                                         NoCapacityError, recovery_replay_cost)
@@ -68,7 +74,11 @@ from repro_torch.serving.sampling import (SamplingSpec, make_round_tail,
 class EngineSession:
     """Client-side state for one session: its route, token buffer, per-hop
     input history (the failover replay cache), and the virtual-clock
-    accounting (prefill / per-token / end times per eq. (1))."""
+    accounting (prefill / per-token / end times per eq. (1)).  Enc-dec
+    sessions also carry their encoder input ``frames`` (S_enc, frame_dim),
+    its length and, once prefilled, the encoder output ``enc_out`` (1,
+    S_enc, d) on the device, from which failover replay rebuilds the
+    cross K/V."""
 
     sid: int
     client: int
@@ -93,11 +103,15 @@ class EngineSession:
     backoff_time: float = 0.0
     replay_time: float = 0.0
     n_defer_resumes: int = 0
-    # per-hop input history: entry 0 is the prompt record, then one record
-    # per decoded token — a (1, 1, d) tensor on the host-staged paths or a
-    # lazy ((members, 1, d) hop gather, index) tuple on the fused path
+    # per-hop input history: entry 0 is the prompt record (a {"enc", "dec"}
+    # dict on enc-dec stacks), then one record per decoded token — a
+    # (1, 1, d) tensor on the host-staged paths or a lazy ((members, 1, d)
+    # hop gather, index) tuple on the fused path
     hop_inputs: List[List] = field(default_factory=list)
     sampling: SamplingSpec = field(default_factory=SamplingSpec)
+    frames: Optional[np.ndarray] = None  # encoder input (enc-dec only)
+    enc_len: int = 0
+    enc_out: Optional[torch.Tensor] = None  # encoder output, on the device
     virtual_time: float = 0.0
     prefill_time: float = 0.0
     per_token_time: float = 0.0
@@ -133,7 +147,8 @@ class BlockServer:
 
     def __init__(self, sid: int, cfg: ModelConfig, params, a: int, m: int,
                  *, n_rows: int, max_len: int, cap_slots: int,
-                 slowdown: float = 1.0, backend: str = "kernel",
+                 enc_len: int = 0, slowdown: float = 1.0,
+                 backend: str = "kernel",
                  cache_layout: str = "slab", page_size: int = 0,
                  device="cuda"):
         self.sid = sid
@@ -144,6 +159,7 @@ class BlockServer:
         self.specs = state_specs(cfg)[self.a: self.a + self.m]
         self.kinds = tuple(s.kind for s in self.specs)
         self.runs = kind_runs(self.kinds)
+        self.n_enc = cfg.n_enc_layers
         self.shared = params.get("shared")  # zamba2's shared attention
         # per-run stacked block params: views, so replicas share storage
         self.run_params = tuple(
@@ -152,8 +168,8 @@ class BlockServer:
         self.layer_ids = tuple(range(self.a, self.a + self.m))
         self.cache_layout = cache_layout
         self.pool = CachePool(cfg, self.kinds, n_rows, max_len, cap_slots,
-                              layout=cache_layout, page_size=page_size,
-                              device=self.device)
+                              enc_len=enc_len, layout=cache_layout,
+                              page_size=page_size, device=self.device)
         self.alive = True
         self.crashed = False
         self.suspected = False
@@ -204,10 +220,11 @@ class BlockServer:
         raise IndexError(l_rel)
 
     def prefill_range(self, sid: int, h, lo: int, hi: int, positions,
-                      emb0=None):
+                      emb0=None, enc_h=None):
         """Prefill blocks [lo, hi) for one session (serial reference path);
         fills its pool row.  ``emb0``: the original embedding that
-        shared-attention blocks take."""
+        shared-attention blocks take; ``enc_h``: the encoder output that
+        cross-attention blocks take."""
         assert self.alive, f"server {self.sid} is dead"
         row = self.pool.rows[sid]
         S = h.shape[1]
@@ -218,6 +235,13 @@ class BlockServer:
             if kind == "decoder":
                 h, cache, _ = B.decoder_block_full(
                     p, self.cfg, h, positions, l, backend=self.backend)
+            elif kind == "enc":
+                h = B.encoder_block_full(p, self.cfg, h, positions,
+                                         backend=self.backend)
+                cache = {}
+            elif kind == "dec":
+                h, cache = B.cross_decoder_block_full(
+                    p, self.cfg, h, positions, enc_h, backend=self.backend)
             elif kind == "rwkv":
                 h, cache = B.rwkv_block_full(p, self.cfg, h,
                                              backend=self.backend)
@@ -235,37 +259,44 @@ class BlockServer:
         return h
 
     def prefill_rows(self, h_rows, layer_active, offset: int = 0,
-                     emb0_rows=None):
+                     phase: str = "all", emb0_rows=None, enc_rows=None):
         """THE batched prefill: one pooled call prefills a (padded) prompt
         chunk starting at ``offset`` for every masked row, writing the
-        chunk's state into the pool.  ``emb0_rows``: the rows' original
-        embeddings (hybrid stacks)."""
+        chunk's state into the pool.  ``phase``: encoder vs decoder runs of
+        enc-dec stacks (``make_pool_prefill_step``); ``emb0_rows``: the
+        rows' original embeddings (hybrid stacks); ``enc_rows``: the rows'
+        encoder outputs (enc-dec stacks)."""
         assert self.alive, f"server {self.sid} is dead"
         return self._prefill_pool(self.run_params, self.shared,
                                   *self._pools(), h_rows, emb0_rows,
-                                  layer_active, self.layer_ids, offset)
+                                  layer_active, self.layer_ids, offset,
+                                  enc_rows, phase)
 
-    def decode_rows(self, h_rows, pos_rows, layer_active, emb0_rows=None):
-        """THE batched step: one pooled call decodes all masked rows."""
+    def decode_rows(self, h_rows, pos_rows, layer_active, emb0_rows=None,
+                    enc_len_rows=None):
+        """THE batched step: one pooled call decodes all masked rows
+        (``enc_len_rows``: the rows' encoder lengths, enc-dec stacks)."""
         assert self.alive, f"server {self.sid} is dead"
         return self._step(self.run_params, self.shared, *self._pools(),
                           h_rows, pos_rows, emb0_rows, layer_active,
-                          self.layer_ids)
+                          self.layer_ids, enc_len_rows)
 
     def round_rows(self, h_round, pos_round, slot_of_row, row_of_slot,
-                   layer_active, emb0_round=None):
+                   layer_active, emb0_round=None, encl_round=None):
         """The fused device-resident hop: gather this server's rows out of
         the round buffers, decode them, scatter the results back."""
         assert self.alive, f"server {self.sid} is dead"
         return self._round_step(self.run_params, self.shared,
                                 *self._pools(), h_round, pos_round,
                                 emb0_round, slot_of_row, row_of_slot,
-                                layer_active, self.layer_ids)
+                                layer_active, self.layer_ids, encl_round)
 
     def decode_range(self, sid: int, h, lo: int, hi: int, pos: int,
-                     emb0=None):
+                     emb0=None, enc_len: int = 0):
         """Single-session decode of blocks [lo, hi) via the pooled step
-        (the same program as the batched path — bit-for-bit identical)."""
+        (the same program as the batched path — bit-for-bit identical).
+        Encoder blocks in the range are skipped (no decode work)."""
+        lo = max(lo, self.n_enc)
         if lo >= hi:
             return h
         row = self.pool.rows[sid]
@@ -278,10 +309,15 @@ class BlockServer:
             emb0_rows[row] = emb0[0]
         pos_np = np.zeros((N,), np.int64)
         pos_np[row] = pos
+        encl_rows = None
+        if "dec" in self.kinds:
+            encl = np.zeros((N,), np.int64)
+            encl[row] = enc_len
+            encl_rows = self._mask(encl)
         mask = np.zeros((self.m, N), bool)
         mask[lo - self.a: hi - self.a, row] = True
         h_out = self.decode_rows(h_rows, self._mask(pos_np), self._mask(mask),
-                                 emb0_rows)
+                                 emb0_rows, encl_rows)
         return h_out[row][None]
 
     def decode_step_cost(self):
@@ -293,17 +329,22 @@ class BlockServer:
 
 @dataclass
 class _PrefillGroup:
-    """Co-admitted sessions sharing one route and one prompt-length bucket,
-    prefilled together in chunk rounds (``bucket is None``: a chunked
-    group of prompts longer than the largest bucket)."""
+    """Co-admitted sessions sharing one route, one prompt-length bucket and
+    (enc-dec) one encoder length, prefilled together in chunk rounds
+    (``bucket is None``: a chunked group of prompts longer than the
+    largest bucket)."""
 
     route: Route
     bucket: Optional[int]
     members: List[EngineSession]
+    enc_len: int = 0  # shared encoder length (enc-dec groups)
     offset: int = 0  # tokens prefilled so far (next chunk start)
     # per-sid per-hop activation chunks, stitched into the client-side
     # failover cache (EngineSession.hop_inputs) at completion
     hop_chunks: Dict[int, List[List[torch.Tensor]]] = field(
+        default_factory=dict)
+    # per-sid per-hop encoder-phase inputs (enc-dec groups)
+    enc_inputs: Dict[int, List[Optional[torch.Tensor]]] = field(
         default_factory=dict)
 
 
@@ -314,7 +355,9 @@ class GeoServingSystem:
     ``prefill_mode``: "batched" (bucket groups) or "serial" (one session
     per call, exact length — the bit-for-bit reference of the batched
     path's token streams).  ``prefill_buckets``: prompt-length buckets
-    (default powers of two up to ``max_seq_len``).  ``decode_mode``:
+    (default powers of two up to ``max_seq_len``).  ``max_enc_len``: the
+    cross-K/V capacity of enc-dec pools (default ``max_seq_len``).
+    ``decode_mode``:
     "fused" (device-resident rounds, one host sync) or "serial" (per-session
     embed/lm_head, host-staged hops).  ``backend``: "kernel" (hand-written
     CUDA kernels on CUDA tensors, plain PyTorch on CPU tensors) or "plain".
@@ -340,6 +383,7 @@ class GeoServingSystem:
                  max_seq_len: Optional[int] = None,
                  prefill_mode: str = "batched",
                  prefill_buckets: Optional[Tuple[int, ...]] = None,
+                 max_enc_len: Optional[int] = None,
                  decode_mode: str = "fused",
                  backend: str = "kernel",
                  cache_layout: str = "slab",
@@ -388,6 +432,10 @@ class GeoServingSystem:
         self.specs = state_specs(cfg)
         self._recurrent = any(s.recurrent for s in self.specs)
         self._needs_emb0 = any(s.needs_emb0 for s in self.specs)
+        self._n_enc = int(cfg.n_enc_layers)
+        self._is_enc_dec = cfg.is_enc_dec
+        self.max_enc_len = int(max_enc_len) if max_enc_len is not None \
+            else self.max_seq_len
         if prefill_buckets is None:
             prefill_buckets = default_prefill_buckets(self.max_seq_len)
         self.prefill_buckets = tuple(sorted(
@@ -434,6 +482,12 @@ class GeoServingSystem:
         tok = to_device(np.asarray(tokens, np.int64), self.device)
         return embed_tokens(self.params["embed"], self.cfg, tok)
 
+    def _embed_frames(self, frames) -> torch.Tensor:
+        """Embed one session's host frames (S_enc, frame_dim) as (1,
+        S_enc, d) on the engine's device."""
+        fr = to_device(np.asarray(frames, np.float32)[None], self.device)
+        return embed_frames(self.params["embed"], self.cfg, fr)
+
     def _lm_head(self, h) -> torch.Tensor:
         return lm_head(self.params["embed"], self.cfg, h)
 
@@ -463,6 +517,7 @@ class GeoServingSystem:
             self.servers[j] = BlockServer(
                 j, self.cfg, self.params, a, m, n_rows=n_rows,
                 max_len=self.max_seq_len, cap_slots=cap,
+                enc_len=self.max_enc_len if self._is_enc_dec else 0,
                 backend=self.backend, cache_layout=self.cache_layout,
                 page_size=self.page_size, device=self.device)
 
@@ -488,10 +543,12 @@ class GeoServingSystem:
                        n_new: int, arrival: float = 0.0,
                        frames: Optional[np.ndarray] = None,
                        sampling: Optional[SamplingSpec] = None) -> int:
-        """Register an admitted session (no compute, no slots yet).  Raises
-        ``ValueError`` when a hop's blocks are not hosted by its server (a
-        check the reference does not make: its layer masks would skip the
-        missing blocks without a word)."""
+        """Register an admitted session (no compute, no slots yet).
+        ``frames``: (S_enc, frame_dim) encoder input — required for enc-dec
+        stacks, refused otherwise.  Raises ``ValueError`` when a hop's
+        blocks are not hosted by its server (a check the reference does
+        not make: its layer masks would skip the missing blocks without a
+        word)."""
         e = 0
         for hop, (j, k) in enumerate(zip(route.servers, route.blocks)):
             srv = self.servers.get(int(j))
@@ -507,7 +564,22 @@ class GeoServingSystem:
             raise ValueError(
                 f"prompt {S} + n_new {n_new} exceeds max_seq_len "
                 f"{self.max_seq_len}; raise max_seq_len at engine build")
-        if frames is not None:
+        enc_len = 0
+        if self._is_enc_dec:
+            if frames is None:
+                raise ValueError(
+                    "enc-dec stacks need encoder `frames` per session")
+            frames = np.asarray(frames)
+            if frames.ndim != 2 or frames.shape[1] != self.cfg.frame_dim:
+                raise ValueError(
+                    f"frames must be (S_enc, {self.cfg.frame_dim}); got "
+                    f"{frames.shape}")
+            enc_len = int(frames.shape[0])
+            if enc_len > self.max_enc_len:
+                raise ValueError(
+                    f"encoder input {enc_len} exceeds max_enc_len "
+                    f"{self.max_enc_len}; raise max_enc_len at engine build")
+        elif frames is not None:
             raise ValueError("`frames` is only meaningful for enc-dec stacks")
         sid = self._sid
         self._sid += 1
@@ -515,7 +587,8 @@ class GeoServingSystem:
             sid=sid, client=client, route=route, prompt_len=S, n_new=n_new,
             arrival=arrival, tokens=[int(t) for t in np.asarray(tokens)],
             hop_inputs=[[] for _ in route.servers],
-            sampling=sampling if sampling is not None else SamplingSpec())
+            sampling=sampling if sampling is not None else SamplingSpec(),
+            frames=frames, enc_len=enc_len)
         return sid
 
     def _prompt_pages(self, sess: EngineSession) -> int:
@@ -577,15 +650,21 @@ class GeoServingSystem:
                 self._prefill_serial(sess)
                 self._finalize_prefill(sess, sess._h[:, -1:])
             return [s.sid for s in admitted]
-        groups: Dict[Tuple[Route, Optional[int]], List[EngineSession]] = {}
+        # groups by (route, bucket, encoder length): the encoder pass runs
+        # at the exact encoder length
+        groups: Dict[Tuple[Route, Optional[int], int],
+                     List[EngineSession]] = {}
         for sess in admitted:
             sess.state = "prefilling"
             b = bucket_for(self.prefill_buckets, sess.prompt_len, self.specs)
-            groups.setdefault((sess.route, b), []).append(sess)
-        for (route, b), members in groups.items():
+            groups.setdefault((sess.route, b, sess.enc_len),
+                              []).append(sess)
+        for (route, b, enc_len), members in groups.items():
             self._prefill_groups.append(_PrefillGroup(
-                route=route, bucket=b, members=members,
+                route=route, bucket=b, members=members, enc_len=enc_len,
                 hop_chunks={s.sid: [[] for _ in route.servers]
+                            for s in members},
+                enc_inputs={s.sid: [None] * len(route.servers)
                             for s in members}))
         return [s.sid for s in admitted]
 
@@ -627,10 +706,40 @@ class GeoServingSystem:
             off += t_pad
         return plan
 
+    def _enc_hop(self, srv: BlockServer, h, lo: int, hi: int):
+        """One session's encoder activations (1, S_enc, d) through encoder
+        blocks [lo, hi) of ``srv``: a pooled call on a batch of that one
+        row.  Encoder blocks hold no pool state, so the pass needs no pool
+        row and no padding rows, and a session's encoder output does not
+        depend on the sessions prefilled beside it."""
+        mask = np.zeros((srv.m, 1), bool)
+        mask[lo - srv.a: hi - srv.a] = True
+        return srv.prefill_rows(h, srv._mask(mask), offset=0, phase="enc")
+
+    def _prefill_enc_phase(self, g: _PrefillGroup,
+                           active: List[EngineSession]):
+        """The exact-length pass over the encoder blocks of a group's route
+        (enc-dec stacks; once, before the first decoder chunk), one session
+        at a time.  Leaves each member's encoder output on ``enc_out``."""
+        for s in active:
+            h = self._embed_frames(s.frames)
+            e = 0
+            for hop, (j, k) in enumerate(zip(g.route.servers,
+                                             g.route.blocks)):
+                if e >= self._n_enc:
+                    break
+                g.enc_inputs[s.sid][hop] = h
+                h = self._enc_hop(self.servers[j], h, e,
+                                  min(e + k, self._n_enc))
+                e += k
+            s.enc_out = h
+
     def _prefill_group_round(self, g: _PrefillGroup) -> List[int]:
         """One chunk round for one bucket group: embed the (padded) chunk of
         every member, run the pooled prefill per hop on device-staged rows,
-        account the virtual clock, finalize completed members."""
+        account the virtual clock, finalize completed members.  Enc-dec
+        groups run their encoder phase first, at offset 0; encoder-only
+        hops are traversed, and billed, only then."""
         active = [s for s in g.members
                   if s.state == "prefilling" and s.prompt_len > g.offset]
         if not active:
@@ -654,6 +763,8 @@ class GeoServingSystem:
         t_pad = next(tp for off, _, tp in self._prefill_plan(ref_len)
                      if off == g.offset)
         spans = {s.sid: min(s.prompt_len - g.offset, t_pad) for s in active}
+        if self._is_enc_dec and g.offset == 0:
+            self._prefill_enc_phase(g, active)
         for s in active:
             chunk = s.tokens[g.offset: g.offset + spans[s.sid]]
             chunk = chunk + [0] * (t_pad - len(chunk))
@@ -661,38 +772,54 @@ class GeoServingSystem:
             if self._needs_emb0:
                 s._emb0 = s._h
         e = 0
+        phase = "dec" if self._is_enc_dec else "all"
         for hop, (j, k) in enumerate(zip(g.route.servers, g.route.blocks)):
             srv = self.servers[j]
-            lo, hi = e, e + k
-            N = srv.pool.n_rows
-            h_buf = active[0]._h.new_zeros((N, t_pad, active[0]._h.shape[-1]))
-            emb0_buf = h_buf.new_zeros(h_buf.shape) if self._needs_emb0 \
-                else None
-            mask = np.zeros((srv.m, N), bool)
-            for s in active:
-                row = srv.pool.rows[s.sid]
-                # client-side failover cache: the UNPADDED chunk entering
-                # this hop (stitched to the full prompt at completion)
-                g.hop_chunks[s.sid][hop].append(s._h[:, : spans[s.sid]])
-                h_buf[row] = s._h[0]
-                if emb0_buf is not None:
-                    emb0_buf[row] = s._emb0[0]
-                mask[lo - srv.a: hi - srv.a, row] = True
-            h_out = srv.prefill_rows(h_buf, srv._mask(mask), offset=g.offset,
-                                     emb0_rows=emb0_buf)
-            for s in active:
-                s._h = h_out[srv.pool.rows[s.sid]][None]
+            lo, hi = max(e, self._n_enc), e + k
+            if lo < hi:  # the hop hosts decoder-phase blocks
+                N = srv.pool.n_rows
+                h_buf = active[0]._h.new_zeros((N, t_pad,
+                                                active[0]._h.shape[-1]))
+                emb0_buf = h_buf.new_zeros(h_buf.shape) \
+                    if self._needs_emb0 else None
+                enc_buf = None
+                if self._is_enc_dec:
+                    enc_buf = active[0].enc_out.new_zeros(
+                        (N,) + tuple(active[0].enc_out.shape[1:]))
+                mask = np.zeros((srv.m, N), bool)
+                for s in active:
+                    row = srv.pool.rows[s.sid]
+                    # client-side failover cache: the UNPADDED chunk
+                    # entering this hop (stitched to the full prompt at
+                    # completion)
+                    g.hop_chunks[s.sid][hop].append(
+                        s._h[:, : spans[s.sid]])
+                    h_buf[row] = s._h[0]
+                    if emb0_buf is not None:
+                        emb0_buf[row] = s._emb0[0]
+                    if enc_buf is not None:
+                        enc_buf[row] = s.enc_out[0]
+                    mask[lo - srv.a: hi - srv.a, row] = True
+                h_out = srv.prefill_rows(h_buf, srv._mask(mask),
+                                         offset=g.offset, phase=phase,
+                                         emb0_rows=emb0_buf,
+                                         enc_rows=enc_buf)
+                for s in active:
+                    s._h = h_out[srv.pool.rows[s.sid]][None]
             # eq. (1): the group's chunk travels the hop as ONE message;
             # each session is charged its own weighted k·τ^I (unchunked
-            # groups bill the nominal l_in, chunked ones the actual span)
-            for s in active:
-                tau = self.problem.servers[j].tau_prefill(
-                    self.problem.workload.l_in if g.bucket is not None
-                    else spans[s.sid])
-                s.prefill_time += (
-                    self.problem.rtt_prefill[s.client, j]
-                    + self.problem.llm.tau_weight(e, e + k)
-                    * tau * srv.slowdown)
+            # groups bill the nominal l_in, chunked ones the actual span).
+            # Encoder-only hops are traversed once (the encoder phase, at
+            # offset 0), so later chunk rounds do not bill them again
+            if lo < hi or g.offset == 0:
+                for s in active:
+                    tau = self.problem.servers[j].tau_prefill(
+                        self.problem.workload.l_in if g.bucket is not None
+                        else spans[s.sid])
+                    s.prefill_time += (
+                        self.problem.rtt_prefill[s.client, j]
+                        + self.problem.llm.tau_weight(e, e + k)
+                        * tau * srv.slowdown)
             e += k
         g.offset += t_pad
         done: List[int] = []
@@ -703,6 +830,9 @@ class GeoServingSystem:
                     stitched = (None if not parts
                                 else parts[0] if len(parts) == 1
                                 else torch.cat(parts, dim=1))
+                    if self._is_enc_dec:
+                        stitched = {"enc": g.enc_inputs[s.sid][hop],
+                                    "dec": stitched}
                     s.hop_inputs[hop].append(stitched)
                 self._finalize_prefill(s, s._h[:, spans[s.sid] - 1:
                                                spans[s.sid]])
@@ -711,7 +841,23 @@ class GeoServingSystem:
 
     def _prefill_serial(self, sess: EngineSession):
         """One-session-per-call exact-length prefill (the reference path of
-        the bucketed one): per-layer block calls, eq. (1) accounting."""
+        the bucketed one): per-layer block calls, eq. (1) accounting.
+        Enc-dec sessions run their encoder blocks first."""
+        enc_recs: List[Optional[torch.Tensor]] = \
+            [None] * len(sess.route.servers)
+        if self._is_enc_dec:
+            eh = self._embed_frames(sess.frames)
+            enc_pos = torch.arange(sess.enc_len, device=self.device)
+            e = 0
+            for hop, (j, k) in enumerate(zip(sess.route.servers,
+                                             sess.route.blocks)):
+                if e >= self._n_enc:
+                    break
+                enc_recs[hop] = eh
+                eh = self.servers[j].prefill_range(
+                    sess.sid, eh, e, min(e + k, self._n_enc), enc_pos)
+                e += k
+            sess.enc_out = eh
         h = self._embed([sess.tokens[: sess.prompt_len]])
         emb0 = h if self._needs_emb0 else None
         positions = torch.arange(sess.prompt_len, device=self.device)
@@ -719,9 +865,13 @@ class GeoServingSystem:
         for hop, (j, k) in enumerate(zip(sess.route.servers,
                                          sess.route.blocks)):
             srv = self.servers[j]
-            sess.hop_inputs[hop].append(h)
-            h = srv.prefill_range(sess.sid, h, e, e + k, positions,
-                                  emb0=emb0)
+            lo, hi = max(e, self._n_enc), e + k
+            sess.hop_inputs[hop].append(
+                {"enc": enc_recs[hop], "dec": h if lo < hi else None}
+                if self._is_enc_dec else h)
+            if lo < hi:
+                h = srv.prefill_range(sess.sid, h, lo, hi, positions,
+                                      emb0=emb0, enc_h=sess.enc_out)
             sess.prefill_time += (
                 self.problem.rtt_prefill[sess.client, j]
                 + self.problem.llm.tau_weight(e, e + k)
@@ -985,7 +1135,8 @@ class GeoServingSystem:
         self._replay_session(sess)
         cost = 0.0
         for hop, j, lo, hi in hops:
-            n_tok = max(len(sess.hop_inputs[hop]) - 1, 0)
+            n_tok = max(len(sess.hop_inputs[hop]) - 1, 0) \
+                if self._decodes(lo, hi) else 0
             cost += recovery_replay_cost(
                 self.problem, sess.client, [(j, lo, hi)], n_tok,
                 slowdown_of=lambda jj: self.servers[jj].slowdown)
@@ -1012,12 +1163,19 @@ class GeoServingSystem:
             e += k
             if j not in self.servers or not self.servers[j].alive:
                 continue
-            self._replay_prefill_range(sess, j, e_lo, e_hi,
-                                       sess.hop_inputs[hop][0])
+            rec = sess.hop_inputs[hop][0]
+            if self._is_enc_dec:
+                self._replay_prefill_encdec(sess, j, e_lo, e_hi,
+                                            rec["enc"], rec["dec"])
+            else:
+                self._replay_prefill_range(sess, j, e_lo, e_hi, rec)
+            if not self._decodes(e_lo, e_hi):
+                continue  # encoder-only hop: no decode records
             for t_idx, h_tok in enumerate(sess.hop_inputs[hop][1:]):
                 self.servers[j].decode_range(
                     sess.sid, self._hop_record(h_tok), e_lo, e_hi,
-                    S + t_idx, emb0=self._token_emb0(sess, S + t_idx))
+                    S + t_idx, emb0=self._token_emb0(sess, S + t_idx),
+                    enc_len=sess.enc_len)
 
     # ------------------------------------------------------------------
     # Decode rounds
@@ -1056,15 +1214,19 @@ class GeoServingSystem:
         slot = {s.sid: i for i, s in enumerate(group)}
         tok_buf = np.zeros((W, 1), np.int64)
         pos_buf = np.zeros((W,), np.int64)
+        encl_buf = np.zeros((W,), np.int64)
         for i, s in enumerate(group):
             tok_buf[i, 0] = s.tokens[-1]
             pos_buf[i] = s.pos
+            encl_buf[i] = s.enc_len
         h_round = self._embed(tok_buf)
         self.round_stats["embed_dispatches"] += 1
         emb0_round = h_round if self._needs_emb0 else None
+        encl_round = to_device(encl_buf, self.device) \
+            if self._is_enc_dec else None
         h_round = self._traverse_fused(group, slot, h_round,
                                        to_device(pos_buf, self.device),
-                                       emb0_round)
+                                       emb0_round, encl_round)
         emit = [s for s in group if s.state == "active"]
         out: Dict[int, int] = {}
         if emit:
@@ -1097,13 +1259,29 @@ class GeoServingSystem:
         e_lo = sum(sess.route.blocks[:hop])
         return e_lo, e_lo + sess.route.blocks[hop]
 
+    def _decodes(self, lo: int, hi: int) -> bool:
+        """True iff blocks [lo, hi) do decode work: any block but an
+        encoder block."""
+        return max(lo, self._n_enc) < hi
+
     def _traverse_core(self, group: List[EngineSession], process_group):
         """THE decode traversal skeleton shared by the host-staged and
         device-resident paths: advance every session through its route,
         batching per (hop, server), with timeout detection and failover
-        before each hop."""
+        before each hop.  Hops hosting only encoder blocks are skipped:
+        they do no decode work (and need no failover)."""
         progress = {s.sid: 0 for s in group}
+
+        def skip_enc_hops(s):
+            while (s.state == "active"
+                   and progress[s.sid] < len(s.route.servers)):
+                if self._decodes(*self._hop_span(s, progress[s.sid])):
+                    return
+                progress[s.sid] += 1
+
         while True:
+            for s in group:
+                skip_enc_hops(s)
             pending = [s for s in group
                        if s.state == "active"
                        and progress[s.sid] < len(s.route.servers)]
@@ -1156,6 +1334,7 @@ class GeoServingSystem:
             emb0_buf = h_buf.new_zeros(h_buf.shape) if self._needs_emb0 \
                 else None
             pos_buf = np.zeros((N,), np.int64)
+            encl_buf = np.zeros((N,), np.int64)
             mask = np.zeros((srv.m, N), bool)
             rows = {}
             for s in members:
@@ -1167,10 +1346,13 @@ class GeoServingSystem:
                 if emb0_buf is not None:
                     emb0_buf[row] = s._emb0[0]
                 pos_buf[row] = s.pos
-                mask[e_lo - srv.a: e_hi - srv.a, row] = True
+                encl_buf[row] = s.enc_len
+                mask[max(e_lo, self._n_enc) - srv.a: e_hi - srv.a,
+                     row] = True
                 rows[s.sid] = row
-            h_out = srv.decode_rows(h_buf, srv._mask(pos_buf),
-                                    srv._mask(mask), emb0_buf)
+            h_out = srv.decode_rows(
+                h_buf, srv._mask(pos_buf), srv._mask(mask), emb0_buf,
+                srv._mask(encl_buf) if self._is_enc_dec else None)
             for s in members:
                 s._h = h_out[rows[s.sid]][None]
 
@@ -1178,7 +1360,7 @@ class GeoServingSystem:
 
     def _traverse_fused(self, group: List[EngineSession],
                         slot: Dict[int, int], h_round, pos_round,
-                        emb0_round=None):
+                        emb0_round=None, encl_round=None):
         """Device-resident traversal: ``h_round`` (W, 1, d) flows hop to hop
         through the fused gather+step+scatter (``BlockServer.round_rows``);
         only small index/mask vectors cross to the device, never
@@ -1198,7 +1380,8 @@ class GeoServingSystem:
                 e_lo, e_hi = self._hop_span(s, hop)
                 slot_of_row[row] = slot[s.sid]
                 row_of_slot[slot[s.sid]] = row
-                mask[e_lo - srv.a: e_hi - srv.a, row] = True
+                mask[max(e_lo, self._n_enc) - srv.a: e_hi - srv.a,
+                     row] = True
                 gidx.append(slot[s.sid])
             # client-side failover cache: ONE device gather of the hop's
             # member rows; each member keeps a lazy (buffer, index) record
@@ -1207,7 +1390,8 @@ class GeoServingSystem:
                 s.hop_inputs[progress[s.sid]].append((h_in, i))
             h_round = srv.round_rows(
                 h_round, pos_round, srv._mask(slot_of_row),
-                srv._mask(row_of_slot), srv._mask(mask), emb0_round)
+                srv._mask(row_of_slot), srv._mask(mask), emb0_round,
+                encl_round)
             self.round_stats["hop_dispatches"] += 1
 
         self._traverse_core(group, process_group)
@@ -1232,10 +1416,12 @@ class GeoServingSystem:
             self._abort_session(sess, reason="no_capacity")
             return
         sess.n_defer_resumes += 1
-        n = min(len(sess.hop_inputs[hop])
-                for hop in range(len(sess.route.blocks)))
-        for hop in range(len(sess.route.blocks)):
-            del sess.hop_inputs[hop][n:]
+        dec_hops = [hop for hop in range(len(sess.route.blocks))
+                    if self._decodes(*self._hop_span(sess, hop))]
+        if dec_hops:
+            n = min(len(sess.hop_inputs[hop]) for hop in dec_hops)
+            for hop in dec_hops:
+                del sess.hop_inputs[hop][n:]
         self.preempt_session(sess.sid)
 
     def _abort_stuck_head(self):
@@ -1451,6 +1637,15 @@ class GeoServingSystem:
                 sess.sid, h_full, lo, hi,
                 torch.arange(h_full.shape[1], device=self.device),
                 emb0=emb0_full)
+        return self._replay_chunked(sess, srv, lo, hi, h_full, "all",
+                                    emb0_full=emb0_full)
+
+    def _replay_chunked(self, sess: EngineSession, srv: BlockServer,
+                        lo: int, hi: int, h_full, phase: str,
+                        enc_rows=None, emb0_full=None):
+        """Replay blocks [lo, hi) of one session's prompt through the
+        pooled prefill programs, following its chunk plan — the one loop
+        the single-phase and enc-dec replays share."""
         N = srv.pool.n_rows
         d = h_full.shape[-1]
         row = srv.pool.rows[sess.sid]
@@ -1465,10 +1660,43 @@ class GeoServingSystem:
             if emb0_full is not None:  # recurrent plan: one exact chunk
                 emb0_rows = h_buf.new_zeros(h_buf.shape)
                 emb0_rows[row] = emb0_full[0, off: off + t_pad]
-            h_out = srv.prefill_rows(h_buf, mask, offset=off,
-                                     emb0_rows=emb0_rows)
+            h_out = srv.prefill_rows(h_buf, mask, offset=off, phase=phase,
+                                     emb0_rows=emb0_rows, enc_rows=enc_rows)
             outs.append(h_out[row][None, :span])
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+    def _replay_prefill_encdec(self, sess: EngineSession, j: int, lo: int,
+                               hi: int, hs_enc, hs_dec):
+        """Failover replay of one hop of an enc-dec route: the encoder
+        sub-range replays the frame activations at their exact length (the
+        blocks hold no state; this threads the activations on so later hop
+        histories stay exact), the decoder sub-range replays the prompt by
+        its chunk plan, rebuilding self K/V and cross K/V from the
+        session's ``enc_out``.  Returns the two sub-ranges' outputs."""
+        srv = self.servers[j]
+        n_enc = self._n_enc
+        if lo < n_enc and hs_enc is not None:
+            elo, ehi = lo, min(hi, n_enc)
+            if self.prefill_mode == "serial":
+                hs_enc = srv.prefill_range(
+                    sess.sid, hs_enc, elo, ehi,
+                    torch.arange(hs_enc.shape[1], device=self.device))
+            else:
+                hs_enc = self._enc_hop(srv, hs_enc, elo, ehi)
+        if hi > n_enc and hs_dec is not None:
+            dlo = max(lo, n_enc)
+            if self.prefill_mode == "serial":
+                hs_dec = srv.prefill_range(
+                    sess.sid, hs_dec, dlo, hi,
+                    torch.arange(hs_dec.shape[1], device=self.device),
+                    enc_h=sess.enc_out)
+            else:
+                enc_rows = sess.enc_out.new_zeros(
+                    (srv.pool.n_rows,) + tuple(sess.enc_out.shape[1:]))
+                enc_rows[srv.pool.rows[sess.sid]] = sess.enc_out[0]
+                hs_dec = self._replay_chunked(sess, srv, dlo, hi, hs_dec,
+                                              "dec", enc_rows=enc_rows)
+        return hs_enc, hs_dec
 
     def _token_emb0(self, sess: EngineSession, pos: int):
         """The original embedding of the token decoded at ``pos`` (hybrid
@@ -1498,6 +1726,7 @@ class GeoServingSystem:
             raise RuntimeError(
                 f"no surviving servers cover blocks [{e_lo},{e_hi})")
         inputs = sess.hop_inputs[hop]
+        rec = inputs[0]
         new_servers = list(sess.route.servers)
         new_blocks = list(sess.route.blocks)
         repl_routes = []
@@ -1523,18 +1752,32 @@ class GeoServingSystem:
         # replay, recording each replacement hop's OWN input history so a
         # later failure of any replacement hop replays correct activations
         new_histories: List[List] = [[] for _ in repl_routes]
-        hs = inputs[0]
-        for i, (j, lo, hi2) in enumerate(repl_routes):
-            new_histories[i].append(hs)
-            hs = self._replay_prefill_range(sess, j, lo, hi2, hs)
+        if self._is_enc_dec:
+            hs_enc, hs_dec = rec["enc"], rec["dec"]
+            for i, (j, lo, hi2) in enumerate(repl_routes):
+                new_histories[i].append(
+                    {"enc": hs_enc if lo < self._n_enc else None,
+                     "dec": hs_dec if hi2 > self._n_enc else None})
+                hs_enc, hs_dec = self._replay_prefill_encdec(
+                    sess, j, lo, hi2, hs_enc, hs_dec)
+        else:
+            hs = rec
+            for i, (j, lo, hi2) in enumerate(repl_routes):
+                new_histories[i].append(hs)
+                hs = self._replay_prefill_range(sess, j, lo, hi2, hs)
+        # replay each decoded token (encoder-only replacement hops do no
+        # decode work; an encoder-only dead hop recorded no decode inputs)
         S = sess.prompt_len
         for t_idx, h_tok in enumerate(inputs[1:]):
             hh = self._hop_record(h_tok)
             emb0 = self._token_emb0(sess, S + t_idx)
             for i, (j, lo, hi2) in enumerate(repl_routes):
+                if hi2 <= self._n_enc:
+                    continue
                 new_histories[i].append(hh)
                 hh = self.servers[j].decode_range(sess.sid, hh, lo, hi2,
-                                                  S + t_idx, emb0=emb0)
+                                                  S + t_idx, emb0=emb0,
+                                                  enc_len=sess.enc_len)
         new_servers[hop: hop + 1] = [j for j, _, _ in repl_routes]
         new_blocks[hop: hop + 1] = [hi2 - lo for _, lo, hi2 in repl_routes]
         sess.hop_inputs[hop: hop + 1] = new_histories

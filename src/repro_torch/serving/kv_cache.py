@@ -1,6 +1,7 @@
 """Serving state pools for the geo engine — the slab and paged layouts and
-the decoder (GQA K/V or MLA latents), RWKV6 and Mamba2/zamba2 block kinds
-of the reference's ``repro/serving/kv_cache.py``.
+the decoder (GQA K/V or MLA latents), RWKV6, Mamba2/zamba2 and
+encoder-decoder block kinds of the reference's
+``repro/serving/kv_cache.py``.
 
 * ``StateSpec`` names what one BPRR block needs from the serving layer;
   ``state_specs(cfg)`` derives the per-block tuple.
@@ -32,17 +33,25 @@ of the reference's ``repro/serving/kv_cache.py``.
   page of unassigned entries).  Admission books only the pages a prompt
   needs against ``cap_units = cap_slots × max_pages`` page-units (a
   session through ``k`` blocks holding ``p`` pages charges ``k·p``);
-  recurrent leaves stay row-resident.  The paged steps gather each row's
-  pages into slab-shaped scratch, run the unchanged slab step on it and
-  scatter the written pages back, so paged results equal slab results.
+  recurrent and cross-KV leaves stay row-resident.  The paged steps
+  gather each row's pages into slab-shaped scratch, run the unchanged
+  slab step on it and scatter the written pages back, so paged results
+  equal slab results.
 
 An MLA layer's cache is ONE ``(.., max_len, lora + rope)`` buffer whose
 ``latent`` and ``krope`` leaves are views (``attention.mla_cache_views``):
 absorbed decode reads it as K1's keys and its latent columns as the
 values, through strides.  The paged layout keeps that buffer whole in its
 page arrays and scratch.  MoE layers route each pool row alone
-(``moe_rows``), as the reference's vmapped rows do.  Encoder-decoder
-kinds (ROADMAP A9) are a later slice of the port.
+(``moe_rows``), as the reference's vmapped rows do.
+
+Encoder-decoder stacks: ``enc`` blocks hold no state and do no decode
+work (the decode steps skip their runs); ``dec`` blocks hold self K/V and
+the cross K/V ``ck``/``cv`` at ``enc_len`` (the engine's ``max_enc_len``)
+positions per row, written once at the first prefill chunk, and their
+decode masks each row's cross attention to its own encoder length.  The
+prefill step runs one ``phase``: "enc" (encoder runs only, exact length)
+or "dec" (the rest, with the rows' encoder outputs ``enc_rows``).
 """
 from __future__ import annotations
 
@@ -95,8 +104,9 @@ _STATE_SPECS: Dict[str, StateSpec] = {
     "mamba": StateSpec("mamba", recurrent=True),
     "mamba_shared": StateSpec("mamba_shared", recurrent=True,
                               needs_emb0=True),
+    "enc": StateSpec("enc", decode_active=False),
+    "dec": StateSpec("dec", cross=True),
 }
-_LATER_KINDS = ("enc", "dec")
 
 SUPPORTED_KINDS: Tuple[str, ...] = tuple(sorted(_STATE_SPECS))
 
@@ -105,9 +115,6 @@ def state_spec_for(kind: str) -> StateSpec:
     """The :class:`StateSpec` of one block kind."""
     if kind in _STATE_SPECS:
         return _STATE_SPECS[kind]
-    if kind in _LATER_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is a later slice of the port (ROADMAP A9)")
     raise ValueError(f"no serving StateSpec for block kind {kind!r}; "
                      "supported kinds: " + ", ".join(SUPPORTED_KINDS))
 
@@ -133,17 +140,25 @@ def kind_runs(kinds: Sequence[str]) -> Tuple[Tuple[str, int, int], ...]:
 # ---------------------------------------------------------------------------
 
 
+# encoder cross-K/V leaves of ``dec`` blocks: written once, at [0, enc_len)
+CROSS_KEYS = frozenset({"ck", "cv"})
+
+
 def _check_kind(kind: str):
     state_spec_for(kind)
 
 
 def _state_tree(cfg: ModelConfig, kind: str, lead: Tuple[int, ...],
-                max_len: int, device):
+                max_len: int, device, enc_len: int = 0):
     """Zero serving state of one block kind with ``lead`` dims prepended:
     K/V (.., max_len, Kv, hd) for ``decoder`` (MLA: the latent and krope
     views of one (.., max_len, lora + rope) buffer); f32 recurrent state
-    for ``rwkv`` / ``mamba``; both for ``mamba_shared``."""
+    for ``rwkv`` / ``mamba``; both for ``mamba_shared``; none for ``enc``;
+    K/V and the cross K/V ``ck``/``cv`` (.., enc_len, Kv, hd) for
+    ``dec``."""
     _check_kind(kind)
+    if kind == "enc":
+        return {}
     if kind == "decoder" and cfg.attn_kind == "mla":
         lora = cfg.kv_lora_rank
         return mla_cache_views(torch.zeros(
@@ -154,6 +169,11 @@ def _state_tree(cfg: ModelConfig, kind: str, lead: Tuple[int, ...],
             "v": torch.zeros(kv, dtype=param_dtype(cfg), device=device)}
     if kind == "decoder":
         return attn
+    if kind == "dec":
+        ckv = lead + (enc_len, cfg.n_kv_heads, cfg.head_dim)
+        return dict(attn, **{key: torch.zeros(ckv, dtype=param_dtype(cfg),
+                                              device=device)
+                             for key in ("ck", "cv")})
     tree = recurrent_state(cfg, "rwkv" if kind == "rwkv" else "mamba",
                             lead, device)
     if kind == "mamba_shared":
@@ -162,21 +182,24 @@ def _state_tree(cfg: ModelConfig, kind: str, lead: Tuple[int, ...],
 
 
 def new_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                    device="cuda"):
+                    enc_len: int = 0, device="cuda"):
     """One per-(server, session, layer) cache: leaves (batch, ...)."""
-    return _state_tree(cfg, kind, (batch,), max_len, device)
+    return _state_tree(cfg, kind, (batch,), max_len, device, enc_len)
 
 
 def new_state_pool_tree(cfg: ModelConfig, kind: str, n_layers: int,
-                        n_rows: int, max_len: int, device="cuda"):
+                        n_rows: int, max_len: int, enc_len: int = 0,
+                        device="cuda"):
     """Stacked per-kind serving state: leaves (n_layers, n_rows, ...)."""
-    return _state_tree(cfg, kind, (n_layers, n_rows), max_len, device)
+    return _state_tree(cfg, kind, (n_layers, n_rows), max_len, device,
+                       enc_len)
 
 
 def new_cache_pool_tree(cfg: ModelConfig, kind: str, n_layers: int,
                         n_rows: int, max_len: int, device="cuda"):
     """Alias of ``new_state_pool_tree`` (the reference keeps both names)."""
-    return new_state_pool_tree(cfg, kind, n_layers, n_rows, max_len, device)
+    return new_state_pool_tree(cfg, kind, n_layers, n_rows, max_len,
+                               device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -295,14 +318,15 @@ class PagePool:
 
 def new_paged_pool_tree(cfg: ModelConfig, kind: str, n_layers: int,
                         n_rows: int, page_size: int, n_phys: int,
-                        device="cuda"):
+                        enc_len: int = 0, device="cuda"):
     """Paged-layout state tree: self-KV leaves become shared physical page
     arrays ``(n_layers, n_phys, page_size, Kv, hd)`` (``n_phys`` includes
     the trash page) addressed through the pool's page table (MLA: one
     ``(.., page_size, lora + rope)`` array, viewed as latent and krope);
-    every other leaf keeps its row-resident ``(n_layers, n_rows, ...)``
-    layout."""
-    tree = _state_tree(cfg, kind, (n_layers, n_rows), page_size, device)
+    every other leaf (recurrent state, cross K/V at ``enc_len``) keeps its
+    row-resident ``(n_layers, n_rows, ...)`` layout."""
+    tree = _state_tree(cfg, kind, (n_layers, n_rows), page_size, device,
+                       enc_len)
     for names, leaf in _length_leaves(tree):
         tree.update(_as_leaves(tree, names, leaf.new_zeros(
             (n_layers, n_phys) + leaf.shape[2:])))
@@ -336,7 +360,8 @@ class CachePool:
     * ``n_rows`` physical rows (the batch extent of the pooled steps),
     * ``cap_slots`` block-slots per eq. (5).
 
-    ``layout="slab"``: every row owns a fixed ``max_len`` stripe.
+    ``layout="slab"``: every row owns a fixed ``max_len`` stripe (and an
+    ``enc_len`` stripe of cross K/V on ``dec`` runs).
     ``layout="paged"``: self-KV lives in ``page_size``-token pages; the
     budget is ``cap_units = cap_slots × max_pages`` page-units, a session
     through ``k`` blocks holding ``p`` pages charges ``k·p``, and the page
@@ -344,8 +369,8 @@ class CachePool:
     clamped to what the rows could ever reference)."""
 
     def __init__(self, cfg: ModelConfig, kinds: Sequence[str], n_rows: int,
-                 max_len: int, cap_slots: int, layout: str = "slab",
-                 page_size: int = 0, device="cuda"):
+                 max_len: int, cap_slots: int, enc_len: int = 0,
+                 layout: str = "slab", page_size: int = 0, device="cuda"):
         if layout not in ("slab", "paged"):
             raise ValueError(f"cache layout {layout!r}: 'slab' or 'paged'")
         self.cfg = cfg
@@ -354,6 +379,7 @@ class CachePool:
         self.n_layers = len(self.kinds)
         self.n_rows = n_rows
         self.max_len = max_len
+        self.enc_len = int(enc_len)
         self.cap_slots = int(cap_slots)
         self.layout = layout
         self.device = torch.device(device)
@@ -374,14 +400,14 @@ class CachePool:
             self.sid_pages: Dict[int, int] = {}  # sid -> pages held
             self.tree: Tuple[Dict, ...] = tuple(
                 new_paged_pool_tree(cfg, kind, hi - lo, n_rows, page_size,
-                                    n_phys + 1, device)
+                                    n_phys + 1, self.enc_len, device)
                 for kind, lo, hi in self.runs)
             self._table_dev: Optional[Tuple[int, torch.Tensor]] = None
         else:
             self.page_size = 0
             self.tree = tuple(
                 new_state_pool_tree(cfg, kind, hi - lo, n_rows, max_len,
-                                    device)
+                                    self.enc_len, device)
                 for kind, lo, hi in self.runs)
         self._free: List[int] = list(range(n_rows))
         self.rows: Dict[int, int] = {}  # sid -> row
@@ -497,8 +523,9 @@ class CachePool:
             self.slots_used -= self.blocks.pop(sid, 0)
         self._free.append(row)
         # stale row contents are never observable: a new occupant's prefill
-        # overwrites [:prompt_len] of K/V and the recurrent state whole, and
-        # decode attention masks kv_pos > pos.  Freed pages re-enter the
+        # overwrites [:prompt_len] of K/V, [:enc_len] of cross K/V and the
+        # recurrent state whole, decode attention masks kv_pos > pos and
+        # cross attention kv_pos >= enc_len.  Freed pages re-enter the
         # free list with stale contents under the same invariant: a row
         # reads a page only at masked-in positions it has written itself
 
@@ -526,8 +553,8 @@ class CachePool:
                             entries: List[Dict], length: int):
         """Insert single-session per-layer cache entries (batch dim 1, one
         per layer in [lo_rel, hi_rel)) into the pool row: K/V at
-        [:length] (paged: page by page into the row's pages), recurrent
-        state whole."""
+        [:length] (paged: page by page into the row's pages), cross K/V at
+        their own (encoder) length, recurrent state whole."""
         assert len(entries) == hi_rel - lo_rel
         for r, (kind, rlo, rhi) in enumerate(self.runs):
             lo, hi = max(lo_rel, rlo), min(hi_rel, rhi)
@@ -548,6 +575,9 @@ class CachePool:
                 elif key in LENGTH_KEYS:
                     t[key][lo - rlo:hi - rlo, row, :length] = \
                         stacked[:, :length]
+                elif key in CROSS_KEYS:
+                    t[key][lo - rlo:hi - rlo, row, :stacked.shape[1]] = \
+                        stacked
                 else:  # recurrent state: whole overwrite
                     t[key][lo - rlo:hi - rlo, row] = stacked
 
@@ -610,7 +640,7 @@ def make_pool_prefill_step(cfg: ModelConfig, kinds: Tuple[str, ...],
     """THE multi-session prefill step of a hosted block range.
 
     step(run_params, shared_params, pool_trees, h, emb0, layer_active,
-         layer_ids, offset) -> h
+         layer_ids, offset, enc_rows=None, phase="all") -> h
 
     * ``run_params``: per-run stacked block params (axis 0 = run layers);
       ``shared_params``: zamba2's parameter-shared attention block (None
@@ -626,7 +656,15 @@ def make_pool_prefill_step(cfg: ModelConfig, kinds: Tuple[str, ...],
       [0, offset) plus the chunk (chunked prefill).  Recurrent kinds (rwkv,
       mamba, mamba_shared) need ``offset == 0`` and ``T`` equal to the true
       prompt length: their state is order-sensitive, so the engine groups
-      them by exact length and never pads or chunks them.
+      them by exact length and never pads or chunks them,
+    * ``phase``: "all" (single-phase stacks), "enc" (only encoder runs;
+      ``h`` carries the frame embeddings, exact length, non-causal; it
+      reads and writes no pool state, so its rows need not be the
+      pool's: the engine passes one session's row) or
+      "dec" (every other run; ``h`` carries the token chunk),
+    * ``enc_rows``: (n_rows, S_enc, d) encoder outputs of the rows for
+      ``dec`` runs; their cross K/V are projected at ``offset == 0`` and
+      written at [0, S_enc), and read back from the pool at later offsets.
     """
     runs = kind_runs(kinds)
     for kind, _, _ in runs:
@@ -636,10 +674,13 @@ def make_pool_prefill_step(cfg: ModelConfig, kinds: Tuple[str, ...],
         else ("k", "v")
 
     def step(run_params, shared_params, pool_trees, h, emb0, layer_active,
-             layer_ids, offset):
+             layer_ids, offset, enc_rows=None, phase="all"):
         T = h.shape[1]
         positions = offset + torch.arange(T, device=h.device)
         for r, (kind, lo, hi) in enumerate(runs):
+            if (phase == "enc" and kind != "enc") or \
+                    (phase == "dec" and kind == "enc"):
+                continue
             if _STATE_SPECS[kind].recurrent and offset != 0:
                 raise ValueError(
                     f"recurrent-state kind {kind!r} cannot resume prefill "
@@ -657,6 +698,25 @@ def make_pool_prefill_step(cfg: ModelConfig, kinds: Tuple[str, ...],
                     for key in chunk:
                         _masked_ranged_write(c[key], chunk[key], act,
                                              offset, T)
+                elif kind == "enc":
+                    h2 = B.encoder_block_full(p, cfg, h, positions,
+                                              backend=backend)
+                elif kind == "dec":
+                    n_enc = enc_rows.shape[1]
+                    prefix = enc_kv = None
+                    if offset:  # cross K/V are chunk-independent
+                        prefix = (c["k"][:, :offset], c["v"][:, :offset])
+                        enc_kv = (c["ck"][:, :n_enc], c["cv"][:, :n_enc])
+                    h2, chunk = B.cross_decoder_block_full(
+                        p, cfg, h, positions, enc_rows, prefix_kv=prefix,
+                        enc_kv=enc_kv, backend=backend)
+                    for key in ("k", "v"):
+                        _masked_ranged_write(c[key], chunk[key], act,
+                                             offset, T)
+                    if not offset:
+                        for key in ("ck", "cv"):
+                            _masked_ranged_write(c[key], chunk[key], act, 0,
+                                                 n_enc)
                 elif kind == "rwkv":
                     h2, st = B.rwkv_block_full(p, cfg, h, backend=backend)
                     _masked_state_write(c, st, act)
@@ -680,21 +740,28 @@ def make_pool_decode_step(cfg: ModelConfig, kinds: Tuple[str, ...],
     """THE pooled decode step of a hosted block range.
 
     step(run_params, shared_params, pool_trees, h, pos, emb0, layer_active,
-         layer_ids) -> h
+         layer_ids, enc_len=None) -> h
 
     ``h``: (n_rows, 1, d); ``pos``: (n_rows,) integer tensor — each row's
     cache write/attend position; ``emb0``: (n_rows, 1, d) current-token
-    embeddings for shared-attention blocks (None otherwise).  Each active
-    row's new K/V is written into the pool in place and its recurrent
-    state overwritten whole; inactive rows keep their hidden state and
-    state.  The recurrent steps are elementwise: no kernel."""
+    embeddings for shared-attention blocks (None otherwise); ``enc_len``:
+    (n_rows,) integer tensor — each row's encoder length, the cross
+    attention mask of ``dec`` blocks.  Each active row's new K/V is
+    written into the pool in place and its recurrent state overwritten
+    whole; inactive rows keep their hidden state and state.  Encoder runs
+    are skipped: they do no decode work.  The recurrent steps are
+    elementwise: no kernel."""
     runs = kind_runs(kinds)
     for kind, _, _ in runs:
         _check_kind(kind)
 
     def step(run_params, shared_params, pool_trees, h, pos, emb0,
-             layer_active, layer_ids):
+             layer_active, layer_ids, enc_len=None):
         for r, (kind, lo, hi) in enumerate(runs):
+            if kind == "enc":
+                continue
+            if kind == "dec" and enc_len is None:
+                raise ValueError("dec blocks decode with a per-row enc_len")
             for i in range(hi - lo):
                 act = layer_active[lo + i]
                 p = layer_params(run_params[r], i)
@@ -703,6 +770,10 @@ def make_pool_decode_step(cfg: ModelConfig, kinds: Tuple[str, ...],
                     h2, _ = B.decoder_block_decode(
                         p, cfg, h, c, pos, layer_ids[lo + i], active=act,
                         backend=backend, moe_rows=True)
+                elif kind == "dec":
+                    h2, _ = B.cross_decoder_block_decode(
+                        p, cfg, h, c, pos, enc_len=enc_len, active=act,
+                        backend=backend)
                 elif kind == "rwkv":
                     h2, st = B.rwkv_block_decode(p, cfg, h, c)
                     _masked_state_write(c, st, act)
@@ -727,11 +798,12 @@ def make_pool_round_step(cfg: ModelConfig, kinds: Tuple[str, ...],
     decode step, scatter the results back — no host round trip.
 
     hop(run_params, shared_params, pool_trees, h_round, pos_round,
-        emb0_round, slot_of_row, row_of_slot, layer_active, layer_ids)
-        -> h_round
+        emb0_round, slot_of_row, row_of_slot, layer_active, layer_ids,
+        encl_round=None) -> h_round
 
     * ``h_round``: (W, 1, d) round-resident hidden states (W fixed),
-    * ``pos_round``: (W,) per-slot cache position; ``emb0_round``: (W, 1,
+    * ``pos_round`` / ``encl_round``: (W,) per-slot cache position and
+      encoder length (enc-dec stacks; else None); ``emb0_round``: (W, 1,
       d) round-start embeddings for shared-attention stacks (else None),
     * ``slot_of_row``: (n_rows,) — the round slot feeding each pool row
       (-1: not in the hop; a clipped placeholder ``layer_active`` masks),
@@ -740,24 +812,28 @@ def make_pool_round_step(cfg: ModelConfig, kinds: Tuple[str, ...],
     step = make_pool_decode_step(cfg, kinds, backend)
 
     def hop(run_params, shared_params, pool_trees, h_round, pos_round,
-            emb0_round, slot_of_row, row_of_slot, layer_active, layer_ids):
+            emb0_round, slot_of_row, row_of_slot, layer_active, layer_ids,
+            encl_round=None):
         return _round_hop(
-            lambda h, pos, emb0: step(run_params, shared_params, pool_trees,
-                                      h, pos, emb0, layer_active, layer_ids),
-            h_round, pos_round, emb0_round, slot_of_row, row_of_slot)
+            lambda h, pos, emb0, enc_len: step(
+                run_params, shared_params, pool_trees, h, pos, emb0,
+                layer_active, layer_ids, enc_len),
+            h_round, pos_round, emb0_round, slot_of_row, row_of_slot,
+            encl_round)
 
     return hop
 
 
 def _round_hop(step, h_round, pos_round, emb0_round, slot_of_row,
-               row_of_slot):
+               row_of_slot, encl_round=None):
     """Gather a hop's rows out of the round buffers, run ``step(h, pos,
-    emb0)`` over them, scatter the results back."""
+    emb0, enc_len)`` over them, scatter the results back."""
     W = h_round.shape[0]
     n_rows = slot_of_row.shape[0]
     src = slot_of_row.clamp(0, W - 1)
     emb0 = None if emb0_round is None else emb0_round[src]
-    h_out = step(h_round[src], pos_round[src], emb0)
+    enc_len = None if encl_round is None else encl_round[src]
+    h_out = step(h_round[src], pos_round[src], emb0, enc_len)
     back = h_out[row_of_slot.clamp(0, n_rows - 1)]
     keep = (row_of_slot >= 0)[:, None, None]
     return torch.where(keep, back, h_round)
@@ -830,10 +906,10 @@ def make_paged_decode_step(cfg: ModelConfig, kinds: Tuple[str, ...],
     runs = kind_runs(kinds)
 
     def step(run_params, shared_params, pool_trees, page_table, h, pos,
-             emb0, layer_active, layer_ids):
+             emb0, layer_active, layer_ids, enc_len=None):
         scratch = _gather_paged(runs, pool_trees, page_table, page_size)
         h = body(run_params, shared_params, scratch, h, pos, emb0,
-                 layer_active, layer_ids)
+                 layer_active, layer_ids, enc_len)
         _scatter_paged(runs, pool_trees, scratch, page_table, page_size, pos)
         return h
 
@@ -843,15 +919,19 @@ def make_paged_decode_step(cfg: ModelConfig, kinds: Tuple[str, ...],
 def make_paged_prefill_step(cfg: ModelConfig, kinds: Tuple[str, ...],
                             backend: str = "kernel", page_size: int = 16):
     """Paged twin of :func:`make_pool_prefill_step` (page table inserted
-    after the pool trees)."""
+    after the pool trees).  The encoder phase touches no pool state, so it
+    gathers and scatters no pages."""
     body = make_pool_prefill_step(cfg, kinds, backend)
     runs = kind_runs(kinds)
 
     def step(run_params, shared_params, pool_trees, page_table, h, emb0,
-             layer_active, layer_ids, offset):
+             layer_active, layer_ids, offset, enc_rows=None, phase="all"):
+        if phase == "enc":
+            return body(run_params, shared_params, pool_trees, h, emb0,
+                        layer_active, layer_ids, offset, enc_rows, phase)
         scratch = _gather_paged(runs, pool_trees, page_table, page_size)
         h = body(run_params, shared_params, scratch, h, emb0, layer_active,
-                 layer_ids, offset)
+                 layer_ids, offset, enc_rows, phase)
         _scatter_paged(runs, pool_trees, scratch, page_table, page_size)
         return h
 
@@ -868,11 +948,12 @@ def make_paged_round_step(cfg: ModelConfig, kinds: Tuple[str, ...],
 
     def hop(run_params, shared_params, pool_trees, page_table, h_round,
             pos_round, emb0_round, slot_of_row, row_of_slot, layer_active,
-            layer_ids):
+            layer_ids, encl_round=None):
         return _round_hop(
-            lambda h, pos, emb0: step(run_params, shared_params, pool_trees,
-                                      page_table, h, pos, emb0, layer_active,
-                                      layer_ids),
-            h_round, pos_round, emb0_round, slot_of_row, row_of_slot)
+            lambda h, pos, emb0, enc_len: step(
+                run_params, shared_params, pool_trees, page_table, h, pos,
+                emb0, layer_active, layer_ids, enc_len),
+            h_round, pos_round, emb0_round, slot_of_row, row_of_slot,
+            encl_round)
 
     return hop

@@ -350,5 +350,5 @@ def test_state_specs_and_pool_trees():
                 {k: (tuple(v.shape), str(v.dtype)) for k, v in want.items()}
     assert TS.bucket_for((8, 16), 5, TS.state_specs(
         t_get_reduced_config("rwkv6_7b"))) == 5
-    with pytest.raises(NotImplementedError, match="A9"):
-        TS.state_spec_for("enc")
+    with pytest.raises(ValueError, match="supported kinds: dec, decoder"):
+        TS.state_spec_for("diffusion")

@@ -595,3 +595,104 @@ def test_flash_f32_pairs(cuda, Dk, Dv):
     v = _rn(g, 2, 70, 2, Dv, dtype=torch.float32)
     err = (flash_attention(q, k, v) - attention_ref(q, k, v)).abs().max()
     assert err.item() <= TOL[torch.float32]
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder shapes: K2 non-causal (encoder, cross prefill), K1
+# non-causal with a per-row kv_len (cross decode), the seamless engine
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("Sq,Skv", [(1000, 1000), (8, 1000), (16, 256),
+                                    (13, 77)])
+def test_flash_noncausal_ragged(cuda, Sq, Skv):
+    """bf16 K2 without a causal mask at ragged (Sq, Skv), head dim 64, Kv =
+    H: the last key tile masks keys >= Skv (the keys and queries are views
+    of longer buffers whose tails hold garbage)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = _rn(g, 2, Sq + 64, 16, 64, dtype=torch.bfloat16)
+    k = _rn(g, 2, Skv + 64, 16, 64, dtype=torch.bfloat16)
+    v = _rn(g, 2, Skv + 64, 16, 64, dtype=torch.bfloat16)
+    k[:, Skv:], v[:, Skv:] = 40.0, -40.0
+    q, k, v = q[:, :Sq], k[:, :Skv], v[:, :Skv]
+    out = flash_attention(q, k, v, causal=False)
+    ref = attention_ref(q, k, v, causal=False)
+    assert out.shape == (2, Sq, 16, 64)
+    assert (out.float() - ref.float()).abs().max().item() \
+        <= TOL[torch.bfloat16]
+
+
+def test_decode_cross_kv_len_g1(cuda):
+    """bf16 K1 cross decode at G = 1 over a cache of T = 1024 (the pool's
+    max_enc_len) with per-row kv_len 1, 256, 1000 and 1024: keys at or past
+    kv_len count for nothing (they hold garbage here), and pos is ignored."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    B, T = 4, 1024
+    q = _rn(g, B, 1, 16, 64, dtype=torch.bfloat16)
+    k = _rn(g, B, T, 16, 64, dtype=torch.bfloat16)
+    v = _rn(g, B, T, 16, 64, dtype=torch.bfloat16)
+    kv_len = torch.tensor([1, 256, 1000, 1024], device=cuda)
+    pos = torch.tensor([3, 0, 17, 5], device=cuda)
+    out = decode_attention(q, k, v, pos, kv_len=kv_len, causal=False)
+    ref = decode_attention_ref(q, k, v, pos, kv_len=kv_len, causal=False)
+    assert (out.float() - ref.float()).abs().max().item() \
+        <= TOL[torch.bfloat16]
+    for b, n in enumerate(kv_len.tolist()):
+        k[b, n:], v[b, n:] = 50.0, -50.0
+    again = decode_attention(q, k, v, pos + 7, kv_len=kv_len, causal=False)
+    assert torch.equal(again, out)
+
+
+def _encdec_system(cuda, layout, backend="kernel"):
+    import repro_torch.core as C
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import GeoServingSystem
+
+    cfg = get_reduced_config("seamless_m4t_large_v2")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    llm = C.LLMSpec("t", cfg.n_layers, block_bytes=100.0,
+                    cache_bytes_per_token=1.0)
+    servers = [C.ServerSpec(j, 300.0, 0.01 * (j + 1)) for j in range(6)]
+    rtt = np.full((1, 6), 0.02)
+    prob = C.Problem(llm, servers, 1, rtt, 3 * rtt, workload=C.Workload(4, 6))
+    return cfg, GeoServingSystem(cfg, params, prob, R=2, max_new_tokens=6,
+                                 max_sessions=4, max_seq_len=16,
+                                 max_enc_len=32, cache_layout=layout,
+                                 page_size=2, backend=backend, device=cuda)
+
+
+def test_encdec_engine_paged_equals_slab(cuda):
+    """The reduced seamless engine on the card, with encoder lengths that
+    group apart and a session preempted mid-decode (paged): the paged
+    streams equal the slab ones and the kernel backend's equal the plain
+    backend's; K2 ran non-causal and K1 ran cross decode."""
+    import repro_torch.core as C
+
+    rng = np.random.RandomState(2)
+    jobs = [(rng.randint(2, 256, n), rng.randn(e, 24).astype(np.float32))
+            for n, e in ((4, 9), (6, 21), (5, 9))]
+    streams = {}
+    for layout, backend in (("slab", "kernel"), ("paged", "kernel"),
+                            ("slab", "plain")):
+        cfg, system = _encdec_system(cuda, layout, backend)
+        sids = []
+        for p, f in jobs:
+            route, _ = C.shortest_path_route(system.problem,
+                                             system.alive_placement(), 0)
+            sids.append(system.create_session(p, 0, route, 6, frames=f))
+        n1, n2 = decode_attention.launches, flash_attention.launches
+        assert system.try_admit_sessions(sids) == sids
+        system.drain_prefill()
+        system.decode_round(sids)
+        if layout == "paged":
+            system.preempt_session(sids[1])
+        while any(system.sessions[s].n_generated < 6 for s in sids):
+            system.decode_round()
+        ran = (decode_attention.launches - n1, flash_attention.launches - n2)
+        assert (min(ran) > 0) == (backend == "kernel"), ran
+        streams[(layout, backend)] = [list(system.sessions[s].tokens)
+                                      for s in sids]
+    assert streams[("paged", "kernel")] == streams[("slab", "kernel")] == \
+        streams[("slab", "plain")]

@@ -328,11 +328,21 @@ def test_prefill_and_decode_steps(arch):
 
 @pytest.mark.parametrize("arch", ["seamless_m4t_large_v2"])
 def test_later_slices_raise(arch):
-    """Enc-dec is a later slice of the port (RWKV6 and zamba2 run:
-    tests/test_torch_ssm.py, tests/test_torch_family_serving.py; MLA and
-    MoE: tests/test_torch_mla_moe.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        t_init_params(t_get_reduced_config(arch), torch.Generator(), "cpu")
+    """Device-group servers are a later slice of the port: an engine asked
+    for a mesh or device groups raises (every model family runs: enc-dec
+    in tests/test_torch_encdec.py)."""
+    import repro_torch.core as TC
+    from repro_torch.serving import GeoServingSystem
+
+    tcfg = t_get_reduced_config(arch)
+    tparams = t_init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    llm = TC.LLMSpec("toy", tcfg.n_layers, 100.0, 1.0)
+    prob = TC.Problem(llm, [TC.ServerSpec(0, 1000.0, 0.01)], 1,
+                      np.full((1, 1), 0.02), np.full((1, 1), 0.06),
+                      workload=TC.Workload(4, 8))
+    for kw in (dict(mesh=object()), dict(device_groups={0: None})):
+        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+            GeoServingSystem(tcfg, tparams, prob, device="cpu", **kw)
 
 
 def test_block_param_range_is_a_view():
