@@ -88,6 +88,22 @@ Phases (any failure raises, so the exit code is not 0):
              encoder-only and a decoder hop: the engine on the kernels
              gives the plain monolithic streams, through the scheduler
              and through a kill_server drill of the decoder hop.
+5. perf model — (a) on the full-width Llama-3.2-1B serve cluster in bf16,
+             each server's τ from the H100 roofline of its pooled decode
+             step (``calibrate_taus``; every row at max_seq_len - 1),
+             printed beside the step's device time by CUDA events, paced
+             by the host's launches and queued ahead of the device, and
+             their ratios to the roofline; the step count on the card
+             equals the CPU's for a reduced f32 system; the calibrated
+             problem through CG-BP and the port's simulator.  (b) the
+             reference's engine-vs-simulator cross-validation
+             (benchmarks/engine_validation.py ``cross_validate``) with
+             Llama-3.2-1B at full width, cut to 8 layers: R = 1, 4, 8,
+             engine == simulator and == BENCH_engine.json's ``xval.R*``
+             within 1e-12 relative, one host sync per decode round.  (c)
+             ``torch_shortest_paths`` on the card == the numpy DP on the
+             serve cluster and three seeded problems with waiting; the
+             BPRR MILP == brute force on a toy problem.
 
 The last lines are the kernels JSON, the nvidia-smi name/power line, and
 the result JSON.  Without a CUDA device, or outside the repository, the
@@ -106,10 +122,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# published H100 SXM peaks (dense): HBM bytes/s; bf16 and TF32
-# tensor-core, and f32 (non-tensor-core) flop/s
-HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "tfloat32": 495e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 
 
@@ -174,50 +186,14 @@ def copies(torch, tensors, min_bytes=64 << 20):
 # ---------------------------------------------------------------------------
 
 
-def _bound(nbytes, flops, dtype):
-    t_bytes = nbytes / HBM_BYTES_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+def kernel_bound(cost, dtype):
+    """(ms, "bytes" or "operations"): the least time of a kernel call's
+    ``cost`` (its wrapper's ``*_cost``: each input read once, each output
+    written once; the work these inputs need) on the H100's published
+    peaks (``launch.costs``), its flops at the rate of ``dtype``."""
+    from repro_torch.launch.costs import bound_ms
 
-
-def decode_bound(q, k, v, pos, window=None, kv_len=None, causal=True):
-    """Bytes/flops this decode call needs: the query, each K/V row the
-    mask reaches (data dependent: per row from pos, or from kv_len alone
-    for non-causal cross attention), the output.  Values that are columns
-    of the keys' rows (absorbed MLA decode) are bytes already counted with
-    the keys."""
-    B, _, H, Dk = q.shape
-    T, Kv, Dv = k.shape[1], k.shape[2], v.shape[-1]
-    es = q.element_size()
-    v_bytes = 0 if v.data_ptr() == k.data_ptr() else Dv
-    pos_l = [int(p) for p in pos.tolist()]
-    kvl = [T] * B if kv_len is None else [int(x) for x in kv_len.tolist()]
-    rows = 0
-    for p, kl in zip(pos_l, kvl):
-        hi = min(p + 1, kl, T) if causal else min(kl, T)
-        lo = 0 if window is None or not causal else max(0, p - window + 1)
-        rows += max(hi - lo, 0)
-    nbytes = (B * H * Dk + B * H * Dv) * es \
-        + rows * Kv * (Dk + v_bytes) * es + 4 * B
-    flops = 2 * rows * H * (Dk + Dv)
-    return _bound(nbytes, flops, str(q.dtype).split(".")[-1])
-
-
-def prefill_bound(q, k, v, q_start=0, window=None, causal=True):
-    """Bytes/flops of a prefill call: q, k, v read once, out written once;
-    score and P.V flops over the causally valid pairs (inside the window
-    when there is one), or over every (query, key) pair when non-causal."""
-    B, Sq, H, Dk = q.shape
-    Skv, Dv = k.shape[1], v.shape[-1]
-    es = q.element_size()
-    w = Skv + Sq if window is None else window
-    pairs = Sq * Skv if not causal else sum(
-        min(q_start + i + 1, Skv) - max(0, q_start + i - w + 1)
-        for i in range(Sq))
-    nbytes = (q.numel() + k.numel() + v.numel() + B * Sq * H * Dv) * es
-    flops = 2 * B * H * pairs * (Dk + Dv)
-    return _bound(nbytes, flops, str(q.dtype).split(".")[-1])
+    return bound_ms(cost, str(dtype).split(".")[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -818,29 +794,36 @@ def step_server(system) -> int:
         k == "dec" for k in system.servers[j].kinds))
 
 
+def step_inputs(system, srv, pos):
+    """Operands of one pooled decode step on ``srv`` with every row active
+    at position ``pos`` (enc-dec: encoder length ``STEP_ENC_LEN``)."""
+    import numpy as np
+
+    from repro_torch.serving.kv_cache import to_device
+
+    N = srv.pool.n_rows
+    h = system._embed(np.full((N, 1), 5))
+    pos = to_device(np.full((N,), pos, np.int64), system.device)
+    mask = srv._mask(np.ones((srv.m, N), bool))
+    emb0 = h if system._needs_emb0 else None
+    encl = to_device(np.full((N,), STEP_ENC_LEN, np.int64), system.device) \
+        if system._is_enc_dec else None
+    return h, pos, mask, emb0, encl
+
+
 def pooled_step_ms(torch, system, reps=20):
     """Host wall of one pooled decode step on ``step_server`` with every
     row active at position 120 (enc-dec: encoder length 512; each step
     ended by a synchronize): the cost of a step on the layout, apart from
     the routes the scheduler chose."""
-    import numpy as np
-
-    from repro_torch.serving.kv_cache import to_device
-
     srv = system.servers[step_server(system)]
-    N = srv.pool.n_rows
-    h = system._embed(np.full((N, 1), 5))
-    pos = to_device(np.full((N,), 120, np.int64), system.device)
-    mask = srv._mask(np.ones((srv.m, N), bool))
-    emb0 = h if system._needs_emb0 else None
-    encl = to_device(np.full((N,), STEP_ENC_LEN, np.int64), system.device) \
-        if system._is_enc_dec else None
+    args = step_inputs(system, srv, 120)
     for _ in range(3):
-        srv.decode_rows(h, pos, mask, emb0, encl)
+        srv.decode_rows(*args)
     torch.cuda.synchronize()
     t = time.perf_counter()
     for _ in range(reps):
-        srv.decode_rows(h, pos, mask, emb0, encl)
+        srv.decode_rows(*args)
         torch.cuda.synchronize()
     return (time.perf_counter() - t) * 1e3 / reps
 
@@ -857,31 +840,6 @@ def _err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
-def scan_bound(kind, args):
-    """Bytes/flops of one K3 (``wkv6``) or K4 (``ssd``) call: every input
-    read once, out and state written once; the recurrence's flops (two FMAs
-    per state element per token) over the TF32 tensor-core peak, the
-    fastest unit an f32 scan can use (its products run there as 3xTF32)."""
-    if kind == "wkv6":
-        r, k, v, lw, u = args[:5]
-        state = args[5] if len(args) > 5 else None
-        B, S, H, hd = r.shape
-        n_state = B * H * hd * hd
-        nbytes = 4 * (5 * B * S * H * hd + H * hd + n_state
-                      + (0 if state is None else n_state))
-        flops = 4 * B * S * H * hd * hd
-    else:
-        x, bm, cm, dt, A, D = args[:6]
-        state = args[6] if len(args) > 6 else None
-        B, S, H, p = x.shape
-        n = bm.shape[-1]
-        n_state = B * H * p * n
-        nbytes = 4 * (2 * B * S * H * p + 2 * B * S * n + B * S * H + 2 * H
-                      + n_state + (0 if state is None else n_state))
-        flops = 4 * B * S * H * p * n
-    return _bound(nbytes, flops, "tfloat32")
-
-
 def scan_ok(got, want):
     """K3/K4 tolerance, f32: |kernel - plain| <= 1e-4 + 1e-3 |plain| (the
     reference's kernel-vs-oracle tolerance: kernel and plain version chunk
@@ -896,10 +854,12 @@ def phase_kernels(torch, captured, launches):
     from repro_torch.kernels import (DESIGNS, HEAD_DIM_PAIRS,
                                      HEAD_DIM_PAIRS_F32, HEAD_DIMS,
                                      attention_ref, decode_attention,
+                                     decode_attention_cost,
                                      decode_attention_ref, decode_plan,
-                                     flash_attention, head_group,
-                                     ssd, ssd_chunked, ssd_plan, wkv6,
-                                     wkv6_chunked, wkv6_plan)
+                                     flash_attention, flash_attention_cost,
+                                     head_group, ssd, ssd_chunked, ssd_cost,
+                                     ssd_plan, wkv6, wkv6_chunked, wkv6_cost,
+                                     wkv6_plan)
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1164,12 +1124,14 @@ def phase_kernels(torch, captured, launches):
              lambda *a: decode_attention(*a, window=win, scale=scale),
              lambda *a: decode_attention_ref(*a, window=win, scale=scale),
              lambda *a: sdpa_decode(*a, window=win, scale=scale),
-             decode_bound(q, k, v, pos, window=win), TOL["bfloat16"]),
+             kernel_bound(decode_attention_cost(q, k, v, pos, window=win),
+                          q.dtype), TOL["bfloat16"]),
             ("flash_attention" + suffix, "path", (qf, kf, vf),
              lambda *a: flash_attention(*a, q_start=q_start, window=fwin),
              lambda *a: attention_ref(*a, q_start=q_start, window=fwin),
              lambda *a: sdpa_prefill(*a, q_start=q_start, window=fwin),
-             prefill_bound(qf, kf, vf, q_start, fwin), TOL["bfloat16"]),
+             kernel_bound(flash_attention_cost(qf, kf, vf, q_start, fwin),
+                          qf.dtype), TOL["bfloat16"]),
         ]
 
     def sdpa_cross_decode(q, k, v, pos, kv_len):
@@ -1197,7 +1159,8 @@ def phase_kernels(torch, captured, launches):
                  lambda q, k, v, p, n: decode_attention_ref(
                      q, k, v, p, kv_len=n, causal=False),
                  sdpa_cross_decode,
-                 decode_bound(q, k, v, pos, kv_len=kvl, causal=False),
+                 kernel_bound(decode_attention_cost(
+                     q, k, v, pos, kv_len=kvl, causal=False), q.dtype),
                  bf16_ulp_ok)]
         for name in ("flash_attention_enc", "flash_attention_cross"):
             args, kw = captured[(arch, name)]
@@ -1207,7 +1170,8 @@ def phase_kernels(torch, captured, launches):
                          lambda *a: flash_attention(*a, causal=False),
                          lambda *a: attention_ref(*a, causal=False),
                          sdpa_noncausal,
-                         prefill_bound(*args, causal=False),
+                         kernel_bound(flash_attention_cost(
+                             *args, causal=False), args[0].dtype),
                          bf16_ulp_ok))
         return rows
 
@@ -1223,18 +1187,20 @@ def phase_kernels(torch, captured, launches):
     long_ssd = ssd_args(1, Sl, 112, 64, 64, False)
     plan = attention_rows("llama3_2_1b", "") + [
         ("decode_attention", f"long T={Tl}", long_dec, decode_attention,
-         decode_attention_ref, sdpa_decode, decode_bound(*long_dec),
+         decode_attention_ref, sdpa_decode,
+         kernel_bound(decode_attention_cost(*long_dec), torch.bfloat16),
          TOL["bfloat16"]),
         ("flash_attention", f"long S={Sl}", long_pre, flash_attention,
-         attention_ref, sdpa_prefill, prefill_bound(*long_pre),
+         attention_ref, sdpa_prefill,
+         kernel_bound(flash_attention_cost(*long_pre), torch.bfloat16),
          TOL["bfloat16"]),
     ] + attention_rows("zamba2_7b", "_d224") + \
         attention_rows("deepseek_v2_236b", "_mla") + \
         attention_rows("gemma3_4b", "_d256") + \
         encdec_rows("seamless_m4t_large_v2")
-    for kind, fn, plain, long_args in (("wkv6", wkv6, wkv6_chunked,
-                                        long_wkv),
-                                       ("ssd", ssd, ssd_chunked, long_ssd)):
+    for kind, fn, plain, cost, long_args in (
+            ("wkv6", wkv6, wkv6_chunked, wkv6_cost, long_wkv),
+            ("ssd", ssd, ssd_chunked, ssd_cost, long_ssd)):
         arch = "rwkv6_7b" if kind == "wkv6" else "zamba2_7b"
         path_args, _ = captured[(arch, kind)]
         for shape_name, args in (("path", path_args),
@@ -1242,7 +1208,7 @@ def phase_kernels(torch, captured, launches):
             plan.append((kind, shape_name, args,
                          lambda *a, fn=fn: fn(*a)[0],
                          lambda *a, plain=plain: plain(*a)[0], None,
-                         scan_bound(kind, args), None))
+                         kernel_bound(cost(*args), "tfloat32"), None))
     rows = {}
     for name, shape_name, args, kern, plain, lib, bound, tol in plan:
         got, want = kern(*args), plain(*args)
@@ -1673,6 +1639,14 @@ def _llama_bf16(torch, tag):
 
 def count_syncs(torch, fn, *a, **kw):
     """(result, host syncs made by ``fn``), by PyTorch's sync debug mode."""
+    out, sites = sync_sites(torch, fn, *a, **kw)
+    return out, len(sites)
+
+
+def sync_sites(torch, fn, *a, **kw):
+    """(result, the file:line of each host sync ``fn`` made), by PyTorch's
+    sync debug mode (its one-time notice that the mode is a prototype,
+    which mentions synchronizing operations too, is not a sync)."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -1680,7 +1654,8 @@ def count_syncs(torch, fn, *a, **kw):
             out = fn(*a, **kw)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    return out, [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                 if "called a synchronizing" in str(w.message)]
 
 
 def phase_oversub(torch):
@@ -1922,6 +1897,324 @@ def phase_sampling(torch, serve_arrivals):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the performance model: τ calibration, engine against simulator, routing
+# ---------------------------------------------------------------------------
+
+
+def step_device_ms(torch, srv, args, reps=10):
+    """(paced, queued) device ms of one pooled decode step by CUDA events.
+    Paced: events around ``reps`` back-to-back steps, the device following
+    the host as it issues the step's launches (what a round pays).  Queued:
+    the median of ``reps`` single steps, each issued while the stream is
+    held busy, so the events time the device's work alone; None where the
+    host could not issue a step within the sleep (a step's launches beyond
+    the launch queue's depth would block the host)."""
+    for _ in range(2):
+        srv.decode_rows(*args)
+    torch.cuda.synchronize()
+    busy, start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+    start.record()
+    for _ in range(reps):
+        srv.decode_rows(*args)
+    end.record()
+    torch.cuda.synchronize()
+    paced = start.elapsed_time(end) / reps
+    queued = []
+    for _ in range(reps):
+        busy.record()
+        torch.cuda._sleep(1 << 27)
+        start.record()
+        t = time.perf_counter()
+        srv.decode_rows(*args)
+        issued_ms = (time.perf_counter() - t) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if busy.elapsed_time(start) <= issued_ms:
+            return paced, None
+        queued.append(start.elapsed_time(end))
+    return paced, sorted(queued)[reps // 2]
+
+
+def phase_tau(torch):
+    """[perf model] (a): τ from the H100 roofline of each server's pooled
+    decode step on the full-width Llama-3.2-1B serve cluster, beside the
+    step's measured device time; the count on the card equals the CPU's;
+    the calibrated problem through CG-BP and the simulator."""
+    import numpy as np
+
+    import repro_torch.core as C
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch.costs import roofline_terms
+    from repro_torch.models import init_params
+    from repro_torch.serving import GeoServingSystem
+    from repro_torch.sim import SimConfig, poisson_requests, simulate
+
+    tag = "[perf model]"
+    cfg, params = _llama_bf16(torch, tag)
+    problem = serve_problem(C, cfg.name, cfg.n_layers)
+    spec_tau = problem.tau().tolist()
+    system = GeoServingSystem(cfg, params, problem, algorithm="proposed",
+                              R=4, max_new_tokens=32, max_sessions=8)
+    taus = system.calibrate_taus()
+    cal = system.calibrated_problem()
+    pos = system.max_seq_len - 1
+    log(f"{tag} τ from the roofline of each server's pooled decode step "
+        f"(every row active at position {pos} = max_seq_len - 1, bf16; "
+        "flops at 989 TFLOP/s, bytes at 3.35 TB/s), beside the step's "
+        "device time by CUDA events: paced (the device follows the host's "
+        "launches) and queued (launches issued ahead behind a busy stream)")
+    rows = {}
+    for j, srv in system.servers.items():
+        N, cost = srv.pool.n_rows, srv.decode_step_cost()
+        terms = roofline_terms(cost, 1)
+        paced, queued = step_device_ms(torch, srv,
+                                       step_inputs(system, srv, pos))
+        per = srv.m * N
+        rows[j] = r = dict(m=srv.m, N=N, flops=cost.flops,
+                           bytes=cost.bytes_accessed, tau=taus[j],
+                           tau_paced=paced * 1e-3 / per,
+                           tau_queued=None if queued is None
+                           else queued * 1e-3 / per)
+        alone = "not measured (the host could not issue the step ahead)" \
+            if queued is None else \
+            (f"{queued:.4f} ms, τ {r['tau_queued']:.4g} s "
+             f"({r['tau_queued'] / r['tau']:.1f}x)")
+        log(f"{tag}   server {j}: m {srv.m}, N {N}, flops {cost.flops:.6g}, "
+            f"bytes {cost.bytes_accessed:.6g} ({terms['dominant']}-bound); "
+            f"roofline step {terms['bound_s'] * 1e3:.4f} ms, τ "
+            f"{r['tau']:.4g} s; measured step paced {paced:.4f} ms, τ "
+            f"{r['tau_paced']:.4g} s ({r['tau_paced'] / r['tau']:.1f}x the "
+            f"roofline); queued {alone}")
+    if not all(np.isfinite(t) and t > 0 for t in taus.values()):
+        raise RuntimeError(f"calibrated τ not finite and positive: {taus}")
+    if system.problem.tau().tolist() != spec_tau or \
+            cal.tau().tolist() != [taus[s.sid] for s in cal.servers]:
+        raise RuntimeError("calibration changed the live problem, or the "
+                           "calibrated problem lost a τ")
+    del system, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the count on the card equals the CPU's for one reduced f32 system
+    rcfg = get_reduced_config("llama3_2_1b")
+    rprob = serve_problem(C, rcfg.name, rcfg.n_layers)
+    counts = {}
+    for dev in ("cuda", "cpu"):
+        p = init_params(rcfg, torch.Generator(device=dev).manual_seed(0),
+                        dev)
+        s = GeoServingSystem(rcfg, p, rprob, algorithm="proposed", R=4,
+                             max_new_tokens=32, max_sessions=8, device=dev)
+        counts[dev] = (s.placement.a.tolist(), s.placement.m.tolist(),
+                       {j: v.decode_step_cost().to_dict()
+                        for j, v in s.servers.items()})
+    per_server = {j: (c["flops"], c["bytes_accessed"])
+                  for j, c in counts["cuda"][2].items()}
+    log(f"{tag} reduced {rcfg.name} in {rcfg.param_dtype}, placement "
+        f"a={counts['cpu'][0]} m={counts['cpu'][1]}: decode_step_cost "
+        f"(flops, bytes) on the card {per_server} "
+        f"{'==' if counts['cuda'] == counts['cpu'] else '!='} on the CPU")
+    if counts["cuda"] != counts["cpu"]:
+        raise RuntimeError(f"step counts differ: {counts}")
+
+    # the calibrated problem through CG-BP and the simulator
+    reqs = poisson_requests(8, 2.0, seed=1)
+    for name, prob in (("spec'd τ", problem), ("the card's τ", cal)):
+        pl, info = C.cg_bp(prob, 4)
+        sim = simulate(prob, SimConfig("proposed", n_requests=len(reqs),
+                                       rate=2.0, seed=1, R=4),
+                       requests=reqs)
+        log(f"{tag} {name}: CG-BP (R=4) a={pl.a.tolist()} "
+            f"m={pl.m.tolist()}; simulate('proposed', 8 Poisson requests "
+            f"at 2/s): first-token {sim.first_token:.6g} s, per-token "
+            f"{sim.per_token_all:.6g} s, wait {sim.wait:.6g} s")
+    return rows
+
+
+# the reference's engine-vs-simulator cross-validation
+# (benchmarks/engine_validation.py:126-186 cross_validate) on its problem
+# (:59-78 _concurrency_problem): 5 servers, L = 8, Workload(8, 12), 10
+# Poisson requests at rate 1.0 from seed 0, at R in XVAL_R
+XVAL_R = (1, 4, 8)
+
+
+def xval_problem(C):
+    import numpy as np
+
+    llm = C.LLMSpec("xval", 8, block_bytes=50.0, cache_bytes_per_token=0.5)
+    fast = dict(tau_prefill_base=0.002, tau_prefill_per_token=0.0005)
+    slow = dict(tau_prefill_base=0.004, tau_prefill_per_token=0.001)
+    servers = [C.ServerSpec(j, 500.0, 0.004, **fast) for j in (0, 1)] + \
+        [C.ServerSpec(j, 260.0, 0.020, **slow) for j in (2, 3, 4)]
+    rtt = np.array([[0.01, 0.01, 0.03, 0.03, 0.03]])
+    return C.Problem(llm, servers, 1, rtt, 3 * rtt,
+                     workload=C.Workload(8, 12))
+
+
+def phase_xval(torch):
+    """[perf model] (b): the port's engine (Llama-3.2-1B at full width in
+    bf16, cut to 8 layers, on the card) against the port's simulator on
+    the same trace; the engine's times against BENCH_engine.json's
+    xval.R* rows (the reference's), within 1e-12 relative; one host sync
+    per decode round."""
+    import numpy as np
+
+    import repro_torch.core as C
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import (ContinuousBatchingScheduler,
+                                     GeoServingSystem)
+    from repro_torch.sim import (SimConfig, poisson_requests, prompts_for,
+                                 simulate)
+
+    tag = "[perf model]"
+    bench = json.loads((ROOT / "BENCH_engine.json").read_text())["scenarios"]
+    cfg = get_config("llama3_2_1b").replace(n_layers=8)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    problem = xval_problem(C)
+    lw = problem.workload
+    requests = poisson_requests(10, 1.0, seed=0)
+    prompts = prompts_for(requests, lw.l_in, cfg.vocab_size, seed=0)
+    log(f"{tag} engine vs simulator: {cfg.name} at d_model {cfg.d_model}, "
+        f"{cfg.n_layers} of {get_config('llama3_2_1b').n_layers} layers, "
+        f"{cfg.param_dtype}; 10 Poisson requests at 1/s, seed 0")
+    # warm-up: one request through a throwaway engine (cuBLAS handles,
+    # kernel libraries loaded), as the serve phases do
+    warm = GeoServingSystem(cfg, params, problem, algorithm="proposed", R=1,
+                            max_new_tokens=lw.l_out)
+    ws = ContinuousBatchingScheduler(warm, R=1)
+    ws.submit(0, prompts[0], 0.0, n_new=4)
+    ws.run()
+    del warm, ws
+    out = {}
+    for R in XVAL_R:
+        sim = simulate(problem, SimConfig("proposed", n_requests=len(requests),
+                                          rate=1.0, seed=0, R=R),
+                       requests=requests)
+        system = GeoServingSystem(cfg, params, problem, algorithm="proposed",
+                                  R=R, max_new_tokens=lw.l_out,
+                                  max_sessions=max(8, R))
+        syncs, sites = [], {}
+        decode_round = system.decode_round
+
+        def counted(*a, **kw):
+            res, where = sync_sites(torch, decode_round, *a, **kw)
+            if len(where) != 1:
+                sites[len(syncs)] = where
+            syncs.append(len(where))
+            return res
+
+        system.decode_round = counted
+        sched = ContinuousBatchingScheduler(system, R=R, arrival_rate=1.0)
+        for req, toks in zip(requests, prompts):
+            sched.submit(req.rid, toks, req.arrival, n_new=lw.l_out,
+                         client=req.client)
+        served = [r for r in sched.run() if not r.dropped]
+        torch.cuda.synchronize()
+        eng = {"first_token": float(np.mean([r.first_token for r in served])),
+               "per_token": float(np.mean([r.per_token for r in served]))}
+        simm = {"first_token": sim.first_token,
+                "per_token": sim.per_token_all}
+        err = {k: abs(eng[k] - simm[k]) / max(simm[k], 1e-12) for k in eng}
+        ref = bench[f"xval.R{R}"]
+        off = {k: abs(eng[k] - ref[k + "_eng"]) / abs(ref[k + "_eng"])
+               for k in eng}
+        out[R] = dict(eng=eng, sim=simm, err=err, bench_rel=off)
+        log(f"{tag}   xval.R{R}: served {len(served)}/{len(requests)}, max "
+            f"concurrency {sched.max_concurrency} (reference "
+            f"{ref['max_concurrency']:g}); first-token eng "
+            f"{eng['first_token']!r} sim {simm['first_token']!r} err "
+            f"{err['first_token']:.3g}; per-token eng {eng['per_token']!r} "
+            f"sim {simm['per_token']!r} err {err['per_token']:.3g}; vs "
+            f"BENCH_engine.json {off['first_token']:.3g} / "
+            f"{off['per_token']:.3g} relative; {len(syncs)} decode rounds, "
+            f"host syncs per round {sorted(set(syncs))}"
+            + "".join(f"; round {i}: syncs at {w}" for i, w in sites.items()))
+        if len(served) != len(requests):
+            raise RuntimeError(f"xval.R{R}: served {len(served)}")
+        if max(err.values()) > 1e-12 or max(off.values()) > 1e-12:
+            raise RuntimeError(f"xval.R{R}: engine {eng} vs simulator {simm}"
+                               f" / BENCH_engine.json {ref}")
+        if set(syncs) != {1}:
+            raise RuntimeError(f"xval.R{R}: decode rounds made "
+                               f"{sorted(set(syncs))} host syncs")
+        del system, sched
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_routing(torch):
+    """[perf model] (c): ``torch_shortest_paths`` on the card against the
+    numpy DP on the serve cluster and three seeded random problems (with
+    WS-RR waiting); the joint BPRR MILP against brute force on a toy
+    problem (scipy's HiGHS on the card's machine)."""
+    import numpy as np
+
+    import repro_torch.core as C
+    from repro_torch.core.milp import brute_force_bprr, solve_bprr_milp
+
+    tag = "[perf model]"
+    serve = serve_problem(C, "llama3.2-1b", 16)
+    cases = [("serve cluster", serve, C.cg_bp(serve, 4)[0], None, 1.0)]
+    seed = 0
+    while len(cases) < 4:
+        rng = np.random.default_rng(seed)
+        n, L = 6, 6
+        llm = C.LLMSpec("t", L, block_bytes=4.0, cache_bytes_per_token=0.25)
+        servers = [C.ServerSpec(j, float(4 * rng.integers(2, 6)),
+                                float(0.05 + 0.3 * rng.random()))
+                   for j in range(n)]
+        rtt = 0.02 + 0.3 * rng.random((3, n))
+        prob = C.Problem(llm, servers, 3, rtt, 4 * rtt,
+                         workload=C.Workload(2, 4))
+        pl, info = C.cg_bp(prob, 2)
+        if info.feasible:
+            cases.append((f"random seed {seed}", prob, pl,
+                          0.05 * rng.random((n + 1, n)),
+                          float(prob.workload.l_out)))
+        seed += 1
+    for name, prob, pl, wait, lw in cases:
+        dist, choice = C.torch_shortest_paths(prob, pl, waiting=wait,
+                                              l_max_weight=lw)
+        if dist.device.type != "cuda":
+            raise RuntimeError("torch_shortest_paths left the card")
+        dist, choice = dist.cpu().numpy(), choice.cpu().numpy()
+        want = [C.shortest_path_route(prob, pl, c, waiting=wait,
+                                      l_max_weight=lw)
+                for c in range(prob.n_clients)]
+        rel = max(abs(d - w[1]) / abs(w[1]) for d, w in zip(dist, want))
+        same = [int(ch) == w[0].servers[-1] for ch, w in zip(choice, want)]
+        log(f"{tag} torch_shortest_paths on the card, {name} ({prob.n_clients}"
+            f" clients, {prob.n_servers} servers"
+            + (", WS-RR waiting" if wait is not None else "")
+            + f"): terminal servers {choice.tolist()} equal the numpy DP's "
+            f"{sum(same)}/{len(same)}, dist max relative difference {rel:.3g}")
+        if not all(same) or rel > 1e-12:
+            raise RuntimeError(f"{name}: device DP differs from the numpy DP")
+    # the toy problem of tests/test_core_bprr.py:106-120
+    rng = np.random.default_rng(3)
+    llm = C.LLMSpec("t", 3, block_bytes=4.0, cache_bytes_per_token=1.0)
+    servers = [C.ServerSpec(j, float(14 + 4 * rng.random()),
+                            float(0.1 + 0.2 * rng.random()))
+               for j in range(3)]
+    rtt = 0.05 + 0.2 * rng.random((2, 3))
+    prob = C.Problem(llm, servers, 2, rtt, rtt * 5,
+                     workload=C.Workload(2, 1))
+    t = time.perf_counter()
+    res = solve_bprr_milp(prob, [0, 1])
+    bf, _ = brute_force_bprr(prob, [0, 1])
+    log(f"{tag} BPRR MILP (13) with scipy's HiGHS: status {res.status}, "
+        f"objective {res.objective!r}, brute force {bf!r} (|diff| "
+        f"{abs(res.objective - bf):.3g}), placement a={res.placement.a} "
+        f"m={res.placement.m}; {time.perf_counter() - t:.1f} s")
+    if res.status != 0 or abs(res.objective - bf) > 1e-6:
+        raise RuntimeError("the MILP misses the brute-force optimum")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1966,6 +2259,9 @@ def main() -> int:
     # which hosts decoder blocks (an encoder-only hop does no decode work)
     phase_parity_family(torch, "seamless_m4t_large_v2", n_servers=6,
                         mem=300.0, enc_lens=(5, 13, 5, 40), victim_hop=-1)
+    phase_tau(torch)
+    phase_xval(torch)
+    phase_routing(torch)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -475,3 +475,52 @@ def petals_route(problem: Problem, placement: Placement, client: int
                 parent[state] = (e, i)
                 heapq.heappush(pq, (nd, int(e_arr[j]), int(j)))
     return None
+
+
+# ---------------------------------------------------------------------------
+# Batched routing on the device (== numpy DP, tested)
+# ---------------------------------------------------------------------------
+
+
+def torch_shortest_paths(problem: Problem, placement: Placement,
+                         waiting: Optional[np.ndarray] = None,
+                         l_max_weight: float = 1.0, device="cuda"):
+    """Min-plus DP for ALL clients at once on ``device`` — the counterpart of
+    the reference's ``jax_shortest_paths``.
+
+    Edge costs ``(C, n, n)`` (``l_max_weight · t^c_ij + waiting``, masked to
+    the routing DAG's edges), ``n`` relaxations ``min_i(dist_i + cost_ij)``,
+    masked to first and last hops.  float64, so that it equals the numpy DP
+    (``shortest_path_route``).  Runs on the card unless the caller passes
+    ``device="cpu"``.  Returns (dist (C,), choice (C,)) as tensors on
+    ``device``: the best completion cost and the best terminal server per
+    client (``inf`` where no route exists)."""
+    import torch
+
+    a, m = placement.a, placement.m
+    n = problem.n_servers
+    e = a + m
+    active = m > 0
+    adj = (active[None, :] & active[:, None]
+           & (a[None, :] <= e[:, None]) & (e[:, None] <= e[None, :] - 1))
+    cumw = problem.llm.tau_cumweights()
+    # weighted blocks at j from i (== block count under uniform weights)
+    k_edge = np.maximum(cumw[e][None, :] - cumw[e][:, None], 0)
+    k_first = cumw[e]  # from the S-client (progress 0)
+    if waiting is None:
+        waiting = np.zeros((n + 1, n))
+
+    def dev(x, dtype=torch.float64):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    rtt, tau = dev(problem.rtt_token), dev(problem.tau())
+    cost = l_max_weight * (rtt[:, None, :] + tau * dev(k_edge)) \
+        + dev(waiting[:n])
+    cost = torch.where(dev(adj, torch.bool), cost, torch.inf)
+    start = l_max_weight * (rtt + tau * dev(k_first)) + dev(waiting[n])
+    dist = torch.where(dev(active & (a == 0), torch.bool), start, torch.inf)
+    for _ in range(n):
+        dist = torch.minimum(dist, (dist[:, :, None] + cost).amin(dim=1))
+    dist = torch.where(dev(active & (e == problem.L), torch.bool), dist,
+                       torch.inf)
+    return dist.min(dim=1)

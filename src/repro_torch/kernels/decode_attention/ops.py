@@ -15,7 +15,10 @@ columns as the values).  A kv head's G query heads run in groups of
 axis over ``decode_plan(...)`` slices.  Both are pure functions of
 host-known sizes (never of ``pos`` or ``kv_len``: reading those would sync
 the host).  The wrapper allocates the f32 partials the combine pass
-merges.
+merges.  ``cost`` gives a call's bytes and flops (the kernel rows'
+bounds, and the attention share of ``BlockServer.decode_step_cost``,
+which runs its step on meta tensors inside
+``runtime.count_meta_calls``).
 """
 from __future__ import annotations
 
@@ -27,7 +30,9 @@ import torch
 
 from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
                                                       per_row)
-from repro_torch.kernels.runtime import NO_WINDOW, check_launch, load_library
+from repro_torch.kernels.runtime import (NO_WINDOW, check_launch,
+                                         load_library, meta_calls)
+from repro_torch.launch.costs import CostSummary
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # blocks the split grid aims at: four 4-warp blocks per SM of the H100's
@@ -92,6 +97,42 @@ def decode_attention_unsupported(*, causal: bool = True, window=None,
     return None
 
 
+def _rows(x, n: int):
+    """A scalar or per-row integer operand as n host ints (a tensor on the
+    card is read to the host)."""
+    v = x.tolist() if hasattr(x, "tolist") else x
+    return [int(v)] * n if isinstance(v, int) else [int(a) for a in v]
+
+
+def _root(x):
+    return x if x._base is None else x._base
+
+
+def cost(q, ck, cv, pos, *, window=None, kv_len=None,
+         causal: bool = True) -> CostSummary:
+    """Bytes and flops one call needs for these inputs: the query, each
+    K/V row the mask reaches (data dependent: per row from ``pos``, or
+    from ``kv_len`` alone for non-causal cross attention), the output and
+    the positions; the score and P·V products over the reached rows.
+    Values that are columns of the keys' rows (absorbed MLA decode) are
+    bytes already counted with the keys.  ``pos`` / ``kv_len``: an int or
+    per-row values."""
+    B, _, H, Dk = q.shape
+    T, Kv, Dv = ck.shape[1], ck.shape[2], cv.shape[-1]
+    es = q.element_size()
+    v_bytes = 0 if cv.data_ptr() == ck.data_ptr() and \
+        _root(cv) is _root(ck) else Dv
+    kvl = [T] * B if kv_len is None else _rows(kv_len, B)
+    rows = 0
+    for p, kl in zip(_rows(pos, B), kvl):
+        hi = min(p + 1, kl, T) if causal else min(kl, T)
+        lo = 0 if window is None or not causal else max(0, p - window + 1)
+        rows += max(hi - lo, 0)
+    nbytes = (B * H * Dk + B * H * Dv) * es \
+        + rows * Kv * (Dk + v_bytes) * es + 4 * B
+    return CostSummary(flops=2 * rows * H * (Dk + Dv), bytes_accessed=nbytes)
+
+
 def _launcher():
     global _fn
     if _fn is None:
@@ -122,6 +163,12 @@ def decode_attention(q, ck, cv, pos, *, window=None, slopes=None,
         return decode_attention_ref(q, ck, cv, pos, window=window,
                                     slopes=slopes, kv_len=kv_len,
                                     causal=causal, scale=scale)
+    counting = meta_calls()
+    if q.device.type == "meta" and counting is not None:
+        counting.cost.scaled_add(cost(
+            q, ck, cv, counting.pos, window=window, causal=causal,
+            kv_len=None if kv_len is None else counting.kv_len), 1.0)
+        return q.new_empty(q.shape[:3] + cv.shape[-1:])
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
     B, one, H, Dk = q.shape

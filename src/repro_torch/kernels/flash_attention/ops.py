@@ -11,7 +11,7 @@ plain version (``ref.py``); a CUDA tensor goes to the kernel, or the call
 raises — there is no fallback.  ``flash_attention.launches`` counts kernel
 launches.  The kernels read q/k/v through their strides, so the wrapper
 makes no transposed copies.  The dtype picks the kernel (``DESIGNS``); a
-bf16 call the tensor-core kernel cannot take raises.
+bf16 call the tensor-core kernel cannot take raises.  ``cost`` gives a call's bytes and flops.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.runtime import NO_WINDOW, check_launch, load_library
+from repro_torch.launch.costs import CostSummary
 
 # which kernel serves each dtype: the bf16 tensor-core kernel, or the f32
 # CUDA-core one
@@ -51,6 +52,23 @@ def flash_attention_unsupported(*, causal: bool = True, window=None,
         if slopes is not None:
             return "ALiBi slopes on non-causal attention"
     return None
+
+
+def cost(q, k, v, q_start: int = 0, window=None,
+         causal: bool = True) -> CostSummary:
+    """Bytes and flops of one call: q, k, v read once, out written once;
+    score and P·V flops over the causally valid (query, key) pairs (inside
+    the window when there is one), or over every pair when non-causal."""
+    B, Sq, H, Dk = q.shape
+    Skv, Dv = k.shape[1], v.shape[-1]
+    es = q.element_size()
+    w = Skv + Sq if window is None else window
+    pairs = Sq * Skv if not causal else sum(
+        min(q_start + i + 1, Skv) - max(0, q_start + i - w + 1)
+        for i in range(Sq))
+    nbytes = (q.numel() + k.numel() + v.numel() + B * Sq * H * Dv) * es
+    return CostSummary(flops=2 * B * H * pairs * (Dk + Dv),
+                       bytes_accessed=nbytes)
 
 
 def _launcher(dtype):

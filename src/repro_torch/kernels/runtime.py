@@ -11,6 +11,11 @@
   kernel is held against on the card).
   There is no fallback: on a CUDA tensor under ``"kernel"`` a wrapper
   launches its kernel or raises.
+* ``count_meta_calls`` — a decode step run on meta tensors (no data, no
+  device) inside this block sends its attention to K1's wrapper, which
+  adds the call's ``cost`` and returns an empty output: the count of a
+  step's work is then the same wherever the step runs
+  (``BlockServer.decode_step_cost``).
 * ``load_library`` / ``build_all`` — build ``csrc/<name>.cu`` with ``nvcc``
   for ``sm_90a`` into a shared library with a plain C interface, and load it
   with ``ctypes``.  The build happens at first use, never at import, into
@@ -20,6 +25,8 @@
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -28,6 +35,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
+
+from repro_torch.launch.costs import CostSummary
 
 NO_WINDOW = 1 << 30
 
@@ -58,8 +67,41 @@ def use_kernel(backend: str, x) -> bool:
     """Device dispatch: a hand-written kernel serves a CUDA tensor under
     ``backend="kernel"``; a CPU tensor, or ``backend="plain"``, takes the
     plain path.  A CUDA call a kernel cannot serve raises in the kernel
-    wrapper — it never drops to the plain path."""
-    return resolve_backend(backend) == "kernel" and x.is_cuda
+    wrapper — it never drops to the plain path.  A meta tensor goes to the
+    wrapper too, which counts it inside ``count_meta_calls`` and raises
+    outside it."""
+    return resolve_backend(backend) == "kernel" and (x.is_cuda or x.is_meta)
+
+
+class MetaCalls:
+    """The kernel calls a step makes on meta tensors: their summed cost
+    (a ``launch.costs.CostSummary``), counted with every row at ``pos``
+    and, where a call masks by encoder length, at ``kv_len``."""
+
+    def __init__(self, pos: int, kv_len: int):
+        self.pos, self.kv_len = int(pos), int(kv_len)
+        self.cost = CostSummary()
+
+
+_META_CALLS: contextvars.ContextVar = contextvars.ContextVar(
+    "meta_calls", default=None)
+
+
+@contextlib.contextmanager
+def count_meta_calls(pos: int, kv_len: int = 0):
+    """Count the kernel calls made on meta tensors inside the block (see
+    ``MetaCalls``); yields the ``MetaCalls``."""
+    calls = MetaCalls(pos, kv_len)
+    token = _META_CALLS.set(calls)
+    try:
+        yield calls
+    finally:
+        _META_CALLS.reset(token)
+
+
+def meta_calls() -> Optional[MetaCalls]:
+    """The active ``MetaCalls``, or None outside ``count_meta_calls``."""
+    return _META_CALLS.get()
 
 
 def build_dir() -> Path:

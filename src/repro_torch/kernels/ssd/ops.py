@@ -12,7 +12,7 @@ that ran the kernel; one call issues ``ssd_plan(...).launches`` CUDA
 launches (one for a single chunk; local states, carry and output
 otherwise).  The kernel reads x, B, C and dt through their strides, so the
 wrapper makes no transposed copies; it allocates the chunk-state scratch
-the plan names.
+the plan names.  ``cost`` gives a call's bytes and flops.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ import torch
 from repro_torch.kernels.runtime import (check_launch, load_library,
                                          require_ints)
 from repro_torch.kernels.ssd.ref import ssd_chunked
+from repro_torch.launch.costs import CostSummary
 
 # tokens per chunk of the kernel
 CHUNK = 128
@@ -78,6 +79,18 @@ def ssd_unsupported(*, state=None) -> Optional[str]:
     """Reason the kernel cannot serve an SSD call, else None — carried
     state in and out is native, as in the reference's guard."""
     return None
+
+
+def cost(x, Bm, Cm, dt, A, D, state=None) -> CostSummary:
+    """Bytes and flops of one call: every input read once, out and state
+    written once; two FMAs per state element per token (the recurrence's
+    products, which run on the tensor cores as 3xTF32)."""
+    B, S, H, p = x.shape
+    n = Bm.shape[-1]
+    n_state = B * H * p * n
+    nbytes = 4 * (2 * B * S * H * p + 2 * B * S * n + B * S * H + 2 * H
+                  + n_state + (0 if state is None else n_state))
+    return CostSummary(flops=4 * B * S * H * p * n, bytes_accessed=nbytes)
 
 
 def _launcher():

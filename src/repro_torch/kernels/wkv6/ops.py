@@ -12,7 +12,8 @@ wrapper calls that ran the kernel; one call issues
 walks the chunks; local states, carry and output when the chunks run in
 parallel).  The kernel reads the four sequence
 operands through their strides, so the wrapper makes no transposed copies;
-it allocates the chunk-state scratch the plan names.
+it allocates the chunk-state scratch the plan names.  ``cost`` gives a
+call's bytes and flops.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch
 from repro_torch.kernels.runtime import (check_launch, load_library,
                                          require_ints)
 from repro_torch.kernels.wkv6.ref import wkv6_chunked
+from repro_torch.launch.costs import CostSummary
 
 # tokens per chunk of the kernel, in sub-blocks of SUB_BLOCK
 CHUNK = 64
@@ -72,6 +74,17 @@ def wkv6_unsupported(*, state=None) -> Optional[str]:
     """Reason the kernel cannot serve a WKV6 call, else None — carried
     state in and out is native, as in the reference's guard."""
     return None
+
+
+def cost(r, k, v, lw, u, state=None) -> CostSummary:
+    """Bytes and flops of one call: every input read once, out and state
+    written once; two FMAs per state element per token (the recurrence's
+    products, which run on the tensor cores as 3xTF32)."""
+    B, S, H, hd = r.shape
+    n_state = B * H * hd * hd
+    nbytes = 4 * (5 * B * S * H * hd + H * hd + n_state
+                  + (0 if state is None else n_state))
+    return CostSummary(flops=4 * B * S * H * hd * hd, bytes_accessed=nbytes)
 
 
 def _launcher():

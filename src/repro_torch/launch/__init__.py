@@ -1,0 +1,3 @@
+"""Launchers and step pricing: ``costs`` (the roofline of a pooled step on
+one H100 and the τ calibration arithmetic) and ``serve`` (the serving
+launcher, ``python -m repro_torch.launch.serve``)."""

@@ -41,6 +41,15 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_nbytes(tree) -> int:
+    """Bytes of every tensor leaf of a nested dict (None: 0)."""
+    if tree is None:
+        return 0
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
 # ---------------------------------------------------------------------------
 # Stack plan
 # ---------------------------------------------------------------------------

@@ -35,8 +35,9 @@ encoder-only hops.
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; ``backend="kernel"`` sends attention on CUDA tensors to
 the hand-written kernels.  Sessions sample greedily or by seeded
-temperature / top-k (``sampling.SamplingSpec``).  Not in this slice:
-device groups and τ calibration (A10).
+temperature / top-k (``sampling.SamplingSpec``).  Each server's τ can be
+calibrated from the H100 roofline of its pooled decode step
+(``calibrate_taus``).  Not in this slice: device groups (A10).
 """
 from __future__ import annotations
 
@@ -48,23 +49,29 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.perf_model import Placement, Problem, Route
+from repro_torch.core.perf_model import (Placement, Problem, Route,
+                                         with_server_taus)
 from repro_torch.core.placement import petals_bp
 from repro_torch.core.routing import petals_route, shortest_path_route
-from repro_torch.kernels.runtime import resolve_backend
+from repro_torch.kernels.runtime import count_meta_calls, resolve_backend
+from repro_torch.launch.costs import CostSummary, tau_from_step_cost
 from repro_torch.models import blocks as B
-from repro_torch.models.layers import embed_frames, embed_tokens, lm_head
-from repro_torch.models.model import block_param_range, layer_params
+from repro_torch.models.layers import (embed_frames, embed_tokens, lm_head,
+                                       param_dtype)
+from repro_torch.models.model import (block_param_range, layer_params,
+                                      tree_map, tree_nbytes)
 from repro_torch.serving.faults import (FailureDetector, FaultPlan,
                                         NoCapacityError, recovery_replay_cost)
 from repro_torch.serving.kv_cache import (CachePool, bucket_for,
+                                          decode_step_bytes,
                                           default_prefill_buckets, kind_runs,
                                           make_paged_decode_step,
                                           make_paged_prefill_step,
                                           make_paged_round_step,
                                           make_pool_decode_step,
                                           make_pool_prefill_step,
-                                          make_pool_round_step, pages_for,
+                                          make_pool_round_step,
+                                          new_state_pool_tree, pages_for,
                                           state_specs, to_device)
 from repro_torch.serving.sampling import (SamplingSpec, make_round_tail,
                                           sample_rows)
@@ -187,6 +194,7 @@ class BlockServer:
                                                     backend)
             self._prefill_pool = make_pool_prefill_step(cfg, self.kinds,
                                                         backend)
+        self._step_cost: Optional[CostSummary] = None
 
     # -- session admission bookkeeping --------------------------------------
     def fits(self, sid: int, k_blocks: int, n_pages: int = 0,
@@ -320,11 +328,71 @@ class BlockServer:
                                  emb0_rows, encl_rows)
         return h_out[row][None]
 
-    def decode_step_cost(self):
-        raise NotImplementedError(
-            "decode_step_cost: the reference prices the pooled step with "
-            "XLA cost analysis; the port's τ calibration from measured step "
-            "time is ROADMAP A10")
+    def decode_step_cost(self) -> CostSummary:
+        """CostSummary of THE pooled decode step this server runs in a
+        round: every pool row active at the last cache position
+        (``max_seq_len``; cross attention over ``max_enc_len``), slab or
+        paged as the server is.  Cached: the step's shapes are fixed.
+
+        ``flops``: every product the step makes — the hosted decoding
+        layers' matmuls, counted by ``FlopCounterMode`` over the step run
+        on meta tensors, plus attention's score and P·V products, which
+        the K1 wrapper adds from its ``cost`` (``count_meta_calls``).  The
+        meta run reads no data and launches nothing, so the count is the
+        same wherever the server lives.
+        ``bytes_accessed``: each operand read once and each output written
+        once — the hosted decoding layers' parameters, the pool leaves the
+        step reads (paged: every row's pages, as the slab rows, and the
+        page table), the token each row writes into each self-attention
+        cache and the recurrent states it rewrites, h in and out, and the
+        row vectors (positions, layer mask; encoder lengths and ``emb0``
+        where the stack takes them)."""
+        if self._step_cost is None:
+            self._step_cost = self._count_decode_step()
+        return self._step_cost
+
+    def _count_decode_step(self) -> CostSummary:
+        from torch.utils.flop_counter import FlopCounterMode
+
+        cfg, N = self.cfg, self.pool.n_rows
+        T, enc_len = self.pool.max_len, self.pool.enc_len
+        act = param_dtype(cfg)
+        runs = [r for r, (kind, _, _) in enumerate(self.runs)
+                if kind != "enc"]
+
+        def meta(tree):
+            return tree_map(lambda x: torch.empty_like(x, device="meta"),
+                            tree)
+
+        pools = tuple(new_state_pool_tree(cfg, kind, hi - lo, N, T, enc_len,
+                                          "meta")
+                      for kind, lo, hi in self.runs)
+        shared = self.shared if "mamba_shared" in self.kinds else None
+        h = torch.empty((N, 1, cfg.d_model), dtype=act, device="meta")
+        rows = {"pos": torch.empty((N,), dtype=torch.long, device="meta"),
+                "mask": torch.empty((self.m, N), dtype=torch.bool,
+                                    device="meta")}
+        if shared is not None:
+            rows["emb0"] = h
+        if "dec" in self.kinds:
+            rows["enc_len"] = rows["pos"]
+        step = make_pool_decode_step(cfg, self.kinds, "kernel")
+        with torch.no_grad(), FlopCounterMode(display=False) as products, \
+                count_meta_calls(T - 1, enc_len) as attention:
+            step(tuple(meta(p) for p in self.run_params),
+                 None if shared is None else meta(shared), pools, h,
+                 rows["pos"], rows.get("emb0"), rows["mask"],
+                 self.layer_ids, rows.get("enc_len"))
+        params = sum(tree_nbytes(self.run_params[r]) for r in runs) \
+            + tree_nbytes(shared)
+        pool = [decode_step_bytes(pools[r], T) for r in runs]
+        nbytes = params + sum(read + written for read, written in pool) \
+            + 2 * tree_nbytes(h) + tree_nbytes(rows)
+        if self.cache_layout == "paged":
+            nbytes += N * self.pool.max_pages * 8  # the int64 page table
+        return CostSummary(
+            flops=products.get_total_flops() + attention.cost.flops,
+            bytes_accessed=nbytes)
 
 
 @dataclass
@@ -374,7 +442,7 @@ class GeoServingSystem:
     largest divisor <= 16).
 
     Not in this slice (they raise ``NotImplementedError``):
-    ``mesh``/``device_groups`` and ``calibrate_taus`` (A10).
+    ``mesh``/``device_groups`` (A10).
     """
 
     def __init__(self, cfg: ModelConfig, params, problem: Problem,
@@ -531,10 +599,25 @@ class GeoServingSystem:
                 m[j] = 0
         return Placement(a=a, m=m)
 
+    # ------------------------------------------------------------------
+    # τ calibration from each server's pooled step
+    # ------------------------------------------------------------------
     def calibrate_taus(self) -> Dict[int, float]:
-        raise NotImplementedError(
-            "calibrate_taus: τ calibration from measured step time on the "
-            "card is ROADMAP A10")
+        """Per-server τ (per-block per-token decode seconds, eq. (1)): the
+        H100 roofline of each server's pooled decode step
+        (``BlockServer.decode_step_cost``, ``launch.costs``) over its
+        hosted blocks × pool rows.  One card per server (device groups:
+        ROADMAP A10)."""
+        return {j: tau_from_step_cost(srv.decode_step_cost(), 1, srv.m,
+                                      srv.pool.n_rows)
+                for j, srv in self.servers.items()}
+
+    def calibrated_problem(self) -> Problem:
+        """A copy of ``self.problem`` whose server τs come from
+        :meth:`calibrate_taus` — feed it back into placement / the
+        simulator.  The live engine's virtual clock keeps the original
+        problem."""
+        return with_server_taus(self.problem, self.calibrate_taus())
 
     # ------------------------------------------------------------------
     # Session lifecycle (continuous batching API)

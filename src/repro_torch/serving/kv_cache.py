@@ -65,8 +65,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import mla_cache_views, mla_keys
 from repro_torch.models.layers import param_dtype
-from repro_torch.models.model import (LENGTH_KEYS, recurrent_state,
-                                      layer_params)
+from repro_torch.models.model import (LENGTH_KEYS, layer_params,
+                                      recurrent_state, tree_nbytes)
 
 
 def to_device(a, device) -> torch.Tensor:
@@ -342,6 +342,21 @@ def _length_leaves(tree):
                     mla_keys(tree["latent"], tree["krope"])))
     out.extend(((key,), tree[key]) for key in ("k", "v") if key in tree)
     return out
+
+
+def decode_step_bytes(tree, max_len: int) -> Tuple[int, int]:
+    """(read, written) bytes of one pooled decode step over a slab-shaped
+    state tree, every row active at the last position: every leaf is read
+    whole (MLA's latent and krope views as their one joint buffer); a
+    self-attention cache gets one token a row, a recurrent state is
+    rewritten whole, cross K/V are only read."""
+    length = _length_leaves(tree)
+    named = {n for names, _ in length for n in names}
+    rest = {k: x for k, x in tree.items() if k not in named}
+    read = sum(tree_nbytes(x) for _, x in length) + tree_nbytes(rest)
+    written = sum(tree_nbytes(x) // max_len for _, x in length) \
+        + sum(tree_nbytes(x) for k, x in rest.items() if k not in CROSS_KEYS)
+    return read, written
 
 
 def _as_leaves(tree, names, buf):

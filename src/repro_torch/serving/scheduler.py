@@ -42,7 +42,6 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.core.online import OnlineBPRR
-from repro_torch.core.perf_model import Problem
 from repro_torch.serving.engine import GeoServingSystem
 from repro_torch.serving.kv_cache import pages_for
 from repro_torch.serving.sampling import SamplingSpec
@@ -117,17 +116,6 @@ def _slot_scale(system: GeoServingSystem) -> float:
     booked_tokens = pages_for(min(int(wl.l_in), system.max_seq_len),
                               system.page_size) * system.page_size
     return wl.total_tokens / max(1, booked_tokens)
-
-
-def _problem_with_dead(problem: Problem, dead) -> Problem:
-    """Model departed servers as 0-memory hosts: CG-BP then places no
-    blocks on them (a copy of the reference simulator's helper)."""
-    import dataclasses
-
-    servers = [dataclasses.replace(s, mem_bytes=0.0) if j in dead else s
-               for j, s in enumerate(problem.servers)]
-    return Problem(problem.llm, servers, problem.n_clients,
-                   problem.rtt_token, problem.rtt_prefill, problem.workload)
 
 
 class ContinuousBatchingScheduler:
@@ -232,6 +220,7 @@ class ContinuousBatchingScheduler:
             self.controller.set_suspicion(
                 j, system.detector.suspicion_penalty)
         if dead != self._known_dead:
+            from repro_torch.sim.simulator import _problem_with_dead
             self.controller.replace_servers(
                 _problem_with_dead(system.problem, dead),
                 placement=system.alive_placement())

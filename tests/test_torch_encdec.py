@@ -40,7 +40,6 @@ from repro.models import decode_step as r_decode_step
 from repro.models import init_params
 from repro.models import prefill as r_prefill
 from repro.models.layers import embed_frames as r_embed_frames
-from repro.sim.workload import poisson_requests
 from repro_torch import serving as TS
 from repro_torch.configs import get_reduced_config as t_get_reduced_config
 from repro_torch.models import attention as TA
@@ -50,6 +49,7 @@ from repro_torch.models import init_params as t_init_params
 from repro_torch.models import prefill as t_prefill
 from repro_torch.models.layers import embed_frames as t_embed_frames
 from repro_torch.models.model import layer_params
+from repro_torch.sim.workload import poisson_requests
 from repro_torch.weights import from_reference, to_numpy
 
 # tier-1 runs several test processes at once: one torch thread each keeps

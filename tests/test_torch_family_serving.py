@@ -33,9 +33,9 @@ from repro.models import NULL_SH
 from repro.models import decode_step as r_decode_step
 from repro.models import init_params
 from repro.models import prefill as r_prefill
-from repro.sim.workload import poisson_requests
 from repro_torch import serving as TS
 from repro_torch.configs import get_reduced_config as t_get_reduced_config
+from repro_torch.sim.workload import poisson_requests
 from repro_torch.weights import from_reference
 
 # tier-1 runs several test processes at once: one torch thread each keeps

@@ -696,3 +696,62 @@ def test_encdec_engine_paged_equals_slab(cuda):
                                       for s in sids]
     assert streams[("paged", "kernel")] == streams[("slab", "kernel")] == \
         streams[("slab", "plain")]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_shortest_paths_on_card_equal_numpy_dp(cuda, seed):
+    """The batched min-plus DP on the card: the numpy DP's terminal servers
+    and costs (float64 on both sides: equal to 1e-12 relative), with and
+    without WS-RR waiting."""
+    import repro_torch.core as C
+
+    rng = np.random.default_rng(seed)
+    n, L = 5, 5
+    llm = C.LLMSpec("t", L, block_bytes=4.0, cache_bytes_per_token=0.25)
+    servers = [C.ServerSpec(j, float(4 * rng.integers(3, 7)),
+                            float(0.05 + 0.3 * rng.random()))
+               for j in range(n)]
+    rtt = 0.02 + 0.3 * rng.random((3, n))
+    prob = C.Problem(llm, servers, 3, rtt, 4 * rtt, workload=C.Workload(2, 4))
+    pl, info = C.cg_bp(prob, 2)
+    assert info.feasible
+    for wait, lw in ((None, 1.0), (0.05 * rng.random((n + 1, n)), 4.0)):
+        dist, choice = C.torch_shortest_paths(prob, pl, waiting=wait,
+                                              l_max_weight=lw)
+        assert dist.is_cuda and choice.is_cuda
+        for c in range(prob.n_clients):
+            route, cost = C.shortest_path_route(prob, pl, c, waiting=wait,
+                                                l_max_weight=lw)
+            assert int(choice[c]) == route.servers[-1]
+            assert abs(float(dist[c]) - cost) <= 1e-12 * cost
+
+
+@pytest.mark.parametrize("layout", ["slab", "paged"])
+def test_step_count_cuda_equals_cpu(cuda, layout):
+    """``decode_step_cost`` of a reduced f32 system on the card equals the
+    CPU's, server for server (the count runs on meta tensors wherever the
+    server lives), and it launches no kernel."""
+    import repro_torch.core as C
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import GeoServingSystem
+
+    cfg = get_reduced_config("llama3_2_1b").replace(n_layers=8)
+    llm = C.LLMSpec("t", 8, block_bytes=50.0, cache_bytes_per_token=0.5)
+    servers = [C.ServerSpec(j, m, t) for j, (m, t) in enumerate(
+        [(500.0, 0.004), (500.0, 0.004), (220.0, 0.02), (220.0, 0.02)])]
+    rtt = np.array([[0.01, 0.01, 0.03, 0.03]])
+    prob = C.Problem(llm, servers, 1, rtt, 3 * rtt, workload=C.Workload(8, 16))
+    counts = {}
+    for dev in ("cuda", "cpu"):
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+        system = GeoServingSystem(cfg, params, prob, R=4, max_new_tokens=16,
+                                  cache_layout=layout, device=dev)
+        before = decode_attention.launches
+        counts[dev] = {j: srv.decode_step_cost().to_dict()
+                       for j, srv in system.servers.items()}
+        assert decode_attention.launches == before
+        taus = system.calibrate_taus()
+        assert all(np.isfinite(t) and t > 0 for t in taus.values())
+    assert counts["cuda"] == counts["cpu"]

@@ -364,7 +364,7 @@ SESSION_FIELDS = ("state", "pos", "n_generated", "n_preemptions",
 
 
 def _requests(vocab, lengths, n_new, rate=4.0, seed=0):
-    from repro.sim.workload import poisson_requests
+    from repro_torch.sim.workload import poisson_requests
 
     rng = np.random.RandomState(seed)
     return [(r.rid, rng.randint(2, vocab, n), r.arrival, n_new)

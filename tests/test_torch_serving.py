@@ -28,9 +28,9 @@ from repro.models import NULL_SH
 from repro.models import decode_step as r_decode_step
 from repro.models import init_params
 from repro.models import prefill as r_prefill
-from repro.sim.workload import poisson_requests
 from repro_torch import serving as TS
 from repro_torch.configs import get_reduced_config as t_get_reduced_config
+from repro_torch.sim.workload import poisson_requests
 from repro_torch.weights import from_reference
 
 # tier-1 runs several test processes at once: one torch thread each keeps
@@ -377,12 +377,15 @@ def test_fault_plan_identical():
 
 
 def test_later_slices_raise():
-    """τ calibration (ROADMAP A10) is a later slice; paged pools and seeded
-    sampling have their parity tests (tests/test_torch_paged.py,
+    """Device groups (ROADMAP A10) are a later slice: a mesh or device
+    groups raise.  τ calibration (tests/test_torch_costs.py), paged pools
+    and seeded sampling have their parity tests (tests/test_torch_paged.py,
     tests/test_torch_sampling.py)."""
-    system = _port()
-    with pytest.raises(NotImplementedError, match="A10"):
-        system.calibrate_taus()
+    for kw in ({"mesh": object()}, {"device_groups": {0: object()}}):
+        with pytest.raises(NotImplementedError, match="A10"):
+            _port(**kw)
+    taus = _port().calibrate_taus()
+    assert all(np.isfinite(t) and t > 0 for t in taus.values())
 
 
 # ---------------------------------------------------------------------------
