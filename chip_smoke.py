@@ -12,6 +12,19 @@ Phases (any failure raises, so the exit code is not 0):
              instantiation (a tensor-core K2 instantiation that spills
              fails the phase), and the TF32 tensor-core instructions
              (HMMA.1688.F32.TF32) in the scans' SASS.
+   train   — (before the serve phases, on an empty card)
+             ``python -m repro_torch.launch.train`` at full width and all
+             16 layers of Llama-3.2-1B in f32 with TF32 off, AdamW with
+             remat, 10 steps of (B 8, S 128), then one at (B 1, S 2048):
+             the step time by CUDA events (median of steps 3-10),
+             tokens/s, the peak memory, the step's flops by
+             FlopCounterMode against the f32 bound; the loss must be
+             finite and fall, and no step may make a host sync.  Every
+             architecture reduced in f32: one step on the card == the
+             step on the CPU (loss, each gradient leaf, the params).
+             Checkpoint save / restore / resume on the card; K1-K4 raise
+             on inputs that require grad (no backward); int8_allreduce on
+             a one-rank NCCL group == gloo on the CPU, bit for bit.
 2. serve   — five full-width models in bf16 (random weights from a seed),
              one after the other, each served through the port's
              GeoServingSystem + ContinuousBatchingScheduler on 5 virtual
@@ -32,9 +45,9 @@ Phases (any failure raises, so the exit code is not 0):
              tokens, max_enc_len 1024): K2 non-causal over the frames
              and in cross prefill, K1 cross decode with a per-row
              kv_len, the prefill groups keyed by (bucket, encoder
-             length), and its bf16 first-step logits beside an f32 run
-             on the plain versions (ROADMAP C5; printed, failing only on
-             non-finite logits).  Each path's kernel counters are
+             length).  Llama-3.2-1B's and SeamlessM4T's bf16 first-step
+             logits beside an f32 run on the plain versions (ROADMAP C5;
+             printed, failing only on non-finite logits).  Each path's kernel counters are
              zeroed just before its run and read just after; each kernel
              must have run, and every decode round must make exactly one
              host sync.
@@ -342,9 +355,9 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
     one of 1000) and prompts of 4-16 tokens; its prefill groups, keyed by
     (bucket, encoder length), are printed, its attention calls are counted
     apart (causal self attention, non-causal encoder and cross prefill,
-    cross decode with a per-row kv_len; each must have run), and on the
-    slab layout its first-step logits in bf16 are held beside an f32 run
-    on the plain versions (``bf16_vs_f32``).
+    cross decode with a per-row kv_len; each must have run).  On the slab
+    layout the first-step logits of seamless and Llama-3.2-1B in bf16 are
+    held beside an f32 run on the plain versions (``bf16_vs_f32``).
     ``layout="paged"`` serves the same requests on page-size-16 pools: the
     greedy streams must equal the slab run's (``slab``), and the one-sync
     rule holds in every round that preempts or resumes nothing.  Returns
@@ -700,9 +713,9 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
     if long_len and layout == "slab" and not windowed:
         raise RuntimeError("no windowed decode call ran beside the long "
                            "prompt")
-    if cfg.is_enc_dec and layout == "slab":
+    if layout == "slab" and (cfg.is_enc_dec or arch == "llama3_2_1b"):
         record["c5"] = bf16_vs_f32(torch, cfg, params, prompts[-1],
-                                   frames[-1])
+                                   frames[-1] if cfg.is_enc_dec else None)
     if slab is not None:
         same = sum(a == b for a, b in zip(record["streams"], slab["streams"]))
         log(f"{tag} greedy streams equal to the slab run's: {same}/{n_req}")
@@ -719,16 +732,18 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
 
 
 def bf16_vs_f32(torch, cfg, params, toks, frames):
-    """ROADMAP C5 on the enc-dec path: the monolithic first-step logits of
-    one request in bf16 on the kernels against the same weights in f32 on
-    the plain versions (TF32 off).  Prints the max absolute and relative
-    differences and whether the greedy tokens agree; fails only on
-    non-finite logits.  Returns the numbers."""
+    """ROADMAP C5 on the enc-dec and the Llama paths: the monolithic
+    first-step logits of one request in bf16 on the kernels against the
+    same weights in f32 on the plain versions (TF32 off).  Prints the max
+    absolute and relative differences and whether the greedy tokens agree;
+    fails only on non-finite logits.  ``frames``: the request's frames, or
+    None for a decoder-only stack.  Returns the numbers."""
     from repro_torch.models import prefill
     from repro_torch.models.model import tree_map
 
-    batch = {"tokens": torch.as_tensor(toks, device="cuda")[None],
-             "frames": torch.as_tensor(frames, device="cuda")[None]}
+    batch = {"tokens": torch.as_tensor(toks, device="cuda")[None]}
+    if frames is not None:
+        batch["frames"] = torch.as_tensor(frames, device="cuda")[None]
     lb = prefill(params, cfg, batch)[0][0].float()
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -746,8 +761,9 @@ def bf16_vs_f32(torch, cfg, params, toks, frames):
     out = {"max_abs": d, "max_rel": d / scale, "logit_scale": scale,
            "greedy_equal": int(lb.argmax()) == int(lf.argmax()),
            "finite": bool(torch.isfinite(lb).all())}
-    log(f"[c5 {cfg.name}] first-step logits of the {len(toks)}-token, "
-        f"{len(frames)}-frame request, {cfg.n_layers} blocks at d_model "
+    log(f"[c5 {cfg.name}] first-step logits of the {len(toks)}-token"
+        + ("" if frames is None else f", {len(frames)}-frame")
+        + f" request, {cfg.n_layers} blocks at d_model "
         f"{cfg.d_model}: bf16 on the kernels vs f32 on the plain versions "
         f"(same weights): max|diff| "
         f"{d:.4g} at logit scale {scale:.4g} (relative {d / scale:.3g}); "
@@ -1658,6 +1674,346 @@ def sync_sites(torch, fn, *a, **kw):
                  if "called a synchronizing" in str(w.message)]
 
 
+# the launcher at full width in f32; --lr 3e-4 is the train step's own
+# default (TrainHParams).  At the launcher's 1e-3 the loss of this init
+# (a tied embedding at std 1: logits at std ~sqrt(2048)) swings upward over
+# 10 steps (PERF.md §6, training)
+TRAIN_ARGV = ["--arch", "llama3_2_1b", "--steps", "10", "--device", "cuda",
+              "--dtype", "float32", "--lr", "3e-4"]
+# a reduced card step vs the CPU step: gradients at max|d| <= atol + rtol
+# max|cpu| a leaf; params at TRAIN_PARAM_ATOL beyond what AdamW's first
+# update makes of the two gradients (``train_step_diff``).  zamba2
+# (ROADMAP C2): its f32 gradients are ill-conditioned; at these weights
+# the card's and the CPU's differ by 2.6e-3 of a leaf's scale, and each
+# sits up to 1.9e-3 off a float64 evaluation (scripts/f64_grads.py)
+TRAIN_LR = 5e-3
+TRAIN_GRAD_TOL = {"zamba2_7b": (1e-4, 5e-3)}
+TRAIN_PARAM_ATOL = {"zamba2_7b": 1e-4}
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+
+
+def phase_train(torch):
+    """[train] (1) ``python -m repro_torch.launch.train`` at full width and
+    all 16 layers of Llama-3.2-1B in f32 (TF32 off), AdamW with remat, 10
+    steps of (B 8, S 128), each step timed by CUDA events and run under
+    sync debug mode; then one step at (B 1, S 2048) and one more at (B 8,
+    S 128) under ``FlopCounterMode``.  Prints the median step time of steps
+    3-10, tokens/s, the peak memory, the step's flops against the f32
+    bound, and the memory before and after.  Fails on a non-finite loss,
+    a loss after step 10 not below step 1's, or any host sync inside a
+    step.  (2) For every architecture, reduced in f32: one step on the
+    card == the same step on the CPU (loss rtol 1e-5, params atol 5e-5;
+    zamba2 1e-4, ROADMAP C2).  (3) Checkpoints on the card (reduced
+    llama): save, restore and resume give the same next step.  (4) K1-K4
+    refuse inputs that require grad.  (5) ``int8_allreduce`` on a one-rank
+    NCCL group == a gloo group on the CPU, bit for bit."""
+    import numpy as np
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.data import make_batches, shard_batch
+    from repro_torch.launch import costs
+    from repro_torch.launch import train as launch
+    from repro_torch.training.optimizer import tree_leaves
+
+    tag = "[train]"
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{tag} device memory at the start "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        events, syncs = [], []
+
+        def timed(step_fn, state, batch):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out, sites = sync_sites(torch, step_fn, state, batch)
+            ev[1].record()
+            events.append(ev)
+            syncs.append(sites)
+            return out
+
+        t0 = time.perf_counter()
+        run = launch.run(launch.parse_args(TRAIN_ARGV), step_hook=timed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        args = launch.parse_args(TRAIN_ARGV)
+        cfg = run.cfg
+        n_params = sum(x.numel() for x in tree_leaves(run.state["params"]))
+        losses = [float(m["loss"]) for m in run.metrics]
+        ms = [a.elapsed_time(b) for a, b in events]
+        step_ms = float(np.median(ms[2:10]))
+        tokens = args.batch * args.seq
+        log(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {n_params / 1e9:.3f} B params in "
+            f"{cfg.param_dtype}; AdamW, remat; B {args.batch} S {args.seq}; "
+            f"{len(losses)} steps in {wall:.1f} s (first step included)")
+        log(f"{tag} losses {[round(x, 4) for x in losses]}")
+        log(f"{tag} step ms by CUDA events {[round(x, 2) for x in ms]}; "
+            f"median of steps 3-10 {step_ms:.2f} ms, {tokens / step_ms * 1e3:.0f} "
+            f"tokens/s; host syncs inside each step {[len(x) for x in syncs]}"
+            f"; peak memory {peak / 2**30:.2f} GiB "
+            f"({peak / 1e9:.2f} GB)")
+        if not all(math.isfinite(x) for x in losses):
+            raise RuntimeError("non-finite training loss")
+        if not losses[-1] < losses[0]:
+            raise RuntimeError(f"loss after step 10 ({losses[-1]}) not below "
+                               f"step 1's ({losses[0]})")
+        if any(syncs):
+            raise RuntimeError(f"host syncs inside a train step: {syncs}")
+
+        # attention at length: one step at (B 1, S 2048)
+        long = shard_batch(next(make_batches(cfg, 1, 2048, seed=0,
+                                             start_step=10)), device="cuda")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.reset_peak_memory_stats()
+        ev[0].record()
+        state, m = run.step_fn(run.state, long)
+        ev[1].record()
+        torch.cuda.synchronize()
+        long_loss = float(m["loss"])
+        log(f"{tag} one step at B 1, S 2048: {ev[0].elapsed_time(ev[1]):.2f}"
+            f" ms, loss {long_loss:.4f}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not math.isfinite(long_loss):
+            raise RuntimeError("non-finite loss at S 2048")
+
+        # the step's flops, counted over one real step
+        batch = shard_batch(next(make_batches(cfg, args.batch, args.seq,
+                                              seed=0, start_step=11)),
+                            device="cuda")
+        with FlopCounterMode(display=False) as counter:
+            state, m = run.step_fn(state, batch)
+        torch.cuda.synchronize()
+        flops = counter.get_total_flops()
+        dtype = ("tfloat32" if torch.backends.cuda.matmul.allow_tf32
+                 else "float32")
+        bound = flops / costs.PEAK_FLOPS[dtype] * 1e3
+        n_layer = n_params - cfg.padded_vocab * cfg.d_model
+        predicted = (6 * n_params + 2 * n_layer) * tokens
+        log(f"{tag} step flops {flops / 1e12:.3f} TFLOP (FlopCounterMode; "
+            f"6 N T + 2 N_layers T = {predicted / 1e12:.3f}); "
+            f"torch.backends.cuda.matmul.allow_tf32 "
+            f"{torch.backends.cuda.matmul.allow_tf32}: the GEMMs run in "
+            f"{dtype} at {costs.PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s, "
+            f"bound {bound:.2f} ms; median step {step_ms:.2f} ms = "
+            f"{step_ms / bound:.2f}x the bound "
+            f"({flops / step_ms / 1e9:.1f} TFLOP/s)")
+        del run, state, m, batch, long
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{tag} freed: device memory "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+        train_card_vs_cpu(torch)
+        train_checkpoint(torch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    grad_guard(torch)
+    allreduce_nccl_vs_gloo(torch)
+
+
+def _train_setup(cfg, device, params):
+    from repro_torch.training import (TrainHParams, init_train_state,
+                                      make_optimizer_for, make_train_step)
+
+    hp = TrainHParams(learning_rate=TRAIN_LR)
+    opt = make_optimizer_for(cfg, hp)
+    return (init_train_state(None, cfg, opt, params=params, device=device),
+            make_train_step(cfg, opt, hp))
+
+
+def _adamw_first_update(g, norm):
+    """AdamW's first update of a param with gradient ``g`` (bias-corrected
+    m / sqrt(v) = g / |g|), the gradients clipped to the global norm 1 as
+    the step clips them (``norm``: their norm), weight decay left out."""
+    gc = g * min(1.0, 1.0 / max(norm, 1e-12))
+    return TRAIN_LR * gc / (gc.abs() + 1e-8)
+
+
+def train_step_diff(torch, arch):
+    """One reduced f32 train step of ``arch`` on the card and on the CPU
+    from the same weights and batch.  Returns (loss rel diff, worst grad
+    leaf's max|d| over its bound, params beyond their bound, worst param
+    max|d|, elements, param atol).  A param's bound is the atol plus 1.1x
+    the difference AdamW's first update, lr g / (|g| + 1e-8), makes of the
+    two gradients: where |g| nears eps that update turns f32 noise of the
+    gradient into up to 2 lr (Adafactor: the atol alone)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.data import make_batches, shard_batch
+    from repro_torch.models import init_params, train_loss
+    from repro_torch.models.model import tree_map
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg = get_reduced_config(arch)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    host = next(make_batches(cfg, 2, 32, seed=0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        batch = shard_batch(host, device=dev)
+        live = tree_map(lambda x: x.to(dev, copy=True).requires_grad_(True),
+                        params)
+        loss, _ = train_loss(live, cfg, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(live),
+                                    allow_unused=True, materialize_grads=True)
+        state, step = _train_setup(
+            cfg, dev, tree_map(lambda x: x.to(dev, copy=True), params))
+        state, metrics = step(state, batch)
+        grads = [g.detach().cpu() for g in grads]
+        norm = math.sqrt(sum(float((g * g).sum()) for g in grads))
+        out[dev] = (float(metrics["loss"]), float(loss.detach()), grads,
+                    [x.cpu() for x in tree_leaves(state["params"])], norm)
+    (lc, lc0, gc, pc, nc), (lg, lg0, gg, pg, ng) = out["cpu"], out["cuda"]
+    g_atol, g_rtol = TRAIN_GRAD_TOL.get(arch, (1e-5, 2e-4))
+    atol = TRAIN_PARAM_ATOL.get(arch, 5e-5)
+    g_worst = max(float((a - b).abs().max())
+                  / (g_atol + g_rtol * float(b.abs().max()))
+                  for a, b in zip(gg, gc) if b.numel())
+    beyond = n = 0
+    p_worst = 0.0
+    for a, b, ga, gb in zip(pg, pc, gg, gc):
+        d = (a - b).abs()
+        bound = atol
+        if cfg.optimizer == "adamw":
+            bound = atol + 1.1 * (_adamw_first_update(ga, ng)
+                                  - _adamw_first_update(gb, nc)).abs()
+        beyond += int((d > bound).sum())
+        p_worst = max(p_worst, float(d.max()))
+        n += d.numel()
+    rel = max(abs(lg - lc) / abs(lc), abs(lg0 - lc0) / abs(lc0))
+    return rel, g_worst, beyond, p_worst, n, atol
+
+
+def train_card_vs_cpu(torch):
+    """For every architecture, reduced in f32: one train step on the card
+    against the same step on the CPU (``train_step_diff``)."""
+    from repro_torch.configs import ARCH_IDS, get_reduced_config
+
+    for arch in ARCH_IDS:
+        rel, g_worst, beyond, p_worst, n, atol = train_step_diff(torch, arch)
+        log(f"[train {arch}] reduced f32 step, card vs CPU "
+            f"({get_reduced_config(arch).optimizer}): loss rel diff "
+            f"{rel:.2e} (bound 1e-5); worst grad leaf at {g_worst:.3f} of its"
+            f" bound; params max|diff| {p_worst:.3g}, {beyond} of {n} beyond "
+            f"atol {atol:g} + AdamW's first-update difference")
+        if not (rel <= 1e-5 and g_worst <= 1.0 and beyond == 0):
+            raise RuntimeError(f"{arch}: the card's train step differs from "
+                               "the CPU's")
+
+
+def train_checkpoint(torch):
+    """Save, restore and resume on the card (reduced llama, f32): the
+    restored state equals the saved one, and the next step from it equals
+    the next step from the live state (atol 1e-7, the reference's resume
+    bound in tests/test_training.py)."""
+    import shutil
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.data import make_batches, shard_batch
+    from repro_torch.models import init_params
+    from repro_torch.training import checkpoint
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg = get_reduced_config("llama3_2_1b")
+    state, step = _train_setup(cfg, "cuda", init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"))
+    feed = make_batches(cfg, 2, 32, seed=2)
+    b1, b2 = (shard_batch(next(feed), device="cuda") for _ in range(2))
+    state, _ = step(state, b1)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    try:
+        checkpoint.save(str(CKPT_DIR), 1, state)
+        restored, n = checkpoint.restore(str(CKPT_DIR), state)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(state),
+                                                  tree_leaves(restored)))
+    resumed, _ = step(restored, b2)
+    direct, _ = step(state, b2)
+    err = max(float((a - b).abs().max()) for a, b in zip(tree_leaves(direct),
+                                                         tree_leaves(resumed)))
+    log(f"[train ckpt] reduced llama on the card: restored step {n}, leaves "
+        f"{'equal' if same else 'DIFFERENT'}; next step from the restored "
+        f"state vs the live one: max|diff| {err:.3g} (bound 1e-7)")
+    if n != 1 or not same or not err <= 1e-7:
+        raise RuntimeError("checkpoint resume differs on the card")
+
+
+def grad_guard(torch):
+    """K1-K4 on CUDA inputs that require grad raise (no backward) and
+    launch nothing."""
+    from repro_torch import kernels as K
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def t(*shape):
+        return torch.randn(shape, generator=g, device="cuda") \
+            .requires_grad_(True)
+
+    calls = {
+        "decode_attention": lambda: K.decode_attention(
+            t(2, 1, 4, 16), t(2, 8, 2, 16), t(2, 8, 2, 16), 3),
+        "flash_attention": lambda: K.flash_attention(
+            t(2, 8, 4, 16), t(2, 8, 2, 16), t(2, 8, 2, 16)),
+        "wkv6": lambda: K.wkv6(t(2, 8, 2, 64), t(2, 8, 2, 64),
+                               t(2, 8, 2, 64), t(2, 8, 2, 64), t(2, 64)),
+        "ssd": lambda: K.ssd(t(2, 8, 2, 64), t(2, 8, 64), t(2, 8, 64),
+                             t(2, 8, 2), t(2), t(2)),
+    }
+    for name, call in calls.items():
+        fn = getattr(K, name)
+        before = fn.launches
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            log(f"[train guard] {name} on CUDA inputs requiring grad raises: "
+                f"{str(e)[:60]}...")
+        else:
+            raise RuntimeError(f"{name} accepted inputs that require grad")
+        if fn.launches != before:
+            raise RuntimeError(f"{name} launched under autograd")
+
+
+def allreduce_nccl_vs_gloo(torch):
+    """``int8_allreduce`` on a one-rank NCCL group (the card) against the
+    same call on a gloo group (the CPU): equal bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.training import int8_allreduce
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        gloo = dist.new_group([0], backend="gloo")
+        x = torch.randn((61, 7, 8), generator=torch.Generator()
+                        .manual_seed(0))
+        card = int8_allreduce(x.cuda()).cpu()
+        host = int8_allreduce(x, group=gloo)
+    finally:
+        dist.destroy_process_group()
+    equal = torch.equal(card, host)
+    log(f"[train allreduce] int8_allreduce on a one-rank NCCL group vs gloo "
+        f"on the CPU, {tuple(x.shape)} f32: "
+        f"{'bit-equal' if equal else 'DIFFERENT'} (max|x - out| "
+        f"{float((card - x).abs().max()):.3g})")
+    if not equal:
+        raise RuntimeError("int8_allreduce differs between NCCL and gloo")
+
+
 def phase_oversub(torch):
     """The reference's ``oversub`` scenario (benchmarks/engine_validation.py
     ``oversubscription_scenario``) at full width: one server hosting all
@@ -2232,6 +2588,7 @@ def main() -> int:
         f"{torch.cuda.device_count()}")
     t0 = time.perf_counter()
     phase_build()
+    phase_train(torch)
     captured = {}
     serve, paged = {}, {}
     for arch in PATH_KERNELS:

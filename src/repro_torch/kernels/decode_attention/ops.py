@@ -31,7 +31,8 @@ import torch
 from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
                                                       per_row)
 from repro_torch.kernels.runtime import (NO_WINDOW, check_launch,
-                                         load_library, meta_calls)
+                                         load_library, meta_calls,
+                                         refuse_grad)
 from repro_torch.launch.costs import CostSummary
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -163,6 +164,7 @@ def decode_attention(q, ck, cv, pos, *, window=None, slopes=None,
         return decode_attention_ref(q, ck, cv, pos, window=window,
                                     slopes=slopes, kv_len=kv_len,
                                     causal=causal, scale=scale)
+    refuse_grad("decode_attention (K1)", q, ck, cv, slopes)
     counting = meta_calls()
     if q.device.type == "meta" and counting is not None:
         counting.cost.scaled_add(cost(

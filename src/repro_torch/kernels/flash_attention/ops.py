@@ -22,7 +22,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention.ref import attention_ref
-from repro_torch.kernels.runtime import NO_WINDOW, check_launch, load_library
+from repro_torch.kernels.runtime import (NO_WINDOW, check_launch,
+                                         load_library, refuse_grad)
 from repro_torch.launch.costs import CostSummary
 
 # which kernel serves each dtype: the bf16 tensor-core kernel, or the f32
@@ -103,6 +104,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              slopes=slopes, q_start=q_start)
+    refuse_grad("flash_attention (K2)", q, k, v, slopes)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     B, Sq, H, Dk = q.shape

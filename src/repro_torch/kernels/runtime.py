@@ -11,6 +11,12 @@
   kernel is held against on the card).
   There is no fallback: on a CUDA tensor under ``"kernel"`` a wrapper
   launches its kernel or raises.
+* ``refuse_grad`` — the kernels have no backward (the reference's Pallas
+  kernels have none either; it trains on its XLA path, the port on the
+  plain versions).  A kernel's output is written through ``ctypes`` into a
+  fresh tensor with no ``grad_fn``, so a wrapper raises rather than launch
+  while autograd records a call on an input that requires grad: the
+  gradients of its inputs would be dropped without an error.
 * ``count_meta_calls`` — a decode step run on meta tensors (no data, no
   device) inside this block sends its attention to K1's wrapper, which
   adds the call's ``cost`` and returns an empty output: the count of a
@@ -35,6 +41,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
+
+import torch
 
 from repro_torch.launch.costs import CostSummary
 
@@ -71,6 +79,19 @@ def use_kernel(backend: str, x) -> bool:
     wrapper too, which counts it inside ``count_meta_calls`` and raises
     outside it."""
     return resolve_backend(backend) == "kernel" and (x.is_cuda or x.is_meta)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise ``RuntimeError`` when autograd is recording and any of
+    ``tensors`` (None entries skipped) requires grad: kernel ``name`` has
+    no backward.  Serving runs on leaves that require no grad."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the hand-written kernel has no backward, and an input "
+            "requires grad; differentiate through the plain versions "
+            "(backend=\"plain\", as models.train_loss does) or call the "
+            "kernel under torch.no_grad()")
 
 
 class MetaCalls:

@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels.runtime import (check_launch, load_library,
-                                         require_ints)
+                                         refuse_grad, require_ints)
 from repro_torch.kernels.ssd.ref import ssd_chunked
 from repro_torch.launch.costs import CostSummary
 
@@ -113,6 +113,7 @@ def ssd(x, Bm, Cm, dt, A, D, state=None):
         raise ValueError(f"ssd does not support {reason}")
     if x.device.type == "cpu":
         return ssd_chunked(x, Bm, Cm, dt, A, D, state)
+    refuse_grad("ssd (K4)", x, Bm, Cm, dt, A, D, state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd: no kernel for device {x.device}")
     B, S, H, p = x.shape

@@ -23,7 +23,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels.runtime import (check_launch, load_library,
-                                         require_ints)
+                                         refuse_grad, require_ints)
 from repro_torch.kernels.wkv6.ref import wkv6_chunked
 from repro_torch.launch.costs import CostSummary
 
@@ -107,6 +107,7 @@ def wkv6(r, k, v, lw, u, state=None):
         raise ValueError(f"wkv6 does not support {reason}")
     if r.device.type == "cpu":
         return wkv6_chunked(r, k, v, lw, u, state)
+    refuse_grad("wkv6 (K3)", r, k, v, lw, u, state)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: no kernel for device {r.device}")
     B, S, H, hd = r.shape

@@ -15,9 +15,12 @@ params, as in the reference:
   ``params["shared"]``; mega leaves are ``(n_mega, period, ...)``.
 
 The reference scans the segments with ``lax.scan``; here a Python loop
-walks the layers and indexes the stacked leaves (views, no copies).  The
+walks the layers over views of the stacked leaves (no copies).  The
 reference's jit has no counterpart: PyTorch runs eagerly.  ``decode_step``
 updates the caches in place and returns the same cache tree.
+``train_loss`` is the reference's next-token loss, on the plain versions
+(the hand-written kernels have no backward), with each layer optionally
+recomputed in the backward pass (``remat``).
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
@@ -32,6 +36,9 @@ from repro_torch.models.attention import mla_cache_views
 from repro_torch.models.layers import (ParamBuilder, embed_frames,
                                        embed_tokens, init_embedding, lm_head,
                                        param_dtype)
+
+# sequence chunks of the loss's LM head (bounds the f32 logits' memory)
+_LOSS_CHUNKS = 4
 
 
 def tree_map(fn, tree):
@@ -168,8 +175,19 @@ def layer_params(stacked, i: int):
     return tree_map(lambda x: x[i], stacked)
 
 
+def unstack(stacked, n: int):
+    """The ``n`` layers of a stacked tree, as views (``layer_params`` of
+    each).  One ``unbind`` a leaf: differentiated, its backward stacks the
+    layers' gradients once, where indexing layer by layer would give each
+    layer a gradient of the whole stacked leaf to add up."""
+    if isinstance(stacked, dict):
+        per_key = {k: unstack(v, n) for k, v in stacked.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return stacked.unbind(0)
+
+
 # ---------------------------------------------------------------------------
-# Full-sequence forward (prefill)
+# Full-sequence forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 
@@ -198,17 +216,31 @@ def _grow_tree(tree, cache_len: Optional[int], cur_len: int):
             for k, v in tree.items()}
 
 
+def _call(remat: bool, fn, *args):
+    """``fn(*args)``; under ``remat`` nothing inside ``fn`` is kept for the
+    backward pass, which runs ``fn`` again (the reference's
+    ``jax.checkpoint(policy=nothing_saveable)`` around each scan step).
+    The stack draws no random numbers, so no RNG state is kept."""
+    if not remat:
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def forward_full(params, cfg: ModelConfig, batch, collect_caches=False,
-                 cache_len: Optional[int] = None, backend: str = "kernel"):
+                 cache_len: Optional[int] = None, backend: str = "kernel",
+                 remat: bool = False):
     """Run the stack over full sequences.  Returns (h_final, aux, caches);
     aux sums the MoE terms over the layers (zero without MoE); caches is
     {segment: stacked cache tree} when ``collect_caches`` (K/V time axes
     grown to ``cache_len`` when given; an enc-dec stack's cross K/V keep
     the encoder length).  Enc-dec stacks take ``batch["frames"]`` (B,
-    S_enc, frame_dim) beside the tokens."""
+    S_enc, frame_dim) beside the tokens.  ``remat`` recomputes each layer
+    (a zamba2 mega step: its mamba blocks and the shared attention) in the
+    backward pass instead of keeping its activations."""
     if cfg.is_enc_dec:
         return _forward_encdec(params, cfg, batch, collect_caches,
-                               cache_len, backend)
+                               cache_len, backend, remat)
     tokens = batch["tokens"]
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)
@@ -217,29 +249,36 @@ def forward_full(params, cfg: ModelConfig, batch, collect_caches=False,
     caches: Dict = {}
     aux_total = {"moe_aux_loss": torch.zeros((), device=tokens.device),
                  "moe_drop_frac": torch.zeros((), device=tokens.device)}
+
+    def decoder(p, h, i):
+        return B.decoder_block_full(p, cfg, h, positions, i, backend=backend)
+
+    def recurrent(p, h, blk):
+        return blk(p, cfg, h, backend=backend)
+
+    def mega(p, h, shared, emb0):
+        states = []
+        for pj in unstack(p["mamba"], cfg.shared_attn_period):
+            h, st = B.mamba_block_full(pj, cfg, h, backend=backend)
+            states.append(st)
+        h, kv = B.zamba_shared_full(shared, cfg, h, emb0, positions,
+                                    backend=backend)
+        return h, {"mamba": _stack_tree(states), "attn": kv}
+
     for seg in stack_plan(cfg):
         seg_params = params["segments"][seg.name]
         entries = []
-        for i in range(seg.n):
-            p = layer_params(seg_params, i)
+        for i, p in enumerate(unstack(seg_params, seg.n)):
             if seg.kind == "decoder":
-                h, cache, aux = B.decoder_block_full(p, cfg, h, positions,
-                                                     i, backend=backend)
+                h, cache, aux = _call(remat, decoder, p, h, i)
                 for key, val in aux.items():
                     aux_total[key] = aux_total[key] + val
-            elif seg.kind == "rwkv":
-                h, cache = B.rwkv_block_full(p, cfg, h, backend=backend)
-            elif seg.kind == "mamba":
-                h, cache = B.mamba_block_full(p, cfg, h, backend=backend)
+            elif seg.kind in ("rwkv", "mamba"):
+                blk = (B.rwkv_block_full if seg.kind == "rwkv"
+                       else B.mamba_block_full)
+                h, cache = _call(remat, recurrent, p, h, blk)
             else:  # mega: period mamba blocks, then the shared attention
-                states = []
-                for j in range(seg.blocks_per_step):
-                    h, st = B.mamba_block_full(layer_params(p["mamba"], j),
-                                               cfg, h, backend=backend)
-                    states.append(st)
-                h, kv = B.zamba_shared_full(params["shared"], cfg, h, emb0,
-                                            positions, backend=backend)
-                cache = {"mamba": _stack_tree(states), "attn": kv}
+                h, cache = _call(remat, mega, p, h, params["shared"], emb0)
             if collect_caches:
                 entries.append(cache)
         if collect_caches:
@@ -248,7 +287,8 @@ def forward_full(params, cfg: ModelConfig, batch, collect_caches=False,
 
 
 def _forward_encdec(params, cfg: ModelConfig, batch, collect_caches,
-                    cache_len: Optional[int], backend: str):
+                    cache_len: Optional[int], backend: str,
+                    remat: bool = False):
     """Encoder over the frames (exact length, non-causal), then the
     decoder over the tokens with cross attention to the encoder output."""
     frames, tokens = batch["frames"], batch["tokens"]
@@ -257,15 +297,20 @@ def _forward_encdec(params, cfg: ModelConfig, batch, collect_caches,
     dec_pos = torch.arange(S, device=tokens.device)
     enc_h = embed_frames(params["embed"], cfg, frames)
     segs = params["segments"]
-    for i in range(cfg.n_enc_layers):
-        enc_h = B.encoder_block_full(layer_params(segs["enc"], i), cfg,
-                                     enc_h, enc_pos, backend=backend)
+
+    def enc(p, h):
+        return B.encoder_block_full(p, cfg, h, enc_pos, backend=backend)
+
+    def dec(p, h, enc_h):
+        return B.cross_decoder_block_full(p, cfg, h, dec_pos, enc_h,
+                                          backend=backend)
+
+    for p in unstack(segs["enc"], cfg.n_enc_layers):
+        enc_h = _call(remat, enc, p, enc_h)
     h = embed_tokens(params["embed"], cfg, tokens)
     entries = []
-    for i in range(cfg.n_dec_layers):
-        h, cache = B.cross_decoder_block_full(
-            layer_params(segs["dec"], i), cfg, h, dec_pos, enc_h,
-            backend=backend)
+    for p in unstack(segs["dec"], cfg.n_dec_layers):
+        h, cache = _call(remat, dec, p, h, enc_h)
         entries.append(cache)
     caches: Dict = {}
     if collect_caches:
@@ -283,6 +328,46 @@ def _grow(x, cache_len: Optional[int], cur_len: int):
         raise ValueError("cache_len must be >= prefill length")
     pad = x.new_zeros(x.shape[:2] + (cache_len - cur_len,) + x.shape[3:])
     return torch.cat([x, pad], dim=2)
+
+
+# ---------------------------------------------------------------------------
+# Loss (next-token CE, chunked over the sequence to bound logits memory)
+# ---------------------------------------------------------------------------
+
+
+def train_loss(params, cfg: ModelConfig, batch, remat: bool = True):
+    """Mean next-token cross-entropy (+ 0.01 x the MoE aux loss per layer),
+    as the reference's ``train_loss``: the LM head over ``_LOSS_CHUNKS``
+    sequence chunks, f32 logsumexp minus the gold logit, the last position
+    masked, the sum over B x (S - 1).  Runs the plain versions (the
+    reference trains on its XLA path).  Returns (loss, metrics)."""
+    h, aux, _ = forward_full(params, cfg, batch, backend="plain",
+                             remat=remat)
+    tokens = batch["tokens"]
+    Bsz, S = tokens.shape
+    n_chunks = (_LOSS_CHUNKS if S % _LOSS_CHUNKS == 0 and S >= _LOSS_CHUNKS
+                else 1)
+    csz = S // n_chunks
+    total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for i in range(n_chunks):
+        logits = lm_head(params["embed"], cfg,
+                         h[:, i * csz:(i + 1) * csz]).float()
+        # labels: the next token; the last position has none (masked)
+        idx = torch.arange(i * csz, (i + 1) * csz, device=tokens.device)
+        labels = tokens[:, torch.clamp(idx + 1, max=S - 1)]
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        ce = (logz - gold) * (idx < S - 1)[None, :]
+        total = total + ce.sum()
+    loss = total / (Bsz * (S - 1))
+    metrics = {"ce_loss": loss}
+    if cfg.is_moe:
+        loss = loss + 0.01 * aux["moe_aux_loss"] / max(1, cfg.n_layers)
+        metrics["moe_aux_loss"] = aux["moe_aux_loss"]
+        metrics["moe_drop_frac"] = aux["moe_drop_frac"] / max(1,
+                                                               cfg.n_layers)
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

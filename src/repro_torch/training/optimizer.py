@@ -1,0 +1,173 @@
+"""Optimizers: AdamW and Adafactor — the counterparts of the reference's
+``repro/training/optimizer.py`` on nested dicts of tensors.
+
+Both keep their state in f32 whatever the param dtype, and share one
+interface:
+
+    opt = make_optimizer(name, lr=..., ...)
+    state = opt.init(params)
+    params, state = opt.update(params, grads, state, step)
+
+``step`` is an int32 device tensor and the bias corrections are computed
+from it on the device, so an update makes no host sync.  ``update`` runs
+under ``torch.no_grad()`` and writes the params and the state in place
+(the arithmetic of the reference's functional update, op for op); it
+returns the same trees.  Leaves stay stacked ``(L, ...)`` as the param tree
+holds them: Adafactor factors over the last two dims of a stacked leaf and
+clips its update by the RMS of the whole leaf, as the reference does.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Iterator, Tuple
+
+import torch
+
+
+@dataclass(frozen=True)
+class Optimizer:
+    init: Callable
+    update: Callable
+    name: str
+
+
+def tree_items(tree, prefix: Tuple[str, ...] = ()) -> Iterator:
+    """(path, leaf) of every tensor leaf of a nested dict, dict keys sorted:
+    the leaf order ``jax.tree_util`` gives the same tree."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_items(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def tree_leaves(tree):
+    return [leaf for _, leaf in tree_items(tree)]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the parallel trees ``rest``,
+    in ``tree_items`` order; empty dicts (a parameterless norm) are kept."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
+
+
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s structure holding ``leaves`` (in ``tree_items``
+    order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled to a global L2 norm of at most ``max_norm``, the norm
+    before scaling); no clip for ``max_norm <= 0``.  A device computation:
+    the scale is min(1, max_norm / norm), never a host branch.  The leaves
+    of ``grads`` are scaled in place (a step's gradients are its own
+    temporaries: a copy would cost another params' worth of memory)."""
+    leaves = tree_leaves(grads)
+    if max_norm <= 0:
+        return grads, torch.zeros((), dtype=torch.float32,
+                                  device=leaves[0].device)
+    sq = sum(torch.sum(torch.square(g.float())) for g in leaves)
+    norm = torch.sqrt(sq)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    for g in leaves:
+        g.copy_(g.float() * scale)
+    return grads, norm
+
+
+def _write(p, newp_f32) -> None:
+    """In place: the new f32 value of a param, cast to its dtype."""
+    if p.dtype == torch.float32:
+        p.copy_(newp_f32)
+    else:
+        p.copy_(newp_f32.to(p.dtype))
+
+
+def make_adamw(lr: float = 1e-4, b1: float = 0.9, b2: float = 0.95,
+               eps: float = 1e-8, weight_decay: float = 0.0,
+               grad_clip: float = 1.0) -> Optimizer:
+    def init(params):
+        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device)
+        return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
+
+    @torch.no_grad()
+    def update(params, grads, state, step):
+        clip_by_global_norm(grads, grad_clip)
+        t = step.float() + 1.0
+        bc1 = 1.0 - b1 ** t
+        bc2 = 1.0 - b2 ** t
+
+        def upd(p, g, m, v):
+            g = g.float()
+            m.mul_(b1).add_((1.0 - b1) * g)
+            v.mul_(b2).add_((1.0 - b2) * torch.square(g))
+            step_ = lr * ((m / bc1) / (torch.sqrt(v / bc2) + eps)
+                          + weight_decay * p.float())
+            _write(p, p.float() - step_)
+
+        tree_map(upd, params, grads, state["m"], state["v"])
+        return params, state
+
+    return Optimizer(init=init, update=update, name="adamw")
+
+
+def make_adafactor(lr: float = 1e-4, decay: float = 0.8, eps: float = 1e-30,
+                   clip_threshold: float = 1.0,
+                   weight_decay: float = 0.0) -> Optimizer:
+    """Factored Adafactor (no momentum) — O(rows+cols) second-moment state
+    for every leaf of two or more dims (``vr`` over the last dim, ``vc``
+    over the second to last), a full ``v`` for 1-D leaves."""
+
+    def init(params):
+        def one(p):
+            f32 = dict(dtype=torch.float32, device=p.device)
+            if p.dim() >= 2:
+                return {"vr": torch.zeros(p.shape[:-1], **f32),
+                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                          **f32)}
+            return {"v": torch.zeros(p.shape, **f32)}
+
+        return {"stats": tree_map(one, params)}
+
+    @torch.no_grad()
+    def update(params, grads, state, step):
+        t = step.float() + 1.0
+        rho = 1.0 - t ** (-decay)
+
+        def one(p, g, s):
+            g = g.float()
+            g2 = torch.square(g) + eps
+            if "vr" in s:
+                vr = rho * s["vr"] + (1 - rho) * torch.mean(g2, dim=-1)
+                vc = rho * s["vc"] + (1 - rho) * torch.mean(g2, dim=-2)
+                denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
+                                    min=eps)
+                prec = (vr / denom)[..., None] * vc[..., None, :]
+                upd = g * torch.rsqrt(torch.clamp(prec, min=eps))
+                s["vr"].copy_(vr)
+                s["vc"].copy_(vc)
+            else:
+                v = rho * s["v"] + (1 - rho) * g2
+                upd = g * torch.rsqrt(torch.clamp(v, min=eps))
+                s["v"].copy_(v)
+            rms = torch.sqrt(torch.mean(torch.square(upd)) + eps)
+            upd = upd / torch.clamp(rms / clip_threshold, min=1.0)
+            _write(p, p.float() - lr * (upd + weight_decay * p.float()))
+
+        tree_map(one, params, grads, state["stats"])
+        return params, state
+
+    return Optimizer(init=init, update=update, name="adafactor")
+
+
+def make_optimizer(name: str, **kw) -> Optimizer:
+    if name == "adamw":
+        return make_adamw(**kw)
+    if name == "adafactor":
+        return make_adafactor(**kw)
+    raise ValueError(f"unknown optimizer {name}")

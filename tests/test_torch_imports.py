@@ -36,7 +36,12 @@ def test_files_found():
                  "src/repro_torch/kernels/wkv6/ops.py",
                  "src/repro_torch/kernels/wkv6/ref.py",
                  "src/repro_torch/kernels/ssd/ops.py",
-                 "src/repro_torch/kernels/ssd/ref.py"):
+                 "src/repro_torch/kernels/ssd/ref.py",
+                 "src/repro_torch/data/pipeline.py",
+                 "src/repro_torch/training/optimizer.py",
+                 "src/repro_torch/training/train_step.py",
+                 "src/repro_torch/training/checkpoint.py",
+                 "src/repro_torch/launch/train.py"):
         assert path in names, path
 
 
@@ -50,11 +55,16 @@ def test_no_jax_or_reference_imports(path):
 
 def test_entry_points_default_to_the_card():
     """Entry points run on the card unless the caller asks for the CPU."""
+    from repro_torch.data import shard_batch
+    from repro_torch.launch.train import parse_args
     from repro_torch.models import init_decode_caches, init_params
     from repro_torch.serving import GeoServingSystem
+    from repro_torch.training import init_train_state
 
-    for fn in (GeoServingSystem.__init__, init_params, init_decode_caches):
+    for fn in (GeoServingSystem.__init__, init_params, init_decode_caches,
+               init_train_state, shard_batch):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert parse_args([]).device == "cuda"
     # no CPU-if-no-GPU branch anywhere in the package
     for p in FILES[:-1]:
         assert "is_available" not in p.read_text(), p
