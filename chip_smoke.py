@@ -117,6 +117,27 @@ Phases (any failure raises, so the exit code is not 0):
              ``torch_shortest_paths`` on the card == the numpy DP on the
              serve cluster and three seeded problems with waiting; the
              BPRR MILP == brute force on a toy problem.
+6. groups  — device-group (TP/EP) servers, every slot named on the cards
+             present (one card: all slots on it, the count of distinct
+             cards printed).  (a) full-width Llama-3.2-1B in bf16 on the
+             serve cluster with servers 0-2 as {solo, (1, 2), (2, 2)}
+             against the all-solo run: K1 and K2 on every slot, 1 host
+             sync a decode round, first-step greedy tokens equal and
+             logits within 2.5% of the solo scale, equal whole streams
+             and round walls printed.  (b) reduced Llama-3.2-1B /
+             DeepSeek-V2 on (2, 4) and Llama-4-Scout on (4, 2) in f32,
+             fused/serial x slab/paged: streams, virtual clocks and
+             round_stats == the card's solo runs, logits within the
+             reference's LOGIT_TOL.  (c) full-width Llama-4-Scout cut to
+             8 layers, solo and then every server on a (4, 2) group
+             (client embedding and head vocab-parallel): memory after
+             each run, the MoE drop fraction, the bf16 first steps
+             printed; the same at 2 layers in f32 with the first steps
+             held.  (d) the hetero fleet of benchmarks/engine_validation.py
+             (reduced Llama, 8 layers): == its all-solo twin, calibrated
+             τ not constant at H100 rates, CG-BP placing differently on
+             the calibrated problem.  K1 / K2 rows at the slot shapes
+             join the kernels JSON.
 
 The last lines are the kernels JSON, the nvidia-smi name/power line, and
 the result JSON.  Without a CUDA device, or outside the repository, the
@@ -293,16 +314,16 @@ def poisson_arrivals(n, rate, seed):
 
 def serve_problem(C, name, n_layers):
     """examples/geo_serve.py's 5-server cluster with memory scaled by depth
-    (x L/16 from 16 layers up), so CG-BP covers every block with the stack
+    (x L/16 from 8 layers up), so CG-BP covers every block with the stack
     split over at least two servers and 8 rows per server.  A stack cut
-    below 16 layers (DeepSeek-V2 at 4) would fit whole on every server at
+    below 8 layers (DeepSeek-V2 at 4) would fit whole on every server at
     x 1, and at x L/16 leave blocks uncovered: it takes 0.3 of the memory
     and half the cache bytes per token, where CG-BP places [0,3) [1,4)
     [0,1) [3,4) [1,2) with >= 8 rows on each server."""
     import numpy as np
 
-    scale, cache = max(1.0, n_layers / 16), 0.25
-    if n_layers < 16:
+    scale, cache = n_layers / 16, 0.25
+    if n_layers < 8:
         scale, cache = 0.3, 0.125
     llm = C.LLMSpec(name, n_layers, block_bytes=50.0,
                     cache_bytes_per_token=cache)
@@ -722,8 +743,10 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
         if same != n_req:
             raise RuntimeError("paged streams differ from the slab streams")
     # the engine's wrapped round methods close over it (a reference
-    # cycle): collect it, so the model is gone before the next one loads
-    del system, sched, params
+    # cycle): collect it, so the model is gone before the next one loads.
+    # ``srv`` holds the server's param views: drop it too, or the whole
+    # model stays allocated until the phase returns
+    del system, sched, params, srv
     gc.collect()
     torch.cuda.empty_cache()
     log(f"{tag} freed: device memory "
@@ -2571,6 +2594,582 @@ def phase_routing(torch):
         raise RuntimeError("the MILP misses the brute-force optimum")
 
 
+# ---------------------------------------------------------------------------
+# device groups
+# ---------------------------------------------------------------------------
+
+# benchmarks/engine_validation.py:455's heterogeneous shapes on servers 0-2
+# of the Llama serve cluster (3 and 4 solo)
+GROUP_SHAPES = {0: None, 1: (1, 2), 2: (2, 2)}
+# the (4, 2) group of the full-width Llama-4-Scout serve, cut to 13 of its
+# 48 layers (~2.2 B params, 4.1 GiB in bf16, a layer: 16 experts of 3 x
+# 5120 x 8192 and a shared one; with the untied embedding and head, 30.7 B
+# params, 57.2 GiB): the deepest cut whose phase peaks under
+# SCOUT_PEAK_GIB (14 layers take 61.3 GiB of params alone); the slots
+# share the card, so replicated leaves are one tensor
+SCOUT_DEPTH = 13
+SCOUT_MESH = (4, 2)
+SCOUT_PEAK_GIB = 60.0
+# the f32 twin of that serve, at 2 layers (the embedding and head, 8.3 GB,
+# and 17.6 GB of layers)
+SCOUT_F32_DEPTH = 2
+# the reduced f32 parity matrix of tests/test_sharded_serving.py, and its
+# logits tolerance between two runs of one arithmetic
+GROUP_PARITY = [("llama3_2_1b", (2, 4)), ("deepseek_v2_236b", (2, 4)),
+                ("llama4_scout_17b_a16e", (4, 2))]
+LOGIT_TOL = dict(atol=5e-6, rtol=1e-4)
+# ROADMAP C5's bound, here between a group's bf16 run and the solo one
+C5_FRACTION = 0.025
+
+
+def slot_devices(torch, n):
+    """``n`` slot devices over the cards present, round robin (one card:
+    every slot on it)."""
+    k = torch.cuda.device_count()
+    return [torch.device("cuda", i % k) for i in range(n)]
+
+
+def group_serve(torch, tag, cfg, params, problem, keep=None, **kw):
+    """Serve phase_serve's 8 Poisson requests (prompts 32-128, 32 new
+    tokens) through GeoServingSystem(**kw) + the scheduler.  Counts the
+    K1 / K2 launches of each group slot — the rise of the wrapper's own
+    launch counter across each call (a group's block calls its attention
+    once a slot, in slot order); the per-slot launches must add up to the
+    counter's total —, the host syncs and wall of each decode round, the
+    MoE drop fraction, and keeps each request's first-step greedy token
+    and logits.  ``keep``: {(kernel, mesh shape): None} to fill with one
+    captured slot call each."""
+    import numpy as np
+
+    import repro_torch.core as C
+    from repro_torch import kernels as K
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import blocks as blocks_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serving import (ContinuousBatchingScheduler,
+                                     GeoServingSystem)
+
+    def build():
+        return GeoServingSystem(cfg, params, problem, algorithm="proposed",
+                                R=4, max_new_tokens=32, max_sessions=8, **kw)
+
+    warm = build()
+    ws = ContinuousBatchingScheduler(warm, R=4)
+    ws.submit(0, np.arange(2, 50), 0.0, n_new=4)
+    ws.run()
+    del warm, ws
+    system = build()
+    shapes = {j: (None if s.mesh is None else s.mesh.devices.shape)
+              for j, s in system.servers.items()}
+    cards = {str(d) for s in system.servers.values() if s.mesh is not None
+             for d in s.mesh.slot_devices()}
+    log(f"{tag} placement a={system.placement.a.tolist()} "
+        f"m={system.placement.m.tolist()}; groups {shapes}; the slots span "
+        f"{len(cards)} distinct card(s) {sorted(cards)}")
+    walls, syncs, first = [], [], {}
+    real_round, real_fin = system.decode_round, system._finalize_prefill
+
+    def decode_round(*a, **k):
+        t = time.perf_counter()
+        out, n = count_syncs(torch, real_round, *a, **k)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        syncs.append(n)
+        return out
+
+    def finalize(sess, h_last):
+        real_fin(sess, h_last)
+        first[tuple(sess.tokens[:sess.prompt_len])] = (
+            sess.tokens[-1], sess.last_logits.float().clone())
+
+    system.decode_round, system._finalize_prefill = decode_round, finalize
+    real = {"decode_attention": attn_mod.decode_attention,
+            "flash_attention": attn_mod.flash_attention,
+            "decode": blocks_mod.decoder_block_decode_group,
+            "full": blocks_mod.decoder_block_full_group,
+            "dispatch": moe_mod._sort_dispatch}
+    cur = [None]  # [mesh shape, calls so far] inside a group block
+    slot_launches, seen = {}, {}
+    moe = {"decode": [0, 0], "prefill": [0, 0]}  # [kept, choices]
+
+    def in_group(fn):
+        def run(ps, cfg_, ctxs, *a, **k):
+            mesh = ctxs[0].mesh  # None: a solo server's block
+            cur[0] = None if mesh is None else [tuple(mesh.devices.shape), 0]
+            try:
+                return fn(ps, cfg_, ctxs, *a, **k)
+            finally:
+                cur[0] = None
+        return run
+
+    def counted(name):
+        wrapper = getattr(K, name)
+
+        def run(*a, **k):
+            shape, slot = (None, 0) if cur[0] is None else tuple(cur[0])
+            if cur[0] is not None:
+                cur[0][1] += 1
+            key = (name, shape, slot)
+            seen[key] = seen.get(key, 0) + 1
+            if keep is not None and (name, shape) in keep and slot == 0:
+                if (name == "decode_attention" and seen[key] == 100) or \
+                        (name == "flash_attention"
+                         and keep[(name, shape)] is None):
+                    keep[(name, shape)] = (clone_args(torch, a), k)
+            n0 = wrapper.launches
+            out = real[name](*a, **k)
+            slot_launches[key] = slot_launches.get(key, 0) \
+                + wrapper.launches - n0
+            return out
+        return run
+
+    def dispatch(xf, top_w, top_e, E_slots, C_, rows=1):
+        out = real["dispatch"](xf, top_w, top_e, E_slots, C_, rows)
+        c = moe["decode" if xf.shape[0] == rows else "prefill"]
+        c[0] = c[0] + out[4].sum()
+        c[1] += top_e.numel()
+        return out
+
+    attn_mod.decode_attention = counted("decode_attention")
+    attn_mod.flash_attention = counted("flash_attention")
+    blocks_mod.decoder_block_decode_group = in_group(real["decode"])
+    blocks_mod.decoder_block_full_group = in_group(real["full"])
+    moe_mod._sort_dispatch = dispatch
+    sched = ContinuousBatchingScheduler(system, R=4)
+    rng = np.random.RandomState(0)
+    arrivals = poisson_arrivals(8, rate=2.0, seed=1)
+    lens = rng.randint(32, 129, 8)
+    prompts = [rng.randint(2, cfg.vocab_size, int(n)) for n in lens]
+    for rid, (t, p) in enumerate(zip(arrivals, prompts)):
+        sched.submit(rid, p, float(t), n_new=32)
+    for name in ("decode_attention", "flash_attention"):
+        getattr(K, name).launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        served = sched.run()
+        torch.cuda.synchronize()
+    finally:
+        attn_mod.decode_attention = real["decode_attention"]
+        attn_mod.flash_attention = real["flash_attention"]
+        blocks_mod.decoder_block_decode_group = real["decode"]
+        blocks_mod.decoder_block_full_group = real["full"]
+        moe_mod._sort_dispatch = real["dispatch"]
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(K, name).launches
+                for name in ("decode_attention", "flash_attention")}
+    n_gen = sum(len(s.tokens) - len(p) for s, p in zip(served, prompts))
+    log(f"{tag} served {sum(not s.dropped for s in served)}/8, {n_gen} "
+        f"generated tokens in {wall:.3f} s ({n_gen / wall:.1f} tokens/s, "
+        f"host clock); decode rounds {len(walls)}, wall per round mean "
+        f"{1e3 * sum(walls) / max(1, len(walls)):.2f} ms; host syncs per "
+        f"decode round {sorted(set(syncs))}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; kernel "
+        f"launches {launches}")
+    for name, total in launches.items():
+        per_slot = sum(v for (n, _, _), v in slot_launches.items()
+                       if n == name)
+        if per_slot != total:
+            raise RuntimeError(f"{tag}: {name} launches per slot add up to "
+                               f"{per_slot}, the counter to {total}")
+    groups = sorted({sh for _, sh, _ in slot_launches if sh is not None})
+    if keep is not None and not {sh for _, sh in keep} <= set(groups):
+        raise RuntimeError(f"{tag}: the groups {sorted(keep)} did not all "
+                           f"run (ran: {groups})")
+    for sh in groups:
+        per = {name: [slot_launches.get((name, sh, s), 0)
+                      for s in range(sh[0] * sh[1])]
+               for name in ("decode_attention", "flash_attention")}
+        log(f"{tag} group {sh}: K1 launches per slot "
+            f"{per['decode_attention']}, K2 launches per slot "
+            f"{per['flash_attention']} (the wrappers' counters; they add "
+            "up to the run's totals)")
+        if min(min(v) for v in per.values()) <= 0:
+            raise RuntimeError(f"a slot of group {sh} launched no K1 or K2")
+    if cfg.is_moe:
+        fr = {k: 1.0 - float(kept) / n for k, (kept, n) in moe.items() if n}
+        log(f"{tag} MoE drop fraction over the routed (token, choice) "
+            f"pairs: {fr}")
+        if fr.get("decode", 0.0) != 0.0:
+            raise RuntimeError("a decode row dropped a routed choice")
+    else:
+        fr = {}
+    if any(s.dropped or len(s.tokens) != len(p) + 32
+           for s, p in zip(served, prompts)):
+        raise RuntimeError("a request was not served its 32 tokens")
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"K1 or K2 never launched: {launches}")
+    if set(syncs) != {1}:
+        raise RuntimeError(f"decode rounds made {sorted(set(syncs))} host "
+                           "syncs; the token readback is the only one")
+    record = {"streams": [list(map(int, s.tokens)) for s in served],
+              "first": [first[tuple(int(t) for t in p)] for p in prompts],
+              "prompts": [tuple(int(t) for t in p) for p in prompts],
+              "round_ms": 1e3 * sum(walls) / max(1, len(walls)),
+              "tok_s": n_gen / wall, "slot_launches": slot_launches,
+              "moe_drop": fr, "peak": torch.cuda.max_memory_allocated(),
+              "system": system}
+    del sched
+    return record
+
+
+def compare_first_steps(tag, solo, group, strict=True):
+    """First-step greedy tokens equal and logits within C5_FRACTION of the
+    solo logit scale; whole streams equal counted (TP partial sums round
+    differently in bf16).  ``strict=False`` prints the agreement only."""
+    diffs = [float((l_g - l_s).abs().max()) / float(l_s.abs().max())
+             for (_, l_s), (_, l_g) in zip(solo["first"], group["first"])]
+    toks = sum(a[0] == b[0] for a, b in zip(solo["first"], group["first"]))
+    same = sum(a == b for a, b in zip(solo["streams"], group["streams"]))
+    log(f"{tag} first-step greedy tokens equal to the solo run's "
+        f"{toks}/8; first-step logits max|group - solo| / solo scale "
+        f"{max(diffs):.4f} (bound {C5_FRACTION}; per request "
+        f"{[round(d, 4) for d in diffs]}); whole streams equal {same}/8; "
+        f"decode round mean {group['round_ms']:.2f} ms vs solo "
+        f"{solo['round_ms']:.2f} ms (slots share the card: no speedup "
+        "claimed)")
+    if strict and (toks != 8 or max(diffs) > C5_FRACTION):
+        raise RuntimeError(f"{tag}: first-step tokens {toks}/8 equal, "
+                           f"logits {max(diffs):.4f} of the solo scale")
+
+
+def drive_reduced(torch, system, C, lengths=(4, 6, 5), n_new=4,
+                  spread=False):
+    """tests/test_torch_groups.py's drive: (streams, clocks, logits per
+    round, round_stats).  ``spread``: session i on server i alone (every
+    server hosting every block), so every server's step runs."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    sids = []
+    for i, n in enumerate(lengths):
+        route, _ = C.shortest_path_route(system.problem,
+                                         system.alive_placement(), 0)
+        if spread:
+            route = C.Route(servers=(i % len(system.servers),),
+                            blocks=(system.cfg.n_layers,))
+        sids.append(system.create_session(
+            rng.randint(2, system.cfg.vocab_size, n), 0, route, n_new))
+    assert system.try_admit_sessions(sids) == sids
+    system.drain_prefill()
+    hist = [[system.sessions[s].last_logits.clone() for s in sids]]
+    while any(system.sessions[s].n_generated < n_new for s in sids):
+        todo = [s for s in sids if system.sessions[s].n_generated < n_new]
+        system.decode_round(todo)
+        hist.append([system.sessions[s].last_logits.clone() for s in sids])
+    return ([list(system.sessions[s].tokens) for s in sids],
+            [float(system.sessions[s].virtual_time) for s in sids], hist,
+            dict(system.round_stats))
+
+
+def group_parity(torch):
+    """(b): reduced f32 group runs == the card's solo runs."""
+    import numpy as np
+
+    import repro_torch.core as C
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch.mesh import GroupMesh
+    from repro_torch.models import init_params
+    from repro_torch.serving import GeoServingSystem
+
+    def problem(cfg):
+        llm = C.LLMSpec("toy", cfg.n_layers, block_bytes=100.0,
+                        cache_bytes_per_token=1.0)
+        servers = [C.ServerSpec(j, 1000.0, 0.01 * (j + 1), 0.002, 0.0005)
+                   for j in range(2)]
+        rtt = np.full((1, 2), 0.02)
+        return C.Problem(llm, servers, 1, rtt, 3 * rtt,
+                         workload=C.Workload(4, 4))
+
+    for arch, shape in GROUP_PARITY:
+        cfg = get_reduced_config(arch)
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), "cuda")
+        devs = np.empty(shape[0] * shape[1], dtype=object)
+        devs[:] = slot_devices(torch, devs.size)
+        mesh = GroupMesh(devs.reshape(shape))
+        worst = 0.0
+        for mode in ("fused", "serial"):
+            for layout in ("slab", "paged"):
+                kw = dict(algorithm="proposed", R=2, max_new_tokens=4,
+                          max_sessions=4, decode_mode=mode,
+                          cache_layout=layout,
+                          page_size=2 if layout == "paged" else None)
+                want = drive_reduced(torch, GeoServingSystem(
+                    cfg, params, problem(cfg), **kw), C)
+                got = drive_reduced(torch, GeoServingSystem(
+                    cfg, params, problem(cfg), mesh=mesh, **kw), C)
+                if got[0] != want[0] or got[1] != want[1] or \
+                        got[3] != want[3]:
+                    raise RuntimeError(f"[groups] {arch} {shape} {mode} "
+                                       f"{layout}: streams, clocks or "
+                                       "round_stats differ from solo")
+                for hg, hw in zip(got[2], want[2]):
+                    for a, b in zip(hg, hw):
+                        if not torch.allclose(a, b, **LOGIT_TOL):
+                            raise RuntimeError(
+                                f"[groups] {arch} {shape} {mode} {layout}"
+                                ": logits beyond LOGIT_TOL")
+                        worst = max(worst, float((a - b).abs().max()))
+        log(f"[groups] (b) {arch} on a {shape} group in f32, fused/serial "
+            f"x slab/paged: streams, virtual clocks and round_stats == the "
+            f"card's solo runs; logits max|diff| {worst:.3g} (LOGIT_TOL "
+            f"atol 5e-6, rtol 1e-4)")
+
+
+def group_taus(torch):
+    """(d): the hetero fleet of benchmarks/engine_validation.py
+    ``hetero_validation`` (reduced Llama at 8 layers, f32) against its
+    all-solo twin, the calibrated τ vector at H100 rates, and CG-BP on the
+    calibrated vs the uniform problem."""
+    import numpy as np
+
+    import repro_torch.core as C
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch.mesh import group_meshes
+    from repro_torch.models import init_params
+    from repro_torch.serving import GeoServingSystem
+
+    L, n_sessions, lw = 8, 6, C.Workload(4, 8)
+    llm = C.LLMSpec("hetero", L, block_bytes=50.0,
+                    cache_bytes_per_token=0.5)
+    servers = [C.ServerSpec(j, 2000.0, 0.01 * (j + 1), 0.002, 0.0005)
+               for j in range(3)]
+    rtt = np.full((1, 3), 0.01)
+    problem = C.Problem(llm, servers, 1, rtt, 3 * rtt, workload=lw)
+    cfg = get_reduced_config("llama3_2_1b").replace(n_layers=L)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    groups = group_meshes(GROUP_SHAPES, devices=slot_devices(torch, 6))
+    out = {}
+    for tag, dg in (("twin", None), ("hetero", groups)):
+        system = GeoServingSystem(cfg, params, problem, algorithm="proposed",
+                                  R=3, max_new_tokens=lw.l_out,
+                                  max_sessions=n_sessions, device_groups=dg)
+        out[tag] = drive_reduced(torch, system, C, (4,) * n_sessions,
+                                 lw.l_out, spread=True)
+    if out["hetero"][:2] != out["twin"][:2]:
+        raise RuntimeError("[groups] hetero fleet streams or clocks differ "
+                           "from the all-solo twin")
+    chips = [system.servers[j].n_chips for j in sorted(system.servers)]
+    taus = system.calibrate_taus()
+    vec = [taus[j] for j in sorted(taus)]
+    coll = [system.servers[j].decode_step_cost().coll_wire_bytes
+            for j in sorted(system.servers)]
+    spread = max(vec) / min(vec)
+    log(f"[groups] (d) hetero fleet {chips} slots == all-solo twin "
+        f"(token_parity 1); calibrated τ {[f'{t:.4g}' for t in vec]} s "
+        f"(H100 rates; collective wire bytes a slot {coll}), spread "
+        f"{spread:.3f}")
+    if not spread > 1.0 or chips != [1, 2, 4] or coll[0] != 0 or \
+            min(coll[1:]) <= 0:
+        raise RuntimeError("[groups] calibrated τ is constant or the "
+                           "collective count is wrong")
+    tau_ref = 0.01
+    mean = sum(vec) / len(vec)
+    scaled = {j: tau_ref * taus[j] / mean for j in taus}
+    tight = [C.ServerSpec(j, m, tau_ref, 0.002, 0.0005)
+             for j, m in enumerate((290.0, 180.0, 350.0))]
+    skew = np.array([[0.002, 0.004, 0.006]])
+    base = C.Problem(llm, tight, 1, skew, 3 * skew, workload=lw)
+    cal = C.with_server_taus(base, scaled)
+    pl_cal, _ = C.cg_bp(cal, 1)
+    pl_uni, _ = C.cg_bp(base, 1)
+    _, cost_cal = C.shortest_path_route(cal, pl_cal, 0)
+    _, cost_uni = C.shortest_path_route(cal, pl_uni, 0)
+    differs = int(not (np.array_equal(pl_cal.m, pl_uni.m)
+                       and np.array_equal(pl_cal.a, pl_uni.a)))
+    log(f"[groups] (d) CG-BP calibrated a={pl_cal.a.tolist()} "
+        f"m={pl_cal.m.tolist()} vs uniform a={pl_uni.a.tolist()} "
+        f"m={pl_uni.m.tolist()}: placement_differs {differs}; route cost "
+        f"under calibrated τ {cost_cal:.6f} vs {cost_uni:.6f} s")
+    if not differs or cost_cal > cost_uni * (1 + 1e-9):
+        raise RuntimeError("[groups] the calibrated τ did not change the "
+                           "placement for the better")
+
+
+def slot_kernel_rows(torch, keep, launches):
+    """Kernel rows of K1 / K2 at the slot shapes the group serves gave
+    them: error against the plain version, device times of the kernel, the
+    plain version and one SDPA call, the bound; launches are slot 0's in
+    its serve run, by the wrapper's counter."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (attention_ref, decode_attention,
+                                     decode_attention_cost,
+                                     decode_attention_ref, flash_attention,
+                                     flash_attention_cost)
+
+    def sdpa_decode(q, k, v, pos):
+        ok = torch.arange(k.shape[1], device=q.device)[None, :] \
+            <= pos[:, None]
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=ok[:, None, None, :], enable_gqa=True).transpose(1, 2)
+
+    def sdpa_prefill(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    src = {"decode_attention": (
+        "decode_attention.cu",
+        "src/repro/kernels/decode_attention/decode_attention.py:111"),
+        "flash_attention": (
+        "flash_attention_sm90.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:105")}
+    rows = []
+    for (name, shape, path), got in sorted(keep.items(), key=str):
+        if got is None:
+            raise RuntimeError(f"no {name} call captured on {shape}")
+        args, kw = got
+        if kw.get("window") is not None or kw.get("q_start", 0):
+            raise RuntimeError("unexpected masking on a slot call")
+        args = tuple(args)
+        if name == "decode_attention":
+            kern, plain, lib = decode_attention, decode_attention_ref, \
+                sdpa_decode
+            bound = kernel_bound(decode_attention_cost(*args), args[0].dtype)
+        else:
+            kern, plain, lib = flash_attention, attention_ref, sdpa_prefill
+            bound = kernel_bound(flash_attention_cost(*args), args[0].dtype)
+        err = _err(kern(*args), plain(*args))
+        sets = copies(torch, list(args))
+        ms = device_ms(torch, kern, sets)
+        plain_ms = device_ms(torch, plain, sets, reps=10)
+        lib_ms = device_ms(torch, lib, sets)
+        del sets
+        tag = "slot" + "x".join(map(str, shape))
+        row_name = f"{name}_{tag}"
+        n = launches[(path, name, shape)]
+        log(f"[groups] {row_name} ({path}) "
+            f"{' '.join(str(tuple(a.shape)) for a in args[:3])} "
+            f"{args[0].dtype}: max|kernel-plain| {err:.3g} (tolerance "
+            f"{TOL['bfloat16']}), kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, SDPA {lib_ms:.4f} ms, bound {bound[0]:.4f} ms "
+            f"({bound[1]}); {n} launches on slot 0 in the serve")
+        if err > TOL["bfloat16"]:
+            raise RuntimeError(f"{row_name}: err {err}")
+        rows.append({"name": row_name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/" + src[name][0],
+                     "replaces": src[name][1], "launches": n,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound[0], "bound_by": bound[1],
+                     "library_ms": lib_ms, "path": path})
+    return rows
+
+
+def phase_groups(torch):
+    """Device-group servers on the card; returns the slot-shape kernel
+    rows.  (a) full-width Llama-3.2-1B, bf16, on the serve cluster with
+    groups {0: solo, 1: (1, 2), 2: (2, 2)} against the all-solo run; (b)
+    the reduced f32 parity matrix; (c) full-width Llama-4-Scout cut to
+    SCOUT_DEPTH layers, solo and then every server on a (4, 2) group
+    (``mesh=``: the client's embedding and head vocab-parallel on it), in
+    bf16 (first steps printed) and in f32 at SCOUT_F32_DEPTH layers (first
+    steps held); (d) the hetero fleet's calibrated τ and its placement."""
+    import numpy as np
+
+    import repro_torch.core as C
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import GroupMesh, group_meshes
+    from repro_torch.models import init_params
+
+    t0 = time.perf_counter()
+    keep = {}
+    launches = {}  # (path, kernel, shape) -> launches on slot 0
+    # (a)
+    cfg = get_config("llama3_2_1b")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    problem = serve_problem(C, cfg.name, cfg.n_layers)
+    solo = group_serve(torch, "[groups] (a) solo", cfg, params, problem)
+    del solo["system"]
+    want = {("decode_attention", (1, 2)): None,
+            ("decode_attention", (2, 2)): None,
+            ("flash_attention", (1, 2)): None,
+            ("flash_attention", (2, 2)): None}
+    groups = group_meshes({**GROUP_SHAPES, 3: None, 4: None},
+                          devices=slot_devices(torch, 6))
+    grp = group_serve(torch, "[groups] (a) groups", cfg, params, problem,
+                      keep=want, device_groups=groups)
+    compare_first_steps("[groups] (a)", solo, grp)
+    for (name, shape), got in want.items():
+        keep[(name, shape, "llama3_2_1b")] = got
+        launches[("llama3_2_1b", name, shape)] = grp["slot_launches"][
+            (name, shape, 0)]
+    del grp, solo, params, groups
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[groups] (a) freed: device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    # (b)
+    group_parity(torch)
+    # (c)
+    base = get_config("llama4_scout_17b_a16e").replace(n_layers=SCOUT_DEPTH)
+    params = init_params(base, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    n_params = sum(x.numel() for x in _leaves(params))
+    log(f"[groups] (c) {base.name}: {SCOUT_DEPTH} of "
+        f"{get_config('llama4_scout_17b_a16e').n_layers} layers, "
+        f"{n_params / 1e9:.2f} B params in bf16, device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    devs = np.empty(SCOUT_MESH[0] * SCOUT_MESH[1], dtype=object)
+    devs[:] = slot_devices(torch, devs.size)
+    mesh = GroupMesh(devs.reshape(SCOUT_MESH))
+    problem = serve_problem(C, base.name, base.n_layers)
+    solo = group_serve(torch, "[groups] (c) solo", base, params, problem)
+    del solo["system"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = {("decode_attention", SCOUT_MESH): None,
+            ("flash_attention", SCOUT_MESH): None}
+    grp = group_serve(torch, "[groups] (c) (4, 2) group", base, params,
+                      problem, keep=want, mesh=mesh)
+    peak = max(solo["peak"], grp["peak"])
+    # printed, not held: the partial sums' bf16 rounding moves some
+    # prompt tokens' top-1 expert (a different expert, not a rounding
+    # error), and a request whose last token moves leaves the bound at any
+    # capacity factor (scripts/group_moe_routing.py); held in f32 below
+    compare_first_steps("[groups] (c) bf16", solo, grp, strict=False)
+    for (name, shape), got in want.items():
+        keep[(name, shape, "llama4_scout_17b_a16e")] = got
+        launches[("llama4_scout_17b_a16e", name, shape)] = \
+            grp["slot_launches"][(name, shape, 0)]
+    del grp, solo
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak /= 2**30
+    log(f"[groups] (c) peak device memory of its serves {peak:.1f} GiB "
+        f"(bound {SCOUT_PEAK_GIB} GiB)")
+    if peak > SCOUT_PEAK_GIB:
+        raise RuntimeError(f"[groups] (c) peaked at {peak:.1f} GiB")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[groups] (c) freed: device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    cfg = base.replace(n_layers=SCOUT_F32_DEPTH, param_dtype="float32")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    problem = serve_problem(C, cfg.name, cfg.n_layers)
+    solo = group_serve(torch, "[groups] (c) f32 solo", cfg, params, problem)
+    del solo["system"]
+    grp = group_serve(torch, "[groups] (c) f32 (4, 2) group", cfg, params,
+                      problem, keep={("decode_attention", SCOUT_MESH): None},
+                      mesh=mesh)
+    compare_first_steps("[groups] (c) f32", solo, grp)
+    del grp, solo, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d)
+    group_taus(torch)
+    rows = slot_kernel_rows(torch, keep, launches)
+    log(f"[groups] phase {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -2593,10 +3192,14 @@ def main() -> int:
     serve, paged = {}, {}
     for arch in PATH_KERNELS:
         serve[arch] = phase_serve(torch, arch, captured)
+        log(f"[memory] after [serve {arch}]: "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
         if arch in ("llama3_2_1b", "deepseek_v2_236b",
                     "seamless_m4t_large_v2"):
             paged[arch] = phase_serve(torch, arch, captured, layout="paged",
                                       slab=serve[arch])
+            log(f"[memory] after [paged {arch}]: "
+                f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     phase_oversub(torch)
     phase_sampling(torch, poisson_arrivals(8, rate=2.0, seed=1))
     launches = {arch: r["launches"] for arch, r in serve.items()}
@@ -2619,6 +3222,7 @@ def main() -> int:
     phase_tau(torch)
     phase_xval(torch)
     phase_routing(torch)
+    kernels += phase_groups(torch)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -5,11 +5,13 @@ The framework-free half of the reference's ``repro/launch/costs.py``:
 ``tau_from_step_cost`` with the reference's arithmetic, over this card's
 published rates instead of the TPU's.  A ``CostSummary`` here comes from
 shapes (``BlockServer.decode_step_cost``, the kernel wrappers' ``cost``),
-not from a compiler's cost analysis.  The reference's readers of XLA
-artifacts (``parse_collectives``, ``summarize_compiled``,
-``memory_summary``) have no counterpart yet: NCCL wire bytes and
-``torch.cuda`` memory statistics come with device groups, and so does a
-rate for the collective term, which stays 0 on one card.
+not from a compiler's cost analysis.  A device group's step counts its
+slot collectives as it runs on meta tensors
+(``models.layers.count_collectives``): each call's wire bytes by the ring
+model of the reference's ``parse_collectives`` (all-reduce 2(g-1)/g N,
+all-gather (g-1)/g N_out, a point-to-point send N), priced over
+``NVLINK_BW``.  The reference's other readers of XLA artifacts
+(``summarize_compiled``, ``memory_summary``) have no counterpart.
 """
 from __future__ import annotations
 
@@ -22,6 +24,9 @@ from typing import Dict, Tuple
 HBM_BW = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "tfloat32": 495e12, "float32": 67e12}
 PEAK_FLOPS_BF16 = PEAK_FLOPS["bfloat16"]
+# the same data sheet's NVLink 4 rate, 900 GB/s per GPU counting both
+# directions: 450e9 B/s is what one direction of a ring step sees
+NVLINK_BW = 450e9
 
 
 @dataclass
@@ -63,12 +68,13 @@ def roofline_terms(cost: CostSummary, n_chips: int,
                    dtype: str = "bfloat16") -> Dict:
     """The least time of ``cost`` on one card: flops over the peak of
     ``dtype`` (the bf16 tensor cores by default, as the reference prices
-    every step), bytes over the HBM rate; the larger bounds.  ``cost`` is
-    per card, so ``n_chips`` does not scale it (the reference's
+    every step), bytes over the HBM rate, collective wire bytes over
+    NVLink; the largest bounds.  ``cost`` is per card (a group's per
+    slot), so ``n_chips`` does not scale it (the reference's
     convention)."""
     compute_s = cost.flops / PEAK_FLOPS[dtype]
     memory_s = cost.bytes_accessed / HBM_BW
-    collective_s = 0.0  # one card: no collective (device groups: ROADMAP A10)
+    collective_s = cost.coll_wire_bytes / NVLINK_BW
     dominant = max(
         (("compute", compute_s), ("memory", memory_s),
          ("collective", collective_s)), key=lambda t: t[1])[0]

@@ -1,0 +1,470 @@
+"""Logical-axis sharding rules of a device-group server — the serving half
+of the reference's ``repro/launch/sharding.py``.
+
+The rule logic is the reference's, copied: ``make_rules`` maps every
+logical axis name of a param or cache leaf to a mesh axis (or None =
+replicate) from the config, the mesh's axis sizes and the shape kind;
+``serving_rules`` is its decode-shaped cell whose batch is a pool's row
+count; ``guarded_spec`` turns a leaf's logical axes into a per-dimension
+tuple of mesh axes (the counterpart of ``PartitionSpec``: None, an axis
+name or a tuple of names) with the reference's divisibility guard.  Only
+``mesh.axis_names`` and ``mesh.devices.shape`` are read, so any object
+with those two attributes serves.
+
+Where the reference hands a spec to XLA's partitioner, here ``shard``
+cuts a slot's block out of a leaf and ``unshard`` puts the blocks back
+together.  The pooled steps read the layout the port's group path runs
+(``group_layout_rules``): the reference's rules with the cache time axis
+and the attention ``head_dim`` fallback kept whole on each slot.  A slot's
+K1 call attends over its rows' whole cache and its heads' whole head
+dimension; splitting either would need a softmax merge or a partial score
+across slots, which the kernels do not return.
+
+``make_ctx``, ``batch_specs``, ``cache_specs`` and ``param_shardings``
+(training and the dry run) have no counterpart yet (ROADMAP A10(b)).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeSpec
+
+
+def _div(a: int, b: int) -> bool:
+    return b > 0 and a > 0 and a % b == 0
+
+
+def make_rules(cfg: ModelConfig, mesh, shape: ShapeSpec) -> Dict[str, object]:
+    """The reference's ``make_rules``: logical axis -> mesh axis (or None)
+    for one (config, mesh, shape) cell."""
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    model = sizes.get("model", 1)
+    data_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    n_data = int(np.prod([sizes[a] for a in data_axes])) if data_axes else 1
+    is_train = shape.kind == "train"
+
+    gb = shape.global_batch
+    if _div(gb, n_data):
+        batch = data_axes if len(data_axes) > 1 else data_axes[0]
+    elif _div(gb, sizes.get("data", 1)):
+        batch = "data"
+    else:
+        batch = None
+
+    # expert-rich archs: padded pure EP over (data, model); small-E archs:
+    # experts over the data axes with TP'd expert FFNs
+    from repro_torch.models.moe import expert_alloc
+
+    E = cfg.n_experts
+    if E and expert_alloc(E) != E:
+        experts = ("data", "model")
+    elif _div(E, n_data):
+        experts = data_axes if len(data_axes) > 1 else data_axes[0]
+    elif _div(E, sizes.get("data", 1)):
+        experts = "data"
+    elif _div(E, model):
+        experts = "model"
+    else:
+        experts = None
+
+    def model_if(n):
+        return "model" if _div(n, model) else None
+
+    stash_bytes = (gb / max(1, n_data)) * shape.seq_len * cfg.d_model * 2 \
+        * cfg.n_layers
+    seq_act = (model_if(shape.seq_len)
+               if (is_train and stash_bytes > 8e9) else None)
+    if cfg.n_experts >= 64 and shape.kind == "prefill":
+        seq_act = model_if(shape.seq_len)
+
+    rules: Dict[str, object] = {
+        "batch": batch,
+        "seq": None,
+        "seq_act": seq_act,
+        "heads_act": model_if(cfg.n_heads),
+        "attn_seq_q": (None if _div(cfg.n_heads, model)
+                       else model_if(shape.seq_len)),
+        "kv_heads_act": model_if(cfg.n_kv_heads),
+        "mlp_act": "model",
+        "expert_mlp_act": model_if(cfg.d_ff_expert),
+        "inner_act": model_if(cfg.d_inner),
+        "embed_fsdp": ((data_axes if len(data_axes) > 1 else data_axes[0])
+                       if (is_train and data_axes) else None),
+        "vocab": model_if(cfg.padded_vocab),
+        "heads": model_if(cfg.n_heads),
+        "kv_heads": model_if(cfg.n_kv_heads),
+        "head_dim": (None if _div(cfg.n_heads, model)
+                     else model_if(cfg.head_dim)),
+        "qk_dim": None,
+        "mlp": "model",
+        "experts": experts,
+        "expert_mlp": (None if experts == ("data", "model")
+                       else model_if(cfg.d_ff_expert)),
+        "qlora": None,
+        "kvlora": None,
+        "inner": model_if(cfg.d_inner),
+        "ssm_heads": model_if(cfg.ssm_heads),
+        "ssm_dim": None,
+        "state_nosplit": None,
+        "heads_x_dim": model_if(cfg.d_model if cfg.family == "ssm" else 0),
+        "mix": None,
+        "lora": None,
+        "conv": None,
+        "frame": None,
+        "embed_nosplit": None,
+        "inner_nosplit": None,
+        "experts_nosplit": None,
+        "layers": None,
+    }
+    if _div(gb, n_data):
+        rules["kv_time"] = "model" if _div(shape.seq_len, model) else None
+    else:
+        full = tuple(data_axes) + ("model",)
+        n_full = n_data * model
+        if _div(shape.seq_len, n_full):
+            rules["kv_time"] = full
+        elif _div(shape.seq_len, model):
+            rules["kv_time"] = "model"
+        else:
+            rules["kv_time"] = None
+    if not _div(cfg.d_ff, model):
+        rules["mlp"] = None
+        rules["mlp_act"] = None
+    return rules
+
+
+def cache_axes_for(name: str, ndim: int, rules: Optional[Dict] = None):
+    """Logical axes of a cache leaf, by name (and ndim for zamba2's mega
+    segment).  When KV heads shard over "model" the time axis drops
+    "model" (a spec uses each mesh axis once)."""
+    rules = rules if rules is not None else {}
+    time_ax = "kv_time"
+    if rules.get("kv_heads_act") == "model":
+        kv_time = rules.get("kv_time")
+        axes = kv_time if isinstance(kv_time, tuple) else (kv_time,)
+        remaining = tuple(a for a in axes if a not in (None, "model"))
+        time_ax = ("kv_time_noverlap" if remaining else None)
+        rules.setdefault("kv_time_noverlap", remaining or None)
+    if name in ("k", "v"):  # (layers, B, T, Kv, hd)
+        return (None, "batch", time_ax, "kv_heads_act", None)
+    if name in ("ck", "cv"):  # cross-attention KV (encoder length)
+        return (None, "batch", time_ax, "kv_heads_act", None)
+    if name in ("latent", "krope"):  # (layers, B, T, r)
+        return (None, "batch", "kv_time", None)
+    if name == "wkv":  # (layers, B, h, hd, hd)
+        return (None, "batch", "ssm_heads_act", None, None)
+    if name in ("shift_tm", "shift_cm"):  # (layers, B, d)
+        return (None, "batch", None)
+    if name == "ssm":  # (layers[, per], B, h, p, n)
+        if ndim == 6:
+            return (None, None, "batch", "ssm_heads_act", None, None)
+        return (None, "batch", "ssm_heads_act", None, None)
+    if name == "conv":  # (layers[, per], B, w-1, conv_dim)
+        if ndim == 5:
+            return (None, None, "batch", None, None)
+        return (None, "batch", None, None)
+    return (None,) * ndim
+
+
+def _map_named(fn, tree, name=None):
+    """Map ``fn(name, leaf)`` over a nested dict / tuple / list tree; a
+    leaf's name is its innermost dict key."""
+    if isinstance(tree, dict):
+        return {k: _map_named(fn, v, k) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_named(fn, v, name) for v in tree)
+    if tree is None:
+        return None
+    return fn(name, tree)
+
+
+def cache_tree_axes(tree, rules=None):
+    """A cache tree's logical-axes tuples, by leaf name."""
+    return _map_named(lambda n, x: cache_axes_for(n, x.dim(), rules), tree)
+
+
+# ---------------------------------------------------------------------------
+# Serving-path rules: a geo server as a TP/EP device group
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceGroup:
+    """One server's TP/EP device group: a mesh and its frozen serving
+    rules (the reference's).  ``mesh=None`` is the solo twin; ``rules=None``
+    derives :func:`serving_rules` from the server's (n_rows, max_len).
+    Hashable."""
+
+    mesh: object = None
+    rules: object = None
+
+    def __post_init__(self):
+        if self.mesh is not None and not (hasattr(self.mesh, "devices")
+                                          and hasattr(self.mesh,
+                                                      "axis_names")):
+            raise TypeError(f"a device group's mesh is a GroupMesh "
+                            f"(launch.mesh), not "
+                            f"{type(self.mesh).__name__}")
+        if self.rules is not None and not isinstance(self.rules, tuple):
+            object.__setattr__(self, "rules", freeze_rules(dict(self.rules)))
+
+    @property
+    def devices(self) -> tuple:
+        """The group's slot devices (empty for the solo twin)."""
+        if self.mesh is None:
+            return ()
+        return tuple(self.mesh.devices.reshape(-1))
+
+    @property
+    def n_chips(self) -> int:
+        """Slot count the τ roofline divides by (1 for the solo twin)."""
+        return int(self.mesh.devices.size) if self.mesh is not None else 1
+
+    def frozen_rules_for(self, cfg: ModelConfig, n_rows: int, max_len: int):
+        if self.mesh is None:
+            return None
+        if self.rules is not None:
+            return self.rules
+        return frozen_serving_rules(cfg, self.mesh, int(n_rows),
+                                    int(max_len))
+
+
+def as_device_group(group) -> DeviceGroup:
+    """``None`` | mesh | :class:`DeviceGroup` -> DeviceGroup (``TypeError``
+    for anything else)."""
+    if group is None:
+        return DeviceGroup()
+    if isinstance(group, DeviceGroup):
+        return group
+    return DeviceGroup(mesh=group)
+
+
+@functools.lru_cache(maxsize=None)
+def frozen_serving_rules(cfg: ModelConfig, mesh, n_rows: int, max_len: int):
+    """Frozen :func:`serving_rules`, cached per (cfg, mesh, n_rows,
+    max_len)."""
+    return freeze_rules(serving_rules(cfg, mesh, n_rows, max_len))
+
+
+def serving_rules(cfg: ModelConfig, mesh, n_rows: int,
+                  max_len: int) -> Dict[str, object]:
+    """Rules of the serving hot path: a decode cell whose batch is the
+    pool's row count; no sequence-activation sharding."""
+    shape = ShapeSpec("serving_decode", max(1, int(max_len)),
+                      max(1, int(n_rows)), "decode")
+    rules = make_rules(cfg, mesh, shape)
+    rules["seq_act"] = None
+    rules["attn_seq_q"] = None
+    return rules
+
+
+def freeze_rules(rules: Optional[Dict[str, object]]):
+    """Canonical hashable form of a rules dict."""
+    if rules is None:
+        return None
+    return tuple(sorted(rules.items()))
+
+
+def thaw_rules(frozen) -> Dict[str, object]:
+    return {} if frozen is None else dict(frozen)
+
+
+def group_layout_rules(rules: Dict[str, object]) -> Dict[str, object]:
+    """The layout the port's group steps run: ``rules`` with the cache time
+    axis (``kv_time``) and the attention ``head_dim`` fallback kept whole
+    on every slot (see the module docstring)."""
+    return dict(rules, kv_time=None, head_dim=None)
+
+
+def guarded_spec(axes, shape, rules: Dict[str, object], mesh) -> tuple:
+    """Per-dimension mesh axes of one leaf: logical axes -> mesh axes, any
+    dim whose mesh extent does not divide it replicated, a mesh axis never
+    used twice."""
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    used = set()
+    spec = []
+    for dim, logical in zip(shape, axes):
+        mesh_ax = rules.get(logical) if logical else None
+        if mesh_ax is None:
+            spec.append(None)
+            continue
+        ax_tuple = mesh_ax if isinstance(mesh_ax, tuple) else (mesh_ax,)
+        ax_tuple = tuple(a for a in ax_tuple
+                         if a is not None and a not in used)
+        extent = int(np.prod([sizes.get(a, 1) for a in ax_tuple])) \
+            if ax_tuple else 1
+        if not ax_tuple or not _div(int(dim), extent):
+            spec.append(None)
+            continue
+        used.update(ax_tuple)
+        spec.append(ax_tuple if len(ax_tuple) > 1 else ax_tuple[0])
+    return tuple(spec)
+
+
+def pool_tree_shardings(mesh, rules: Dict[str, object], pool_trees):
+    """Spec tree of a CachePool's state trees (slab or paged): per-leaf
+    logical axes (:func:`cache_axes_for`) through :func:`guarded_spec`."""
+    rules = dict(rules)  # cache_axes_for may add the kv_time_noverlap rule
+
+    def one(name, leaf):
+        axes = cache_axes_for(name, leaf.dim(), rules)
+        return guarded_spec(axes, tuple(leaf.shape), rules, mesh)
+
+    return _map_named(one, pool_trees)
+
+
+# logical axes of a decoder block's leaves (the reference's init axes),
+# keyed by (parent, leaf); stacked leaves prepend the "layers" axis
+_DECODER_AXES = {
+    ("ln1", "scale"): ("embed_nosplit",),
+    ("ln1", "bias"): ("embed_nosplit",),
+    ("ln2", "scale"): ("embed_nosplit",),
+    ("ln2", "bias"): ("embed_nosplit",),
+    ("post_ln1", "scale"): ("embed_nosplit",),
+    ("post_ln2", "scale"): ("embed_nosplit",),
+    # GQA
+    ("attn", "wq"): ("embed_fsdp", "heads", "head_dim"),
+    ("attn", "wk"): ("embed_fsdp", "kv_heads", "head_dim"),
+    ("attn", "wv"): ("embed_fsdp", "kv_heads", "head_dim"),
+    ("attn", "bq"): ("heads", "head_dim"),
+    ("attn", "bk"): ("kv_heads", "head_dim"),
+    ("attn", "bv"): ("kv_heads", "head_dim"),
+    ("attn", "k_norm"): ("head_dim",),
+    # MLA ("attn", "wo") and ("attn", "q_norm") differ by attention kind
+    ("attn", "wdq"): ("embed_fsdp", "qlora"),
+    ("attn", "wuq"): ("qlora", "heads", "qk_dim"),
+    ("attn", "wdkv"): ("embed_fsdp", "kvlora"),
+    ("attn", "kv_norm"): ("kvlora",),
+    ("attn", "wuk"): ("kvlora", "heads", "qk_dim"),
+    ("attn", "wuv"): ("kvlora", "heads", "qk_dim"),
+    # dense MLP
+    ("ffn", "wi"): ("embed_fsdp", "mlp"),
+    # MoE
+    ("ffn", "router"): ("embed_nosplit", "experts_nosplit"),
+    ("ffn", "swg"): ("embed_fsdp", "mlp"),
+    ("ffn", "swu"): ("embed_fsdp", "mlp"),
+    ("ffn", "swo"): ("mlp", "embed_fsdp"),
+}
+
+
+def _decoder_leaf_axes(cfg: ModelConfig, parent: str, name: str):
+    if parent == "attn" and name == "wo":
+        return (("heads", "qk_dim", "embed_fsdp") if cfg.attn_kind == "mla"
+                else ("heads", "head_dim", "embed_fsdp"))
+    if parent == "attn" and name == "q_norm":
+        return ("qlora",) if cfg.attn_kind == "mla" else ("head_dim",)
+    if parent == "ffn" and name in ("wg", "wu", "wo"):
+        if cfg.is_moe:
+            return (("experts", "expert_mlp", "embed_nosplit") if name == "wo"
+                    else ("experts", "embed_nosplit", "expert_mlp"))
+        return (("mlp", "embed_fsdp") if name == "wo"
+                else ("embed_fsdp", "mlp"))
+    return _DECODER_AXES[(parent, name)]
+
+
+def block_param_axes(cfg: ModelConfig, kind: str, tree):
+    """Logical-axes tree of a server's stacked params of one kind (the
+    reference's ``models.model.block_param_axes``); groups take decoder
+    blocks only in this slice."""
+    if kind != "decoder":
+        raise NotImplementedError(
+            f"device groups over {kind!r} blocks are not ported yet "
+            "(ROADMAP A10(b))")
+    return {parent: {name: ("layers",) + _decoder_leaf_axes(cfg, parent,
+                                                              name)
+                     for name in sub}
+            for parent, sub in tree.items()}
+
+
+def block_param_shardings(mesh, rules: Dict[str, object], axes_tree,
+                          param_tree):
+    """Spec tree of a server's stacked block params: the axes tree through
+    :func:`guarded_spec` against the leaf shapes."""
+    return {parent: {name: guarded_spec(axes_tree[parent][name],
+                                        tuple(x.shape), rules, mesh)
+                     for name, x in sub.items()}
+            for parent, sub in param_tree.items()}
+
+
+def embed_param_axes(tree):
+    """Logical axes of the embedding tree (token table, untied head, final
+    norm) — the reference's ``init_embedding`` axes."""
+    table = {"tok": ("vocab", "embed_nosplit"), "head": ("embed_fsdp", "vocab"),
+             "frame_proj": ("frame", "embed_nosplit")}
+    return {k: (table[k] if k in table
+                else {n: ("embed_nosplit",) for n in v})
+            for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Slot blocks of a leaf
+# ---------------------------------------------------------------------------
+
+
+def _coords(mesh, slot: int) -> Dict[str, int]:
+    idx = np.unravel_index(int(slot), mesh.devices.shape)
+    return dict(zip(mesh.axis_names, (int(i) for i in idx)))
+
+
+def _block(entry, coords, sizes):
+    """(block index, block count) of one spec entry at a slot."""
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    b, n = 0, 1
+    for a in axes:
+        b = b * sizes[a] + coords[a]
+        n *= sizes[a]
+    return b, n
+
+
+def slot_index(x_shape, spec, mesh, slot: int):
+    """The index (a tuple of slices) of slot ``slot``'s block of a leaf of
+    shape ``x_shape`` under ``spec``."""
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    coords = _coords(mesh, slot)
+    idx = []
+    for d, dim in enumerate(x_shape):
+        entry = spec[d] if d < len(spec) else None
+        if entry is None:
+            idx.append(slice(None))
+            continue
+        b, n = _block(entry, coords, sizes)
+        w = dim // n
+        idx.append(slice(b * w, (b + 1) * w))
+    return tuple(idx)
+
+
+def shard(x: torch.Tensor, spec, mesh):
+    """Per-slot blocks of ``x`` under ``spec``: slot ``s``'s block on its
+    device.  A block on the device ``x`` already lives on is a view of
+    ``x`` (slots that share a device share a replicated leaf); on another
+    device it is a copy."""
+    out = []
+    for s, dev in enumerate(mesh.slot_devices()):
+        out.append(x[slot_index(tuple(x.shape), spec, mesh, s)].to(dev))
+    return out
+
+
+def unshard(parts, spec, mesh, shape) -> torch.Tensor:
+    """The inverse of :func:`shard`: the whole leaf of ``shape`` from its
+    per-slot blocks (replicas must agree; the last slot's copy wins), on
+    slot 0's device."""
+    dev = parts[0].device
+    full = parts[0].new_empty(tuple(shape))
+    for s, p in enumerate(parts):
+        full[slot_index(tuple(shape), spec, mesh, s)] = p.to(dev)
+    return full
+
+
+__all__ = [
+    "DeviceGroup", "as_device_group", "block_param_axes",
+    "block_param_shardings", "cache_axes_for", "cache_tree_axes",
+    "embed_param_axes", "freeze_rules", "frozen_serving_rules",
+    "group_layout_rules", "guarded_spec", "make_rules",
+    "pool_tree_shardings", "serving_rules", "shard", "slot_index",
+    "thaw_rules", "unshard",
+]

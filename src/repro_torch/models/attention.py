@@ -27,6 +27,14 @@ Differences from the reference, both from eager PyTorch:
 * the decode step writes the new token's K/V into the cache IN PLACE, at
   ``pos`` clamped into range like ``dynamic_update_slice`` clamps, and
   only on the rows ``active`` selects (the others keep their old values).
+
+On a device-group slot (``heads=`` the global index of the slot's first
+query head) the functions run on the slot's head shard of the params and
+return the output projection's partial sum, which the group adds over its
+model row (``layers.reduce_model``).  Where query heads shard but KV heads
+replicate (their count does not divide the model axis) the slot holds
+every KV head and attends its query heads over the KV heads they map to
+by their global indices; MLA's latent cache has no head axis.
 """
 from __future__ import annotations
 
@@ -210,15 +218,46 @@ def _kv_proj(params, cfg, x):
     return k, v
 
 
-def _slopes(cfg: ModelConfig, device):
-    return alibi_slopes(cfg.n_heads, device) if cfg.pos_kind == "alibi" \
-        else None
+def _slopes(cfg: ModelConfig, device, heads=None, n_local=None):
+    """ALiBi slopes of the query heads [heads, heads + n_local) (all heads
+    without ``heads``), or None."""
+    if cfg.pos_kind != "alibi":
+        return None
+    sl = alibi_slopes(cfg.n_heads, device)
+    return sl if heads is None else sl[heads:heads + n_local]
+
+
+def kv_heads_for(cfg: ModelConfig, heads: Optional[int], n_local: int,
+                 n_kv: int):
+    """The KV heads [lo, hi) that query heads [heads, heads + n_local)
+    attend, for a cache holding ``n_kv`` heads.  A shard of the KV heads
+    (n_kv < cfg.n_kv_heads) lines up with the query shard; replicated KV
+    heads are selected by the query heads' global indices.  ``ValueError``
+    when those map unevenly (GQA groups cut by the shard)."""
+    if heads is None or n_kv < cfg.n_kv_heads or n_local == cfg.n_heads:
+        return 0, n_kv
+    G = cfg.n_heads // cfg.n_kv_heads
+    lo, hi = heads // G, (heads + n_local - 1) // G + 1
+    if not ((heads % G == 0 and n_local % G == 0) or hi - lo == 1):
+        raise ValueError(
+            f"query heads [{heads}, {heads + n_local}) cut the GQA groups "
+            f"of {G} heads: no whole KV heads to attend on this slot")
+    return lo, hi
 
 
 def gqa_encoder_kv(params, cfg: ModelConfig, enc_h):
     """Cross-attention K/V (B,S_enc,Kv,hd) from encoder states (computed
     once per session)."""
     return _kv_proj(params, cfg, enc_h)
+
+
+def _kv_slice(cfg: ModelConfig, heads, n_local: int, k, v):
+    """``k``/``v`` restricted to the KV heads of ``kv_heads_for`` (the
+    tensors themselves when that is all of them)."""
+    lo, hi = kv_heads_for(cfg, heads, n_local, k.shape[2])
+    if (lo, hi) == (0, k.shape[2]):
+        return k, v
+    return k[:, :, lo:hi], v[:, :, lo:hi]
 
 
 def _attend_full(cfg: ModelConfig, q, k, v, positions, kv_pos, window,
@@ -232,7 +271,7 @@ def _attend_full(cfg: ModelConfig, q, k, v, positions, kv_pos, window,
         # groups are mapped inside the kernel (no KV head expansion)
         return flash_attention(q, k, v, causal=causal, window=window,
                                slopes=slopes, q_start=q_start)
-    G = cfg.n_heads // cfg.n_kv_heads
+    G = q.shape[2] // k.shape[2]
     k_exp = torch.repeat_interleave(k, G, dim=2) if G > 1 else k
     v_exp = torch.repeat_interleave(v, G, dim=2) if G > 1 else v
     return attention_core(q, k_exp, v_exp, positions, kv_pos, window,
@@ -240,7 +279,8 @@ def _attend_full(cfg: ModelConfig, q, k, v, positions, kv_pos, window,
 
 
 def apply_gqa_full(params, cfg: ModelConfig, x, positions, window=None,
-                   prefix_kv=None, cross_kv=None, backend: str = "kernel"):
+                   prefix_kv=None, cross_kv=None, backend: str = "kernel",
+                   heads: Optional[int] = None):
     """Full-sequence attention (prefill).  x (B,S,d); positions (S,).
 
     Returns (out, (k, v)) with k/v in the un-expanded (B,S,Kv,hd) layout
@@ -249,7 +289,8 @@ def apply_gqa_full(params, cfg: ModelConfig, x, positions, window=None,
     chunk keys, ``positions`` must be ``P + arange(S)``, and the returned
     cache entry holds only the chunk's k/v.  ``cross_kv``: the encoder's
     (k, v) — non-causal cross attention with no window, returning (out,
-    None)."""
+    None).  ``heads``: a group slot's first query head (the module
+    docstring)."""
     q_start = 0
     causal = cross_kv is None
     q = _q_proj(params, cfg, x)
@@ -275,9 +316,11 @@ def apply_gqa_full(params, cfg: ModelConfig, x, positions, window=None,
         k, v = cross_kv
         kv_pos = torch.arange(k.shape[1], device=x.device)
         kv_out = None
-    out = _attend_full(cfg, q, k, v, positions, kv_pos,
-                       window if causal else None, _slopes(cfg, x.device),
-                       causal, q_start, backend)
+    ks, vs = _kv_slice(cfg, heads, q.shape[2], k, v)
+    out = _attend_full(cfg, q, ks, vs, positions,
+                       kv_pos, window if causal else None,
+                       _slopes(cfg, x.device, heads, q.shape[2]), causal,
+                       q_start, backend)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
     return y, kv_out
 
@@ -298,7 +341,8 @@ def write_token(cache, new, pos, active=None):
 
 def apply_gqa_decode(params, cfg: ModelConfig, x, cache_k, cache_v, pos,
                      window=None, active=None, cross: bool = False,
-                     kv_len=None, backend: str = "kernel"):
+                     kv_len=None, backend: str = "kernel",
+                     heads: Optional[int] = None):
     """Single-token decode.  x (B,1,d); cache (B,T,Kv,hd); pos (B,).
 
     Self attention writes the new token's K/V into the cache at ``pos``
@@ -306,7 +350,8 @@ def apply_gqa_decode(params, cfg: ModelConfig, x, cache_k, cache_v, pos,
     updated cache.  Cross attention (``cross=True``) attends, non-causal
     and without a window, over the encoder's K/V, which stay unchanged;
     ``kv_len`` (B,) masks positions at or past each row's encoder length
-    (a cache allocated longer than the encoder output).  Returns (y,
+    (a cache allocated longer than the encoder output).  ``heads``: a
+    group slot's first query head (the module docstring).  Returns (y,
     cache_k, cache_v) — the same cache tensors."""
     q = _q_proj(params, cfg, x)
     if not cross:
@@ -323,16 +368,15 @@ def apply_gqa_decode(params, cfg: ModelConfig, x, cache_k, cache_v, pos,
         write_token(cache_v, v, pos, active)
     elif cfg.qk_norm:
         q = rms_norm_simple(q, params["q_norm"], cfg.norm_eps)
-    slopes = _slopes(cfg, x.device)
+    slopes = _slopes(cfg, x.device, heads, q.shape[2])
     win = None if cross else window
+    ck, cv = _kv_slice(cfg, heads, q.shape[2], cache_k, cache_v)
     if use_kernel(backend, x):
-        out = decode_attention(q, cache_k, cache_v, pos, window=win,
-                               slopes=slopes, kv_len=kv_len,
-                               causal=not cross)
+        out = decode_attention(q, ck, cv, pos, window=win, slopes=slopes,
+                               kv_len=kv_len, causal=not cross)
     else:
-        out = decode_attention_plain(q, cache_k, cache_v, pos, win,
-                                     slopes, causal=not cross,
-                                     kv_len=kv_len)
+        out = decode_attention_plain(q, ck, cv, pos, win, slopes,
+                                     causal=not cross, kv_len=kv_len)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
     return y, cache_k, cache_v
 

@@ -12,6 +12,14 @@ place (see ``attention``); the recurrent decode functions return new state
 tensors, which the caller writes into its pool.  ``moe_rows=True`` routes
 each batch row through the MoE alone (the engine's pooled steps, where the
 reference vmaps its rows).
+
+``decoder_block_{full,decode}_group`` run a decoder block on the slots of
+a device group (``layers.GroupCtx``): the per-slot tensors and params are
+lists in slot order, the slots run the block's halves in lockstep, and the
+output projection's and the MLP's partial sums are added over each model
+row.  The engine's pooled steps run every decoder block through them, a
+solo server on its one ``layers.NULL`` slot; the solo and group blocks
+share their attention and residual bodies (``_mixer_*``, ``_residual``).
 """
 from __future__ import annotations
 
@@ -22,7 +30,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe
 from repro_torch.models import ssm
 from repro_torch.models.layers import (ParamBuilder, apply_mlp, apply_norm,
-                                       apply_rope, init_mlp, init_norm,
+                                       apply_rope, gather_model, init_mlp,
+                                       init_norm, mlp_group, reduce_model,
                                        rope_angles)
 
 _BIG = 1 << 30
@@ -82,6 +91,43 @@ def init_decoder_block(pb: ParamBuilder, cfg: ModelConfig):
     return c.params
 
 
+def _mixer_full(params, cfg: ModelConfig, x, positions, win, prefix_kv,
+                backend: str, heads=None):
+    """Attention (GQA or MLA) over a full sequence: (output, cache entry of
+    the positions in ``x``).  ``heads``: the global index of the params'
+    first query head (a group slot's)."""
+    if cfg.attn_kind == "mla":
+        a, kv = attn.apply_mla_full(params["attn"], cfg, x, positions,
+                                    prefix_kv=prefix_kv, backend=backend)
+        return a, {"latent": kv[0], "krope": kv[1]}
+    a, kv = attn.apply_gqa_full(params["attn"], cfg, x, positions, win,
+                                prefix_kv=prefix_kv, backend=backend,
+                                heads=heads)
+    return a, {"k": kv[0], "v": kv[1]}
+
+
+def _mixer_decode(params, cfg: ModelConfig, x, cache, pos, win, active,
+                  backend: str, heads=None):
+    """Single-token attention; writes the cache in place (``active`` rows
+    only).  Returns (output, cache)."""
+    if cfg.attn_kind == "mla":
+        a, lat, kr = attn.apply_mla_decode(
+            params["attn"], cfg, x, cache["latent"], cache["krope"], pos,
+            active=active, backend=backend)
+        return a, {"latent": lat, "krope": kr}
+    a, ck, cv = attn.apply_gqa_decode(params["attn"], cfg, x, cache["k"],
+                                      cache["v"], pos, win, active=active,
+                                      backend=backend, heads=heads)
+    return a, {"k": ck, "v": cv}
+
+
+def _residual(params, cfg: ModelConfig, h, y, post: str):
+    """``h + y``, ``y`` through the sandwich post-norm ``post`` first."""
+    if cfg.sandwich_norm:
+        y = apply_norm(params[post], cfg, y)
+    return h + y
+
+
 def decoder_block_full(params, cfg: ModelConfig, h, positions, layer_idx=0,
                        prefix_kv=None, backend: str = "kernel",
                        moe_rows: bool = False):
@@ -92,19 +138,12 @@ def decoder_block_full(params, cfg: ModelConfig, h, positions, layer_idx=0,
     covering [0, P) — (k, v) for GQA, (latent, krope) for MLA;
     ``positions`` must then be ``P + arange(S)``.  The returned cache entry
     covers only the positions in ``h``."""
-    win = window_for_layer(cfg, layer_idx)
     x = apply_norm(params["ln1"], cfg, h)
-    if cfg.attn_kind == "mla":
-        a, kv = attn.apply_mla_full(params["attn"], cfg, x, positions,
-                                    prefix_kv=prefix_kv, backend=backend)
-        cache = {"latent": kv[0], "krope": kv[1]}
-    else:
-        a, kv = attn.apply_gqa_full(params["attn"], cfg, x, positions, win,
-                                    prefix_kv=prefix_kv, backend=backend)
-        cache = {"k": kv[0], "v": kv[1]}
-    if cfg.sandwich_norm:
-        a = apply_norm(params["post_ln1"], cfg, a)
-    h, aux = _ffn(params, cfg, h + a, moe_rows)
+    a, cache = _mixer_full(params, cfg, x, positions,
+                           window_for_layer(cfg, layer_idx), prefix_kv,
+                           backend)
+    h, aux = _ffn(params, cfg, _residual(params, cfg, h, a, "post_ln1"),
+                  moe_rows)
     return h, cache, aux
 
 
@@ -113,21 +152,11 @@ def decoder_block_attn_decode(params, cfg: ModelConfig, h, cache, pos,
                               backend: str = "kernel"):
     """Attention half of :func:`decoder_block_decode`: ln1 -> attention ->
     residual.  Writes the cache in place (``active`` rows only)."""
-    win = window_for_layer(cfg, layer_idx)
     x = apply_norm(params["ln1"], cfg, h)
-    if cfg.attn_kind == "mla":
-        a, lat, kr = attn.apply_mla_decode(
-            params["attn"], cfg, x, cache["latent"], cache["krope"], pos,
-            active=active, backend=backend)
-        cache = {"latent": lat, "krope": kr}
-    else:
-        a, ck, cv = attn.apply_gqa_decode(params["attn"], cfg, x, cache["k"],
-                                          cache["v"], pos, win,
-                                          active=active, backend=backend)
-        cache = {"k": ck, "v": cv}
-    if cfg.sandwich_norm:
-        a = apply_norm(params["post_ln1"], cfg, a)
-    return h + a, cache
+    a, cache = _mixer_decode(params, cfg, x, cache, pos,
+                             window_for_layer(cfg, layer_idx), active,
+                             backend)
+    return _residual(params, cfg, h, a, "post_ln1"), cache
 
 
 def _ffn(params, cfg: ModelConfig, h, moe_rows: bool = False):
@@ -139,9 +168,7 @@ def _ffn(params, cfg: ModelConfig, h, moe_rows: bool = False):
         m, aux = moe.apply_moe(params["ffn"], cfg, x, per_row=moe_rows)
     else:
         m = apply_mlp(params["ffn"], cfg, x)
-    if cfg.sandwich_norm:
-        m = apply_norm(params["post_ln2"], cfg, m)
-    return h + m, aux
+    return _residual(params, cfg, h, m, "post_ln2"), aux
 
 
 def decoder_block_ffn(params, cfg: ModelConfig, h, moe_rows: bool = False):
@@ -158,6 +185,85 @@ def decoder_block_decode(params, cfg: ModelConfig, h, cache, pos,
                                          layer_idx, active=active,
                                          backend=backend)
     return decoder_block_ffn(params, cfg, h, moe_rows), cache
+
+
+# ---------------------------------------------------------------------------
+# Decoder blocks on a device group
+# ---------------------------------------------------------------------------
+
+
+def _first_head(cfg: ModelConfig, ctx, attn_params) -> int:
+    """Global index of a slot's first query head (None when it holds
+    all)."""
+    n = attn_params["wq" if "wq" in attn_params else "wuq"].shape[-2]
+    return None if n == cfg.n_heads else ctx.j * n
+
+
+def _attn_reduce(ps, cfg: ModelConfig, ctxs, parts):
+    """The output projection's partials summed over each model row (heads
+    sharded), or the slots' whole outputs."""
+    n = ps[0]["attn"]["wo"].shape[0]
+    return parts if n == cfg.n_heads else reduce_model(ctxs, parts)
+
+
+def _ffn_group(ps, cfg: ModelConfig, ctxs, hs, rows_split: bool,
+               moe_ep: bool = False):
+    """``_ffn`` on a group: ln2 -> MLP (TP) or MoE (per-row, or the pure EP
+    all-to-all over a (data, model) token grid when ``moe_ep``) -> residual."""
+    xs = [apply_norm(p["ln2"], cfg, h) for p, h in zip(ps, hs)]
+    fs = [p["ffn"] for p in ps]
+    if not cfg.is_moe:
+        ms = mlp_group(fs, cfg, ctxs, xs)
+    elif ctxs[0].mesh is None:  # a solo server's one slot
+        ms = [moe.apply_moe(fs[0], cfg, xs[0], per_row=True)[0]]
+    elif moe_ep:
+        # each model slot takes its chunk of the row block's rows
+        loc = [x.chunk(c.n_model, dim=0)[c.j] for c, x in zip(ctxs, xs)]
+        routed, _ = moe._apply_moe_ep(fs, cfg, ctxs, loc)
+        ms = moe._shared_expert_group(fs, cfg, ctxs, xs,
+                                      gather_model(ctxs, routed, dim=0))
+    else:
+        ms = moe.apply_moe_group(fs, cfg, ctxs, xs, rows_split)
+    return [_residual(p, cfg, h, m, "post_ln2")
+            for p, h, m in zip(ps, hs, ms)]
+
+
+def decoder_block_full_group(ps, cfg: ModelConfig, ctxs, hs, poss,
+                             layer_idx=0, prefixes=None,
+                             backend: str = "kernel",
+                             rows_split: bool = False):
+    """:func:`decoder_block_full` on a group (per-row MoE).  ``poss``:
+    per-slot positions; ``prefixes``: per-slot ``prefix_kv`` (or None).
+    Returns (per-slot h, per-slot cache entries of the chunk)."""
+    win = window_for_layer(cfg, layer_idx)
+    prefixes = prefixes or [None] * len(ctxs)
+    outs = [_mixer_full(p, cfg, apply_norm(p["ln1"], cfg, h), positions,
+                        win, pre, backend, _first_head(cfg, c, p["attn"]))
+            for p, c, h, positions, pre in zip(ps, ctxs, hs, poss,
+                                                prefixes)]
+    a = _attn_reduce(ps, cfg, ctxs, [o[0] for o in outs])
+    hs = [_residual(p, cfg, h, y, "post_ln1") for p, h, y in zip(ps, hs, a)]
+    return _ffn_group(ps, cfg, ctxs, hs, rows_split), [o[1] for o in outs]
+
+
+def decoder_block_decode_group(ps, cfg: ModelConfig, ctxs, hs, caches,
+                               poss, layer_idx=0, actives=None,
+                               backend: str = "kernel",
+                               rows_split: bool = False,
+                               moe_ep: bool = False):
+    """:func:`decoder_block_decode` on a group: per-slot h (B_i, 1, d),
+    caches (written in place on the ``actives`` rows), positions.  Returns
+    per-slot h."""
+    win = window_for_layer(cfg, layer_idx)
+    actives = actives or [None] * len(ctxs)
+    parts = [_mixer_decode(p, cfg, apply_norm(p["ln1"], cfg, h), cache, pos,
+                           win, act, backend,
+                           _first_head(cfg, c, p["attn"]))[0]
+             for p, c, h, cache, pos, act in zip(ps, ctxs, hs, caches, poss,
+                                                 actives)]
+    a = _attn_reduce(ps, cfg, ctxs, parts)
+    hs = [_residual(p, cfg, h, y, "post_ln1") for p, h, y in zip(ps, hs, a)]
+    return _ffn_group(ps, cfg, ctxs, hs, rows_split, moe_ep)
 
 
 # ---------------------------------------------------------------------------

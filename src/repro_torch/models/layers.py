@@ -3,14 +3,19 @@ LM head and MLP — the counterparts of the reference's
 ``repro/models/layers.py``, as plain functions on tensors.
 
 ``params`` is a nested dict of tensors under the reference's tree paths.
-The reference's sharding context has no counterpart yet (device groups are
-ROADMAP A10), so the functions here take no ``sh`` argument.
+Where the reference threads a ``ShardingCtx`` through every function and
+lets XLA partition the program, a device-group server here runs the same
+functions on each slot's shard and joins the slots with the explicit
+collectives of :class:`GroupCtx` (``NULL`` for a solo server): partial
+sums added in slot order, vocab shards concatenated.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -266,3 +271,203 @@ def apply_mlp(params, cfg: ModelConfig, x):
     g = F.silu(x @ params["wg"].to(x.dtype))
     u = x @ params["wu"].to(x.dtype)
     return (g * u) @ params["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Device groups: one slot's view of its group, and the slot collectives
+# ---------------------------------------------------------------------------
+
+
+class GroupCtx:
+    """One slot of a device group (``launch.mesh.GroupMesh``): its device
+    and its ``(data, model)`` coordinates — the counterpart of the
+    reference's ``ShardingCtx``.  ``NULL`` is the solo server's.
+
+    The group's slots run in lockstep in one process, so a collective
+    takes the peers' tensors as a list in slot order and returns this
+    slot's result on its own device: copies are ``non_blocking`` and
+    nothing reads a value on the host.  Inside :func:`count_collectives`
+    each call adds its per-slot wire bytes by the ring model of the
+    reference's ``parse_collectives``."""
+
+    def __init__(self, mesh=None, slot: int = 0, rules=None):
+        self.mesh = mesh
+        self.slot = int(slot)
+        self.rules = dict(rules or {})
+        if mesh is None:
+            self.n_data = self.n_model = 1
+            self.i = self.j = 0
+            self.device = None
+        else:
+            self.n_data, self.n_model = mesh.devices.shape
+            self.i, self.j = divmod(self.slot, self.n_model)
+            self.device = mesh.devices[self.i, self.j]
+
+    def block(self, logical: str):
+        """(block index, block count) of this slot along the mesh axes the
+        rule of ``logical`` names ((0, 1) when it replicates)."""
+        ax = self.rules.get(logical)
+        axes = () if ax is None else ax if isinstance(ax, tuple) else (ax,)
+        coords = {"data": (self.i, self.n_data),
+                  "model": (self.j, self.n_model)}
+        b, n = 0, 1
+        for a in axes:
+            b, n = b * coords[a][1] + coords[a][0], n * coords[a][1]
+        return b, n
+
+    def slot_at(self, **coords) -> int:
+        """The slot at this slot's coordinates with ``coords`` replaced."""
+        i, j = coords.get("data", self.i), coords.get("model", self.j)
+        return i * self.n_model + j
+
+    def model_row(self) -> List[int]:
+        """Slots of this slot's model row, (i, 0) .. (i, M-1)."""
+        return [self.i * self.n_model + m for m in range(self.n_model)]
+
+    def to_here(self, x):
+        return x if self.device is None else x.to(self.device,
+                                                  non_blocking=True)
+
+    def all_reduce_sum(self, parts):
+        """Sum of the model row's partials (``parts`` in model order),
+        added left to right on this slot's device."""
+        _record("all-reduce", parts[0], len(parts))
+        out = self.to_here(parts[0])
+        for p in parts[1:]:
+            out = out + self.to_here(p)
+        return out
+
+    def all_gather(self, parts, dim: int = -1):
+        """The model row's shards (``parts`` in model order) concatenated
+        along ``dim`` on this slot's device."""
+        _record("all-gather", parts[0], len(parts), gathered=True)
+        return torch.cat([self.to_here(p) for p in parts], dim=dim)
+
+    def receive(self, x, src: int):
+        """A point-to-point move of ``x`` from slot ``src`` to this slot
+        (the sends of an all-to-all); a slot's own data moves nothing."""
+        if src != self.slot:
+            _record("all-to-all", x, 2, point=True)
+        return self.to_here(x)
+
+
+NULL = GroupCtx()
+
+
+def group_ctxs(mesh, rules=None) -> List[GroupCtx]:
+    """The ctx of every slot of ``mesh``, in slot order."""
+    return [GroupCtx(mesh, s, rules) for s in range(int(mesh.devices.size))]
+
+
+def reduce_model(ctxs, parts):
+    """Per slot: the sum of its model row's partials (the all-reduce after
+    a row-split product)."""
+    return [c.all_reduce_sum([parts[s] for s in c.model_row()])
+            for c in ctxs]
+
+
+def gather_model(ctxs, parts, dim: int = -1):
+    """Per slot: its model row's shards concatenated along ``dim``."""
+    return [c.all_gather([parts[s] for s in c.model_row()], dim)
+            for c in ctxs]
+
+
+_COLLECTIVES: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_collectives", default=None)
+
+
+class CollectiveCount:
+    """Collectives recorded inside :func:`count_collectives`: ``wire`` —
+    the bytes every slot's calls put on the wire, summed over slots —
+    by kind, and ``calls``."""
+
+    def __init__(self):
+        self.by_kind: Dict[str, float] = {}
+        self.calls = 0
+
+    @property
+    def wire(self) -> float:
+        return sum(self.by_kind.values())
+
+
+@contextlib.contextmanager
+def count_collectives():
+    rec = CollectiveCount()
+    token = _COLLECTIVES.set(rec)
+    try:
+        yield rec
+    finally:
+        _COLLECTIVES.reset(token)
+
+
+def _record(kind: str, x, g: int, gathered: bool = False,
+            point: bool = False):
+    """Wire bytes of one slot's share of a collective over ``g`` slots of
+    operands like ``x`` (the reference's ring factors: all-reduce
+    2(g-1)/g N, all-gather (g-1)/g N_out; a point-to-point send N)."""
+    rec = _COLLECTIVES.get()
+    if rec is None or g <= 1:
+        return
+    n = x.numel() * x.element_size()
+    if point:
+        wire = float(n)
+    elif gathered:
+        wire = (g - 1) / g * n * g
+    else:
+        wire = 2.0 * (g - 1) / g * n
+    rec.by_kind[kind] = rec.by_kind.get(kind, 0.0) + wire
+    rec.calls += 1
+
+
+def _vocab_lo(ctx: GroupCtx, local: int, cfg: ModelConfig) -> int:
+    return ctx.j * local if local < cfg.padded_vocab else 0
+
+
+def embed_tokens_group(ps, cfg: ModelConfig, ctxs, tokens):
+    """Vocab-parallel lookup: each slot looks up the ids of its vocab
+    shard (zero rows elsewhere) and the model row sums them — exactly the
+    one table row each id has.  ``ps``: per-slot embedding trees;
+    ``tokens``: per-slot id tensors.  Returns per-slot (.., d)."""
+    parts = []
+    for p, c, tok in zip(ps, ctxs, tokens):
+        table = p["tok"]
+        lo = _vocab_lo(c, table.shape[0], cfg)
+        local = tok - lo
+        ok = (local >= 0) & (local < table.shape[0])
+        rows = F.embedding(local.clamp(0, table.shape[0] - 1), table)
+        parts.append(torch.where(ok[..., None], rows, rows.new_zeros(())))
+    if ps[0]["tok"].shape[0] == cfg.padded_vocab:
+        return parts
+    return reduce_model(ctxs, parts)
+
+
+def lm_head_group(ps, cfg: ModelConfig, ctxs, hs):
+    """LM head on vocab shards: each slot's logits of its shard (softcap
+    and pad mask applied there), gathered over the model row into the
+    full vocabulary on every slot."""
+    parts = []
+    for p, c, h in zip(ps, ctxs, hs):
+        h = apply_norm(p["final_norm"], cfg, h)
+        w = p["tok"].t() if cfg.tie_embeddings else p["head"]
+        logits = torch.matmul(h, w.to(h.dtype))
+        if cfg.logit_softcap > 0:
+            logits = cfg.logit_softcap * torch.tanh(
+                logits / cfg.logit_softcap)
+        pad = vocab_pad_bias(cfg, h.device)
+        if pad is not None:
+            lo = _vocab_lo(c, logits.shape[-1], cfg)
+            logits = logits + pad[lo:lo + logits.shape[-1]].to(logits.dtype)
+        parts.append(logits)
+    if parts[0].shape[-1] == cfg.padded_vocab:
+        return parts
+    return gather_model(ctxs, parts, dim=-1)
+
+
+def mlp_group(ps, cfg: ModelConfig, ctxs, xs):
+    """The MLP on column/row splits: each slot's ``wi``/``wg``/``wu``
+    columns and ``wo`` rows give a partial sum, which the model row adds;
+    a replicated MLP (``d_ff`` not divisible) is whole on each slot."""
+    parts = [apply_mlp(p, cfg, x) for p, x in zip(ps, xs)]
+    if ps[0]["wo"].shape[0] == (cfg.d_ff):
+        return parts
+    return reduce_model(ctxs, parts)

@@ -25,17 +25,32 @@ run.  Counts come from ``scatter_add_`` and the capacity from sizes only,
 so nothing here reads a device value on the host.
 
 The expert products are plain ``torch.bmm`` calls: the reference computes
-them outside any Pallas kernel.  Its pure-EP ``_apply_moe_ep`` needs a
-device mesh (ROADMAP A10); without one its ``_ep_eligible`` is false.
+them outside any Pallas kernel.
+
+Device groups (``layers.GroupCtx``; the slots' tensors as lists in slot
+order).  ``apply_moe_group`` is the per-row layout on a group: each slot
+routes its rows (a model row's slots route the same rows alike), every
+slot runs its expert block — experts over the axes the ``experts`` rule
+names, the expert FFN's columns over ``model`` where ``expert_mlp`` says
+so (Llama-4-Scout: experts over ``data``, FFN over ``model``) — on the
+tokens every row block sends it, and each slot gathers its rows' expert
+outputs back, adding the FFN shards' partials in slot order.
+``_apply_moe_ep`` is the reference's pure EP over the whole group with
+padded experts (DeepSeek): each slot routes its own tokens with a local
+capacity, sends each expert block's slots to the slot that holds it, and
+takes the outputs back — the all-to-all as per-slot sends in slot order;
+``_ep_eligible`` is its gate.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import ParamBuilder, param_dtype
+from repro_torch.models.layers import ParamBuilder, param_dtype, reduce_model
 
 EP_PAD_GROUP = 256  # pad expert allocation to the full-chip EP group size
 EP_MIN_EXPERTS = 64  # only pad expert-rich archs
@@ -188,5 +203,138 @@ def apply_moe(params, cfg: ModelConfig, x, per_row: bool = False):
     return out, aux
 
 
-__all__ = ["EP_MIN_EXPERTS", "EP_PAD_GROUP", "apply_moe", "expert_alloc",
-           "init_moe", "router_topk"]
+# ---------------------------------------------------------------------------
+# Device groups
+# ---------------------------------------------------------------------------
+
+
+def _expert_block(ctx, cfg: ModelConfig, n_local: int):
+    """First expert index of a slot's ``n_local`` expert weights."""
+    if n_local == expert_alloc(cfg.n_experts):
+        return 0
+    return ctx.block("experts")[0] * n_local
+
+
+def _holder(ctx, b: int, n_blocks: int, f: Optional[int]) -> int:
+    """The slot holding expert block ``b`` (of ``n_blocks``) and FFN shard
+    ``f`` that serves ``ctx``'s rows: the expert and FFN axes from the
+    block and shard, every other axis from ``ctx``."""
+    coords = {}
+    if n_blocks > 1:
+        ax = ctx.rules.get("experts")
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        sizes = {"data": ctx.n_data, "model": ctx.n_model}
+        for a in reversed(axes):
+            b, coords[a] = divmod(b, sizes[a])
+    if f is not None:
+        coords["model"] = f
+    return ctx.slot_at(**coords)
+
+
+def _shared_expert_group(ps, cfg: ModelConfig, ctxs, xs, outs):
+    if not cfg.n_shared_experts:
+        return outs
+    parts = [(F.silu(x @ p["swg"].to(x.dtype)) * (x @ p["swu"].to(x.dtype)))
+             @ p["swo"].to(x.dtype) for p, x in zip(ps, xs)]
+    if ps[0]["swo"].shape[0] < cfg.d_ff_expert * cfg.n_shared_experts:
+        parts = reduce_model(ctxs, parts)
+    return [o + y for o, y in zip(outs, parts)]
+
+
+def apply_moe_group(ps, cfg: ModelConfig, ctxs, xs, rows_split: bool):
+    """Per-row MoE on a device group (``apply_moe(per_row=True)`` of the
+    group's rows).  ``ps``: per-slot FFN params; ``xs``: per-slot (B_i,
+    S, d) rows — row block ``i`` on the slots of data index ``i`` when
+    ``rows_split``, else every row on every slot.  Returns per-slot
+    outputs like ``xs``."""
+    E = cfg.n_experts
+    n_local = ps[0]["wg"].shape[0]
+    f_split = ps[0]["wg"].shape[-1] < cfg.d_ff_expert
+    disp = []
+    for p, x in zip(ps, xs):
+        B, S, d = x.shape
+        xf = x.reshape(B * S, d)
+        top_w, top_e, _ = router_topk(p, cfg, xf)
+        disp.append(_sort_dispatch(xf, top_w, top_e, E,
+                                   _capacity(cfg, S), B)[:3])
+    ye = []
+    for s, (p, c) in enumerate(zip(ps, ctxs)):
+        e0 = _expert_block(c, cfg, n_local)
+        n = max(0, min(n_local, E - e0))
+        srcs = ([c.slot_at(data=i) for i in range(c.n_data)] if rows_split
+                else [s])
+        ye.append(None if n == 0 else _expert_mlp(
+            torch.cat([c.receive(disp[t][0][e0:e0 + n], t) for t in srcs],
+                      dim=1),
+            p["wg"][:n], p["wu"][:n], p["wo"][:n]))
+    n_blocks = expert_alloc(E) // n_local
+    outs = []
+    for s, (c, x) in enumerate(zip(ctxs, xs)):
+        xe, slot_of, slot_weight = disp[s]
+        width = xe.shape[1]
+        off = c.i * width if rows_split else 0
+        blocks = []
+        for b in range(-(-E // n_local)):
+            parts = [ye[_holder(c, b, n_blocks, f)][:, off:off + width]
+                     for f in (range(c.n_model) if f_split else [None])]
+            blocks.append(c.all_reduce_sum(parts) if f_split else
+                          c.receive(parts[0], _holder(c, b, n_blocks, None)))
+        y = torch.cat(blocks, dim=0)
+        outs.append(_combine(y, slot_of, slot_weight).reshape(x.shape))
+    return _shared_expert_group(ps, cfg, ctxs, xs, outs)
+
+
+def _ep_eligible(params, cfg: ModelConfig, ctx, x) -> bool:
+    """The pure-EP path serves: a group, padded expert weights, and a
+    (batch, seq) token grid the (data, model) slots divide."""
+    if ctx.mesh is None or params["wg"].shape[0] == cfg.n_experts:
+        return False
+    B, S = x.shape[0], x.shape[1]
+    return (S % ctx.n_model == 0 and B % ctx.n_data == 0
+            and ctx.rules.get("batch") is not None)
+
+
+def _apply_moe_ep(ps, cfg: ModelConfig, ctxs, xs):
+    """Pure expert parallelism over the whole group (the reference's
+    shard_map body).  ``ps``: per-slot params, each holding its block of
+    ``E_alloc / n_slots`` padded experts whole; ``xs``: per-slot (B_l,
+    S_l, d) tokens, each slot's own.  Each slot routes its tokens with the
+    capacity of its ``T_l`` tokens, sends expert block ``t``'s slots to
+    slot ``t`` (ascending source order), runs its experts and sends the
+    outputs back.  Returns (per-slot routed outputs, aux) — aux over every
+    slot's tokens, on slot 0's device; no shared expert."""
+    E, k = cfg.n_experts, cfg.moe_top_k
+    n = len(ctxs)
+    E_per = ps[0]["wg"].shape[0]
+    disp, tot = [], 0
+    for p, x in zip(ps, xs):
+        T_l = x.shape[0] * x.shape[1]
+        xf = x.reshape(T_l, x.shape[-1])
+        top_w, top_e, probs = router_topk(p, cfg, xf)
+        C = max(8, int(np.ceil(T_l * k / E * cfg.capacity_factor / 8) * 8))
+        disp.append(_sort_dispatch(xf, top_w, top_e, E_per * n, C)
+                    + (probs,))
+        tot += T_l * k
+    ye = [_expert_mlp(torch.cat(
+        [c.receive(disp[s][0][t * E_per:(t + 1) * E_per], s)
+         for s in range(n)], dim=1), p["wg"], p["wu"], p["wo"])
+        for t, (p, c) in enumerate(zip(ps, ctxs))]
+    outs = []
+    for s, (c, x) in enumerate(zip(ctxs, xs)):
+        xe, slot_of, slot_weight = disp[s][:3]
+        C = xe.shape[1]
+        ret = torch.cat([c.receive(ye[t][:, s * C:(s + 1) * C], t)
+                         for t in range(n)], dim=0)
+        outs.append(_combine(ret, slot_of, slot_weight).reshape(x.shape))
+    c0 = ctxs[0]
+    tot = float(max(tot, 1))
+    counts = sum(c0.to_here(d[3][0, :E].float()) for d in disp)
+    mean_prob = sum(c0.to_here(d[5].mean(dim=0)) for d in disp) / n
+    kept = sum(c0.to_here(d[4][0].float()) for d in disp)
+    aux = {"moe_aux_loss": E * (counts / tot * mean_prob).sum(),
+           "moe_drop_frac": 1.0 - kept / tot}
+    return outs, aux
+
+
+__all__ = ["EP_MIN_EXPERTS", "EP_PAD_GROUP", "apply_moe", "apply_moe_group",
+           "expert_alloc", "init_moe", "router_topk"]

@@ -1,8 +1,9 @@
 """The geo serving stack of the port: slab and paged cache pools
 (PagePool free-list allocation, page-granular eq. (5)/(20) accounting,
 preemption and resume), the continuous-batching engine with failover
-replay, per-session sampling policies on the port's threefry, the
+replay and device-group (TP/EP) servers, per-session sampling policies on the port's threefry, the
 scheduler, and the (copied) fault model."""
+from repro_torch.launch.sharding import DeviceGroup
 from repro_torch.serving.engine import (BlockServer, EngineSession,
                                         GeoServingSystem, generate)
 from repro_torch.serving.faults import (FailureDetector, FaultEvent,
@@ -29,7 +30,7 @@ from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
 
 __all__ = [
     "BlockServer", "CachePool", "ContinuousBatchingScheduler",
-    "EngineSession", "FailureDetector", "FaultEvent", "FaultPlan",
+    "DeviceGroup", "EngineSession", "FailureDetector", "FaultEvent", "FaultPlan",
     "GeoServingSystem", "NoCapacityError", "PagePool", "SUPPORTED_KINDS",
     "SamplingSpec", "ServedRequest", "StateSpec", "bucket_for",
     "default_prefill_buckets", "generate", "kind_runs",

@@ -37,7 +37,16 @@ Entry points run on the card (``device="cuda"``) unless the caller passes
 the hand-written kernels.  Sessions sample greedily or by seeded
 temperature / top-k (``sampling.SamplingSpec``).  Each server's τ can be
 calibrated from the H100 roofline of its pooled decode step
-(``calibrate_taus``).  Not in this slice: device groups (A10).
+(``calibrate_taus``).
+
+A server can be a TP/EP device group (``device_groups={sid: GroupMesh |
+DeviceGroup | None}``, or ``mesh=`` for one group on every server): its
+params and pool live per slot under the reference's serving rules
+(``launch.sharding``) and its pooled steps run the per-slot body on every
+slot (the ``kv_cache`` steps built with ``mesh=``).  Under ``mesh=`` the client's
+embedding and LM head run on the group too, vocab-parallel.  The
+virtual clock keeps the problem's τ; ``calibrate_taus`` prices each group
+per slot, its collectives included.
 """
 from __future__ import annotations
 
@@ -55,14 +64,23 @@ from repro_torch.core.placement import petals_bp
 from repro_torch.core.routing import petals_route, shortest_path_route
 from repro_torch.kernels.runtime import count_meta_calls, resolve_backend
 from repro_torch.launch.costs import CostSummary, tau_from_step_cost
+from repro_torch.launch.sharding import (DeviceGroup, as_device_group,
+                                         block_param_axes,
+                                         block_param_shardings,
+                                         embed_param_axes, freeze_rules,
+                                         group_layout_rules, guarded_spec,
+                                         serving_rules, shard, thaw_rules)
 from repro_torch.models import blocks as B
-from repro_torch.models.layers import (embed_frames, embed_tokens, lm_head,
+from repro_torch.models.layers import (count_collectives, embed_frames,
+                                       embed_tokens, embed_tokens_group,
+                                       group_ctxs, lm_head, lm_head_group,
                                        param_dtype)
 from repro_torch.models.model import (block_param_range, layer_params,
                                       tree_map, tree_nbytes)
 from repro_torch.serving.faults import (FailureDetector, FaultPlan,
                                         NoCapacityError, recovery_replay_cost)
-from repro_torch.serving.kv_cache import (CachePool, bucket_for,
+from repro_torch.serving.kv_cache import (CachePool, _ep_row_grid,
+                                          bucket_for, check_group_kinds,
                                           decode_step_bytes,
                                           default_prefill_buckets, kind_runs,
                                           make_paged_decode_step,
@@ -157,7 +175,7 @@ class BlockServer:
                  enc_len: int = 0, slowdown: float = 1.0,
                  backend: str = "kernel",
                  cache_layout: str = "slab", page_size: int = 0,
-                 device="cuda"):
+                 device="cuda", group=None):
         self.sid = sid
         self.backend = backend
         self.cfg = cfg
@@ -174,27 +192,80 @@ class BlockServer:
             for kind, lo, hi in self.runs)
         self.layer_ids = tuple(range(self.a, self.a + self.m))
         self.cache_layout = cache_layout
+        # an optional TP/EP device group: params and pool per slot, the
+        # steps run the per-slot body on every slot
+        self.group = as_device_group(group)
+        self.mesh = self.group.mesh
+        self.n_chips = self.group.n_chips
+        self.mesh_rules = None
+        layout = None
+        if self.mesh is not None:
+            check_group_kinds(self.kinds)
+            self.mesh_rules = thaw_rules(
+                self.group.frozen_rules_for(cfg, n_rows, max_len))
+            layout = group_layout_rules(self.mesh_rules)
         self.pool = CachePool(cfg, self.kinds, n_rows, max_len, cap_slots,
                               enc_len=enc_len, layout=cache_layout,
-                              page_size=page_size, device=self.device)
+                              page_size=page_size, device=self.device,
+                              group=None if layout is None
+                              else (self.mesh, layout))
         self.alive = True
         self.crashed = False
         self.suspected = False
         self.slowdown = slowdown
-        if cache_layout == "paged":
-            self._step = make_paged_decode_step(cfg, self.kinds, backend,
-                                                page_size)
-            self._round_step = make_paged_round_step(cfg, self.kinds,
-                                                     backend, page_size)
-            self._prefill_pool = make_paged_prefill_step(cfg, self.kinds,
-                                                         backend, page_size)
-        else:
-            self._step = make_pool_decode_step(cfg, self.kinds, backend)
-            self._round_step = make_pool_round_step(cfg, self.kinds,
-                                                    backend)
-            self._prefill_pool = make_pool_prefill_step(cfg, self.kinds,
-                                                        backend)
         self._step_cost: Optional[CostSummary] = None
+        self._step_params = self.run_params
+        self.moe_ep = False
+        if self.mesh is not None:
+            layout = self._shard_params(layout)
+        group = dict(mesh=self.mesh, rules=layout)
+        if cache_layout == "paged":
+            self._step = make_paged_decode_step(
+                cfg, self.kinds, backend, page_size, **group,
+                moe_ep=self.moe_ep)
+            self._round_step = make_paged_round_step(
+                cfg, self.kinds, backend, page_size, **group,
+                moe_ep=self.moe_ep)
+            self._prefill_pool = make_paged_prefill_step(
+                cfg, self.kinds, backend, page_size, **group)
+        else:
+            self._step = make_pool_decode_step(cfg, self.kinds, backend,
+                                               **group, moe_ep=self.moe_ep)
+            self._round_step = make_pool_round_step(
+                cfg, self.kinds, backend, **group, moe_ep=self.moe_ep)
+            self._prefill_pool = make_pool_prefill_step(cfg, self.kinds,
+                                                        backend, **group)
+
+    def _shard_params(self, layout):
+        """Shard the run params per slot (``block_param_shardings`` under
+        the group layout); returns the layout the steps run under.  A
+        padded MoE that takes the pure-EP all-to-all (``_ep_row_grid``)
+        keeps each expert whole on one slot, its experts over (data,
+        model)."""
+        cfg, mesh = self.cfg, self.mesh
+        frozen = freeze_rules(self.mesh_rules)
+        self.moe_ep = any(
+            _ep_row_grid(cfg, mesh, frozen, p, self.pool.n_rows) is not None
+            for p in self.run_params)
+        if self.moe_ep:
+            layout = dict(layout, experts=("data", "model"), expert_mlp=None)
+        self.param_specs = tuple(
+            block_param_shardings(mesh, layout,
+                                  block_param_axes(cfg, kind, p), p)
+            for p, (kind, _, _) in zip(self.run_params, self.runs))
+        slots = [[] for _ in range(mesh.size)]
+        for p, specs in zip(self.run_params, self.param_specs):
+            per = {parent: {name: shard(x, specs[parent][name], mesh)
+                            for name, x in sub.items()}
+                   for parent, sub in p.items()}
+            for s in range(mesh.size):
+                slots[s].append({parent: {name: v[s]
+                                          for name, v in sub.items()}
+                                 for parent, sub in per.items()})
+        self.slot_params = tuple(tuple(sp) for sp in slots)
+        self._step_params = self.slot_params
+        self.layout_rules = layout
+        return layout
 
     # -- session admission bookkeeping --------------------------------------
     def fits(self, sid: int, k_blocks: int, n_pages: int = 0,
@@ -216,9 +287,10 @@ class BlockServer:
     def _pools(self) -> tuple:
         """The pool operands of a step: the state trees, and the device
         page table on the paged layout."""
+        tree = self.pool.tree if self.mesh is None else self.pool.slot_trees
         if self.cache_layout == "paged":
-            return self.pool.tree, self.pool.page_table()
-        return (self.pool.tree,)
+            return tree, self.pool.page_table()
+        return (tree,)
 
     # -- compute ------------------------------------------------------------
     def _layer_params(self, l_rel: int):
@@ -236,6 +308,14 @@ class BlockServer:
         assert self.alive, f"server {self.sid} is dead"
         row = self.pool.rows[sid]
         S = h.shape[1]
+        if self.mesh is not None:
+            # a group prefills through its pooled step, on the row alone
+            N = self.pool.n_rows
+            h_rows = h.new_zeros((N,) + tuple(h.shape[1:]))
+            h_rows[row] = h[0]
+            mask = np.zeros((self.m, N), bool)
+            mask[lo - self.a: hi - self.a, row] = True
+            return self.prefill_rows(h_rows, self._mask(mask))[row][None]
         entries = []
         for l in range(lo, hi):
             kind = self.kinds[l - self.a]
@@ -275,7 +355,7 @@ class BlockServer:
         rows' original embeddings (hybrid stacks); ``enc_rows``: the rows'
         encoder outputs (enc-dec stacks)."""
         assert self.alive, f"server {self.sid} is dead"
-        return self._prefill_pool(self.run_params, self.shared,
+        return self._prefill_pool(self._step_params, self.shared,
                                   *self._pools(), h_rows, emb0_rows,
                                   layer_active, self.layer_ids, offset,
                                   enc_rows, phase)
@@ -285,7 +365,7 @@ class BlockServer:
         """THE batched step: one pooled call decodes all masked rows
         (``enc_len_rows``: the rows' encoder lengths, enc-dec stacks)."""
         assert self.alive, f"server {self.sid} is dead"
-        return self._step(self.run_params, self.shared, *self._pools(),
+        return self._step(self._step_params, self.shared, *self._pools(),
                           h_rows, pos_rows, emb0_rows, layer_active,
                           self.layer_ids, enc_len_rows)
 
@@ -294,7 +374,7 @@ class BlockServer:
         """The fused device-resident hop: gather this server's rows out of
         the round buffers, decode them, scatter the results back."""
         assert self.alive, f"server {self.sid} is dead"
-        return self._round_step(self.run_params, self.shared,
+        return self._round_step(self._step_params, self.shared,
                                 *self._pools(), h_round, pos_round,
                                 emb0_round, slot_of_row, row_of_slot,
                                 layer_active, self.layer_ids, encl_round)
@@ -354,6 +434,8 @@ class BlockServer:
     def _count_decode_step(self) -> CostSummary:
         from torch.utils.flop_counter import FlopCounterMode
 
+        if self.mesh is not None:
+            return self._count_group_step()
         cfg, N = self.cfg, self.pool.n_rows
         T, enc_len = self.pool.max_len, self.pool.enc_len
         act = param_dtype(cfg)
@@ -393,6 +475,59 @@ class BlockServer:
         return CostSummary(
             flops=products.get_total_flops() + attention.cost.flops,
             bytes_accessed=nbytes)
+
+    def _count_group_step(self) -> CostSummary:
+        """Per-slot cost of a group's pooled decode step: the group step run
+        on meta slots (the slab layout) under ``FlopCounterMode``, K1's
+        ``cost`` and the slot collectives' count; flops and wire bytes are
+        the group's over its slot count (the slots do like work), bytes
+        those of one slot's shard of the params and pool and its rows."""
+        from torch.utils.flop_counter import FlopCounterMode
+
+        from repro_torch.launch.mesh import GroupMesh
+        from repro_torch.serving.kv_cache import (_slot_tree,
+                                                  group_pool_specs,
+                                                  new_state_pool_tree,
+                                                  rows_split)
+
+        cfg, N = self.cfg, self.pool.n_rows
+        T = self.pool.max_len
+        n = self.mesh.size
+        meta_mesh = GroupMesh(np.full(self.mesh.devices.shape,
+                                      torch.device("meta"), dtype=object))
+        layout = self.layout_rules
+        full = tuple(new_state_pool_tree(cfg, kind, hi - lo, N, T, 0, "meta")
+                     for kind, lo, hi in self.runs)
+        specs = tuple(group_pool_specs(meta_mesh, layout, t, False)
+                      for t in full)
+        pools = tuple(tuple(_slot_tree(t, sp, meta_mesh, s, "meta")
+                            for t, sp in zip(full, specs))
+                      for s in range(n))
+        params = tuple(tuple(tree_map(
+            lambda x: torch.empty_like(x, device="meta"), p) for p in sp)
+            for sp in self.slot_params)
+        act = param_dtype(cfg)
+        h = torch.empty((N, 1, cfg.d_model), dtype=act, device="meta")
+        pos = torch.empty((N,), dtype=torch.long, device="meta")
+        mask = torch.empty((self.m, N), dtype=torch.bool, device="meta")
+        step = make_pool_decode_step(cfg, self.kinds, "kernel", meta_mesh,
+                                     layout, self.moe_ep)
+        with torch.no_grad(), FlopCounterMode(display=False) as products, \
+                count_meta_calls(T - 1, 0) as attention, \
+                count_collectives() as coll:
+            step(params, None, pools, h, pos, None, mask, self.layer_ids)
+        rows = N // self.mesh.devices.shape[0] \
+            if rows_split(layout, meta_mesh, N) else N
+        pool = [decode_step_bytes(t, T) for t in pools[0]]
+        nbytes = sum(tree_nbytes(p) for p in self.slot_params[0]) \
+            + sum(read + written for read, written in pool) \
+            + 2 * rows * cfg.d_model * h.element_size() \
+            + rows * (8 + self.m)
+        return CostSummary(
+            flops=(products.get_total_flops() + attention.cost.flops) / n,
+            bytes_accessed=nbytes, coll_wire_bytes=coll.wire / n,
+            coll_count=int(round(coll.calls / n)),
+            coll_by_kind={k: v / n for k, v in coll.by_kind.items()})
 
 
 @dataclass
@@ -441,8 +576,12 @@ class GeoServingSystem:
     replay.  ``page_size`` must divide ``max_seq_len`` (default: its
     largest divisor <= 16).
 
-    Not in this slice (they raise ``NotImplementedError``):
-    ``mesh``/``device_groups`` (A10).
+    ``device_groups``: {server id: ``GroupMesh`` | ``DeviceGroup`` | None}
+    — each server a TP/EP group of device slots (None or missing: solo);
+    ``mesh`` (+ ``mesh_rules``, a rules dict or frozen tuple overriding
+    ``serving_rules``): one group on every server, and the client's
+    embedding and LM head vocab-parallel on it.  Not both.  Groups take
+    decoder stacks; another block kind raises ``NotImplementedError``.
     """
 
     def __init__(self, cfg: ModelConfig, params, problem: Problem,
@@ -456,7 +595,7 @@ class GeoServingSystem:
                  backend: str = "kernel",
                  cache_layout: str = "slab",
                  page_size: Optional[int] = None,
-                 mesh=None, device_groups=None,
+                 mesh=None, mesh_rules=None, device_groups=None,
                  fault_plan: Optional[FaultPlan] = None,
                  detector: Optional[FailureDetector] = None,
                  device="cuda"):
@@ -464,10 +603,22 @@ class GeoServingSystem:
         assert prefill_mode in ("batched", "serial"), prefill_mode
         assert decode_mode in ("fused", "serial"), decode_mode
         assert cache_layout in ("slab", "paged"), cache_layout
-        if mesh is not None or device_groups is not None:
-            raise NotImplementedError(
-                "device-group servers (mesh / device_groups) are a later "
-                "slice of the port (ROADMAP A10)")
+        if device_groups is not None and mesh is not None:
+            raise ValueError(
+                "pass either device_groups= or the global mesh= sugar, "
+                "not both")
+        if mesh_rules is not None and not isinstance(mesh_rules, tuple):
+            mesh_rules = freeze_rules(dict(mesh_rules))
+        self.mesh = mesh
+        self.mesh_rules = mesh_rules
+        if device_groups is not None:
+            self.device_groups = {int(j): as_device_group(g)
+                                  for j, g in device_groups.items()}
+        elif mesh is not None:
+            g = DeviceGroup(mesh=mesh, rules=mesh_rules)
+            self.device_groups = {j: g for j in range(problem.n_servers)}
+        else:
+            self.device_groups = {}
         self.backend = resolve_backend(backend)
         self.device = torch.device(device)
         self.cfg = cfg
@@ -522,7 +673,12 @@ class GeoServingSystem:
         self.sessions: Dict[int, EngineSession] = {}
         self._sid = 0
         self.decode_mode = decode_mode
-        self._round_tail = make_round_tail(cfg)
+        # under mesh= the client's embedding and LM head are vocab-parallel
+        # on the group (model slots split the vocabulary)
+        self._client = None if mesh is None else \
+            self._client_group(mesh, mesh_rules)
+        self._round_tail = make_round_tail(
+            cfg, head=None if self._client is None else self._lm_head)
         # fixed round width: the round buffers span W slots whatever the
         # round's membership, so per-session results are bit-identical solo
         # or grouped (grown if a round ever exceeds it)
@@ -545,9 +701,34 @@ class GeoServingSystem:
         self._base_taus = [float(s.tau) for s in problem.servers]
 
     # ------------------------------------------------------------------
+    def _client_group(self, mesh, mesh_rules):
+        """(slot ctxs, per-slot embedding trees) of the client on ``mesh``:
+        the table's and the head's vocab axis over ``model``."""
+        rules = thaw_rules(mesh_rules) if mesh_rules is not None else \
+            serving_rules(self.cfg, mesh, self.max_sessions,
+                          self.max_seq_len)
+        emb = self.params["embed"]
+        axes = embed_param_axes(emb)
+
+        def split(x, ax):
+            return shard(x, guarded_spec(ax, tuple(x.shape), rules, mesh),
+                         mesh)
+
+        per = {k: ({n: split(x, axes[k][n]) for n, x in v.items()}
+                   if isinstance(v, dict) else split(v, axes[k]))
+               for k, v in emb.items()}
+        slots = [{k: ({n: x[s] for n, x in v.items()}
+                      if isinstance(v, dict) else v[s])
+                  for k, v in per.items()} for s in range(mesh.size)]
+        return group_ctxs(mesh, rules), slots
+
     def _embed(self, tokens) -> torch.Tensor:
         """Embed a host token array (B, S) on the engine's device."""
         tok = to_device(np.asarray(tokens, np.int64), self.device)
+        if self._client is not None:
+            ctxs, ps = self._client
+            return embed_tokens_group(ps, self.cfg, ctxs, [
+                c.to_here(tok) for c in ctxs])[0].to(self.device)
         return embed_tokens(self.params["embed"], self.cfg, tok)
 
     def _embed_frames(self, frames) -> torch.Tensor:
@@ -557,6 +738,10 @@ class GeoServingSystem:
         return embed_frames(self.params["embed"], self.cfg, fr)
 
     def _lm_head(self, h) -> torch.Tensor:
+        if self._client is not None:
+            ctxs, ps = self._client
+            return lm_head_group(ps, self.cfg, ctxs, [
+                c.to_here(h) for c in ctxs])[0].to(self.device)
         return lm_head(self.params["embed"], self.cfg, h)
 
     def _cap_slots(self, j: int, m: int) -> int:
@@ -587,7 +772,8 @@ class GeoServingSystem:
                 max_len=self.max_seq_len, cap_slots=cap,
                 enc_len=self.max_enc_len if self._is_enc_dec else 0,
                 backend=self.backend, cache_layout=self.cache_layout,
-                page_size=self.page_size, device=self.device)
+                page_size=self.page_size, device=self.device,
+                group=self.device_groups.get(j))
 
     def alive_placement(self) -> Placement:
         a = np.array(self.placement.a)
@@ -606,10 +792,11 @@ class GeoServingSystem:
         """Per-server τ (per-block per-token decode seconds, eq. (1)): the
         H100 roofline of each server's pooled decode step
         (``BlockServer.decode_step_cost``, ``launch.costs``) over its
-        hosted blocks × pool rows.  One card per server (device groups:
-        ROADMAP A10)."""
-        return {j: tau_from_step_cost(srv.decode_step_cost(), 1, srv.m,
-                                      srv.pool.n_rows)
+        hosted blocks × pool rows.  A group's step is priced per slot, its
+        collectives over NVLink, so groups of different sizes give
+        different τ."""
+        return {j: tau_from_step_cost(srv.decode_step_cost(), srv.n_chips,
+                                      srv.m, srv.pool.n_rows)
                 for j, srv in self.servers.items()}
 
     def calibrated_problem(self) -> Problem:

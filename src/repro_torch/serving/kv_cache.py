@@ -45,6 +45,18 @@ values, through strides.  The paged layout keeps that buffer whole in its
 page arrays and scratch.  MoE layers route each pool row alone
 (``moe_rows``), as the reference's vmapped rows do.
 
+Device-group servers (``launch.mesh.GroupMesh`` + the serving rules of
+``launch.sharding``): the pool is a tree per slot — rows over ``data``,
+KV heads over ``model``, the time axis and (paged) the page axis whole on
+each slot (``group_pool_specs``) — and the pooled steps built with
+``mesh=`` run their per-slot body on every slot in lockstep
+(``blocks.decoder_block_*_group``, which a solo server runs on its one
+``NULL`` slot), staging a slot's rows onto its device and gathering the
+results back onto the caller's; the paged twins gather and scatter each
+slot's own rows.  ``_ep_row_grid`` is the reference's
+gate that sends a padded MoE through the pure-EP all-to-all.  Groups take
+decoder blocks (GQA or MLA, dense or MoE) in this slice.
+
 Encoder-decoder stacks: ``enc`` blocks hold no state and do no decode
 work (the decode steps skip their runs); ``dec`` blocks hold self K/V and
 the cross K/V ``ck``/``cv`` at ``enc_len`` (the engine's ``max_enc_len``)
@@ -62,9 +74,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.sharding import (pool_tree_shardings, slot_index,
+                                         thaw_rules)
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import mla_cache_views, mla_keys
-from repro_torch.models.layers import param_dtype
+from repro_torch.models.layers import NULL, group_ctxs, param_dtype
 from repro_torch.models.model import (LENGTH_KEYS, layer_params,
                                       recurrent_state, tree_nbytes)
 
@@ -381,11 +395,16 @@ class CachePool:
     budget is ``cap_units = cap_slots × max_pages`` page-units, a session
     through ``k`` blocks holding ``p`` pages charges ``k·p``, and the page
     arrays hold the same byte budget (``cap_units / n_layers`` pages,
-    clamped to what the rows could ever reference)."""
+    clamped to what the rows could ever reference).
+
+    ``group=(mesh, layout_rules)``: a device-group server's pool — the
+    trees live per slot in ``slot_trees`` (``group_pool_specs``) and
+    ``tree`` is None; the bookkeeping is the same."""
 
     def __init__(self, cfg: ModelConfig, kinds: Sequence[str], n_rows: int,
                  max_len: int, cap_slots: int, enc_len: int = 0,
-                 layout: str = "slab", page_size: int = 0, device="cuda"):
+                 layout: str = "slab", page_size: int = 0, device="cuda",
+                 group=None):
         if layout not in ("slab", "paged"):
             raise ValueError(f"cache layout {layout!r}: 'slab' or 'paged'")
         self.cfg = cfg
@@ -415,15 +434,28 @@ class CachePool:
             self.sid_pages: Dict[int, int] = {}  # sid -> pages held
             self.tree: Tuple[Dict, ...] = tuple(
                 new_paged_pool_tree(cfg, kind, hi - lo, n_rows, page_size,
-                                    n_phys + 1, self.enc_len, device)
+                                    n_phys + 1, self.enc_len,
+                                    "meta" if group else device)
                 for kind, lo, hi in self.runs)
             self._table_dev: Optional[Tuple[int, torch.Tensor]] = None
         else:
             self.page_size = 0
             self.tree = tuple(
                 new_state_pool_tree(cfg, kind, hi - lo, n_rows, max_len,
-                                    self.enc_len, device)
+                                    self.enc_len,
+                                    "meta" if group else device)
                 for kind, lo, hi in self.runs)
+        self.slot_trees = self.slot_specs = None
+        if group is not None:
+            mesh, rules = group
+            paged = layout == "paged"
+            self.slot_specs = tuple(group_pool_specs(mesh, rules, t, paged)
+                                    for t in self.tree)
+            self.slot_trees = tuple(
+                tuple(_slot_tree(t, sp, mesh, s, dev)
+                      for t, sp in zip(self.tree, self.slot_specs))
+                for s, dev in enumerate(mesh.slot_devices()))
+            self.tree = None
         self._free: List[int] = list(range(n_rows))
         self.rows: Dict[int, int] = {}  # sid -> row
         self.blocks: Dict[int, int] = {}  # sid -> k block-slots held
@@ -650,8 +682,124 @@ def _masked_state_write(cache, state, active):
         leaf.copy_(torch.where(msk, new.to(leaf.dtype), leaf))
 
 
+def _slot_ctxs(kinds: Sequence[str], mesh, rules):
+    """The slots a pooled step runs on: a group's ctxs in slot order, or
+    the solo server's one ``NULL`` slot."""
+    if mesh is None:
+        return [NULL]
+    check_group_kinds(kinds)
+    return group_ctxs(mesh, rules)
+
+
+def _row_split(ctxs, mesh, rules, n_rows: int):
+    """(rows split over ``data``, each slot's row slice)."""
+    split = mesh is not None and rows_split(rules, mesh, n_rows)
+    return split, _row_slices(ctxs, n_rows, split)
+
+
+def _public(mesh, body):
+    """A step's public form: per-slot lists of run params and state trees
+    on a group, the server's own on a solo one (its one slot)."""
+    if mesh is not None:
+        return body
+
+    def step(run_params, shared_params, pool_trees, *rest, **kw):
+        return body([run_params], shared_params, [pool_trees], *rest, **kw)
+
+    return step
+
+
+def _prefill_body(cfg: ModelConfig, kinds: Tuple[str, ...], backend: str,
+                  mesh, rules):
+    runs = kind_runs(kinds)
+    for kind, _, _ in runs:
+        _check_kind(kind)
+    ctxs = _slot_ctxs(kinds, mesh, rules)
+    # the self-attention cache leaves a chunked prefill reads as its prefix
+    prefix_keys = ("latent", "krope") if cfg.attn_kind == "mla" \
+        else ("k", "v")
+
+    def step(slot_params, shared_params, slot_pools, h, emb0, layer_active,
+             layer_ids, offset, enc_rows=None, phase="all"):
+        T = h.shape[1]
+        split, sl = _row_split(ctxs, mesh, rules, h.shape[0])
+        hs = [c.to_here(h[r]) for c, r in zip(ctxs, sl)]
+        acts = [c.to_here(layer_active[:, r]) for c, r in zip(ctxs, sl)]
+        poss = [offset + torch.arange(T, device=x.device) for x in hs]
+        for r, (kind, lo, hi) in enumerate(runs):
+            if (phase == "enc" and kind != "enc") or \
+                    (phase == "dec" and kind == "enc"):
+                continue
+            if _STATE_SPECS[kind].recurrent and offset != 0:
+                raise ValueError(
+                    f"recurrent-state kind {kind!r} cannot resume prefill "
+                    "at a nonzero chunk offset")
+            for i in range(hi - lo):
+                act = [a[lo + i] for a in acts]
+                ps = [layer_params(sp[r], i) for sp in slot_params]
+                cs = [layer_params(tr[r], i) for tr in slot_pools]
+                if kind == "decoder":
+                    prefixes = None if offset == 0 else [
+                        tuple(c[key][:, :offset] for key in prefix_keys)
+                        for c in cs]
+                    h2s, chunks = B.decoder_block_full_group(
+                        ps, cfg, ctxs, hs, poss, layer_ids[lo + i],
+                        prefixes, backend, split)
+                    for c, chunk, a in zip(cs, chunks, act):
+                        for key in chunk:
+                            _masked_ranged_write(c[key], chunk[key], a,
+                                                 offset, T)
+                else:  # a solo server's one slot (check_group_kinds)
+                    h2s = [_prefill_solo_block(
+                        cfg, kind, ps[0], cs[0], hs[0], act[0], poss[0],
+                        shared_params, emb0, offset, enc_rows, backend)]
+                hs = [torch.where(a[:, None, None], x2, x)
+                      for a, x2, x in zip(act, h2s, hs)]
+        return _gather_rows(ctxs, hs, split, h.device)
+
+    return step
+
+
+def _prefill_solo_block(cfg: ModelConfig, kind: str, p, c, h, act,
+                        positions, shared_params, emb0, offset: int,
+                        enc_rows, backend: str):
+    """One prefill layer of a block kind groups do not take; writes its
+    state into the layer's pool leaves ``c`` on active rows."""
+    T = h.shape[1]
+    if kind == "enc":
+        return B.encoder_block_full(p, cfg, h, positions, backend=backend)
+    if kind == "dec":
+        n_enc = enc_rows.shape[1]
+        prefix = enc_kv = None
+        if offset:  # cross K/V are chunk-independent
+            prefix = (c["k"][:, :offset], c["v"][:, :offset])
+            enc_kv = (c["ck"][:, :n_enc], c["cv"][:, :n_enc])
+        h2, chunk = B.cross_decoder_block_full(
+            p, cfg, h, positions, enc_rows, prefix_kv=prefix,
+            enc_kv=enc_kv, backend=backend)
+        for key in ("k", "v"):
+            _masked_ranged_write(c[key], chunk[key], act, offset, T)
+        if not offset:
+            for key in ("ck", "cv"):
+                _masked_ranged_write(c[key], chunk[key], act, 0, n_enc)
+        return h2
+    if kind == "rwkv":
+        h2, st = B.rwkv_block_full(p, cfg, h, backend=backend)
+        _masked_state_write(c, st, act)
+        return h2
+    # mamba, mamba_shared
+    h2, st = B.mamba_block_full(p, cfg, h, backend=backend)
+    _masked_state_write(c, st, act)
+    if kind == "mamba_shared":
+        h2, kv = B.zamba_shared_full(shared_params, cfg, h2, emb0,
+                                     positions, backend=backend)
+        for key in kv:
+            _masked_ranged_write(c[key], kv[key], act, 0, T)
+    return h2
+
+
 def make_pool_prefill_step(cfg: ModelConfig, kinds: Tuple[str, ...],
-                           backend: str = "kernel"):
+                           backend: str = "kernel", mesh=None, rules=None):
     """THE multi-session prefill step of a hosted block range.
 
     step(run_params, shared_params, pool_trees, h, emb0, layer_active,
@@ -680,78 +828,76 @@ def make_pool_prefill_step(cfg: ModelConfig, kinds: Tuple[str, ...],
     * ``enc_rows``: (n_rows, S_enc, d) encoder outputs of the rows for
       ``dec`` runs; their cross K/V are projected at ``offset == 0`` and
       written at [0, S_enc), and read back from the pool at later offsets.
+
+    On a device group (``mesh``; ``rules``: its layout rules) the same
+    contract with per-slot params and state trees (``run_params[s][run]``,
+    ``pool_trees[s][run]``); ``h`` and the masks stay on the caller's
+    device and the result is returned there.
     """
+    return _public(mesh, _prefill_body(cfg, kinds, backend, mesh, rules))
+
+
+def _decode_body(cfg: ModelConfig, kinds: Tuple[str, ...], backend: str,
+                 mesh, rules, moe_ep: bool):
     runs = kind_runs(kinds)
     for kind, _, _ in runs:
         _check_kind(kind)
-    # the self-attention cache leaves a chunked prefill reads as its prefix
-    prefix_keys = ("latent", "krope") if cfg.attn_kind == "mla" \
-        else ("k", "v")
+    ctxs = _slot_ctxs(kinds, mesh, rules)
 
-    def step(run_params, shared_params, pool_trees, h, emb0, layer_active,
-             layer_ids, offset, enc_rows=None, phase="all"):
-        T = h.shape[1]
-        positions = offset + torch.arange(T, device=h.device)
+    def step(slot_params, shared_params, slot_pools, h, pos, emb0,
+             layer_active, layer_ids, enc_len=None):
+        split, sl = _row_split(ctxs, mesh, rules, h.shape[0])
+        hs = [c.to_here(h[r]) for c, r in zip(ctxs, sl)]
+        poss = [c.to_here(pos[r]) for c, r in zip(ctxs, sl)]
+        acts = [c.to_here(layer_active[:, r]) for c, r in zip(ctxs, sl)]
         for r, (kind, lo, hi) in enumerate(runs):
-            if (phase == "enc" and kind != "enc") or \
-                    (phase == "dec" and kind == "enc"):
+            if kind == "enc":
                 continue
-            if _STATE_SPECS[kind].recurrent and offset != 0:
-                raise ValueError(
-                    f"recurrent-state kind {kind!r} cannot resume prefill "
-                    "at a nonzero chunk offset")
+            if kind == "dec" and enc_len is None:
+                raise ValueError("dec blocks decode with a per-row enc_len")
             for i in range(hi - lo):
-                act = layer_active[lo + i]
-                p = layer_params(run_params[r], i)
-                c = layer_params(pool_trees[r], i)
+                act = [a[lo + i] for a in acts]
+                ps = [layer_params(sp[r], i) for sp in slot_params]
+                cs = [layer_params(tr[r], i) for tr in slot_pools]
                 if kind == "decoder":
-                    prefix = None if offset == 0 else tuple(
-                        c[key][:, :offset] for key in prefix_keys)
-                    h2, chunk, _ = B.decoder_block_full(
-                        p, cfg, h, positions, layer_ids[lo + i],
-                        prefix_kv=prefix, backend=backend, moe_rows=True)
-                    for key in chunk:
-                        _masked_ranged_write(c[key], chunk[key], act,
-                                             offset, T)
-                elif kind == "enc":
-                    h2 = B.encoder_block_full(p, cfg, h, positions,
-                                              backend=backend)
-                elif kind == "dec":
-                    n_enc = enc_rows.shape[1]
-                    prefix = enc_kv = None
-                    if offset:  # cross K/V are chunk-independent
-                        prefix = (c["k"][:, :offset], c["v"][:, :offset])
-                        enc_kv = (c["ck"][:, :n_enc], c["cv"][:, :n_enc])
-                    h2, chunk = B.cross_decoder_block_full(
-                        p, cfg, h, positions, enc_rows, prefix_kv=prefix,
-                        enc_kv=enc_kv, backend=backend)
-                    for key in ("k", "v"):
-                        _masked_ranged_write(c[key], chunk[key], act,
-                                             offset, T)
-                    if not offset:
-                        for key in ("ck", "cv"):
-                            _masked_ranged_write(c[key], chunk[key], act, 0,
-                                                 n_enc)
-                elif kind == "rwkv":
-                    h2, st = B.rwkv_block_full(p, cfg, h, backend=backend)
-                    _masked_state_write(c, st, act)
-                else:  # mamba, mamba_shared
-                    h2, st = B.mamba_block_full(p, cfg, h, backend=backend)
-                    _masked_state_write(c, st, act)
-                    if kind == "mamba_shared":
-                        h2, kv = B.zamba_shared_full(
-                            shared_params, cfg, h2, emb0, positions,
-                            backend=backend)
-                        for key in kv:
-                            _masked_ranged_write(c[key], kv[key], act, 0, T)
-                h = torch.where(act[:, None, None], h2, h)
-        return h
+                    h2s = B.decoder_block_decode_group(
+                        ps, cfg, ctxs, hs, cs, poss, layer_ids[lo + i], act,
+                        backend, split, moe_ep)
+                else:  # a solo server's one slot (check_group_kinds)
+                    h2s = [_decode_solo_block(
+                        cfg, kind, ps[0], cs[0], hs[0], act[0], poss[0],
+                        shared_params, emb0, enc_len, backend)]
+                hs = [torch.where(a[:, None, None], x2, x)
+                      for a, x2, x in zip(act, h2s, hs)]
+        return _gather_rows(ctxs, hs, split, h.device)
 
     return step
 
 
+def _decode_solo_block(cfg: ModelConfig, kind: str, p, c, h, act, pos,
+                       shared_params, emb0, enc_len, backend: str):
+    """One decode layer of a block kind groups do not take."""
+    if kind == "dec":
+        return B.cross_decoder_block_decode(p, cfg, h, c, pos,
+                                            enc_len=enc_len, active=act,
+                                            backend=backend)[0]
+    if kind == "rwkv":
+        h2, st = B.rwkv_block_decode(p, cfg, h, c)
+        _masked_state_write(c, st, act)
+        return h2
+    # mamba, mamba_shared
+    h2, st = B.mamba_block_decode(p, cfg, h,
+                                  {"ssm": c["ssm"], "conv": c["conv"]})
+    if kind == "mamba_shared":
+        h2, _ = B.zamba_shared_decode(shared_params, cfg, h2, emb0, c, pos,
+                                      active=act, backend=backend)
+    _masked_state_write(c, st, act)
+    return h2
+
+
 def make_pool_decode_step(cfg: ModelConfig, kinds: Tuple[str, ...],
-                          backend: str = "kernel"):
+                          backend: str = "kernel", mesh=None, rules=None,
+                          moe_ep: bool = False):
     """THE pooled decode step of a hosted block range.
 
     step(run_params, shared_params, pool_trees, h, pos, emb0, layer_active,
@@ -765,49 +911,18 @@ def make_pool_decode_step(cfg: ModelConfig, kinds: Tuple[str, ...],
     written into the pool in place and its recurrent state overwritten
     whole; inactive rows keep their hidden state and state.  Encoder runs
     are skipped: they do no decode work.  The recurrent steps are
-    elementwise: no kernel."""
-    runs = kind_runs(kinds)
-    for kind, _, _ in runs:
-        _check_kind(kind)
+    elementwise: no kernel.
 
-    def step(run_params, shared_params, pool_trees, h, pos, emb0,
-             layer_active, layer_ids, enc_len=None):
-        for r, (kind, lo, hi) in enumerate(runs):
-            if kind == "enc":
-                continue
-            if kind == "dec" and enc_len is None:
-                raise ValueError("dec blocks decode with a per-row enc_len")
-            for i in range(hi - lo):
-                act = layer_active[lo + i]
-                p = layer_params(run_params[r], i)
-                c = layer_params(pool_trees[r], i)
-                if kind == "decoder":
-                    h2, _ = B.decoder_block_decode(
-                        p, cfg, h, c, pos, layer_ids[lo + i], active=act,
-                        backend=backend, moe_rows=True)
-                elif kind == "dec":
-                    h2, _ = B.cross_decoder_block_decode(
-                        p, cfg, h, c, pos, enc_len=enc_len, active=act,
-                        backend=backend)
-                elif kind == "rwkv":
-                    h2, st = B.rwkv_block_decode(p, cfg, h, c)
-                    _masked_state_write(c, st, act)
-                else:  # mamba, mamba_shared
-                    h2, st = B.mamba_block_decode(
-                        p, cfg, h, {"ssm": c["ssm"], "conv": c["conv"]})
-                    if kind == "mamba_shared":
-                        h2, _ = B.zamba_shared_decode(
-                            shared_params, cfg, h2, emb0, c, pos,
-                            active=act, backend=backend)
-                    _masked_state_write(c, st, act)
-                h = torch.where(act[:, None, None], h2, h)
-        return h
-
-    return step
+    On a device group, per-slot params and state trees as in
+    :func:`make_pool_prefill_step`; ``moe_ep`` routes the MoE through the
+    pure-EP all-to-all (``_ep_row_grid``)."""
+    return _public(mesh, _decode_body(cfg, kinds, backend, mesh, rules,
+                                      moe_ep))
 
 
 def make_pool_round_step(cfg: ModelConfig, kinds: Tuple[str, ...],
-                         backend: str = "kernel"):
+                         backend: str = "kernel", mesh=None, rules=None,
+                         moe_ep: bool = False):
     """THE fused per-(hop, server) dispatch of a device-resident decode
     round: gather the hop's rows out of the round buffers, run the pooled
     decode step, scatter the results back — no host round trip.
@@ -823,8 +938,11 @@ def make_pool_round_step(cfg: ModelConfig, kinds: Tuple[str, ...],
     * ``slot_of_row``: (n_rows,) — the round slot feeding each pool row
       (-1: not in the hop; a clipped placeholder ``layer_active`` masks),
     * ``row_of_slot``: (W,) — the pool row each slot takes its result from
-      (-1 keeps the slot's hidden state)."""
-    step = make_pool_decode_step(cfg, kinds, backend)
+      (-1 keeps the slot's hidden state).
+
+    On a device group the round buffers stay on the caller's device and
+    the hop's rows are staged to the slots."""
+    step = make_pool_decode_step(cfg, kinds, backend, mesh, rules, moe_ep)
 
     def hop(run_params, shared_params, pool_trees, h_round, pos_round,
             emb0_round, slot_of_row, row_of_slot, layer_active, layer_ids,
@@ -912,54 +1030,74 @@ def _scatter_paged(runs, pool_trees, scratch, page_table, page_size: int,
                 X[:, ppid] = S[:, rows, pidx]
 
 
+def _slot_pages(ctxs, mesh, rules, page_table):
+    """Each slot's rows of the page table, on its device, and their
+    slices."""
+    _, sl = _row_split(ctxs, mesh, rules, page_table.shape[0])
+    return [c.to_here(page_table[r]) for c, r in zip(ctxs, sl)], sl
+
+
 def make_paged_decode_step(cfg: ModelConfig, kinds: Tuple[str, ...],
-                           backend: str = "kernel", page_size: int = 16):
+                           backend: str = "kernel", page_size: int = 16,
+                           mesh=None, rules=None, moe_ep: bool = False):
     """Paged twin of :func:`make_pool_decode_step`: the same contract with
     the device page table ``(n_rows, max_pages)`` inserted after the pool
-    trees."""
-    body = make_pool_decode_step(cfg, kinds, backend)
+    trees.  Each slot gathers its rows' pages into its scratch and
+    scatters them back."""
+    body = _decode_body(cfg, kinds, backend, mesh, rules, moe_ep)
     runs = kind_runs(kinds)
+    ctxs = _slot_ctxs(kinds, mesh, rules)
 
-    def step(run_params, shared_params, pool_trees, page_table, h, pos,
+    def step(slot_params, shared_params, slot_pools, page_table, h, pos,
              emb0, layer_active, layer_ids, enc_len=None):
-        scratch = _gather_paged(runs, pool_trees, page_table, page_size)
-        h = body(run_params, shared_params, scratch, h, pos, emb0,
+        pts, sl = _slot_pages(ctxs, mesh, rules, page_table)
+        scratch = [_gather_paged(runs, tr, pt, page_size)
+                   for tr, pt in zip(slot_pools, pts)]
+        h = body(slot_params, shared_params, scratch, h, pos, emb0,
                  layer_active, layer_ids, enc_len)
-        _scatter_paged(runs, pool_trees, scratch, page_table, page_size, pos)
+        for c, tr, sc, pt, r in zip(ctxs, slot_pools, scratch, pts, sl):
+            _scatter_paged(runs, tr, sc, pt, page_size, c.to_here(pos[r]))
         return h
 
-    return step
+    return _public(mesh, step)
 
 
 def make_paged_prefill_step(cfg: ModelConfig, kinds: Tuple[str, ...],
-                            backend: str = "kernel", page_size: int = 16):
+                            backend: str = "kernel", page_size: int = 16,
+                            mesh=None, rules=None):
     """Paged twin of :func:`make_pool_prefill_step` (page table inserted
     after the pool trees).  The encoder phase touches no pool state, so it
     gathers and scatters no pages."""
-    body = make_pool_prefill_step(cfg, kinds, backend)
+    body = _prefill_body(cfg, kinds, backend, mesh, rules)
     runs = kind_runs(kinds)
+    ctxs = _slot_ctxs(kinds, mesh, rules)
 
-    def step(run_params, shared_params, pool_trees, page_table, h, emb0,
+    def step(slot_params, shared_params, slot_pools, page_table, h, emb0,
              layer_active, layer_ids, offset, enc_rows=None, phase="all"):
         if phase == "enc":
-            return body(run_params, shared_params, pool_trees, h, emb0,
+            return body(slot_params, shared_params, slot_pools, h, emb0,
                         layer_active, layer_ids, offset, enc_rows, phase)
-        scratch = _gather_paged(runs, pool_trees, page_table, page_size)
-        h = body(run_params, shared_params, scratch, h, emb0, layer_active,
+        pts, _ = _slot_pages(ctxs, mesh, rules, page_table)
+        scratch = [_gather_paged(runs, tr, pt, page_size)
+                   for tr, pt in zip(slot_pools, pts)]
+        h = body(slot_params, shared_params, scratch, h, emb0, layer_active,
                  layer_ids, offset, enc_rows, phase)
-        _scatter_paged(runs, pool_trees, scratch, page_table, page_size)
+        for tr, sc, pt in zip(slot_pools, scratch, pts):
+            _scatter_paged(runs, tr, sc, pt, page_size)
         return h
 
-    return step
+    return _public(mesh, step)
 
 
 def make_paged_round_step(cfg: ModelConfig, kinds: Tuple[str, ...],
-                          backend: str = "kernel", page_size: int = 16):
+                          backend: str = "kernel", page_size: int = 16,
+                          mesh=None, rules=None, moe_ep: bool = False):
     """Paged twin of :func:`make_pool_round_step`: the fused hop with the
     page gather/scatter around the same decode step.  Rows outside the hop
     take a placeholder position; the page it selects is the row's own (a
     write of its own gathered values) or the trash page."""
-    step = make_paged_decode_step(cfg, kinds, backend, page_size)
+    step = make_paged_decode_step(cfg, kinds, backend, page_size, mesh,
+                                  rules, moe_ep)
 
     def hop(run_params, shared_params, pool_trees, page_table, h_round,
             pos_round, emb0_round, slot_of_row, row_of_slot, layer_active,
@@ -972,3 +1110,109 @@ def make_paged_round_step(cfg: ModelConfig, kinds: Tuple[str, ...],
             encl_round)
 
     return hop
+
+
+# ---------------------------------------------------------------------------
+# Device groups: slot pools, the EP gate and the row split
+# ---------------------------------------------------------------------------
+
+
+_LENGTH_KEYS = ("k", "v", "latent", "krope")
+
+
+def group_pool_specs(mesh, rules: Dict, tree, paged: bool):
+    """Per-leaf specs of a group pool's state tree: the reference's
+    ``pool_tree_shardings`` under the group layout rules (rows over
+    ``data``, KV heads over ``model``, time whole); the page arrays of the
+    paged layout keep their page axis whole, so a slot gathers any page
+    its rows own."""
+    specs = pool_tree_shardings(mesh, rules, tree)
+    if paged:
+        specs = {k: (sp[:1] + (None,) + sp[2:] if k in _LENGTH_KEYS
+                     else sp) for k, sp in specs.items()}
+    return specs
+
+
+def _block_shape(shape, idx):
+    return tuple(len(range(*sl.indices(n))) for sl, n in zip(idx, shape))
+
+
+def _slot_tree(tree, specs, mesh, slot: int, device):
+    """Zero state of one slot: each leaf's block under its spec (an MLA
+    layer's latent/krope as the views of one joint buffer)."""
+    out = {}
+    if "latent" in tree:
+        lat, kr = tree["latent"], tree["krope"]
+        shape = tuple(lat.shape[:-1]) + (lat.shape[-1] + kr.shape[-1],)
+        idx = slot_index(shape, specs["latent"], mesh, slot)
+        out.update(mla_cache_views(torch.zeros(
+            _block_shape(shape, idx), dtype=lat.dtype, device=device),
+            lat.shape[-1]))
+    for key, x in tree.items():
+        if key not in out:
+            idx = slot_index(tuple(x.shape), specs[key], mesh, slot)
+            out[key] = torch.zeros(_block_shape(tuple(x.shape), idx),
+                                   dtype=x.dtype, device=device)
+    return out
+
+
+def check_group_kinds(kinds: Sequence[str]):
+    """``NotImplementedError`` for a block kind groups do not take yet."""
+    for kind in sorted(set(kinds)):
+        if kind != "decoder":
+            raise NotImplementedError(
+                f"device groups over {kind!r} blocks are not ported yet "
+                "(ROADMAP A10(b)); groups take decoder blocks")
+
+
+def _ep_row_grid(cfg: ModelConfig, mesh, frozen_rules, p_stack,
+                 n_rows: int) -> Optional[Tuple[int, int]]:
+    """(B, S) grid of the decode rows that sends a decoder run's MoE
+    through the pure-EP all-to-all (``moe._apply_moe_ep``), or None for
+    the per-row path — the reference's gate: a group, PADDED expert
+    weights, the (data, model) extents dividing the (n_data, n_rows /
+    n_data) token grid, a batch rule, and at most 8 tokens a slot (no
+    expert can then overflow the minimum capacity, so the mixture is the
+    per-row one)."""
+    if mesh is None or not cfg.is_moe:
+        return None
+    ffn = p_stack.get("ffn") if isinstance(p_stack, dict) else None
+    if not isinstance(ffn, dict) or "wg" not in ffn:
+        return None
+    E_alloc = int(ffn["wg"].shape[1])  # (run_layers, E_alloc, d, f)
+    if E_alloc == cfg.n_experts:
+        return None
+    if thaw_rules(frozen_rules).get("batch") is None:
+        return None
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    model = sizes.get("model", 1)
+    n_data = int(np.prod([sizes[a] for a in ("pod", "data") if a in sizes]))
+    n_ep = n_data * model
+    if (n_rows % n_data or (n_rows // n_data) % model or E_alloc % n_ep
+            or n_rows > 8 * n_ep):
+        return None
+    return n_data, n_rows // n_data
+
+
+def rows_split(rules: Dict, mesh, n_rows: int) -> bool:
+    """True when a group's pool rows shard over ``data`` (the batch rule
+    and the divisibility guard)."""
+    n_data = mesh.devices.shape[0]
+    return (n_data > 1 and rules.get("batch") is not None
+            and n_rows % n_data == 0)
+
+
+def _row_slices(ctxs, n_rows: int, split: bool):
+    if not split:
+        return [slice(None)] * len(ctxs)
+    w = n_rows // ctxs[0].n_data
+    return [slice(c.i * w, (c.i + 1) * w) for c in ctxs]
+
+
+def _gather_rows(ctxs, hs, split: bool, device):
+    """The group's output rows on ``device``: each row block from its
+    data index's model-0 slot."""
+    if not split:
+        return hs[0].to(device, non_blocking=True)
+    return torch.cat([hs[c.slot].to(device, non_blocking=True)
+                      for c in ctxs if c.j == 0], dim=0)

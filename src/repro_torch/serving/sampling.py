@@ -121,9 +121,10 @@ def sample_rows(logits, temperature, top_k, seeds, token_index
                         to_device(np.asarray(top_k, np.int64), dev), keys)
 
 
-def make_round_tail(cfg):
+def make_round_tail(cfg, head=None):
     """THE fused decode-round tail: ONE lm_head over the round's W slots
-    and one row-sampler call.
+    and one row-sampler call (``head(h_round)``: full-vocabulary logits of
+    another LM head, e.g. a device group's vocab shards gathered).
 
     tail(embed_params, h_round (W, 1, d), temperature (W,), top_k (W,),
          seeds (W,), token_index (W,)) -> (tokens (W,), logits (W, V))
@@ -133,7 +134,8 @@ def make_round_tail(cfg):
     its neighbours."""
 
     def tail(embed_params, h_round, temperature, top_k, seeds, token_index):
-        logits = lm_head(embed_params, cfg, h_round)[:, 0]
+        logits = (lm_head(embed_params, cfg, h_round) if head is None
+                  else head(h_round))[:, 0]
         return sample_rows(logits, temperature, top_k, seeds,
                            token_index), logits
 

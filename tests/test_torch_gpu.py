@@ -854,3 +854,124 @@ def test_train_step_on_card_equals_cpu(cuda, arch):
                         else 0.0)
         bad = d > bound
         assert not bool(bad.any()), (float(d.max()), d[bad][:4].tolist())
+
+
+# ---------------------------------------------------------------------------
+# Device-group servers on the card (the slots share the card)
+# ---------------------------------------------------------------------------
+
+
+def _group_problem(C, L, n_servers):
+    llm = C.LLMSpec("t", L, block_bytes=100.0, cache_bytes_per_token=1.0)
+    servers = [C.ServerSpec(j, 1000.0, 0.01 * (j + 1), 0.002, 0.0005)
+               for j in range(n_servers)]
+    rtt = np.full((1, n_servers), 0.02)
+    return C.Problem(llm, servers, 1, rtt, 3 * rtt, workload=C.Workload(4, 4))
+
+
+def _group_drive(system, C, lengths=(4, 6, 5), n_new=4):
+    rng = np.random.RandomState(0)
+    sids = []
+    for n in lengths:
+        route, _ = C.shortest_path_route(system.problem,
+                                         system.alive_placement(), 0)
+        sids.append(system.create_session(
+            rng.randint(2, system.cfg.vocab_size, n), 0, route, n_new))
+    assert system.try_admit_sessions(sids) == sids
+    system.drain_prefill()
+    hist = [[system.sessions[s].last_logits.clone() for s in sids]]
+    while any(system.sessions[s].n_generated < n_new for s in sids):
+        system.decode_round()
+        hist.append([system.sessions[s].last_logits.clone() for s in sids])
+    return ([list(system.sessions[s].tokens) for s in sids],
+            [system.sessions[s].virtual_time for s in sids], hist,
+            dict(system.round_stats))
+
+
+@pytest.mark.parametrize("layout", ["slab", "paged"])
+@pytest.mark.parametrize("mode", ["fused", "serial"])
+@pytest.mark.parametrize("arch,shape", [("llama3_2_1b", (2, 4)),
+                                        ("deepseek_v2_236b", (2, 4)),
+                                        ("llama4_scout_17b_a16e", (4, 2))])
+def test_group_equals_solo_on_card(cuda, arch, shape, mode, layout):
+    """``chip_smoke.py`` [groups] (b): a reduced f32 stack on a group of
+    slots on the card gives the card's solo streams, virtual clocks and
+    round_stats exactly, logits within the reference's LOGIT_TOL, and K1
+    and K2 ran."""
+    import repro_torch.core as C
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch.mesh import GroupMesh
+    from repro_torch.models import init_params
+    from repro_torch.serving import GeoServingSystem
+
+    cfg = get_reduced_config(arch)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    kw = dict(R=2, max_new_tokens=4, max_sessions=4, decode_mode=mode,
+              cache_layout=layout, page_size=2 if layout == "paged" else None)
+    want = _group_drive(GeoServingSystem(
+        cfg, params, _group_problem(C, cfg.n_layers, 2), **kw), C)
+    mesh = GroupMesh(np.full(shape, "cuda", dtype=object))
+    before = [decode_attention.launches, flash_attention.launches]
+    got = _group_drive(GeoServingSystem(
+        cfg, params, _group_problem(C, cfg.n_layers, 2), mesh=mesh, **kw), C)
+    assert min(decode_attention.launches - before[0],
+               flash_attention.launches - before[1]) > 0
+    assert got[0] == want[0] and got[1] == want[1] and got[3] == want[3]
+    for hg, hw in zip(got[2], want[2]):
+        for a, b in zip(hg, hw):
+            torch.testing.assert_close(a, b, atol=5e-6, rtol=1e-4)
+
+
+def test_hetero_groups_bf16_first_step_on_card(cuda):
+    """``chip_smoke.py`` [groups] (a) at reduced depth: bf16 Llama-3.2-1B
+    at full width, 4 layers, groups {solo, (1, 2), (2, 2)} on three
+    servers, session j on server j: K1 ran, 1 host sync a fused decode
+    round, first-step greedy tokens equal the solo run's and logits within
+    2.5% of its scale."""
+    import warnings
+
+    import repro_torch.core as C
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import group_meshes
+    from repro_torch.models import init_params
+    from repro_torch.serving import GeoServingSystem
+
+    cfg = get_config("llama3_2_1b").replace(n_layers=4)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    prob = _group_problem(C, cfg.n_layers, 3)
+    runs = {}
+    for tag, groups in (("solo", None), ("groups", group_meshes(
+            {0: None, 1: (1, 2), 2: (2, 2)}, devices=["cuda"] * 6))):
+        system = GeoServingSystem(cfg, params, prob, R=3, max_new_tokens=4,
+                                  max_sessions=4, max_seq_len=128,
+                                  device_groups=groups)
+        rng = np.random.RandomState(0)
+        sids = []
+        for j, n in enumerate((40, 64, 33)):  # session j on server j
+            sids.append(system.create_session(
+                rng.randint(2, cfg.vocab_size, n), 0,
+                C.Route(servers=(j,), blocks=(cfg.n_layers,)), 4))
+        assert system.try_admit_sessions(sids) == sids
+        system.drain_prefill()
+        first = [(system.sessions[s].tokens[-1],
+                  system.sessions[s].last_logits.float().clone())
+                 for s in sids]
+        before = decode_attention.launches
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                system.decode_round(sids)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("called a synchronizing" in str(w.message)
+                    for w in caught)
+        assert syncs == 1, syncs
+        assert decode_attention.launches > before
+        runs[tag] = first
+    for (t_s, l_s), (t_g, l_g) in zip(runs["solo"], runs["groups"]):
+        assert t_s == t_g
+        assert float((l_g - l_s).abs().max()) <= \
+            0.025 * float(l_s.abs().max())

@@ -377,13 +377,20 @@ def test_fault_plan_identical():
 
 
 def test_later_slices_raise():
-    """Device groups (ROADMAP A10) are a later slice: a mesh or device
-    groups raise.  τ calibration (tests/test_torch_costs.py), paged pools
-    and seeded sampling have their parity tests (tests/test_torch_paged.py,
+    """Device groups (ROADMAP A10, serving half) take a ``GroupMesh`` or a
+    ``DeviceGroup`` per server (parity in tests/test_torch_groups.py);
+    anything else raises ``TypeError``.  τ calibration
+    (tests/test_torch_costs.py), paged pools and seeded sampling have
+    their parity tests (tests/test_torch_paged.py,
     tests/test_torch_sampling.py)."""
+    from repro_torch.launch.mesh import GroupMesh
+
     for kw in ({"mesh": object()}, {"device_groups": {0: object()}}):
-        with pytest.raises(NotImplementedError, match="A10"):
+        with pytest.raises(TypeError, match="GroupMesh"):
             _port(**kw)
+    mesh = GroupMesh(np.full((1, 2), "cpu", dtype=object))
+    for kw in ({"mesh": mesh}, {"device_groups": {0: mesh}}):
+        assert _port(**kw).servers[0].n_chips == 2
     taus = _port().calibrate_taus()
     assert all(np.isfinite(t) and t > 0 for t in taus.values())
 
