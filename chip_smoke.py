@@ -25,7 +25,7 @@ Phases (any failure raises, so the exit code is not 0):
              Checkpoint save / restore / resume on the card; K1-K4 raise
              on inputs that require grad (no backward); int8_allreduce on
              a one-rank NCCL group == gloo on the CPU, bit for bit.
-2. serve   — five full-width models in bf16 (random weights from a seed),
+2. serve   — ten full-width models in bf16 (random weights from a seed),
              one after the other, each served through the port's
              GeoServingSystem + ContinuousBatchingScheduler on 5 virtual
              servers (CG-BP placement split over >= 2 of them, WS-RR
@@ -45,13 +45,21 @@ Phases (any failure raises, so the exit code is not 0):
              tokens, max_enc_len 1024): K2 non-causal over the frames
              and in cross prefill, K1 cross decode with a per-row
              kv_len, the prefill groups keyed by (bucket, encoder
-             length).  Llama-3.2-1B's and SeamlessM4T's bf16 first-step
-             logits beside an f32 run on the plain versions (ROADMAP C5;
-             printed, failing only on non-finite logits).  Each path's kernel counters are
-             zeroed just before its run and read just after; each kernel
-             must have run, and every decode round must make exactly one
-             host sync.
-   paged   — Llama-3.2-1B, DeepSeek-V2 and SeamlessM4T again on paged
+             length); and the dense stacks only these serves run:
+             BLOOM-176B cut to 11 of 70 layers (the paper's model: MHA at
+             112 heads with ALiBi in K1 and K2, LayerNorm with a bias, the
+             GELU MLP), Qwen2.5-32B (QKV bias, K1 at G = 5), OLMo-1B (the
+             non-parametric norm) and Chameleon-34B (QK-norm, G = 8) at
+             full depth.  Every path's bf16 first-step logits beside an
+             f32 twin on the plain versions, cast one layer at a time
+             (ROADMAP C5): held within 2.5% of the f32 logit scale with
+             the greedy token equal on the dense paths, printed on RWKV6,
+             Zamba2 and DeepSeek-V2; the peak device memory of each phase
+             without MoE held under DENSE_PEAK_GIB.  Each path's kernel
+             counters are zeroed just before its run and read just after;
+             each kernel must have run, and every decode round must make
+             exactly one host sync.
+   paged   — Llama-3.2-1B, DeepSeek-V2, SeamlessM4T and BLOOM again on paged
              pools (page size 16; MLA latents paged as one joint buffer;
              cross K/V row-resident), the same
              requests: K1 and K2 launched, the greedy streams equal the
@@ -108,7 +116,10 @@ Phases (any failure raises, so the exit code is not 0):
              by the host's launches and queued ahead of the device, and
              their ratios to the roofline; the step count on the card
              equals the CPU's for a reduced f32 system; the calibrated
-             problem through CG-BP and the port's simulator.  (b) the
+             problem through CG-BP and the port's simulator.  (a') the
+             same τ readings on the BLOOM-176B serve cluster (11 layers),
+             beside the simulator's A100 profile τ (0.011 s, PETALS).
+             (b) the
              reference's engine-vs-simulator cross-validation
              (benchmarks/engine_validation.py ``cross_validate``) with
              Llama-3.2-1B at full width, cut to 8 layers: R = 1, 4, 8,
@@ -345,13 +356,25 @@ PATH_KERNELS = {
     "deepseek_v2_236b": ("decode_attention", "flash_attention"),
     "gemma3_4b": ("decode_attention", "flash_attention"),
     "seamless_m4t_large_v2": ("decode_attention", "flash_attention"),
+    "bloom_176b": ("decode_attention", "flash_attention"),
+    "qwen2_5_32b": ("decode_attention", "flash_attention"),
+    "olmo_1b": ("decode_attention", "flash_attention"),
+    "chameleon_34b": ("decode_attention", "flash_attention"),
 }
-# served configurations cut in depth (DeepSeek-V2's 60 layers of ~6.24 B
-# params each, 256 expert slots included, do not fit the card: 4 of them
-# and the embedding and head take ~52 GB), and the extra prompt of a serve:
+# served configurations cut in depth, and the extra prompt of a serve.
+# DeepSeek-V2's 60 layers of ~6.24 B params each, 256 expert slots
+# included, do not fit the card: 4 of them and the embedding and head take
+# ~52 GB.  A BLOOM-176B layer holds 2.466 B params (4.59 GiB in bf16) and
+# its tied embedding 3.60 B (6.70 GiB); 11 layers are 30.72 B params, 57.2
+# GiB.  The phase adds ~11.1 GiB to the params at its peak (the C5 twin's
+# f32 layer, 9.19 GiB, and a 16384-column f32 slice of the head; 10 layers
+# peaked at 63.7 GiB on an H100 80GB HBM3), so 11 layers reach ~68.4 GiB
+# and 12 ~72.9, past DENSE_PEAK_GIB; 8 layers would leave CG-BP 7 rows on
+# three servers.  Qwen2.5-32B (61.0 GiB) and Chameleon-34B (63.9 GiB)
+# serve at full depth (phase peaks ~64 / ~68 GiB).
 # gemma3's 1280 tokens reach past its 1024-token window, so the local
 # layers mask in K2 (the prompt's second chunk, q_start 1024) and in K1
-SERVE_DEPTH = {"deepseek_v2_236b": 4}
+SERVE_DEPTH = {"deepseek_v2_236b": 4, "bloom_176b": 11}
 LONG_PROMPT = {"gemma3_4b": 1280}
 # gemma3 prefills in chunks of at most 1024 tokens (the buckets stop there)
 PREFILL_CAP = {"gemma3_4b": 1024}
@@ -360,6 +383,18 @@ PREFILL_CAP = {"gemma3_4b": 1024}
 # 50 frames/s), and one more carries 1000 (20 s); prompts of 4-16 tokens
 ENC_DEC_LENS = dict(max_seq_len=256, max_enc_len=1024)
 ENC_LENS, LONG_FRAMES = (256, 512), 1000
+# the peak device memory a serve phase of a stack without MoE may reach
+# (init, warm-up, the scheduler run, the pooled-step timing and the C5
+# twin), under the card's ~79 GiB
+DENSE_PEAK_GIB = 72.0
+# ROADMAP C5's bound on a first step's bf16 logits against an f32 twin:
+# max|diff| within this fraction of the f32 logit scale, the greedy token
+# equal.  Held by bf16_vs_f32 on the dense paths below; printed only on
+# RWKV6 and Zamba2 (C2: f32 recurrences) and on DeepSeek-V2 (a bf16
+# rounding that flips a routing choice moves logits past any bound)
+C5_FRACTION = 0.025
+C5_HELD = ("llama3_2_1b", "gemma3_4b", "seamless_m4t_large_v2",
+           "bloom_176b", "qwen2_5_32b", "olmo_1b", "chameleon_34b")
 
 
 def phase_serve(torch, arch, captured, layout="slab", slab=None):
@@ -377,8 +412,10 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
     (bucket, encoder length), are printed, its attention calls are counted
     apart (causal self attention, non-causal encoder and cross prefill,
     cross decode with a per-row kv_len; each must have run).  On the slab
-    layout the first-step logits of seamless and Llama-3.2-1B in bf16 are
-    held beside an f32 run on the plain versions (``bf16_vs_f32``).
+    layout the first-step logits in bf16 are read against an f32 twin on
+    the plain versions (``bf16_vs_f32``; held on the C5_HELD paths), and
+    the phase's peak device memory is held under DENSE_PEAK_GIB on stacks
+    without MoE.
     ``layout="paged"`` serves the same requests on page-size-16 pools: the
     greedy streams must equal the slab run's (``slab``), and the one-sync
     rule holds in every round that preempts or resumes nothing.  Returns
@@ -622,6 +659,7 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
     for fn in kern.values():
         fn.launches = 0
     torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()  # init, warm-up, build
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
@@ -734,9 +772,18 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
     if long_len and layout == "slab" and not windowed:
         raise RuntimeError("no windowed decode call ran beside the long "
                            "prompt")
-    if layout == "slab" and (cfg.is_enc_dec or arch == "llama3_2_1b"):
+    if layout == "slab":
         record["c5"] = bf16_vs_f32(torch, cfg, params, prompts[-1],
-                                   frames[-1] if cfg.is_enc_dec else None)
+                                   frames[-1] if cfg.is_enc_dec else None,
+                                   held=arch in C5_HELD)
+    peak = max(peak, torch.cuda.max_memory_allocated()) / 2**30
+    log(f"{tag} peak device memory of the phase {peak:.1f} GiB (init, "
+        "warm-up, run, pooled-step timing"
+        + (", C5 twin" if layout == "slab" else "")
+        + ("); MoE: not held" if cfg.is_moe else
+           f"; bound {DENSE_PEAK_GIB} GiB)"))
+    if not cfg.is_moe and peak > DENSE_PEAK_GIB:
+        raise RuntimeError(f"{tag} peaked at {peak:.1f} GiB")
     if slab is not None:
         same = sum(a == b for a, b in zip(record["streams"], slab["streams"]))
         log(f"{tag} greedy streams equal to the slab run's: {same}/{n_req}")
@@ -754,14 +801,22 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
     return record
 
 
-def bf16_vs_f32(torch, cfg, params, toks, frames):
-    """ROADMAP C5 on the enc-dec and the Llama paths: the monolithic
-    first-step logits of one request in bf16 on the kernels against the
-    same weights in f32 on the plain versions (TF32 off).  Prints the max
-    absolute and relative differences and whether the greedy tokens agree;
-    fails only on non-finite logits.  ``frames``: the request's frames, or
-    None for a decoder-only stack.  Returns the numbers."""
-    from repro_torch.models import prefill
+def bf16_vs_f32(torch, cfg, params, toks, frames, held):
+    """ROADMAP C5 on a served path: the monolithic first-step logits of one
+    request in bf16 on the kernels against the same weights in f32 on the
+    plain versions (TF32 off).  The f32 twin casts one layer at a time
+    (``upcast_prefill_logits``: each layer's leaves cast as it runs, the
+    embedding rows gathered and then cast, the LM head cast 16384
+    vocabulary columns at a time), so no f32 copy of the model exists.
+    On Llama-3.2-1B the twin is held against ``prefill`` on the whole tree
+    cast up front: equal bit for bit with its LM head cast whole, within
+    1e-6 of the logit scale with the head in chunks.  Prints the max
+    absolute and relative differences and whether the greedy tokens
+    agree.  ``held``: a dense path, whose relative difference must be
+    within C5_FRACTION with the greedy token equal; elsewhere the reading
+    is printed.  Fails on non-finite logits.  ``frames``: the request's
+    frames, or None for a decoder-only stack.  Returns the numbers."""
+    from repro_torch.models import prefill, upcast_prefill_logits
     from repro_torch.models.model import tree_map
 
     batch = {"tokens": torch.as_tensor(toks, device="cuda")[None]}
@@ -771,10 +826,24 @@ def bf16_vs_f32(torch, cfg, params, toks, frames):
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        p32 = tree_map(lambda x: x.float(), params)
-        cfg32 = cfg.replace(param_dtype="float32", act_dtype="float32")
-        lf = prefill(p32, cfg32, batch, backend="plain")[0][0]
-        del p32
+        lf = upcast_prefill_logits(params, cfg, batch)[0]
+        if cfg.name == "llama3.2-1b":
+            whole = prefill(tree_map(lambda x: x.float(), params),
+                            cfg.replace(param_dtype="float32",
+                                        act_dtype="float32"),
+                            batch, backend="plain")[0][0]
+            same = torch.equal(upcast_prefill_logits(
+                params, cfg, batch, vocab_chunk=None)[0], whole)
+            apart = (lf - whole).abs().max().item()
+            log(f"[c5 {cfg.name}] the f32 twin one layer at a time against "
+                f"the whole tree cast up front: equal bit for bit with the "
+                f"head whole {same}; max|diff| {apart:.3g} with the head in "
+                f"chunks (bound 1e-6 x the scale "
+                f"{whole.abs().max().item():.4g})")
+            if not same or apart > 1e-6 * whole.abs().max().item():
+                raise RuntimeError("the layer-by-layer f32 twin is not the "
+                                   "whole-tree upcast's function")
+            del whole
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.cuda.empty_cache()
@@ -791,9 +860,14 @@ def bf16_vs_f32(torch, cfg, params, toks, frames):
         f"(same weights): max|diff| "
         f"{d:.4g} at logit scale {scale:.4g} (relative {d / scale:.3g}); "
         f"greedy token {'equal' if out['greedy_equal'] else 'DIFFERENT'} "
-        f"({int(lb.argmax())} vs {int(lf.argmax())})")
+        f"({int(lb.argmax())} vs {int(lf.argmax())}); "
+        + (f"held to {C5_FRACTION}" if held else "printed, not held"))
     if not out["finite"]:
         raise RuntimeError("non-finite bf16 logits")
+    if held and not (out["max_rel"] <= C5_FRACTION and out["greedy_equal"]):
+        raise RuntimeError(f"[c5 {cfg.name}] bf16 first step {d / scale:.4g} "
+                           f"of the f32 scale (bound {C5_FRACTION}), greedy "
+                           f"token equal {out['greedy_equal']}")
     return out
 
 
@@ -954,6 +1028,10 @@ def phase_kernels(torch, captured, launches):
             (2, 4, 1, 40, 32, 70, [69, 33], None, None, True, False),
             (2, 16, 1, 64, 64, 130, [129, 40], 50, None, True, True),
             (2, 8, 4, 256, 256, 1344, [1300, 600], 1024, None, True, False),
+            # BLOOM's MHA with ALiBi: G = 1 over 8 x 112 (row, kv-head)
+            # pairs at D = 128 (one split)
+            (8, 112, 112, 128, 128, 192, [191, 0, 64, 100, 150, 17, 120, 77],
+             None, None, True, True),
         ]:
             q = rn(B, 1, H, Dk, dt=dt)
             k, v = rn(B, T, Kv, Dk, dt=dt), rn(B, T, Kv, Dv, dt=dt)
@@ -987,6 +1065,9 @@ def phase_kernels(torch, captured, launches):
             (2, 70, 70, 4, 4, 224, 224, None, 0, True, False),
             (2, 100, 300, 4, 2, 64, 64, None, 0, False, False),
             (1, 200, 200, 8, 2, 128, 128, 70, 0, True, True),
+            # BLOOM's MHA with ALiBi at 112 heads, and a chunk at q_start 64
+            (2, 128, 128, 112, 112, 128, 128, None, 0, True, True),
+            (1, 64, 128, 112, 112, 128, 128, None, 64, True, True),
             # the enc-dec shapes: non-causal over 1000 frames (no multiple
             # of a tile), cross prefill of 8 and 13 queries
             (2, 1000, 1000, 16, 16, 64, 64, None, 0, False, False),
@@ -1137,6 +1218,24 @@ def phase_kernels(torch, captured, launches):
             attn_mask=ok[:, None, None, :], scale=scale,
             enable_gqa=True).transpose(1, 2)
 
+    def alibi_bias(slopes, q_pos, T, dtype):
+        """ALiBi as SDPA's float ``attn_mask`` (rows, H, S, T) in the
+        query dtype: slope x -|q - k| on the causally valid keys, -inf
+        elsewhere; ``q_pos`` (rows, S)."""
+        diff = q_pos[..., None] - torch.arange(T, device=dev)
+        bias = slopes[:, None, None] * -diff.abs()[:, None].float()
+        return torch.where(diff[:, None] >= 0, bias,
+                           float("-inf")).to(dtype)
+
+    def sdpa_biased(bias):
+        """One SDPA call with a float mask built once, outside the timed
+        call (a server would keep it for the round)."""
+        def run(q, k, v, *_):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=bias, enable_gqa=True).transpose(1, 2)
+        return run
+
     def sdpa_prefill(q, k, v, q_start=0, window=None):
         if not q_start and window is None:
             return F.scaled_dot_product_attention(
@@ -1151,25 +1250,44 @@ def phase_kernels(torch, captured, launches):
 
     def attention_rows(arch, suffix):
         """The path's captured K1 and K2 calls, with their own masking
-        (window, q_start) and scale."""
+        (window, q_start, ALiBi slopes) and scale.  With slopes, SDPA takes
+        the ALiBi bias as a float mask."""
         (q, k, v, pos), kw = captured[(arch, "decode_attention")]
-        if kw.get("slopes") is not None or kw.get("kv_len") is not None:
+        if kw.get("kv_len") is not None:
             raise RuntimeError("unexpected masking features on the path")
-        win, scale = kw.get("window"), kw.get("scale")
+        win, scale, sl = kw.get("window"), kw.get("scale"), kw.get("slopes")
         (qf, kf, vf), kwf = captured[(arch, "flash_attention")]
         q_start, fwin = kwf.get("q_start", 0), kwf.get("window")
+        fsl = kwf.get("slopes")
+        if (sl is None) != (fsl is None) or \
+                (sl is not None and (win is not None or fwin is not None)):
+            raise RuntimeError("unexpected masking features on the path")
+        dec_lib = (lambda *a: sdpa_decode(*a, window=win, scale=scale)) \
+            if sl is None else sdpa_biased(alibi_bias(
+                sl, pos[:, None], k.shape[1], q.dtype))
+        pre_lib = (lambda *a: sdpa_prefill(*a, q_start=q_start,
+                                            window=fwin)) \
+            if fsl is None else sdpa_biased(alibi_bias(
+                fsl, q_start + torch.arange(qf.shape[1], device=dev)[None],
+                kf.shape[1], qf.dtype))
         return [
             ("decode_attention" + suffix, "path", (q, k, v, pos),
-             lambda *a: decode_attention(*a, window=win, scale=scale),
-             lambda *a: decode_attention_ref(*a, window=win, scale=scale),
-             lambda *a: sdpa_decode(*a, window=win, scale=scale),
-             kernel_bound(decode_attention_cost(q, k, v, pos, window=win),
+             lambda *a: decode_attention(*a, window=win, scale=scale,
+                                         slopes=sl),
+             lambda *a: decode_attention_ref(*a, window=win, scale=scale,
+                                             slopes=sl),
+             dec_lib,
+             kernel_bound(decode_attention_cost(q, k, v, pos, window=win,
+                                                slopes=sl),
                           q.dtype), TOL["bfloat16"]),
             ("flash_attention" + suffix, "path", (qf, kf, vf),
-             lambda *a: flash_attention(*a, q_start=q_start, window=fwin),
-             lambda *a: attention_ref(*a, q_start=q_start, window=fwin),
-             lambda *a: sdpa_prefill(*a, q_start=q_start, window=fwin),
-             kernel_bound(flash_attention_cost(qf, kf, vf, q_start, fwin),
+             lambda *a: flash_attention(*a, q_start=q_start, window=fwin,
+                                        slopes=fsl),
+             lambda *a: attention_ref(*a, q_start=q_start, window=fwin,
+                                      slopes=fsl),
+             pre_lib,
+             kernel_bound(flash_attention_cost(qf, kf, vf, q_start, fwin,
+                                               slopes=fsl),
                           qf.dtype), TOL["bfloat16"]),
         ]
 
@@ -1236,7 +1354,9 @@ def phase_kernels(torch, captured, launches):
     ] + attention_rows("zamba2_7b", "_d224") + \
         attention_rows("deepseek_v2_236b", "_mla") + \
         attention_rows("gemma3_4b", "_d256") + \
-        encdec_rows("seamless_m4t_large_v2")
+        encdec_rows("seamless_m4t_large_v2") + \
+        attention_rows("bloom_176b", "_alibi") + \
+        attention_rows("qwen2_5_32b", "_g5")[:1]
     for kind, fn, plain, cost, long_args in (
             ("wkv6", wkv6, wkv6_chunked, wkv6_cost, long_wkv),
             ("ssd", ssd, ssd_chunked, ssd_cost, long_ssd)):
@@ -1343,6 +1463,12 @@ def phase_kernels(torch, captured, launches):
         ("flash_attention_cross", "seamless_m4t_large_v2",
          "flash_attention_sm90.cu",
          "src/repro/kernels/flash_attention/flash_attention.py:105"),
+        ("decode_attention_alibi", "bloom_176b", "decode_attention.cu",
+         "src/repro/kernels/decode_attention/decode_attention.py:111"),
+        ("flash_attention_alibi", "bloom_176b", "flash_attention_sm90.cu",
+         "src/repro/kernels/flash_attention/flash_attention.py:105"),
+        ("decode_attention_g5", "qwen2_5_32b", "decode_attention.cu",
+         "src/repro/kernels/decode_attention/decode_attention.py:111"),
         ("wkv6", "rwkv6_7b", "wkv6.cu", "src/repro/kernels/wkv6/wkv6.py:70"),
         ("ssd", "zamba2_7b", "ssd.cu", "src/repro/kernels/ssd/ssd.py:76"),
     ]:
@@ -2316,34 +2442,20 @@ def step_device_ms(torch, srv, args, reps=10):
     return paced, sorted(queued)[reps // 2]
 
 
-def phase_tau(torch):
-    """[perf model] (a): τ from the H100 roofline of each server's pooled
-    decode step on the full-width Llama-3.2-1B serve cluster, beside the
-    step's measured device time; the count on the card equals the CPU's;
-    the calibrated problem through CG-BP and the simulator."""
-    import numpy as np
-
-    import repro_torch.core as C
-    from repro_torch.configs import get_reduced_config
+def tau_rows(torch, tag, system, taus):
+    """Print and return each server's roofline τ (``taus``, from
+    ``calibrate_taus``) beside its pooled decode step's device time by
+    CUDA events, paced and queued (``step_device_ms``), every row active at
+    position max_seq_len - 1."""
     from repro_torch.launch.costs import roofline_terms
-    from repro_torch.models import init_params
-    from repro_torch.serving import GeoServingSystem
-    from repro_torch.sim import SimConfig, poisson_requests, simulate
 
-    tag = "[perf model]"
-    cfg, params = _llama_bf16(torch, tag)
-    problem = serve_problem(C, cfg.name, cfg.n_layers)
-    spec_tau = problem.tau().tolist()
-    system = GeoServingSystem(cfg, params, problem, algorithm="proposed",
-                              R=4, max_new_tokens=32, max_sessions=8)
-    taus = system.calibrate_taus()
-    cal = system.calibrated_problem()
     pos = system.max_seq_len - 1
     log(f"{tag} τ from the roofline of each server's pooled decode step "
-        f"(every row active at position {pos} = max_seq_len - 1, bf16; "
-        "flops at 989 TFLOP/s, bytes at 3.35 TB/s), beside the step's "
-        "device time by CUDA events: paced (the device follows the host's "
-        "launches) and queued (launches issued ahead behind a busy stream)")
+        f"(every row active at position {pos} = max_seq_len - 1, "
+        f"{system.cfg.param_dtype}; flops at 989 TFLOP/s, bytes at 3.35 "
+        "TB/s), beside the step's device time by CUDA events: paced (the "
+        "device follows the host's launches) and queued (launches issued "
+        "ahead behind a busy stream)")
     rows = {}
     for j, srv in system.servers.items():
         N, cost = srv.pool.n_rows, srv.decode_step_cost()
@@ -2366,6 +2478,74 @@ def phase_tau(torch):
             f"{r['tau']:.4g} s; measured step paced {paced:.4f} ms, τ "
             f"{r['tau_paced']:.4g} s ({r['tau_paced'] / r['tau']:.1f}x the "
             f"roofline); queued {alone}")
+    return rows
+
+
+def phase_tau_bloom(torch):
+    """[perf model] (a'): the paper's own model on the card — BLOOM-176B at
+    full width, SERVE_DEPTH layers, on the serve cluster: each server's
+    roofline τ per (block, token) and its pooled step's device time,
+    printed beside the simulator's A100 profile τ (``sim/cluster.py``: an
+    NF4 BLOOM block on an A100 under PETALS, fit to the paper's Table 8).
+    A reading; it changes no decision."""
+    import numpy as np
+
+    import repro_torch.core as C
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import GeoServingSystem
+    from repro_torch.sim.cluster import A100
+
+    tag = "[perf model bloom]"
+    cfg = get_config("bloom_176b").replace(
+        n_layers=SERVE_DEPTH["bloom_176b"])
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    system = GeoServingSystem(cfg, params,
+                              serve_problem(C, cfg.name, cfg.n_layers),
+                              algorithm="proposed", R=4, max_new_tokens=32,
+                              max_sessions=8)
+    taus = system.calibrate_taus()
+    rows = tau_rows(torch, tag, system, taus)
+    def taus_of(key):
+        return [None if r[key] is None else float(f"{r[key]:.4g}")
+                for r in rows.values()]
+
+    log(f"{tag} {cfg.name} at {cfg.n_layers} layers, τ per (block, token) "
+        f"by server: roofline {taus_of('tau')} s, measured paced "
+        f"{taus_of('tau_paced')} s, queued {taus_of('tau_queued')} s; the "
+        f"simulator's A100 profile τ {A100['tau']} s (an NF4 block under "
+        "PETALS, from the paper; not an H100 number)")
+    if not all(np.isfinite(t) and t > 0 for t in taus.values()):
+        raise RuntimeError(f"calibrated τ not finite and positive: {taus}")
+    del system, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_tau(torch):
+    """[perf model] (a): τ from the H100 roofline of each server's pooled
+    decode step on the full-width Llama-3.2-1B serve cluster, beside the
+    step's measured device time; the count on the card equals the CPU's;
+    the calibrated problem through CG-BP and the simulator."""
+    import numpy as np
+
+    import repro_torch.core as C
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import GeoServingSystem
+    from repro_torch.sim import SimConfig, poisson_requests, simulate
+
+    tag = "[perf model]"
+    cfg, params = _llama_bf16(torch, tag)
+    problem = serve_problem(C, cfg.name, cfg.n_layers)
+    spec_tau = problem.tau().tolist()
+    system = GeoServingSystem(cfg, params, problem, algorithm="proposed",
+                              R=4, max_new_tokens=32, max_sessions=8)
+    taus = system.calibrate_taus()
+    cal = system.calibrated_problem()
+    rows = tau_rows(torch, tag, system, taus)
     if not all(np.isfinite(t) and t > 0 for t in taus.values()):
         raise RuntimeError(f"calibrated τ not finite and positive: {taus}")
     if system.problem.tau().tolist() != spec_tau or \
@@ -2618,8 +2798,6 @@ SCOUT_F32_DEPTH = 2
 GROUP_PARITY = [("llama3_2_1b", (2, 4)), ("deepseek_v2_236b", (2, 4)),
                 ("llama4_scout_17b_a16e", (4, 2))]
 LOGIT_TOL = dict(atol=5e-6, rtol=1e-4)
-# ROADMAP C5's bound, here between a group's bf16 run and the solo one
-C5_FRACTION = 0.025
 
 
 def slot_devices(torch, n):
@@ -3195,7 +3373,7 @@ def main() -> int:
         log(f"[memory] after [serve {arch}]: "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
         if arch in ("llama3_2_1b", "deepseek_v2_236b",
-                    "seamless_m4t_large_v2"):
+                    "seamless_m4t_large_v2", "bloom_176b"):
             paged[arch] = phase_serve(torch, arch, captured, layout="paged",
                                       slab=serve[arch])
             log(f"[memory] after [paged {arch}]: "
@@ -3220,6 +3398,7 @@ def main() -> int:
     phase_parity_family(torch, "seamless_m4t_large_v2", n_servers=6,
                         mem=300.0, enc_lens=(5, 13, 5, 40), victim_hop=-1)
     phase_tau(torch)
+    phase_tau_bloom(torch)
     phase_xval(torch)
     phase_routing(torch)
     kernels += phase_groups(torch)

@@ -110,11 +110,12 @@ def _root(x):
 
 
 def cost(q, ck, cv, pos, *, window=None, kv_len=None,
-         causal: bool = True) -> CostSummary:
+         causal: bool = True, slopes=None) -> CostSummary:
     """Bytes and flops one call needs for these inputs: the query, each
     K/V row the mask reaches (data dependent: per row from ``pos``, or
-    from ``kv_len`` alone for non-causal cross attention), the output and
-    the positions; the score and P·V products over the reached rows.
+    from ``kv_len`` alone for non-causal cross attention), the output, the
+    positions and the ALiBi slopes; the score and P·V products over the
+    reached rows.
     Values that are columns of the keys' rows (absorbed MLA decode) are
     bytes already counted with the keys.  ``pos`` / ``kv_len``: an int or
     per-row values."""
@@ -130,7 +131,8 @@ def cost(q, ck, cv, pos, *, window=None, kv_len=None,
         lo = 0 if window is None or not causal else max(0, p - window + 1)
         rows += max(hi - lo, 0)
     nbytes = (B * H * Dk + B * H * Dv) * es \
-        + rows * Kv * (Dk + v_bytes) * es + 4 * B
+        + rows * Kv * (Dk + v_bytes) * es + 4 * B \
+        + (0 if slopes is None else 4 * H)
     return CostSummary(flops=2 * rows * H * (Dk + Dv), bytes_accessed=nbytes)
 
 
@@ -169,7 +171,8 @@ def decode_attention(q, ck, cv, pos, *, window=None, slopes=None,
     if q.device.type == "meta" and counting is not None:
         counting.cost.scaled_add(cost(
             q, ck, cv, counting.pos, window=window, causal=causal,
-            kv_len=None if kv_len is None else counting.kv_len), 1.0)
+            kv_len=None if kv_len is None else counting.kv_len,
+            slopes=slopes), 1.0)
         return q.new_empty(q.shape[:3] + cv.shape[-1:])
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device {q.device}")

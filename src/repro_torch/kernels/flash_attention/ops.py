@@ -56,10 +56,11 @@ def flash_attention_unsupported(*, causal: bool = True, window=None,
 
 
 def cost(q, k, v, q_start: int = 0, window=None,
-         causal: bool = True) -> CostSummary:
-    """Bytes and flops of one call: q, k, v read once, out written once;
-    score and P·V flops over the causally valid (query, key) pairs (inside
-    the window when there is one), or over every pair when non-causal."""
+         causal: bool = True, slopes=None) -> CostSummary:
+    """Bytes and flops of one call: q, k, v and the ALiBi slopes read
+    once, out written once; score and P·V flops over the causally valid
+    (query, key) pairs (inside the window when there is one), or over
+    every pair when non-causal."""
     B, Sq, H, Dk = q.shape
     Skv, Dv = k.shape[1], v.shape[-1]
     es = q.element_size()
@@ -67,7 +68,8 @@ def cost(q, k, v, q_start: int = 0, window=None,
     pairs = Sq * Skv if not causal else sum(
         min(q_start + i + 1, Skv) - max(0, q_start + i - w + 1)
         for i in range(Sq))
-    nbytes = (q.numel() + k.numel() + v.numel() + B * Sq * H * Dv) * es
+    nbytes = (q.numel() + k.numel() + v.numel() + B * Sq * H * Dv) * es \
+        + (0 if slopes is None else 4 * H)
     return CostSummary(flops=2 * B * H * pairs * (Dk + Dv),
                        bytes_accessed=nbytes)
 

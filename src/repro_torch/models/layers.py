@@ -231,10 +231,19 @@ def vocab_pad_bias(cfg: ModelConfig, device=None):
     return torch.where(idx < cfg.vocab_size, 0.0, -1e30).to(torch.float32)
 
 
-def lm_head(params, cfg: ModelConfig, h):
+def lm_head(params, cfg: ModelConfig, h, vocab_chunk: Optional[int] = None):
+    """Logits of ``h``.  ``vocab_chunk``: the weight is cast to ``h``'s
+    dtype that many vocabulary columns at a time (a whole cast copy of
+    BLOOM's tied 250880-column table in f32 takes 13.4 GiB)."""
     h = apply_norm(params["final_norm"], cfg, h)
     w = params["tok"].t() if cfg.tie_embeddings else params["head"]
-    logits = torch.matmul(h, w.to(h.dtype))
+    if vocab_chunk is None:
+        logits = torch.matmul(h, w.to(h.dtype))
+    else:
+        logits = torch.cat([torch.matmul(h, w[:, i:i + vocab_chunk]
+                                         .to(h.dtype))
+                            for i in range(0, w.shape[1], vocab_chunk)],
+                           dim=-1)
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     pad = vocab_pad_bias(cfg, h.device)

@@ -227,9 +227,18 @@ def _call(remat: bool, fn, *args):
                       preserve_rng_state=False)
 
 
+def _caster(cast: Optional[torch.dtype]):
+    """A function casting every leaf of a tree (or None) to ``cast``
+    (identity for ``cast`` None)."""
+    if cast is None:
+        return lambda tree: tree
+    return lambda tree: None if tree is None else \
+        tree_map(lambda x: x.to(cast), tree)
+
+
 def forward_full(params, cfg: ModelConfig, batch, collect_caches=False,
                  cache_len: Optional[int] = None, backend: str = "kernel",
-                 remat: bool = False):
+                 remat: bool = False, cast: Optional[torch.dtype] = None):
     """Run the stack over full sequences.  Returns (h_final, aux, caches);
     aux sums the MoE terms over the layers (zero without MoE); caches is
     {segment: stacked cache tree} when ``collect_caches`` (K/V time axes
@@ -237,15 +246,20 @@ def forward_full(params, cfg: ModelConfig, batch, collect_caches=False,
     the encoder length).  Enc-dec stacks take ``batch["frames"]`` (B,
     S_enc, frame_dim) beside the tokens.  ``remat`` recomputes each layer
     (a zamba2 mega step: its mamba blocks and the shared attention) in the
-    backward pass instead of keeping its activations."""
+    backward pass instead of keeping its activations.  ``cast``: run in
+    that dtype on params stored in another — the embedding rows are
+    gathered and then cast, and each layer's leaves are cast as the layer
+    runs and dropped after it, so no cast copy of the whole stack exists."""
     if cfg.is_enc_dec:
         return _forward_encdec(params, cfg, batch, collect_caches,
-                               cache_len, backend, remat)
+                               cache_len, backend, remat, cast)
+    up = _caster(cast)
     tokens = batch["tokens"]
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)
-    h = embed_tokens(params["embed"], cfg, tokens)
+    h = up(embed_tokens(params["embed"], cfg, tokens))
     emb0 = h
+    shared = up(params.get("shared"))  # zamba2's shared attention
     caches: Dict = {}
     aux_total = {"moe_aux_loss": torch.zeros((), device=tokens.device),
                  "moe_drop_frac": torch.zeros((), device=tokens.device)}
@@ -269,6 +283,7 @@ def forward_full(params, cfg: ModelConfig, batch, collect_caches=False,
         seg_params = params["segments"][seg.name]
         entries = []
         for i, p in enumerate(unstack(seg_params, seg.n)):
+            p = up(p)
             if seg.kind == "decoder":
                 h, cache, aux = _call(remat, decoder, p, h, i)
                 for key, val in aux.items():
@@ -278,7 +293,7 @@ def forward_full(params, cfg: ModelConfig, batch, collect_caches=False,
                        else B.mamba_block_full)
                 h, cache = _call(remat, recurrent, p, h, blk)
             else:  # mega: period mamba blocks, then the shared attention
-                h, cache = _call(remat, mega, p, h, params["shared"], emb0)
+                h, cache = _call(remat, mega, p, h, shared, emb0)
             if collect_caches:
                 entries.append(cache)
         if collect_caches:
@@ -288,14 +303,16 @@ def forward_full(params, cfg: ModelConfig, batch, collect_caches=False,
 
 def _forward_encdec(params, cfg: ModelConfig, batch, collect_caches,
                     cache_len: Optional[int], backend: str,
-                    remat: bool = False):
+                    remat: bool = False, cast: Optional[torch.dtype] = None):
     """Encoder over the frames (exact length, non-causal), then the
     decoder over the tokens with cross attention to the encoder output."""
+    up = _caster(cast)
     frames, tokens = batch["frames"], batch["tokens"]
     S = tokens.shape[1]
     enc_pos = torch.arange(frames.shape[1], device=tokens.device)
     dec_pos = torch.arange(S, device=tokens.device)
-    enc_h = embed_frames(params["embed"], cfg, frames)
+    enc_h = embed_frames({"frame_proj": up(params["embed"]["frame_proj"])},
+                         cfg, frames)
     segs = params["segments"]
 
     def enc(p, h):
@@ -306,11 +323,11 @@ def _forward_encdec(params, cfg: ModelConfig, batch, collect_caches,
                                           backend=backend)
 
     for p in unstack(segs["enc"], cfg.n_enc_layers):
-        enc_h = _call(remat, enc, p, enc_h)
-    h = embed_tokens(params["embed"], cfg, tokens)
+        enc_h = _call(remat, enc, up(p), enc_h)
+    h = up(embed_tokens(params["embed"], cfg, tokens))
     entries = []
     for p in unstack(segs["dec"], cfg.n_dec_layers):
-        h, cache = _call(remat, dec, p, h, enc_h)
+        h, cache = _call(remat, dec, up(p), h, enc_h)
         entries.append(cache)
     caches: Dict = {}
     if collect_caches:
@@ -382,6 +399,21 @@ def prefill(params, cfg: ModelConfig, batch, cache_len: Optional[int] = None,
                                 cache_len=cache_len, backend=backend)
     logits = lm_head(params["embed"], cfg, h[:, -1:])
     return logits[:, 0], caches
+
+
+def upcast_prefill_logits(params, cfg: ModelConfig, batch,
+                          vocab_chunk: Optional[int] = 1 << 14):
+    """The last position's logits of ``prefill`` on ``params`` cast to f32
+    on the plain versions (the f32 twin of a bf16 model) without an f32
+    copy of the tree: ``forward_full(cast=)`` casts one layer at a time,
+    and the LM head casts its weight ``vocab_chunk`` columns at a time
+    (all at once for None).  A cast up is exact, so this is the function
+    of ``prefill`` on the whole tree cast up front."""
+    cfg = cfg.replace(param_dtype="float32", act_dtype="float32")
+    h, _, _ = forward_full(params, cfg, batch, backend="plain",
+                           cast=torch.float32)
+    return lm_head(params["embed"], cfg, h[:, -1:],
+                   vocab_chunk=vocab_chunk)[:, 0]
 
 
 def _write_state(cache, state):

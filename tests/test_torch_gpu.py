@@ -365,7 +365,11 @@ PATH_KERNELS = {"llama3_2_1b": (decode_attention, flash_attention),
                 "zamba2_7b": (ssd, decode_attention, flash_attention),
                 "deepseek_v2_236b": (decode_attention, flash_attention),
                 "llama4_scout_17b_a16e": (decode_attention, flash_attention),
-                "gemma3_4b": (decode_attention, flash_attention)}
+                "gemma3_4b": (decode_attention, flash_attention),
+                "bloom_176b": (decode_attention, flash_attention),
+                "qwen2_5_32b": (decode_attention, flash_attention),
+                "olmo_1b": (decode_attention, flash_attention),
+                "chameleon_34b": (decode_attention, flash_attention)}
 
 
 @pytest.mark.parametrize("arch", list(PATH_KERNELS))
@@ -403,6 +407,33 @@ def test_engine_kernel_equals_plain_backend(cuda, arch):
         ran = [k.launches - b for k, b in zip(PATH_KERNELS[arch], before)]
         assert (min(ran) > 0) == (backend == "kernel"), ran
     assert streams["kernel"] == streams["plain"]
+
+
+def test_upcast_twin_equals_whole_tree_upcast_on_card(cuda):
+    """chip_smoke.py's C5 twin on reduced Llama in bf16: casting one
+    layer at a time (``upcast_prefill_logits``) gives the logits of
+    ``prefill`` on the whole tree cast to f32 up front — bit for bit with
+    the LM head cast whole, within 1e-6 of the logit scale with the head
+    cast in vocabulary chunks."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import (init_params, prefill,
+                                    upcast_prefill_logits)
+    from repro_torch.models.model import tree_map
+
+    cfg = get_reduced_config("llama3_2_1b").replace(
+        param_dtype="bfloat16", act_dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    tokens = torch.from_numpy(np.random.RandomState(1).randint(
+        2, cfg.vocab_size, (1, 9))).to(cuda)
+    batch = {"tokens": tokens}
+    whole = prefill(tree_map(lambda x: x.float(), params),
+                    cfg.replace(param_dtype="float32", act_dtype="float32"),
+                    batch, backend="plain")[0]
+    assert torch.equal(upcast_prefill_logits(params, cfg, batch,
+                                             vocab_chunk=None), whole)
+    chunked = upcast_prefill_logits(params, cfg, batch, vocab_chunk=96)
+    assert (chunked - whole).abs().max() <= 1e-6 * whole.abs().max()
 
 
 def test_page_table_round_trip(cuda):

@@ -24,6 +24,7 @@ from repro.models import decode_step as r_decode_step
 from repro.models import init_params as r_init_params
 from repro.models import layers as RL
 from repro.models import prefill as r_prefill
+from repro_torch.configs import ARCH_IDS, PAPER_ARCH_IDS
 from repro_torch.configs import get_reduced_config as t_get_reduced_config
 from repro_torch.models import attention as TA
 from repro_torch.models import blocks as TB
@@ -31,7 +32,8 @@ from repro_torch.models import decode_step as t_decode_step
 from repro_torch.models import init_params as t_init_params
 from repro_torch.models import layers as TL
 from repro_torch.models import prefill as t_prefill
-from repro_torch.models.model import layer_params
+from repro_torch.models import upcast_prefill_logits
+from repro_torch.models.model import layer_params, tree_map
 from repro_torch.weights import from_reference
 
 # tier-1 runs several test processes at once: one torch thread each keeps
@@ -379,3 +381,31 @@ def test_init_params_matches_reference_tree():
     # std of N(0,1) truncated to [-2, 2] is 0.8796
     assert abs(wq.std().item() * np.sqrt(cfg.d_model) - 0.8796) < 0.05
     assert wq.abs().max().item() <= 2.0 / np.sqrt(cfg.d_model) + 1e-6
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS + PAPER_ARCH_IDS)
+def test_upcast_prefill_logits_equal_whole_tree_upcast(arch):
+    """The f32 twin of a bf16 model that casts one layer at a time
+    (``upcast_prefill_logits``, ROADMAP C5's reading) gives the logits of
+    ``prefill`` on the whole tree cast to f32 up front: bit for bit with
+    the LM head cast whole, and within f32 rounding of the product (1e-6
+    of the logit scale) with it cast in vocabulary chunks."""
+    cfg = t_get_reduced_config(arch).replace(param_dtype="bfloat16",
+                                             act_dtype="bfloat16")
+    params = t_init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.RandomState(1)
+    batch = {"tokens": T(rng.randint(2, cfg.vocab_size, (1, 9)))}
+    if cfg.is_enc_dec:
+        batch["frames"] = T(rng.randn(1, 12, cfg.frame_dim)
+                            .astype(np.float32))
+    whole = t_prefill(tree_map(lambda x: x.float(), params),
+                      cfg.replace(param_dtype="float32",
+                                  act_dtype="float32"),
+                      batch, backend="plain")[0]
+    assert whole.dtype == torch.float32
+    assert torch.equal(upcast_prefill_logits(params, cfg, batch,
+                                             vocab_chunk=None), whole)
+    chunked = upcast_prefill_logits(params, cfg, batch, vocab_chunk=96)
+    live = slice(0, cfg.vocab_size)
+    assert (chunked[:, live] - whole[:, live]).abs().max() <= \
+        1e-6 * whole[:, live].abs().max()
