@@ -5,11 +5,11 @@ RWKV6 WKV recurrence and K4 the Mamba2 SSD scan (both chunked scans on the
 tensor cores).  Sources live in ``csrc/`` and are built with ``nvcc`` at first
 use (``runtime.py``).  Each wrapper's ``*_cost`` gives a call's bytes and
 flops from its inputs."""
-from repro_torch.kernels.decode_attention import (decode_attention,
-                                                  decode_attention_cost,
-                                                  decode_attention_ref,
-                                                  decode_attention_unsupported,
-                                                  decode_plan, head_group)
+from repro_torch.kernels.decode_attention import (
+    decode_attention, decode_attention_cost, decode_attention_partials,
+    decode_attention_partials_ref, decode_attention_ref,
+    decode_attention_unsupported, decode_plan, head_group, merge_cost,
+    merge_partials, merge_partials_ref)
 from repro_torch.kernels.flash_attention import (DESIGNS, HEAD_DIM_PAIRS,
                                                  HEAD_DIM_PAIRS_F32,
                                                  HEAD_DIMS, attention_ref,
@@ -26,8 +26,10 @@ from repro_torch.kernels.wkv6 import (wkv6, wkv6_chunked, wkv6_cost,
 __all__ = ["BACKENDS", "DESIGNS", "HEAD_DIMS", "HEAD_DIM_PAIRS",
            "HEAD_DIM_PAIRS_F32", "NO_WINDOW", "attention_ref",
            "decode_attention", "decode_attention_cost",
+           "decode_attention_partials", "decode_attention_partials_ref",
            "decode_attention_ref", "decode_attention_unsupported",
-           "decode_plan", "flash_attention", "flash_attention_cost",
+           "decode_plan", "merge_cost", "merge_partials",
+           "merge_partials_ref", "flash_attention", "flash_attention_cost",
            "flash_attention_unsupported", "head_group", "resolve_backend",
            "ssd", "ssd_chunked", "ssd_cost", "ssd_plan", "ssd_recurrence",
            "ssd_unsupported", "wkv6", "wkv6_chunked", "wkv6_cost",

@@ -39,6 +39,14 @@
 // a (row, head) in a fixed order (rescale by exp(m_s - m*), sum, divide by
 // max(l, 1e-30)), so the result does not change from run to run.  With one
 // split the first kernel writes the output itself and no combine runs.
+//
+// Partials across slots (a device group whose slots hold time shards of the
+// cache): the cache given is a shard whose first key sits at global
+// position `pos0`; the masks and ALiBi read pos0 + the local index, `pos`
+// and `kv_len` stay global.  Called with no output, the split kernel
+// always writes its f32 partials and no combine runs: the caller gathers
+// the slots' partials in slot order and `decode_merge_launch` runs the
+// same combine over them.  A shard wholly past `pos` writes empty partials.
 #include "common.cuh"
 
 using namespace repro;
@@ -97,7 +105,8 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
     const int* __restrict__ kv_len, const float* __restrict__ slopes,
     T* __restrict__ out, float* __restrict__ part_m,
     float* __restrict__ part_l, float* __restrict__ part_acc, int t_len,
-    int n_kv, int group, int n_groups, int dk, int dv, long long sk_b,
+    int pos0, int n_kv, int group, int n_groups, int dk, int dv,
+    long long sk_b,
     long long sk_t,
     long long sk_h, long long sv_b, long long sv_t, long long sv_h,
     int window, int causal, float scale, int tile, int chunk) {
@@ -107,19 +116,22 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
   // `group` consecutive query heads of kv head kvh
   const int bk = blockIdx.x / n_groups;  // b * n_kv + kvh
   const int b = bk / n_kv, kvh = bk - b * n_kv;
-  const int split = blockIdx.y, n_split = gridDim.y;
+  const int split = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_pair = dv / 2, n_items = group * n_pair;
   const long long head0 = (long long)blockIdx.x * group;  // b * H + head
   const int hrow0 = (blockIdx.x - b * n_kv * n_groups) * group;  // head
+  // out == nullptr: this launch writes partials whatever its split count
+  const bool direct = out != nullptr;
 
-  // the positions the mask can reach, within this split's slice
+  // the local positions the mask can reach (global position pos0 + local
+  // index), within this split's slice
   const int p = pos[b];
-  const int kvl = kv_len ? kv_len[b] : t_len;
-  int hi = min(kvl, t_len), lo = 0;
+  const int kvl = kv_len ? kv_len[b] : pos0 + t_len;
+  int hi = min(kvl - pos0, t_len), lo = 0;
   if (causal) {
-    hi = min(hi, p + 1);
-    lo = max(0, p - window + 1);
+    hi = min(hi, p - pos0 + 1);
+    lo = max(0, p - window + 1 - pos0);
   }
   const int s0 = split * chunk;
   lo = max(lo, s0);
@@ -130,7 +142,7 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
       const int i = tid + j * kThreads;
       if (i >= n_items) break;
       const int g = i / n_pair, c = 2 * (i - g * n_pair);
-      if (n_split == 1) {
+      if (direct) {
         T* o = out + (head0 + g) * dv + c;
         o[0] = from_f<T>(0.f);
         o[1] = from_f<T>(0.f);
@@ -141,7 +153,7 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
         a[1] = 0.f;
       }
     }
-    if (n_split > 1 && tid < group) {
+    if (!direct && tid < group) {
       const long long at = (long long)split * gridDim.x * group + head0 + tid;
       part_m[at] = kNegInf;
       part_l[at] = 0.f;
@@ -228,7 +240,7 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
       for (int o = 1; o < tpk; o <<= 1)
         s[g] += __shfl_xor_sync(0xffffffffu, s[g], o);
       float val = s[g] * scale;
-      if (slopes) val += slope[g] * -fabsf((float)(p - kp));
+      if (slopes) val += slope[g] * -fabsf((float)(p - pos0 - kp));
       s[g] = ok ? val : kNegInf;
       const float mx = warp_max(s[g]);
       if (lane == 0) red_max[warp * GM + g] = mx;
@@ -314,7 +326,7 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
     const int i = tid + j * kThreads;
     if (i >= n_items) continue;
     const int g = i / n_pair, c = 2 * (i - g * n_pair);
-    if (n_split == 1) {
+    if (direct) {
       const float den = fmaxf(l_s[g], 1e-30f);
       T* o = out + (head0 + g) * dv + c;
       o[0] = from_f<T>(acc[j][0] / den);
@@ -325,13 +337,14 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
       a[1] = acc[j][1];
     }
   }
-  if (n_split > 1 && tid < group) {
+  if (!direct && tid < group) {
     part_m[row0 + tid] = m_s[tid];
     part_l[row0 + tid] = l_s[tid];
   }
 }
 
-// One block per (row, head): merge the n_split partials in split order.
+// One block per (row, head): merge the n_split partials in split order (a
+// group's merge: the slots' partials, in slot order and split order).
 template <typename T>
 __global__ void __launch_bounds__(kThreads) decode_combine_kernel(
     const float* __restrict__ part_m, const float* __restrict__ part_l,
@@ -368,10 +381,10 @@ size_t smem_bytes(int group, int gm, int dk, int dv, int tile, int esize) {
 template <typename T, int GM>
 int launch(const void* q, const void* k, const void* v, const void* pos,
            const void* kv_len, const void* slopes, void* out, void* part_m,
-           void* part_l, void* part_acc, int n_rows, int t_len, int n_kv,
-           int group, int n_groups, int dk, int dv, const long long* st,
-           int window, int causal, float scale, int tile, int chunk,
-           int n_split, cudaStream_t stream) {
+           void* part_l, void* part_acc, int n_rows, int t_len, int pos0,
+           int n_kv, int group, int n_groups, int dk, int dv,
+           const long long* st, int window, int causal, float scale,
+           int tile, int chunk, int n_split, cudaStream_t stream) {
   constexpr size_t kMaxSmem = 232448;  // 227 KB: the per-block opt-in limit
   const size_t smem = smem_bytes(group, GM, dk, dv, tile, sizeof(T));
   if (smem > kMaxSmem) return kUnsupportedShape;
@@ -388,12 +401,13 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(pos),
       static_cast<const int*>(kv_len), static_cast<const float*>(slopes),
-      static_cast<T*>(out), static_cast<float*>(part_m),
-      static_cast<float*>(part_l), static_cast<float*>(part_acc), t_len, n_kv,
-      group, n_groups, dk, dv, st[0], st[1], st[2], st[3], st[4], st[5],
-      window, causal, scale, tile, chunk);
+      static_cast<T*>(n_split == 1 ? out : nullptr),
+      static_cast<float*>(part_m), static_cast<float*>(part_l),
+      static_cast<float*>(part_acc), t_len, pos0, n_kv, group, n_groups, dk,
+      dv, st[0], st[1], st[2], st[3], st[4], st[5], window, causal, scale,
+      tile, chunk);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_split == 1) return (int)err;
+  if (err != cudaSuccess || n_split == 1 || out == nullptr) return (int)err;
   const int n_heads_all = n_rows * n_kv * n_groups * group;
   decode_combine_kernel<T><<<n_heads_all, kThreads, 0, stream>>>(
       static_cast<const float*>(part_m), static_cast<const float*>(part_l),
@@ -406,9 +420,9 @@ template <typename T>
 int launch_group(int group, int n_groups, const void* q, const void* k,
                  const void* v, const void* pos, const void* kv_len,
                  const void* slopes, void* out, void* part_m, void* part_l,
-                 void* part_acc, int n_rows, int t_len, int n_kv, int dk,
-                 int dv, const long long* st, int window, int causal,
-                 float scale, int tile, int chunk, int n_split,
+                 void* part_acc, int n_rows, int t_len, int pos0, int n_kv,
+                 int dk, int dv, const long long* st, int window,
+                 int causal, float scale, int tile, int chunk, int n_split,
                  cudaStream_t stream) {
   constexpr int kEpc = 16 / sizeof(T);
   if (dk % kEpc || dv % kEpc || dk <= 0 || dv <= 0 || tile < 16 ||
@@ -418,9 +432,9 @@ int launch_group(int group, int n_groups, const void* q, const void* k,
 #define REPRO_GM(N)                                                         \
   if (group <= N)                                                           \
     return launch<T, N>(q, k, v, pos, kv_len, slopes, out, part_m, part_l, \
-                        part_acc, n_rows, t_len, n_kv, group, n_groups,    \
-                        dk, dv, st, window, causal, scale, tile, chunk,    \
-                        n_split, stream);
+                        part_acc, n_rows, t_len, pos0, n_kv, group,        \
+                        n_groups, dk, dv, st, window, causal, scale, tile, \
+                        chunk, n_split, stream);
   REPRO_GM(1)
   REPRO_GM(2)
   REPRO_GM(4)
@@ -438,28 +452,56 @@ int launch_group(int group, int n_groups, const void* q, const void* k,
 // (H,) f32 or null; out (B, H, Dv) contiguous.  The key axis is cut into
 // n_split slices of `chunk` positions (a multiple of `tile`); with
 // n_split > 1, part_m / part_l (n_split, B*H) and part_acc
-// (n_split, B*H, Dv) are f32 scratch.  Returns cudaGetLastError() after the
-// launches, or kUnsupportedShape.
+// (n_split, B*H, Dv) are f32 scratch.  The cache's first key sits at global
+// position pos0 (0 for a whole cache).  out == null: the partials are the
+// result (any n_split) and no combine runs.  Returns cudaGetLastError()
+// after the launches, or kUnsupportedShape.
 extern "C" int decode_attention_launch(
     int dtype, const void* q, const void* k, const void* v, const void* pos,
     const void* kv_len, const void* slopes, void* out, void* part_m,
-    void* part_l, void* part_acc, int n_rows, int t_len, int n_kv, int group,
-    int n_groups, int dk, int dv, const long long* strides, int window,
-    int causal, float scale, int tile, int chunk, int n_split,
+    void* part_l, void* part_acc, int n_rows, int t_len, int pos0, int n_kv,
+    int group, int n_groups, int dk, int dv, const long long* strides,
+    int window, int causal, float scale, int tile, int chunk, int n_split,
     void* stream) {
   if (n_rows * n_kv == 0) return 0;
-  if (n_split < 1 || (n_split > 1 && !(part_m && part_l && part_acc)))
+  if (n_split < 1 || ((n_split > 1 || !out) &&
+                      !(part_m && part_l && part_acc)))
     return kUnsupportedShape;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
     return launch_group<float>(group, n_groups, q, k, v, pos, kv_len,
                                slopes, out, part_m, part_l, part_acc, n_rows,
-                               t_len, n_kv, dk, dv, strides, window, causal,
-                               scale, tile, chunk, n_split, s);
+                               t_len, pos0, n_kv, dk, dv, strides, window,
+                               causal, scale, tile, chunk, n_split, s);
   if (dtype == kBFloat16)
     return launch_group<__nv_bfloat16>(
         group, n_groups, q, k, v, pos, kv_len, slopes, out, part_m, part_l,
-        part_acc, n_rows, t_len, n_kv, dk, dv, strides, window, causal, scale,
-        tile, chunk, n_split, s);
+        part_acc, n_rows, t_len, pos0, n_kv, dk, dv, strides, window, causal,
+        scale, tile, chunk, n_split, s);
   return kUnsupportedShape;
+}
+
+// The merge of partials gathered from a group's slots: part_m / part_l
+// (n_parts, n_heads_all) and part_acc (n_parts, n_heads_all, dv), f32,
+// contiguous, in slot order and split order; out (n_heads_all, dv) of
+// `dtype`.  The combine kernel above, one block per (row, head).
+extern "C" int decode_merge_launch(int dtype, const void* part_m,
+                                   const void* part_l, const void* part_acc,
+                                   void* out, int n_heads_all, int n_parts,
+                                   int dv, void* stream) {
+  if (n_heads_all == 0) return 0;
+  if (n_parts < 1 || dv < 1) return kUnsupportedShape;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(part_m);
+  const float* l = static_cast<const float*>(part_l);
+  const float* a = static_cast<const float*>(part_acc);
+  if (dtype == kFloat32)
+    decode_combine_kernel<float><<<n_heads_all, kThreads, 0, s>>>(
+        m, l, a, static_cast<float*>(out), n_heads_all, n_parts, dv);
+  else if (dtype == kBFloat16)
+    decode_combine_kernel<__nv_bfloat16><<<n_heads_all, kThreads, 0, s>>>(
+        m, l, a, static_cast<__nv_bfloat16*>(out), n_heads_all, n_parts, dv);
+  else
+    return kUnsupportedShape;
+  return (int)cudaGetLastError();
 }

@@ -19,6 +19,13 @@ merges.  ``cost`` gives a call's bytes and flops (the kernel rows'
 bounds, and the attention share of ``BlockServer.decode_step_cost``,
 which runs its step on meta tensors inside
 ``runtime.count_meta_calls``).
+
+A device group whose slots hold time shards of the cache runs the split
+kernel alone on each slot: ``decode_attention_partials`` returns the
+slot's f32 split partials over its shard (first key at global position
+``t0``; the plan from the shard's own length), and ``merge_partials``
+runs the combine kernel over the slots' partials concatenated in slot
+order.  Each has its own launch counter; ``merge_cost`` prices a merge.
 """
 from __future__ import annotations
 
@@ -28,8 +35,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
-                                                      per_row)
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_partials_ref, decode_attention_ref, merge_partials_ref,
+    per_row)
 from repro_torch.kernels.runtime import (NO_WINDOW, check_launch,
                                          load_library, meta_calls,
                                          refuse_grad)
@@ -110,7 +118,8 @@ def _root(x):
 
 
 def cost(q, ck, cv, pos, *, window=None, kv_len=None,
-         causal: bool = True, slopes=None) -> CostSummary:
+         causal: bool = True, slopes=None, t0: int = 0,
+         n_split: Optional[int] = None) -> CostSummary:
     """Bytes and flops one call needs for these inputs: the query, each
     K/V row the mask reaches (data dependent: per row from ``pos``, or
     from ``kv_len`` alone for non-causal cross attention), the output, the
@@ -118,35 +127,143 @@ def cost(q, ck, cv, pos, *, window=None, kv_len=None,
     reached rows.
     Values that are columns of the keys' rows (absorbed MLA decode) are
     bytes already counted with the keys.  ``pos`` / ``kv_len``: an int or
-    per-row values."""
+    per-row values (global).  A partials call (``n_split``: its splits) is
+    over a shard whose first key sits at ``t0`` and writes its f32
+    partials in place of the output."""
     B, _, H, Dk = q.shape
     T, Kv, Dv = ck.shape[1], ck.shape[2], cv.shape[-1]
     es = q.element_size()
     v_bytes = 0 if cv.data_ptr() == ck.data_ptr() and \
         _root(cv) is _root(ck) else Dv
-    kvl = [T] * B if kv_len is None else _rows(kv_len, B)
+    kvl = [t0 + T] * B if kv_len is None else _rows(kv_len, B)
     rows = 0
     for p, kl in zip(_rows(pos, B), kvl):
-        hi = min(p + 1, kl, T) if causal else min(kl, T)
+        hi = min(p + 1, kl, t0 + T) if causal else min(kl, t0 + T)
         lo = 0 if window is None or not causal else max(0, p - window + 1)
-        rows += max(hi - lo, 0)
-    nbytes = (B * H * Dk + B * H * Dv) * es \
+        rows += max(hi - max(lo, t0), 0)
+    out_bytes = B * H * Dv * es if n_split is None \
+        else 4 * n_split * B * H * (Dv + 2)
+    nbytes = B * H * Dk * es + out_bytes \
         + rows * Kv * (Dk + v_bytes) * es + 4 * B \
         + (0 if slopes is None else 4 * H)
     return CostSummary(flops=2 * rows * H * (Dk + Dv), bytes_accessed=nbytes)
 
 
+def merge_cost(n_parts: int, n_heads_all: int, dv: int,
+               elem_size: int) -> CostSummary:
+    """Bytes and flops of one merge: the f32 partials (m, l, acc) of
+    ``n_parts`` splits over ``n_heads_all`` (row, head) pairs read once,
+    the output written once; a rescale and an add per partial element."""
+    return CostSummary(
+        flops=3 * n_parts * n_heads_all * (dv + 1),
+        bytes_accessed=4 * n_parts * n_heads_all * (dv + 2)
+        + n_heads_all * dv * elem_size)
+
+
 def _launcher():
     global _fn
     if _fn is None:
-        fn = load_library("decode_attention").decode_attention_launch
+        lib = load_library("decode_attention")
+        fn = lib.decode_attention_launch
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                       ctypes.POINTER(ctypes.c_longlong), I, I,
+                       I, ctypes.POINTER(ctypes.c_longlong), I, I,
                        ctypes.c_float, I, I, I, P]
         fn.restype = I
-        _fn = fn
+        merge = lib.decode_merge_launch
+        merge.argtypes = [I, P, P, P, P, I, I, I, P]
+        merge.restype = I
+        _fn = (fn, merge)
     return _fn
+
+
+def _plan(q, ck, cv):
+    """(head group g, (tile, n_split, chunk)) of a call, from sizes."""
+    B, _, H, Dk = q.shape
+    T, Kv, Dv = ck.shape[1], ck.shape[2], cv.shape[-1]
+    G = H // Kv
+    g = head_group(G, Dv)
+    # (row, head-group) pairs play the rows of the split plan
+    return g, decode_plan(B * (G // max(g, 1)), Kv, T, Dk, Dv,
+                          q.element_size())
+
+
+def _check(name, q, ck, cv, causal, window, slopes, kv_len, scale):
+    reason = decode_attention_unsupported(causal=causal, window=window,
+                                          slopes=slopes, kv_len=kv_len,
+                                          scale=scale)
+    if reason is not None:
+        raise ValueError(f"{name} does not support {reason}")
+
+
+def _check_cuda(name, q, ck, cv, slopes):
+    """The kernel's operand checks; returns the head group."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+    B, one, H, Dk = q.shape
+    T, Kv = ck.shape[1], ck.shape[2]
+    Dv = cv.shape[-1]
+    if one != 1 or ck.shape != (B, T, Kv, Dk) or cv.shape[:3] != (B, T, Kv):
+        raise ValueError(f"{name}: bad shapes q {tuple(q.shape)} "
+                         f"k {tuple(ck.shape)} v {tuple(cv.shape)}")
+    if H % Kv:
+        raise ValueError(f"{name}: {H} heads over {Kv} kv heads")
+    if q.dtype not in _DTYPES or ck.dtype != q.dtype or cv.dtype != q.dtype:
+        raise ValueError(f"{name}: dtypes {q.dtype}/{ck.dtype}/"
+                         f"{cv.dtype}; the kernel takes float32 or bfloat16")
+    if ck.stride(-1) != 1 or cv.stride(-1) != 1:
+        raise ValueError(f"{name}: cache head dim must be contiguous")
+    es = q.element_size()
+    if any(x.data_ptr() % 16 for x in (ck, cv)) or \
+            any(d * es % 16 for d in (Dk, Dv)) or \
+            any(st * es % 16 for st in ck.stride()[:3] + cv.stride()[:3]):
+        raise ValueError(
+            f"{name}: the kernel copies cache rows 16 bytes at a "
+            "time and needs 16-byte aligned K/V bases, strides and rows "
+            f"(Dk={Dk}, Dv={Dv} of {q.dtype}, strides k {ck.stride()} "
+            f"v {cv.stride()})")
+    if not (ck.device == cv.device == q.device):
+        raise ValueError(f"{name}: operands on different devices")
+    if slopes is not None and tuple(slopes.shape) != (H,):
+        raise ValueError(f"{name}: slopes {tuple(slopes.shape)}, "
+                         f"want ({H},)")
+    G = H // Kv
+    g = head_group(G, Dv)
+    if g == 0:
+        raise ValueError(f"{name}: no head group of {G} heads at "
+                         f"Dv={Dv} fits a block (g <= {MAX_GROUP}, g * Dv "
+                         f"<= {MAX_GROUP_DV})")
+    return g
+
+
+def _launch(name, q, ck, cv, pos, kv_len, slopes, out, part, g, plan,
+            window, causal, scale, t0):
+    B, _, H, Dk = q.shape
+    T, Kv, Dv = ck.shape[1], ck.shape[2], cv.shape[-1]
+    tile, n_split, chunk = plan
+    qc = q.reshape(B, H, Dk).contiguous()
+    pos_t = per_row(pos, B, q.device)
+    kvl_t = None if kv_len is None else per_row(kv_len, B, q.device)
+    sl = None if slopes is None else slopes.to(
+        device=q.device, dtype=torch.float32).contiguous()
+    scale = 1.0 / math.sqrt(Dk) if scale is None else float(scale)
+    win = NO_WINDOW if window is None else int(window)
+    strides = (ctypes.c_longlong * 6)(*ck.stride()[:3], *cv.stride()[:3])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    G = H // Kv
+    err = _launcher()[0](
+        _DTYPES[q.dtype], qc.data_ptr(), ck.data_ptr(), cv.data_ptr(),
+        pos_t.data_ptr(), None if kvl_t is None else kvl_t.data_ptr(),
+        None if sl is None else sl.data_ptr(),
+        None if out is None else out.data_ptr(),
+        *(None if x is None else x.data_ptr() for x in part),
+        B, T, int(t0), Kv, g, G // g, Dk, Dv, strides, win,
+        int(bool(causal)), scale, tile, chunk, n_split, stream)
+    if err < 0:
+        raise ValueError(f"{name}: the kernel does not take "
+                         f"Dk={Dk}, Dv={Dv}, {g} heads a block (shared "
+                         "memory)")
+    check_launch(name, err)
 
 
 def decode_attention(q, ck, cv, pos, *, window=None, slopes=None,
@@ -157,11 +274,8 @@ def decode_attention(q, ck, cv, pos, *, window=None, slopes=None,
     ``pos``/``kv_len``: int or (B,) integer tensor.  ``window``: optional
     int.  ``slopes``: optional (H,) f32.  ``scale``: optional softmax scale
     (default 1/sqrt(Dk))."""
-    reason = decode_attention_unsupported(causal=causal, window=window,
-                                          slopes=slopes, kv_len=kv_len,
-                                          scale=scale)
-    if reason is not None:
-        raise ValueError(f"decode_attention does not support {reason}")
+    _check("decode_attention", q, ck, cv, causal, window, slopes, kv_len,
+           scale)
     if q.device.type == "cpu":
         return decode_attention_ref(q, ck, cv, pos, window=window,
                                     slopes=slopes, kv_len=kv_len,
@@ -174,75 +288,112 @@ def decode_attention(q, ck, cv, pos, *, window=None, slopes=None,
             kv_len=None if kv_len is None else counting.kv_len,
             slopes=slopes), 1.0)
         return q.new_empty(q.shape[:3] + cv.shape[-1:])
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention: no kernel for device {q.device}")
-    B, one, H, Dk = q.shape
-    T, Kv = ck.shape[1], ck.shape[2]
+    g = _check_cuda("decode_attention", q, ck, cv, slopes)
+    B, _, H, _ = q.shape
     Dv = cv.shape[-1]
-    if one != 1 or ck.shape != (B, T, Kv, Dk) or cv.shape[:3] != (B, T, Kv):
-        raise ValueError(f"decode_attention: bad shapes q {tuple(q.shape)} "
-                         f"k {tuple(ck.shape)} v {tuple(cv.shape)}")
-    if H % Kv:
-        raise ValueError(f"decode_attention: {H} heads over {Kv} kv heads")
-    if q.dtype not in _DTYPES or ck.dtype != q.dtype or cv.dtype != q.dtype:
-        raise ValueError(f"decode_attention: dtypes {q.dtype}/{ck.dtype}/"
-                         f"{cv.dtype}; the kernel takes float32 or bfloat16")
-    if ck.stride(-1) != 1 or cv.stride(-1) != 1:
-        raise ValueError("decode_attention: cache head dim must be "
-                         "contiguous")
-    es = q.element_size()
-    if any(x.data_ptr() % 16 for x in (ck, cv)) or \
-            any(d * es % 16 for d in (Dk, Dv)) or \
-            any(st * es % 16 for st in ck.stride()[:3] + cv.stride()[:3]):
-        raise ValueError(
-            "decode_attention: the kernel copies cache rows 16 bytes at a "
-            "time and needs 16-byte aligned K/V bases, strides and rows "
-            f"(Dk={Dk}, Dv={Dv} of {q.dtype}, strides k {ck.stride()} "
-            f"v {cv.stride()})")
-    if not (ck.device == cv.device == q.device):
-        raise ValueError("decode_attention: operands on different devices")
-    qc = q.reshape(B, H, Dk).contiguous()
-    pos_t = per_row(pos, B, q.device)
-    kvl_t = None if kv_len is None else per_row(kv_len, B, q.device)
-    sl = None
-    if slopes is not None:
-        sl = slopes.to(device=q.device, dtype=torch.float32).contiguous()
-        if sl.shape != (H,):
-            raise ValueError(f"decode_attention: slopes {tuple(sl.shape)}, "
-                             f"want ({H},)")
-    G = H // Kv
-    g = head_group(G, Dv)
-    if g == 0:
-        raise ValueError(f"decode_attention: no head group of {G} heads at "
-                         f"Dv={Dv} fits a block (g <= {MAX_GROUP}, g * Dv "
-                         f"<= {MAX_GROUP_DV})")
     out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)
-    # (row, head-group) pairs play the rows of the split plan
-    tile, n_split, chunk = decode_plan(B * (G // g), Kv, T, Dk, Dv, es)
+    _, plan = _plan(q, ck, cv)
+    n_split = plan[1]
     part = [None] * 3
     if n_split > 1:
-        part = [torch.empty((n_split, B * H), dtype=torch.float32,
-                            device=q.device) for _ in range(2)]
-        part.append(torch.empty((n_split, B * H, Dv), dtype=torch.float32,
-                                device=q.device))
-    scale = 1.0 / math.sqrt(Dk) if scale is None else float(scale)
-    win = NO_WINDOW if window is None else int(window)
-    strides = (ctypes.c_longlong * 6)(*ck.stride()[:3], *cv.stride()[:3])
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _launcher()(
-        _DTYPES[q.dtype], qc.data_ptr(), ck.data_ptr(), cv.data_ptr(),
-        pos_t.data_ptr(), None if kvl_t is None else kvl_t.data_ptr(),
-        None if sl is None else sl.data_ptr(), out.data_ptr(),
-        *(None if x is None else x.data_ptr() for x in part),
-        B, T, Kv, g, G // g, Dk, Dv, strides, win, int(bool(causal)), scale,
-        tile, chunk, n_split, stream)
-    if err < 0:
-        raise ValueError(f"decode_attention: the kernel does not take "
-                         f"Dk={Dk}, Dv={Dv}, {g} heads a block (shared "
-                         "memory)")
-    check_launch("decode_attention", err)
+        part = _partials(n_split, B * H, Dv, q.device)
+    _launch("decode_attention", q, ck, cv, pos, kv_len, slopes, out, part,
+            g, plan, window, causal, scale, 0)
     decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0
+
+
+def _partials(n_split: int, n_heads_all: int, dv: int, device):
+    f32 = torch.float32
+    return [torch.empty((n_split, n_heads_all), dtype=f32, device=device),
+            torch.empty((n_split, n_heads_all), dtype=f32, device=device),
+            torch.empty((n_split, n_heads_all, dv), dtype=f32,
+                        device=device)]
+
+
+def decode_attention_partials(q, ck, cv, pos, *, t0: int = 0, window=None,
+                              slopes=None, kv_len=None, causal: bool = True,
+                              scale: Optional[float] = None):
+    """The split kernel of K1 alone over a cache shard: q (B,1,H,Dk) over
+    ck (B,T,Kv,Dk) / cv (B,T,Kv,Dv), whose first key sits at global
+    position ``t0`` (``pos`` / ``kv_len`` global), -> the f32 partials of
+    its ``decode_plan`` splits over T: (m (S,B,H), l (S,B,H), acc
+    (S,B,H,Dv)).  A split (or a whole shard) the mask does not reach is an
+    empty partial (m = -1e30, l = 0, acc = 0)."""
+    _check("decode_attention_partials", q, ck, cv, causal, window, slopes,
+           kv_len, scale)
+    _, plan = _plan(q, ck, cv)
+    B, _, H, _ = q.shape
+    Dv = cv.shape[-1]
+    n_split = plan[1]
+    if q.device.type == "cpu":
+        return decode_attention_partials_ref(
+            q, ck, cv, pos, t0=t0, window=window, slopes=slopes,
+            kv_len=kv_len, causal=causal, scale=scale, chunk=plan[2])
+    refuse_grad("decode_attention_partials (K1)", q, ck, cv, slopes)
+    counting = meta_calls()
+    if q.device.type == "meta" and counting is not None:
+        counting.cost.scaled_add(cost(
+            q, ck, cv, counting.pos, window=window, causal=causal,
+            kv_len=None if kv_len is None else counting.kv_len,
+            slopes=slopes, t0=t0, n_split=n_split), 1.0)
+        m, l, acc = _partials(n_split, B * H, Dv, q.device)
+        return (m.view(n_split, B, H), l.view(n_split, B, H),
+                acc.view(n_split, B, H, Dv))
+    g = _check_cuda("decode_attention_partials", q, ck, cv, slopes)
+    m, l, acc = _partials(n_split, B * H, Dv, q.device)
+    _launch("decode_attention_partials", q, ck, cv, pos, kv_len, slopes,
+            None, (m, l, acc), g, plan, window, causal, scale, t0)
+    decode_attention_partials.launches += 1
+    return (m.view(n_split, B, H), l.view(n_split, B, H),
+            acc.view(n_split, B, H, Dv))
+
+
+decode_attention_partials.launches = 0
+
+
+def merge_partials(parts, dtype=torch.float32):
+    """The combine kernel of K1 over a group's partials: ``parts`` a list
+    of (m, l, acc) triples (``decode_attention_partials``'s), in slot
+    order, concatenated along the split axis and merged in that order ->
+    (B,1,H,Dv) of ``dtype``."""
+    m = torch.cat([p[0] for p in parts]) if len(parts) > 1 else parts[0][0]
+    l = torch.cat([p[1] for p in parts]) if len(parts) > 1 else parts[0][1]
+    acc = torch.cat([p[2] for p in parts]) if len(parts) > 1 \
+        else parts[0][2]
+    S, B, H, Dv = acc.shape
+    if m.device.type == "cpu":
+        return merge_partials_ref(m, l, acc, dtype)
+    counting = meta_calls()
+    if m.device.type == "meta" and counting is not None:
+        counting.cost.scaled_add(merge_cost(
+            S, B * H, Dv, torch.empty((), dtype=dtype).element_size()), 1.0)
+        return acc.new_empty((B, 1, H, Dv), dtype=dtype)
+    if m.device.type != "cuda":
+        raise ValueError(f"merge_partials: no kernel for device {m.device}")
+    if dtype not in _DTYPES or any(x.dtype != torch.float32
+                                   for x in (m, l, acc)):
+        raise ValueError(f"merge_partials: f32 partials into float32 or "
+                         f"bfloat16, not {dtype}")
+    if m.shape != (S, B, H) or l.shape != (S, B, H) or \
+            not (m.device == l.device == acc.device):
+        raise ValueError("merge_partials: partials of mismatched shapes or "
+                         "devices")
+    m, l, acc = m.contiguous(), l.contiguous(), acc.contiguous()
+    out = torch.empty((B, 1, H, Dv), dtype=dtype, device=m.device)
+    stream = torch.cuda.current_stream(m.device).cuda_stream
+    err = _launcher()[1](_DTYPES[dtype], m.data_ptr(), l.data_ptr(),
+                         acc.data_ptr(), out.data_ptr(), B * H, S, Dv,
+                         stream)
+    if err < 0:
+        raise ValueError(f"merge_partials: the kernel does not take "
+                         f"{S} partials of Dv={Dv}")
+    check_launch("merge_partials", err)
+    merge_partials.launches += 1
+    return out
+
+
+merge_partials.launches = 0

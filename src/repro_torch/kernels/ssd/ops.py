@@ -13,6 +13,11 @@ launches (one for a single chunk; local states, carry and output
 otherwise).  The kernel reads x, B, C and dt through their strides, so the
 wrapper makes no transposed copies; it allocates the chunk-state scratch
 the plan names.  ``cost`` gives a call's bytes and flops.
+
+A device-group slot calls it on its head slice: views of x and dt over the
+slot's heads, its heads of A, D and of the carried state (B and C are
+shared).  The plan comes from the slice's sizes (the smaller H); a view
+whose rows are not 16-byte aligned raises, as any other does.
 """
 from __future__ import annotations
 

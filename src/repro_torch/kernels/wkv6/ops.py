@@ -14,6 +14,11 @@ parallel).  The kernel reads the four sequence
 operands through their strides, so the wrapper makes no transposed copies;
 it allocates the chunk-state scratch the plan names.  ``cost`` gives a
 call's bytes and flops.
+
+A device-group slot calls it on its head slice: views of r, k, v and lw over the
+slot's heads, its heads of the per-head params and of the carried state.
+The plan comes from the slice's sizes (the smaller H); a view whose rows
+are not 16-byte aligned raises, as any other does.
 """
 from __future__ import annotations
 

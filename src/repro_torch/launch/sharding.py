@@ -13,12 +13,15 @@ with those two attributes serves.
 
 Where the reference hands a spec to XLA's partitioner, here ``shard``
 cuts a slot's block out of a leaf and ``unshard`` puts the blocks back
-together.  The pooled steps read the layout the port's group path runs
-(``group_layout_rules``): the reference's rules with the cache time axis
-and the attention ``head_dim`` fallback kept whole on each slot.  A slot's
-K1 call attends over its rows' whole cache and its heads' whole head
-dimension; splitting either would need a softmax merge or a partial score
-across slots, which the kernels do not return.
+together.  The pooled steps run the reference's serving rules as they are
+(``group_layout_rules``): a slot holds the cache time shard ``kv_time``
+gives it where the KV heads do not take the model axis (MLA latents, GQA
+caches whose KV heads replicate) — over ``model``, or over ``data`` and
+``model`` where the pool rows do not split over ``data`` — and its decode
+attention returns the split partials of K1 (``decode_attention_partials``),
+merged over the slots holding the other shards in time order.  The
+``head_dim`` fallback (query heads that do not divide the model axis) is
+not emulated: ``group_layout_rules`` raises for it.
 
 ``make_ctx``, ``batch_specs``, ``cache_specs`` and ``param_shardings``
 (training and the dry run) have no counterpart yet (ROADMAP A10(b)).
@@ -275,10 +278,16 @@ def thaw_rules(frozen) -> Dict[str, object]:
 
 
 def group_layout_rules(rules: Dict[str, object]) -> Dict[str, object]:
-    """The layout the port's group steps run: ``rules`` with the cache time
-    axis (``kv_time``) and the attention ``head_dim`` fallback kept whole
-    on every slot (see the module docstring)."""
-    return dict(rules, kv_time=None, head_dim=None)
+    """The layout the port's group steps run: the reference's serving
+    ``rules`` unchanged.  ``NotImplementedError`` for the attention
+    ``head_dim`` fallback (a partial score over the slots), which the
+    slots do not emulate (ROADMAP A10(b))."""
+    if rules.get("head_dim") is not None:
+        raise NotImplementedError(
+            "a device group whose query heads do not divide the model axis "
+            "takes the head_dim fallback, which the port does not emulate "
+            "(ROADMAP A10(b))")
+    return dict(rules)
 
 
 def guarded_spec(axes, shape, rules: Dict[str, object], mesh) -> tuple:
@@ -352,7 +361,39 @@ _DECODER_AXES = {
 }
 
 
+# RWKV6 time mix / channel mix and Mamba2 mixer leaves (the reference's
+# ``models/ssm.py`` init axes)
+_RWKV_TM_AXES = {
+    "mu_x": ("embed_nosplit",), "mu": ("mix", "embed_nosplit"),
+    "mix_A": ("embed_nosplit", "lora"),
+    "mix_B": ("mix", "lora", "embed_nosplit"),
+    "wr": ("embed_fsdp", "heads_x_dim"), "wk": ("embed_fsdp", "heads_x_dim"),
+    "wv": ("embed_fsdp", "heads_x_dim"), "wg": ("embed_fsdp", "heads_x_dim"),
+    "w0": ("embed_nosplit",), "w_A": ("embed_nosplit", "lora"),
+    "w_B": ("lora", "embed_nosplit"), "u": ("ssm_heads", "ssm_dim"),
+    "out_norm": ("embed_nosplit",), "wo": ("heads_x_dim", "embed_fsdp"),
+}
+_RWKV_CM_AXES = {
+    "mu_k": ("embed_nosplit",), "mu_r": ("embed_nosplit",),
+    "wk": ("embed_fsdp", "mlp"), "wv": ("mlp", "embed_fsdp"),
+    "wr": ("embed_fsdp", "embed_nosplit"),
+}
+_MAMBA_AXES = {
+    "wz": ("embed_fsdp", "inner"), "wx": ("embed_fsdp", "inner"),
+    "wB": ("embed_fsdp", "state_nosplit"),
+    "wC": ("embed_fsdp", "state_nosplit"),
+    "wdt": ("embed_fsdp", "ssm_heads"), "conv_w": ("conv", "inner_nosplit"),
+    "conv_b": ("inner_nosplit",), "dt_bias": ("ssm_heads",),
+    "A_log": ("ssm_heads",), "D": ("ssm_heads",),
+    "norm": ("inner_nosplit",), "out_proj": ("inner", "embed_fsdp"),
+}
+# the parents of the other block kinds that are a decoder's in another name
+_AS_DECODER = {"self_attn": "attn", "cross_attn": "attn", "ln_cross": "ln1",
+               "ln": "ln1"}
+
+
 def _decoder_leaf_axes(cfg: ModelConfig, parent: str, name: str):
+    parent = _AS_DECODER.get(parent, parent)
     if parent == "attn" and name == "wo":
         return (("heads", "qk_dim", "embed_fsdp") if cfg.attn_kind == "mla"
                 else ("heads", "head_dim", "embed_fsdp"))
@@ -367,16 +408,36 @@ def _decoder_leaf_axes(cfg: ModelConfig, parent: str, name: str):
     return _DECODER_AXES[(parent, name)]
 
 
+def _leaf_axes(cfg: ModelConfig, parent: str, name: str):
+    if parent == "tm":
+        return _RWKV_TM_AXES[name]
+    if parent == "cm":
+        return _RWKV_CM_AXES[name]
+    if parent == "mixer":
+        return _MAMBA_AXES[name]
+    return _decoder_leaf_axes(cfg, parent, name)
+
+
+BLOCK_KINDS = ("decoder", "rwkv", "mamba", "mamba_shared", "enc", "dec")
+
+
 def block_param_axes(cfg: ModelConfig, kind: str, tree):
     """Logical-axes tree of a server's stacked params of one kind (the
-    reference's ``models.model.block_param_axes``); groups take decoder
-    blocks only in this slice."""
-    if kind != "decoder":
-        raise NotImplementedError(
-            f"device groups over {kind!r} blocks are not ported yet "
-            "(ROADMAP A10(b))")
-    return {parent: {name: ("layers",) + _decoder_leaf_axes(cfg, parent,
-                                                              name)
+    reference's ``models.model.block_param_axes``): every leaf's init axes
+    with the stacked ``layers`` axis first."""
+    if kind not in BLOCK_KINDS:
+        raise ValueError(f"unknown block kind {kind!r}; supported: "
+                         + ", ".join(BLOCK_KINDS))
+    return {parent: {name: ("layers",) + _leaf_axes(cfg, parent, name)
+                     for name in sub}
+            for parent, sub in tree.items()}
+
+
+def shared_param_axes(cfg: ModelConfig, tree):
+    """Logical axes of zamba2's parameter-shared attention block (one set
+    of params, no layers axis): a GQA attention and an MLP at width
+    2 * d_model, as the reference's ``init_zamba_shared``."""
+    return {parent: {name: _decoder_leaf_axes(cfg, parent, name)
                      for name in sub}
             for parent, sub in tree.items()}
 
@@ -465,6 +526,7 @@ __all__ = [
     "block_param_shardings", "cache_axes_for", "cache_tree_axes",
     "embed_param_axes", "freeze_rules", "frozen_serving_rules",
     "group_layout_rules", "guarded_spec", "make_rules",
-    "pool_tree_shardings", "serving_rules", "shard", "slot_index",
+    "pool_tree_shardings", "serving_rules", "shard", "shared_param_axes",
+    "slot_index",
     "thaw_rules", "unshard",
 ]

@@ -35,6 +35,20 @@ model row (``layers.reduce_model``).  Where query heads shard but KV heads
 replicate (their count does not divide the model axis) the slot holds
 every KV head and attends its query heads over the KV heads they map to
 by their global indices; MLA's latent cache has no head axis.
+
+Where the reference's rules shard the cache time axis (over ``model`` where
+KV heads replicate, and for MLA latents; over ``data`` too where the pool
+rows do not split over it), each slot holds a time shard of the cache
+(``GroupCtx.time_block``) and :func:`gqa_decode_group` /
+:func:`mla_decode_group` attend in three steps: K1's split partials over
+the slot's shard (``decode_attention_partials``, masks at the shard's
+global positions) for every query head, gathered over the model row,
+where the shard holds every KV head (or for the slot's own heads where it
+holds their KV heads' block), and the partials of the slot's heads merged
+over its time row in time order (``GroupCtx.merge_partials``); the new
+token is written by the slot that owns its position only.  Prefill reads
+the prefix gathered from the time shards (``layers.gather_time``) and
+runs K2 on the slot's heads.
 """
 from __future__ import annotations
 
@@ -44,10 +58,13 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import decode_attention, flash_attention
+from repro_torch.kernels import (decode_attention, decode_attention_partials,
+                                 flash_attention)
+from repro_torch.kernels.decode_attention.ref import \
+    decode_attention_partials_ref
 from repro_torch.kernels.runtime import NO_WINDOW, use_kernel
 from repro_torch.models.layers import (ParamBuilder, alibi_slopes,
-                                       apply_rope, param_dtype,
+                                       apply_rope, gather_model, param_dtype,
                                        rms_norm_simple, rope_angles)
 
 _NEG_INF = -1e30
@@ -325,18 +342,49 @@ def apply_gqa_full(params, cfg: ModelConfig, x, positions, window=None,
     return y, kv_out
 
 
-def write_token(cache, new, pos, active=None):
+def write_token(cache, new, pos, active=None, shard=None):
     """In-place write of one token per row: ``cache[b, pos[b]] = new[b, 0]``
     with ``pos`` clamped into [0, T-1] (``dynamic_update_slice``'s clamp).
-    Rows where ``active`` is False keep their old value."""
+    Rows where ``active`` is False keep their old value.  ``shard``: (t0,
+    t_len) when ``cache`` is the time shard [t0, t0 + T) of a cache of
+    ``t_len`` positions: ``pos`` is clamped into the whole [0, t_len - 1]
+    and only the shard that owns it writes."""
     B, T = cache.shape[0], cache.shape[1]
     rows = torch.arange(B, device=cache.device)
-    pc = pos.to(torch.long).clamp(0, T - 1)
+    p = pos.to(torch.long)
+    if shard is None:
+        pc = p.clamp(0, T - 1)
+    else:
+        t0, t_len = shard
+        p = p.clamp(0, t_len - 1)
+        own = (p >= t0) & (p < t0 + T)
+        active = own if active is None else active & own
+        pc = (p - t0).clamp(0, T - 1)
     val = new[:, 0].to(cache.dtype)
     if active is not None:
         mask = active.reshape((B,) + (1,) * (val.dim() - 1))
         val = torch.where(mask, val, cache[rows, pc])
     cache[rows, pc] = val
+
+
+def _gqa_decode_qkv(params, cfg: ModelConfig, x, pos, cross: bool):
+    """The decode step's q (B,1,H,hd), and for self attention its new k/v,
+    normed and rotated."""
+    q = _q_proj(params, cfg, x)
+    k = v = None
+    if not cross:
+        k, v = _kv_proj(params, cfg, x)
+        if cfg.qk_norm:
+            q = rms_norm_simple(q, params["q_norm"], cfg.norm_eps)
+            k = rms_norm_simple(k, params["k_norm"], cfg.norm_eps)
+        if cfg.pos_kind == "rope":
+            cos, sin = rope_angles(pos.reshape(-1, 1), cfg.head_dim,
+                                   cfg.rope_theta)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+    elif cfg.qk_norm:
+        q = rms_norm_simple(q, params["q_norm"], cfg.norm_eps)
+    return q, k, v
 
 
 def apply_gqa_decode(params, cfg: ModelConfig, x, cache_k, cache_v, pos,
@@ -353,21 +401,10 @@ def apply_gqa_decode(params, cfg: ModelConfig, x, cache_k, cache_v, pos,
     (a cache allocated longer than the encoder output).  ``heads``: a
     group slot's first query head (the module docstring).  Returns (y,
     cache_k, cache_v) — the same cache tensors."""
-    q = _q_proj(params, cfg, x)
+    q, k, v = _gqa_decode_qkv(params, cfg, x, pos, cross)
     if not cross:
-        k, v = _kv_proj(params, cfg, x)
-        if cfg.qk_norm:
-            q = rms_norm_simple(q, params["q_norm"], cfg.norm_eps)
-            k = rms_norm_simple(k, params["k_norm"], cfg.norm_eps)
-        if cfg.pos_kind == "rope":
-            cos, sin = rope_angles(pos.reshape(-1, 1), cfg.head_dim,
-                                   cfg.rope_theta)
-            q = apply_rope(q, cos, sin)
-            k = apply_rope(k, cos, sin)
         write_token(cache_k, k, pos, active)
         write_token(cache_v, v, pos, active)
-    elif cfg.qk_norm:
-        q = rms_norm_simple(q, params["q_norm"], cfg.norm_eps)
     slopes = _slopes(cfg, x.device, heads, q.shape[2])
     win = None if cross else window
     ck, cv = _kv_slice(cfg, heads, q.shape[2], cache_k, cache_v)
@@ -501,15 +538,9 @@ def apply_mla_decode(params, cfg: ModelConfig, x, cache_latent, cache_krope,
     helper's 1/sqrt(lora + rope) lands on it, as the reference's XLA
     branch does.  Returns (y, cache_latent, cache_krope)."""
     nope, rope = cfg.head_dim, cfg.rope_head_dim
-    posv = pos.reshape(-1, 1)
-    q_nope, q_rope = _mla_q(params, cfg, x, posv)
-    new_latent, new_krope = mla_latent(params, cfg, x, posv)
+    q_eff, new_latent, new_krope = _mla_decode_q(params, cfg, x, pos)
     write_token(cache_latent, new_latent, pos, active)
     write_token(cache_krope, new_krope, pos, active)
-    # absorb W_uk into the query: q_lat[h] = q_nope[h] @ W_uk[:, h, :]^T
-    q_lat = torch.einsum("bshk,lhk->bshl", q_nope,
-                         params["wuk"].to(x.dtype))
-    q_eff = torch.cat([q_lat, q_rope], dim=-1)  # (B,1,H,lora+rope)
     keys = mla_keys(cache_latent, cache_krope)[:, :, None, :]
     values = cache_latent[:, :, None, :]
     faithful = 1.0 / math.sqrt(nope + rope)
@@ -518,6 +549,129 @@ def apply_mla_decode(params, cfg: ModelConfig, x, cache_latent, cache_krope,
     else:
         scale_fix = math.sqrt(q_eff.shape[-1]) * faithful
         ctx = decode_attention_plain(q_eff * scale_fix, keys, values, pos)
+    return _mla_out(params, x, ctx), cache_latent, cache_krope
+
+
+def _mla_decode_q(params, cfg: ModelConfig, x, pos):
+    """Absorbed MLA decode's (q_eff (B,1,H,lora+rope), new latent, new
+    k_rope)."""
+    posv = pos.reshape(-1, 1)
+    q_nope, q_rope = _mla_q(params, cfg, x, posv)
+    new_latent, new_krope = mla_latent(params, cfg, x, posv)
+    # absorb W_uk into the query: q_lat[h] = q_nope[h] @ W_uk[:, h, :]^T
+    q_lat = torch.einsum("bshk,lhk->bshl", q_nope,
+                         params["wuk"].to(x.dtype))
+    return torch.cat([q_lat, q_rope], dim=-1), new_latent, new_krope
+
+
+def _mla_out(params, x, ctx):
+    """``wuv`` then ``wo`` on the attention's latent output."""
     v_heads = torch.einsum("bshl,lhk->bshk", ctx, params["wuv"].to(x.dtype))
-    y = torch.einsum("bshk,hkd->bsd", v_heads, params["wo"].to(x.dtype))
-    return y, cache_latent, cache_krope
+    return torch.einsum("bshk,hkd->bsd", v_heads, params["wo"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Decode on a device group whose slots hold time shards of the cache
+# ---------------------------------------------------------------------------
+
+
+def _shards(ctxs, caches, name: str):
+    """Per slot: (t0, t_len) of its time shard of the cache leaf ``name``
+    (``caches``: the slots' leaves), or None when each slot holds the whole
+    axis."""
+    out = []
+    for c, x in zip(ctxs, caches):
+        b, n = c.time_block(name)
+        if n == 1:
+            return None
+        out.append((b * x.shape[1], n * x.shape[1]))
+    return out
+
+
+def _partials_merged(ctxs, qs, ks, vs, poss, shards, heads, backend, name,
+                     every: bool, slopes=None, *, window=None, kv_lens,
+                     causal=True, scale=None):
+    """Per slot: attention of its query heads (``qs``, from ``heads``) over
+    the whole cache: K1's partials over each slot's shard of leaf
+    ``name``, and the partials of the slot's heads from its ``time_row``
+    merged in time order.  ``every``: each shard holds every KV head (they
+    replicate; MLA's latent), and a slot computes the partials of every
+    query head, gathered over the model row; else it holds its own KV
+    heads' block and computes its own heads'.  ``slopes``: ALiBi's (H,)
+    slopes or None."""
+    q_all = gather_model(ctxs, qs, dim=2) if every else qs
+    kernel = use_kernel(backend, qs[0])
+    run = decode_attention_partials if kernel \
+        else decode_attention_partials_ref
+    parts = []
+    for q, ck, cv, pos, kvl, sh, h, q_own in zip(q_all, ks, vs, poss,
+                                                 kv_lens, shards, heads, qs):
+        sl = slopes if slopes is None or every else \
+            slopes[h or 0:(h or 0) + q_own.shape[2]]
+        parts.append(run(q, ck, cv, pos, t0=sh[0], window=window, slopes=sl,
+                         kv_len=kvl, causal=causal, scale=scale))
+    return [c.merge_partials([parts[s] for s in c.time_row(name)],
+                             lo, lo + q.shape[2], q.dtype, kernel)
+            for c, q, lo in zip(ctxs, qs, ((h or 0) if every else 0
+                                           for h in heads))]
+
+
+def gqa_decode_group(ps, cfg: ModelConfig, ctxs, xs, ks, vs, poss,
+                     window=None, actives=None, cross: bool = False,
+                     kv_lens=None, backend: str = "kernel", heads=None):
+    """:func:`apply_gqa_decode` on a group's slots (per-slot lists; the
+    caches written in place), returning each slot's output projection
+    partial sum.  ``heads``: each slot's first query head (None: all)."""
+    n = len(ctxs)
+    actives = actives or [None] * n
+    kv_lens = kv_lens or [None] * n
+    heads = heads or [None] * n
+    shards = _shards(ctxs, ks, "ck" if cross else "k")
+    if shards is None:
+        return [apply_gqa_decode(p, cfg, x, ck, cv, pos, window, act, cross,
+                                 kvl, backend, h)[0]
+                for p, x, ck, cv, pos, act, kvl, h in zip(
+                    ps, xs, ks, vs, poss, actives, kv_lens, heads)]
+    qs = []
+    for p, x, ck, cv, pos, act, sh in zip(ps, xs, ks, vs, poss, actives,
+                                          shards):
+        q, k, v = _gqa_decode_qkv(p, cfg, x, pos, cross)
+        if not cross:
+            write_token(ck, k, pos, act, sh)
+            write_token(cv, v, pos, act, sh)
+        qs.append(q)
+    outs = _partials_merged(
+        ctxs, qs, ks, vs, poss, shards, heads, backend,
+        "ck" if cross else "k", ks[0].shape[2] == cfg.n_kv_heads,
+        _slopes(cfg, xs[0].device), window=None if cross else window,
+        kv_lens=kv_lens, causal=not cross)
+    return [torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+            for o, p, x in zip(outs, ps, xs)]
+
+
+def mla_decode_group(ps, cfg: ModelConfig, ctxs, xs, lats, krs, poss,
+                     actives=None, backend: str = "kernel", heads=None):
+    """:func:`apply_mla_decode` on a group's slots (per-slot lists; the
+    latent caches written in place), returning each slot's output
+    projection partial sum."""
+    n = len(ctxs)
+    actives = actives or [None] * n
+    shards = _shards(ctxs, lats, "latent")
+    if shards is None:
+        return [apply_mla_decode(p, cfg, x, lat, kr, pos, act, backend)[0]
+                for p, x, lat, kr, pos, act in zip(ps, xs, lats, krs, poss,
+                                                    actives)]
+    qs = []
+    for p, x, lat, kr, pos, act, sh in zip(ps, xs, lats, krs, poss,
+                                           actives, shards):
+        q_eff, new_latent, new_krope = _mla_decode_q(p, cfg, x, pos)
+        write_token(lat, new_latent, pos, act, sh)
+        write_token(kr, new_krope, pos, act, sh)
+        qs.append(q_eff)
+    keys = [mla_keys(lat, kr)[:, :, None, :] for lat, kr in zip(lats, krs)]
+    values = [lat[:, :, None, :] for lat in lats]
+    faithful = 1.0 / math.sqrt(cfg.head_dim + cfg.rope_head_dim)
+    outs = _partials_merged(ctxs, qs, keys, values, poss, shards,
+                            heads or [None] * n, backend, "latent", True,
+                            scale=faithful, kv_lens=[None] * n)
+    return [_mla_out(p, x, o) for p, x, o in zip(ps, xs, outs)]

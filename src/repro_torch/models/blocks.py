@@ -13,13 +13,19 @@ tensors, which the caller writes into its pool.  ``moe_rows=True`` routes
 each batch row through the MoE alone (the engine's pooled steps, where the
 reference vmaps its rows).
 
-``decoder_block_{full,decode}_group`` run a decoder block on the slots of
-a device group (``layers.GroupCtx``): the per-slot tensors and params are
-lists in slot order, the slots run the block's halves in lockstep, and the
-output projection's and the MLP's partial sums are added over each model
-row.  The engine's pooled steps run every decoder block through them, a
-solo server on its one ``layers.NULL`` slot; the solo and group blocks
-share their attention and residual bodies (``_mixer_*``, ``_residual``).
+``<kind>_{full,decode}_group`` run a block on the slots of a device group
+(``layers.GroupCtx``): the per-slot tensors and params are lists in slot
+order, the slots run the block's halves in lockstep, and the output
+projections' and the MLP's partial sums are added over each model row.
+Attention on a slot that holds a time shard of its cache merges K1's
+partials over the row (``attention.gqa_decode_group``); the recurrent
+mixers gather their state heads (``ssm.*_group``).  The engine's pooled
+steps run every block kind through them, a solo server on its one
+``layers.NULL`` slot.  The solo forms of the encoder, cross-decoder,
+Mamba2, zamba2-shared and RWKV6 blocks are their group forms on ``NULL``;
+the decoder's keep their own body (the monolithic MoE routes the whole
+batch) and share its attention and residual halves (``_mixer_*``,
+``_residual``).
 """
 from __future__ import annotations
 
@@ -29,10 +35,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe
 from repro_torch.models import ssm
-from repro_torch.models.layers import (ParamBuilder, apply_mlp, apply_norm,
-                                       apply_rope, gather_model, init_mlp,
-                                       init_norm, mlp_group, reduce_model,
-                                       rope_angles)
+from repro_torch.models.layers import (NULL, ParamBuilder, apply_mlp,
+                                       apply_norm, apply_rope, gather_model,
+                                       init_mlp, init_norm, mlp_group,
+                                       reduce_model, rope_angles)
 
 _BIG = 1 << 30
 
@@ -188,7 +194,7 @@ def decoder_block_decode(params, cfg: ModelConfig, h, cache, pos,
 
 
 # ---------------------------------------------------------------------------
-# Decoder blocks on a device group
+# Blocks on a device group
 # ---------------------------------------------------------------------------
 
 
@@ -199,11 +205,55 @@ def _first_head(cfg: ModelConfig, ctx, attn_params) -> int:
     return None if n == cfg.n_heads else ctx.j * n
 
 
-def _attn_reduce(ps, cfg: ModelConfig, ctxs, parts):
-    """The output projection's partials summed over each model row (heads
-    sharded), or the slots' whole outputs."""
-    n = ps[0]["attn"]["wo"].shape[0]
+def _attn_reduce(aps, cfg: ModelConfig, ctxs, parts):
+    """The output projection's partials (``aps``: the slots' attention
+    params) summed over each model row (heads sharded), or the slots'
+    whole outputs."""
+    n = aps[0]["wo"].shape[0]
     return parts if n == cfg.n_heads else reduce_model(ctxs, parts)
+
+
+def _gqa_full_group(aps, cfg: ModelConfig, ctxs, xs, poss, win=None,
+                    prefixes=None, cross_kvs=None, backend: str = "kernel"):
+    """``apply_gqa_full`` on each slot's heads, reduced over the row:
+    (per-slot output, per-slot chunk (k, v) or None)."""
+    n = len(ctxs)
+    prefixes = prefixes or [None] * n
+    cross_kvs = cross_kvs or [None] * n
+    outs = [attn.apply_gqa_full(a, cfg, x, positions, win, prefix_kv=pre,
+                                cross_kv=ckv, backend=backend,
+                                heads=_first_head(cfg, c, a))
+            for a, c, x, positions, pre, ckv in zip(aps, ctxs, xs, poss,
+                                                    prefixes, cross_kvs)]
+    return (_attn_reduce(aps, cfg, ctxs, [o[0] for o in outs]),
+            [o[1] for o in outs])
+
+
+def _attn_decode_group(aps, cfg: ModelConfig, ctxs, xs, ks, vs, poss,
+                       win=None, actives=None, backend: str = "kernel",
+                       cross: bool = False, kv_lens=None):
+    """Single-token GQA attention of each slot's heads (the caches ``ks``
+    / ``vs`` written in place on self attention), reduced over the row."""
+    heads = [_first_head(cfg, c, a) for c, a in zip(ctxs, aps)]
+    parts = attn.gqa_decode_group(aps, cfg, ctxs, xs, ks, vs, poss, win,
+                                  actives, cross, kv_lens, backend, heads)
+    return _attn_reduce(aps, cfg, ctxs, parts)
+
+
+def _mixer_decode_group(aps, cfg: ModelConfig, ctxs, xs, caches, poss,
+                        win, actives, backend: str):
+    """A decoder's attention (GQA or MLA) on a group, reduced."""
+    if cfg.attn_kind != "mla":
+        return _attn_decode_group(aps, cfg, ctxs, xs,
+                                  [c["k"] for c in caches],
+                                  [c["v"] for c in caches], poss, win,
+                                  actives, backend)
+    heads = [_first_head(cfg, c, a) for c, a in zip(ctxs, aps)]
+    parts = attn.mla_decode_group(aps, cfg, ctxs, xs,
+                                  [c["latent"] for c in caches],
+                                  [c["krope"] for c in caches], poss,
+                                  actives, backend, heads)
+    return _attn_reduce(aps, cfg, ctxs, parts)
 
 
 def _ffn_group(ps, cfg: ModelConfig, ctxs, hs, rows_split: bool,
@@ -228,12 +278,24 @@ def _ffn_group(ps, cfg: ModelConfig, ctxs, hs, rows_split: bool,
             for p, h, m in zip(ps, hs, ms)]
 
 
+def _mlp_residual_group(ps, cfg: ModelConfig, ctxs, hs, norm="ln2",
+                        concat=None):
+    """``h + MLP(norm(h))`` on a group (``concat``: per-slot tensors joined
+    to h before the norm, zamba2's embedding)."""
+    xs = [apply_norm(p[norm], cfg, h if e is None
+                     else torch.cat([h, e], dim=-1))
+          for p, h, e in zip(ps, hs, concat or [None] * len(hs))]
+    ms = mlp_group([p["ffn"] for p in ps], cfg, ctxs, xs)
+    return [h + m for h, m in zip(hs, ms)]
+
+
 def decoder_block_full_group(ps, cfg: ModelConfig, ctxs, hs, poss,
                              layer_idx=0, prefixes=None,
                              backend: str = "kernel",
                              rows_split: bool = False):
     """:func:`decoder_block_full` on a group (per-row MoE).  ``poss``:
-    per-slot positions; ``prefixes``: per-slot ``prefix_kv`` (or None).
+    per-slot positions; ``prefixes``: per-slot ``prefix_kv`` (or None), the
+    whole prefix (gathered from the slots' time shards by the caller).
     Returns (per-slot h, per-slot cache entries of the chunk)."""
     win = window_for_layer(cfg, layer_idx)
     prefixes = prefixes or [None] * len(ctxs)
@@ -241,7 +303,8 @@ def decoder_block_full_group(ps, cfg: ModelConfig, ctxs, hs, poss,
                         win, pre, backend, _first_head(cfg, c, p["attn"]))
             for p, c, h, positions, pre in zip(ps, ctxs, hs, poss,
                                                 prefixes)]
-    a = _attn_reduce(ps, cfg, ctxs, [o[0] for o in outs])
+    a = _attn_reduce([p["attn"] for p in ps], cfg, ctxs,
+                     [o[0] for o in outs])
     hs = [_residual(p, cfg, h, y, "post_ln1") for p, h, y in zip(ps, hs, a)]
     return _ffn_group(ps, cfg, ctxs, hs, rows_split), [o[1] for o in outs]
 
@@ -255,15 +318,150 @@ def decoder_block_decode_group(ps, cfg: ModelConfig, ctxs, hs, caches,
     caches (written in place on the ``actives`` rows), positions.  Returns
     per-slot h."""
     win = window_for_layer(cfg, layer_idx)
-    actives = actives or [None] * len(ctxs)
-    parts = [_mixer_decode(p, cfg, apply_norm(p["ln1"], cfg, h), cache, pos,
-                           win, act, backend,
-                           _first_head(cfg, c, p["attn"]))[0]
-             for p, c, h, cache, pos, act in zip(ps, ctxs, hs, caches, poss,
-                                                 actives)]
-    a = _attn_reduce(ps, cfg, ctxs, parts)
+    xs = [apply_norm(p["ln1"], cfg, h) for p, h in zip(ps, hs)]
+    a = _mixer_decode_group([p["attn"] for p in ps], cfg, ctxs, xs, caches,
+                            poss, win, actives, backend)
     hs = [_residual(p, cfg, h, y, "post_ln1") for p, h, y in zip(ps, hs, a)]
     return _ffn_group(ps, cfg, ctxs, hs, rows_split, moe_ep)
+
+
+def encoder_block_full_group(ps, cfg: ModelConfig, ctxs, hs, poss,
+                             backend: str = "kernel"):
+    """:func:`encoder_block_full` on a group: bidirectional attention of
+    each slot's heads over its KV heads, reduced; the MLP.  Per-slot h."""
+    parts = []
+    for p, c, h, positions in zip(ps, ctxs, hs, poss):
+        a = p["attn"]
+        x = apply_norm(p["ln1"], cfg, h)
+        q = attn._q_proj(a, cfg, x)
+        k, v = attn._kv_proj(a, cfg, x)
+        if cfg.pos_kind == "rope":
+            cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+        k, v = attn._kv_slice(cfg, _first_head(cfg, c, a), q.shape[2], k, v)
+        out = attn._attend_full(cfg, q, k, v, positions, positions, None,
+                                None, False, 0, backend)
+        parts.append(torch.einsum("bshk,hkd->bsd", out,
+                                  a["wo"].to(x.dtype)))
+    ys = _attn_reduce([p["attn"] for p in ps], cfg, ctxs, parts)
+    return _mlp_residual_group(ps, cfg, ctxs,
+                               [h + y for h, y in zip(hs, ys)])
+
+
+def cross_decoder_block_full_group(ps, cfg: ModelConfig, ctxs, hs, poss,
+                                   enc_hs, prefixes=None, enc_kvs=None,
+                                   backend: str = "kernel"):
+    """:func:`cross_decoder_block_full` on a group.  ``prefixes`` /
+    ``enc_kvs``: per-slot whole prefixes and cross (k, v) of the slot's
+    KV heads (or None).  Returns (per-slot h, per-slot {"k", "v", "ck",
+    "cv"})."""
+    n = len(ctxs)
+    xs = [apply_norm(p["ln1"], cfg, h) for p, h in zip(ps, hs)]
+    ys, kvs = _gqa_full_group([p["self_attn"] for p in ps], cfg, ctxs, xs,
+                              poss, prefixes=prefixes, backend=backend)
+    hs = [h + y for h, y in zip(hs, ys)]
+    xs = [apply_norm(p["ln_cross"], cfg, h) for p, h in zip(ps, hs)]
+    enc_kvs = enc_kvs or [None] * n
+    ckvs = [attn.gqa_encoder_kv(p["cross_attn"], cfg, e) if ekv is None
+            else ekv for p, e, ekv in zip(ps, enc_hs, enc_kvs)]
+    ys, _ = _gqa_full_group([p["cross_attn"] for p in ps], cfg, ctxs, xs,
+                            poss, cross_kvs=ckvs, backend=backend)
+    hs = _mlp_residual_group(ps, cfg, ctxs, [h + y for h, y in zip(hs, ys)])
+    return hs, [{"k": kv[0], "v": kv[1], "ck": ckv[0], "cv": ckv[1]}
+                for kv, ckv in zip(kvs, ckvs)]
+
+
+def cross_decoder_block_decode_group(ps, cfg: ModelConfig, ctxs, hs,
+                                     caches, poss, enc_lens=None,
+                                     actives=None, backend: str = "kernel"):
+    """:func:`cross_decoder_block_decode` on a group (the self caches
+    written in place on ``actives`` rows).  Per-slot h."""
+    xs = [apply_norm(p["ln1"], cfg, h) for p, h in zip(ps, hs)]
+    ys = _attn_decode_group([p["self_attn"] for p in ps], cfg, ctxs, xs,
+                            [c["k"] for c in caches],
+                            [c["v"] for c in caches], poss, None, actives,
+                            backend)
+    hs = [h + y for h, y in zip(hs, ys)]
+    xs = [apply_norm(p["ln_cross"], cfg, h) for p, h in zip(ps, hs)]
+    ys = _attn_decode_group([p["cross_attn"] for p in ps], cfg, ctxs, xs,
+                            [c["ck"] for c in caches],
+                            [c["cv"] for c in caches], poss, backend=backend,
+                            cross=True, kv_lens=enc_lens)
+    return _mlp_residual_group(ps, cfg, ctxs, [h + y for h, y in zip(hs, ys)])
+
+
+def mamba_block_full_group(ps, cfg: ModelConfig, ctxs, hs,
+                           backend: str = "kernel"):
+    """:func:`mamba_block_full` on a group: (per-slot h, per-slot state)."""
+    xs = [apply_norm(p["ln"], cfg, h) for p, h in zip(ps, hs)]
+    ys, states = ssm.mamba_full_group([p["mixer"] for p in ps], cfg, ctxs,
+                                      xs, backend)
+    return [h + y for h, y in zip(hs, ys)], states
+
+
+def mamba_block_decode_group(ps, cfg: ModelConfig, ctxs, hs, states):
+    """:func:`mamba_block_decode` on a group."""
+    xs = [apply_norm(p["ln"], cfg, h) for p, h in zip(ps, hs)]
+    ys, states = ssm.mamba_decode_group([p["mixer"] for p in ps], cfg, ctxs,
+                                        xs, states)
+    return [h + y for h, y in zip(hs, ys)], states
+
+
+def zamba_shared_full_group(ps, cfg: ModelConfig, ctxs, hs, emb0s, poss,
+                            backend: str = "kernel"):
+    """:func:`zamba_shared_full` on a group (``ps``: the slots' shared
+    params): (per-slot h, per-slot {"k", "v"})."""
+    xs = [apply_norm(p["ln1"], cfg, torch.cat([h, e], dim=-1))
+          for p, h, e in zip(ps, hs, emb0s)]
+    ys, kvs = _gqa_full_group([p["attn"] for p in ps], cfg, ctxs, xs, poss,
+                              backend=backend)
+    hs = _mlp_residual_group(ps, cfg, ctxs, [h + y for h, y in zip(hs, ys)],
+                             "ln2", emb0s)
+    return hs, [{"k": kv[0], "v": kv[1]} for kv in kvs]
+
+
+def zamba_shared_decode_group(ps, cfg: ModelConfig, ctxs, hs, emb0s, caches,
+                              poss, actives=None, backend: str = "kernel"):
+    """:func:`zamba_shared_decode` on a group (K/V written in place on
+    ``actives`` rows).  Per-slot h."""
+    xs = [apply_norm(p["ln1"], cfg, torch.cat([h, e], dim=-1))
+          for p, h, e in zip(ps, hs, emb0s)]
+    ys = _attn_decode_group([p["attn"] for p in ps], cfg, ctxs, xs,
+                            [c["k"] for c in caches],
+                            [c["v"] for c in caches], poss, None, actives,
+                            backend)
+    return _mlp_residual_group(ps, cfg, ctxs, [h + y for h, y in zip(hs, ys)],
+                               "ln2", emb0s)
+
+
+def rwkv_block_full_group(ps, cfg: ModelConfig, ctxs, hs,
+                          backend: str = "kernel"):
+    """:func:`rwkv_block_full` on a group: (per-slot h, per-slot state)."""
+    xs = [apply_norm(p["ln1"], cfg, h) for p, h in zip(ps, hs)]
+    ys, tms = ssm.rwkv_tm_full_group([p["tm"] for p in ps], cfg, ctxs, xs,
+                                     backend)
+    hs = [h + y for h, y in zip(hs, ys)]
+    xs = [apply_norm(p["ln2"], cfg, h) for p, h in zip(ps, hs)]
+    cms = ssm.rwkv_cm_group([p["cm"] for p in ps], cfg, ctxs, xs)
+    return ([h + y for h, (y, _) in zip(hs, cms)],
+            [{"wkv": tm["wkv"], "shift_tm": tm["shift"], "shift_cm": sh}
+             for tm, (_, sh) in zip(tms, cms)])
+
+
+def rwkv_block_decode_group(ps, cfg: ModelConfig, ctxs, hs, states):
+    """:func:`rwkv_block_decode` on a group."""
+    xs = [apply_norm(p["ln1"], cfg, h) for p, h in zip(ps, hs)]
+    ys, tms = ssm.rwkv_tm_decode_group(
+        [p["tm"] for p in ps], cfg, ctxs, xs,
+        [{"wkv": st["wkv"], "shift": st["shift_tm"]} for st in states])
+    hs = [h + y for h, y in zip(hs, ys)]
+    xs = [apply_norm(p["ln2"], cfg, h) for p, h in zip(ps, hs)]
+    cms = ssm.rwkv_cm_group([p["cm"] for p in ps], cfg, ctxs, xs,
+                            [st["shift_cm"] for st in states])
+    return ([h + y for h, (y, _) in zip(hs, cms)],
+            [{"wkv": tm["wkv"], "shift_tm": tm["shift"], "shift_cm": sh}
+             for tm, (_, sh) in zip(tms, cms)])
 
 
 # ---------------------------------------------------------------------------
@@ -284,19 +482,8 @@ def encoder_block_full(params, cfg: ModelConfig, h, positions,
                        backend: str = "kernel"):
     """Bidirectional self-attention encoder block over (B, S_enc, d); it
     holds no serving state."""
-    x = apply_norm(params["ln1"], cfg, h)
-    q = attn._q_proj(params["attn"], cfg, x)
-    k, v = attn._kv_proj(params["attn"], cfg, x)
-    if cfg.pos_kind == "rope":
-        cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-    out = attn._attend_full(cfg, q, k, v, positions, positions, None, None,
-                            False, 0, backend)
-    h = h + torch.einsum("bshk,hkd->bsd", out,
-                         params["attn"]["wo"].to(x.dtype))
-    x = apply_norm(params["ln2"], cfg, h)
-    return h + apply_mlp(params["ffn"], cfg, x)
+    return encoder_block_full_group([params], cfg, [NULL], [h], [positions],
+                                    backend)[0]
 
 
 def init_cross_decoder_block(pb: ParamBuilder, cfg: ModelConfig):
@@ -319,19 +506,10 @@ def cross_decoder_block_full(params, cfg: ModelConfig, h, positions, enc_h,
     already-projected cross (k, v), which skips the projection of
     ``enc_h`` (it does not depend on the chunk, so a chunked prefill
     projects it at offset 0 and reads it back from the pool after)."""
-    x = apply_norm(params["ln1"], cfg, h)
-    a, kv = attn.apply_gqa_full(params["self_attn"], cfg, x, positions,
-                                prefix_kv=prefix_kv, backend=backend)
-    h = h + a
-    x = apply_norm(params["ln_cross"], cfg, h)
-    ck, cv = attn.gqa_encoder_kv(params["cross_attn"], cfg, enc_h) \
-        if enc_kv is None else enc_kv
-    a, _ = attn.apply_gqa_full(params["cross_attn"], cfg, x, positions,
-                               cross_kv=(ck, cv), backend=backend)
-    h = h + a
-    x = apply_norm(params["ln2"], cfg, h)
-    h = h + apply_mlp(params["ffn"], cfg, x)
-    return h, {"k": kv[0], "v": kv[1], "ck": ck, "cv": cv}
+    hs, caches = cross_decoder_block_full_group(
+        [params], cfg, [NULL], [h], [positions], [enc_h], [prefix_kv],
+        [enc_kv], backend)
+    return hs[0], caches[0]
 
 
 def cross_decoder_block_decode(params, cfg: ModelConfig, h, cache, pos,
@@ -343,20 +521,10 @@ def cross_decoder_block_decode(params, cfg: ModelConfig, h, cache, pos,
     positions per row, for cross caches allocated longer than the
     session's encoder output (the pooled steps); None attends over the
     whole cross cache (the monolithic decode).  Returns (h, cache)."""
-    x = apply_norm(params["ln1"], cfg, h)
-    a, ck, cv = attn.apply_gqa_decode(params["self_attn"], cfg, x,
-                                      cache["k"], cache["v"], pos,
-                                      active=active, backend=backend)
-    h = h + a
-    x = apply_norm(params["ln_cross"], cfg, h)
-    a, _, _ = attn.apply_gqa_decode(params["cross_attn"], cfg, x,
-                                    cache["ck"], cache["cv"], pos,
-                                    cross=True, kv_len=enc_len,
-                                    backend=backend)
-    h = h + a
-    x = apply_norm(params["ln2"], cfg, h)
-    h = h + apply_mlp(params["ffn"], cfg, x)
-    return h, {"k": ck, "v": cv, "ck": cache["ck"], "cv": cache["cv"]}
+    h = cross_decoder_block_decode_group(
+        [params], cfg, [NULL], [h], [cache], [pos], [enc_len], [active],
+        backend)[0]
+    return h, cache
 
 
 # ---------------------------------------------------------------------------
@@ -372,16 +540,15 @@ def init_mamba_block(pb: ParamBuilder, cfg: ModelConfig):
 
 
 def mamba_block_full(params, cfg: ModelConfig, h, backend: str = "kernel"):
-    x = apply_norm(params["ln"], cfg, h)
-    y, state = ssm.apply_mamba_full(params["mixer"], cfg, x, backend=backend)
-    return h + y, state
+    hs, states = mamba_block_full_group([params], cfg, [NULL], [h], backend)
+    return hs[0], states[0]
 
 
 def mamba_block_decode(params, cfg: ModelConfig, h, state):
     """One token; the step is elementwise and launches no kernel."""
-    x = apply_norm(params["ln"], cfg, h)
-    y, state = ssm.apply_mamba_decode(params["mixer"], cfg, x, state)
-    return h + y, state
+    hs, states = mamba_block_decode_group([params], cfg, [NULL], [h],
+                                          [state])
+    return hs[0], states[0]
 
 
 # ---------------------------------------------------------------------------
@@ -403,25 +570,18 @@ def init_zamba_shared(pb: ParamBuilder, cfg: ModelConfig):
 def zamba_shared_full(params, cfg: ModelConfig, h, emb0, positions,
                       backend: str = "kernel"):
     """Returns (h, {"k", "v"}) — a KV cache entry per invocation."""
-    x = apply_norm(params["ln1"], cfg, torch.cat([h, emb0], dim=-1))
-    a, kv = attn.apply_gqa_full(params["attn"], cfg, x, positions,
-                                backend=backend)
-    h = h + a
-    x = apply_norm(params["ln2"], cfg, torch.cat([h, emb0], dim=-1))
-    return h + apply_mlp(params["ffn"], cfg, x), {"k": kv[0], "v": kv[1]}
+    hs, kvs = zamba_shared_full_group([params], cfg, [NULL], [h], [emb0],
+                                      [positions], backend)
+    return hs[0], kvs[0]
 
 
 def zamba_shared_decode(params, cfg: ModelConfig, h, emb0, cache, pos,
                         active=None, backend: str = "kernel"):
     """One token; writes K/V into ``cache`` in place at ``pos`` (``active``
     rows only).  Returns (h, cache)."""
-    x = apply_norm(params["ln1"], cfg, torch.cat([h, emb0], dim=-1))
-    a, ck, cv = attn.apply_gqa_decode(params["attn"], cfg, x, cache["k"],
-                                      cache["v"], pos, active=active,
-                                      backend=backend)
-    h = h + a
-    x = apply_norm(params["ln2"], cfg, torch.cat([h, emb0], dim=-1))
-    return h + apply_mlp(params["ffn"], cfg, x), {"k": ck, "v": cv}
+    h = zamba_shared_decode_group([params], cfg, [NULL], [h], [emb0],
+                                  [cache], [pos], [active], backend)[0]
+    return h, cache
 
 
 # ---------------------------------------------------------------------------
@@ -439,25 +599,11 @@ def init_rwkv_block(pb: ParamBuilder, cfg: ModelConfig):
 
 
 def rwkv_block_full(params, cfg: ModelConfig, h, backend: str = "kernel"):
-    x = apply_norm(params["ln1"], cfg, h)
-    y, tm_state = ssm.apply_rwkv_tm_full(params["tm"], cfg, x,
-                                         backend=backend)
-    h = h + y
-    x = apply_norm(params["ln2"], cfg, h)
-    y, cm_shift = ssm.apply_rwkv_cm(params["cm"], cfg, x)
-    return h + y, {"wkv": tm_state["wkv"], "shift_tm": tm_state["shift"],
-                   "shift_cm": cm_shift}
+    hs, states = rwkv_block_full_group([params], cfg, [NULL], [h], backend)
+    return hs[0], states[0]
 
 
 def rwkv_block_decode(params, cfg: ModelConfig, h, state):
     """One token; the step is elementwise and launches no kernel."""
-    x = apply_norm(params["ln1"], cfg, h)
-    y, tm_state = ssm.apply_rwkv_tm_decode(
-        params["tm"], cfg, x, {"wkv": state["wkv"],
-                               "shift": state["shift_tm"]})
-    h = h + y
-    x = apply_norm(params["ln2"], cfg, h)
-    y, cm_shift = ssm.apply_rwkv_cm(params["cm"], cfg, x,
-                                    shift_state=state["shift_cm"])
-    return h + y, {"wkv": tm_state["wkv"], "shift_tm": tm_state["shift"],
-                   "shift_cm": cm_shift}
+    hs, states = rwkv_block_decode_group([params], cfg, [NULL], [h], [state])
+    return hs[0], states[0]

@@ -299,10 +299,14 @@ class GroupCtx:
     each call adds its per-slot wire bytes by the ring model of the
     reference's ``parse_collectives``."""
 
-    def __init__(self, mesh=None, slot: int = 0, rules=None):
+    def __init__(self, mesh=None, slot: int = 0, rules=None,
+                 whole_time=()):
         self.mesh = mesh
         self.slot = int(slot)
         self.rules = dict(rules or {})
+        # cache leaves whose time axis a step holds whole whatever the rules
+        # say (the paged steps' scratch of gathered whole pages)
+        self.whole_time = frozenset(whole_time)
         if mesh is None:
             self.n_data = self.n_model = 1
             self.i = self.j = 0
@@ -312,10 +316,10 @@ class GroupCtx:
             self.i, self.j = divmod(self.slot, self.n_model)
             self.device = mesh.devices[self.i, self.j]
 
-    def block(self, logical: str):
+    def block(self, logical: str, rules=None):
         """(block index, block count) of this slot along the mesh axes the
         rule of ``logical`` names ((0, 1) when it replicates)."""
-        ax = self.rules.get(logical)
+        ax = (self.rules if rules is None else rules).get(logical)
         axes = () if ax is None else ax if isinstance(ax, tuple) else (ax,)
         coords = {"data": (self.i, self.n_data),
                   "model": (self.j, self.n_model)}
@@ -323,6 +327,42 @@ class GroupCtx:
         for a in axes:
             b, n = b * coords[a][1] + coords[a][0], n * coords[a][1]
         return b, n
+
+    def _time_rule(self, name: str):
+        """(rules, logical axis) of the time axis of cache leaf ``name``:
+        the reference's ``cache_axes_for`` under this slot's rules."""
+        from repro_torch.launch.sharding import cache_axes_for
+
+        rules = dict(self.rules)
+        return rules, cache_axes_for(name, 5, rules)[2]
+
+    def time_block(self, name: str):
+        """(block index, block count) of this slot along the time axis of
+        the cache leaf ``name`` ((0, 1): the slot holds the whole axis) —
+        over ``model``; where the pool rows do not split over ``data``,
+        over ``data`` and ``model``, or ``data`` beside KV heads over
+        ``model``."""
+        if name in self.whole_time:
+            return 0, 1
+        rules, ax = self._time_rule(name)
+        return (0, 1) if ax is None else self.block(ax, rules)
+
+    def time_row(self, name: str) -> List[int]:
+        """The slots whose time shards of leaf ``name`` make up the whole
+        axis with this slot's, in time order: those that share this slot's
+        coordinates on the mesh axes the time axis is not split over."""
+        if self.time_block(name)[1] == 1:
+            return [self.slot]
+        rules, ax = self._time_rule(name)
+        mesh_ax = rules.get(ax)
+        axes = mesh_ax if isinstance(mesh_ax, tuple) else (mesh_ax,)
+        peers = [GroupCtx(self.mesh, s, self.rules)
+                 for s in range(self.n_data * self.n_model)]
+        peers = [c for c in peers
+                 if ("data" in axes or c.i == self.i)
+                 and ("model" in axes or c.j == self.j)]
+        return [c.slot for c in sorted(peers,
+                                       key=lambda c: c.time_block(name)[0])]
 
     def slot_at(self, **coords) -> int:
         """The slot at this slot's coordinates with ``coords`` replaced."""
@@ -347,10 +387,34 @@ class GroupCtx:
         return out
 
     def all_gather(self, parts, dim: int = -1):
-        """The model row's shards (``parts`` in model order) concatenated
-        along ``dim`` on this slot's device."""
-        _record("all-gather", parts[0], len(parts), gathered=True)
+        """A row's shards (``parts`` in row order: the model row's, or a
+        ``time_row``'s) concatenated along ``dim`` on this slot's device."""
+        if len(parts) == 1:
+            return self.to_here(parts[0])
+        _record("all-gather", parts[0], len(parts), gathered=True,
+                nbytes=sum(_nbytes(p) for p in parts) / len(parts))
         return torch.cat([self.to_here(p) for p in parts], dim=dim)
+
+    def merge_partials(self, parts, lo: int, hi: int, dtype,
+                       kernel: bool = True):
+        """K1's merge over a time row: ``parts`` its slots' split partials
+        (m, l, acc; ``decode_attention_partials``) over every query head,
+        in time order; this slot's heads [lo, hi) of each moved here and
+        merged in that order and split order -> (B,1,hi-lo, Dv) of
+        ``dtype``, by the combine kernel (``kernel``) or its plain version.
+        Each peer sends its partials of these heads."""
+        from repro_torch.kernels import merge_partials, merge_partials_ref
+
+        mine = [tuple(self.to_here(x[:, :, lo:hi]) for x in p)
+                for p in parts]
+        if len(parts) > 1:
+            _record("merge", mine[0][0], len(parts), point=True,
+                    nbytes=(len(parts) - 1) * sum(_nbytes(x)
+                                                  for x in mine[0]))
+        if kernel:
+            return merge_partials(mine, dtype)
+        return merge_partials_ref(*(torch.cat([p[i] for p in mine])
+                                    for i in range(3)), dtype)
 
     def receive(self, x, src: int):
         """A point-to-point move of ``x`` from slot ``src`` to this slot
@@ -363,9 +427,10 @@ class GroupCtx:
 NULL = GroupCtx()
 
 
-def group_ctxs(mesh, rules=None) -> List[GroupCtx]:
+def group_ctxs(mesh, rules=None, whole_time=()) -> List[GroupCtx]:
     """The ctx of every slot of ``mesh``, in slot order."""
-    return [GroupCtx(mesh, s, rules) for s in range(int(mesh.devices.size))]
+    return [GroupCtx(mesh, s, rules, whole_time)
+            for s in range(int(mesh.devices.size))]
 
 
 def reduce_model(ctxs, parts):
@@ -379,6 +444,21 @@ def gather_model(ctxs, parts, dim: int = -1):
     """Per slot: its model row's shards concatenated along ``dim``."""
     return [c.all_gather([parts[s] for s in c.model_row()], dim)
             for c in ctxs]
+
+
+def gather_time(ctxs, shards, n: int, name: str = "k"):
+    """Per slot: positions [0, n) of a cache leaf named ``name`` (time on
+    dim 1) whose slots hold time shards — each shard's part of [0, n)
+    gathered over the slot's ``time_row`` in time order (a slot holding
+    the whole axis reads its own)."""
+    outs = []
+    for c in ctxs:
+        row = c.time_row(name)
+        w = shards[c.slot].shape[1]
+        outs.append(c.all_gather(
+            [shards[s][:, :max(0, min(w, n - i * w))]
+             for i, s in enumerate(row)], dim=1))
+    return outs
 
 
 _COLLECTIVES: contextvars.ContextVar = contextvars.ContextVar(
@@ -409,15 +489,20 @@ def count_collectives():
         _COLLECTIVES.reset(token)
 
 
+def _nbytes(x) -> int:
+    return x.numel() * x.element_size()
+
+
 def _record(kind: str, x, g: int, gathered: bool = False,
-            point: bool = False):
+            point: bool = False, nbytes: Optional[float] = None):
     """Wire bytes of one slot's share of a collective over ``g`` slots of
-    operands like ``x`` (the reference's ring factors: all-reduce
-    2(g-1)/g N, all-gather (g-1)/g N_out; a point-to-point send N)."""
+    operands like ``x`` (``nbytes`` of each when given; the reference's
+    ring factors: all-reduce 2(g-1)/g N, all-gather (g-1)/g N_out; a
+    point-to-point send N)."""
     rec = _COLLECTIVES.get()
     if rec is None or g <= 1:
         return
-    n = x.numel() * x.element_size()
+    n = _nbytes(x) if nbytes is None else nbytes
     if point:
         wire = float(n)
     elif gathered:

@@ -17,6 +17,20 @@ the reference's names.
 Host data: every constant here is built on the input's device (``torch.
 ones``/``zeros`` fills, ``linspace`` at init), so the prefill and decode
 paths make no host-to-device copy, which would sync the stream.
+
+``*_group`` forms run a mixer on the slots of a device group
+(``layers.GroupCtx``; per-slot lists in slot order) under the reference's
+param layout (``launch.sharding.block_param_axes``): each slot projects
+its own heads (RWKV6's ``heads_x_dim`` columns, Mamba2's ``inner``
+columns and ``ssm_heads``), runs the scan (K3 / K4 in prefill) on its
+head slice with its heads of the carried state, and the model row adds
+the output projections' partial sums in slot order.  The reference's
+rules never shard the recurrent states over ``model`` (``ssm_heads_act``
+has no rule), so every model slot holds them whole: the slots' new state
+heads (and Mamba2's conv-tail columns) are gathered in slot order after
+each step, which keeps the replicas equal.  Mamba2's gated norm spans all
+of ``d_inner``: its input is gathered over the row first.  The solo
+server runs them on its one ``NULL`` slot, with the solo functions' ops.
 """
 from __future__ import annotations
 
@@ -27,7 +41,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import use_kernel
 from repro_torch.kernels.ssd import ssd, ssd_chunked
 from repro_torch.kernels.wkv6 import wkv6, wkv6_chunked
-from repro_torch.models.layers import (ParamBuilder, param_dtype,
+from repro_torch.models.layers import (NULL, ParamBuilder, gather_model,
+                                       param_dtype, reduce_model,
                                        rms_norm_simple)
 
 # per-step log-decay clamp for RWKV6 (the reference's stability bound)
@@ -71,71 +86,17 @@ def _mamba_inputs(params, cfg: ModelConfig, x):
     return z, (xc, bp, cp), dt_raw
 
 
-def _conv_slices(params, cfg: ModelConfig):
-    di, n = cfg.d_inner, cfg.ssm_state
-    w, b = params["conv_w"], params["conv_b"]
-    return ((w[:, :di], b[:di]), (w[:, di: di + n], b[di: di + n]),
-            (w[:, di + n:], b[di + n:]))
-
-
-def _mamba_post(params, cfg: ModelConfig, y, z):
-    """Gated RMSNorm + output projection.  y/z: (..., d_inner)."""
-    g = y * F.silu(z.float()).to(y.dtype)
-    g = rms_norm_simple(g, params["norm"], cfg.norm_eps)
-    return g @ params["out_proj"].to(g.dtype)
-
-
 def apply_mamba_full(params, cfg: ModelConfig, x, backend: str = "kernel"):
     """Full-sequence Mamba2.  x (B,S,d) -> (y (B,S,d), state) with state
     {"ssm": (B,h,p,n) f32, "conv": (B, w-1, d_inner+2n) f32}."""
-    B, S, _ = x.shape
-    di, h, w = cfg.d_inner, cfg.ssm_heads, cfg.conv_width
-    p = cfg.ssm_head_dim
-    z, pieces, dt_raw = _mamba_inputs(params, cfg, x)
-
-    # causal depthwise conv (width w), per piece: it never mixes channels
-    convs, tails = [], []
-    for piece, (cw, cb) in zip(pieces, _conv_slices(params, cfg)):
-        pad = F.pad(piece, (0, 0, w - 1, 0))
-        out = sum(pad[:, i: i + S] * cw[i].to(x.dtype) for i in range(w))
-        convs.append(F.silu(out + cb.to(x.dtype)))
-        tails.append(pad[:, S:])
-    xc, bm, cm = convs[0], convs[1].float(), convs[2].float()
-    conv_tail = torch.cat(tails, dim=-1)  # (B, w-1, di+2n): the decode carry
-    dtv = F.softplus(dt_raw.float() + params["dt_bias"])  # (B,S,h)
-    a = -torch.exp(params["A_log"])  # (h,) negative
-
-    xh = xc.reshape(B, S, h, p).float()
-    scan = ssd if use_kernel(backend, x) else ssd_chunked
-    y, ssm_state = scan(xh, bm, cm, dtv, a, params["D"])
-    y = y.reshape(B, S, di).to(x.dtype)
-    out = _mamba_post(params, cfg, y, z)
-    return out, {"ssm": ssm_state, "conv": conv_tail.float()}
+    ys, states = mamba_full_group([params], cfg, [NULL], [x], backend)
+    return ys[0], states[0]
 
 
 def apply_mamba_decode(params, cfg: ModelConfig, x, state):
     """Single-token Mamba2 step.  x (B,1,d) -> (y (B,1,d), new state)."""
-    B = x.shape[0]
-    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    p = cfg.ssm_head_dim
-    z, pieces, dt_raw = _mamba_inputs(params, cfg, x)
-    conv_in = torch.cat(pieces, dim=-1)  # (B,1,conv_dim)
-    window = torch.cat([state["conv"].to(x.dtype), conv_in], dim=1)
-    conv = torch.einsum("bwc,wc->bc", window,
-                        params["conv_w"].to(x.dtype))
-    conv = F.silu(conv + params["conv_b"].to(x.dtype))  # (B,conv_dim)
-    new_conv = window[:, 1:].float()
-
-    xc = conv[:, :di].reshape(B, h, p).float()
-    bm = conv[:, di: di + n].float()
-    cm = conv[:, di + n:].float()
-    dtv = F.softplus(dt_raw[:, 0].float() + params["dt_bias"])
-    a = torch.exp(dtv * -torch.exp(params["A_log"]))  # (B,h)
-    s = state["ssm"] * a[..., None, None] + torch.einsum(
-        "bh,bhp,bn->bhpn", dtv, xc, bm)
-    y = torch.einsum("bn,bhpn->bhp", cm, s) + xc * params["D"][None, :, None]
-    y = y.reshape(B, 1, di).to(x.dtype)
-    return _mamba_post(params, cfg, y, z), {"ssm": s, "conv": new_conv}
+    ys, states = mamba_decode_group([params], cfg, [NULL], [x], [state])
+    return ys[0], states[0]
 
 
 # ===========================================================================
@@ -190,51 +151,32 @@ def _rwkv_decay(params, xw):
     return torch.clamp(-torch.exp(omega), RWKV_MIN_LOG_W, -1e-4)
 
 
-def _rwkv_out(params, cfg: ModelConfig, y, g, x):
-    """Per-head group norm, gate, output projection.  y (..., h, hd) f32."""
+def _rwkv_out(params, cfg: ModelConfig, y, g, x, lo: int = 0, n=None):
+    """Per-head group norm, gate, output projection.  y (..., h, hd) f32;
+    a group slot's channels [lo, lo + n) (its heads, ``g`` and ``wo``
+    rows)."""
     hd = cfg.ssm_head_dim
+    n = cfg.d_model if n is None else n
     y = rms_norm_simple(y, y.new_ones(hd), cfg.norm_eps)
-    y = y.reshape(*y.shape[:-2], cfg.d_model)
-    y = (y * params["out_norm"] * g).to(x.dtype)
+    y = y.reshape(*y.shape[:-2], n)
+    out_norm = params["out_norm"]
+    if n != cfg.d_model:
+        out_norm = out_norm[lo:lo + n]
+    y = (y * out_norm * g).to(x.dtype)
     return y @ params["wo"].to(x.dtype)
 
 
 def apply_rwkv_tm_full(params, cfg: ModelConfig, x, backend: str = "kernel"):
     """Full-sequence RWKV6 time-mix.  x (B,S,d) -> (y, state) with state
     {"wkv": (B,h,hd,hd) f32, "shift": (B,d) f32} — the last-token carry."""
-    B, S, _ = x.shape
-    h, hd = cfg.ssm_heads, cfg.ssm_head_dim
-    sx = torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
-    xw, xk, xv, xr, xg = _rwkv_mix(params, x, sx)
-    r = (xr @ params["wr"].to(x.dtype)).reshape(B, S, h, hd)
-    k = (xk @ params["wk"].to(x.dtype)).reshape(B, S, h, hd)
-    v = (xv @ params["wv"].to(x.dtype)).reshape(B, S, h, hd)
-    g = F.silu((xg @ params["wg"].to(x.dtype)).float())
-    lw = _rwkv_decay(params, xw).reshape(B, S, h, hd)
-    scan = wkv6 if use_kernel(backend, x) else wkv6_chunked
-    y, wkv_state = scan(r.float(), k.float(), v.float(), lw, params["u"])
-    out = _rwkv_out(params, cfg, y, g, x)
-    return out, {"wkv": wkv_state, "shift": x[:, -1].float()}
+    ys, states = rwkv_tm_full_group([params], cfg, [NULL], [x], backend)
+    return ys[0], states[0]
 
 
 def apply_rwkv_tm_decode(params, cfg: ModelConfig, x, state):
     """Single-token RWKV6 time-mix.  x (B,1,d) -> (y, new state)."""
-    B = x.shape[0]
-    h, hd = cfg.ssm_heads, cfg.ssm_head_dim
-    sx = state["shift"].to(x.dtype)[:, None]
-    xw, xk, xv, xr, xg = _rwkv_mix(params, x, sx)
-    r = (xr @ params["wr"].to(x.dtype)).reshape(B, h, hd).float()
-    k = (xk @ params["wk"].to(x.dtype)).reshape(B, h, hd).float()
-    v = (xv @ params["wv"].to(x.dtype)).reshape(B, h, hd).float()
-    g = F.silu((xg @ params["wg"].to(x.dtype)).float())
-    lw = _rwkv_decay(params, xw).reshape(B, h, hd)
-    s = state["wkv"]  # (B,h,hd,hd)
-    kv = torch.einsum("bhd,bhe->bhde", k, v)
-    y = torch.einsum("bhd,bhde->bhe", r, s + params["u"][None, ..., None]
-                     * kv)
-    new_s = torch.exp(lw)[..., None] * s + kv
-    out = _rwkv_out(params, cfg, y[:, None], g, x)
-    return out, {"wkv": new_s, "shift": x[:, 0].float()}
+    ys, states = rwkv_tm_decode_group([params], cfg, [NULL], [x], [state])
+    return ys[0], states[0]
 
 
 def init_rwkv_cm(pb: ParamBuilder, cfg: ModelConfig):
@@ -252,16 +194,223 @@ def init_rwkv_cm(pb: ParamBuilder, cfg: ModelConfig):
 def apply_rwkv_cm(params, cfg: ModelConfig, x, shift_state=None):
     """RWKV6 channel-mix.  Full sequence when ``shift_state`` is None, else
     one token after the carried shift.  Returns (y, new shift state)."""
-    if shift_state is None:
+    return rwkv_cm_group([params], cfg, [NULL], [x], [shift_state])[0]
+
+
+# ===========================================================================
+# Group forms (device-group slots; the solo server's one NULL slot)
+# ===========================================================================
+
+
+def _slot_cols(c, n: int, whole: int):
+    """(first column, count) of a slot's block of a ``whole``-wide axis of
+    which it holds ``n`` columns (its model index's block when split)."""
+    return (0, n) if n == whole else (c.j * n, n)
+
+
+def _heads_of(n: int, hd: int, what: str, heads: int):
+    """The heads of a slot's ``n`` columns; ``NotImplementedError`` where
+    the columns cut heads of ``hd`` or its per-head params (``heads`` of
+    them) are not split the same way."""
+    if n % hd or n // hd != heads:
+        raise NotImplementedError(
+            f"a device group whose {what} shard ({n} columns) does not hold "
+            f"whole heads of {hd} with their {heads} per-head params is not "
+            "emulated (ROADMAP A10(b))")
+    return n // hd
+
+
+def _reduce_if(ctxs, parts, split: bool):
+    return reduce_model(ctxs, parts) if split else parts
+
+
+def _gather_if(ctxs, parts, split: bool, dim: int):
+    return gather_model(ctxs, parts, dim) if split else parts
+
+
+def rwkv_tm_full_group(ps, cfg: ModelConfig, ctxs, xs,
+                       backend: str = "kernel"):
+    """:func:`apply_rwkv_tm_full` on a group: per-slot (y, state)."""
+    hd, d = cfg.ssm_head_dim, cfg.d_model
+    ys, wkvs = [], []
+    for p, c, x in zip(ps, ctxs, xs):
+        B, S, _ = x.shape
+        lo, n = _slot_cols(c, p["wr"].shape[1], d)
+        h = _heads_of(n, hd, "heads_x_dim", p["u"].shape[0])
         sx = torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
-        new_state = x[:, -1].float()
-    else:
-        sx = shift_state.to(x.dtype)[:, None]
-        new_state = x[:, 0].float()
-    dx = sx - x
-    xk = x + dx * params["mu_k"].to(x.dtype)
-    xr = x + dx * params["mu_r"].to(x.dtype)
-    kk = torch.square(F.relu(xk @ params["wk"].to(x.dtype)))
-    kv = kk @ params["wv"].to(x.dtype)
-    r = torch.sigmoid((xr @ params["wr"].to(x.dtype)).float())
-    return (r * kv.float()).to(x.dtype), new_state
+        xw, xk, xv, xr, xg = _rwkv_mix(p, x, sx)
+        r = (xr @ p["wr"].to(x.dtype)).reshape(B, S, h, hd)
+        k = (xk @ p["wk"].to(x.dtype)).reshape(B, S, h, hd)
+        v = (xv @ p["wv"].to(x.dtype)).reshape(B, S, h, hd)
+        g = F.silu((xg @ p["wg"].to(x.dtype)).float())
+        lw = _rwkv_decay(p, xw)[..., lo:lo + n].reshape(B, S, h, hd)
+        scan = wkv6 if use_kernel(backend, x) else wkv6_chunked
+        y, wkv_state = scan(r.float(), k.float(), v.float(), lw, p["u"])
+        ys.append(_rwkv_out(p, cfg, y, g, x, lo, n))
+        wkvs.append(wkv_state)
+    split = ps[0]["wr"].shape[1] != d
+    ys = _reduce_if(ctxs, ys, split)
+    wkvs = _gather_if(ctxs, wkvs, split, 1)
+    return ys, [{"wkv": w, "shift": x[:, -1].float()}
+                for w, x in zip(wkvs, xs)]
+
+
+def rwkv_tm_decode_group(ps, cfg: ModelConfig, ctxs, xs, states):
+    """:func:`apply_rwkv_tm_decode` on a group: each slot steps its heads
+    of the (whole) carried state; per-slot (y, new state)."""
+    hd, d = cfg.ssm_head_dim, cfg.d_model
+    ys, wkvs = [], []
+    for p, c, x, st in zip(ps, ctxs, xs, states):
+        B = x.shape[0]
+        lo, n = _slot_cols(c, p["wr"].shape[1], d)
+        h = _heads_of(n, hd, "heads_x_dim", p["u"].shape[0])
+        sx = st["shift"].to(x.dtype)[:, None]
+        xw, xk, xv, xr, xg = _rwkv_mix(p, x, sx)
+        r = (xr @ p["wr"].to(x.dtype)).reshape(B, h, hd).float()
+        k = (xk @ p["wk"].to(x.dtype)).reshape(B, h, hd).float()
+        v = (xv @ p["wv"].to(x.dtype)).reshape(B, h, hd).float()
+        g = F.silu((xg @ p["wg"].to(x.dtype)).float())
+        lw = _rwkv_decay(p, xw)[..., lo:lo + n].reshape(B, h, hd)
+        s = st["wkv"][:, lo // hd:lo // hd + h]  # (B,h,hd,hd)
+        kv = torch.einsum("bhd,bhe->bhde", k, v)
+        y = torch.einsum("bhd,bhde->bhe", r,
+                         s + p["u"][None, ..., None] * kv)
+        wkvs.append(torch.exp(lw)[..., None] * s + kv)
+        ys.append(_rwkv_out(p, cfg, y[:, None], g, x, lo, n))
+    split = ps[0]["wr"].shape[1] != d
+    ys = _reduce_if(ctxs, ys, split)
+    wkvs = _gather_if(ctxs, wkvs, split, 1)
+    return ys, [{"wkv": w, "shift": x[:, 0].float()}
+                for w, x in zip(wkvs, xs)]
+
+
+def rwkv_cm_group(ps, cfg: ModelConfig, ctxs, xs, shift_states=None):
+    """:func:`apply_rwkv_cm` on a group (``wk`` columns / ``wv`` rows per
+    slot, ``wr`` whole): per-slot (y, new shift state)."""
+    shift_states = shift_states or [None] * len(xs)
+    kvs, rs, shifts = [], [], []
+    for p, x, st in zip(ps, xs, shift_states):
+        if st is None:
+            sx = torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+            shifts.append(x[:, -1].float())
+        else:
+            sx = st.to(x.dtype)[:, None]
+            shifts.append(x[:, 0].float())
+        dx = sx - x
+        xk = x + dx * p["mu_k"].to(x.dtype)
+        xr = x + dx * p["mu_r"].to(x.dtype)
+        kk = torch.square(F.relu(xk @ p["wk"].to(x.dtype)))
+        kvs.append(kk @ p["wv"].to(x.dtype))
+        rs.append(torch.sigmoid((xr @ p["wr"].to(x.dtype)).float()))
+    kvs = _reduce_if(ctxs, kvs, ps[0]["wk"].shape[1] != cfg.d_ff)
+    return [((r * kv.float()).to(x.dtype), sh)
+            for r, kv, x, sh in zip(rs, kvs, xs, shifts)]
+
+
+def _slot_conv(p, cfg: ModelConfig, lo: int, n: int):
+    """The conv weights and bias of a slot's conv channels: its ``inner``
+    columns [lo, lo + n) of the x piece, then B and C whole."""
+    di = cfg.d_inner
+    w, b = p["conv_w"], p["conv_b"]
+    if n == di:
+        return w, b
+    return (torch.cat([w[:, lo:lo + n], w[:, di:]], dim=1),
+            torch.cat([b[lo:lo + n], b[di:]]))
+
+
+def _mamba_post_group(ps, cfg: ModelConfig, ctxs, gs, cols, split: bool):
+    """Mamba2's gated RMSNorm over all of ``d_inner`` (the slots' gated
+    outputs gathered over the row) and the out projection's partial sums,
+    added over the row."""
+    gs = _gather_if(ctxs, gs, split, -1)
+    outs = []
+    for p, g, (lo, n) in zip(ps, gs, cols):
+        g = rms_norm_simple(g, p["norm"], cfg.norm_eps)
+        if split:
+            g = g[..., lo:lo + n]
+        outs.append(g @ p["out_proj"].to(g.dtype))
+    return _reduce_if(ctxs, outs, split)
+
+
+def mamba_full_group(ps, cfg: ModelConfig, ctxs, xs,
+                     backend: str = "kernel"):
+    """:func:`apply_mamba_full` on a group: per-slot (y, state)."""
+    di, nst, w = cfg.d_inner, cfg.ssm_state, cfg.conv_width
+    pd = cfg.ssm_head_dim
+    gs, cols, ssms, tails = [], [], [], []
+    for p, c, x in zip(ps, ctxs, xs):
+        B, S, _ = x.shape
+        lo, n = _slot_cols(c, p["wx"].shape[1], di)
+        h = _heads_of(n, pd, "inner", p["A_log"].shape[0])
+        z, pieces, dt_raw = _mamba_inputs(p, cfg, x)
+        cw, cb = _slot_conv(p, cfg, lo, n)
+        bounds = ((0, n), (n, n + nst), (n + nst, n + 2 * nst))
+        convs, tl = [], []
+        for piece, (a, b) in zip(pieces, bounds):
+            pad = F.pad(piece, (0, 0, w - 1, 0))
+            out = sum(pad[:, i: i + S] * cw[i, a:b].to(x.dtype)
+                      for i in range(w))
+            convs.append(F.silu(out + cb[a:b].to(x.dtype)))
+            tl.append(pad[:, S:])
+        xc, bm, cm = convs[0], convs[1].float(), convs[2].float()
+        dtv = F.softplus(dt_raw.float() + p["dt_bias"])
+        a = -torch.exp(p["A_log"])
+        xh = xc.reshape(B, S, h, pd).float()
+        scan = ssd if use_kernel(backend, x) else ssd_chunked
+        y, ssm_state = scan(xh, bm, cm, dtv, a, p["D"])
+        y = y.reshape(B, S, n).to(x.dtype)
+        gs.append(y * F.silu(z.float()).to(y.dtype))
+        cols.append((lo, n))
+        ssms.append(ssm_state)
+        tails.append(tl)
+    split = ps[0]["wx"].shape[1] != di
+    outs = _mamba_post_group(ps, cfg, ctxs, gs, cols, split)
+    ssms = _gather_if(ctxs, ssms, split, 1)
+    x_tails = _gather_if(ctxs, [t[0] for t in tails], split, -1)
+    return outs, [{"ssm": st, "conv": torch.cat([xt] + t[1:],
+                                                 dim=-1).float()}
+                  for st, xt, t in zip(ssms, x_tails, tails)]
+
+
+def mamba_decode_group(ps, cfg: ModelConfig, ctxs, xs, states):
+    """:func:`apply_mamba_decode` on a group: each slot steps its heads of
+    the (whole) carried state and its conv columns; per-slot (y, new
+    state)."""
+    di, nst = cfg.d_inner, cfg.ssm_state
+    pd = cfg.ssm_head_dim
+    gs, cols, ssms, convs_new = [], [], [], []
+    for p, c, x, st in zip(ps, ctxs, xs, states):
+        B = x.shape[0]
+        lo, n = _slot_cols(c, p["wx"].shape[1], di)
+        h = _heads_of(n, pd, "inner", p["A_log"].shape[0])
+        z, pieces, dt_raw = _mamba_inputs(p, cfg, x)
+        conv_in = torch.cat(pieces, dim=-1)  # (B,1,n+2n_state)
+        carry = st["conv"] if n == di else torch.cat(
+            [st["conv"][..., lo:lo + n], st["conv"][..., di:]], dim=-1)
+        window = torch.cat([carry.to(x.dtype), conv_in], dim=1)
+        cw, cb = _slot_conv(p, cfg, lo, n)
+        conv = torch.einsum("bwc,wc->bc", window, cw.to(x.dtype))
+        conv = F.silu(conv + cb.to(x.dtype))
+        convs_new.append(window[:, 1:].float())
+        xc = conv[:, :n].reshape(B, h, pd).float()
+        bm = conv[:, n: n + nst].float()
+        cm = conv[:, n + nst:].float()
+        dtv = F.softplus(dt_raw[:, 0].float() + p["dt_bias"])
+        a = torch.exp(dtv * -torch.exp(p["A_log"]))
+        s = st["ssm"][:, lo // pd:lo // pd + h] * a[..., None, None] \
+            + torch.einsum("bh,bhp,bn->bhpn", dtv, xc, bm)
+        y = torch.einsum("bn,bhpn->bhp", cm, s) \
+            + xc * p["D"][None, :, None]
+        y = y.reshape(B, 1, n).to(x.dtype)
+        gs.append(y * F.silu(z.float()).to(y.dtype))
+        cols.append((lo, n))
+        ssms.append(s)
+    split = ps[0]["wx"].shape[1] != di
+    outs = _mamba_post_group(ps, cfg, ctxs, gs, cols, split)
+    ssms = _gather_if(ctxs, ssms, split, 1)
+    x_conv = _gather_if(ctxs, [cv[..., :n] for cv, (_, n) in
+                               zip(convs_new, cols)], split, -1)
+    return outs, [{"ssm": s, "conv": torch.cat([xc, cv[..., n:]], dim=-1)
+                   if split else cv}
+                  for s, xc, cv, (_, n) in zip(ssms, x_conv, convs_new,
+                                               cols)]

@@ -69,7 +69,8 @@ from repro_torch.launch.sharding import (DeviceGroup, as_device_group,
                                          block_param_shardings,
                                          embed_param_axes, freeze_rules,
                                          group_layout_rules, guarded_spec,
-                                         serving_rules, shard, thaw_rules)
+                                         serving_rules, shard,
+                                         shared_param_axes, thaw_rules)
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import (count_collectives, embed_frames,
                                        embed_tokens, embed_tokens_group,
@@ -80,8 +81,7 @@ from repro_torch.models.model import (block_param_range, layer_params,
 from repro_torch.serving.faults import (FailureDetector, FaultPlan,
                                         NoCapacityError, recovery_replay_cost)
 from repro_torch.serving.kv_cache import (CachePool, _ep_row_grid,
-                                          bucket_for, check_group_kinds,
-                                          decode_step_bytes,
+                                          bucket_for, decode_step_bytes,
                                           default_prefill_buckets, kind_runs,
                                           make_paged_decode_step,
                                           make_paged_prefill_step,
@@ -165,6 +165,16 @@ class EngineSession:
         return self.detect_time + self.backoff_time + self.replay_time
 
 
+def _shard_tree(tree, specs, mesh):
+    """Per slot: the slot's blocks of a {parent: {leaf}} params tree under
+    its spec tree."""
+    per = {parent: {name: shard(x, specs[parent][name], mesh)
+                    for name, x in sub.items()}
+           for parent, sub in tree.items()}
+    return [{parent: {name: v[s] for name, v in sub.items()}
+             for parent, sub in per.items()} for s in range(mesh.size)]
+
+
 class BlockServer:
     """One 'server': views of the params of its block range + a stacked
     session pool.  Pooled compute entry points: :meth:`decode_rows`,
@@ -200,7 +210,6 @@ class BlockServer:
         self.mesh_rules = None
         layout = None
         if self.mesh is not None:
-            check_group_kinds(self.kinds)
             self.mesh_rules = thaw_rules(
                 self.group.frozen_rules_for(cfg, n_rows, max_len))
             layout = group_layout_rules(self.mesh_rules)
@@ -215,6 +224,7 @@ class BlockServer:
         self.slowdown = slowdown
         self._step_cost: Optional[CostSummary] = None
         self._step_params = self.run_params
+        self._step_shared = self.shared
         self.moe_ep = False
         if self.mesh is not None:
             layout = self._shard_params(layout)
@@ -255,15 +265,17 @@ class BlockServer:
             for p, (kind, _, _) in zip(self.run_params, self.runs))
         slots = [[] for _ in range(mesh.size)]
         for p, specs in zip(self.run_params, self.param_specs):
-            per = {parent: {name: shard(x, specs[parent][name], mesh)
-                            for name, x in sub.items()}
-                   for parent, sub in p.items()}
-            for s in range(mesh.size):
-                slots[s].append({parent: {name: v[s]
-                                          for name, v in sub.items()}
-                                 for parent, sub in per.items()})
+            for s, sp in enumerate(_shard_tree(p, specs, mesh)):
+                slots[s].append(sp)
         self.slot_params = tuple(tuple(sp) for sp in slots)
         self._step_params = self.slot_params
+        if self.shared is not None and "mamba_shared" in self.kinds:
+            specs = block_param_shardings(
+                mesh, layout, shared_param_axes(cfg, self.shared),
+                self.shared)
+            self._step_shared = _shard_tree(self.shared, specs, mesh)
+        else:
+            self._step_shared = [None] * mesh.size
         self.layout_rules = layout
         return layout
 
@@ -355,7 +367,7 @@ class BlockServer:
         rows' original embeddings (hybrid stacks); ``enc_rows``: the rows'
         encoder outputs (enc-dec stacks)."""
         assert self.alive, f"server {self.sid} is dead"
-        return self._prefill_pool(self._step_params, self.shared,
+        return self._prefill_pool(self._step_params, self._step_shared,
                                   *self._pools(), h_rows, emb0_rows,
                                   layer_active, self.layer_ids, offset,
                                   enc_rows, phase)
@@ -365,7 +377,8 @@ class BlockServer:
         """THE batched step: one pooled call decodes all masked rows
         (``enc_len_rows``: the rows' encoder lengths, enc-dec stacks)."""
         assert self.alive, f"server {self.sid} is dead"
-        return self._step(self._step_params, self.shared, *self._pools(),
+        return self._step(self._step_params, self._step_shared,
+                          *self._pools(),
                           h_rows, pos_rows, emb0_rows, layer_active,
                           self.layer_ids, enc_len_rows)
 
@@ -374,7 +387,7 @@ class BlockServer:
         """The fused device-resident hop: gather this server's rows out of
         the round buffers, decode them, scatter the results back."""
         assert self.alive, f"server {self.sid} is dead"
-        return self._round_step(self._step_params, self.shared,
+        return self._round_step(self._step_params, self._step_shared,
                                 *self._pools(), h_round, pos_round,
                                 emb0_round, slot_of_row, row_of_slot,
                                 layer_active, self.layer_ids, encl_round)
@@ -478,51 +491,63 @@ class BlockServer:
 
     def _count_group_step(self) -> CostSummary:
         """Per-slot cost of a group's pooled decode step: the group step run
-        on meta slots (the slab layout) under ``FlopCounterMode``, K1's
-        ``cost`` and the slot collectives' count; flops and wire bytes are
-        the group's over its slot count (the slots do like work), bytes
-        those of one slot's shard of the params and pool and its rows."""
+        on meta slots (the slab layout: each slot's time shard where the
+        rules give one) under ``FlopCounterMode``, K1's ``cost`` (its
+        partials and their merge on time shards) and the slot collectives'
+        count; flops and wire bytes are the group's over its slot count
+        (the slots do like work), bytes those of one slot's shard of the
+        params and pool and its rows."""
         from torch.utils.flop_counter import FlopCounterMode
 
         from repro_torch.launch.mesh import GroupMesh
         from repro_torch.serving.kv_cache import (_slot_tree,
                                                   group_pool_specs,
-                                                  new_state_pool_tree,
                                                   rows_split)
 
         cfg, N = self.cfg, self.pool.n_rows
-        T = self.pool.max_len
+        T, enc_len = self.pool.max_len, self.pool.enc_len
         n = self.mesh.size
         meta_mesh = GroupMesh(np.full(self.mesh.devices.shape,
                                       torch.device("meta"), dtype=object))
         layout = self.layout_rules
-        full = tuple(new_state_pool_tree(cfg, kind, hi - lo, N, T, 0, "meta")
+        full = tuple(new_state_pool_tree(cfg, kind, hi - lo, N, T, enc_len,
+                                         "meta")
                      for kind, lo, hi in self.runs)
         specs = tuple(group_pool_specs(meta_mesh, layout, t, False)
                       for t in full)
         pools = tuple(tuple(_slot_tree(t, sp, meta_mesh, s, "meta")
                             for t, sp in zip(full, specs))
                       for s in range(n))
-        params = tuple(tuple(tree_map(
-            lambda x: torch.empty_like(x, device="meta"), p) for p in sp)
-            for sp in self.slot_params)
+
+        def meta(tree):
+            return None if tree is None else tree_map(
+                lambda x: torch.empty_like(x, device="meta"), tree)
+
+        params = tuple(tuple(meta(p) for p in sp) for sp in self.slot_params)
+        shared = [meta(p) for p in self._step_shared]
         act = param_dtype(cfg)
         h = torch.empty((N, 1, cfg.d_model), dtype=act, device="meta")
         pos = torch.empty((N,), dtype=torch.long, device="meta")
         mask = torch.empty((self.m, N), dtype=torch.bool, device="meta")
+        emb0 = h if shared[0] is not None else None
+        enc = pos if "dec" in self.kinds else None
         step = make_pool_decode_step(cfg, self.kinds, "kernel", meta_mesh,
                                      layout, self.moe_ep)
         with torch.no_grad(), FlopCounterMode(display=False) as products, \
-                count_meta_calls(T - 1, 0) as attention, \
+                count_meta_calls(T - 1, enc_len) as attention, \
                 count_collectives() as coll:
-            step(params, None, pools, h, pos, None, mask, self.layer_ids)
+            step(params, shared, pools, h, pos, emb0, mask, self.layer_ids,
+                 enc)
         rows = N // self.mesh.devices.shape[0] \
             if rows_split(layout, meta_mesh, N) else N
-        pool = [decode_step_bytes(t, T) for t in pools[0]]
-        nbytes = sum(tree_nbytes(p) for p in self.slot_params[0]) \
+        runs = [r for r, (kind, _, _) in enumerate(self.runs)
+                if kind != "enc"]
+        pool = [decode_step_bytes(pools[0][r], T) for r in runs]
+        row_bytes = (2 + (emb0 is not None)) * cfg.d_model * h.element_size()
+        nbytes = sum(tree_nbytes(self.slot_params[0][r]) for r in runs) \
+            + tree_nbytes(self._step_shared[0]) \
             + sum(read + written for read, written in pool) \
-            + 2 * rows * cfg.d_model * h.element_size() \
-            + rows * (8 + self.m)
+            + rows * (row_bytes + 8 * (1 + (enc is not None)) + self.m)
         return CostSummary(
             flops=(products.get_total_flops() + attention.cost.flops) / n,
             bytes_accessed=nbytes, coll_wire_bytes=coll.wire / n,
@@ -581,7 +606,9 @@ class GeoServingSystem:
     ``mesh`` (+ ``mesh_rules``, a rules dict or frozen tuple overriding
     ``serving_rules``): one group on every server, and the client's
     embedding and LM head vocab-parallel on it.  Not both.  Groups take
-    decoder stacks; another block kind raises ``NotImplementedError``.
+    every block kind under the reference's serving rules, cache time
+    shards included; rules that take the ``head_dim`` fallback raise
+    ``NotImplementedError`` (``launch.sharding.group_layout_rules``).
     """
 
     def __init__(self, cfg: ModelConfig, params, problem: Problem,

@@ -46,16 +46,22 @@ page arrays and scratch.  MoE layers route each pool row alone
 (``moe_rows``), as the reference's vmapped rows do.
 
 Device-group servers (``launch.mesh.GroupMesh`` + the serving rules of
-``launch.sharding``): the pool is a tree per slot — rows over ``data``,
-KV heads over ``model``, the time axis and (paged) the page axis whole on
-each slot (``group_pool_specs``) — and the pooled steps built with
-``mesh=`` run their per-slot body on every slot in lockstep
-(``blocks.decoder_block_*_group``, which a solo server runs on its one
-``NULL`` slot), staging a slot's rows onto its device and gathering the
-results back onto the caller's; the paged twins gather and scatter each
-slot's own rows.  ``_ep_row_grid`` is the reference's
-gate that sends a padded MoE through the pure-EP all-to-all.  Groups take
-decoder blocks (GQA or MLA, dense or MoE) in this slice.
+``launch.sharding``): the pool is a tree per slot under the reference's
+specs (``group_pool_specs``) — rows over ``data``; KV heads over
+``model``, or where they replicate (and for MLA latents) the time axis;
+recurrent states whole on every model slot — and the pooled steps built
+with ``mesh=`` run their per-slot body on every slot in lockstep
+(``blocks.<kind>_*_group``, which a solo server runs on its one ``NULL``
+slot), staging a slot's rows onto its device and gathering the results
+back onto the caller's.  A slot holding a time shard writes the part of
+each prefill chunk (and the decode token) whose positions it owns and
+reads a prefix gathered over its model row.  The paged twins gather and
+scatter each slot's own rows; the page axis stays whole on each slot (a
+row may own any page), and where the within-page offsets shard over
+``model`` the slots' offset shards are gathered into whole pages (an
+all-gather, counted) before the unchanged step, each slot writing its own
+offsets back.  ``_ep_row_grid`` is the reference's gate that sends a
+padded MoE through the pure-EP all-to-all.
 
 Encoder-decoder stacks: ``enc`` blocks hold no state and do no decode
 work (the decode steps skip their runs); ``dec`` blocks hold self K/V and
@@ -74,11 +80,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.sharding import (pool_tree_shardings, slot_index,
-                                         thaw_rules)
+from repro_torch.launch.sharding import (cache_axes_for, pool_tree_shardings,
+                                         slot_index, thaw_rules)
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import mla_cache_views, mla_keys
-from repro_torch.models.layers import NULL, group_ctxs, param_dtype
+from repro_torch.models.layers import (NULL, gather_time,
+                                       group_ctxs, param_dtype)
 from repro_torch.models.model import (LENGTH_KEYS, layer_params,
                                       recurrent_state, tree_nbytes)
 
@@ -666,11 +673,36 @@ def bucket_for(buckets: Sequence[int], length: int,
 # ---------------------------------------------------------------------------
 
 
-def _masked_ranged_write(leaf, chunk, active, lo: int, span: int):
-    """In place: ``leaf[:, lo:lo+span] = chunk`` on active rows."""
-    old = leaf[:, lo:lo + span]
+def _masked_ranged_write(leaf, chunk, active, lo: int, span: int,
+                         t0: int = 0):
+    """In place: ``leaf[:, lo:lo+span] = chunk`` on active rows.  ``leaf``
+    is the time shard whose first position is ``t0``: only the part of
+    [lo, lo + span) it holds is written."""
+    a, b = max(lo, t0), min(lo + span, t0 + leaf.shape[1])
+    if a >= b:
+        return
+    old = leaf[:, a - t0:b - t0]
     msk = active.reshape((-1,) + (1,) * (chunk.dim() - 1))
-    old.copy_(torch.where(msk, chunk.to(old.dtype), old))
+    old.copy_(torch.where(msk, chunk[:, a - lo:b - lo].to(old.dtype), old))
+
+
+def _write_chunks(ctxs, caches, chunks, actives, lo: int, span: int):
+    """Each slot's chunk entries (leaf name -> (B, span, ...)) written into
+    its cache leaves at [lo, lo + span), each slot the positions of its
+    time shard."""
+    for c, cache, chunk, a in zip(ctxs, caches, chunks, actives):
+        for key, x in chunk.items():
+            b, _ = c.time_block(key)
+            _masked_ranged_write(cache[key], x, a, lo, span,
+                                 b * cache[key].shape[1])
+
+
+def _prefixes(ctxs, caches, keys, n: int):
+    """Per slot: the tuple of its leaves ``keys`` at positions [0, n),
+    gathered from the model row's time shards."""
+    per_key = [gather_time(ctxs, [c[k] for c in caches], n, k)
+               for k in keys]
+    return [tuple(pk[s] for pk in per_key) for s in range(len(ctxs))]
 
 
 def _masked_state_write(cache, state, active):
@@ -682,13 +714,12 @@ def _masked_state_write(cache, state, active):
         leaf.copy_(torch.where(msk, new.to(leaf.dtype), leaf))
 
 
-def _slot_ctxs(kinds: Sequence[str], mesh, rules):
+def _slot_ctxs(mesh, rules, whole_time=()):
     """The slots a pooled step runs on: a group's ctxs in slot order, or
     the solo server's one ``NULL`` slot."""
     if mesh is None:
         return [NULL]
-    check_group_kinds(kinds)
-    return group_ctxs(mesh, rules)
+    return group_ctxs(mesh, rules, whole_time)
 
 
 def _row_split(ctxs, mesh, rules, n_rows: int):
@@ -697,34 +728,86 @@ def _row_split(ctxs, mesh, rules, n_rows: int):
     return split, _row_slices(ctxs, n_rows, split)
 
 
+def _to_slots(ctxs, x, sl, dim: int = 0):
+    """Each slot's rows of ``x`` (rows on ``dim``) on its device; None
+    stays None."""
+    if x is None:
+        return None
+    idx = (slice(None),) * dim
+    return [c.to_here(x[idx + (r,)]) for c, r in zip(ctxs, sl)]
+
+
 def _public(mesh, body):
-    """A step's public form: per-slot lists of run params and state trees
-    on a group, the server's own on a solo one (its one slot)."""
+    """A step's public form: per-slot lists of run params, shared params
+    and state trees on a group, the server's own on a solo one (its one
+    slot)."""
     if mesh is not None:
         return body
 
     def step(run_params, shared_params, pool_trees, *rest, **kw):
-        return body([run_params], shared_params, [pool_trees], *rest, **kw)
+        return body([run_params], [shared_params], [pool_trees], *rest,
+                    **kw)
 
     return step
 
 
+def _prefill_layer(cfg: ModelConfig, kind: str, ctxs, ps, cs, shared, hs,
+                   acts, poss, emb0s, encs, offset: int, layer_id: int,
+                   backend: str, split: bool):
+    """One prefill layer of any block kind on the slots; writes its state
+    into the layer's pool leaves ``cs`` on active rows."""
+    T = hs[0].shape[1]
+    if kind == "enc":
+        return B.encoder_block_full_group(ps, cfg, ctxs, hs, poss, backend)
+    if kind == "decoder":
+        keys = ("latent", "krope") if cfg.attn_kind == "mla" else ("k", "v")
+        prefixes = None if offset == 0 else _prefixes(ctxs, cs, keys, offset)
+        h2s, chunks = B.decoder_block_full_group(
+            ps, cfg, ctxs, hs, poss, layer_id, prefixes, backend, split)
+        _write_chunks(ctxs, cs, chunks, acts, offset, T)
+        return h2s
+    if kind == "dec":
+        n_enc = encs[0].shape[1]
+        prefixes = enc_kvs = None
+        if offset:  # cross K/V are chunk-independent
+            prefixes = _prefixes(ctxs, cs, ("k", "v"), offset)
+            enc_kvs = _prefixes(ctxs, cs, ("ck", "cv"), n_enc)
+        h2s, chunks = B.cross_decoder_block_full_group(
+            ps, cfg, ctxs, hs, poss, encs, prefixes, enc_kvs, backend)
+        _write_chunks(ctxs, cs, [{k: ch[k] for k in ("k", "v")}
+                                 for ch in chunks], acts, offset, T)
+        if not offset:
+            _write_chunks(ctxs, cs, [{k: ch[k] for k in ("ck", "cv")}
+                                     for ch in chunks], acts, 0, n_enc)
+        return h2s
+    if kind == "rwkv":
+        h2s, states = B.rwkv_block_full_group(ps, cfg, ctxs, hs, backend)
+    else:  # mamba, mamba_shared
+        h2s, states = B.mamba_block_full_group(ps, cfg, ctxs, hs, backend)
+    for c, st, a in zip(cs, states, acts):
+        _masked_state_write(c, st, a)
+    if kind == "mamba_shared":
+        h2s, kvs = B.zamba_shared_full_group(shared, cfg, ctxs, h2s, emb0s,
+                                             poss, backend)
+        _write_chunks(ctxs, cs, kvs, acts, 0, T)
+    return h2s
+
+
 def _prefill_body(cfg: ModelConfig, kinds: Tuple[str, ...], backend: str,
-                  mesh, rules):
+                  mesh, rules, whole_time=()):
     runs = kind_runs(kinds)
     for kind, _, _ in runs:
         _check_kind(kind)
-    ctxs = _slot_ctxs(kinds, mesh, rules)
-    # the self-attention cache leaves a chunked prefill reads as its prefix
-    prefix_keys = ("latent", "krope") if cfg.attn_kind == "mla" \
-        else ("k", "v")
+    ctxs = _slot_ctxs(mesh, rules, whole_time)
 
-    def step(slot_params, shared_params, slot_pools, h, emb0, layer_active,
+    def step(slot_params, slot_shared, slot_pools, h, emb0, layer_active,
              layer_ids, offset, enc_rows=None, phase="all"):
         T = h.shape[1]
         split, sl = _row_split(ctxs, mesh, rules, h.shape[0])
-        hs = [c.to_here(h[r]) for c, r in zip(ctxs, sl)]
-        acts = [c.to_here(layer_active[:, r]) for c, r in zip(ctxs, sl)]
+        hs = _to_slots(ctxs, h, sl)
+        acts = _to_slots(ctxs, layer_active, sl, dim=1)
+        emb0s = _to_slots(ctxs, emb0, sl)
+        encs = _to_slots(ctxs, enc_rows, sl)
         poss = [offset + torch.arange(T, device=x.device) for x in hs]
         for r, (kind, lo, hi) in enumerate(runs):
             if (phase == "enc" and kind != "enc") or \
@@ -736,66 +819,17 @@ def _prefill_body(cfg: ModelConfig, kinds: Tuple[str, ...], backend: str,
                     "at a nonzero chunk offset")
             for i in range(hi - lo):
                 act = [a[lo + i] for a in acts]
-                ps = [layer_params(sp[r], i) for sp in slot_params]
-                cs = [layer_params(tr[r], i) for tr in slot_pools]
-                if kind == "decoder":
-                    prefixes = None if offset == 0 else [
-                        tuple(c[key][:, :offset] for key in prefix_keys)
-                        for c in cs]
-                    h2s, chunks = B.decoder_block_full_group(
-                        ps, cfg, ctxs, hs, poss, layer_ids[lo + i],
-                        prefixes, backend, split)
-                    for c, chunk, a in zip(cs, chunks, act):
-                        for key in chunk:
-                            _masked_ranged_write(c[key], chunk[key], a,
-                                                 offset, T)
-                else:  # a solo server's one slot (check_group_kinds)
-                    h2s = [_prefill_solo_block(
-                        cfg, kind, ps[0], cs[0], hs[0], act[0], poss[0],
-                        shared_params, emb0, offset, enc_rows, backend)]
+                h2s = _prefill_layer(
+                    cfg, kind, ctxs,
+                    [layer_params(sp[r], i) for sp in slot_params],
+                    [layer_params(tr[r], i) for tr in slot_pools],
+                    slot_shared, hs, act, poss, emb0s, encs, offset,
+                    layer_ids[lo + i], backend, split)
                 hs = [torch.where(a[:, None, None], x2, x)
                       for a, x2, x in zip(act, h2s, hs)]
         return _gather_rows(ctxs, hs, split, h.device)
 
     return step
-
-
-def _prefill_solo_block(cfg: ModelConfig, kind: str, p, c, h, act,
-                        positions, shared_params, emb0, offset: int,
-                        enc_rows, backend: str):
-    """One prefill layer of a block kind groups do not take; writes its
-    state into the layer's pool leaves ``c`` on active rows."""
-    T = h.shape[1]
-    if kind == "enc":
-        return B.encoder_block_full(p, cfg, h, positions, backend=backend)
-    if kind == "dec":
-        n_enc = enc_rows.shape[1]
-        prefix = enc_kv = None
-        if offset:  # cross K/V are chunk-independent
-            prefix = (c["k"][:, :offset], c["v"][:, :offset])
-            enc_kv = (c["ck"][:, :n_enc], c["cv"][:, :n_enc])
-        h2, chunk = B.cross_decoder_block_full(
-            p, cfg, h, positions, enc_rows, prefix_kv=prefix,
-            enc_kv=enc_kv, backend=backend)
-        for key in ("k", "v"):
-            _masked_ranged_write(c[key], chunk[key], act, offset, T)
-        if not offset:
-            for key in ("ck", "cv"):
-                _masked_ranged_write(c[key], chunk[key], act, 0, n_enc)
-        return h2
-    if kind == "rwkv":
-        h2, st = B.rwkv_block_full(p, cfg, h, backend=backend)
-        _masked_state_write(c, st, act)
-        return h2
-    # mamba, mamba_shared
-    h2, st = B.mamba_block_full(p, cfg, h, backend=backend)
-    _masked_state_write(c, st, act)
-    if kind == "mamba_shared":
-        h2, kv = B.zamba_shared_full(shared_params, cfg, h2, emb0,
-                                     positions, backend=backend)
-        for key in kv:
-            _masked_ranged_write(c[key], kv[key], act, 0, T)
-    return h2
 
 
 def make_pool_prefill_step(cfg: ModelConfig, kinds: Tuple[str, ...],
@@ -837,19 +871,47 @@ def make_pool_prefill_step(cfg: ModelConfig, kinds: Tuple[str, ...],
     return _public(mesh, _prefill_body(cfg, kinds, backend, mesh, rules))
 
 
+def _decode_layer(cfg: ModelConfig, kind: str, ctxs, ps, cs, shared, hs,
+                  acts, poss, emb0s, enc_lens, layer_id: int, backend: str,
+                  split: bool, moe_ep: bool):
+    """One decode layer of any block kind on the slots: attention caches
+    written in place, recurrent states overwritten whole on active rows."""
+    if kind == "decoder":
+        return B.decoder_block_decode_group(ps, cfg, ctxs, hs, cs, poss,
+                                            layer_id, acts, backend, split,
+                                            moe_ep)
+    if kind == "dec":
+        return B.cross_decoder_block_decode_group(ps, cfg, ctxs, hs, cs, poss,
+                                                  enc_lens, acts, backend)
+    if kind == "rwkv":
+        h2s, states = B.rwkv_block_decode_group(ps, cfg, ctxs, hs, cs)
+    else:  # mamba, mamba_shared
+        h2s, states = B.mamba_block_decode_group(
+            ps, cfg, ctxs, hs, [{"ssm": c["ssm"], "conv": c["conv"]}
+                                for c in cs])
+        if kind == "mamba_shared":
+            h2s = B.zamba_shared_decode_group(shared, cfg, ctxs, h2s, emb0s,
+                                              cs, poss, acts, backend)
+    for c, st, a in zip(cs, states, acts):
+        _masked_state_write(c, st, a)
+    return h2s
+
+
 def _decode_body(cfg: ModelConfig, kinds: Tuple[str, ...], backend: str,
-                 mesh, rules, moe_ep: bool):
+                 mesh, rules, moe_ep: bool, whole_time=()):
     runs = kind_runs(kinds)
     for kind, _, _ in runs:
         _check_kind(kind)
-    ctxs = _slot_ctxs(kinds, mesh, rules)
+    ctxs = _slot_ctxs(mesh, rules, whole_time)
 
-    def step(slot_params, shared_params, slot_pools, h, pos, emb0,
+    def step(slot_params, slot_shared, slot_pools, h, pos, emb0,
              layer_active, layer_ids, enc_len=None):
         split, sl = _row_split(ctxs, mesh, rules, h.shape[0])
-        hs = [c.to_here(h[r]) for c, r in zip(ctxs, sl)]
-        poss = [c.to_here(pos[r]) for c, r in zip(ctxs, sl)]
-        acts = [c.to_here(layer_active[:, r]) for c, r in zip(ctxs, sl)]
+        hs = _to_slots(ctxs, h, sl)
+        poss = _to_slots(ctxs, pos, sl)
+        acts = _to_slots(ctxs, layer_active, sl, dim=1)
+        emb0s = _to_slots(ctxs, emb0, sl)
+        enc_lens = _to_slots(ctxs, enc_len, sl)
         for r, (kind, lo, hi) in enumerate(runs):
             if kind == "enc":
                 continue
@@ -857,42 +919,17 @@ def _decode_body(cfg: ModelConfig, kinds: Tuple[str, ...], backend: str,
                 raise ValueError("dec blocks decode with a per-row enc_len")
             for i in range(hi - lo):
                 act = [a[lo + i] for a in acts]
-                ps = [layer_params(sp[r], i) for sp in slot_params]
-                cs = [layer_params(tr[r], i) for tr in slot_pools]
-                if kind == "decoder":
-                    h2s = B.decoder_block_decode_group(
-                        ps, cfg, ctxs, hs, cs, poss, layer_ids[lo + i], act,
-                        backend, split, moe_ep)
-                else:  # a solo server's one slot (check_group_kinds)
-                    h2s = [_decode_solo_block(
-                        cfg, kind, ps[0], cs[0], hs[0], act[0], poss[0],
-                        shared_params, emb0, enc_len, backend)]
+                h2s = _decode_layer(
+                    cfg, kind, ctxs,
+                    [layer_params(sp[r], i) for sp in slot_params],
+                    [layer_params(tr[r], i) for tr in slot_pools],
+                    slot_shared, hs, act, poss, emb0s, enc_lens,
+                    layer_ids[lo + i], backend, split, moe_ep)
                 hs = [torch.where(a[:, None, None], x2, x)
                       for a, x2, x in zip(act, h2s, hs)]
         return _gather_rows(ctxs, hs, split, h.device)
 
     return step
-
-
-def _decode_solo_block(cfg: ModelConfig, kind: str, p, c, h, act, pos,
-                       shared_params, emb0, enc_len, backend: str):
-    """One decode layer of a block kind groups do not take."""
-    if kind == "dec":
-        return B.cross_decoder_block_decode(p, cfg, h, c, pos,
-                                            enc_len=enc_len, active=act,
-                                            backend=backend)[0]
-    if kind == "rwkv":
-        h2, st = B.rwkv_block_decode(p, cfg, h, c)
-        _masked_state_write(c, st, act)
-        return h2
-    # mamba, mamba_shared
-    h2, st = B.mamba_block_decode(p, cfg, h,
-                                  {"ssm": c["ssm"], "conv": c["conv"]})
-    if kind == "mamba_shared":
-        h2, _ = B.zamba_shared_decode(shared_params, cfg, h2, emb0, c, pos,
-                                      active=act, backend=backend)
-    _masked_state_write(c, st, act)
-    return h2
 
 
 def make_pool_decode_step(cfg: ModelConfig, kinds: Tuple[str, ...],
@@ -988,24 +1025,42 @@ def _round_hop(step, h_round, pos_round, emb0_round, slot_of_row,
 # K2 masks with a finite -1e30 and zeroed probabilities).
 
 
-def _gather_paged(runs, pool_trees, page_table, page_size: int):
-    """Slab-shaped scratch: self-KV leaves (L, n_phys, page, ...) ->
-    (L, n_rows, max_pages*page, ...) by one indexed gather per leaf;
-    row-resident leaves pass through (the step writes them in place)."""
-    n_rows, max_pages = page_table.shape
-    scratch = []
+# A slot's page arrays may hold only its block of each page's offsets (the
+# reference's ``kv_time`` on the offset axis, where the page size divides
+# its extent): the gather then joins the time row's offset blocks into
+# whole pages (``GroupCtx.time_row``, an all-gather, counted), the step runs
+# on whole-time scratch (``PAGED_WHOLE``), and each slot writes back only
+# its own offsets.  Every slot of such a row computes the same K/V (the KV
+# heads replicate wherever time shards), so each holds the whole written
+# page.
+
+PAGED_WHOLE = LENGTH_KEYS
+
+
+def _gather_paged(ctxs, runs, slot_pools, pts, page_size: int):
+    """Per slot, slab-shaped scratch: self-KV leaves (L, n_phys, page, ...)
+    -> (L, n_rows, max_pages*page, ...) by one indexed gather per leaf (and
+    the row's offset blocks joined into whole pages); row-resident leaves
+    pass through (the step writes them in place)."""
+    scratch = [[dict(tr[r]) for r in range(len(runs))] for tr in slot_pools]
     for r in range(len(runs)):
-        t = dict(pool_trees[r])
-        for names, X in _length_leaves(pool_trees[r]):
-            t.update(_as_leaves(t, names, X[:, page_table].reshape(
-                (X.shape[0], n_rows, max_pages * page_size) + X.shape[3:])))
-        scratch.append(t)
-    return tuple(scratch)
+        leaves = [_length_leaves(tr[r]) for tr in slot_pools]
+        for li, (names, X) in enumerate(leaves[0]):
+            parts = [lv[li][1][:, pt] for lv, pt in zip(leaves, pts)]
+            if X.shape[2] != page_size:  # offset blocks over a time row
+                parts = [c.all_gather([parts[s] for s in c.time_row(
+                    names[0])], dim=3) for c in ctxs]
+            for sc, part in zip(scratch, parts):
+                L, n_rows, max_pages = part.shape[:3]
+                sc[r].update(_as_leaves(sc[r], names, part.reshape(
+                    (L, n_rows, max_pages * page_size) + part.shape[4:])))
+    return [tuple(sc) for sc in scratch]
 
 
-def _scatter_paged(runs, pool_trees, scratch, page_table, page_size: int,
-                   pos=None):
-    """Fold the step's scratch writes back into the physical page arrays.
+def _scatter_paged(ctx, runs, pool_trees, scratch, page_table,
+                   page_size: int, pos=None):
+    """Fold one slot's scratch writes back into its physical page arrays
+    (its own offset block of each page where the offsets shard).
 
     ``pos is None`` (prefill): every table entry writes its page back —
     rows the step masked out write their own gathered values.  ``pos``
@@ -1018,9 +1073,13 @@ def _scatter_paged(runs, pool_trees, scratch, page_table, page_size: int,
     for r in range(len(runs)):
         for (names, X), (_, S) in zip(_length_leaves(pool_trees[r]),
                                       _length_leaves(scratch[r])):
-            # X (L, n_phys, page, ...); S the slab-shaped scratch
+            # X (L, n_phys, page / blocks, ...); S the slab-shaped scratch
             S = S.view((X.shape[0], n_rows, max_pages, page_size)
                        + X.shape[3:])
+            w = X.shape[2]
+            if w != page_size:
+                b, _ = ctx.time_block(names[0])
+                S = S[:, :, :, b * w:(b + 1) * w]
             if pos is None:
                 X[:, page_table] = S
             else:
@@ -1044,19 +1103,19 @@ def make_paged_decode_step(cfg: ModelConfig, kinds: Tuple[str, ...],
     the device page table ``(n_rows, max_pages)`` inserted after the pool
     trees.  Each slot gathers its rows' pages into its scratch and
     scatters them back."""
-    body = _decode_body(cfg, kinds, backend, mesh, rules, moe_ep)
+    body = _decode_body(cfg, kinds, backend, mesh, rules, moe_ep,
+                        PAGED_WHOLE)
     runs = kind_runs(kinds)
-    ctxs = _slot_ctxs(kinds, mesh, rules)
+    ctxs = _slot_ctxs(mesh, rules)
 
-    def step(slot_params, shared_params, slot_pools, page_table, h, pos,
+    def step(slot_params, slot_shared, slot_pools, page_table, h, pos,
              emb0, layer_active, layer_ids, enc_len=None):
         pts, sl = _slot_pages(ctxs, mesh, rules, page_table)
-        scratch = [_gather_paged(runs, tr, pt, page_size)
-                   for tr, pt in zip(slot_pools, pts)]
-        h = body(slot_params, shared_params, scratch, h, pos, emb0,
+        scratch = _gather_paged(ctxs, runs, slot_pools, pts, page_size)
+        h = body(slot_params, slot_shared, scratch, h, pos, emb0,
                  layer_active, layer_ids, enc_len)
         for c, tr, sc, pt, r in zip(ctxs, slot_pools, scratch, pts, sl):
-            _scatter_paged(runs, tr, sc, pt, page_size, c.to_here(pos[r]))
+            _scatter_paged(c, runs, tr, sc, pt, page_size, c.to_here(pos[r]))
         return h
 
     return _public(mesh, step)
@@ -1068,22 +1127,21 @@ def make_paged_prefill_step(cfg: ModelConfig, kinds: Tuple[str, ...],
     """Paged twin of :func:`make_pool_prefill_step` (page table inserted
     after the pool trees).  The encoder phase touches no pool state, so it
     gathers and scatters no pages."""
-    body = _prefill_body(cfg, kinds, backend, mesh, rules)
+    body = _prefill_body(cfg, kinds, backend, mesh, rules, PAGED_WHOLE)
     runs = kind_runs(kinds)
-    ctxs = _slot_ctxs(kinds, mesh, rules)
+    ctxs = _slot_ctxs(mesh, rules)
 
-    def step(slot_params, shared_params, slot_pools, page_table, h, emb0,
+    def step(slot_params, slot_shared, slot_pools, page_table, h, emb0,
              layer_active, layer_ids, offset, enc_rows=None, phase="all"):
         if phase == "enc":
-            return body(slot_params, shared_params, slot_pools, h, emb0,
+            return body(slot_params, slot_shared, slot_pools, h, emb0,
                         layer_active, layer_ids, offset, enc_rows, phase)
         pts, _ = _slot_pages(ctxs, mesh, rules, page_table)
-        scratch = [_gather_paged(runs, tr, pt, page_size)
-                   for tr, pt in zip(slot_pools, pts)]
-        h = body(slot_params, shared_params, scratch, h, emb0, layer_active,
+        scratch = _gather_paged(ctxs, runs, slot_pools, pts, page_size)
+        h = body(slot_params, slot_shared, scratch, h, emb0, layer_active,
                  layer_ids, offset, enc_rows, phase)
-        for tr, sc, pt in zip(slot_pools, scratch, pts):
-            _scatter_paged(runs, tr, sc, pt, page_size)
+        for c, tr, sc, pt in zip(ctxs, slot_pools, scratch, pts):
+            _scatter_paged(c, runs, tr, sc, pt, page_size)
         return h
 
     return _public(mesh, step)
@@ -1118,18 +1176,33 @@ def make_paged_round_step(cfg: ModelConfig, kinds: Tuple[str, ...],
 
 
 _LENGTH_KEYS = ("k", "v", "latent", "krope")
+_TIME_KEYS = frozenset(_LENGTH_KEYS) | CROSS_KEYS
 
 
 def group_pool_specs(mesh, rules: Dict, tree, paged: bool):
     """Per-leaf specs of a group pool's state tree: the reference's
-    ``pool_tree_shardings`` under the group layout rules (rows over
-    ``data``, KV heads over ``model``, time whole); the page arrays of the
+    ``pool_tree_shardings`` under the serving rules (rows over ``data``,
+    KV heads or the time axis over ``model``); the page arrays of the
     paged layout keep their page axis whole, so a slot gathers any page
-    its rows own."""
+    its rows own (ROADMAP C6: the reference splits pages over ``data``).
+    ``NotImplementedError`` where the rules shard a time axis the guard
+    keeps whole (a length that does not divide the model extent) outside
+    the page arrays: the steps read a slot's time shard from the rules."""
     specs = pool_tree_shardings(mesh, rules, tree)
     if paged:
         specs = {k: (sp[:1] + (None,) + sp[2:] if k in _LENGTH_KEYS
                      else sp) for k, sp in specs.items()}
+    for key, sp in specs.items():
+        if key not in _TIME_KEYS or (paged and key in _LENGTH_KEYS):
+            continue
+        r = dict(rules)
+        ax = r.get(cache_axes_for(key, 5, r)[2])
+        if "model" in (ax if isinstance(ax, tuple) else (ax,)) and \
+                sp[2] is None and mesh.devices.shape[1] > 1:
+            raise NotImplementedError(
+                f"the rules shard the time axis of {key!r} "
+                f"({tree[key].shape[2]} positions) over a model extent that "
+                "does not divide it: not emulated (ROADMAP A10(b))")
     return specs
 
 
@@ -1154,15 +1227,6 @@ def _slot_tree(tree, specs, mesh, slot: int, device):
             out[key] = torch.zeros(_block_shape(tuple(x.shape), idx),
                                    dtype=x.dtype, device=device)
     return out
-
-
-def check_group_kinds(kinds: Sequence[str]):
-    """``NotImplementedError`` for a block kind groups do not take yet."""
-    for kind in sorted(set(kinds)):
-        if kind != "decoder":
-            raise NotImplementedError(
-                f"device groups over {kind!r} blocks are not ported yet "
-                "(ROADMAP A10(b)); groups take decoder blocks")
 
 
 def _ep_row_grid(cfg: ModelConfig, mesh, frozen_rules, p_stack,

@@ -10,20 +10,27 @@ the CPU (a group's slots all name the ``cpu`` device).
 * a (1, 1) group is bit-exact with solo; all-solo ``device_groups`` are
   the solo engine; heterogeneous groups {solo, (1, 2), (2, 2)} equal the
   all-solo twin;
-* per-slot params and pools have their specs' block shapes;
+* per-slot params and pools have their specs' block shapes, and every
+  slot pool leaf (``ARCH_MESH`` and the families' ``FAMILY_MESH``, slab
+  and paged at pages 2 and 4) is the block the reference's own
+  ``serving_rules`` -> ``cache_axes_for`` -> ``guarded_spec`` give it on a
+  stand-in mesh — time shards included — but for the paged page axis,
+  which the port keeps whole on each slot (ROADMAP C6);
 * ``_apply_moe_ep`` equals the global MoE (tests/test_moe_ep.py); padded
   EP runs through the pooled decode step (``_ep_row_grid``) and unpadded
   MoE keeps the per-row path; the vocab-parallel embedding and LM head
   equal the solo ones;
 * calibrated τ over heterogeneous groups is not constant, with collective
   bytes on TP groups and none solo; ``mesh=`` with ``device_groups=``
-  raises, and so does a group over a block kind it does not take.
+  raises, and so does a group whose rules take the ``head_dim`` fallback,
+  which the port does not emulate.
 
 Weights are the reference's ``init_params(PRNGKey(0), cfg)`` bridged with
 ``repro_torch.weights.from_reference``; prompts come from a seeded numpy
 RNG.
 """
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +42,7 @@ import repro.core as RC
 import repro_torch.core as TC
 from repro import serving as RS
 from repro.configs import get_reduced_config
+from repro.launch import sharding as RSH
 from repro.models import init_params as r_init_params
 from repro.models import moe as RM
 from repro.models.layers import NULL_SH
@@ -440,11 +448,134 @@ def test_mesh_rules_override_and_exclusive_spellings():
 
 
 def test_group_over_unported_kind_raises():
+    """Every block kind takes a group now; what a group still refuses is
+    the reference's ``head_dim`` fallback (query heads that do not divide
+    the model axis: reduced Llama's 4 heads on a (1, 8) group), a partial
+    score over the slots."""
     from repro_torch.models import init_params
 
-    cfg = t_get_reduced_config("rwkv6_7b")
+    cfg = t_get_reduced_config("llama3_2_1b")
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="'rwkv'.*A10"):
+    with pytest.raises(NotImplementedError, match="head_dim.*A10"):
         TS.GeoServingSystem(cfg, params, problem(TC, cfg), R=2,
                             max_new_tokens=4, max_sessions=4, device="cpu",
-                            mesh=cpu_mesh((1, 2)))
+                            mesh=cpu_mesh((1, 8)))
+
+
+FAMILY_MESH = [("rwkv6_7b", (2, 4)), ("zamba2_7b", (2, 4)),
+               ("seamless_m4t_large_v2", (2, 4))]
+
+
+def _stand_in(shape):
+    return types.SimpleNamespace(axis_names=("data", "model"),
+                                 devices=np.zeros(shape, np.int8))
+
+
+@pytest.mark.parametrize("layout,page_size", [("slab", None), ("paged", 2),
+                                              ("paged", 4)])
+@pytest.mark.parametrize("arch,shape", ARCH_MESH + FAMILY_MESH)
+def test_slot_pool_leaves_match_reference_specs(arch, shape, layout,
+                                                page_size):
+    """Each slot's pool leaf has the per-device shape the reference's
+    serving rules give that leaf (its ``cache_axes_for`` through its
+    ``guarded_spec`` on a stand-in mesh): rows over data, KV heads or the
+    time axis over model.  The paged page arrays keep their page axis
+    whole on every slot (ROADMAP C6)."""
+    from repro.serving import kv_cache as RKV
+
+    cfg, _, _, _ = bridged(arch)
+    system = port(arch, mesh=cpu_mesh(shape), cache_layout=layout,
+                  page_size=page_size)
+    srv = next(iter(system.servers.values()))
+    pool, mesh = srv.pool, _stand_in(shape)
+    rules = RSH.serving_rules(cfg, mesh, pool.n_rows, pool.max_len)
+    sizes = dict(zip(("data", "model"), shape))
+    enc = pool.enc_len
+    for r, (kind, lo, hi) in enumerate(TKV.kind_runs(srv.kinds)):
+        L = hi - lo
+        ref = jax.eval_shape(
+            (lambda: RKV.new_paged_pool_tree(
+                cfg, kind, L, pool.n_rows, pool.max_len, page_size,
+                pool.pages.n_pages + 1, enc)) if layout == "paged" else
+            (lambda: RKV.new_state_pool_tree(cfg, kind, L, pool.n_rows,
+                                              pool.max_len, enc)))
+        for key, leaf in ref.items():
+            rs = dict(rules)
+            axes = RSH.cache_axes_for(key, leaf.ndim, rs)
+            spec = tuple(RSH.guarded_spec(axes, leaf.shape, rs, mesh))
+            want = []
+            for d, (n, e) in enumerate(zip(leaf.shape, spec + (None,) * 9)):
+                if e is None or (layout == "paged" and d == 1
+                                 and key in ("k", "v", "latent", "krope")):
+                    want.append(n)
+                    continue
+                k = int(np.prod([sizes[a] for a in (e if isinstance(e, tuple)
+                                                    else (e,))]))
+                want.append(n // k)
+            for s in range(shape[0] * shape[1]):
+                got = pool.slot_trees[s][r][key]
+                assert tuple(got.shape) == tuple(want), (key, s, spec)
+
+
+@pytest.mark.parametrize("arch,shape,n_time", [
+    ("llama3_2_1b", (2, 4), 4), ("deepseek_v2_236b", (1, 2), 2)])
+def test_time_sharded_slots_hold_and_price_their_shard(arch, shape, n_time):
+    """Where the rules put the time axis on ``model`` a slot holds 1/M of
+    it (reduced Llama's K/V on (2, 4), DeepSeek-V2's latent on (1, 2)),
+    and ``decode_step_cost`` prices that shard plus the merge's wire
+    bytes: fewer bytes a slot than the same group with the time axis kept
+    whole (``mesh_rules`` with ``kv_time`` None, the port's earlier
+    layout), and another τ."""
+    mesh = cpu_mesh(shape)
+    system = port(arch, mesh=mesh)
+    srv = next(iter(system.servers.values()))
+    whole = port(arch, mesh=mesh, mesh_rules=dict(srv.mesh_rules,
+                                                  kv_time=None))
+    wsrv = next(iter(whole.servers.values()))
+    for r, tree in enumerate(srv.pool.slot_trees[0]):
+        for key, x in tree.items():
+            w = wsrv.pool.slot_trees[0][r][key]
+            assert x.shape[2] * n_time == w.shape[2] == srv.pool.max_len
+    cost, wcost = srv.decode_step_cost(), wsrv.decode_step_cost()
+    assert cost.coll_by_kind["merge"] > 0 and "merge" not in \
+        wcost.coll_by_kind
+    pool = sum(TKV.decode_step_bytes(t, srv.pool.max_len)[0]
+               for t in srv.pool.slot_trees[0])
+    wpool = sum(TKV.decode_step_bytes(t, srv.pool.max_len)[0]
+                for t in wsrv.pool.slot_trees[0])
+    assert pool * n_time == wpool
+    assert cost.bytes_accessed < wcost.bytes_accessed
+    assert system.calibrate_taus() != whole.calibrate_taus()
+
+
+@pytest.mark.parametrize("layout,page_size", [("slab", None), ("paged", 8)])
+@pytest.mark.parametrize("arch,shape,n_time", [
+    ("llama3_2_1b", (2, 4), 8), ("deepseek_v2_236b", (2, 4), 8),
+    ("llama4_scout_17b_a16e", (4, 2), 4)])
+def test_time_over_data_and_model_matches_solo(arch, shape, n_time, layout,
+                                               page_size):
+    """Pool rows that do not divide the data axis (3 rows): the
+    reference's rules put the time axis on (data, model) — on data alone
+    where the KV heads take model (Scout on (4, 2)) —, so each slot holds
+    1/n_time of it (paged: of each 8-token page) and K1's partials merge
+    over the slots of its time row: every slot of the group, or the data
+    column whose KV heads it shares.  Streams, clocks and round_stats are
+    the solo run's; logits within LOGIT_TOL."""
+    _, _, tcfg, tparams = bridged(arch)
+
+    def build(**kw):
+        return TS.GeoServingSystem(
+            tcfg, tparams, problem(TC, tcfg), algorithm="proposed", R=2,
+            max_new_tokens=4, max_sessions=3, device="cpu",
+            cache_layout=layout, page_size=page_size, **kw)
+
+    system = build(mesh=cpu_mesh(shape))
+    srv = next(iter(system.servers.values()))
+    assert srv.pool.n_rows == 3
+    assert srv.mesh_rules["kv_time"] == ("data", "model")
+    for tree in srv.pool.slot_trees[0]:
+        for x in tree.values():
+            assert x.shape[2] * n_time == (page_size or srv.pool.max_len)
+    vocab = tcfg.vocab_size
+    assert_same_run(serve(system, TC, jobs_for(vocab)),
+                    serve(build(), TC, jobs_for(vocab)), **LOGIT_TOL)

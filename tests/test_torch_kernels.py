@@ -4,7 +4,9 @@ against the reference's Pallas kernels in interpret mode and its pure-jnp
 GQA/MQA, ragged lengths, sliding windows with fully masked tiles, ALiBi,
 chunked-prefill ``q_start``, non-causal Sq != Skv / Dv != Dk, per-row
 ``pos``, cross ``kv_len``, the MLA scale and the T % block padding
-regressions.  The CUDA kernels themselves run only on the card
+regressions; K1's partials over time shards of the cache
+(``decode_attention_partials``) and their merge across shards
+(``merge_partials``).  The CUDA kernels themselves run only on the card
 (tests/test_torch_gpu.py, chip_smoke.py).
 
 Tolerance: f32 5e-5 (the reference's kernel-vs-oracle tolerance); bf16
@@ -24,9 +26,12 @@ from repro.kernels import decode_attention as r_decode_attention
 from repro.kernels import decode_attention_ref as r_decode_attention_ref
 from repro.kernels import flash_attention as r_flash_attention
 from repro.models.layers import alibi_slopes as r_alibi_slopes
-from repro_torch.kernels import (decode_attention, decode_attention_ref,
+from repro_torch.kernels import (decode_attention, decode_attention_cost,
+                                 decode_attention_partials,
+                                 decode_attention_ref,
                                  decode_attention_unsupported, decode_plan,
-                                 flash_attention, flash_attention_unsupported)
+                                 flash_attention, flash_attention_unsupported,
+                                 merge_cost, merge_partials)
 from repro_torch.kernels.decode_attention.ops import (FILL_PAIRS,
                                                       TARGET_BLOCKS, TILES)
 from repro_torch.models.layers import alibi_slopes
@@ -525,3 +530,117 @@ def test_mla_decode_plan_from_sizes():
     g = head_group(128, 512)
     tile, n_split, chunk = decode_plan(8 * (128 // g), 1, 192, 576, 512, 2)
     assert (g, tile, n_split, chunk) == (4, 16, 1, 192)
+
+
+# ---------------------------------------------------------------------------
+# K1 partials over time shards (a device group's slots) and their merge
+# ---------------------------------------------------------------------------
+
+
+def _partials_case(case):
+    """(q, ck, cv, pos, kwargs) of one masking case, f32."""
+    B, H, Kv, D, T = 3, 8, 2, 16, 96
+    pos = torch.tensor([95, 40, 7])
+    if case == "mla":
+        lora, rope, nope = 24, 8, 16
+        q, ck, cv = (_t(x, "float32") for x in _inputs(
+            31, (B, 1, H, lora + rope), (B, T, 1, lora + rope),
+            (B, T, 1, lora)))
+        return q, ck, cv, pos, dict(scale=1.0 / math.sqrt(nope + rope))
+    q, ck, cv = (_t(x, "float32") for x in _inputs(
+        32, (B, 1, H, D), (B, T, Kv, D), (B, T, Kv, D)))
+    kw = {"causal": dict(), "window": dict(window=20),
+          "alibi": dict(slopes=alibi_slopes(H)),
+          "cross": dict(causal=False, kv_len=torch.tensor([96, 9, 50]))}
+    return q, ck, cv, pos, kw[case]
+
+
+def _sharded(q, ck, cv, pos, n, **kw):
+    """K1 over ``n`` equal time shards: each shard's partials (its first
+    key at global position t0), merged in shard order."""
+    w = ck.shape[1] // n
+    parts = [decode_attention_partials(q, ck[:, i * w:(i + 1) * w],
+                                       cv[:, i * w:(i + 1) * w], pos,
+                                       t0=i * w, **kw) for i in range(n)]
+    return merge_partials(parts, q.dtype), parts
+
+
+PARTIAL_CASES = ["causal", "window", "alibi", "mla", "cross"]
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 6])
+@pytest.mark.parametrize("case", PARTIAL_CASES)
+def test_partials_over_shards_merge_to_the_plain_version(case, n):
+    """The plain partials over n shards, merged, equal decode_attention_ref
+    over the whole cache (f32; shards wholly past a row's pos or kv_len
+    included)."""
+    q, ck, cv, pos, kw = _partials_case(case)
+    got, _ = _sharded(q, ck, cv, pos, n, **kw)
+    want = decode_attention_ref(q, ck, cv, pos, **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", PARTIAL_CASES)
+def test_partials_merged_match_reference_pallas(case):
+    """Over 4 shards, merged: the reference's Pallas K1 in interpret mode
+    over the whole cache (its oracle for the per-row cross kv_len)."""
+    q, ck, cv, pos, kw = _partials_case(case)
+    got, _ = _sharded(q, ck, cv, pos, 4, **kw)
+    jkw = {k: (jnp.asarray(v.numpy()) if isinstance(v, torch.Tensor)
+               else v) for k, v in kw.items()}
+    if case == "alibi":
+        jkw["slopes"] = r_alibi_slopes(q.shape[2])
+    if case == "cross":
+        B, _, H, D = q.shape
+        Kv = ck.shape[2]
+        qf, kf, vf = _decode_flat(q.numpy(), ck.numpy(), cv.numpy())
+        ref = _np(r_decode_attention_ref(
+            qf, kf, vf, np.zeros(B * Kv, np.int32), causal=False,
+            kv_len=np.repeat(kw["kv_len"].numpy(), Kv))).reshape(B, 1, H, D)
+    else:
+        ref = r_decode_attention(jnp.asarray(q.numpy()),
+                                 jnp.asarray(ck.numpy()),
+                                 jnp.asarray(cv.numpy()),
+                                 jnp.asarray(pos.numpy()), block_kv=16,
+                                 interpret=True, **jkw)
+    np.testing.assert_allclose(got.numpy(), _np(ref), rtol=2e-4, atol=1e-5)
+
+
+def test_partials_of_a_shard_past_pos_are_empty():
+    """A shard wholly past a row's position contributes m = -1e30, l = 0,
+    acc = 0 (the empty split's partial), and the split count is
+    decode_plan's over the shard's own length."""
+    q, ck, cv, pos, _ = _partials_case("causal")
+    _, parts = _sharded(q, ck, cv, pos, 4)
+    B, _, H, D = q.shape
+    w = ck.shape[1] // 4
+    n_split = decode_plan(B, ck.shape[2], w, D, D, 4)[1]
+    for i, (m, l, acc) in enumerate(parts):
+        assert m.shape == l.shape == (n_split, B, H)
+        assert acc.shape == (n_split, B, H, D)
+        past = pos < i * w
+        assert (m[:, past] == -1e30).all() and (l[:, past] == 0).all()
+        assert (acc[:, past] == 0).all()
+        assert (l[:, ~past].sum(0) > 0).all()
+
+
+def test_partials_and_merge_cost_count_the_shard():
+    """``cost(t0=, n_split=)`` counts the rows of the shard the mask
+    reaches and the f32 partials written; ``merge_cost`` the partials read
+    and the output written."""
+    B, H, Kv, D, T = 2, 4, 2, 16, 32
+    q = torch.empty((B, 1, H, D))
+    k = torch.empty((B, T, Kv, D))
+    whole = decode_attention_cost(q, k, k.clone(), [50, 70])
+    parts = [decode_attention_cost(q, k, k.clone(), [50, 70], t0=t0,
+                                   n_split=1) for t0 in (0, 32, 64, 96)]
+    rows = [min(p + 1, 128) - 0 for p in (50, 70)]
+    assert sum(p.flops for p in parts) == 2 * sum(rows) * H * 2 * D
+    assert parts[3].flops == 0
+    per = 4 * B * H * (D + 2)
+    assert parts[0].bytes_accessed - 4 * B == B * H * D * 4 + per \
+        + 32 * 2 * Kv * 2 * D * 4
+    assert whole.flops == 2 * 64 * H * 2 * D
+    mc = merge_cost(4, B * H, D, 4)
+    assert mc.bytes_accessed == 4 * 4 * B * H * (D + 2) + B * H * D * 4

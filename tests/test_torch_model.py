@@ -330,11 +330,12 @@ def test_prefill_and_decode_steps(arch):
 
 @pytest.mark.parametrize("arch", ["seamless_m4t_large_v2"])
 def test_later_slices_raise(arch):
-    """Device groups over encoder-decoder blocks are a later slice of the
-    port (ROADMAP A10(b)): an engine asked for a mesh or device groups over
-    them raises, naming the kind (every model family runs solo: enc-dec in
-    tests/test_torch_encdec.py; decoder groups in
-    tests/test_torch_groups.py)."""
+    """Device groups take encoder-decoder blocks now
+    (tests/test_torch_group_families.py); what is still a later slice of
+    the port (ROADMAP A10(b)) is the reference's ``head_dim`` fallback, a
+    group whose query heads do not divide its model axis (the reduced
+    stack's 4 heads on a (1, 8) group): an engine asked for such a mesh or
+    device group raises, naming it."""
     import repro_torch.core as TC
     from repro_torch.launch.mesh import GroupMesh
     from repro_torch.serving import GeoServingSystem
@@ -345,10 +346,10 @@ def test_later_slices_raise(arch):
     prob = TC.Problem(llm, [TC.ServerSpec(0, 1000.0, 0.01)], 1,
                       np.full((1, 1), 0.02), np.full((1, 1), 0.06),
                       workload=TC.Workload(4, 8))
-    mesh = GroupMesh(np.full((1, 2), "cpu", dtype=object))
+    mesh = GroupMesh(np.full((1, 8), "cpu", dtype=object))
     for kw in (dict(mesh=mesh), dict(device_groups={0: mesh})):
         with pytest.raises(NotImplementedError,
-                           match="'dec' blocks.*ROADMAP A10"):
+                           match="head_dim.*ROADMAP A10"):
             GeoServingSystem(tcfg, tparams, prob, device="cpu", **kw)
 
 

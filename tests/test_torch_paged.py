@@ -235,8 +235,10 @@ def test_paged_prefill_write_matches_slab_rows():
         pool.alloc(0, 1, n_pages=1)
         row = pool.alloc(3, 2, n_pages=3)
         pool.write_prefill_range(0, 2, row, entries, 5)
+    from repro_torch.models.layers import NULL
     from repro_torch.serving.kv_cache import _gather_paged
-    scratch = _gather_paged(paged.runs, paged.tree, paged.page_table(), 2)
+    scratch = _gather_paged([NULL], paged.runs, [paged.tree],
+                            [paged.page_table()], 2)[0]
     r_p, r_s = paged.rows[3], slab.rows[3]
     for key in ("k", "v"):
         torch.testing.assert_close(scratch[0][key][:, r_p, :5],

@@ -7,8 +7,10 @@
   training and prefill shapes of the full configs too;
 * ``cache_axes_for`` and ``guarded_spec`` over every pool leaf (slab and
   paged) and ``pool_tree_shardings`` give the reference's specs;
-* the decoder param axes (``block_param_axes``) and their specs equal the
-  reference's init axes, leaf by leaf;
+* the param axes of every block kind (``block_param_axes``) and of
+  zamba2's shared block (``shared_param_axes``), and their specs, equal
+  the reference's init axes, leaf by leaf; ``group_layout_rules`` keeps
+  the reference's rules and refuses the ``head_dim`` fallback;
 * ``freeze_rules`` / ``thaw_rules``, the ``DeviceGroup`` descriptor,
   hypothesis counterparts of the ``guarded_spec`` properties,
   ``shard`` / ``unshard``, and ``group_meshes`` (consecutive disjoint
@@ -171,9 +173,55 @@ def test_decoder_param_axes_and_specs_match_reference(arch):
 
 
 def test_block_param_axes_refuse_other_kinds():
+    """Every block kind has its axes now; a name that is no block kind is
+    refused."""
     cfg = get_reduced_config("rwkv6_7b")
-    with pytest.raises(NotImplementedError, match="A10"):
-        TSH.block_param_axes(cfg, "rwkv", {})
+    with pytest.raises(ValueError, match="unknown block kind"):
+        TSH.block_param_axes(cfg, "conv", {})
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_7b", "zamba2_7b",
+                                  "seamless_m4t_large_v2"])
+def test_block_param_axes_match_reference_every_kind(arch):
+    """The rwkv, mamba, mamba_shared, enc and dec axes (and zamba2's shared
+    block's) equal the reference's ``block_param_axes`` / ``param_axes``
+    leaf by leaf, and so do their guarded specs on every mesh shape."""
+    from repro.models.model import param_axes as r_param_axes
+
+    rcfg, tcfg = r_get_reduced_config(arch), get_reduced_config(arch)
+    params = init_params(tcfg, torch.Generator().manual_seed(0), "meta")
+    kinds = tuple(s.kind for s in TKV.state_specs(tcfg))
+    trees = [(TSH.block_param_axes(tcfg, kind, t), r_block_param_axes(
+        rcfg, kind), t) for kind, lo, hi in TKV.kind_runs(kinds)
+        for t in [block_param_range(params, tcfg, kind, lo, hi)]]
+    if "shared" in params:
+        trees.append((TSH.shared_param_axes(tcfg, params["shared"]),
+                      r_param_axes(rcfg)["shared"], params["shared"]))
+    for shape in MESH_SHAPES:
+        mesh = _mesh(*shape)
+        rules = RSH.serving_rules(rcfg, mesh, 4, 44)
+        for t_axes, r_axes, tree in trees:
+            specs = TSH.block_param_shardings(mesh, rules, t_axes, tree)
+            for parent, sub in tree.items():
+                for name, leaf in sub.items():
+                    ax = tuple(r_axes[parent][name])
+                    assert t_axes[parent][name] == ax, (parent, name)
+                    assert specs[parent][name] == _spec(RSH.guarded_spec(
+                        ax, tuple(leaf.shape), rules, mesh)), (parent, name)
+
+
+@pytest.mark.parametrize("shape", MESH_SHAPES)
+@pytest.mark.parametrize("arch", ["llama3_2_1b", "deepseek_v2_236b"])
+def test_group_layout_rules_keep_the_reference_rules(arch, shape):
+    """The group layout is the reference's serving rules, ``kv_time``
+    included; the ``head_dim`` fallback raises."""
+    cfg = get_reduced_config(arch)
+    rules = TSH.serving_rules(cfg, _mesh(*shape), 4, 44)
+    if rules["head_dim"] is not None:
+        with pytest.raises(NotImplementedError, match="head_dim"):
+            TSH.group_layout_rules(rules)
+    else:
+        assert TSH.group_layout_rules(rules) == rules
 
 
 def test_embed_param_axes_match_reference():

@@ -150,6 +150,20 @@ def test_wkv6_resume_and_zero_pad_invariance():
     close(sp, st, K_RTOL, K_ATOL)
 
 
+@pytest.mark.parametrize("lo,hi", [(0, 2), (2, 4), (1, 3)])
+def test_wkv6_head_slice_equals_slice_of_whole_call(lo, hi):
+    """A device-group slot's call on its head slice (views of the whole
+    operands, its heads of the carried state) equals that slice of the
+    whole call."""
+    r, k, v, lw, u, s0 = _wkv_inputs(21, 2, 70, 4, 8, state=True)
+    args = [T(x) for x in (r, k, v, lw)]
+    out, st = wkv6(*args, T(u), T(s0))
+    o, s = wkv6(*[a[:, :, lo:hi] for a in args], T(u)[lo:hi],
+                T(s0)[:, lo:hi])
+    np.testing.assert_array_equal(o.numpy(), out[:, :, lo:hi].numpy())
+    np.testing.assert_array_equal(s.numpy(), st[:, lo:hi].numpy())
+
+
 # ---------------------------------------------------------------------------
 # K4: SSD
 # ---------------------------------------------------------------------------
@@ -193,6 +207,18 @@ def test_ssd_plain_vs_reference(S, with_state):
                              None if s0 is None else T(s0))
     close(y, py, K_RTOL, K_ATOL)
     close(st, pst, K_RTOL, K_ATOL)
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 2), (2, 4), (1, 3)])
+def test_ssd_head_slice_equals_slice_of_whole_call(lo, hi):
+    """K4 on a slot's head slice (x, dt, A, D and the state's heads; B and
+    C shared) equals that slice of the whole call."""
+    x, Bm, Cm, dt, A, D, s0 = _ssd_inputs(22, 2, 150, 4, 8, 4, state=True)
+    y, st = ssd(*map(T, (x, Bm, Cm, dt, A, D)), T(s0))
+    ys, ss = ssd(T(x)[:, :, lo:hi], T(Bm), T(Cm), T(dt)[:, :, lo:hi],
+                 T(A)[lo:hi], T(D)[lo:hi], T(s0)[:, lo:hi])
+    np.testing.assert_array_equal(ys.numpy(), y[:, :, lo:hi].numpy())
+    np.testing.assert_array_equal(ss.numpy(), st[:, lo:hi].numpy())
 
 
 def test_ssd_resume_and_zero_pad_invariance():
