@@ -25,6 +25,15 @@ Phases (any failure raises, so the exit code is not 0):
              Checkpoint save / restore / resume on the card; K1-K4 raise
              on inputs that require grad (no backward); int8_allreduce on
              a one-rank NCCL group == gloo on the CPU, bit for bit.
+   train group — the same model and shape over device groups (1, 2) and
+             (2, 2) of slots on the card(s) present, the reference's
+             training rules at the cell's shape (batch and embed_fsdp over
+             data, heads / MLP / vocab over model), against the solo step
+             from the same weights and batches: the first gradient leaf
+             by leaf, the loss of each of 2 AdamW steps, every param after
+             them, replicas bit-equal across slots, no host sync a step;
+             step times, tokens/s, peak memory and one step's slot
+             collectives by kind printed.
 2. serve   — ten full-width models in bf16 (random weights from a seed),
              one after the other, each served through the port's
              GeoServingSystem + ContinuousBatchingScheduler on 5 virtual
@@ -141,7 +150,11 @@ Phases (any failure raises, so the exit code is not 0):
              (4, 2), and RWKV6, zamba2 and SeamlessM4T on (2, 4), in f32,
              fused/serial x slab/paged: streams, virtual clocks and
              round_stats == the card's solo runs, logits within the
-             reference's LOGIT_TOL (zamba2: atol 1e-4).  (c)
+             reference's LOGIT_TOL (zamba2: atol 1e-4).  (b') reduced
+             Llama, DeepSeek-V2, zamba2 and SeamlessM4T paged (page 4) on
+             (2, 2) with servers whose page arrays split over data: slot
+             pool bytes == the reference layout's, cross-slot page reads
+             and writes counted, streams == solo.  (c)
              full-width Llama-4-Scout cut to 13 layers, solo and then
              every server on a (4, 2) group (client embedding and head
              vocab-parallel), 12 new tokens a request: memory after each
@@ -157,7 +170,8 @@ Phases (any failure raises, so the exit code is not 0):
              (half the latent's time axis a slot): 8/8 requests, 1 host
              sync a decode round, K3 / K4 / K1 / K2 / K1 partials + merge
              on every slot (the slots' launches adding up to the
-             counters' totals), the per-slot pool bytes of both layouts;
+             counters' totals), the per-slot pool bytes of the slab and
+             paged layouts (paged == the reference layout's, held);
              first steps held to C5 (SeamlessM4T) or printed, then held
              in f32 (RWKV6, Zamba2 whole; DeepSeek-V2 at 2 layers) within
              GROUP_F32_BOUND.  Kernel rows at the slot shapes (K1 / K2,
@@ -1983,6 +1997,191 @@ def phase_train(torch):
     allreduce_nccl_vs_gloo(torch)
 
 
+# [train group]: full-width Llama-3.2-1B in f32 on groups of slots of the
+# card against the solo step, AdamW at the [train] phase's lr, the
+# [train] phase's shape (B 8, S 128).  The rules are make_rules at that
+# cell's shape: at train_4k's (256 x 4096) the remat stash crosses 8e9
+# bytes and sets seq_act, which the slot step does not emulate.  Held: the
+# first step's gradient, reduced over the slots and put back together,
+# leaf by leaf within atol + rtol * max|solo leaf| (TRAIN_GROUP_GRAD_TOL,
+# the CPU tests' bound); each step's loss within TRAIN_GROUP_LOSS_RTOL of
+# the solo step's; every param leaf after TRAIN_GROUP_STEPS steps within
+# atol + rtol * max|leaf| (TRAIN_GROUP_PARAM_TOL).  AdamW's update
+# g / (|g| + eps) is sign-like: an element whose gradient is near zero
+# carries a relative error near 1 (f32 sums in another order) and its
+# update differs by up to ~lr / 4 a step; at this lr (3e-4) and leaf
+# scale (~0.044 for the 2048-wide projections) two steps reach ~1% of the
+# leaf's max (on an H100 80GB HBM3 at 700 W, attn.wv read 1.13x a 1e-3
+# bound after two steps)
+TRAIN_GROUP_SHAPES = ((1, 2), (2, 2))
+TRAIN_GROUP_STEPS = 2
+TRAIN_GROUP_LOSS_RTOL = 1e-5
+TRAIN_GROUP_GRAD_TOL = (1e-5, 2e-4)
+TRAIN_GROUP_PARAM_TOL = (1e-5, 1e-2)
+
+
+def phase_train_group(torch):
+    """[train group] Full-width Llama-3.2-1B, all 16 layers, f32 (TF32
+    off), AdamW with remat: TRAIN_GROUP_STEPS steps of (B 8, S 128) solo,
+    then the same from the same weights and batches over each group of
+    TRAIN_GROUP_SHAPES, every slot on the card(s) present
+    (``make_train_step(..., sh=make_ctx(...))``: embed_fsdp and the batch
+    over data, heads / MLP / vocab over model).  Prints each run's step
+    times by CUDA events, tokens/s, peak memory and, over one step, its
+    slot collectives by kind (calls, wire bytes); fails unless each
+    step's loss is the solo step's within TRAIN_GROUP_LOSS_RTOL, the
+    first step's gradient leaves are the solo gradient's within
+    TRAIN_GROUP_GRAD_TOL, every param leaf after the last step is within
+    TRAIN_GROUP_PARAM_TOL, the copies of every replicated block are
+    bit-equal across slots, and no step makes a host sync."""
+    import numpy as np
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data import make_batches, shard_batch
+    from repro_torch.launch.mesh import GroupMesh
+    from repro_torch.launch.sharding import make_ctx
+    from repro_torch.models import init_params, train_loss
+    from repro_torch.models.layers import count_collectives
+    from repro_torch.training import (TrainHParams, init_train_state,
+                                      make_optimizer_for, make_train_step)
+    from repro_torch.training.optimizer import (tree_items, tree_leaves,
+                                                tree_map)
+    from repro_torch.training.train_step import GroupLayout
+
+    tag = "[train group]"
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = dict(zip(TRAIN_ARGV[::2], TRAIN_ARGV[1::2]))
+    B, S, lr = 8, 128, float(args["--lr"])
+    cfg = get_config("llama3_2_1b").replace(param_dtype="float32",
+                                            act_dtype="float32")
+    host = [next(make_batches(cfg, B, S, seed=0, start_step=i))
+            for i in range(TRAIN_GROUP_STEPS)]
+    hp = TrainHParams(learning_rate=lr)
+    opt = make_optimizer_for(cfg, hp)
+    cell = ShapeSpec("train_cell", S, B, "train")
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def weights():
+        return init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(0), "cuda")
+
+    def worst_leaf(got, want, tol):
+        """(the worst leaf's max|d| over its bound, that leaf's path)."""
+        atol, rtol = tol
+        worst, where = 0.0, None
+        for path, x in got:
+            w = want[path]
+            ratio = float((x - w).abs().max()) / (
+                atol + rtol * float(w.abs().max()))
+            if ratio > worst:
+                worst, where = ratio, ".".join(path)
+        return worst, where
+
+    def drive(label, state, step, batches):
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, syncs, coll = [], [], [], None
+        for i, batch in enumerate(batches):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            with count_collectives() as rec:
+                ev[0].record()
+                (state, m), sites = sync_sites(torch, step, state, batch)
+                ev[1].record()
+            torch.cuda.synchronize()
+            losses.append(float(m["loss"]))
+            ms.append(ev[0].elapsed_time(ev[1]))
+            syncs.append(len(sites))
+            coll = rec
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        kinds = {k: round(v) for k, v in sorted(coll.by_kind.items())}
+        log(f"{tag} {label}: losses {losses}; step ms by CUDA events "
+            f"{[round(x, 2) for x in ms]} (last: {B * S / ms[-1] * 1e3:.0f} "
+            f"tokens/s); peak memory {peak:.2f} GiB; host syncs inside each "
+            f"step {syncs}; collectives of one step: {coll.calls} calls, "
+            f"wire bytes {kinds} (all slots, {coll.wire:.4g} in all)")
+        if any(syncs):
+            raise RuntimeError(f"{tag} {label}: host syncs inside a step")
+        if not all(math.isfinite(x) for x in losses):
+            raise RuntimeError(f"{tag} {label}: non-finite loss")
+        return state, losses
+
+    try:
+        live = tree_map(lambda x: x.requires_grad_(True), weights())
+        loss, _ = train_loss(live, cfg, shard_batch(host[0], device="cuda"))
+        solo_grads = dict(zip([p for p, _ in tree_items(live)],
+                              torch.autograd.grad(loss, tree_leaves(live))))
+        del live, loss
+        state = init_train_state(None, cfg, opt, params=weights(),
+                                 device="cuda")
+        n_params = sum(x.numel() for x in tree_leaves(state["params"]))
+        log(f"{tag} {cfg.name}: {cfg.n_layers} layers, {n_params / 1e9:.3f}"
+            f" B params in f32, AdamW lr {lr}, remat; B {B} S {S}, "
+            f"{TRAIN_GROUP_STEPS} steps a run")
+        state, solo_losses = drive(
+            "solo", state, make_train_step(cfg, opt, hp),
+            [shard_batch(h, device="cuda") for h in host])
+        solo = dict(tree_items(state["params"]))
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        for shape in TRAIN_GROUP_SHAPES:
+            devs = np.empty(shape[0] * shape[1], dtype=object)
+            devs[:] = slot_devices(torch, devs.size)
+            mesh = GroupMesh(devs.reshape(shape))
+            sh = make_ctx(cfg, mesh, cell)
+            lay = GroupLayout(cfg, sh)
+            batches = [shard_batch(h, mesh, sh, device="cuda") for h in host]
+            _, _, grads = lay.loss_and_grads(lay.shard(weights()), batches[0])
+            g_worst, g_leaf = worst_leaf(
+                tree_items(lay.unshard(lay.reduce_grads(grads))), solo_grads,
+                TRAIN_GROUP_GRAD_TOL)
+            del grads
+            gc.collect()
+            torch.cuda.empty_cache()
+            state = init_train_state(None, cfg, opt, params=weights(),
+                                     device="cuda", sh=sh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            state, losses = drive(
+                f"{shape} group", state, make_train_step(cfg, opt, hp, sh),
+                batches)
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                          solo_losses))
+            worst, where = worst_leaf(
+                tree_items(lay.unshard(state["params"])), solo,
+                TRAIN_GROUP_PARAM_TOL)
+            flat = [tree_leaves(t) for t in state["params"]]
+            copies = sum(1 for leaf in lay.leaves
+                         for s, o in enumerate(leaf["owners"]) if o != s)
+            equal = all(torch.equal(flat[s][k], flat[o][k])
+                        for k, leaf in enumerate(lay.leaves)
+                        for s, o in enumerate(leaf["owners"]) if o != s)
+            log(f"{tag} {shape} group against solo: loss rel diff {rel:.3g}"
+                f" (bound {TRAIN_GROUP_LOSS_RTOL}); first gradient: worst "
+                f"leaf {g_leaf} at {g_worst:.3g} of its bound "
+                f"{TRAIN_GROUP_GRAD_TOL} (atol, rtol max|leaf|); params "
+                f"after {TRAIN_GROUP_STEPS} steps: worst leaf {where} at "
+                f"{worst:.3g} of its bound {TRAIN_GROUP_PARAM_TOL}; "
+                f"{copies} replicated block copies bit-equal across slots: "
+                f"{equal}")
+            if rel > TRAIN_GROUP_LOSS_RTOL or worst > 1.0 or g_worst > 1.0 \
+                    or not equal:
+                raise RuntimeError(f"{tag} {shape}: the group step is not "
+                                   "the solo step")
+            del state, flat, batches
+            gc.collect()
+            torch.cuda.empty_cache()
+        del solo, solo_grads
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{tag} phase {time.perf_counter() - t0:.1f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+
 def _train_setup(cfg, device, params):
     from repro_torch.training import (TrainHParams, init_train_state,
                                       make_optimizer_for, make_train_step)
@@ -3241,6 +3440,94 @@ def group_parity(torch):
             f"x slab/paged: streams, virtual clocks and round_stats == the "
             f"card's solo runs; logits max|diff| {worst:.3g} "
             f"({FAMILY_TOL.get(arch, LOGIT_TOL)})")
+    split_page_parity(torch, drive_reduced)
+
+
+# reduced stacks whose paged servers split their page axis over data on a
+# (2, 2) group: server memory -> 35 pages + the trash page (zamba2: 37 + 1)
+SPLIT_PAGES = (("llama3_2_1b", 260.0), ("deepseek_v2_236b", 260.0),
+               ("zamba2_7b", 520.0), ("seamless_m4t_large_v2", 260.0))
+
+
+def split_page_parity(torch, drive):
+    """(b') reduced f32 paged runs (page 4) whose page arrays split over
+    ``data`` on a (2, 2) group, fused rounds on the kernels: each group
+    server's slot page arrays, their bytes beside the reference layout's
+    (``pool_tree_shardings``) and the pages-whole layout's, the counted
+    cross-slot page reads and writes; streams, clocks and round_stats ==
+    the card's solo run, logits within LOGIT_TOL (zamba2 at C2's)."""
+    import numpy as np
+
+    import repro_torch.core as C
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch.mesh import GroupMesh
+    from repro_torch.launch.sharding import pool_tree_shardings
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import count_collectives
+    from repro_torch.models.model import tree_nbytes
+    from repro_torch.serving import GeoServingSystem
+    from repro_torch.serving.kv_cache import (_slot_tree,
+                                              new_paged_pool_tree,
+                                              page_blocks)
+
+    for arch, mem in SPLIT_PAGES:
+        cfg = get_reduced_config(arch)
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), "cuda")
+        llm = C.LLMSpec("toy", cfg.n_layers, block_bytes=100.0,
+                        cache_bytes_per_token=1.0)
+        servers = [C.ServerSpec(j, mem, 0.01 * (j + 1), 0.002, 0.0005)
+                   for j in range(2)]
+        rtt = np.full((1, 2), 0.02)
+        problem = C.Problem(llm, servers, 1, rtt, 3 * rtt,
+                            workload=C.Workload(4, 4))
+        devs = np.empty(4, dtype=object)
+        devs[:] = slot_devices(torch, 4)
+        mesh = GroupMesh(devs.reshape(2, 2))
+        kw = dict(algorithm="proposed", R=2, max_new_tokens=4,
+                  max_sessions=4, cache_layout="paged", page_size=4)
+        want = drive(torch, GeoServingSystem(cfg, params, problem, **kw), C)
+        system = GeoServingSystem(cfg, params, problem, mesh=mesh, **kw)
+        with count_collectives() as coll:
+            got = drive(torch, system, C)
+        if got[0] != want[0] or got[1] != want[1] or got[3] != want[3]:
+            raise RuntimeError(f"[groups] (b') {arch}: streams, clocks or "
+                               "round_stats differ from solo")
+        tol = FAMILY_TOL.get(arch, LOGIT_TOL)
+        for hg, hw in zip(got[2], want[2]):
+            for a, b in zip(hg, hw):
+                if not torch.allclose(a, b, **tol):
+                    raise RuntimeError(f"[groups] (b') {arch}: logits "
+                                       "beyond the tolerance")
+        split = 0
+        for j, srv in system.servers.items():
+            pool, blocks = srv.pool, page_blocks(srv.mesh,
+                                                 srv.pool.slot_specs)
+            split += blocks > 1
+            ref = sum(tree_nbytes(_slot_tree(
+                t, pool_tree_shardings(srv.mesh, srv.layout_rules, t),
+                srv.mesh, 0, "meta"))
+                for t in (new_paged_pool_tree(
+                    cfg, kind, hi - lo, pool.n_rows, pool.page_size,
+                    pool.pages.n_pages + 1, pool.enc_len, "meta")
+                    for kind, lo, hi in srv.runs))
+            got_bytes = sum(tree_nbytes(t) for t in pool.slot_trees[0])
+            log(f"[groups] (b') {arch} server {j} on (2, 2): "
+                f"{pool.pages.n_pages + 1} pages in {blocks} data block(s); "
+                f"slot 0 pool bytes {got_bytes}, the reference layout's "
+                f"{ref}")
+            if got_bytes != ref:
+                raise RuntimeError(f"[groups] (b') {arch} server {j}: slot "
+                                   "pool bytes differ from the reference "
+                                   "layout's")
+        log(f"[groups] (b') {arch}: paged page axis over data on {split} "
+            f"server(s); streams, clocks and round_stats == solo; page "
+            f"reads / writes across slots "
+            f"{coll.by_kind.get('page-read', 0):.4g} / "
+            f"{coll.by_kind.get('page-write', 0):.4g} wire bytes")
+        if not split or not coll.by_kind.get("page-read"):
+            raise RuntimeError(f"[groups] (b') {arch}: no page axis split "
+                               "or no cross-slot page read")
 
 
 def group_taus(torch):
@@ -3462,10 +3749,13 @@ PAGE_SIZE = 16  # the paged serves' page size
 def slot_pool_bytes(system):
     """{server: bytes of one slot's pool} of each group server: slab (the
     reference's layout, time shards included), slab with the time axis
-    kept whole on each slot (the port's layout before it), the solo pool;
-    and the paged pool at PAGE_SIZE with the page axis whole on each slot
-    (the port's) and split over ``data`` as the reference's rules put it
-    (ROADMAP C6).  Shapes only (meta tensors)."""
+    kept whole on each slot (the port's earlier layout), the solo
+    pool; and the paged pool at PAGE_SIZE as the port lays it out
+    (``group_pool_specs``), as the reference's rules put it
+    (``pool_tree_shardings``: the page axis over ``data`` where the
+    pages divide it) and with the page axis whole on each slot (the
+    port's layout before).  Fails where the port's paged layout is not
+    the reference's.  Shapes only (meta tensors)."""
     from repro_torch.launch.sharding import pool_tree_shardings
     from repro_torch.models.model import tree_nbytes
     from repro_torch.serving.kv_cache import (_slot_tree, group_pool_specs,
@@ -3492,16 +3782,27 @@ def slot_pool_bytes(system):
                                      PAGE_SIZE, n_phys + 1, pool.enc_len,
                                      "meta") for kind, n in runs]
         whole = dict(rules, kv_time=None)
+
+        def pages_whole(t):
+            return {k: (sp[:1] + (None,) + sp[2:]
+                        if k in ("k", "v", "latent", "krope") else sp)
+                    for k, sp in group_pool_specs(mesh, rules, t,
+                                                  True).items()}
+
         out[j] = {
             "slab": slot0(slab, lambda t: group_pool_specs(
                 mesh, rules, t, False), mesh),
             "slab, time whole": slot0(slab, lambda t: group_pool_specs(
                 mesh, whole, t, False), mesh),
             "solo": sum(tree_nbytes(t) for t in slab),
-            "paged, pages whole": slot0(paged, lambda t: group_pool_specs(
+            "paged": slot0(paged, lambda t: group_pool_specs(
                 mesh, rules, t, True), mesh),
-            "paged, pages over data": slot0(
-                paged, lambda t: pool_tree_shardings(mesh, rules, t), mesh)}
+            "paged, reference layout": slot0(
+                paged, lambda t: pool_tree_shardings(mesh, rules, t), mesh),
+            "paged, pages whole": slot0(paged, pages_whole, mesh)}
+        if out[j]["paged"] != out[j]["paged, reference layout"]:
+            raise RuntimeError(f"server {j}: the paged pool a slot is not "
+                               f"the reference layout's ({out[j]})")
     return out
 
 
@@ -3760,6 +4061,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     phase_train(torch)
+    phase_train_group(torch)
     captured = {}
     serve, paged = {}, {}
     for arch in PATH_KERNELS:

@@ -4,7 +4,8 @@
 * ``lm_batches`` — seeded, reproducible packed LM batches (power-law unigram
   stream packed into fixed-length rows, BOS-separated documents),
 * ``encdec_batches`` — frame/token pairs for the audio enc-dec arch,
-* ``shard_batch`` — put a host batch on the device.
+* ``shard_batch`` — put a host batch on the device, or each slot's rows
+  on its device over a device group.
 
 Determinism: batch ``i`` is a pure function of (seed, i), drawn with the
 reference's numpy calls in the reference's order, so the port's tokens and
@@ -76,14 +77,30 @@ def make_batches(cfg: ModelConfig, batch_size: int, seq_len: int,
     return lm_batches(cfg, batch_size, seq_len, seed, start_step)
 
 
-def shard_batch(batch: Dict, mesh=None, sh=None, device="cuda") -> Dict:
+def shard_batch(batch: Dict, mesh=None, sh=None, device="cuda"):
     """A host batch as tensors on ``device``, through pinned non-blocking
-    copies (``serving.kv_cache.to_device``: no host sync).  Placing it over
-    a device mesh is ROADMAP A10."""
+    copies (``serving.kv_cache.to_device``: no host sync).  Over a device
+    group (``mesh`` and ``sh``, a ``launch.sharding.ShardingCtx``): a list
+    of per-slot dicts, each slot's rows under ``sh``'s ``batch`` rule on
+    its slot's device (every slot of a data index gets that row block, one
+    copy a device; all rows where the rule replicates)."""
     from repro_torch.serving.kv_cache import to_device
 
-    if mesh is not None or sh is not None:
-        raise NotImplementedError(
-            "shard_batch over a device mesh needs device groups (ROADMAP "
-            "A10); the port trains on one device")
-    return {k: to_device(v, device) for k, v in batch.items()}
+    if mesh is None and sh is None:
+        return {k: to_device(v, device) for k, v in batch.items()}
+    if mesh is None or sh is None:
+        raise ValueError("shard_batch over a mesh takes both mesh and sh")
+    from repro_torch.launch.sharding import slot_index
+
+    out, staged = [], {}
+    for s, dev in enumerate(mesh.slot_devices()):
+        slot = {}
+        for k, v in batch.items():
+            axes = ("batch",) + (None,) * (v.ndim - 1)
+            idx = slot_index(v.shape, sh.spec(axes, v.shape), mesh, s)
+            key = (k, idx[0].start, idx[0].stop, str(dev))
+            if key not in staged:
+                staged[key] = to_device(np.ascontiguousarray(v[idx]), dev)
+            slot[k] = staged[key]
+        out.append(slot)
+    return out

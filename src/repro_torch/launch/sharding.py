@@ -23,8 +23,16 @@ merged over the slots holding the other shards in time order.  The
 ``head_dim`` fallback (query heads that do not divide the model axis) is
 not emulated: ``group_layout_rules`` raises for it.
 
-``make_ctx``, ``batch_specs``, ``cache_specs`` and ``param_shardings``
-(training and the dry run) have no counterpart yet (ROADMAP A10(b)).
+Training over a group (``training.make_train_step(..., sh=)``) runs the
+reference's training rules through ``make_ctx``: a :class:`ShardingCtx`
+of the mesh and ``make_rules`` at a train shape, which puts the batch on
+``data``, heads / MLP / vocab on ``model`` and ``embed_fsdp`` (ZeRO-3) on
+``data``.  ``batch_specs``, ``cache_specs``, ``cache_shardings`` and
+``param_shardings`` give each leaf's per-slot spec beside a meta tensor of
+its whole shape; ``param_axes`` is the reference's axes tree of a whole
+model.  The rules a slot step does not emulate — ``seq_act`` (the
+sequence-sharded residual stream), ``attn_seq_q`` and the ``head_dim``
+fallback — raise ``NotImplementedError`` (``check_train_rules``).
 """
 from __future__ import annotations
 
@@ -189,6 +197,169 @@ def _map_named(fn, tree, name=None):
 def cache_tree_axes(tree, rules=None):
     """A cache tree's logical-axes tuples, by leaf name."""
     return _map_named(lambda n, x: cache_axes_for(n, x.dim(), rules), tree)
+
+
+class ShardingCtx:
+    """A mesh and its rules (logical axis -> mesh axes): the counterpart of
+    the reference's ``ShardingCtx``.  ``mesh`` None is the solo twin
+    (``NULL_SH``); ``cfg`` is the config the rules were made for."""
+
+    def __init__(self, mesh=None, rules: Optional[Dict[str, object]] = None,
+                 cfg: Optional[ModelConfig] = None):
+        self.mesh = mesh
+        self.rules = dict(rules or {})
+        self.cfg = cfg
+
+    def spec(self, axes, shape) -> tuple:
+        """The per-dimension mesh axes of a leaf of ``shape`` whose logical
+        axes are ``axes`` (:func:`guarded_spec`; all None solo)."""
+        if self.mesh is None:
+            return (None,) * len(shape)
+        return guarded_spec(axes, tuple(shape), self.rules, self.mesh)
+
+
+NULL_SH = ShardingCtx()
+
+
+def make_ctx(cfg: ModelConfig, mesh, shape: ShapeSpec) -> ShardingCtx:
+    """The reference's ``make_ctx``: the mesh and ``make_rules`` of (cfg,
+    mesh, shape)."""
+    return ShardingCtx(mesh, make_rules(cfg, mesh, shape), cfg)
+
+
+_UNPORTED_TRAIN_RULES = {
+    "seq_act": "the sequence-sharded residual stream (Megatron-SP)",
+    "attn_seq_q": "sequence-parallel attention for query heads that do not "
+                  "divide the model axis",
+    "head_dim": "attention weights split on head_dim",
+}
+
+
+def check_train_rules(rules: Dict[str, object],
+                      cfg: ModelConfig) -> Dict[str, object]:
+    """``rules`` when a group's training step emulates them;
+    ``NotImplementedError`` naming the rule where they set ``seq_act``,
+    ``attn_seq_q`` or the ``head_dim`` fallback (ROADMAP A10(b)).  The
+    attention rules do not apply to a stack without attention (RWKV6,
+    whose zero query heads divide no model axis)."""
+    for name, what in _UNPORTED_TRAIN_RULES.items():
+        if name != "seq_act" and cfg.n_heads == 0:
+            continue
+        if rules.get(name) is not None:
+            raise NotImplementedError(
+                f"the rules set {name!r} = {rules[name]!r} ({what}), which "
+                "the port's group training step does not emulate (ROADMAP "
+                "A10(b))")
+    return rules
+
+
+def _meta(shape, dtype):
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeSpec, sh: ShardingCtx):
+    """{name: (meta tensor of the whole batch leaf, its per-slot spec)} of
+    a train / prefill batch: tokens (B, S), and the frames of an enc-dec
+    stack, rows over the ``batch`` rule."""
+    B, S = shape.global_batch, shape.seq_len
+    out = {"tokens": _meta((B, S), torch.int32)}
+    if cfg.is_enc_dec:
+        out = {"frames": _meta((B, S, cfg.frame_dim), torch.float32),
+               "tokens": out["tokens"]}
+    return {k: (x, sh.spec(("batch",) + (None,) * (x.dim() - 1), x.shape))
+            for k, x in out.items()}
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeSpec, sh: ShardingCtx,
+                enc_len: Optional[int] = None):
+    """The decode cache tree of a cell as (meta tensor, per-slot spec)
+    pairs, by leaf name (:func:`cache_axes_for`)."""
+    from repro_torch.models.model import init_decode_caches
+
+    caches = init_decode_caches(cfg, shape.global_batch, shape.seq_len,
+                                enc_len=enc_len, device="meta")
+    specs = cache_shardings(cfg, sh, caches)
+    return _zip_trees(caches, specs)
+
+
+def cache_shardings(cfg: ModelConfig, sh: ShardingCtx, cache_shape_tree):
+    """Per-slot spec tree of a cache tree (tensors or meta tensors), by
+    leaf name under ``sh``'s rules."""
+    rules = dict(sh.rules)  # cache_axes_for may add kv_time_noverlap
+    return _map_named(lambda n, x: guarded_spec(
+        cache_axes_for(n, x.dim(), rules), tuple(x.shape), rules, sh.mesh),
+        cache_shape_tree)
+
+
+def _zip_trees(a, b):
+    if isinstance(a, dict):
+        return {k: _zip_trees(a[k], b[k]) for k in a}
+    return (a, b)
+
+
+def param_axes(cfg: ModelConfig, params):
+    """Logical-axes tree of a whole model's params (the reference's
+    ``init_params(...)[1]``): the embedding's, each segment's stacked
+    blocks' (a zamba2 mega segment's leaves carry two stacked axes) and
+    zamba2's shared block's."""
+    from repro_torch.models.model import stack_plan
+
+    out = {"embed": embed_param_axes(params["embed"]), "segments": {}}
+    for seg in stack_plan(cfg):
+        tree = params["segments"][seg.name]
+        if seg.kind == "mega":
+            axes = block_param_axes(cfg, "mamba", tree["mamba"])
+            out["segments"][seg.name] = {"mamba": {
+                par: {n: ("layers",) + a for n, a in sub.items()}
+                for par, sub in axes.items()}}
+        else:
+            kind = {"mamba": "mamba", "rwkv": "rwkv", "enc": "enc",
+                    "dec": "dec"}.get(seg.kind, "decoder")
+            out["segments"][seg.name] = block_param_axes(cfg, kind, tree)
+    if "shared" in params:
+        out["shared"] = shared_param_axes(cfg, params["shared"])
+    return out
+
+
+def param_shardings(cfg: ModelConfig, sh: ShardingCtx, axes_tree,
+                    params=None):
+    """Per-slot spec tree of a whole model's params: each leaf's logical
+    axes (``axes_tree``, :func:`param_axes`) through :func:`guarded_spec`
+    against its shape (``params``: tensors or meta tensors; default the
+    config's params on the meta device)."""
+    from repro_torch.models.model import init_params
+
+    if params is None:
+        params = init_params(cfg, None, "meta")
+    return _map_axes(lambda ax, x: sh.spec(ax, x.shape), axes_tree, params)
+
+
+def _map_axes(fn, axes_tree, tree):
+    if isinstance(tree, dict):
+        return {k: _map_axes(fn, axes_tree[k], v) for k, v in tree.items()}
+    return fn(axes_tree, tree)
+
+
+def fsdp_dim(axes, spec) -> Optional[int]:
+    """The dim of a leaf that ``embed_fsdp`` splits (None where the rules or
+    the guard keep it whole)."""
+    for d, (a, e) in enumerate(zip(axes, spec)):
+        if a == "embed_fsdp" and e is not None:
+            return d
+    return None
+
+
+def replica_slots(mesh, spec, slot: int):
+    """The slots holding the same block of a leaf as ``slot`` under
+    ``spec`` (those that agree with it on every mesh axis the spec uses),
+    in slot order."""
+    used = set()
+    for e in spec:
+        if e is not None:
+            used.update(e if isinstance(e, tuple) else (e,))
+    me = _coords(mesh, slot)
+    return [t for t in range(int(mesh.devices.size))
+            if all(_coords(mesh, t)[a] == me[a] for a in used)]
 
 
 # ---------------------------------------------------------------------------
@@ -522,11 +693,13 @@ def unshard(parts, spec, mesh, shape) -> torch.Tensor:
 
 
 __all__ = [
-    "DeviceGroup", "as_device_group", "block_param_axes",
-    "block_param_shardings", "cache_axes_for", "cache_tree_axes",
-    "embed_param_axes", "freeze_rules", "frozen_serving_rules",
-    "group_layout_rules", "guarded_spec", "make_rules",
-    "pool_tree_shardings", "serving_rules", "shard", "shared_param_axes",
-    "slot_index",
+    "DeviceGroup", "NULL_SH", "ShardingCtx", "as_device_group",
+    "batch_specs", "block_param_axes", "block_param_shardings",
+    "cache_axes_for", "cache_shardings", "cache_specs", "cache_tree_axes",
+    "check_train_rules", "embed_param_axes", "freeze_rules",
+    "frozen_serving_rules", "fsdp_dim", "group_layout_rules",
+    "guarded_spec", "make_ctx", "make_rules", "param_axes",
+    "param_shardings", "pool_tree_shardings", "replica_slots",
+    "serving_rules", "shard", "shared_param_axes", "slot_index",
     "thaw_rules", "unshard",
 ]

@@ -7,8 +7,11 @@
 It trains on the card unless ``--device cpu`` is given, from random weights
 drawn from a seeded ``torch.Generator``, at the config's param dtype
 unless ``--dtype`` names another.  The reference's XLA flag block has no
-counterpart; ``--model-parallel`` above 1 needs device groups (ROADMAP
-A10).
+counterpart.  ``--model-parallel k`` trains over a device group, as the
+reference does: ``make_ctx(cfg, make_mesh_for(model_parallel=k),
+SHAPES_BY_NAME["train_4k"])`` — the cards present (``ValueError`` with
+too few), or with ``--device cpu`` k CPU slots; ``run(mesh=)`` takes an
+explicit mesh (e.g. repeated slots of one card).
 """
 from __future__ import annotations
 
@@ -51,32 +54,40 @@ class TrainRun:
 
 
 def run(args: argparse.Namespace, params=None,
-        step_hook: Optional[Callable] = None) -> TrainRun:
+        step_hook: Optional[Callable] = None, mesh=None) -> TrainRun:
     """Train ``args.steps`` steps.  ``params``: the model's weights on
     ``args.device`` (default: random from a seeded generator).
     ``step_hook(step_fn, state, batch)``, when given, takes each step in
-    place of ``step_fn(state, batch)`` (to time or inspect it)."""
-    from repro_torch.configs import get_config, get_reduced_config
+    place of ``step_fn(state, batch)`` (to time or inspect it).  ``mesh``
+    (a ``launch.mesh.GroupMesh``): train over that group, whatever
+    ``--model-parallel`` says; the state is then the group's."""
+    from repro_torch.configs import (SHAPES_BY_NAME, get_config,
+                                     get_reduced_config)
     from repro_torch.data import make_batches, shard_batch
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.sharding import make_ctx
     from repro_torch.training import (TrainHParams, checkpoint,
                                       init_train_state, make_optimizer_for,
                                       make_train_step)
 
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model-parallel > 1 shards the step over a device group "
-            "(ROADMAP A10); the port trains on one device")
     cfg = (get_reduced_config(args.arch) if args.reduced
            else get_config(args.arch))
     if args.dtype:
         cfg = cfg.replace(param_dtype=args.dtype, act_dtype=args.dtype)
+    if mesh is None and args.model_parallel > 1:
+        devices = ([torch.device("cpu")] * args.model_parallel
+                   if torch.device(args.device).type == "cpu" else None)
+        mesh = make_mesh_for(model_parallel=args.model_parallel,
+                             devices=devices)
+    sh = None if mesh is None else \
+        make_ctx(cfg, mesh, SHAPES_BY_NAME["train_4k"])
     hp = TrainHParams(learning_rate=args.lr, grad_accum=args.grad_accum)
     opt = make_optimizer_for(cfg, hp)
     gen = (None if params is not None
            else torch.Generator(device=args.device).manual_seed(0))
     state = init_train_state(gen, cfg, opt, params=params,
-                             device=args.device)
-    step_fn = make_train_step(cfg, opt, hp)
+                             device=args.device, sh=sh)
+    step_fn = make_train_step(cfg, opt, hp, sh)
     out = TrainRun(state, step_fn, cfg)
 
     def say(line):
@@ -85,13 +96,13 @@ def run(args: argparse.Namespace, params=None,
 
     start = 0
     if args.ckpt and checkpoint.latest_step(args.ckpt):
-        state, start = checkpoint.restore(args.ckpt, state)
+        state, start = checkpoint.restore(args.ckpt, state, sh=sh)
         say(f"resumed at step {start}")
     batches = make_batches(cfg, args.batch, args.seq, seed=0,
                            start_step=start)
     t0 = time.time()
     for i in range(start, args.steps):
-        batch = shard_batch(next(batches), device=args.device)
+        batch = shard_batch(next(batches), mesh, sh, device=args.device)
         if step_hook is None:
             state, metrics = step_fn(state, batch)
         else:
@@ -102,7 +113,7 @@ def run(args: argparse.Namespace, params=None,
                 f"({(time.time()-t0)/5:.2f}s/step)")
             t0 = time.time()
         if args.ckpt and (i + 1) % 20 == 0:
-            checkpoint.save(args.ckpt, i + 1, state)
+            checkpoint.save(args.ckpt, i + 1, state, sh=sh)
     out.state = state
     say("done")
     return out

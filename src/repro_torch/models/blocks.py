@@ -25,7 +25,10 @@ steps run every block kind through them, a solo server on its one
 Mamba2, zamba2-shared and RWKV6 blocks are their group forms on ``NULL``;
 the decoder's keep their own body (the monolithic MoE routes the whole
 batch) and share its attention and residual halves (``_mixer_*``,
-``_residual``).
+``_residual``).  The training step runs the same group forms under
+autograd on the plain versions (``models.train_loss`` over a group), the
+decoder's as :func:`decoder_block_train_group` (the MoE over the whole
+batch).
 """
 from __future__ import annotations
 
@@ -297,6 +300,15 @@ def decoder_block_full_group(ps, cfg: ModelConfig, ctxs, hs, poss,
     per-slot positions; ``prefixes``: per-slot ``prefix_kv`` (or None), the
     whole prefix (gathered from the slots' time shards by the caller).
     Returns (per-slot h, per-slot cache entries of the chunk)."""
+    hs, caches = _attn_full_group(ps, cfg, ctxs, hs, poss, layer_idx,
+                                  prefixes, backend)
+    return _ffn_group(ps, cfg, ctxs, hs, rows_split), caches
+
+
+def _attn_full_group(ps, cfg: ModelConfig, ctxs, hs, poss, layer_idx,
+                     prefixes, backend: str):
+    """ln1 -> attention of each slot's heads, reduced -> residual: (per-slot
+    h, per-slot cache entries of the chunk)."""
     win = window_for_layer(cfg, layer_idx)
     prefixes = prefixes or [None] * len(ctxs)
     outs = [_mixer_full(p, cfg, apply_norm(p["ln1"], cfg, h), positions,
@@ -305,8 +317,26 @@ def decoder_block_full_group(ps, cfg: ModelConfig, ctxs, hs, poss,
                                                 prefixes)]
     a = _attn_reduce([p["attn"] for p in ps], cfg, ctxs,
                      [o[0] for o in outs])
-    hs = [_residual(p, cfg, h, y, "post_ln1") for p, h, y in zip(ps, hs, a)]
-    return _ffn_group(ps, cfg, ctxs, hs, rows_split), [o[1] for o in outs]
+    return ([_residual(p, cfg, h, y, "post_ln1")
+             for p, h, y in zip(ps, hs, a)], [o[1] for o in outs])
+
+
+def decoder_block_train_group(ps, cfg: ModelConfig, ctxs, hs, poss,
+                              layer_idx=0, backend: str = "plain"):
+    """The training step's decoder block on a group: each slot's rows
+    (row block ``i`` on data index ``i``), attention as in
+    :func:`decoder_block_full_group` and the MoE over the whole batch
+    (``moe.apply_moe_batch_group``).  Returns (per-slot h, aux: the MoE's
+    terms on slot 0's device, or {})."""
+    hs, _ = _attn_full_group(ps, cfg, ctxs, hs, poss, layer_idx, None,
+                             backend)
+    if not cfg.is_moe:
+        return _ffn_group(ps, cfg, ctxs, hs, True), {}
+    xs = [apply_norm(p["ln2"], cfg, h) for p, h in zip(ps, hs)]
+    ms, aux = moe.apply_moe_batch_group([p["ffn"] for p in ps], cfg, ctxs,
+                                        xs)
+    return [_residual(p, cfg, h, m, "post_ln2")
+            for p, h, m in zip(ps, hs, ms)], aux
 
 
 def decoder_block_decode_group(ps, cfg: ModelConfig, ctxs, hs, caches,

@@ -55,9 +55,11 @@ class ParamBuilder:
     ``dense`` draws a truncated normal on [-2, 2] times ``scale`` (default
     1/sqrt(fan_in)) in f32 on the generator's device, then casts and moves
     the leaf to ``device`` — the reference's ``dense_init`` (leaves above
-    ``_DRAW_WHOLE`` elements slice by slice).  ``lead`` prepends stacked
-    dims (the layer axis of a segment) to every leaf; the fan-in stays the
-    per-layer one, as the reference's vmapped init."""
+    ``_DRAW_WHOLE`` elements slice by slice); without a generator
+    (``gen`` None, e.g. on the meta device) it draws on ``device``.
+    ``lead`` prepends stacked dims (the layer axis of a segment) to every
+    leaf; the fan-in stays the per-layer one, as the reference's vmapped
+    init."""
 
     def __init__(self, gen: torch.Generator, device, lead=()):
         self.gen = gen
@@ -83,7 +85,8 @@ class ParamBuilder:
         self.params[name] = out
 
     def _draw(self, shape, scale):
-        w = torch.empty(shape, dtype=torch.float32, device=self.gen.device)
+        dev = self.device if self.gen is None else self.gen.device
+        w = torch.empty(shape, dtype=torch.float32, device=dev)
         torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
                                     generator=self.gen)
         return w.mul_(scale)
@@ -373,17 +376,40 @@ class GroupCtx:
         """Slots of this slot's model row, (i, 0) .. (i, M-1)."""
         return [self.i * self.n_model + m for m in range(self.n_model)]
 
+    def data_column(self) -> List[int]:
+        """Slots of this slot's data column, (0, j) .. (D-1, j)."""
+        return [d * self.n_model + self.j for d in range(self.n_data)]
+
     def to_here(self, x):
         return x if self.device is None else x.to(self.device,
                                                   non_blocking=True)
 
-    def all_reduce_sum(self, parts):
-        """Sum of the model row's partials (``parts`` in model order),
-        added left to right on this slot's device."""
-        _record("all-reduce", parts[0], len(parts))
+    def all_reduce_sum(self, parts, scatter: bool = False):
+        """Sum of partials in slot order — a model row's, or the gradients
+        of the slots holding one block of a leaf (the data-parallel sum) —
+        added left to right on this slot's device.  ``scatter``: the
+        reduce-scatter whose block this slot then keeps (its wire bytes:
+        (g-1)/g of the summed leaf)."""
+        if scatter:
+            _record("reduce-scatter", parts[0], len(parts), gathered=True,
+                    nbytes=_nbytes(parts[0]) / len(parts))
+        else:
+            _record("all-reduce", parts[0], len(parts))
         out = self.to_here(parts[0])
         for p in parts[1:]:
             out = out + self.to_here(p)
+        return out
+
+    def gather_blocks(self, parts, idxs, shape):
+        """A leaf of ``shape`` put together on this slot from its blocks
+        ``parts`` (one a block, at the indices ``idxs``) — an all-gather of
+        a leaf split over several mesh axes."""
+        if len(parts) > 1:
+            _record("all-gather", parts[0], len(parts), gathered=True,
+                    nbytes=sum(_nbytes(p) for p in parts) / len(parts))
+        out = self.to_here(parts[0]).new_empty(tuple(shape))
+        for p, idx in zip(parts, idxs):
+            out[idx] = self.to_here(p)
         return out
 
     def all_gather(self, parts, dim: int = -1):
@@ -416,12 +442,22 @@ class GroupCtx:
         return merge_partials_ref(*(torch.cat([p[i] for p in mine])
                                     for i in range(3)), dtype)
 
-    def receive(self, x, src: int):
+    def receive(self, x, src: int, kind: str = "all-to-all"):
         """A point-to-point move of ``x`` from slot ``src`` to this slot
-        (the sends of an all-to-all); a slot's own data moves nothing."""
+        (the sends of an all-to-all; ``kind`` names them in the count); a
+        slot's own data moves nothing."""
         if src != self.slot:
-            _record("all-to-all", x, 2, point=True)
+            _record(kind, x, 2, point=True)
         return self.to_here(x)
+
+    def send(self, x, dst: int, kind: str):
+        """A point-to-point move of ``x`` from this slot to slot ``dst``
+        (counted as ``kind``), on ``dst``'s device."""
+        if dst == self.slot:
+            return x
+        _record(kind, x, 2, point=True)
+        dev = self.mesh.devices.reshape(-1)[dst]
+        return x.to(dev, non_blocking=True)
 
 
 NULL = GroupCtx()
@@ -479,13 +515,21 @@ class CollectiveCount:
         return sum(self.by_kind.values())
 
 
+# the counts open in this process, innermost last: autograd runs a CUDA
+# backward (and the forward a checkpoint recomputes in it) on its own
+# device thread, where the context variable is unset
+_OPEN_COUNTS: List[CollectiveCount] = []
+
+
 @contextlib.contextmanager
 def count_collectives():
     rec = CollectiveCount()
     token = _COLLECTIVES.set(rec)
+    _OPEN_COUNTS.append(rec)
     try:
         yield rec
     finally:
+        _OPEN_COUNTS.remove(rec)
         _COLLECTIVES.reset(token)
 
 
@@ -500,6 +544,8 @@ def _record(kind: str, x, g: int, gathered: bool = False,
     ring factors: all-reduce 2(g-1)/g N, all-gather (g-1)/g N_out; a
     point-to-point send N)."""
     rec = _COLLECTIVES.get()
+    if rec is None and _OPEN_COUNTS:
+        rec = _OPEN_COUNTS[-1]
     if rec is None or g <= 1:
         return
     n = _nbytes(x) if nbytes is None else nbytes
@@ -535,26 +581,56 @@ def embed_tokens_group(ps, cfg: ModelConfig, ctxs, tokens):
     return reduce_model(ctxs, parts)
 
 
+def _shard_logits(p, cfg: ModelConfig, c: GroupCtx, h):
+    """One slot's logits of its vocab shard (softcap and pad mask applied
+    there) and the shard's first vocabulary index."""
+    h = apply_norm(p["final_norm"], cfg, h)
+    w = p["tok"].t() if cfg.tie_embeddings else p["head"]
+    logits = torch.matmul(h, w.to(h.dtype))
+    if cfg.logit_softcap > 0:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    n = logits.shape[-1]
+    lo = _vocab_lo(c, n, cfg)
+    pad = vocab_pad_bias(cfg, h.device)
+    if pad is not None:
+        logits = logits + pad[lo:lo + n].to(logits.dtype)
+    return logits, lo
+
+
 def lm_head_group(ps, cfg: ModelConfig, ctxs, hs):
     """LM head on vocab shards: each slot's logits of its shard (softcap
     and pad mask applied there), gathered over the model row into the
     full vocabulary on every slot."""
-    parts = []
-    for p, c, h in zip(ps, ctxs, hs):
-        h = apply_norm(p["final_norm"], cfg, h)
-        w = p["tok"].t() if cfg.tie_embeddings else p["head"]
-        logits = torch.matmul(h, w.to(h.dtype))
-        if cfg.logit_softcap > 0:
-            logits = cfg.logit_softcap * torch.tanh(
-                logits / cfg.logit_softcap)
-        pad = vocab_pad_bias(cfg, h.device)
-        if pad is not None:
-            lo = _vocab_lo(c, logits.shape[-1], cfg)
-            logits = logits + pad[lo:lo + logits.shape[-1]].to(logits.dtype)
-        parts.append(logits)
+    parts = [_shard_logits(p, cfg, c, h)[0]
+             for p, c, h in zip(ps, ctxs, hs)]
     if parts[0].shape[-1] == cfg.padded_vocab:
         return parts
     return gather_model(ctxs, parts, dim=-1)
+
+
+def lm_head_xent_group(ps, cfg: ModelConfig, ctxs, hs, labels):
+    """The training use of the vocab-parallel LM head: per slot, the f32
+    logsumexp of each position's logits and the logit of its label
+    (``labels``, per-slot ids like ``hs``' positions).  Each slot's logits
+    are its vocab shard's (softcap and pad mask applied there); the
+    logsumexp joins the model row's shard logsumexps (an all-gather of one
+    value a position) and the gold logit is the row's sum (the one shard
+    holding the label gives it).  Returns (per-slot lse, per-slot gold)."""
+    lses, golds = [], []
+    for p, c, h, y in zip(ps, ctxs, hs, labels):
+        logits, lo = _shard_logits(p, cfg, c, h)
+        logits = logits.float()
+        n = logits.shape[-1]
+        lses.append(torch.logsumexp(logits, dim=-1))
+        local = y.long() - lo
+        ok = (local >= 0) & (local < n)
+        gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])
+        golds.append(torch.where(ok, gold[..., 0], 0.0))
+    if n == cfg.padded_vocab:
+        return lses, golds
+    rows = gather_model(ctxs, [x[..., None] for x in lses], dim=-1)
+    return ([torch.logsumexp(r, dim=-1) for r in rows],
+            reduce_model(ctxs, golds))
 
 
 def mlp_group(ps, cfg: ModelConfig, ctxs, xs):

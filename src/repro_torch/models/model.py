@@ -238,7 +238,8 @@ def _caster(cast: Optional[torch.dtype]):
 
 def forward_full(params, cfg: ModelConfig, batch, collect_caches=False,
                  cache_len: Optional[int] = None, backend: str = "kernel",
-                 remat: bool = False, cast: Optional[torch.dtype] = None):
+                 remat: bool = False, cast: Optional[torch.dtype] = None,
+                 ctxs=None):
     """Run the stack over full sequences.  Returns (h_final, aux, caches);
     aux sums the MoE terms over the layers (zero without MoE); caches is
     {segment: stacked cache tree} when ``collect_caches`` (K/V time axes
@@ -249,7 +250,21 @@ def forward_full(params, cfg: ModelConfig, batch, collect_caches=False,
     backward pass instead of keeping its activations.  ``cast``: run in
     that dtype on params stored in another — the embedding rows are
     gathered and then cast, and each layer's leaves are cast as the layer
-    runs and dropped after it, so no cast copy of the whole stack exists."""
+    runs and dropped after it, so no cast copy of the whole stack exists.
+
+    ``ctxs`` (a group's ``layers.GroupCtx`` list): the stack over a device
+    group, the training step's form — ``params`` per-slot trees (each
+    slot's TP / EP shards, ``embed_fsdp`` leaves gathered), ``batch``
+    per-slot dicts of the slot's rows (row block ``i`` on data index
+    ``i``); each layer's group form (``blocks.*_group``; the decoder's
+    :func:`blocks.decoder_block_train_group`, the MoE over the whole
+    batch) runs once per layer, under ``remat`` recomputed in the
+    backward pass.  Returns (per-slot h, aux on slot 0's device, {})."""
+    if ctxs is not None:
+        if collect_caches or cast is not None:
+            raise ValueError("forward_full over a group collects no caches "
+                             "and casts nothing (the training step's form)")
+        return _forward_full_group(params, cfg, batch, ctxs, backend, remat)
     if cfg.is_enc_dec:
         return _forward_encdec(params, cfg, batch, collect_caches,
                                cache_len, backend, remat, cast)
@@ -337,6 +352,79 @@ def _forward_encdec(params, cfg: ModelConfig, batch, collect_caches,
     return h, aux, caches
 
 
+def _forward_full_group(ps, cfg: ModelConfig, batches, ctxs, backend: str,
+                        remat: bool):
+    """:func:`forward_full` over a group (see there)."""
+    from repro_torch.models.layers import embed_tokens_group
+
+    dev0 = batches[0]["tokens"].device
+    aux_total = {"moe_aux_loss": torch.zeros((), device=dev0),
+                 "moe_drop_frac": torch.zeros((), device=dev0)}
+    toks = [b["tokens"] for b in batches]
+    poss = [torch.arange(t.shape[1], device=t.device) for t in toks]
+    embeds = [p["embed"] for p in ps]
+    if cfg.is_enc_dec:
+        frames = [b["frames"] for b in batches]
+        enc_poss = [torch.arange(f.shape[1], device=f.device)
+                    for f in frames]
+        enc = [embed_frames({"frame_proj": e["frame_proj"]}, cfg, f)
+               for e, f in zip(embeds, frames)]
+
+        def enc_layer(pl, hs):
+            return B.encoder_block_full_group(pl, cfg, ctxs, hs, enc_poss,
+                                              backend)
+
+        def dec_layer(pl, hs, enc):
+            return B.cross_decoder_block_full_group(
+                pl, cfg, ctxs, hs, poss, enc, backend=backend)[0]
+
+        segs = [p["segments"] for p in ps]
+        for pl in _slot_layers(segs, "enc", cfg.n_enc_layers):
+            enc = _call(remat, enc_layer, pl, enc)
+        hs = embed_tokens_group(embeds, cfg, ctxs, toks)
+        for pl in _slot_layers(segs, "dec", cfg.n_dec_layers):
+            hs = _call(remat, dec_layer, pl, hs, enc)
+        return hs, aux_total, {}
+    hs = embed_tokens_group(embeds, cfg, ctxs, toks)
+    emb0s = hs
+    shared = [p.get("shared") for p in ps]
+
+    def decoder(pl, hs, i):
+        return B.decoder_block_train_group(pl, cfg, ctxs, hs, poss, i,
+                                           backend)
+
+    def recurrent(pl, hs, blk):
+        return blk(pl, cfg, ctxs, hs, backend)[0]
+
+    def mega(pl, hs, shared, emb0s):
+        for pj in _slot_layers(pl, "mamba", cfg.shared_attn_period):
+            hs = B.mamba_block_full_group(pj, cfg, ctxs, hs, backend)[0]
+        return B.zamba_shared_full_group(shared, cfg, ctxs, hs, emb0s, poss,
+                                         backend)[0]
+
+    for seg in stack_plan(cfg):
+        for i, pl in enumerate(_slot_layers(
+                [p["segments"] for p in ps], seg.name, seg.n)):
+            if seg.kind == "decoder":
+                hs, aux = _call(remat, decoder, pl, hs, i)
+                for key, val in aux.items():
+                    aux_total[key] = aux_total[key] + val
+            elif seg.kind in ("rwkv", "mamba"):
+                blk = (B.rwkv_block_full_group if seg.kind == "rwkv"
+                       else B.mamba_block_full_group)
+                hs = _call(remat, recurrent, pl, hs, blk)
+            else:  # mega: period mamba blocks, then the shared attention
+                hs = _call(remat, mega, pl, hs, shared, emb0s)
+    return hs, aux_total, {}
+
+
+def _slot_layers(ps, name: str, n: int):
+    """The ``n`` layers of each slot's stacked subtree ``name`` (views), as
+    one per-slot list a layer."""
+    per_slot = [unstack(p[name], n) for p in ps]
+    return [[layers[i] for layers in per_slot] for i in range(n)]
+
+
 def _grow(x, cache_len: Optional[int], cur_len: int):
     """Zero-pad a stacked (layers, B, T, ...) cache leaf to ``cache_len``."""
     if cache_len is None or cache_len == cur_len:
@@ -352,31 +440,77 @@ def _grow(x, cache_len: Optional[int], cur_len: int):
 # ---------------------------------------------------------------------------
 
 
-def train_loss(params, cfg: ModelConfig, batch, remat: bool = True):
+def train_loss(params, cfg: ModelConfig, batch, remat: bool = True,
+               ctxs=None):
     """Mean next-token cross-entropy (+ 0.01 x the MoE aux loss per layer),
     as the reference's ``train_loss``: the LM head over ``_LOSS_CHUNKS``
     sequence chunks, f32 logsumexp minus the gold logit, the last position
     masked, the sum over B x (S - 1).  Runs the plain versions (the
-    reference trains on its XLA path).  Returns (loss, metrics)."""
+    reference trains on its XLA path).  Returns (loss, metrics).
+
+    ``ctxs``: over a device group (``forward_full``'s per-slot ``params``
+    and ``batch``): the vocab-parallel LM head gives each position's
+    logsumexp and gold logit across the model row
+    (``layers.lm_head_xent_group``), each data row block's sum comes from
+    its model-0 slot, and the data slots' sums are added in slot order and
+    normalised over the global B x (S - 1); the loss and metrics sit on
+    slot 0's device."""
+    if ctxs is not None:
+        return _train_loss_group(params, cfg, batch, remat, ctxs)
     h, aux, _ = forward_full(params, cfg, batch, backend="plain",
                              remat=remat)
     tokens = batch["tokens"]
     Bsz, S = tokens.shape
-    n_chunks = (_LOSS_CHUNKS if S % _LOSS_CHUNKS == 0 and S >= _LOSS_CHUNKS
-                else 1)
-    csz = S // n_chunks
     total = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for i in range(n_chunks):
-        logits = lm_head(params["embed"], cfg,
-                         h[:, i * csz:(i + 1) * csz]).float()
-        # labels: the next token; the last position has none (masked)
-        idx = torch.arange(i * csz, (i + 1) * csz, device=tokens.device)
-        labels = tokens[:, torch.clamp(idx + 1, max=S - 1)]
+    for idx, labels, sl in _loss_chunks(tokens):
+        logits = lm_head(params["embed"], cfg, h[:, sl]).float()
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
         ce = (logz - gold) * (idx < S - 1)[None, :]
         total = total + ce.sum()
-    loss = total / (Bsz * (S - 1))
+    return _loss_metrics(cfg, total / (Bsz * (S - 1)), aux)
+
+
+def _loss_chunks(tokens):
+    """(positions, labels, slice) of each of the loss's sequence chunks:
+    the labels are the next tokens (the last position has none and is
+    masked)."""
+    S = tokens.shape[1]
+    n_chunks = (_LOSS_CHUNKS if S % _LOSS_CHUNKS == 0 and S >= _LOSS_CHUNKS
+                else 1)
+    csz = S // n_chunks
+    for i in range(n_chunks):
+        idx = torch.arange(i * csz, (i + 1) * csz, device=tokens.device)
+        yield (idx, tokens[:, torch.clamp(idx + 1, max=S - 1)],
+               slice(i * csz, (i + 1) * csz))
+
+
+def _train_loss_group(ps, cfg: ModelConfig, batches, remat: bool, ctxs):
+    """:func:`train_loss` over a group (see there)."""
+    from repro_torch.models.layers import lm_head_xent_group
+
+    hs, aux, _ = forward_full(ps, cfg, batches, backend="plain",
+                              remat=remat, ctxs=ctxs)
+    toks = [b["tokens"] for b in batches]
+    B_l, S = toks[0].shape
+    totals = [torch.zeros((), dtype=torch.float32, device=t.device)
+              for t in toks]
+    chunks = [list(_loss_chunks(t)) for t in toks]
+    for k in range(len(chunks[0])):
+        lses, golds = lm_head_xent_group(
+            [p["embed"] for p in ps], cfg, ctxs,
+            [h[:, ch[k][2]] for h, ch in zip(hs, chunks)],
+            [ch[k][1] for ch in chunks])
+        for s, (ch, lse, gold) in enumerate(zip(chunks, lses, golds)):
+            ce = (lse - gold) * (ch[k][0] < S - 1)[None, :]
+            totals[s] = totals[s] + ce.sum()
+    heads = [s for s, c in enumerate(ctxs) if c.j == 0]
+    total = ctxs[0].all_reduce_sum([totals[s] for s in heads])
+    return _loss_metrics(cfg, total / (B_l * len(heads) * (S - 1)), aux)
+
+
+def _loss_metrics(cfg: ModelConfig, loss, aux):
+    """(loss, metrics): the CE loss plus the MoE aux loss per layer."""
     metrics = {"ce_loss": loss}
     if cfg.is_moe:
         loss = loss + 0.01 * aux["moe_aux_loss"] / max(1, cfg.n_layers)

@@ -39,7 +39,10 @@ outputs back, adding the FFN shards' partials in slot order.
 padded experts (DeepSeek): each slot routes its own tokens with a local
 capacity, sends each expert block's slots to the slot that holds it, and
 takes the outputs back — the all-to-all as per-slot sends in slot order;
-``_ep_eligible`` is its gate.
+``_ep_eligible`` is its gate.  ``apply_moe_batch_group`` is the
+training step's: the whole-batch routing of ``apply_moe`` over the data
+slots' rows (capacity positions and the aux terms summed over the data
+slots), each expert holder running the kept tokens of every row block.
 """
 from __future__ import annotations
 
@@ -104,9 +107,13 @@ def router_topk(params, cfg: ModelConfig, xf):
     return top_w, top_e, probs
 
 
-def _sort_dispatch(xf, top_w, top_e, E_slots: int, C: int, rows: int = 1):
+def _sort_dispatch(xf, top_w, top_e, E_slots: int, C: int, rows: int = 1,
+                   before=None):
     """Sort-based capacity dispatch of ``rows`` independent row groups of
     ``T = N / rows`` tokens each.  xf (N, d); top_w/top_e (N, k).
+    ``before`` (E_slots,): each expert's choices that precede these tokens
+    in a larger batch sharing the capacity (its first positions are
+    theirs; ``rows`` 1).
 
     Returns (xe (E_slots, rows * C, d), slot_of (N, k) — each choice's slot
     in the flattened buffer, ``E_slots * rows * C`` where dropped —,
@@ -126,8 +133,10 @@ def _sort_dispatch(xf, top_w, top_e, E_slots: int, C: int, rows: int = 1):
     counts.scatter_add_(0, key, torch.ones_like(key))
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(N * k, device=dev) - starts[sorted_key]
-    keep = rank < C
     r_s, e_s = sorted_key // E_slots, sorted_key % E_slots
+    if before is not None:
+        rank = rank + before[e_s]
+    keep = rank < C
     slot = torch.where(keep, e_s * (rows * C) + r_s * C + rank, n_slots)
     slot_token = torch.full((n_slots + 1,), N, dtype=torch.long, device=dev)
     slot_token.scatter_(0, slot, token_flat[order])
@@ -139,7 +148,8 @@ def _sort_dispatch(xf, top_w, top_e, E_slots: int, C: int, rows: int = 1):
     x_pad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
     xe = x_pad[slot_token[:n_slots]].reshape(E_slots, rows * C, d)
     counts = counts.reshape(rows, E_slots)
-    kept = counts.clamp(max=C).sum(dim=1)
+    kept = torch.zeros(rows, dtype=torch.long, device=dev).scatter_add_(
+        0, r_s, keep.long())
     return xe, slot_of.reshape(N, k), slot_weight[:n_slots], counts, kept
 
 
@@ -284,6 +294,75 @@ def apply_moe_group(ps, cfg: ModelConfig, ctxs, xs, rows_split: bool):
     return _shared_expert_group(ps, cfg, ctxs, xs, outs)
 
 
+def apply_moe_batch_group(ps, cfg: ModelConfig, ctxs, xs):
+    """``apply_moe`` of the whole batch on a group, the training step's
+    MoE: ``xs`` per-slot (B_l, S, d) rows, row block ``i`` on the slots of
+    data index ``i`` (every model slot of a row block routes its rows
+    alike).  The routing is the global batch's, as the reference's
+    shardings leave it: the capacity is that of all B * S tokens, each
+    expert's capacity positions run over the data slots in row order (a
+    slot's local rank plus the counts of the data slots before it,
+    gathered over its data column), the expert holders take the kept
+    tokens of every row block, and the aux loss and drop fraction come
+    from the per-expert counts and router probabilities summed over the
+    data slots.  Returns (per-slot outputs like ``xs``, aux) — aux on slot
+    0's device."""
+    E, k = cfg.n_experts, cfg.moe_top_k
+    n_local = ps[0]["wg"].shape[0]
+    f_split = ps[0]["wg"].shape[-1] < cfg.d_ff_expert
+    n_data = ctxs[0].n_data
+    T_l = xs[0].shape[0] * xs[0].shape[1]
+    T = T_l * n_data
+    C = _capacity(cfg, T)
+    routed = []
+    for p, x in zip(ps, xs):
+        xf = x.reshape(T_l, x.shape[-1])
+        top_w, top_e, probs = router_topk(p, cfg, xf)
+        key = top_e.reshape(-1)
+        counts = torch.zeros(E, dtype=torch.long, device=x.device)
+        routed.append((xf, top_w, top_e, probs,
+                       counts.scatter_add_(0, key, torch.ones_like(key))))
+    disp = []
+    for c, (xf, top_w, top_e, _, _) in zip(ctxs, routed):
+        # each expert's choices on the earlier row blocks come first
+        col = c.all_gather([routed[s][4][None] for s in c.data_column()],
+                           dim=0)
+        xe, slot_of, slot_weight, _, kept = _sort_dispatch(
+            xf, top_w, top_e, E, C, before=col[:c.i].sum(dim=0))
+        disp.append((xe, slot_of, slot_weight, kept[0], col.sum(dim=0)))
+    ye = []
+    for p, c in zip(ps, ctxs):
+        e0 = _expert_block(c, cfg, n_local)
+        n = max(0, min(n_local, E - e0))
+        # the kept tokens of every row block (disjoint buffer positions)
+        srcs = [c.slot_at(data=d) for d in range(n_data)]
+        ye.append(None if n == 0 else _expert_mlp(
+            sum(c.receive(disp[t][0][e0:e0 + n], t) for t in srcs),
+            p["wg"][:n], p["wu"][:n], p["wo"][:n]))
+    n_blocks = expert_alloc(E) // n_local
+    outs = []
+    for s, (c, x) in enumerate(zip(ctxs, xs)):
+        _, slot_of, slot_weight, _, _ = disp[s]
+        blocks = []
+        for b in range(-(-E // n_local)):
+            parts = [ye[_holder(c, b, n_blocks, f)]
+                     for f in (range(c.n_model) if f_split else [None])]
+            blocks.append(c.all_reduce_sum(parts) if f_split else
+                          c.receive(parts[0], _holder(c, b, n_blocks, None)))
+        y = torch.cat(blocks, dim=0)
+        outs.append(_combine(y, slot_of, slot_weight).reshape(x.shape))
+    outs = _shared_expert_group(ps, cfg, ctxs, xs, outs)
+    c0 = ctxs[0]
+    heads = [s for s, c in enumerate(ctxs) if c.j == 0]
+    counts = c0.to_here(disp[0][4]).float()
+    kept = sum(c0.to_here(disp[s][3].float()) for s in heads)
+    mean_prob = sum(c0.to_here(routed[s][3].sum(dim=0)) for s in heads) / T
+    n_choices = max(T * k, 1)
+    aux = {"moe_aux_loss": E * (counts / n_choices * mean_prob).sum(),
+           "moe_drop_frac": 1.0 - kept / n_choices}
+    return outs, aux
+
+
 def _ep_eligible(params, cfg: ModelConfig, ctx, x) -> bool:
     """The pure-EP path serves: a group, padded expert weights, and a
     (batch, seq) token grid the (data, model) slots divide."""
@@ -336,5 +415,6 @@ def _apply_moe_ep(ps, cfg: ModelConfig, ctxs, xs):
     return outs, aux
 
 
-__all__ = ["EP_MIN_EXPERTS", "EP_PAD_GROUP", "apply_moe", "apply_moe_group",
-           "expert_alloc", "init_moe", "router_topk"]
+__all__ = ["EP_MIN_EXPERTS", "EP_PAD_GROUP", "apply_moe",
+           "apply_moe_batch_group", "apply_moe_group", "expert_alloc",
+           "init_moe", "router_topk"]

@@ -89,8 +89,8 @@ from repro_torch.serving.kv_cache import (CachePool, _ep_row_grid,
                                           make_pool_decode_step,
                                           make_pool_prefill_step,
                                           make_pool_round_step,
-                                          new_state_pool_tree, pages_for,
-                                          state_specs, to_device)
+                                          new_state_pool_tree, page_blocks,
+                                          pages_for, state_specs, to_device)
 from repro_torch.serving.sampling import (SamplingSpec, make_round_tail,
                                           sample_rows)
 
@@ -230,6 +230,7 @@ class BlockServer:
             layout = self._shard_params(layout)
         group = dict(mesh=self.mesh, rules=layout)
         if cache_layout == "paged":
+            group["n_blocks"] = page_blocks(self.mesh, self.pool.slot_specs)
             self._step = make_paged_decode_step(
                 cfg, self.kinds, backend, page_size, **group,
                 moe_ep=self.moe_ep)
@@ -491,17 +492,20 @@ class BlockServer:
 
     def _count_group_step(self) -> CostSummary:
         """Per-slot cost of a group's pooled decode step: the group step run
-        on meta slots (the slab layout: each slot's time shard where the
-        rules give one) under ``FlopCounterMode``, K1's ``cost`` (its
+        on meta slots (each slot's time shard where the rules give one; a
+        paged server's paged step, its page reads and writes across data
+        slots included) under ``FlopCounterMode``, K1's ``cost`` (its
         partials and their merge on time shards) and the slot collectives'
         count; flops and wire bytes are the group's over its slot count
         (the slots do like work), bytes those of one slot's shard of the
-        params and pool and its rows."""
+        params and pool (paged: every row's pages, as the slab rows, and
+        the page table) and its rows."""
         from torch.utils.flop_counter import FlopCounterMode
 
         from repro_torch.launch.mesh import GroupMesh
         from repro_torch.serving.kv_cache import (_slot_tree,
                                                   group_pool_specs,
+                                                  new_paged_pool_tree,
                                                   rows_split)
 
         cfg, N = self.cfg, self.pool.n_rows
@@ -531,13 +535,30 @@ class BlockServer:
         mask = torch.empty((self.m, N), dtype=torch.bool, device="meta")
         emb0 = h if shared[0] is not None else None
         enc = pos if "dec" in self.kinds else None
-        step = make_pool_decode_step(cfg, self.kinds, "kernel", meta_mesh,
-                                     layout, self.moe_ep)
+        lead = (params, shared, pools)
+        paged = self.cache_layout == "paged"
+        if paged:
+            pool = self.pool
+            ptrees = tuple(new_paged_pool_tree(
+                cfg, kind, hi - lo, N, pool.page_size, pool.pages.n_pages + 1,
+                enc_len, "meta") for kind, lo, hi in self.runs)
+            pspecs = tuple(group_pool_specs(meta_mesh, layout, t, True)
+                           for t in ptrees)
+            lead = (params, shared, tuple(
+                tuple(_slot_tree(t, sp, meta_mesh, s, "meta")
+                      for t, sp in zip(ptrees, pspecs)) for s in range(n)),
+                torch.empty((N, pool.max_pages), dtype=torch.long,
+                            device="meta"))
+            step = make_paged_decode_step(
+                cfg, self.kinds, "kernel", pool.page_size, meta_mesh, layout,
+                self.moe_ep, page_blocks(meta_mesh, pspecs))
+        else:
+            step = make_pool_decode_step(cfg, self.kinds, "kernel",
+                                         meta_mesh, layout, self.moe_ep)
         with torch.no_grad(), FlopCounterMode(display=False) as products, \
                 count_meta_calls(T - 1, enc_len) as attention, \
                 count_collectives() as coll:
-            step(params, shared, pools, h, pos, emb0, mask, self.layer_ids,
-                 enc)
+            step(*lead, h, pos, emb0, mask, self.layer_ids, enc)
         rows = N // self.mesh.devices.shape[0] \
             if rows_split(layout, meta_mesh, N) else N
         runs = [r for r, (kind, _, _) in enumerate(self.runs)
@@ -548,6 +569,8 @@ class BlockServer:
             + tree_nbytes(self._step_shared[0]) \
             + sum(read + written for read, written in pool) \
             + rows * (row_bytes + 8 * (1 + (enc is not None)) + self.m)
+        if paged:
+            nbytes += rows * self.pool.max_pages * 8  # the int64 page table
         return CostSummary(
             flops=(products.get_total_flops() + attention.cost.flops) / n,
             bytes_accessed=nbytes, coll_wire_bytes=coll.wire / n,

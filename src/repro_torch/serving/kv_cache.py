@@ -56,12 +56,16 @@ slot), staging a slot's rows onto its device and gathering the results
 back onto the caller's.  A slot holding a time shard writes the part of
 each prefill chunk (and the decode token) whose positions it owns and
 reads a prefix gathered over its model row.  The paged twins gather and
-scatter each slot's own rows; the page axis stays whole on each slot (a
-row may own any page), and where the within-page offsets shard over
-``model`` the slots' offset shards are gathered into whole pages (an
-all-gather, counted) before the unchanged step, each slot writing its own
-offsets back.  ``_ep_row_grid`` is the reference's gate that sends a
-padded MoE through the pure-EP all-to-all.
+scatter each slot's own rows; the page arrays split their page axis over
+``data`` where the rules and the guard say so (the reference's layout), so
+a row's page may live on another data slot: the slot reads it from its
+holder and writes it back there (point-to-point moves, counted as
+"page-read" / "page-write"), while the ``PagePool`` allocator stays
+global.  Where the within-page offsets shard over ``model`` the slots'
+offset shards are gathered into whole pages (an all-gather, counted)
+before the unchanged step, each slot writing its own offsets back.
+``_ep_row_grid`` is the reference's gate that sends a padded MoE through
+the pure-EP all-to-all.
 
 Encoder-decoder stacks: ``enc`` blocks hold no state and do no decode
 work (the decode steps skip their runs); ``dec`` blocks hold self K/V and
@@ -1037,16 +1041,93 @@ def _round_hop(step, h_round, pos_round, emb0_round, slot_of_row,
 PAGED_WHOLE = LENGTH_KEYS
 
 
-def _gather_paged(ctxs, runs, slot_pools, pts, page_size: int):
+def page_blocks(mesh, specs) -> int:
+    """Data blocks the page arrays of a group pool split their page axis
+    into (1: whole on every slot), from the pool's specs
+    (``group_pool_specs``)."""
+    if mesh is None:
+        return 1
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    for tree in specs:
+        for key in _LENGTH_KEYS:
+            if key in tree:
+                e = tree[key][1]
+                axes = () if e is None else e if isinstance(e, tuple) \
+                    else (e,)
+                return int(np.prod([sizes[a] for a in axes]))
+    return 1
+
+
+def _holders(ctx, pids, n_local: int, n_blocks: int):
+    """Per data block ``d`` of the page axis: (the slot holding it, mask of
+    the ``pids`` it holds, their local ids there); one block of every page
+    on this slot itself when the axis is whole."""
+    if n_blocks == 1:
+        return [(ctx.slot, None, pids)]
+    block = torch.div(pids, n_local, rounding_mode="floor")
+    return [(ctx.slot_at(data=d), block == d, pids - d * n_local)
+            for d in range(n_blocks)]
+
+
+def _read_pages(ctx, Xs, pt, n_blocks: int):
+    """This slot's rows' pages ``Xs[holder][:, pt]`` (``pt`` its rows of
+    the page table, global page ids): each data block's pages read on its
+    holder and moved here, the rows' own pages selected (a page of
+    another data slot is a counted "page-read")."""
+    out = None
+    n_local = Xs[ctx.slot].shape[1]
+    for src, mask, local in _holders(ctx, pt, n_local, n_blocks):
+        X = Xs[src]
+        idx = local.clamp(0, n_local - 1).to(X.device, non_blocking=True)
+        part = ctx.receive(X[:, idx], src, "page-read")
+        if mask is None:
+            return part
+        m = mask.reshape((1,) + tuple(mask.shape) + (1,) * (part.dim() - 3))
+        out = part if out is None else torch.where(m, part, out)
+    return out
+
+
+def _write_pages(ctx, Xs, pids, vals, n_blocks: int):
+    """In place: page ``pids[e]`` (global ids, (E,)) of the arrays ``Xs``
+    (per slot) takes ``vals[:, e]``, on the slot that holds it.  A holder
+    receives every entry, the others redirected to one of its own entries
+    (same page, same value) or, with none, to its local page 0 with that
+    page's own value, so no page is written twice with different values
+    (the trash page aside).  A move to another data slot is a counted
+    "page-write"."""
+    n_local = Xs[ctx.slot].shape[1]
+    for dst, mask, local in _holders(ctx, pids, n_local, n_blocks):
+        X = Xs[dst]
+        if mask is None:
+            X[:, local] = vals
+            continue
+        first = torch.argmax(mask.to(torch.int32))[None]
+        any_ = mask.any()
+        fb_idx = torch.where(any_, local.gather(0, first), 0)
+        own = ctx.receive(X[:, :1], dst, "page-read")
+        fb_val = torch.where(any_, vals.index_select(1, first), own)
+        m = mask.reshape((1, -1) + (1,) * (vals.dim() - 2))
+        idx = torch.where(mask, local, fb_idx)
+        src = torch.where(m, vals, fb_val)
+        src = ctx.send(src, dst, "page-write")
+        X[:, idx.to(X.device, non_blocking=True)] = src
+
+
+def _gather_paged(ctxs, runs, slot_pools, pts, page_size: int,
+                  n_blocks: int = 1):
     """Per slot, slab-shaped scratch: self-KV leaves (L, n_phys, page, ...)
-    -> (L, n_rows, max_pages*page, ...) by one indexed gather per leaf (and
-    the row's offset blocks joined into whole pages); row-resident leaves
-    pass through (the step writes them in place)."""
+    -> (L, n_rows, max_pages*page, ...) by one indexed gather per leaf and
+    page holder (``n_blocks`` > 1: the page axis split over ``data``, each
+    page read from its holder) and the row's offset blocks joined into
+    whole pages; row-resident leaves pass through (the step writes them in
+    place)."""
     scratch = [[dict(tr[r]) for r in range(len(runs))] for tr in slot_pools]
     for r in range(len(runs)):
         leaves = [_length_leaves(tr[r]) for tr in slot_pools]
         for li, (names, X) in enumerate(leaves[0]):
-            parts = [lv[li][1][:, pt] for lv, pt in zip(leaves, pts)]
+            Xs = [lv[li][1] for lv in leaves]
+            parts = [_read_pages(c, Xs, pt, n_blocks)
+                     for c, pt in zip(ctxs, pts)]
             if X.shape[2] != page_size:  # offset blocks over a time row
                 parts = [c.all_gather([parts[s] for s in c.time_row(
                     names[0])], dim=3) for c in ctxs]
@@ -1058,9 +1139,12 @@ def _gather_paged(ctxs, runs, slot_pools, pts, page_size: int):
 
 
 def _scatter_paged(ctx, runs, pool_trees, scratch, page_table,
-                   page_size: int, pos=None):
-    """Fold one slot's scratch writes back into its physical page arrays
-    (its own offset block of each page where the offsets shard).
+                   page_size: int, pos=None, slot_pools=None,
+                   n_blocks: int = 1):
+    """Fold one slot's scratch writes back into the physical page arrays
+    (its own offset block of each page where the offsets shard):
+    ``pool_trees`` its own, or with ``slot_pools`` (every slot's, in slot
+    order) and ``n_blocks`` > 1 each page's holder's.
 
     ``pos is None`` (prefill): every table entry writes its page back —
     rows the step masked out write their own gathered values.  ``pos``
@@ -1070,10 +1154,14 @@ def _scatter_paged(ctx, runs, pool_trees, scratch, page_table,
     contents are unspecified but never read at a masked-in position; no
     real page is written twice in one call (rows own disjoint pages)."""
     n_rows, max_pages = page_table.shape
+    pools = dict(enumerate(slot_pools)) if slot_pools is not None else \
+        {ctx.slot: pool_trees}
     for r in range(len(runs)):
-        for (names, X), (_, S) in zip(_length_leaves(pool_trees[r]),
-                                      _length_leaves(scratch[r])):
-            # X (L, n_phys, page / blocks, ...); S the slab-shaped scratch
+        for li, (names, S) in enumerate(_length_leaves(scratch[r])):
+            Xs = {s: _length_leaves(tr[r])[li][1] for s, tr in pools.items()}
+            X = Xs[ctx.slot]
+            # X (L, n_phys or its block, page / blocks, ...); S the
+            # slab-shaped scratch
             S = S.view((X.shape[0], n_rows, max_pages, page_size)
                        + X.shape[3:])
             w = X.shape[2]
@@ -1081,12 +1169,13 @@ def _scatter_paged(ctx, runs, pool_trees, scratch, page_table,
                 b, _ = ctx.time_block(names[0])
                 S = S[:, :, :, b * w:(b + 1) * w]
             if pos is None:
-                X[:, page_table] = S
+                pids, vals = page_table.reshape(-1), S.flatten(1, 2)
             else:
                 pidx = torch.clamp(pos // page_size, 0, max_pages - 1)
-                ppid = page_table.gather(1, pidx[:, None])[:, 0]
+                pids = page_table.gather(1, pidx[:, None])[:, 0]
                 rows = torch.arange(n_rows, device=pidx.device)
-                X[:, ppid] = S[:, rows, pidx]
+                vals = S[:, rows, pidx]
+            _write_pages(ctx, Xs, pids, vals, n_blocks)
 
 
 def _slot_pages(ctxs, mesh, rules, page_table):
@@ -1098,11 +1187,13 @@ def _slot_pages(ctxs, mesh, rules, page_table):
 
 def make_paged_decode_step(cfg: ModelConfig, kinds: Tuple[str, ...],
                            backend: str = "kernel", page_size: int = 16,
-                           mesh=None, rules=None, moe_ep: bool = False):
+                           mesh=None, rules=None, moe_ep: bool = False,
+                           n_blocks: int = 1):
     """Paged twin of :func:`make_pool_decode_step`: the same contract with
     the device page table ``(n_rows, max_pages)`` inserted after the pool
     trees.  Each slot gathers its rows' pages into its scratch and
-    scatters them back."""
+    scatters them back — from and to the data slot holding each page
+    where the page axis splits into ``n_blocks`` (``page_blocks``)."""
     body = _decode_body(cfg, kinds, backend, mesh, rules, moe_ep,
                         PAGED_WHOLE)
     runs = kind_runs(kinds)
@@ -1111,11 +1202,13 @@ def make_paged_decode_step(cfg: ModelConfig, kinds: Tuple[str, ...],
     def step(slot_params, slot_shared, slot_pools, page_table, h, pos,
              emb0, layer_active, layer_ids, enc_len=None):
         pts, sl = _slot_pages(ctxs, mesh, rules, page_table)
-        scratch = _gather_paged(ctxs, runs, slot_pools, pts, page_size)
+        scratch = _gather_paged(ctxs, runs, slot_pools, pts, page_size,
+                                n_blocks)
         h = body(slot_params, slot_shared, scratch, h, pos, emb0,
                  layer_active, layer_ids, enc_len)
         for c, tr, sc, pt, r in zip(ctxs, slot_pools, scratch, pts, sl):
-            _scatter_paged(c, runs, tr, sc, pt, page_size, c.to_here(pos[r]))
+            _scatter_paged(c, runs, tr, sc, pt, page_size, c.to_here(pos[r]),
+                           list(slot_pools), n_blocks)
         return h
 
     return _public(mesh, step)
@@ -1123,10 +1216,11 @@ def make_paged_decode_step(cfg: ModelConfig, kinds: Tuple[str, ...],
 
 def make_paged_prefill_step(cfg: ModelConfig, kinds: Tuple[str, ...],
                             backend: str = "kernel", page_size: int = 16,
-                            mesh=None, rules=None):
+                            mesh=None, rules=None, n_blocks: int = 1):
     """Paged twin of :func:`make_pool_prefill_step` (page table inserted
-    after the pool trees).  The encoder phase touches no pool state, so it
-    gathers and scatters no pages."""
+    after the pool trees; ``n_blocks`` as in
+    :func:`make_paged_decode_step`).  The encoder phase touches no pool
+    state, so it gathers and scatters no pages."""
     body = _prefill_body(cfg, kinds, backend, mesh, rules, PAGED_WHOLE)
     runs = kind_runs(kinds)
     ctxs = _slot_ctxs(mesh, rules)
@@ -1137,11 +1231,13 @@ def make_paged_prefill_step(cfg: ModelConfig, kinds: Tuple[str, ...],
             return body(slot_params, slot_shared, slot_pools, h, emb0,
                         layer_active, layer_ids, offset, enc_rows, phase)
         pts, _ = _slot_pages(ctxs, mesh, rules, page_table)
-        scratch = _gather_paged(ctxs, runs, slot_pools, pts, page_size)
+        scratch = _gather_paged(ctxs, runs, slot_pools, pts, page_size,
+                                n_blocks)
         h = body(slot_params, slot_shared, scratch, h, emb0, layer_active,
                  layer_ids, offset, enc_rows, phase)
         for c, tr, sc, pt in zip(ctxs, slot_pools, scratch, pts):
-            _scatter_paged(c, runs, tr, sc, pt, page_size)
+            _scatter_paged(c, runs, tr, sc, pt, page_size,
+                           slot_pools=list(slot_pools), n_blocks=n_blocks)
         return h
 
     return _public(mesh, step)
@@ -1149,13 +1245,14 @@ def make_paged_prefill_step(cfg: ModelConfig, kinds: Tuple[str, ...],
 
 def make_paged_round_step(cfg: ModelConfig, kinds: Tuple[str, ...],
                           backend: str = "kernel", page_size: int = 16,
-                          mesh=None, rules=None, moe_ep: bool = False):
+                          mesh=None, rules=None, moe_ep: bool = False,
+                          n_blocks: int = 1):
     """Paged twin of :func:`make_pool_round_step`: the fused hop with the
     page gather/scatter around the same decode step.  Rows outside the hop
     take a placeholder position; the page it selects is the row's own (a
     write of its own gathered values) or the trash page."""
     step = make_paged_decode_step(cfg, kinds, backend, page_size, mesh,
-                                  rules, moe_ep)
+                                  rules, moe_ep, n_blocks)
 
     def hop(run_params, shared_params, pool_trees, page_table, h_round,
             pos_round, emb0_round, slot_of_row, row_of_slot, layer_active,
@@ -1182,16 +1279,13 @@ _TIME_KEYS = frozenset(_LENGTH_KEYS) | CROSS_KEYS
 def group_pool_specs(mesh, rules: Dict, tree, paged: bool):
     """Per-leaf specs of a group pool's state tree: the reference's
     ``pool_tree_shardings`` under the serving rules (rows over ``data``,
-    KV heads or the time axis over ``model``); the page arrays of the
-    paged layout keep their page axis whole, so a slot gathers any page
-    its rows own (ROADMAP C6: the reference splits pages over ``data``).
+    KV heads or the time axis over ``model``; the page arrays' page axis
+    over ``data`` where ``n_phys + 1`` pages divide it, and a row's page
+    read from and written to its holder: ``page_blocks``).
     ``NotImplementedError`` where the rules shard a time axis the guard
     keeps whole (a length that does not divide the model extent) outside
     the page arrays: the steps read a slot's time shard from the rules."""
     specs = pool_tree_shardings(mesh, rules, tree)
-    if paged:
-        specs = {k: (sp[:1] + (None,) + sp[2:] if k in _LENGTH_KEYS
-                     else sp) for k, sp in specs.items()}
     for key, sp in specs.items():
         if key not in _TIME_KEYS or (paged and key in _LENGTH_KEYS):
             continue

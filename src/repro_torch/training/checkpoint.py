@@ -31,9 +31,13 @@ def _ckpt_dir(root: str, step: int) -> str:
     return os.path.join(root, f"step_{step:010d}")
 
 
-def save(root: str, step: int, tree: Any) -> str:
+def save(root: str, step: int, tree: Any, sh=None) -> str:
     """Atomically save a snapshot of ``tree`` for ``step``.  Returns the
-    path."""
+    path.  ``sh`` (a ``ShardingCtx`` over a mesh): ``tree`` is a group's
+    training state, saved unsharded — the solo state's tree, which the
+    solo port, another group and the reference restore."""
+    if sh is not None and sh.mesh is not None:
+        tree = _layout(sh).unshard_state(tree)
     os.makedirs(root, exist_ok=True)
     items = list(tree_items(tree))
     arrays = {f"leaf_{i}": to_numpy(x) for i, (_, x) in enumerate(items)}
@@ -71,10 +75,22 @@ def latest_step(root: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(root: str, like: Any, step: Optional[int] = None
+def _layout(sh):
+    from repro_torch.training.train_step import GroupLayout
+
+    return GroupLayout(sh.cfg, sh)
+
+
+def restore(root: str, like: Any, step: Optional[int] = None, sh=None
             ) -> Tuple[Any, int]:
     """Restore into the structure of ``like``, each leaf on the device of
-    ``like``'s leaf.  Returns (tree, step)."""
+    ``like``'s leaf.  Returns (tree, step).  ``sh`` over a mesh: ``like``
+    is a group's training state, restored from an unsharded checkpoint
+    into each slot's shards."""
+    if sh is not None and sh.mesh is not None:
+        lay = _layout(sh)
+        whole, step = restore(root, lay.unshard_state(like), step)
+        return lay.shard_state(whole), step
     if step is None:
         step = latest_step(root)
         if step is None:

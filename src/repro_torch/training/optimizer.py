@@ -19,16 +19,25 @@ clips its update by the RMS of the whole leaf, as the reference does.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Iterator, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 
 
 @dataclass(frozen=True)
 class Optimizer:
+    """``update(params, grads, state, step)``; ``leaf_update(p, g, s,
+    step, index=None)`` is one leaf's update from its WHOLE gradient and
+    state, written to ``p`` — the block ``index`` of the leaf where ``p``
+    is a slot's shard.  ``replicated_state``: the state is kept whole on
+    every slot of a group (Adafactor, whose factored moments are row and
+    column means over a whole leaf), else it mirrors the params' shards
+    (AdamW), as the reference's dry run shards them."""
     init: Callable
     update: Callable
     name: str
+    leaf_update: Optional[Callable] = None
+    replicated_state: bool = False
 
 
 def tree_items(tree, prefix: Tuple[str, ...] = ()) -> Iterator:
@@ -61,17 +70,20 @@ def tree_unflatten(like, leaves):
     return tree_map(lambda _: next(it), like)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, sq=None):
     """(grads scaled to a global L2 norm of at most ``max_norm``, the norm
     before scaling); no clip for ``max_norm <= 0``.  A device computation:
     the scale is min(1, max_norm / norm), never a host branch.  The leaves
     of ``grads`` are scaled in place (a step's gradients are its own
-    temporaries: a copy would cost another params' worth of memory)."""
+    temporaries: a copy would cost another params' worth of memory).
+    ``sq``: the squared global norm when ``grads`` is a slot's shard of
+    it (a group's, each element counted once over the slots)."""
     leaves = tree_leaves(grads)
     if max_norm <= 0:
         return grads, torch.zeros((), dtype=torch.float32,
                                   device=leaves[0].device)
-    sq = sum(torch.sum(torch.square(g.float())) for g in leaves)
+    if sq is None:
+        sq = sum(torch.sum(torch.square(g.float())) for g in leaves)
     norm = torch.sqrt(sq)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     for g in leaves:
@@ -96,8 +108,8 @@ def make_adamw(lr: float = 1e-4, b1: float = 0.9, b2: float = 0.95,
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
     @torch.no_grad()
-    def update(params, grads, state, step):
-        clip_by_global_norm(grads, grad_clip)
+    def update(params, grads, state, step, sq=None):
+        clip_by_global_norm(grads, grad_clip, sq)
         t = step.float() + 1.0
         bc1 = 1.0 - b1 ** t
         bc2 = 1.0 - b2 ** t
@@ -135,34 +147,38 @@ def make_adafactor(lr: float = 1e-4, decay: float = 0.8, eps: float = 1e-30,
         return {"stats": tree_map(one, params)}
 
     @torch.no_grad()
-    def update(params, grads, state, step):
+    def leaf_update(p, g, s, step, index=None):
         t = step.float() + 1.0
         rho = 1.0 - t ** (-decay)
+        g = g.float()
+        g2 = torch.square(g) + eps
+        if "vr" in s:
+            vr = rho * s["vr"] + (1 - rho) * torch.mean(g2, dim=-1)
+            vc = rho * s["vc"] + (1 - rho) * torch.mean(g2, dim=-2)
+            denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
+                                min=eps)
+            prec = (vr / denom)[..., None] * vc[..., None, :]
+            upd = g * torch.rsqrt(torch.clamp(prec, min=eps))
+            s["vr"].copy_(vr)
+            s["vc"].copy_(vc)
+        else:
+            v = rho * s["v"] + (1 - rho) * g2
+            upd = g * torch.rsqrt(torch.clamp(v, min=eps))
+            s["v"].copy_(v)
+        rms = torch.sqrt(torch.mean(torch.square(upd)) + eps)
+        upd = upd / torch.clamp(rms / clip_threshold, min=1.0)
+        if index is not None:
+            upd = upd[index]
+        _write(p, p.float() - lr * (upd + weight_decay * p.float()))
 
-        def one(p, g, s):
-            g = g.float()
-            g2 = torch.square(g) + eps
-            if "vr" in s:
-                vr = rho * s["vr"] + (1 - rho) * torch.mean(g2, dim=-1)
-                vc = rho * s["vc"] + (1 - rho) * torch.mean(g2, dim=-2)
-                denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
-                                    min=eps)
-                prec = (vr / denom)[..., None] * vc[..., None, :]
-                upd = g * torch.rsqrt(torch.clamp(prec, min=eps))
-                s["vr"].copy_(vr)
-                s["vc"].copy_(vc)
-            else:
-                v = rho * s["v"] + (1 - rho) * g2
-                upd = g * torch.rsqrt(torch.clamp(v, min=eps))
-                s["v"].copy_(v)
-            rms = torch.sqrt(torch.mean(torch.square(upd)) + eps)
-            upd = upd / torch.clamp(rms / clip_threshold, min=1.0)
-            _write(p, p.float() - lr * (upd + weight_decay * p.float()))
-
-        tree_map(one, params, grads, state["stats"])
+    @torch.no_grad()
+    def update(params, grads, state, step):
+        tree_map(lambda p, g, s: leaf_update(p, g, s, step), params, grads,
+                 state["stats"])
         return params, state
 
-    return Optimizer(init=init, update=update, name="adafactor")
+    return Optimizer(init=init, update=update, name="adafactor",
+                     leaf_update=leaf_update, replicated_state=True)
 
 
 def make_optimizer(name: str, **kw) -> Optimizer:

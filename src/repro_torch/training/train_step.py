@@ -6,8 +6,21 @@ the counterparts of the reference's ``repro/training/train_step.py``.
 metrics)``.  It takes gradients with ``torch.autograd.grad`` over the param
 leaves (``state["params"]`` need not require grad: the step differentiates
 detached aliases of them), updates the params and the optimizer state in
-place, and makes no host sync: the metrics stay on the device.  Sharding a
-step over several devices is ROADMAP A10.
+place, and makes no host sync: the metrics stay on the device.
+
+With ``sh`` (``launch.sharding.make_ctx`` of a device-group mesh) the step
+runs over the group's slots (:class:`GroupLayout`): the state holds each
+slot's shards (``init_train_state(..., sh=)``; ``embed_fsdp`` leaves split
+over ``data``, heads / MLP / vocab over ``model``, experts where the rules
+put them); a step all-gathers each slot's ``embed_fsdp`` shards over its
+data column, takes the gradients of every slot's leaves in one backward
+pass of ``models.train_loss(ctxs=)``, sums each leaf's gradient over the
+slots that hold its block in slot order (the data-parallel all-reduce, a
+reduce-scatter onto the ``embed_fsdp`` shards), clips by the global norm
+with each element counted once, and updates each slot's shard — AdamW's
+state mirroring the shards, Adafactor's whole on every slot (its factored
+moments are means over a whole leaf) — so replicas stay bit-equal.  The
+batch is per slot (``data.shard_batch(batch, mesh, sh)``).
 
 ``int8_allreduce`` is the reference's compressed gradient all-reduce over a
 ``torch.distributed`` process group: a reduce-scatter of int8 chunks and
@@ -24,7 +37,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import train_loss
 from repro_torch.training.optimizer import (Optimizer, make_optimizer,
-                                            tree_leaves,
+                                            tree_items, tree_leaves,
                                             tree_map, tree_unflatten)
 
 
@@ -39,24 +52,251 @@ class TrainHParams:
 
 def init_train_state(generator: Optional[torch.Generator],
                      cfg: ModelConfig, opt: Optimizer, params=None,
-                     device="cuda"):
+                     device="cuda", sh=None):
     """{"params", "opt", "step"}: params drawn from ``generator`` on
     ``device`` (``models.init_params``) unless given (e.g. bridged from the
     reference), the optimizer's f32 state beside them, and ``step`` an
-    int32 device tensor."""
+    int32 device tensor.  With ``sh`` over a mesh: the group state of
+    those params (:meth:`GroupLayout.init_state`)."""
     from repro_torch.models.model import init_params
 
     if params is None:
         params = init_params(cfg, generator, device)
+    if sh is not None and sh.mesh is not None:
+        return GroupLayout(cfg, sh).init_state(params, opt)
     dev = tree_leaves(params)[0].device
     return {"params": params, "opt": opt.init(params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+# ---------------------------------------------------------------------------
+# A group's training state
+# ---------------------------------------------------------------------------
+
+
+class GroupLayout:
+    """Where a device group's slots hold a model's training state under
+    ``sh``'s rules: per param leaf (``tree_items`` order) its spec
+    (``param_shardings`` of ``param_axes``), its ``embed_fsdp`` dim, and
+    per slot its block index and the slots holding the same block — of
+    the leaf (the clip's owners: the first of them) and of the leaf with
+    its ``embed_fsdp`` dim gathered (the gradient's replica set)."""
+
+    def __init__(self, cfg: ModelConfig, sh):
+        from repro_torch.launch.sharding import (check_train_rules,
+                                                 fsdp_dim, param_axes,
+                                                 param_shardings,
+                                                 replica_slots, slot_index)
+        from repro_torch.models.layers import group_ctxs
+        from repro_torch.models.model import init_params
+
+        check_train_rules(sh.rules, cfg)
+        self.cfg, self.sh, self.mesh = cfg, sh, sh.mesh
+        self.like = init_params(cfg, None, "meta")
+        axes = param_axes(cfg, self.like)
+        specs = param_shardings(cfg, sh, axes, self.like)
+        self.ctxs = group_ctxs(sh.mesh, sh.rules)
+        n = len(self.ctxs)
+        self.leaves = []
+        for (_, x), (_, ax), (_, sp) in zip(tree_items(self.like),
+                                            tree_items(axes),
+                                            tree_items(specs)):
+            d = fsdp_dim(ax, sp)
+            gspec = tuple(None if k == d else e for k, e in enumerate(sp))
+            self.leaves.append({
+                "shape": tuple(x.shape), "spec": sp, "fsdp": d,
+                "index": [slot_index(tuple(x.shape), sp, self.mesh, s)
+                          for s in range(n)],
+                "owners": [min(replica_slots(self.mesh, sp, s))
+                           for s in range(n)],
+                "replicas": [replica_slots(self.mesh, gspec, s)
+                             for s in range(n)]})
+
+    def _slots(self, fn, slot_trees=None):
+        """Per slot, a params-like tree of ``fn(slot, leaf_no, leaves)``
+        (``leaves``: that leaf of each of ``slot_trees``)."""
+        flat = None if slot_trees is None else \
+            [tree_leaves(t) for t in slot_trees]
+        return [tree_unflatten(self.like, [
+            fn(s, k, None if flat is None else [f[k] for f in flat])
+            for k in range(len(self.leaves))])
+            for s in range(len(self.ctxs))]
+
+    def shard(self, tree):
+        """Per-slot trees of each slot's block of every leaf of ``tree``
+        (a params-like tree), copies on the slot's device: replicas are
+        each slot's own."""
+        whole = tree_leaves(tree)
+
+        def one(s, k, _):
+            blk = whole[k][self.leaves[k]["index"][s]]
+            out = torch.empty(blk.shape, dtype=blk.dtype,
+                              device=self.ctxs[s].device)
+            return out.copy_(blk)
+
+        return self._slots(one)
+
+    def unshard(self, slot_trees):
+        """The whole params-like tree from its per-slot blocks, on slot 0's
+        device (each block from the first slot holding it)."""
+        c0 = self.ctxs[0]
+        flat = [tree_leaves(t) for t in slot_trees]
+        out = []
+        for k, leaf in enumerate(self.leaves):
+            owners = sorted(set(leaf["owners"]))
+            out.append(c0.gather_blocks([flat[s][k] for s in owners],
+                                        [leaf["index"][s] for s in owners],
+                                        leaf["shape"]))
+        return tree_unflatten(self.like, out)
+
+    def loss_and_grads(self, slot_params, batches, remat: bool = True):
+        """(loss, metrics, per-slot gradients) of ``models.train_loss``
+        over the group at ``slot_params`` (each slot's shards, not
+        differentiated themselves) on per-slot ``batches``: the gradient
+        of each slot's leaves with their ``embed_fsdp`` dim gathered, in
+        one backward pass (not yet reduced: :meth:`reduce_grads`)."""
+        live = [tree_map(lambda p: p.detach().requires_grad_(True), t)
+                for t in self.gather_fsdp(slot_params)]
+        leaves = [tree_leaves(t) for t in live]
+        with torch.enable_grad():
+            loss, metrics = train_loss(live, self.cfg, batches, remat=remat,
+                                       ctxs=self.ctxs)
+            grads = torch.autograd.grad(
+                loss, [x for ls in leaves for x in ls], allow_unused=True,
+                materialize_grads=True)
+        n = len(leaves[0])
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return loss.detach(), metrics, [
+            tree_unflatten(live[s], grads[s * n:(s + 1) * n])
+            for s in range(len(live))]
+
+    def gather_fsdp(self, slot_trees):
+        """Per slot, its leaves with the ``embed_fsdp`` dim all-gathered
+        over its data column (the others as they are)."""
+        def one(s, k, leaves):
+            d, c = self.leaves[k]["fsdp"], self.ctxs[s]
+            if d is None:
+                return leaves[s]
+            return c.all_gather([leaves[t] for t in c.data_column()], dim=d)
+
+        return self._slots(one, slot_trees)
+
+    def reduce_grads(self, slot_grads):
+        """Per slot, each leaf's gradient summed in slot order over the
+        slots holding its (gathered) block — and its ``embed_fsdp`` block
+        kept (a reduce-scatter)."""
+        def one(s, k, grads):
+            leaf, c = self.leaves[k], self.ctxs[s]
+            reps, d = leaf["replicas"][s], leaf["fsdp"]
+            g = grads[s] if len(reps) == 1 else c.all_reduce_sum(
+                [grads[t] for t in reps], scatter=d is not None)
+            if d is not None:
+                idx = [slice(None)] * g.dim()
+                idx[d] = leaf["index"][s][d]
+                g = g[tuple(idx)]
+            return g
+
+        return self._slots(one, slot_grads)
+
+    def global_sq(self, slot_grads):
+        """Per slot, the squared L2 norm of the whole gradient — each
+        element once: a slot sums the leaves whose block it owns, and the
+        slots' sums are added in slot order on every slot."""
+        flat = [tree_leaves(t) for t in slot_grads]
+        part = [sum((torch.sum(torch.square(g.float()))
+                     for k, g in enumerate(gs)
+                     if self.leaves[k]["owners"][s] == s),
+                    torch.zeros((), device=gs[0].device))
+                for s, gs in enumerate(flat)]
+        return [c.all_reduce_sum(part) for c in self.ctxs]
+
+    def whole_grads(self, slot_grads, s: int):
+        """Slot ``s``'s copy of each whole gradient leaf (an all-gather of
+        the blocks), for an optimizer whose state is whole on every
+        slot."""
+        flat = [tree_leaves(t) for t in slot_grads]
+        c = self.ctxs[s]
+        out = []
+        for k, leaf in enumerate(self.leaves):
+            owners = sorted(set(leaf["owners"]))
+            out.append(c.gather_blocks([flat[t][k] for t in owners],
+                                       [leaf["index"][t] for t in owners],
+                                       leaf["shape"]))
+        return out
+
+    def init_state(self, params, opt: Optimizer):
+        """A fresh group state of the whole ``params``: each slot's shards,
+        the optimizer's state of them (AdamW's) or of the whole leaves on
+        every slot (Adafactor's), and a zero step a slot."""
+        slot_params = self.shard(params)
+        if opt.replicated_state:
+            whole = opt.init(params)
+            opts = [tree_map(lambda x, c=c: _copy_to(x, c.device), whole)
+                    for c in self.ctxs]
+        else:
+            opts = [opt.init(p) for p in slot_params]
+        return {"params": slot_params, "opt": opts,
+                "step": [torch.zeros((), dtype=torch.int32, device=c.device)
+                         for c in self.ctxs]}
+
+    def shard_state(self, state):
+        """The group state of a whole ``{"params", "opt", "step"}``:
+        per-slot lists — params, AdamW's moments sharded like them,
+        Adafactor's state whole on every slot — and a step a slot."""
+        opt = state["opt"]
+        if "stats" in opt:
+            opts = [tree_map(lambda x, c=c: _copy_to(x, c.device), opt)
+                    for c in self.ctxs]
+        else:
+            ms, vs = self.shard(opt["m"]), self.shard(opt["v"])
+            opts = [{"m": m, "v": v} for m, v in zip(ms, vs)]
+        return {"params": self.shard(state["params"]), "opt": opts,
+                "step": [_copy_to(state["step"], c.device)
+                         for c in self.ctxs]}
+
+    def unshard_state(self, state):
+        """The whole ``{"params", "opt", "step"}`` of a group state (on
+        slot 0's device): the solo state's tree."""
+        opt = state["opt"]
+        if "stats" in opt[0]:
+            whole = opt[0]
+        else:
+            whole = {"m": self.unshard([o["m"] for o in opt]),
+                     "v": self.unshard([o["v"] for o in opt])}
+        return {"params": self.unshard(state["params"]), "opt": whole,
+                "step": state["step"][0]}
+
+
+def _copy_to(x, device):
+    return torch.empty(x.shape, dtype=x.dtype, device=device).copy_(x)
+
+
+def _micro_batch(ctxs, batches, n: int, m: int):
+    """Per slot, its rows of micro-batch ``m`` of ``n``: the global batch's
+    rows [m B/n, (m+1) B/n), as the solo step splits it, over the data
+    slots in row order — each slot's part taken from the data slot that
+    holds those rows (row block ``i`` on data index ``i``)."""
+    out = []
+    for c in ctxs:
+        B_l = batches[c.slot]["tokens"].shape[0]
+        b = B_l // n
+        g = m * c.n_data + c.i
+        src = c.slot_at(data=g // n)
+        lo = (g % n) * b
+        out.append({k: c.receive(v[lo:lo + b], src)
+                    for k, v in batches[src].items()})
+    return out
+
+
 def make_train_step(cfg: ModelConfig, opt: Optimizer,
-                    hp: TrainHParams = TrainHParams()):
+                    hp: TrainHParams = TrainHParams(), sh=None):
     """Returns train_step(state, batch) -> (state, metrics); the returned
-    state is ``state``, updated in place."""
+    state is ``state``, updated in place.  ``sh`` (a ``ShardingCtx`` over
+    a mesh): the step over the group's slots, ``state`` a group state and
+    ``batch`` per-slot (see the module docstring);
+    ``NotImplementedError`` for rules it does not emulate."""
+    if sh is not None and sh.mesh is not None:
+        return _group_train_step(cfg, opt, hp, GroupLayout(cfg, sh))
 
     def grads_of(params, mb):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -92,6 +332,57 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
             grads, metrics = grads_of(params, batch)
         opt.update(params, grads, state["opt"], state["step"])
         state["step"] = state["step"] + 1
+        return state, metrics
+
+    return train_step
+
+
+def _group_train_step(cfg: ModelConfig, opt: Optimizer, hp: TrainHParams,
+                      lay: GroupLayout):
+    ctxs = lay.ctxs
+    n_slots = len(ctxs)
+
+    def grads_of(slot_params, mbs):
+        _, metrics, grads = lay.loss_and_grads(slot_params, mbs, hp.remat)
+        return grads, metrics
+
+    def accumulated(slot_params, batches):
+        n = hp.grad_accum
+        g_acc, per_mb = None, []
+        for m in range(n):
+            g, metrics = grads_of(slot_params,
+                                  _micro_batch(ctxs, batches, n, m))
+            if g_acc is None:
+                g_acc = [tree_map(lambda x: x.float(), t) for t in g]
+            else:
+                for a, b in zip(g_acc, g):
+                    tree_map(lambda x, y: x.add_(y.float()), a, b)
+            per_mb.append(metrics)
+        grads = [tree_map(lambda x: x / n, t) for t in g_acc]
+        metrics = {k: torch.mean(torch.stack([mm[k] for mm in per_mb]))
+                   for k in per_mb[0]}
+        return grads, metrics
+
+    def train_step(state, batch):
+        params = state["params"]
+        if hp.grad_accum > 1:
+            grads, metrics = accumulated(params, batch)
+        else:
+            grads, metrics = grads_of(params, batch)
+        grads = lay.reduce_grads(grads)
+        if opt.replicated_state:
+            for s in range(n_slots):
+                whole = iter(lay.whole_grads(grads, s))
+                index = iter(leaf["index"][s] for leaf in lay.leaves)
+                tree_map(lambda p, st, s=s: opt.leaf_update(
+                    p, next(whole), st, state["step"][s], next(index)),
+                    params[s], state["opt"][s]["stats"])
+        else:
+            sqs = lay.global_sq(grads)
+            for s in range(n_slots):
+                opt.update(params[s], grads[s], state["opt"][s],
+                           state["step"][s], sq=sqs[s])
+        state["step"] = [t + 1 for t in state["step"]]
         return state, metrics
 
     return train_step

@@ -1000,9 +1000,9 @@ def test_train_step_on_card_equals_cpu(cuda, arch):
 # ---------------------------------------------------------------------------
 
 
-def _group_problem(C, L, n_servers):
+def _group_problem(C, L, n_servers, mem=1000.0):
     llm = C.LLMSpec("t", L, block_bytes=100.0, cache_bytes_per_token=1.0)
-    servers = [C.ServerSpec(j, 1000.0, 0.01 * (j + 1), 0.002, 0.0005)
+    servers = [C.ServerSpec(j, mem, 0.01 * (j + 1), 0.002, 0.0005)
                for j in range(n_servers)]
     rtt = np.full((1, n_servers), 0.02)
     return C.Problem(llm, servers, 1, rtt, 3 * rtt, workload=C.Workload(4, 4))
@@ -1140,3 +1140,109 @@ def test_hetero_groups_bf16_first_step_on_card(cuda):
         assert t_s == t_g
         assert float((l_g - l_s).abs().max()) <= \
             0.025 * float(l_s.abs().max())
+
+
+@pytest.mark.parametrize("arch,mem", [("llama3_2_1b", 260.0),
+                                      ("deepseek_v2_236b", 260.0),
+                                      ("zamba2_7b", 520.0)])
+def test_split_page_axis_equals_solo_on_card(cuda, arch, mem):
+    """Paged page arrays split over ``data`` on a (2, 2) group of card
+    slots (servers whose 35 / 37 pages and the trash page divide the data
+    axis): a row's pages read from and written to the data slot holding
+    them, counted; streams, clocks and round_stats the card's solo run's,
+    logits within LOGIT_TOL (zamba2 at C2's atol 1e-4), K1 ran."""
+    import repro_torch.core as C
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch.mesh import GroupMesh
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import count_collectives
+    from repro_torch.serving import GeoServingSystem
+    from repro_torch.serving.kv_cache import page_blocks
+
+    cfg = get_reduced_config(arch)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    kw = dict(R=2, max_new_tokens=4, max_sessions=4, cache_layout="paged",
+              page_size=4)
+    want = _group_drive(GeoServingSystem(
+        cfg, params, _group_problem(C, cfg.n_layers, 2, mem), **kw), C)
+    system = GeoServingSystem(cfg, params,
+                              _group_problem(C, cfg.n_layers, 2, mem),
+                              mesh=GroupMesh(np.full((2, 2), "cuda",
+                                                     dtype=object)), **kw)
+    assert any(page_blocks(s.mesh, s.pool.slot_specs) == 2
+               for s in system.servers.values())
+    before = decode_attention.launches
+    with count_collectives() as coll:
+        got = _group_drive(system, C)
+    assert decode_attention.launches > before
+    assert coll.by_kind["page-read"] > 0 and coll.by_kind["page-write"] > 0
+    assert got[0] == want[0] and got[1] == want[1] and got[3] == want[3]
+    atol = 1e-4 if arch == "zamba2_7b" else 5e-6
+    for hg, hw in zip(got[2], want[2]):
+        for a, b in zip(hg, hw):
+            torch.testing.assert_close(a, b, atol=atol, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch,optimizer", [("llama3_2_1b", "adamw"),
+                                            ("deepseek_v2_236b", "adafactor"),
+                                            ("zamba2_7b", "adamw")])
+def test_group_train_step_equals_solo_on_card(cuda, arch, optimizer):
+    """``chip_smoke.py`` [train group] at reduced width: one f32 step over
+    a (2, 2) group of card slots against the solo step on the card from
+    the same weights and batch — the loss at rtol 1e-5, every gradient
+    leaf (reduced over the slots and put back together) at max|d| <=
+    atol + rtol max|solo| (1e-5, 2e-4; zamba2 C2's (1e-4, 1e-3)), no host
+    sync inside the step, replicas bit-equal."""
+    import warnings
+
+    from repro_torch.configs import SHAPES_BY_NAME, get_reduced_config
+    from repro_torch.data import make_batches, shard_batch
+    from repro_torch.launch.mesh import GroupMesh
+    from repro_torch.launch.sharding import make_ctx
+    from repro_torch.models import init_params, train_loss
+    from repro_torch.training import (TrainHParams, init_train_state,
+                                      make_optimizer_for, make_train_step)
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    from repro_torch.training.train_step import GroupLayout
+
+    cfg = get_reduced_config(arch).replace(optimizer=optimizer)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    host = next(make_batches(cfg, 4, 32, seed=0))
+    live = tree_map(lambda x: x.detach().clone().requires_grad_(True),
+                    params)
+    loss, _ = train_loss(live, cfg, shard_batch(host, device=cuda))
+    want = torch.autograd.grad(loss, tree_leaves(live), allow_unused=True,
+                               materialize_grads=True)
+    mesh = GroupMesh(np.full((2, 2), "cuda", dtype=object))
+    sh = make_ctx(cfg, mesh, SHAPES_BY_NAME["train_4k"])
+    lay = GroupLayout(cfg, sh)
+    batch = shard_batch(host, mesh, sh, device=cuda)
+    g_loss, _, grads = lay.loss_and_grads(lay.shard(params), batch)
+    got = tree_leaves(lay.unshard(lay.reduce_grads(grads)))
+    torch.testing.assert_close(g_loss, loss.detach(), rtol=1e-5, atol=0)
+    atol, rtol = (1e-4, 1e-3) if arch == "zamba2_7b" else (1e-5, 2e-4)
+    for a, b in zip(got, want):
+        if b.numel():
+            assert float((a - b).abs().max()) <= \
+                atol + rtol * float(b.abs().max())
+    hp = TrainHParams(learning_rate=5e-3)
+    opt = make_optimizer_for(cfg, hp)
+    state = init_train_state(None, cfg, opt, params=params, device=cuda,
+                             sh=sh)
+    step = make_train_step(cfg, opt, hp, sh)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, metrics = step(state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert not [w for w in caught if "called a synchronizing"
+                in str(w.message)]
+    assert torch.isfinite(metrics["loss"])
+    flat = [tree_leaves(t) for t in state["params"]]
+    for k, leaf in enumerate(lay.leaves):
+        for s, owner in enumerate(leaf["owners"]):
+            assert torch.equal(flat[s][k], flat[owner][k])

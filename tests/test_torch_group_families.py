@@ -11,7 +11,13 @@ slots all name the ``cpu`` device).
   rounding);
 * the recurrent states the reference's rules replicate over ``model``
   (``wkv``, ``ssm``, ``conv``, ``shift_*``) are equal on every model slot
-  after a prefill and a decode round, and equal to the solo pool's rows.
+  after a prefill and a decode round, and equal to the solo pool's rows;
+* paged page arrays split over ``data`` (the reference's layout: servers
+  of 260 memory units hold 35 pages and the trash page, 18 a data slot,
+  on (2, 2); zamba2's of 520, 37 and the trash page): rows read and write
+  pages another data slot holds, the moves counted in
+  ``count_collectives`` and ``decode_step_cost``, and the streams, clocks
+  and ``round_stats`` stay the reference's and the solo run's.
 
 Weights are the reference's ``init_params(PRNGKey(0), cfg)`` bridged with
 ``repro_torch.weights.from_reference``; prompts and frames come from a
@@ -57,11 +63,12 @@ def bridged(arch):
     return cfg, params, t_get_reduced_config(arch), tparams
 
 
-def problem(C, cfg, n_servers=2, l_out=4):
-    """tests/test_sharded_serving.py's cluster."""
+def problem(C, cfg, n_servers=2, l_out=4, mem=1000.0):
+    """tests/test_sharded_serving.py's cluster (``mem``: each server's
+    memory)."""
     llm = C.LLMSpec("toy", cfg.n_layers, block_bytes=100.0,
                     cache_bytes_per_token=1.0)
-    servers = [C.ServerSpec(j, mem_bytes=1000.0, tau=0.01 * (j + 1),
+    servers = [C.ServerSpec(j, mem_bytes=mem, tau=0.01 * (j + 1),
                             tau_prefill_base=0.002,
                             tau_prefill_per_token=0.0005)
                for j in range(n_servers)]
@@ -82,9 +89,9 @@ def jobs_for(cfg, lengths=(4, 6, 5), enc_lens=(5, 9, 7), seed=0):
     return jobs
 
 
-def port(arch, **kw):
+def port(arch, mem=1000.0, **kw):
     _, _, tcfg, tparams = bridged(arch)
-    return TS.GeoServingSystem(tcfg, tparams, problem(TC, tcfg),
+    return TS.GeoServingSystem(tcfg, tparams, problem(TC, tcfg, mem=mem),
                                algorithm="proposed", R=2, max_new_tokens=4,
                                max_sessions=4, device="cpu", **kw)
 
@@ -199,3 +206,71 @@ def test_replicated_recurrent_states_agree_across_model_slots(arch):
                         whole[:, i * rows:(i + 1) * rows].numpy(), **tol)
                     checked += 1
     assert checked > 0
+
+
+# servers' memory whose page arrays split over data on (2, 2): 7
+# block-slots, 35 pages + the trash page (zamba2: 520, 37 + 1)
+SPLIT_MEM = {"zamba2_7b": 520.0}
+
+
+@functools.lru_cache(maxsize=None)
+def split_reference_run(arch):
+    cfg, params, _, _ = bridged(arch)
+    system = RS.GeoServingSystem(
+        cfg, params, problem(RC, cfg, mem=SPLIT_MEM.get(arch, 260.0)),
+        algorithm="proposed",
+        R=2, max_new_tokens=4, max_sessions=4, cache_layout="paged",
+        page_size=4)
+    return serve(system, RC, jobs_for(cfg))
+
+
+@pytest.mark.parametrize("arch", ["llama3_2_1b", "deepseek_v2_236b",
+                                  "zamba2_7b", "seamless_m4t_large_v2"])
+def test_split_page_axis_matches_reference_and_solo(arch):
+    """Page arrays whose page axis splits over ``data`` (GQA K/V, MLA's
+    joint latent buffer, zamba2's shared K/V, enc-dec self K/V): each
+    slot holds the reference's per-device block of pages, a row of data
+    slot 1 owns pages data slot 0 holds (the allocator stays global), the
+    cross-slot page reads and writes are counted in the step's
+    collectives, and streams, clocks and round_stats equal the
+    reference's ``mesh=None`` run and the port's solo run."""
+    from repro_torch.models.layers import count_collectives
+    from repro_torch.serving.kv_cache import page_blocks
+
+    kw = dict(mem=SPLIT_MEM.get(arch, 260.0), cache_layout="paged",
+              page_size=4)
+    system = port(arch, mesh=cpu_mesh((2, 2)), **kw)
+    split = [srv for srv in system.servers.values()
+             if page_blocks(srv.mesh, srv.pool.slot_specs) == 2]
+    assert split
+    for srv in split:
+        n_phys = srv.pool.pages.n_pages + 1
+        assert n_phys in (36, 38)
+        for tree in srv.pool.slot_trees[0]:
+            for key in ("k", "v", "latent", "krope"):
+                if key in tree:
+                    assert tree[key].shape[1] == n_phys // 2, key
+        cost = srv.decode_step_cost()
+        assert cost.coll_by_kind["page-read"] > 0
+        assert cost.coll_by_kind["page-write"] > 0
+    crossed = []
+    drain = system.drain_prefill
+
+    def drain_and_look():
+        drain()
+        for srv in split:
+            table, half = srv.pool.pages.table, srv.pool.n_rows // 2
+            block = (srv.pool.pages.n_pages + 1) // 2
+            # a row of data slot 1 owning a page of data slot 0's block
+            crossed.append(bool(((table[half:] > 0)
+                                 & (table[half:] < block)).any()))
+
+    system.drain_prefill = drain_and_look
+    with count_collectives() as coll:
+        got = serve(system, TC, jobs_for(system.cfg))
+    assert any(crossed)
+    assert coll.by_kind["page-read"] > 0 and coll.by_kind["page-write"] > 0
+    assert_same_run(got, split_reference_run(arch),
+                    **REF_TOL.get(arch, DEFAULT_REF_TOL))
+    assert_same_run(got, serve(port(arch, **kw), TC, jobs_for(system.cfg)),
+                    **SOLO_TOL.get(arch, LOGIT_TOL))

@@ -14,8 +14,9 @@ the CPU (a group's slots all name the ``cpu`` device).
   slot pool leaf (``ARCH_MESH`` and the families' ``FAMILY_MESH``, slab
   and paged at pages 2 and 4) is the block the reference's own
   ``serving_rules`` -> ``cache_axes_for`` -> ``guarded_spec`` give it on a
-  stand-in mesh — time shards included — but for the paged page axis,
-  which the port keeps whole on each slot (ROADMAP C6);
+  stand-in mesh — time shards and the paged page axis over ``data``
+  included; a row whose page another data slot holds reads it from there,
+  counted;
 * ``_apply_moe_ep`` equals the global MoE (tests/test_moe_ep.py); padded
   EP runs through the pooled decode step (``_ep_row_grid``) and unpadded
   MoE keeps the per-row path; the vocab-parallel embedding and LM head
@@ -479,8 +480,8 @@ def test_slot_pool_leaves_match_reference_specs(arch, shape, layout,
     """Each slot's pool leaf has the per-device shape the reference's
     serving rules give that leaf (its ``cache_axes_for`` through its
     ``guarded_spec`` on a stand-in mesh): rows over data, KV heads or the
-    time axis over model.  The paged page arrays keep their page axis
-    whole on every slot (ROADMAP C6)."""
+    time axis over model, and the paged page arrays' page axis over data
+    where the ``n_phys + 1`` pages divide it."""
     from repro.serving import kv_cache as RKV
 
     cfg, _, _, _ = bridged(arch)
@@ -505,8 +506,7 @@ def test_slot_pool_leaves_match_reference_specs(arch, shape, layout,
             spec = tuple(RSH.guarded_spec(axes, leaf.shape, rs, mesh))
             want = []
             for d, (n, e) in enumerate(zip(leaf.shape, spec + (None,) * 9)):
-                if e is None or (layout == "paged" and d == 1
-                                 and key in ("k", "v", "latent", "krope")):
+                if e is None:
                     want.append(n)
                     continue
                 k = int(np.prod([sizes[a] for a in (e if isinstance(e, tuple)

@@ -253,12 +253,6 @@ def test_data_pipeline_matches_reference(arch, seed, start):
     assert a["tokens"].max() < cfg.vocab_size
 
 
-def test_shard_batch_over_a_mesh_raises():
-    with pytest.raises(NotImplementedError, match="A10"):
-        shard_batch({"tokens": np.zeros((2, 4), np.int32)}, mesh=object(),
-                    sh=object(), device="cpu")
-
-
 _LOSS_LINE = re.compile(r"^step (\d+) loss ([0-9.]+) \(")
 
 
@@ -299,12 +293,6 @@ def test_launcher_resumes_from_checkpoint(tmp_path):
     assert _losses(second.lines)[25] == _losses(whole.lines)[25]
     for a, b in zip(tree_leaves(second.state), tree_leaves(whole.state)):
         assert torch.equal(a, b)
-
-
-def test_launcher_model_parallel_raises():
-    with pytest.raises(NotImplementedError, match="A10"):
-        t_launch.main(["--reduced", "--device", "cpu", "--model-parallel",
-                       "2"])
 
 
 def test_int8_quantize_matches_reference():
