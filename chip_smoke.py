@@ -178,6 +178,21 @@ Phases (any failure raises, so the exit code is not 0):
              K1 partials and merge, K3 / K4 on head slices) join the
              kernels JSON.
 
+7. dryrun  — the port's dry run (``launch.dryrun``) against the card:
+             full-width Llama-3.2-1B in bf16 on a (2, 2) group of slots on
+             the card at three cells cut to fit it (decode seq 4096 x
+             batch 8; one row at seq 8192, whose cache time axis shards
+             over data; prefill seq 2048 x batch 4), each counted first on
+             a (2, 2) mesh of meta slots (slot loop and stand-in, equal):
+             FlopCounterMode's flops of the card's call and slot 0's
+             allocated argument bytes equal the meta prediction; the
+             predicted live peak beside torch.cuda.max_memory_allocated
+             and their ratio, and the count's seconds, printed; the
+             group's logits held to the solo model's within C5_FRACTION,
+             greedy equal; K1, K1 partials + merge and K2 launched and
+             held against their plain versions (kernel rows
+             ``*_slot2x2_dryrun``).
+
 The last lines are the kernels JSON, the nvidia-smi name/power line, and
 the result JSON.  Without a CUDA device, or outside the repository, the
 script exits non-zero and prints no result.
@@ -3464,10 +3479,9 @@ def split_page_parity(torch, drive):
     from repro_torch.launch.sharding import pool_tree_shardings
     from repro_torch.models import init_params
     from repro_torch.models.layers import count_collectives
-    from repro_torch.models.model import tree_nbytes
+    from repro_torch.models.model import slot_zeros, tree_nbytes
     from repro_torch.serving import GeoServingSystem
-    from repro_torch.serving.kv_cache import (_slot_tree,
-                                              new_paged_pool_tree,
+    from repro_torch.serving.kv_cache import (new_paged_pool_tree,
                                               page_blocks)
 
     for arch, mem in SPLIT_PAGES:
@@ -3504,7 +3518,7 @@ def split_page_parity(torch, drive):
             pool, blocks = srv.pool, page_blocks(srv.mesh,
                                                  srv.pool.slot_specs)
             split += blocks > 1
-            ref = sum(tree_nbytes(_slot_tree(
+            ref = sum(tree_nbytes(slot_zeros(
                 t, pool_tree_shardings(srv.mesh, srv.layout_rules, t),
                 srv.mesh, 0, "meta"))
                 for t in (new_paged_pool_tree(
@@ -3690,13 +3704,15 @@ def _slot_row(torch, kind, args, kw):
             tol if causal else bf16_ulp_ok)
 
 
-def slot_kernel_rows(torch, keep, launches):
+def slot_kernel_rows(torch, keep, launches, tag="[groups]",
+                     suffix=FAMILY_SUFFIX, where="on slot 0 in the serve"):
     """Kernel rows at the slot shapes the group serves gave each kernel:
     error against the plain version, device times of the kernel, the plain
     version and one PyTorch call that computes the same function where
     there is one (SDPA; none for the partials, their merge or the scans),
     the bound; launches are slot 0's in its serve run, by the wrapper's
-    counter.  K1's partials are held merged (a split's output)."""
+    counter (``where`` says whose).  K1's partials are held merged (a
+    split's output)."""
     from repro_torch import kernels as K
 
     rows = []
@@ -3721,16 +3737,15 @@ def slot_kernel_rows(torch, keep, launches):
         lib_ms = None if lib is None else device_ms(torch, lib, sets)
         del sets, out, want
         row_name = f"{kind}_slot" + "x".join(map(str, shape)) \
-            + FAMILY_SUFFIX.get(path, "")
+            + suffix.get(path, "")
         n = launches[(path, kind, shape)]
-        log(f"[groups] {row_name} ({path}) "
+        log(f"{tag} {row_name} ({path}) "
             f"{' '.join(str(tuple(a.shape)) for a in args[:3])} "
             f"{args[0].dtype}: max|kernel-plain| {err:.3g} (tolerance "
             f"{tol if isinstance(tol, (str, float)) else 'bf16 per element'}"
             f"), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-            f"{bound[0]:.4f} ms ({bound[1]}); {n} launches on slot 0 in the "
-            "serve")
+            f"{bound[0]:.4f} ms ({bound[1]}); {n} launches {where}")
         if not ok:
             raise RuntimeError(f"{row_name}: err {err}")
         source, replaces = SLOT_SOURCES[kind]
@@ -3757,13 +3772,13 @@ def slot_pool_bytes(system):
     port's layout before).  Fails where the port's paged layout is not
     the reference's.  Shapes only (meta tensors)."""
     from repro_torch.launch.sharding import pool_tree_shardings
-    from repro_torch.models.model import tree_nbytes
-    from repro_torch.serving.kv_cache import (_slot_tree, group_pool_specs,
+    from repro_torch.models.model import slot_zeros, tree_nbytes
+    from repro_torch.serving.kv_cache import (group_pool_specs,
                                               new_paged_pool_tree,
                                               new_state_pool_tree)
 
     def slot0(trees, specs_of, mesh):
-        return sum(tree_nbytes(_slot_tree(t, specs_of(t), mesh, 0, "meta"))
+        return sum(tree_nbytes(slot_zeros(t, specs_of(t), mesh, 0, "meta"))
                    for t in trees)
 
     out = {}
@@ -4043,6 +4058,214 @@ def phase_groups(torch):
     return rows
 
 
+# [dryrun]: full-width Llama-3.2-1B in bf16 on a (2, 2) group of slots on
+# the card, at cells cut from the dry run's shapes to fit one card: a
+# decode cell (rows over data, KV heads over model: K1), a long cell of
+# one row (the cache's time axis over data: K1 partials merged over the
+# slots) and a prefill cell (K2); the meta count of each against the card
+DRYRUN_MESH = (2, 2)
+DRYRUN_CELLS = (("decode_4k", 4096, 8, "decode"),
+                ("long_8k", 8192, 1, "decode"),
+                ("prefill_2k", 2048, 4, "prefill"))
+DRYRUN_KINDS = {"decode_4k": ("decode_attention",),
+                "long_8k": ("decode_attention_partials", "merge_partials"),
+                "prefill_2k": ("flash_attention",)}
+
+
+def _rows_of(torch, ctxs, parts):
+    """The batch rows of per-slot outputs put back in row order: each row
+    block from its first slot (``layers.row_heads``)."""
+    from repro_torch.models.layers import row_heads
+
+    return torch.cat([parts[s] for s in row_heads(ctxs)])
+
+
+def phase_dryrun(torch):
+    """[dryrun] The port's dry run (``launch.dryrun``) held against the
+    card: full-width Llama-3.2-1B in bf16 on a (2, 2) group of cuda slots
+    on the card, each DRYRUN_CELLS cell's step counted on a (2, 2) mesh of
+    meta slots (``count_cell``: every slot's body, and slot 0 standing in
+    for all) and then run on the card with the same weights' shards.
+    Held exactly: FlopCounterMode's flops of the card's call == the meta
+    count's aten flops, and the allocated shard bytes of slot 0's
+    arguments == the predicted ``argument_size_in_bytes``; the stand-in
+    count (flops, bytes, wire bytes) == the full slot loop's.  Printed:
+    the slot loop's predicted live peak of the step (the four slots in
+    lockstep, as on the card) beside torch.cuda.max_memory_allocated over
+    the call, their ratio, the stand-in's peak of one slot alone, and the
+    meta count's seconds.  The
+    group's logits against the solo model's on the same prompt (the
+    decode cells after a prefill of seq_len - 1 tokens): within
+    C5_FRACTION of the solo scale, greedy tokens equal.  K1, K1's partials
+    and merge, and K2 launch in the measured calls (their counters zeroed
+    just before) and are held against their plain versions at the slot
+    shapes, on calls captured from a second, unmeasured run; returns
+    their kernel rows."""
+    import numpy as np
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.dryrun import cell_specs, count_cell
+    from repro_torch.launch.mesh import GroupMesh
+    from repro_torch.launch.sharding import make_ctx, shard, shard_params
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import group_ctxs
+    from repro_torch.models.model import decode_step, prefill, tree_nbytes
+
+    tag = "[dryrun]"
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama3_2_1b")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    devs = np.empty(4, dtype=object)
+    devs[:] = slot_devices(torch, 4)
+    mesh = GroupMesh(devs.reshape(DRYRUN_MESH))
+    meta = GroupMesh(np.full(DRYRUN_MESH, torch.device("meta"),
+                             dtype=object))
+    mods = {"attention": attn_mod, "kernels": K}
+    sites = [(n, m) for n, m in GROUP_SITES if m in mods]
+    real = {n: getattr(mods[m], n) for n, m in sites}
+    wrappers = {n: getattr(K, n) for n, _ in sites}
+    keep, launches = {}, {}
+    cap = {}
+
+    def capture(name):
+        def run(*a, **k):
+            kind = capture_kind(name, a, k)
+            if kind not in cap:
+                cap[kind] = (clone_call(torch, a), k)
+            return real[name](*a, **k)
+        return run
+
+    def measured(fn):
+        """fn() under FlopCounterMode with the kernel counters zeroed:
+        (out, flops, peak bytes over the call, launches by wrapper); then
+        fn() once more, outside the measurement, with its kernel calls
+        captured (a decode step writes the same token again)."""
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad(), FlopCounterMode(display=False) as fc:
+            out = fn()
+        torch.cuda.synchronize()
+        got = (out, fc.get_total_flops(),
+               torch.cuda.max_memory_allocated() - base,
+               {n: w.launches for n, w in wrappers.items()})
+        cap.clear()
+        for n, m in sites:
+            setattr(mods[m], n, capture(n))
+        try:
+            with torch.no_grad():
+                fn()
+        finally:
+            for n, m in sites:
+                setattr(mods[m], n, real[n])
+        return got
+
+    rng = np.random.RandomState(0)
+    for name, seq, rows, kind in DRYRUN_CELLS:
+        shape = ShapeSpec(name, seq, rows, kind)
+        c0 = time.perf_counter()
+        pred = count_cell(cell_specs(cfg, shape, meta, stand_in=False),
+                          meta, with_corrections=False)
+        full_s = time.perf_counter() - c0
+        c0 = time.perf_counter()
+        stand = count_cell(cell_specs(cfg, shape, meta), meta,
+                           with_corrections=False)
+        stand_s = time.perf_counter() - c0
+        if stand["cost"].to_dict() != pred["cost"].to_dict() or \
+                stand["memory"]["argument_size_in_bytes"] != \
+                pred["memory"]["argument_size_in_bytes"]:
+            raise RuntimeError(f"{tag} {name}: the stand-in count "
+                               f"{stand['cost'].to_dict()} is not the slot "
+                               f"loop's {pred['cost'].to_dict()}")
+        sh = make_ctx(cfg, mesh, shape)
+        ctxs = group_ctxs(mesh, sh.rules)
+        ps = shard_params(cfg, sh, params)
+        n_prompt = seq - 1 if kind == "decode" else seq
+        prompt = torch.as_tensor(rng.randint(2, cfg.vocab_size,
+                                             (rows, n_prompt)),
+                                 dtype=torch.int32, device="cuda")
+        bspec = sh.spec(("batch", None), tuple(prompt.shape))
+        batches = [{"tokens": t} for t in shard(prompt, bspec, mesh)]
+        if kind == "prefill":
+            args = tree_nbytes(ps[0]) + tree_nbytes(batches[0])
+            out, flops, peak, ran = measured(lambda: prefill(
+                ps, cfg, batches, cache_len=seq, ctxs=ctxs))
+            logits = out[0]
+            solo, _ = prefill(params, cfg, {"tokens": prompt},
+                              cache_len=seq)
+        else:
+            nxt = torch.as_tensor(rng.randint(2, cfg.vocab_size, rows),
+                                  dtype=torch.int32, device="cuda")
+            with torch.no_grad():
+                _, caches = prefill(ps, cfg, batches, cache_len=seq,
+                                    ctxs=ctxs)
+            toks = shard(nxt, sh.spec(("batch",), (rows,)), mesh)
+            args = tree_nbytes(ps[0]) + tree_nbytes(caches[0]) \
+                + tree_nbytes(toks[0])
+            out, flops, peak, ran = measured(lambda: decode_step(
+                ps, cfg, caches, toks, seq - 1, ctxs=ctxs))
+            logits = out[0]
+            del caches, out
+            with torch.no_grad():
+                _, sc = prefill(params, cfg, {"tokens": prompt},
+                                cache_len=seq)
+                solo, _ = decode_step(params, cfg, sc, nxt, seq - 1)
+            del sc
+        grp = _rows_of(torch, ctxs, logits).float()
+        solo = solo.float()
+        rel = float((grp - solo).abs().max()) / float(solo.abs().max())
+        same = int((grp.argmax(-1) == solo.argmax(-1)).sum())
+        want_flops = round(pred["aten_flops"] * len(ctxs))
+        live = pred["live_peak"] * len(ctxs)
+        mem = pred["memory"]
+        log(f"{tag} {name} (seq {seq}, batch {rows}, {kind}) on "
+            f"{DRYRUN_MESH} slots: flops FlopCounterMode {flops} vs meta "
+            f"count {want_flops}; slot 0's argument bytes allocated {args} "
+            f"vs predicted {mem['argument_size_in_bytes']}; the step's "
+            f"peak allocation over the call {peak} B vs the predicted live "
+            f"peak {live:.0f} B over the slots (ratio card / predicted "
+            f"{peak / max(live, 1):.4f}); one slot alone "
+            f"{stand['live_peak']:.0f} B; predicted per-slot peak_hbm "
+            f"{mem['peak_hbm_bytes']} B; meta count {full_s:.2f} s (slot "
+            f"loop), {stand_s:.2f} s (stand-in); group vs solo logits "
+            f"max|diff| / solo scale {rel:.4g} (bound {C5_FRACTION}), "
+            f"greedy equal {same}/{rows}; launches {ran}")
+        if flops != want_flops:
+            raise RuntimeError(f"{tag} {name}: flops {flops} != meta "
+                               f"{want_flops}")
+        if args != mem["argument_size_in_bytes"]:
+            raise RuntimeError(f"{tag} {name}: argument bytes {args} != "
+                               f"{mem['argument_size_in_bytes']}")
+        if rel > C5_FRACTION or same != rows:
+            raise RuntimeError(f"{tag} {name}: group vs solo {rel:.4g}, "
+                               f"greedy {same}/{rows}")
+        for k in DRYRUN_KINDS[name]:
+            if ran[k] <= 0 or k not in cap:
+                raise RuntimeError(f"{tag} {name}: {k} never launched "
+                                   f"({ran})")
+            keep[(k, DRYRUN_MESH, "dryrun")] = cap[k]
+            launches[("dryrun", k, DRYRUN_MESH)] = ran[k]
+        del logits, grp, solo, ps, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = slot_kernel_rows(torch, keep, launches, tag=tag,
+                            suffix={"dryrun": "_dryrun"},
+                            where="in the measured calls (all slots)")
+    log(f"{tag} phase {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -4098,6 +4321,7 @@ def main() -> int:
     phase_xval(torch)
     phase_routing(torch)
     kernels += phase_groups(torch)
+    kernels += phase_dryrun(torch)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

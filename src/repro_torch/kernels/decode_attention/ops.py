@@ -287,7 +287,12 @@ def decode_attention(q, ck, cv, pos, *, window=None, slopes=None,
             q, ck, cv, counting.pos, window=window, causal=causal,
             kv_len=None if kv_len is None else counting.kv_len,
             slopes=slopes), 1.0)
-        return q.new_empty(q.shape[:3] + cv.shape[-1:])
+        n_split = _plan(q, ck, cv)[1][1]
+        part = _partials(n_split, q.shape[0] * q.shape[2], cv.shape[-1],
+                         q.device) if n_split > 1 else None  # as launched
+        out = q.new_empty(q.shape[:3] + cv.shape[-1:])
+        del part
+        return out
     g = _check_cuda("decode_attention", q, ck, cv, slopes)
     B, _, H, _ = q.shape
     Dv = cv.shape[-1]

@@ -8,10 +8,13 @@ kernels: bf16 on the tensor cores (``kernels/csrc/flash_attention_sm90.cu``,
 surface (causal/non-causal, ``window``, ALiBi ``slopes``, the chunked-prefill
 ``q_start``, which the kernel takes at run time).  A CPU tensor goes to the
 plain version (``ref.py``); a CUDA tensor goes to the kernel, or the call
-raises — there is no fallback.  ``flash_attention.launches`` counts kernel
-launches.  The kernels read q/k/v through their strides, so the wrapper
-makes no transposed copies.  The dtype picks the kernel (``DESIGNS``); a
-bf16 call the tensor-core kernel cannot take raises.  ``cost`` gives a call's bytes and flops.
+raises — there is no fallback.  A meta tensor inside
+``runtime.count_meta_calls`` adds the call's ``cost`` and returns an empty
+output (the dry run's count); outside it, it raises.
+``flash_attention.launches`` counts kernel launches.  The kernels read
+q/k/v through their strides, so the wrapper makes no transposed copies.
+The dtype picks the kernel (``DESIGNS``); a bf16 call the tensor-core
+kernel cannot take raises.  ``cost`` gives a call's bytes and flops.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ import torch
 
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.runtime import (NO_WINDOW, check_launch,
-                                         load_library, refuse_grad)
+                                         load_library, meta_calls,
+                                         refuse_grad)
 from repro_torch.launch.costs import CostSummary
 
 # which kernel serves each dtype: the bf16 tensor-core kernel, or the f32
@@ -65,13 +69,27 @@ def cost(q, k, v, q_start: int = 0, window=None,
     Skv, Dv = k.shape[1], v.shape[-1]
     es = q.element_size()
     w = Skv + Sq if window is None else window
-    pairs = Sq * Skv if not causal else sum(
-        min(q_start + i + 1, Skv) - max(0, q_start + i - w + 1)
-        for i in range(Sq))
+    pairs = Sq * Skv if not causal else causal_pairs(Sq, Skv, q_start, w)
     nbytes = (q.numel() + k.numel() + v.numel() + B * Sq * H * Dv) * es \
         + (0 if slopes is None else 4 * H)
     return CostSummary(flops=2 * B * H * pairs * (Dk + Dv),
                        bytes_accessed=nbytes)
+
+
+def _sum_min(a: int, n: int, cap: int) -> int:
+    """sum(min(a + i, cap) for i in range(n))."""
+    k = max(0, min(n, cap - a))  # the terms below the cap
+    return k * a + k * (k - 1) // 2 + (n - k) * cap
+
+
+def causal_pairs(sq: int, skv: int, q_start: int, window: int) -> int:
+    """The (query, key) pairs causal attention inside ``window`` reaches:
+    ``sum(min(q_start + i + 1, skv) - max(0, q_start + i - window + 1))``
+    over the ``sq`` queries, in closed form."""
+    b = q_start - window + 1  # the first key of query i is max(0, b + i)
+    i0 = min(sq, max(0, 1 - b))  # the queries from i0 on start past key 0
+    past = (sq - i0) * b + (sq * (sq - 1) - i0 * (i0 - 1)) // 2
+    return _sum_min(q_start + 1, sq, skv) - past
 
 
 def _launcher(dtype):
@@ -107,6 +125,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
         return attention_ref(q, k, v, causal=causal, window=window,
                              slopes=slopes, q_start=q_start)
     refuse_grad("flash_attention (K2)", q, k, v, slopes)
+    counting = meta_calls()
+    if q.device.type == "meta" and counting is not None:
+        counting.cost.scaled_add(cost(q, k, v, q_start, window, causal,
+                                      slopes), 1.0)
+        return q.new_empty(q.shape[:3] + v.shape[-1:])
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     B, Sq, H, Dk = q.shape

@@ -17,11 +17,13 @@
   fresh tensor with no ``grad_fn``, so a wrapper raises rather than launch
   while autograd records a call on an input that requires grad: the
   gradients of its inputs would be dropped without an error.
-* ``count_meta_calls`` — a decode step run on meta tensors (no data, no
-  device) inside this block sends its attention to K1's wrapper, which
-  adds the call's ``cost`` and returns an empty output: the count of a
-  step's work is then the same wherever the step runs
-  (``BlockServer.decode_step_cost``).
+* ``count_meta_calls`` — a step run on meta tensors (no data, no device)
+  inside this block sends its attention and scans to the kernel wrappers
+  (K1 and its partials and merge, K2, K3, K4), each of which adds the
+  call's ``cost``, allocates what its launch would (outputs and split
+  scratch) and returns empty outputs: the count of a step's work is then
+  the same wherever the step runs (``BlockServer.decode_step_cost``, the
+  dry run ``launch.dryrun``).
 * ``load_library`` / ``build_all`` — build ``csrc/<name>.cu`` with ``nvcc``
   for ``sm_90a`` into a shared library with a plain C interface, and load it
   with ``ctypes``.  The build happens at first use, never at import, into
@@ -96,8 +98,9 @@ def refuse_grad(name: str, *tensors) -> None:
 
 class MetaCalls:
     """The kernel calls a step makes on meta tensors: their summed cost
-    (a ``launch.costs.CostSummary``), counted with every row at ``pos``
-    and, where a call masks by encoder length, at ``kv_len``."""
+    (a ``launch.costs.CostSummary``), K1's counted with every row at
+    ``pos`` and, where a call masks by encoder length, at ``kv_len``; K2
+    takes its ``q_start`` and window from the call's own arguments."""
 
     def __init__(self, pos: int, kv_len: int):
         self.pos, self.kv_len = int(pos), int(kv_len)

@@ -2,17 +2,19 @@
 hand-written CUDA kernel (``kernels/csrc/ssd.cu``, a chunked scan on the
 tensor cores).
 
-``ssd`` takes x (B,S,H,p), head-shared Bm/Cm (B,S,n), dt (B,S,H), A/D
-(H,) and an optional carried state (B,H,p,n), all float32 (the reference
-casts x, B and C to f32 before the scan), and returns (y (B,S,H,p),
-state_out (B,H,p,n)); ``y`` includes the ``D`` skip.  A CPU tensor goes to
-the plain version (``ref.py``); a CUDA tensor goes to the kernel, or the
-call raises — there is no fallback.  ``ssd.launches`` counts wrapper calls
-that ran the kernel; one call issues ``ssd_plan(...).launches`` CUDA
-launches (one for a single chunk; local states, carry and output
-otherwise).  The kernel reads x, B, C and dt through their strides, so the
-wrapper makes no transposed copies; it allocates the chunk-state scratch
-the plan names.  ``cost`` gives a call's bytes and flops.
+``ssd`` takes x (B,S,H,p), head-shared Bm/Cm (B,S,n), dt (B,S,H), A/D (H,)
+and an optional carried state (B,H,p,n), all float32 (the reference casts
+x, B and C to f32 before the scan), and returns (y (B,S,H,p), state_out
+(B,H,p,n)); ``y`` includes the ``D`` skip.  A CPU tensor goes to the plain
+version (``ref.py``); a CUDA tensor goes to the kernel, or the call raises
+— there is no fallback; a meta tensor inside ``runtime.count_meta_calls``
+adds the call's ``cost`` and returns empty outputs (the dry run's count),
+and raises outside it.  ``ssd.launches`` counts wrapper calls that ran the
+kernel; one call issues ``ssd_plan(...).launches`` CUDA launches (one for a
+single chunk; local states, carry and output otherwise).  The kernel reads
+x, B, C and dt through their strides, so the wrapper makes no transposed
+copies; it allocates the chunk-state scratch the plan names.  ``cost``
+gives a call's bytes and flops.
 
 A device-group slot calls it on its head slice: views of x and dt over the
 slot's heads, its heads of A, D and of the carried state (B and C are
@@ -27,7 +29,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels.runtime import (check_launch, load_library,
-                                         refuse_grad, require_ints)
+                                         meta_calls, refuse_grad,
+                                         require_ints)
 from repro_torch.kernels.ssd.ref import ssd_chunked
 from repro_torch.launch.costs import CostSummary
 
@@ -119,6 +122,17 @@ def ssd(x, Bm, Cm, dt, A, D, state=None):
     if x.device.type == "cpu":
         return ssd_chunked(x, Bm, Cm, dt, A, D, state)
     refuse_grad("ssd (K4)", x, Bm, Cm, dt, A, D, state)
+    counting = meta_calls()
+    if x.device.type == "meta" and counting is not None:
+        counting.cost.scaled_add(cost(x, Bm, Cm, dt, A, D, state), 1.0)
+        B, S, H, p = x.shape
+        out = (x.new_empty((B, S, H, p), dtype=torch.float32),
+               x.new_empty((B, H, p, Bm.shape[-1]), dtype=torch.float32))
+        scratch = [x.new_empty(s, dtype=torch.float32)  # as launched
+                   for s in ssd_plan(B, S, H, p, Bm.shape[-1]).scratch
+                   or ()]
+        del scratch
+        return out
     if x.device.type != "cuda":
         raise ValueError(f"ssd: no kernel for device {x.device}")
     B, S, H, p = x.shape

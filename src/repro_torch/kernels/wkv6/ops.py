@@ -6,8 +6,10 @@ tensor cores).
 (B,H,hd,hd), all float32 (the reference casts r/k/v to f32 before the
 scan), and returns (out (B,S,H,hd), state_out (B,H,hd,hd)).  A CPU tensor
 goes to the plain version (``ref.py``); a CUDA tensor goes to the kernel,
-or the call raises — there is no fallback.  ``wkv6.launches`` counts
-wrapper calls that ran the kernel; one call issues
+or the call raises — there is no fallback; a meta tensor inside
+``runtime.count_meta_calls`` adds the call's ``cost`` and returns empty
+outputs (the dry run's count), and raises outside it.
+``wkv6.launches`` counts wrapper calls that ran the kernel; one call issues
 ``wkv6_plan(...).launches`` CUDA launches (one when a block per (row, head)
 walks the chunks; local states, carry and output when the chunks run in
 parallel).  The kernel reads the four sequence
@@ -28,7 +30,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels.runtime import (check_launch, load_library,
-                                         refuse_grad, require_ints)
+                                         meta_calls, refuse_grad,
+                                         require_ints)
 from repro_torch.kernels.wkv6.ref import wkv6_chunked
 from repro_torch.launch.costs import CostSummary
 
@@ -113,6 +116,16 @@ def wkv6(r, k, v, lw, u, state=None):
     if r.device.type == "cpu":
         return wkv6_chunked(r, k, v, lw, u, state)
     refuse_grad("wkv6 (K3)", r, k, v, lw, u, state)
+    counting = meta_calls()
+    if r.device.type == "meta" and counting is not None:
+        counting.cost.scaled_add(cost(r, k, v, lw, u, state), 1.0)
+        B, S, H, hd = r.shape
+        out = (r.new_empty((B, S, H, hd), dtype=torch.float32),
+               r.new_empty((B, H, hd, hd), dtype=torch.float32))
+        scratch = [r.new_empty(s, dtype=torch.float32)  # as launched
+                   for s in wkv6_plan(B, S, H, hd).scratch or ()]
+        del scratch
+        return out
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: no kernel for device {r.device}")
     B, S, H, hd = r.shape

@@ -14,9 +14,11 @@ that is how a (2, 4) group runs on the CPU, or on one card.  Without it,
 ``group_meshes`` takes ``cuda:i`` for ``i < torch.cuda.device_count()`` and
 raises when the shapes ask for more.
 
-The reference's ``compat_make_mesh`` (a shim over ``jax.make_mesh``'s API
-changes) and ``make_production_mesh`` (the 256/512-chip TPU meshes of its
-dry run) have no counterpart.
+``make_production_mesh`` gives the reference's production meshes — 16 x
+16 over ``(data, model)`` and 2 x 16 x 16 over ``(pod, data, model)`` —
+as slots on the meta device, where the dry run (``launch.dryrun``) runs
+a step without data.  The reference's ``compat_make_mesh`` (a shim over
+``jax.make_mesh``'s API changes) has no counterpart.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ import torch
 
 
 class GroupMesh:
-    """A ``(data, model)`` array of device slots with its axis names.
+    """A ``(data, model)`` (or ``(pod, data, model)``) array of device
+    slots with its axis names.
 
     ``devices`` is a numpy object array of ``torch.device``; slots are
     numbered row-major (slot ``i * n_model + j`` sits at ``(i, j)``).  The
@@ -100,6 +103,16 @@ def group_meshes(group_shapes: Dict, axis_names=("data", "model"),
         out[j] = GroupMesh(arr.reshape(tuple(shape)), axis_names)
         off += n
     return out
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> GroupMesh:
+    """The reference's production mesh — (16, 16) over ``(data, model)``,
+    or (2, 16, 16) over ``(pod, data, model)`` with ``multi_pod`` — of
+    slots on the meta device."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return GroupMesh(np.full(shape, torch.device("meta"), dtype=object),
+                     axes)
 
 
 def make_mesh_for(n_devices: Optional[int] = None, model_parallel: int = 1,

@@ -32,7 +32,8 @@ of the mesh and ``make_rules`` at a train shape, which puts the batch on
 its whole shape; ``param_axes`` is the reference's axes tree of a whole
 model.  The rules a slot step does not emulate — ``seq_act`` (the
 sequence-sharded residual stream), ``attn_seq_q`` and the ``head_dim``
-fallback — raise ``NotImplementedError`` (``check_train_rules``).
+fallback — raise ``NotImplementedError`` (``check_group_rules``), in
+training and in the group forms of ``prefill`` / ``decode_step`` alike.
 """
 from __future__ import annotations
 
@@ -202,13 +203,16 @@ def cache_tree_axes(tree, rules=None):
 class ShardingCtx:
     """A mesh and its rules (logical axis -> mesh axes): the counterpart of
     the reference's ``ShardingCtx``.  ``mesh`` None is the solo twin
-    (``NULL_SH``); ``cfg`` is the config the rules were made for."""
+    (``NULL_SH``); ``cfg`` is the config the rules were made for;
+    ``stand_in``: a group step runs slot 0's body for every slot
+    (``models.layers.GroupCtx``; the dry run's count)."""
 
     def __init__(self, mesh=None, rules: Optional[Dict[str, object]] = None,
-                 cfg: Optional[ModelConfig] = None):
+                 cfg: Optional[ModelConfig] = None, stand_in: bool = False):
         self.mesh = mesh
         self.rules = dict(rules or {})
         self.cfg = cfg
+        self.stand_in = stand_in
 
     def spec(self, axes, shape) -> tuple:
         """The per-dimension mesh axes of a leaf of ``shape`` whose logical
@@ -221,13 +225,14 @@ class ShardingCtx:
 NULL_SH = ShardingCtx()
 
 
-def make_ctx(cfg: ModelConfig, mesh, shape: ShapeSpec) -> ShardingCtx:
+def make_ctx(cfg: ModelConfig, mesh, shape: ShapeSpec,
+             stand_in: bool = False) -> ShardingCtx:
     """The reference's ``make_ctx``: the mesh and ``make_rules`` of (cfg,
     mesh, shape)."""
-    return ShardingCtx(mesh, make_rules(cfg, mesh, shape), cfg)
+    return ShardingCtx(mesh, make_rules(cfg, mesh, shape), cfg, stand_in)
 
 
-_UNPORTED_TRAIN_RULES = {
+_UNPORTED_RULES = {
     "seq_act": "the sequence-sharded residual stream (Megatron-SP)",
     "attn_seq_q": "sequence-parallel attention for query heads that do not "
                   "divide the model axis",
@@ -235,21 +240,22 @@ _UNPORTED_TRAIN_RULES = {
 }
 
 
-def check_train_rules(rules: Dict[str, object],
-                      cfg: ModelConfig) -> Dict[str, object]:
-    """``rules`` when a group's training step emulates them;
-    ``NotImplementedError`` naming the rule where they set ``seq_act``,
-    ``attn_seq_q`` or the ``head_dim`` fallback (ROADMAP A10(b)).  The
+def check_group_rules(rules: Dict[str, object], cfg: ModelConfig,
+                      form: str = "training") -> Dict[str, object]:
+    """``rules`` when the port's group ``form`` (its training step, or the
+    group forms of ``prefill`` / ``decode_step``) emulates them;
+    ``NotImplementedError`` naming each rule they set of ``seq_act``,
+    ``attn_seq_q`` and the ``head_dim`` fallback (ROADMAP A10(b)).  The
     attention rules do not apply to a stack without attention (RWKV6,
     whose zero query heads divide no model axis)."""
-    for name, what in _UNPORTED_TRAIN_RULES.items():
-        if name != "seq_act" and cfg.n_heads == 0:
-            continue
-        if rules.get(name) is not None:
-            raise NotImplementedError(
-                f"the rules set {name!r} = {rules[name]!r} ({what}), which "
-                "the port's group training step does not emulate (ROADMAP "
-                "A10(b))")
+    set_ = [f"{name!r} = {rules[name]!r} ({what})"
+            for name, what in _UNPORTED_RULES.items()
+            if rules.get(name) is not None
+            and (name == "seq_act" or cfg.n_heads > 0)]
+    if set_:
+        raise NotImplementedError(
+            f"the rules set {', '.join(set_)}, which the port's group "
+            f"{form} step does not emulate (ROADMAP A10(b))")
     return rules
 
 
@@ -334,6 +340,27 @@ def param_shardings(cfg: ModelConfig, sh: ShardingCtx, axes_tree,
     return _map_axes(lambda ax, x: sh.spec(ax, x.shape), axes_tree, params)
 
 
+def shard_params(cfg: ModelConfig, sh: ShardingCtx, params):
+    """Per-slot trees of a whole model's ``params`` under ``sh``'s rules:
+    each leaf's block (:func:`shard`, on its slot's device) by its spec
+    (:func:`param_shardings` of :func:`param_axes`); slot 0's alone under
+    ``sh.stand_in``."""
+    specs = param_shardings(cfg, sh, param_axes(cfg, params), params)
+    out = [{} for _ in slot_devices(sh)]
+
+    def put(dsts, tree, spec):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                put([d.setdefault(k, {}) for d in dsts], v, spec[k])
+            else:
+                for d, blk in zip(dsts, shard(v, spec[k], sh.mesh,
+                                              sh.stand_in)):
+                    d[k] = blk
+
+    put(out, params, specs)
+    return out
+
+
 def _map_axes(fn, axes_tree, tree):
     if isinstance(tree, dict):
         return {k: _map_axes(fn, axes_tree[k], v) for k, v in tree.items()}
@@ -357,9 +384,14 @@ def replica_slots(mesh, spec, slot: int):
     for e in spec:
         if e is not None:
             used.update(e if isinstance(e, tuple) else (e,))
-    me = _coords(mesh, slot)
-    return [t for t in range(int(mesh.devices.size))
-            if all(_coords(mesh, t)[a] == me[a] for a in used)]
+    shape = mesh.devices.shape
+    me = np.unravel_index(int(slot), shape)
+    grid = np.indices(shape).reshape(len(shape), -1)
+    ok = np.ones(grid.shape[1], dtype=bool)
+    for k, a in enumerate(mesh.axis_names):
+        if a in used:
+            ok &= grid[k] == me[k]
+    return [int(t) for t in np.flatnonzero(ok)]
 
 
 # ---------------------------------------------------------------------------
@@ -670,13 +702,21 @@ def slot_index(x_shape, spec, mesh, slot: int):
     return tuple(idx)
 
 
-def shard(x: torch.Tensor, spec, mesh):
+def slot_devices(sh: ShardingCtx):
+    """The devices of the slots a group step of ``sh`` runs: every slot's,
+    or slot 0's alone under ``sh.stand_in``."""
+    devs = sh.mesh.slot_devices()
+    return devs[:1] if sh.stand_in else devs
+
+
+def shard(x: torch.Tensor, spec, mesh, stand_in: bool = False):
     """Per-slot blocks of ``x`` under ``spec``: slot ``s``'s block on its
-    device.  A block on the device ``x`` already lives on is a view of
-    ``x`` (slots that share a device share a replicated leaf); on another
-    device it is a copy."""
+    device (slot 0's alone with ``stand_in``).  A block on the device
+    ``x`` already lives on is a view of ``x`` (slots that share a device
+    share a replicated leaf); on another device it is a copy."""
     out = []
-    for s, dev in enumerate(mesh.slot_devices()):
+    for s, dev in enumerate(mesh.slot_devices()[:1] if stand_in
+                            else mesh.slot_devices()):
         out.append(x[slot_index(tuple(x.shape), spec, mesh, s)].to(dev))
     return out
 
@@ -696,10 +736,11 @@ __all__ = [
     "DeviceGroup", "NULL_SH", "ShardingCtx", "as_device_group",
     "batch_specs", "block_param_axes", "block_param_shardings",
     "cache_axes_for", "cache_shardings", "cache_specs", "cache_tree_axes",
-    "check_train_rules", "embed_param_axes", "freeze_rules",
-    "frozen_serving_rules", "fsdp_dim", "group_layout_rules",
-    "guarded_spec", "make_ctx", "make_rules", "param_axes",
-    "param_shardings", "pool_tree_shardings", "replica_slots",
-    "serving_rules", "shard", "shared_param_axes", "slot_index",
-    "thaw_rules", "unshard",
+    "check_group_rules", "embed_param_axes",
+    "freeze_rules", "frozen_serving_rules", "fsdp_dim",
+    "group_layout_rules", "guarded_spec", "make_ctx", "make_rules",
+    "param_axes", "param_shardings", "pool_tree_shardings",
+    "replica_slots", "serving_rules", "shard", "shard_params",
+    "shared_param_axes", "slot_devices", "slot_index", "thaw_rules",
+    "unshard",
 ]

@@ -610,7 +610,7 @@ def _partials_merged(ctxs, qs, ks, vs, poss, shards, heads, backend, name,
             slopes[h or 0:(h or 0) + q_own.shape[2]]
         parts.append(run(q, ck, cv, pos, t0=sh[0], window=window, slopes=sl,
                          kv_len=kvl, causal=causal, scale=scale))
-    return [c.merge_partials([parts[s] for s in c.time_row(name)],
+    return [c.merge_partials(c.peers(parts, c.time_row(name)),
                              lo, lo + q.shape[2], q.dtype, kernel)
             for c, q, lo in zip(ctxs, qs, ((h or 0) if every else 0
                                            for h in heads))]

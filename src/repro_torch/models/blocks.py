@@ -260,13 +260,16 @@ def _mixer_decode_group(aps, cfg: ModelConfig, ctxs, xs, caches, poss,
 
 
 def _ffn_group(ps, cfg: ModelConfig, ctxs, hs, rows_split: bool,
-               moe_ep: bool = False):
-    """``_ffn`` on a group: ln2 -> MLP (TP) or MoE (per-row, or the pure EP
-    all-to-all over a (data, model) token grid when ``moe_ep``) -> residual."""
+               moe_ep: bool = False, batch_moe: bool = False):
+    """``_ffn`` on a group: ln2 -> MLP (TP) or MoE (per-row, the pure EP
+    all-to-all over a (data, model) token grid when ``moe_ep``, or the
+    whole batch's routing when ``batch_moe``) -> residual."""
     xs = [apply_norm(p["ln2"], cfg, h) for p, h in zip(ps, hs)]
     fs = [p["ffn"] for p in ps]
     if not cfg.is_moe:
         ms = mlp_group(fs, cfg, ctxs, xs)
+    elif batch_moe:
+        ms = moe.apply_moe_batch_group(fs, cfg, ctxs, xs)[0]
     elif ctxs[0].mesh is None:  # a solo server's one slot
         ms = [moe.apply_moe(fs[0], cfg, xs[0], per_row=True)[0]]
     elif moe_ep:
@@ -321,38 +324,51 @@ def _attn_full_group(ps, cfg: ModelConfig, ctxs, hs, poss, layer_idx,
              for p, h, y in zip(ps, hs, a)], [o[1] for o in outs])
 
 
-def decoder_block_train_group(ps, cfg: ModelConfig, ctxs, hs, poss,
-                              layer_idx=0, backend: str = "plain"):
-    """The training step's decoder block on a group: each slot's rows
-    (row block ``i`` on data index ``i``), attention as in
-    :func:`decoder_block_full_group` and the MoE over the whole batch
-    (``moe.apply_moe_batch_group``).  Returns (per-slot h, aux: the MoE's
-    terms on slot 0's device, or {})."""
-    hs, _ = _attn_full_group(ps, cfg, ctxs, hs, poss, layer_idx, None,
-                             backend)
+def decoder_block_batch_group(ps, cfg: ModelConfig, ctxs, hs, poss,
+                              layer_idx=0, backend: str = "kernel"):
+    """The decoder block of a whole batch on a group — the training step's
+    and the group ``prefill``'s: each slot's block of the rows, attention
+    as in :func:`decoder_block_full_group` and the MoE over the whole
+    batch (``moe.apply_moe_batch_group``).  Returns (per-slot h, per-slot
+    cache entries of the sequence, aux: the MoE's terms on slot 0's
+    device, or {})."""
+    hs, caches = _attn_full_group(ps, cfg, ctxs, hs, poss, layer_idx, None,
+                                  backend)
     if not cfg.is_moe:
-        return _ffn_group(ps, cfg, ctxs, hs, True), {}
+        return _ffn_group(ps, cfg, ctxs, hs, True), caches, {}
     xs = [apply_norm(p["ln2"], cfg, h) for p, h in zip(ps, hs)]
     ms, aux = moe.apply_moe_batch_group([p["ffn"] for p in ps], cfg, ctxs,
                                         xs)
     return [_residual(p, cfg, h, m, "post_ln2")
-            for p, h, m in zip(ps, hs, ms)], aux
+            for p, h, m in zip(ps, hs, ms)], caches, aux
+
+
+def decoder_block_train_group(ps, cfg: ModelConfig, ctxs, hs, poss,
+                              layer_idx=0, backend: str = "plain"):
+    """The training step's decoder block on a group
+    (:func:`decoder_block_batch_group` without its caches).  Returns
+    (per-slot h, aux)."""
+    hs, _, aux = decoder_block_batch_group(ps, cfg, ctxs, hs, poss,
+                                           layer_idx, backend)
+    return hs, aux
 
 
 def decoder_block_decode_group(ps, cfg: ModelConfig, ctxs, hs, caches,
                                poss, layer_idx=0, actives=None,
                                backend: str = "kernel",
                                rows_split: bool = False,
-                               moe_ep: bool = False):
+                               moe_ep: bool = False,
+                               batch_moe: bool = False):
     """:func:`decoder_block_decode` on a group: per-slot h (B_i, 1, d),
-    caches (written in place on the ``actives`` rows), positions.  Returns
-    per-slot h."""
+    caches (written in place on the ``actives`` rows), positions.
+    ``batch_moe``: the MoE routes the whole batch (the group
+    ``decode_step``; the pooled steps route rows).  Returns per-slot h."""
     win = window_for_layer(cfg, layer_idx)
     xs = [apply_norm(p["ln1"], cfg, h) for p, h in zip(ps, hs)]
     a = _mixer_decode_group([p["attn"] for p in ps], cfg, ctxs, xs, caches,
                             poss, win, actives, backend)
     hs = [_residual(p, cfg, h, y, "post_ln1") for p, h, y in zip(ps, hs, a)]
-    return _ffn_group(ps, cfg, ctxs, hs, rows_split, moe_ep)
+    return _ffn_group(ps, cfg, ctxs, hs, rows_split, moe_ep, batch_moe)
 
 
 def encoder_block_full_group(ps, cfg: ModelConfig, ctxs, hs, poss,

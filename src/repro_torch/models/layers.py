@@ -14,6 +14,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import functools
+import itertools
 import math
 from typing import Dict, List, Optional, Sequence
 
@@ -22,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.costs import collective_ops
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -71,6 +73,10 @@ class ParamBuilder:
         fan_in = shape[0] if len(shape) > 1 else shape[-1]
         scale = scale if scale is not None else 1.0 / math.sqrt(max(1, fan_in))
         full = self.lead + tuple(shape)
+        if self.device.type == "meta":  # shapes only: nothing to draw
+            self.params[name] = torch.empty(full, dtype=dtype,
+                                            device=self.device)
+            return
         if math.prod(full) <= _DRAW_WHOLE:
             self.params[name] = self._draw(full, scale).to(
                 device=self.device, dtype=dtype)
@@ -292,44 +298,85 @@ def apply_mlp(params, cfg: ModelConfig, x):
 
 class GroupCtx:
     """One slot of a device group (``launch.mesh.GroupMesh``): its device
-    and its ``(data, model)`` coordinates — the counterpart of the
-    reference's ``ShardingCtx``.  ``NULL`` is the solo server's.
+    and its mesh coordinates — the counterpart of the reference's
+    ``ShardingCtx``.  ``NULL`` is the solo server's.  A mesh is ``(data,
+    model)`` or, over several pods, ``(pod, data, model)``; ``i`` and ``j``
+    are the slot's data and model index (0 on an axis the mesh lacks).
 
     The group's slots run in lockstep in one process, so a collective
     takes the peers' tensors as a list in slot order and returns this
     slot's result on its own device: copies are ``non_blocking`` and
     nothing reads a value on the host.  Inside :func:`count_collectives`
     each call adds its per-slot wire bytes by the ring model of the
-    reference's ``parse_collectives``."""
+    reference's ``parse_collectives``.
+
+    ``stand_in``: the group runs this one slot's body for every slot (the
+    dry run's count at 256 / 512 slots): the per-slot lists hold its
+    tensors alone, and they stand in for every peer's in a collective
+    (:meth:`peers`).  Every slot of a cell has the same shard shapes, so
+    the collectives move what they would."""
 
     def __init__(self, mesh=None, slot: int = 0, rules=None,
-                 whole_time=()):
+                 whole_time=(), stand_in: bool = False):
         self.mesh = mesh
         self.slot = int(slot)
         self.rules = dict(rules or {})
+        self.stand_in = bool(stand_in)
         # cache leaves whose time axis a step holds whole whatever the rules
         # say (the paged steps' scratch of gathered whole pages)
         self.whole_time = frozenset(whole_time)
         if mesh is None:
-            self.n_data = self.n_model = 1
-            self.i = self.j = 0
+            self.sizes, self.coords = {}, {}
             self.device = None
         else:
-            self.n_data, self.n_model = mesh.devices.shape
-            self.i, self.j = divmod(self.slot, self.n_model)
-            self.device = mesh.devices[self.i, self.j]
+            shape = mesh.devices.shape
+            idx = np.unravel_index(self.slot, shape)
+            self.sizes = dict(zip(mesh.axis_names, (int(n) for n in shape)))
+            self.coords = dict(zip(mesh.axis_names, (int(k) for k in idx)))
+            self.device = mesh.devices[idx]
+        self.n_data = self.sizes.get("data", 1)
+        self.n_model = self.sizes.get("model", 1)
+        self.i = self.coords.get("data", 0)
+        self.j = self.coords.get("model", 0)
+
+    def peers(self, parts, slots) -> list:
+        """The entries of the per-slot list ``parts`` of ``slots`` — on a
+        stand-in slot, its own entry for each."""
+        if self.stand_in:
+            return [parts[0]] * len(slots)
+        return [parts[s] for s in slots]
+
+    def _axes(self, logical: str, rules=None):
+        ax = (self.rules if rules is None else rules).get(logical)
+        return () if ax is None else ax if isinstance(ax, tuple) else (ax,)
 
     def block(self, logical: str, rules=None):
         """(block index, block count) of this slot along the mesh axes the
         rule of ``logical`` names ((0, 1) when it replicates)."""
-        ax = (self.rules if rules is None else rules).get(logical)
-        axes = () if ax is None else ax if isinstance(ax, tuple) else (ax,)
-        coords = {"data": (self.i, self.n_data),
-                  "model": (self.j, self.n_model)}
         b, n = 0, 1
-        for a in axes:
-            b, n = b * coords[a][1] + coords[a][0], n * coords[a][1]
+        for a in self._axes(logical, rules):
+            b, n = b * self.sizes[a] + self.coords[a], n * self.sizes[a]
         return b, n
+
+    def line(self, axes) -> List[int]:
+        """The slots that share this slot's coordinates on every mesh axis
+        but ``axes``, ordered by their block index along ``axes`` (in
+        that order): the peers a leaf split over ``axes`` is gathered
+        from, one per block."""
+        key = (id(self.mesh), tuple(axes), self.slot)
+        hit = _LINES.get(key)
+        if hit is None or hit[0] is not self.mesh:
+            names = self.mesh.axis_names
+            shape = self.mesh.devices.shape
+            ranges = [range(shape[k]) if a in axes else [self.coords[a]]
+                      for k, a in enumerate(names)]
+            pos = {a: k for k, a in enumerate(names)}
+            coords = sorted(
+                itertools.product(*ranges),
+                key=lambda c: tuple(c[pos[a]] for a in axes))
+            hit = _LINES[key] = (self.mesh, [
+                int(np.ravel_multi_index(c, shape)) for c in coords])
+        return hit[1]
 
     def _time_rule(self, name: str):
         """(rules, logical axis) of the time axis of cache leaf ``name``:
@@ -342,8 +389,8 @@ class GroupCtx:
     def time_block(self, name: str):
         """(block index, block count) of this slot along the time axis of
         the cache leaf ``name`` ((0, 1): the slot holds the whole axis) —
-        over ``model``; where the pool rows do not split over ``data``,
-        over ``data`` and ``model``, or ``data`` beside KV heads over
+        over ``model``; where the rows do not split over the batch axes,
+        over them and ``model``, or over them beside KV heads over
         ``model``."""
         if name in self.whole_time:
             return 0, 1
@@ -357,28 +404,33 @@ class GroupCtx:
         if self.time_block(name)[1] == 1:
             return [self.slot]
         rules, ax = self._time_rule(name)
-        mesh_ax = rules.get(ax)
-        axes = mesh_ax if isinstance(mesh_ax, tuple) else (mesh_ax,)
-        peers = [GroupCtx(self.mesh, s, self.rules)
-                 for s in range(self.n_data * self.n_model)]
-        peers = [c for c in peers
-                 if ("data" in axes or c.i == self.i)
-                 and ("model" in axes or c.j == self.j)]
-        return [c.slot for c in sorted(peers,
-                                       key=lambda c: c.time_block(name)[0])]
+        return self.line(self._axes(ax, rules))
 
     def slot_at(self, **coords) -> int:
         """The slot at this slot's coordinates with ``coords`` replaced."""
-        i, j = coords.get("data", self.i), coords.get("model", self.j)
-        return i * self.n_model + j
+        if self.mesh is None:
+            return 0
+        c = dict(self.coords, **coords)
+        return int(np.ravel_multi_index(
+            tuple(c[a] for a in self.mesh.axis_names),
+            self.mesh.devices.shape))
 
     def model_row(self) -> List[int]:
-        """Slots of this slot's model row, (i, 0) .. (i, M-1)."""
-        return [self.i * self.n_model + m for m in range(self.n_model)]
+        """Slots of this slot's model row, (.., i, 0) .. (.., i, M-1)."""
+        return [self.slot] if self.mesh is None else self.line(("model",))
 
-    def data_column(self) -> List[int]:
-        """Slots of this slot's data column, (0, j) .. (D-1, j)."""
-        return [d * self.n_model + self.j for d in range(self.n_data)]
+    def row_block(self):
+        """(index, count) of this slot's block of the batch rows: the
+        ``batch`` rule's (data, or pod and data; (0, 1) when the rows
+        replicate)."""
+        return self.block("batch")
+
+    def row_column(self) -> List[int]:
+        """The slots at this slot's model index (and pod, where the rows
+        replicate over it) holding each row block, in row order."""
+        if self.mesh is None:
+            return [self.slot]
+        return self.line(self._axes("batch"))
 
     def to_here(self, x):
         return x if self.device is None else x.to(self.device,
@@ -395,9 +447,10 @@ class GroupCtx:
                     nbytes=_nbytes(parts[0]) / len(parts))
         else:
             _record("all-reduce", parts[0], len(parts))
-        out = self.to_here(parts[0])
-        for p in parts[1:]:
-            out = out + self.to_here(p)
+        with collective_ops():
+            out = self.to_here(parts[0])
+            for p in parts[1:]:
+                out = out + self.to_here(p)
         return out
 
     def gather_blocks(self, parts, idxs, shape):
@@ -407,9 +460,10 @@ class GroupCtx:
         if len(parts) > 1:
             _record("all-gather", parts[0], len(parts), gathered=True,
                     nbytes=sum(_nbytes(p) for p in parts) / len(parts))
-        out = self.to_here(parts[0]).new_empty(tuple(shape))
-        for p, idx in zip(parts, idxs):
-            out[idx] = self.to_here(p)
+        with collective_ops():
+            out = self.to_here(parts[0]).new_empty(tuple(shape))
+            for p, idx in zip(parts, idxs):
+                out[idx] = self.to_here(p)
         return out
 
     def all_gather(self, parts, dim: int = -1):
@@ -419,7 +473,8 @@ class GroupCtx:
             return self.to_here(parts[0])
         _record("all-gather", parts[0], len(parts), gathered=True,
                 nbytes=sum(_nbytes(p) for p in parts) / len(parts))
-        return torch.cat([self.to_here(p) for p in parts], dim=dim)
+        with collective_ops():
+            return torch.cat([self.to_here(p) for p in parts], dim=dim)
 
     def merge_partials(self, parts, lo: int, hi: int, dtype,
                        kernel: bool = True):
@@ -461,25 +516,42 @@ class GroupCtx:
 
 
 NULL = GroupCtx()
+# GroupCtx.line by (id of the mesh, axes, slot): (the mesh, the slots)
+_LINES: Dict = {}
 
 
-def group_ctxs(mesh, rules=None, whole_time=()) -> List[GroupCtx]:
-    """The ctx of every slot of ``mesh``, in slot order."""
+def group_ctxs(mesh, rules=None, whole_time=(),
+               stand_in: bool = False) -> List[GroupCtx]:
+    """The ctx of every slot of ``mesh``, in slot order; ``stand_in``: slot
+    0's alone, standing in for every slot (``GroupCtx``)."""
+    if stand_in:
+        return [GroupCtx(mesh, 0, rules, whole_time, True)]
     return [GroupCtx(mesh, s, rules, whole_time)
             for s in range(int(mesh.devices.size))]
+
+
+def row_heads(ctxs) -> List[int]:
+    """One slot per block of the batch rows, in row order: the slots at
+    index 0 on every mesh axis the ``batch`` rule does not name (sums over
+    the rows take each row once)."""
+    c0 = ctxs[0]
+    every = [GroupCtx(c0.mesh, s, c0.rules)
+             for s in range(int(c0.mesh.devices.size))] \
+        if c0.stand_in else ctxs
+    return [c.slot for c in every
+            if all(k == 0 for a, k in c.coords.items()
+                   if a not in c._axes("batch"))]
 
 
 def reduce_model(ctxs, parts):
     """Per slot: the sum of its model row's partials (the all-reduce after
     a row-split product)."""
-    return [c.all_reduce_sum([parts[s] for s in c.model_row()])
-            for c in ctxs]
+    return [c.all_reduce_sum(c.peers(parts, c.model_row())) for c in ctxs]
 
 
 def gather_model(ctxs, parts, dim: int = -1):
     """Per slot: its model row's shards concatenated along ``dim``."""
-    return [c.all_gather([parts[s] for s in c.model_row()], dim)
-            for c in ctxs]
+    return [c.all_gather(c.peers(parts, c.model_row()), dim) for c in ctxs]
 
 
 def gather_time(ctxs, shards, n: int, name: str = "k"):
@@ -490,10 +562,10 @@ def gather_time(ctxs, shards, n: int, name: str = "k"):
     outs = []
     for c in ctxs:
         row = c.time_row(name)
-        w = shards[c.slot].shape[1]
+        w = c.peers(shards, [c.slot])[0].shape[1]
         outs.append(c.all_gather(
-            [shards[s][:, :max(0, min(w, n - i * w))]
-             for i, s in enumerate(row)], dim=1))
+            [x[:, :max(0, min(w, n - i * w))]
+             for i, x in enumerate(c.peers(shards, row))], dim=1))
     return outs
 
 

@@ -28,6 +28,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -119,6 +120,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
         params["shared"] = B.init_zamba_shared(
             ParamBuilder(generator, device), cfg)
     return params
+
+
+def init_params_shapes(cfg: ModelConfig):
+    """(params, axes): the params tree as meta tensors — shapes and dtypes,
+    no data, no generator — and its logical-axes tree
+    (``launch.sharding.param_axes``); the reference's
+    ``init_params_shapes`` (``model.py:146``)."""
+    from repro_torch.launch.sharding import param_axes
+
+    params = init_params(cfg, None, "meta")
+    return params, param_axes(cfg, params)
 
 
 def hybrid_mamba_stack(params, cfg: ModelConfig):
@@ -352,69 +364,85 @@ def _forward_encdec(params, cfg: ModelConfig, batch, collect_caches,
     return h, aux, caches
 
 
+def _full_layer_group(cfg: ModelConfig, seg: SegmentSpec, pl, ctxs, hs, poss,
+                      layer_idx: int, backend: str, shared=None, emb0s=None,
+                      encs=None):
+    """One step of segment ``seg`` over a group's slots (``pl``: each
+    slot's layer params; the decoder's MoE over the whole batch): (per-slot
+    h, per-slot cache entries of the sequence or None, aux)."""
+    if seg.kind == "decoder":
+        return B.decoder_block_batch_group(pl, cfg, ctxs, hs, poss,
+                                           layer_idx, backend)
+    if seg.kind == "enc":
+        return B.encoder_block_full_group(pl, cfg, ctxs, hs, poss,
+                                          backend), None, {}
+    if seg.kind == "dec":
+        hs, entries = B.cross_decoder_block_full_group(
+            pl, cfg, ctxs, hs, poss, encs, backend=backend)
+        return hs, entries, {}
+    if seg.kind in ("rwkv", "mamba"):
+        blk = (B.rwkv_block_full_group if seg.kind == "rwkv"
+               else B.mamba_block_full_group)
+        hs, states = blk(pl, cfg, ctxs, hs, backend)
+        return hs, states, {}
+    states = []  # mega: period mamba blocks, then the shared attention
+    for pj in _slot_layers(pl, "mamba", seg.blocks_per_step):
+        hs, st = B.mamba_block_full_group(pj, cfg, ctxs, hs, backend)
+        states.append(st)
+    hs, kvs = B.zamba_shared_full_group(shared, cfg, ctxs, hs, emb0s, poss,
+                                        backend)
+    return hs, [{"mamba": _stack_tree([st[s] for st in states]),
+                 "attn": kvs[s]} for s in range(len(ctxs))], {}
+
+
 def _forward_full_group(ps, cfg: ModelConfig, batches, ctxs, backend: str,
-                        remat: bool):
-    """:func:`forward_full` over a group (see there)."""
+                        remat: bool, collect=None):
+    """:func:`forward_full` over a group (see there).  ``collect(seg, i,
+    entries)``: called with each layer's per-slot cache entries (the
+    group ``prefill``'s)."""
     from repro_torch.models.layers import embed_tokens_group
 
     dev0 = batches[0]["tokens"].device
-    aux_total = {"moe_aux_loss": torch.zeros((), device=dev0),
-                 "moe_drop_frac": torch.zeros((), device=dev0)}
+    # the MoE terms of the training step's loss (slot 0's scalars; the
+    # group prefill keeps none)
+    aux_total = {} if collect is not None else {
+        "moe_aux_loss": torch.zeros((), device=dev0),
+        "moe_drop_frac": torch.zeros((), device=dev0)}
     toks = [b["tokens"] for b in batches]
     poss = [torch.arange(t.shape[1], device=t.device) for t in toks]
-    embeds = [p["embed"] for p in ps]
+    segs = [p["segments"] for p in ps]
+    shared = [p.get("shared") for p in ps]
+    encs = None
     if cfg.is_enc_dec:
         frames = [b["frames"] for b in batches]
         enc_poss = [torch.arange(f.shape[1], device=f.device)
                     for f in frames]
-        enc = [embed_frames({"frame_proj": e["frame_proj"]}, cfg, f)
-               for e, f in zip(embeds, frames)]
+        encs = [embed_frames({"frame_proj": p["embed"]["frame_proj"]}, cfg,
+                             f) for p, f in zip(ps, frames)]
+    hs = emb0s = None
 
-        def enc_layer(pl, hs):
-            return B.encoder_block_full_group(pl, cfg, ctxs, hs, enc_poss,
-                                              backend)
-
-        def dec_layer(pl, hs, enc):
-            return B.cross_decoder_block_full_group(
-                pl, cfg, ctxs, hs, poss, enc, backend=backend)[0]
-
-        segs = [p["segments"] for p in ps]
-        for pl in _slot_layers(segs, "enc", cfg.n_enc_layers):
-            enc = _call(remat, enc_layer, pl, enc)
-        hs = embed_tokens_group(embeds, cfg, ctxs, toks)
-        for pl in _slot_layers(segs, "dec", cfg.n_dec_layers):
-            hs = _call(remat, dec_layer, pl, hs, enc)
-        return hs, aux_total, {}
-    hs = embed_tokens_group(embeds, cfg, ctxs, toks)
-    emb0s = hs
-    shared = [p.get("shared") for p in ps]
-
-    def decoder(pl, hs, i):
-        return B.decoder_block_train_group(pl, cfg, ctxs, hs, poss, i,
-                                           backend)
-
-    def recurrent(pl, hs, blk):
-        return blk(pl, cfg, ctxs, hs, backend)[0]
-
-    def mega(pl, hs, shared, emb0s):
-        for pj in _slot_layers(pl, "mamba", cfg.shared_attn_period):
-            hs = B.mamba_block_full_group(pj, cfg, ctxs, hs, backend)[0]
-        return B.zamba_shared_full_group(shared, cfg, ctxs, hs, emb0s, poss,
-                                         backend)[0]
+    def layer(seg, i, pl, hs, shared, emb0s, encs):
+        positions = enc_poss if seg.kind == "enc" else poss
+        return _full_layer_group(cfg, seg, pl, ctxs, hs, positions, i,
+                                 backend, shared, emb0s, encs)
 
     for seg in stack_plan(cfg):
-        for i, pl in enumerate(_slot_layers(
-                [p["segments"] for p in ps], seg.name, seg.n)):
-            if seg.kind == "decoder":
-                hs, aux = _call(remat, decoder, pl, hs, i)
+        if seg.kind != "enc" and hs is None:
+            hs = emb0s = embed_tokens_group([p["embed"] for p in ps], cfg,
+                                            ctxs, toks)
+        for i, pl in enumerate(_slot_layers(segs, seg.name, seg.n)):
+            if seg.kind == "enc":
+                encs = _call(remat, lambda *a: layer(*a)[0], seg, i, pl,
+                             encs, None, None, None)
+                continue
+            if collect is None:  # the training step keeps no caches
+                hs, aux = _call(remat, lambda *a: layer(*a)[::2], seg, i,
+                                pl, hs, shared, emb0s, encs)
                 for key, val in aux.items():
                     aux_total[key] = aux_total[key] + val
-            elif seg.kind in ("rwkv", "mamba"):
-                blk = (B.rwkv_block_full_group if seg.kind == "rwkv"
-                       else B.mamba_block_full_group)
-                hs = _call(remat, recurrent, pl, hs, blk)
-            else:  # mega: period mamba blocks, then the shared attention
-                hs = _call(remat, mega, pl, hs, shared, emb0s)
+            else:
+                hs, entries, _ = layer(seg, i, pl, hs, shared, emb0s, encs)
+                collect(seg, i, entries)
     return hs, aux_total, {}
 
 
@@ -487,7 +515,7 @@ def _loss_chunks(tokens):
 
 def _train_loss_group(ps, cfg: ModelConfig, batches, remat: bool, ctxs):
     """:func:`train_loss` over a group (see there)."""
-    from repro_torch.models.layers import lm_head_xent_group
+    from repro_torch.models.layers import lm_head_xent_group, row_heads
 
     hs, aux, _ = forward_full(ps, cfg, batches, backend="plain",
                               remat=remat, ctxs=ctxs)
@@ -504,8 +532,8 @@ def _train_loss_group(ps, cfg: ModelConfig, batches, remat: bool, ctxs):
         for s, (ch, lse, gold) in enumerate(zip(chunks, lses, golds)):
             ce = (lse - gold) * (ch[k][0] < S - 1)[None, :]
             totals[s] = totals[s] + ce.sum()
-    heads = [s for s, c in enumerate(ctxs) if c.j == 0]
-    total = ctxs[0].all_reduce_sum([totals[s] for s in heads])
+    heads = row_heads(ctxs)
+    total = ctxs[0].all_reduce_sum(ctxs[0].peers(totals, heads))
     return _loss_metrics(cfg, total / (B_l * len(heads) * (S - 1)), aux)
 
 
@@ -527,12 +555,126 @@ def _loss_metrics(cfg: ModelConfig, loss, aux):
 
 
 def prefill(params, cfg: ModelConfig, batch, cache_len: Optional[int] = None,
-            backend: str = "kernel"):
-    """Process the prompt; returns (last-token logits, caches)."""
+            backend: str = "kernel", ctxs=None):
+    """Process the prompt; returns (last-token logits, caches).
+
+    ``ctxs`` (a group's ``layers.GroupCtx`` list, the rules of a prefill
+    cell): the prompt over a device group — ``params`` per-slot trees (each
+    slot's shards under the rules), ``batch`` per-slot dicts of the slot's
+    rows.  Each layer runs its group form (the decoder's MoE over the whole
+    batch, as this monolithic prefill routes it) and writes its cache
+    entries into each slot's shard of the caches as
+    ``launch.sharding.cache_shardings`` lays them out
+    (:func:`slot_decode_caches`: rows over the batch axes, KV heads or the
+    ``kv_time`` shards over ``model``).  Returns (per-slot logits of the
+    whole vocabulary, gathered over the model row; per-slot caches).
+    ``NotImplementedError`` for rules the group forms do not emulate
+    (``launch.sharding.check_group_rules``)."""
+    if ctxs is not None:
+        return _prefill_group(params, cfg, batch, cache_len, backend, ctxs)
     h, _, caches = forward_full(params, cfg, batch, collect_caches=True,
                                 cache_len=cache_len, backend=backend)
     logits = lm_head(params["embed"], cfg, h[:, -1:])
     return logits[:, 0], caches
+
+
+def slot_decode_caches(cfg: ModelConfig, ctx, batch_size: int,
+                       cache_len: int, enc_len: Optional[int] = None,
+                       device=None):
+    """Zero caches of one group slot (``ctx``): its block of
+    ``init_decode_caches(cfg, batch_size, cache_len, enc_len)`` (the whole
+    batch) under ``launch.sharding.cache_shardings`` of ``ctx``'s rules, on
+    ``device`` (default the slot's).  An MLA layer's latent and krope stay
+    the two views of one buffer."""
+    from repro_torch.launch.sharding import ShardingCtx, cache_shardings
+
+    # the whole tree's shapes, on meta tensors no counting mode sees (they
+    # are not the step's allocations)
+    with _disable_current_modes():
+        whole = init_decode_caches(cfg, batch_size, cache_len, enc_len,
+                                   "meta")
+    specs = cache_shardings(cfg, ShardingCtx(ctx.mesh, ctx.rules), whole)
+    return slot_zeros(whole, specs, ctx.mesh, ctx.slot,
+                      ctx.device if device is None else device)
+
+
+def slot_zeros(tree, specs, mesh, slot: int, device):
+    """Zero state of one slot of a cache or pool tree (tensors or meta
+    tensors of the whole leaves): each leaf's block under its spec
+    (``launch.sharding.slot_index``), an MLA layer's latent / krope as
+    the views of one joint buffer."""
+    from repro_torch.launch.sharding import slot_index
+
+    def block(shape, spec):
+        idx = slot_index(shape, spec, mesh, slot)
+        return tuple(len(range(*sl.indices(n))) for sl, n in zip(idx, shape))
+
+    out = {}
+    if "latent" in tree:
+        lat, kr = tree["latent"], tree["krope"]
+        shape = tuple(lat.shape[:-1]) + (lat.shape[-1] + kr.shape[-1],)
+        out = mla_cache_views(torch.zeros(block(shape, specs["latent"]),
+                                          dtype=lat.dtype, device=device),
+                              lat.shape[-1])
+    for key, x in tree.items():
+        if key not in out:
+            out[key] = slot_zeros(x, specs[key], mesh, slot, device) \
+                if isinstance(x, dict) else torch.zeros(
+                    block(tuple(x.shape), specs[key]), dtype=x.dtype,
+                    device=device)
+    return out
+
+
+def _write_time(leaf, chunk, t0: int):
+    """In place: positions [0, S) of ``chunk`` (B, S, ...) into the time
+    shard ``leaf`` (B, W, ...) whose first position is ``t0`` — the part
+    it holds."""
+    a, b = max(0, t0), min(chunk.shape[1], t0 + leaf.shape[1])
+    if a < b:
+        leaf[:, a - t0:b - t0].copy_(chunk[:, a:b].to(leaf.dtype))
+
+
+def _write_entry(ctx, cache, entry):
+    """In place: one layer's cache ``entry`` of the whole sequence into the
+    slot's layer ``cache`` — a time leaf's shard of the positions, a
+    recurrent state whole."""
+    for key, x in entry.items():
+        leaf = cache[key]
+        if isinstance(x, dict):
+            _write_entry(ctx, leaf, x)
+        elif key in LENGTH_KEYS or key in ("ck", "cv"):
+            _write_time(leaf, x, ctx.time_block(key)[0] * leaf.shape[1])
+        else:
+            leaf.copy_(x.to(leaf.dtype))
+
+
+def _prefill_group(ps, cfg: ModelConfig, batches, cache_len, backend: str,
+                   ctxs):
+    """:func:`prefill` over a group (see there)."""
+    from repro_torch.launch.sharding import check_group_rules
+    from repro_torch.models.layers import lm_head_group
+
+    check_group_rules(ctxs[0].rules, cfg, "prefill")
+    toks = [b["tokens"] for b in batches]
+    S = toks[0].shape[1]
+    T = cache_len or S
+    enc_len = batches[0]["frames"].shape[1] if cfg.is_enc_dec else None
+    rows = toks[0].shape[0] * ctxs[0].row_block()[1]
+    caches = [slot_decode_caches(cfg, c, rows, T, enc_len, t.device)
+              for c, t in zip(ctxs, toks)]
+
+    def collect(seg, i, entries):
+        if entries is None:
+            return
+        for c, cache, entry in zip(ctxs, caches, entries):
+            _write_entry(c, layer_params(cache[seg.name], i), entry)
+
+    with torch.no_grad():
+        hs, _, _ = _forward_full_group(ps, cfg, batches, ctxs, backend,
+                                       False, collect)
+        logits = lm_head_group([p["embed"] for p in ps], cfg, ctxs,
+                               [h[:, -1:] for h in hs])
+    return [x[:, 0] for x in logits], caches
 
 
 def upcast_prefill_logits(params, cfg: ModelConfig, batch,
@@ -557,9 +699,22 @@ def _write_state(cache, state):
 
 
 def decode_step(params, cfg: ModelConfig, caches, tokens, pos,
-                backend: str = "kernel"):
+                backend: str = "kernel", ctxs=None):
     """One decode step.  tokens (B,), pos int or (B,) tensor.  Returns
-    (logits, caches); the caches are updated in place."""
+    (logits, caches); the caches are updated in place.
+
+    ``ctxs`` (a group's ``layers.GroupCtx`` list, the rules of a decode
+    cell): the step over a device group — ``params``, ``caches`` and
+    ``tokens`` per slot (the slot's shards, its caches as
+    :func:`slot_decode_caches` lays them out, its rows' ids; ``pos`` an int
+    or a per-slot list).  Each layer runs its block's group form
+    (``blocks.*_decode_group``; the MoE over the whole batch): a slot that
+    holds a ``kv_time`` shard writes the token only where it owns the
+    position, and its attention merges K1's partials over its time row.
+    Returns (per-slot logits of the whole vocabulary, per-slot caches)."""
+    if ctxs is not None:
+        return _decode_step_group(params, cfg, caches, tokens, pos, backend,
+                                  ctxs)
     h = embed_tokens(params["embed"], cfg, tokens[:, None])
     emb0 = h
     Bsz = tokens.shape[0]
@@ -596,6 +751,66 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos,
                                              backend=backend)
     logits = lm_head(params["embed"], cfg, h)
     return logits[:, 0], caches
+
+
+def _decode_layer_group(cfg: ModelConfig, seg: SegmentSpec, pl, cl, ctxs, hs,
+                        poss, layer_idx: int, backend: str, shared=None,
+                        emb0s=None):
+    """One step of segment ``seg`` of the group ``decode_step`` (``pl`` /
+    ``cl``: each slot's layer params and caches, written in place).
+    Returns per-slot h."""
+    if seg.kind == "decoder":
+        return B.decoder_block_decode_group(pl, cfg, ctxs, hs, cl, poss,
+                                            layer_idx, backend=backend,
+                                            batch_moe=True)
+    if seg.kind == "dec":
+        return B.cross_decoder_block_decode_group(pl, cfg, ctxs, hs, cl,
+                                                  poss, backend=backend)
+    if seg.kind in ("rwkv", "mamba"):
+        blk = (B.rwkv_block_decode_group if seg.kind == "rwkv"
+               else B.mamba_block_decode_group)
+        hs, states = blk(pl, cfg, ctxs, hs, cl)
+        for c, st in zip(cl, states):
+            _write_state(c, st)
+        return hs
+    for j, pj in enumerate(_slot_layers(pl, "mamba", seg.blocks_per_step)):
+        cj = [layer_params(c["mamba"], j) for c in cl]
+        hs, states = B.mamba_block_decode_group(pj, cfg, ctxs, hs, cj)
+        for c, st in zip(cj, states):
+            _write_state(c, st)
+    return B.zamba_shared_decode_group(shared, cfg, ctxs, hs, emb0s,
+                                       [c["attn"] for c in cl], poss,
+                                       backend=backend)
+
+
+def _decode_step_group(ps, cfg: ModelConfig, caches, tokens, pos,
+                       backend: str, ctxs):
+    """:func:`decode_step` over a group (see there)."""
+    from repro_torch.launch.sharding import check_group_rules
+    from repro_torch.models.layers import embed_tokens_group, lm_head_group
+
+    check_group_rules(ctxs[0].rules, cfg, "decode")
+    hs = emb0s = embed_tokens_group([p["embed"] for p in ps], cfg, ctxs,
+                                    [t[:, None] for t in tokens])
+    poss = []
+    for k, t in enumerate(tokens):
+        p = pos[k] if isinstance(pos, (list, tuple)) else pos
+        poss.append(p.reshape(-1).expand(t.shape[0])
+                    if isinstance(p, torch.Tensor) else
+                    torch.full((t.shape[0],), int(p), device=t.device))
+    shared = [p.get("shared") for p in ps]
+    with torch.no_grad():
+        for seg in stack_plan(cfg):
+            if seg.kind == "enc":
+                continue  # no decode-time work: the cross K/V are cached
+            layers = _slot_layers([p["segments"] for p in ps], seg.name,
+                                  seg.n)
+            for i, pl in enumerate(layers):
+                cl = [layer_params(c[seg.name], i) for c in caches]
+                hs = _decode_layer_group(cfg, seg, pl, cl, ctxs, hs, poss, i,
+                                         backend, shared, emb0s)
+        logits = lm_head_group([p["embed"] for p in ps], cfg, ctxs, hs)
+    return [x[:, 0] for x in logits], caches
 
 
 def recurrent_state(cfg: ModelConfig, kind: str, lead, device):

@@ -53,7 +53,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import ParamBuilder, param_dtype, reduce_model
+from repro_torch.models.layers import (ParamBuilder, param_dtype,
+                                       reduce_model, row_heads)
 
 EP_PAD_GROUP = 256  # pad expert allocation to the full-chip EP group size
 EP_MIN_EXPERTS = 64  # only pad expert-rich archs
@@ -233,9 +234,8 @@ def _holder(ctx, b: int, n_blocks: int, f: Optional[int]) -> int:
     if n_blocks > 1:
         ax = ctx.rules.get("experts")
         axes = ax if isinstance(ax, tuple) else (ax,)
-        sizes = {"data": ctx.n_data, "model": ctx.n_model}
         for a in reversed(axes):
-            b, coords[a] = divmod(b, sizes[a])
+            b, coords[a] = divmod(b, ctx.sizes[a])
     if f is not None:
         coords["model"] = f
     return ctx.slot_at(**coords)
@@ -296,23 +296,25 @@ def apply_moe_group(ps, cfg: ModelConfig, ctxs, xs, rows_split: bool):
 
 def apply_moe_batch_group(ps, cfg: ModelConfig, ctxs, xs):
     """``apply_moe`` of the whole batch on a group, the training step's
-    MoE: ``xs`` per-slot (B_l, S, d) rows, row block ``i`` on the slots of
-    data index ``i`` (every model slot of a row block routes its rows
-    alike).  The routing is the global batch's, as the reference's
+    MoE (and the group forms of ``prefill`` / ``decode_step``): ``xs``
+    per-slot (B_l, S, d) rows, each slot's block of the batch rows
+    (``GroupCtx.row_block``; every model slot of a row block routes its
+    rows alike).  The routing is the global batch's, as the reference's
     shardings leave it: the capacity is that of all B * S tokens, each
-    expert's capacity positions run over the data slots in row order (a
-    slot's local rank plus the counts of the data slots before it,
-    gathered over its data column), the expert holders take the kept
-    tokens of every row block, and the aux loss and drop fraction come
-    from the per-expert counts and router probabilities summed over the
-    data slots.  Returns (per-slot outputs like ``xs``, aux) — aux on slot
+    expert's capacity positions run over the row blocks in row order (a
+    slot's local rank plus the counts of the row blocks before it,
+    gathered over its ``row_column``), the expert holders take the kept
+    tokens of every row block (of their pod, where the experts replicate
+    over pods), and the aux loss and drop fraction come from the
+    per-expert counts and router probabilities summed over the row
+    blocks.  Returns (per-slot outputs like ``xs``, aux) — aux on slot
     0's device."""
     E, k = cfg.n_experts, cfg.moe_top_k
     n_local = ps[0]["wg"].shape[0]
     f_split = ps[0]["wg"].shape[-1] < cfg.d_ff_expert
-    n_data = ctxs[0].n_data
     T_l = xs[0].shape[0] * xs[0].shape[1]
-    T = T_l * n_data
+    T = T_l * ctxs[0].row_block()[1]
+    pods = "pod" in ctxs[0]._axes("experts")
     C = _capacity(cfg, T)
     routed = []
     for p, x in zip(ps, xs):
@@ -325,19 +327,22 @@ def apply_moe_batch_group(ps, cfg: ModelConfig, ctxs, xs):
     disp = []
     for c, (xf, top_w, top_e, _, _) in zip(ctxs, routed):
         # each expert's choices on the earlier row blocks come first
-        col = c.all_gather([routed[s][4][None] for s in c.data_column()],
+        col = c.all_gather([r[4][None] for r in c.peers(routed,
+                                                        c.row_column())],
                            dim=0)
         xe, slot_of, slot_weight, _, kept = _sort_dispatch(
-            xf, top_w, top_e, E, C, before=col[:c.i].sum(dim=0))
+            xf, top_w, top_e, E, C, before=col[:c.row_block()[0]].sum(dim=0))
         disp.append((xe, slot_of, slot_weight, kept[0], col.sum(dim=0)))
     ye = []
     for p, c in zip(ps, ctxs):
         e0 = _expert_block(c, cfg, n_local)
         n = max(0, min(n_local, E - e0))
         # the kept tokens of every row block (disjoint buffer positions)
-        srcs = [c.slot_at(data=d) for d in range(n_data)]
+        srcs = c.line(tuple(a for a in c._axes("batch")
+                            if pods or a != "pod"))
         ye.append(None if n == 0 else _expert_mlp(
-            sum(c.receive(disp[t][0][e0:e0 + n], t) for t in srcs),
+            sum(c.receive(d[0][e0:e0 + n], t)
+                for t, d in zip(srcs, c.peers(disp, srcs))),
             p["wg"][:n], p["wu"][:n], p["wo"][:n]))
     n_blocks = expert_alloc(E) // n_local
     outs = []
@@ -345,18 +350,19 @@ def apply_moe_batch_group(ps, cfg: ModelConfig, ctxs, xs):
         _, slot_of, slot_weight, _, _ = disp[s]
         blocks = []
         for b in range(-(-E // n_local)):
-            parts = [ye[_holder(c, b, n_blocks, f)]
-                     for f in (range(c.n_model) if f_split else [None])]
+            parts = c.peers(ye, [_holder(c, b, n_blocks, f) for f in
+                                 (range(c.n_model) if f_split else [None])])
             blocks.append(c.all_reduce_sum(parts) if f_split else
                           c.receive(parts[0], _holder(c, b, n_blocks, None)))
         y = torch.cat(blocks, dim=0)
         outs.append(_combine(y, slot_of, slot_weight).reshape(x.shape))
     outs = _shared_expert_group(ps, cfg, ctxs, xs, outs)
     c0 = ctxs[0]
-    heads = [s for s, c in enumerate(ctxs) if c.j == 0]
+    heads = row_heads(ctxs)
     counts = c0.to_here(disp[0][4]).float()
-    kept = sum(c0.to_here(disp[s][3].float()) for s in heads)
-    mean_prob = sum(c0.to_here(routed[s][3].sum(dim=0)) for s in heads) / T
+    kept = sum(c0.to_here(d[3].float()) for d in c0.peers(disp, heads))
+    mean_prob = sum(c0.to_here(r[3].sum(dim=0))
+                    for r in c0.peers(routed, heads)) / T
     n_choices = max(T * k, 1)
     aux = {"moe_aux_loss": E * (counts / n_choices * mean_prob).sum(),
            "moe_drop_frac": 1.0 - kept / n_choices}

@@ -503,8 +503,8 @@ class BlockServer:
         from torch.utils.flop_counter import FlopCounterMode
 
         from repro_torch.launch.mesh import GroupMesh
-        from repro_torch.serving.kv_cache import (_slot_tree,
-                                                  group_pool_specs,
+        from repro_torch.models.model import slot_zeros
+        from repro_torch.serving.kv_cache import (group_pool_specs,
                                                   new_paged_pool_tree,
                                                   rows_split)
 
@@ -519,7 +519,7 @@ class BlockServer:
                      for kind, lo, hi in self.runs)
         specs = tuple(group_pool_specs(meta_mesh, layout, t, False)
                       for t in full)
-        pools = tuple(tuple(_slot_tree(t, sp, meta_mesh, s, "meta")
+        pools = tuple(tuple(slot_zeros(t, sp, meta_mesh, s, "meta")
                             for t, sp in zip(full, specs))
                       for s in range(n))
 
@@ -545,7 +545,7 @@ class BlockServer:
             pspecs = tuple(group_pool_specs(meta_mesh, layout, t, True)
                            for t in ptrees)
             lead = (params, shared, tuple(
-                tuple(_slot_tree(t, sp, meta_mesh, s, "meta")
+                tuple(slot_zeros(t, sp, meta_mesh, s, "meta")
                       for t, sp in zip(ptrees, pspecs)) for s in range(n)),
                 torch.empty((N, pool.max_pages), dtype=torch.long,
                             device="meta"))

@@ -85,13 +85,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.sharding import (cache_axes_for, pool_tree_shardings,
-                                         slot_index, thaw_rules)
+                                         thaw_rules)
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import mla_cache_views, mla_keys
 from repro_torch.models.layers import (NULL, gather_time,
                                        group_ctxs, param_dtype)
 from repro_torch.models.model import (LENGTH_KEYS, layer_params,
-                                      recurrent_state, tree_nbytes)
+                                      recurrent_state, slot_zeros,
+                                      tree_nbytes)
 
 
 def to_device(a, device) -> torch.Tensor:
@@ -463,7 +464,7 @@ class CachePool:
             self.slot_specs = tuple(group_pool_specs(mesh, rules, t, paged)
                                     for t in self.tree)
             self.slot_trees = tuple(
-                tuple(_slot_tree(t, sp, mesh, s, dev)
+                tuple(slot_zeros(t, sp, mesh, s, dev)
                       for t, sp in zip(self.tree, self.slot_specs))
                 for s, dev in enumerate(mesh.slot_devices()))
             self.tree = None
@@ -1298,29 +1299,6 @@ def group_pool_specs(mesh, rules: Dict, tree, paged: bool):
                 f"({tree[key].shape[2]} positions) over a model extent that "
                 "does not divide it: not emulated (ROADMAP A10(b))")
     return specs
-
-
-def _block_shape(shape, idx):
-    return tuple(len(range(*sl.indices(n))) for sl, n in zip(idx, shape))
-
-
-def _slot_tree(tree, specs, mesh, slot: int, device):
-    """Zero state of one slot: each leaf's block under its spec (an MLA
-    layer's latent/krope as the views of one joint buffer)."""
-    out = {}
-    if "latent" in tree:
-        lat, kr = tree["latent"], tree["krope"]
-        shape = tuple(lat.shape[:-1]) + (lat.shape[-1] + kr.shape[-1],)
-        idx = slot_index(shape, specs["latent"], mesh, slot)
-        out.update(mla_cache_views(torch.zeros(
-            _block_shape(shape, idx), dtype=lat.dtype, device=device),
-            lat.shape[-1]))
-    for key, x in tree.items():
-        if key not in out:
-            idx = slot_index(tuple(x.shape), specs[key], mesh, slot)
-            out[key] = torch.zeros(_block_shape(tuple(x.shape), idx),
-                                   dtype=x.dtype, device=device)
-    return out
 
 
 def _ep_row_grid(cfg: ModelConfig, mesh, frozen_rules, p_stack,

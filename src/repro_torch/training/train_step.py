@@ -11,16 +11,17 @@ place, and makes no host sync: the metrics stay on the device.
 With ``sh`` (``launch.sharding.make_ctx`` of a device-group mesh) the step
 runs over the group's slots (:class:`GroupLayout`): the state holds each
 slot's shards (``init_train_state(..., sh=)``; ``embed_fsdp`` leaves split
-over ``data``, heads / MLP / vocab over ``model``, experts where the rules
-put them); a step all-gathers each slot's ``embed_fsdp`` shards over its
-data column, takes the gradients of every slot's leaves in one backward
-pass of ``models.train_loss(ctxs=)``, sums each leaf's gradient over the
-slots that hold its block in slot order (the data-parallel all-reduce, a
-reduce-scatter onto the ``embed_fsdp`` shards), clips by the global norm
-with each element counted once, and updates each slot's shard — AdamW's
-state mirroring the shards, Adafactor's whole on every slot (its factored
-moments are means over a whole leaf) — so replicas stay bit-equal.  The
-batch is per slot (``data.shard_batch(batch, mesh, sh)``).
+over ``data`` (and ``pod``), heads / MLP / vocab over ``model``, experts
+where the rules put them); a step all-gathers each slot's ``embed_fsdp``
+shards over the slots the rule splits them over, takes the gradients of
+every slot's leaves in one backward pass of ``models.train_loss(ctxs=)``,
+sums each leaf's gradient over the slots that hold its block in slot order
+(the data-parallel all-reduce, a reduce-scatter onto the ``embed_fsdp``
+shards), clips by the global norm with each element counted once, and
+updates each slot's shard — AdamW's state mirroring the shards, Adafactor's
+whole on every slot (its factored moments are means over a whole leaf) — so
+replicas stay bit-equal.  The batch is per slot (``data.shard_batch(batch,
+mesh, sh)``).
 
 ``int8_allreduce`` is the reference's compressed gradient all-reduce over a
 ``torch.distributed`` process group: a reduce-scatter of int8 chunks and
@@ -83,19 +84,19 @@ class GroupLayout:
     its ``embed_fsdp`` dim gathered (the gradient's replica set)."""
 
     def __init__(self, cfg: ModelConfig, sh):
-        from repro_torch.launch.sharding import (check_train_rules,
+        from repro_torch.launch.sharding import (check_group_rules,
                                                  fsdp_dim, param_axes,
                                                  param_shardings,
                                                  replica_slots, slot_index)
         from repro_torch.models.layers import group_ctxs
         from repro_torch.models.model import init_params
 
-        check_train_rules(sh.rules, cfg)
+        check_group_rules(sh.rules, cfg, "training")
         self.cfg, self.sh, self.mesh = cfg, sh, sh.mesh
         self.like = init_params(cfg, None, "meta")
         axes = param_axes(cfg, self.like)
         specs = param_shardings(cfg, sh, axes, self.like)
-        self.ctxs = group_ctxs(sh.mesh, sh.rules)
+        self.ctxs = group_ctxs(sh.mesh, sh.rules, stand_in=sh.stand_in)
         n = len(self.ctxs)
         self.leaves = []
         for (_, x), (_, ax), (_, sp) in zip(tree_items(self.like),
@@ -144,7 +145,8 @@ class GroupLayout:
         out = []
         for k, leaf in enumerate(self.leaves):
             owners = sorted(set(leaf["owners"]))
-            out.append(c0.gather_blocks([flat[s][k] for s in owners],
+            out.append(c0.gather_blocks([f[k] for f in c0.peers(flat,
+                                                                owners)],
                                         [leaf["index"][s] for s in owners],
                                         leaf["shape"]))
         return tree_unflatten(self.like, out)
@@ -172,12 +174,15 @@ class GroupLayout:
 
     def gather_fsdp(self, slot_trees):
         """Per slot, its leaves with the ``embed_fsdp`` dim all-gathered
-        over its data column (the others as they are)."""
+        over the slots the rule splits it over — its data column, or its
+        (pod, data) plane (the others as they are)."""
         def one(s, k, leaves):
             d, c = self.leaves[k]["fsdp"], self.ctxs[s]
             if d is None:
                 return leaves[s]
-            return c.all_gather([leaves[t] for t in c.data_column()], dim=d)
+            ax = self.leaves[k]["spec"][d]
+            return c.all_gather(c.peers(leaves, c.line(
+                ax if isinstance(ax, tuple) else (ax,))), dim=d)
 
         return self._slots(one, slot_trees)
 
@@ -189,7 +194,7 @@ class GroupLayout:
             leaf, c = self.leaves[k], self.ctxs[s]
             reps, d = leaf["replicas"][s], leaf["fsdp"]
             g = grads[s] if len(reps) == 1 else c.all_reduce_sum(
-                [grads[t] for t in reps], scatter=d is not None)
+                c.peers(grads, reps), scatter=d is not None)
             if d is not None:
                 idx = [slice(None)] * g.dim()
                 idx[d] = leaf["index"][s][d]
@@ -208,7 +213,8 @@ class GroupLayout:
                      if self.leaves[k]["owners"][s] == s),
                     torch.zeros((), device=gs[0].device))
                 for s, gs in enumerate(flat)]
-        return [c.all_reduce_sum(part) for c in self.ctxs]
+        every = range(int(self.mesh.devices.size))
+        return [c.all_reduce_sum(c.peers(part, every)) for c in self.ctxs]
 
     def whole_grads(self, slot_grads, s: int):
         """Slot ``s``'s copy of each whole gradient leaf (an all-gather of
@@ -219,7 +225,7 @@ class GroupLayout:
         out = []
         for k, leaf in enumerate(self.leaves):
             owners = sorted(set(leaf["owners"]))
-            out.append(c.gather_blocks([flat[t][k] for t in owners],
+            out.append(c.gather_blocks([f[k] for f in c.peers(flat, owners)],
                                        [leaf["index"][t] for t in owners],
                                        leaf["shape"]))
         return out
@@ -273,15 +279,16 @@ def _copy_to(x, device):
 
 def _micro_batch(ctxs, batches, n: int, m: int):
     """Per slot, its rows of micro-batch ``m`` of ``n``: the global batch's
-    rows [m B/n, (m+1) B/n), as the solo step splits it, over the data
-    slots in row order — each slot's part taken from the data slot that
-    holds those rows (row block ``i`` on data index ``i``)."""
+    rows [m B/n, (m+1) B/n), as the solo step splits it, over the row
+    blocks in row order — each slot's part taken from the slot of its
+    ``row_column`` that holds those rows."""
     out = []
     for c in ctxs:
         B_l = batches[c.slot]["tokens"].shape[0]
         b = B_l // n
-        g = m * c.n_data + c.i
-        src = c.slot_at(data=g // n)
+        rb, n_rb = c.row_block()
+        g = m * n_rb + rb
+        src = c.row_column()[g // n]
         lo = (g % n) * b
         out.append({k: c.receive(v[lo:lo + b], src)
                     for k, v in batches[src].items()})
