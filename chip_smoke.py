@@ -2035,23 +2035,48 @@ TRAIN_GROUP_GRAD_TOL = (1e-5, 2e-4)
 TRAIN_GROUP_PARAM_TOL = (1e-5, 1e-2)
 
 
+def stash_bytes(fn):
+    """``fn()`` with the training step's remat stash recorded: (its result,
+    {slot: bytes}) — each slot's block inputs that the layers' checkpoints
+    keep for the backward pass (``models.model._call``'s tensor list)."""
+    from repro_torch.models import model as model_mod
+
+    real, per = model_mod.checkpoint, {}
+
+    def record(f, *args, **kw):
+        for s, x in enumerate(args[3]):
+            per[s] = per.get(s, 0) + x.numel() * x.element_size()
+        return real(f, *args, **kw)
+
+    model_mod.checkpoint = record
+    try:
+        return fn(), per
+    finally:
+        model_mod.checkpoint = real
+
+
 def phase_train_group(torch):
     """[train group] Full-width Llama-3.2-1B, all 16 layers, f32 (TF32
     off), AdamW with remat: TRAIN_GROUP_STEPS steps of (B 8, S 128) solo,
     then the same from the same weights and batches over each group of
     TRAIN_GROUP_SHAPES, every slot on the card(s) present
     (``make_train_step(..., sh=make_ctx(...))``: embed_fsdp and the batch
-    over data, heads / MLP / vocab over model).  Prints each run's step
-    times by CUDA events, tokens/s, peak memory and, over one step, its
-    slot collectives by kind (calls, wire bytes); fails unless each
-    step's loss is the solo step's within TRAIN_GROUP_LOSS_RTOL, the
-    first step's gradient leaves are the solo gradient's within
+    over data, heads / MLP / vocab over model), twice: under the rules of
+    a cell of the run's own (B 8, S 128), and under those of ``train_4k``,
+    whose remat stash passes 8e9 bytes, so ``make_rules`` sets
+    ``seq_act``: each slot then holds its sequence block of the residual
+    stream.  Prints each run's step times by CUDA events, tokens/s, peak
+    memory and, over one step, its slot collectives by kind (calls, wire
+    bytes), and each slot's remat stash bytes; fails unless each step's
+    loss is the solo step's within TRAIN_GROUP_LOSS_RTOL, the first
+    step's gradient leaves are the solo gradient's within
     TRAIN_GROUP_GRAD_TOL, every param leaf after the last step is within
     TRAIN_GROUP_PARAM_TOL, the copies of every replicated block are
-    bit-equal across slots, and no step makes a host sync."""
+    bit-equal across slots, no step makes a host sync, and a ``seq_act``
+    slot's stash is 1/M of the other run's."""
     import numpy as np
 
-    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.configs import SHAPES_BY_NAME, ShapeSpec, get_config
     from repro_torch.data import make_batches, shard_batch
     from repro_torch.launch.mesh import GroupMesh
     from repro_torch.launch.sharding import make_ctx
@@ -2120,7 +2145,7 @@ def phase_train_group(torch):
             raise RuntimeError(f"{tag} {label}: host syncs inside a step")
         if not all(math.isfinite(x) for x in losses):
             raise RuntimeError(f"{tag} {label}: non-finite loss")
-        return state, losses
+        return state, losses, (ms, peak, kinds)
 
     try:
         live = tree_map(lambda x: x.requires_grad_(True), weights())
@@ -2134,21 +2159,27 @@ def phase_train_group(torch):
         log(f"{tag} {cfg.name}: {cfg.n_layers} layers, {n_params / 1e9:.3f}"
             f" B params in f32, AdamW lr {lr}, remat; B {B} S {S}, "
             f"{TRAIN_GROUP_STEPS} steps a run")
-        state, solo_losses = drive(
+        state, solo_losses, _ = drive(
             "solo", state, make_train_step(cfg, opt, hp),
             [shard_batch(h, device="cuda") for h in host])
         solo = dict(tree_items(state["params"]))
         del state
         gc.collect()
         torch.cuda.empty_cache()
-        for shape in TRAIN_GROUP_SHAPES:
+        runs = [(shape, rules) for shape in TRAIN_GROUP_SHAPES
+                for rules in (cell, SHAPES_BY_NAME["train_4k"])]
+        seen = {}
+        for shape, rules in runs:
             devs = np.empty(shape[0] * shape[1], dtype=object)
             devs[:] = slot_devices(torch, devs.size)
             mesh = GroupMesh(devs.reshape(shape))
-            sh = make_ctx(cfg, mesh, cell)
+            sh = make_ctx(cfg, mesh, rules)
             lay = GroupLayout(cfg, sh)
+            label = f"{shape} group, {rules.name} rules (seq_act " \
+                f"{sh.rules['seq_act']})"
             batches = [shard_batch(h, mesh, sh, device="cuda") for h in host]
-            _, _, grads = lay.loss_and_grads(lay.shard(weights()), batches[0])
+            (_, _, grads), stash = stash_bytes(lambda: lay.loss_and_grads(
+                lay.shard(weights()), batches[0]))
             g_worst, g_leaf = worst_leaf(
                 tree_items(lay.unshard(lay.reduce_grads(grads))), solo_grads,
                 TRAIN_GROUP_GRAD_TOL)
@@ -2159,9 +2190,9 @@ def phase_train_group(torch):
                                      device="cuda", sh=sh)
             gc.collect()
             torch.cuda.empty_cache()
-            state, losses = drive(
-                f"{shape} group", state, make_train_step(cfg, opt, hp, sh),
-                batches)
+            state, losses, stats = drive(
+                label, state, make_train_step(cfg, opt, hp, sh), batches)
+            seen[(shape, rules.name)] = (stats, stash)
             rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
                                                           solo_losses))
             worst, where = worst_leaf(
@@ -2173,7 +2204,7 @@ def phase_train_group(torch):
             equal = all(torch.equal(flat[s][k], flat[o][k])
                         for k, leaf in enumerate(lay.leaves)
                         for s, o in enumerate(leaf["owners"]) if o != s)
-            log(f"{tag} {shape} group against solo: loss rel diff {rel:.3g}"
+            log(f"{tag} {label} against solo: loss rel diff {rel:.3g}"
                 f" (bound {TRAIN_GROUP_LOSS_RTOL}); first gradient: worst "
                 f"leaf {g_leaf} at {g_worst:.3g} of its bound "
                 f"{TRAIN_GROUP_GRAD_TOL} (atol, rtol max|leaf|); params "
@@ -2183,11 +2214,26 @@ def phase_train_group(torch):
                 f"{equal}")
             if rel > TRAIN_GROUP_LOSS_RTOL or worst > 1.0 or g_worst > 1.0 \
                     or not equal:
-                raise RuntimeError(f"{tag} {shape}: the group step is not "
+                raise RuntimeError(f"{tag} {label}: the group step is not "
                                    "the solo step")
             del state, flat, batches
             gc.collect()
             torch.cuda.empty_cache()
+            if rules.name != "train_4k":
+                continue
+            (ms0, peak0, kinds0), stash0 = seen[(shape, cell.name)]
+            (ms1, peak1, kinds1), stash1 = seen[(shape, rules.name)]
+            ratio = {s: stash1[s] / stash0[s] for s in stash0}
+            log(f"{tag} {shape} seq_act beside without: step ms (last) "
+                f"{ms1[-1]:.2f} vs {ms0[-1]:.2f}; peak memory {peak1:.2f} "
+                f"vs {peak0:.2f} GiB; remat stash bytes per slot "
+                f"{stash1} vs {stash0} (ratio {sorted(set(ratio.values()))}"
+                f", expected 1/{shape[1]}); collectives of one step "
+                f"{kinds1} vs {kinds0}")
+            if sh.rules["seq_act"] != "model" or any(
+                    abs(r * shape[1] - 1.0) > 1e-12 for r in ratio.values()):
+                raise RuntimeError(f"{tag} {shape}: the seq_act stash is "
+                                   f"not 1/{shape[1]} of the other run's")
         del solo, solo_grads
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
@@ -3050,10 +3096,20 @@ FAMILY_PHASES = (
     ("h", "deepseek_v2_236b", "mesh",
      ("decode_attention_partials", "merge_partials", "flash_attention"),
      ("decode_attention_partials", "merge_partials", "flash_attention")),
+    # Gemma-3-4B's 8 query heads on a (1, 16) group: the head_dim
+    # fallback (each slot projects 16 of the 256 head_dim columns), KV
+    # heads whole and the cache's time axis over the 16 slots
+    ("i", "gemma3_4b", "mesh16",
+     ("decode_attention_partials", "merge_partials", "flash_attention"),
+     ("decode_attention_partials", "merge_partials", "flash_attention")),
 )
 FAMILY_SUFFIX = {"rwkv6_7b": "_rwkv6", "zamba2_7b": "_zamba2",
                  "seamless_m4t_large_v2": "_seamless",
-                 "deepseek_v2_236b": "_deepseek"}
+                 "deepseek_v2_236b": "_deepseek", "gemma3_4b": "_gemma3"}
+# family phases cut in depth (Gemma-3-4B on its (1, 16) group: 6 of 34
+# layers, five local and one global, keeps the 16 slots' eager loop
+# within the script's time)
+GROUP_DEPTH = {"gemma3_4b": 6}
 # the f32 twins that hold a family group's first steps (bf16 drift is
 # printed only, ROADMAP C5; SeamlessM4T's is held as well): full width,
 # the deepest stack that fits the card beside its pools (RWKV6-7B,
@@ -3061,7 +3117,8 @@ FAMILY_SUFFIX = {"rwkv6_7b": "_rwkv6", "zamba2_7b": "_zamba2",
 # DeepSeek-V2 at 2 layers, 13.52 B params, 50.4 GiB), held within
 # GROUP_F32_BOUND of the solo f32 logit scale with the greedy tokens equal
 GROUP_F32_DEPTH = {"rwkv6_7b": None, "zamba2_7b": None,
-                   "seamless_m4t_large_v2": None, "deepseek_v2_236b": 2}
+                   "seamless_m4t_large_v2": None, "deepseek_v2_236b": 2,
+                   "gemma3_4b": 6}
 GROUP_F32_BOUND = 1e-3
 # new tokens a request of the family phases' bf16 serves (a dozen decode
 # rounds and more: the round walls and the one-sync rule read them)
@@ -3069,10 +3126,11 @@ FAMILY_NEW_TOKENS = 12
 # their pools' length: the serve phases' (prompts up to 128 tokens, 32 new,
 # 32 spare): DeepSeek-V2's slots hold 96 of its 192 latent positions
 FAMILY_MAX_LEN = 192
-# DeepSeek-V2's f32 twin runs on the plain versions: K2 has no f32
-# instantiation at MLA's (192, 128) (its f32 pairs are the reduced
-# stacks'); the kernels at the slot shapes are held by the kernel rows
-GROUP_F32_BACKEND = {"deepseek_v2_236b": "plain"}
+# DeepSeek-V2's and Gemma-3-4B's f32 twins run on the plain versions: K2
+# has no f32 instantiation at MLA's (192, 128) or at (256, 256) (its f32
+# pairs are the reduced stacks'); the kernels at the slot shapes are held
+# by the kernel rows
+GROUP_F32_BACKEND = {"deepseek_v2_236b": "plain", "gemma3_4b": "plain"}
 
 
 def slot_devices(torch, n):
@@ -3830,9 +3888,10 @@ def log_pool_bytes(tag, system):
 
 def group_family(torch, phase, arch, groups, kernels, kinds, keep,
                  launches):
-    """(e)-(h): one block family at full width in bf16 on the serve
-    cluster, all solo and then on its groups (``groups``: "hetero" or
-    "mesh", FAMILY_PHASES): 8/8 requests, 1 host sync a decode round, the
+    """(e)-(i): one block family at full width (GROUP_DEPTH: cut in
+    depth) in bf16 on the serve cluster, all solo and then on its groups
+    (``groups``: "hetero", or "mesh" / "mesh16": a (1, 2) / (1, 16) group
+    on every server, FAMILY_PHASES): 8/8 requests, 1 host sync a decode round, the
     path's kernels on every slot, each slot's launches adding up to the
     counters' totals, the per-slot pool bytes of both layouts; the first
     steps held to the C5 bound (seamless) or printed, then held in f32 at
@@ -3847,13 +3906,15 @@ def group_family(torch, phase, arch, groups, kernels, kinds, keep,
 
     tag = f"[groups] ({phase}) {arch}"
     base = get_config(arch)
-    cfg = base.replace(n_layers=SERVE_DEPTH.get(arch, base.n_layers))
+    cfg = base.replace(n_layers=GROUP_DEPTH.get(
+        arch, SERVE_DEPTH.get(arch, base.n_layers)))
 
     def group_kw():
-        if groups == "mesh":
-            devs = np.empty(2, dtype=object)
-            devs[:] = slot_devices(torch, 2)
-            return dict(mesh=GroupMesh(devs.reshape(1, 2))), [(1, 2)]
+        if groups in ("mesh", "mesh16"):
+            shape = (1, 16) if groups == "mesh16" else (1, 2)
+            devs = np.empty(shape[1], dtype=object)
+            devs[:] = slot_devices(torch, shape[1])
+            return dict(mesh=GroupMesh(devs.reshape(shape))), [shape]
         return dict(device_groups=group_meshes(
             {**GROUP_SHAPES, 3: None, 4: None},
             devices=slot_devices(torch, 6))), [(1, 2), (2, 2)]
@@ -4062,14 +4123,35 @@ def phase_groups(torch):
 # the card, at cells cut from the dry run's shapes to fit one card: a
 # decode cell (rows over data, KV heads over model: K1), a long cell of
 # one row (the cache's time axis over data: K1 partials merged over the
-# slots) and a prefill cell (K2); the meta count of each against the card
-DRYRUN_MESH = (2, 2)
-DRYRUN_CELLS = (("decode_4k", 4096, 8, "decode"),
-                ("long_8k", 8192, 1, "decode"),
-                ("prefill_2k", 2048, 4, "prefill"))
+# slots) and a prefill cell (K2); then full-width Gemma-3-4B in bf16 (cut
+# to DRYRUN_DEPTH layers) on a (1, 16) group, whose 8 query heads take the
+# head_dim fallback: a prefill of one 2048-token row (attn_seq_q: K2 on
+# each slot's 128 query rows at q_start 128 j) and a decode cell of 16
+# rows at 4096 (K1 partials over 256-position time shards, window 1024,
+# merged over the 16 slots); the meta count of each against the card.
+# (arch, mesh, name, seq, rows, kind)
+DRYRUN_CELLS = (("llama3_2_1b", (2, 2), "decode_4k", 4096, 8, "decode"),
+                ("llama3_2_1b", (2, 2), "long_8k", 8192, 1, "decode"),
+                ("llama3_2_1b", (2, 2), "prefill_2k", 2048, 4, "prefill"),
+                ("gemma3_4b", (1, 16), "gemma_prefill_2k", 2048, 1,
+                 "prefill"),
+                ("gemma3_4b", (1, 16), "gemma_decode_4k", 4096, 16,
+                 "decode"))
 DRYRUN_KINDS = {"decode_4k": ("decode_attention",),
                 "long_8k": ("decode_attention_partials", "merge_partials"),
-                "prefill_2k": ("flash_attention",)}
+                "prefill_2k": ("flash_attention",),
+                "gemma_prefill_2k": ("flash_attention",),
+                "gemma_decode_4k": ("decode_attention_partials",
+                                    "merge_partials")}
+# Gemma-3-4B at 6 of its 34 layers: five local (window 1024) and a global
+DRYRUN_DEPTH = {"gemma3_4b": 6}
+
+
+def _holds_pos(k, v, pos, t0):
+    """True when the time shard ``k`` (first position ``t0``) holds the
+    largest of the rows' positions ``pos``."""
+    p = int(pos.max())
+    return t0 <= p < t0 + k.shape[1]
 
 
 def _rows_of(torch, ctxs, parts):
@@ -4083,8 +4165,8 @@ def _rows_of(torch, ctxs, parts):
 def phase_dryrun(torch):
     """[dryrun] The port's dry run (``launch.dryrun``) held against the
     card: full-width Llama-3.2-1B in bf16 on a (2, 2) group of cuda slots
-    on the card, each DRYRUN_CELLS cell's step counted on a (2, 2) mesh of
-    meta slots (``count_cell``: every slot's body, and slot 0 standing in
+    on the card and Gemma-3-4B on a (1, 16) group (DRYRUN_CELLS), each
+    cell's step counted on a mesh of meta slots of its shape (``count_cell``: every slot's body, and slot 0 standing in
     for all) and then run on the card with the same weights' shards.
     Held exactly: FlopCounterMode's flops of the card's call == the meta
     count's aten flops, and the allocated shard bytes of slot 0's
@@ -4118,14 +4200,6 @@ def phase_dryrun(torch):
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config("llama3_2_1b")
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                         "cuda")
-    devs = np.empty(4, dtype=object)
-    devs[:] = slot_devices(torch, 4)
-    mesh = GroupMesh(devs.reshape(DRYRUN_MESH))
-    meta = GroupMesh(np.full(DRYRUN_MESH, torch.device("meta"),
-                             dtype=object))
     mods = {"attention": attn_mod, "kernels": K}
     sites = [(n, m) for n, m in GROUP_SITES if m in mods]
     real = {n: getattr(mods[m], n) for n, m in sites}
@@ -4134,9 +4208,20 @@ def phase_dryrun(torch):
     cap = {}
 
     def capture(name):
+        """Keep one call of each kind: the first — K2's at its largest
+        q_start (a slot's query rows), K1's partials over the time shard
+        that holds the position (a shard the window masks whole has no
+        merged output to hold)."""
         def run(*a, **k):
             kind = capture_kind(name, a, k)
-            if kind not in cap:
+            later = kind in cap and (
+                k.get("q_start", 0) > cap[kind][1].get("q_start", 0)
+                if name == "flash_attention" else
+                name == "decode_attention_partials"
+                and not _holds_pos(*cap[kind][0][1:4],
+                                   cap[kind][1].get("t0", 0))
+                and _holds_pos(*a[1:4], k.get("t0", 0)))
+            if kind not in cap or later:
                 cap[kind] = (clone_call(torch, a), k)
             return real[name](*a, **k)
         return run
@@ -4169,7 +4254,25 @@ def phase_dryrun(torch):
         return got
 
     rng = np.random.RandomState(0)
-    for name, seq, rows, kind in DRYRUN_CELLS:
+    params = None
+    for arch, mesh_shape, name, seq, rows, kind in DRYRUN_CELLS:
+        if params is None or cfg.name != get_config(arch).name:
+            params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = get_config(arch)
+            cfg = base.replace(n_layers=DRYRUN_DEPTH.get(arch,
+                                                         base.n_layers))
+            params = init_params(
+                cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+            log(f"{tag} {arch}: {cfg.n_layers} of {base.n_layers} layers, "
+                f"{sum(x.numel() for x in _leaves(params)) / 1e9:.2f} B "
+                f"params in bf16")
+        devs = np.empty(mesh_shape[0] * mesh_shape[1], dtype=object)
+        devs[:] = slot_devices(torch, devs.size)
+        mesh = GroupMesh(devs.reshape(mesh_shape))
+        meta = GroupMesh(np.full(mesh_shape, torch.device("meta"),
+                                 dtype=object))
         shape = ShapeSpec(name, seq, rows, kind)
         c0 = time.perf_counter()
         pred = count_cell(cell_specs(cfg, shape, meta, stand_in=False),
@@ -4226,8 +4329,11 @@ def phase_dryrun(torch):
         want_flops = round(pred["aten_flops"] * len(ctxs))
         live = pred["live_peak"] * len(ctxs)
         mem = pred["memory"]
-        log(f"{tag} {name} (seq {seq}, batch {rows}, {kind}) on "
-            f"{DRYRUN_MESH} slots: flops FlopCounterMode {flops} vs meta "
+        log(f"{tag} {name} ({arch}, seq {seq}, batch {rows}, {kind}) on "
+            f"{mesh_shape} slots (rules: seq_act {sh.rules['seq_act']}, "
+            f"attn_seq_q {sh.rules['attn_seq_q']}, head_dim "
+            f"{sh.rules['head_dim']}, kv_time {sh.rules['kv_time']}): "
+            f"flops FlopCounterMode {flops} vs meta "
             f"count {want_flops}; slot 0's argument bytes allocated {args} "
             f"vs predicted {mem['argument_size_in_bytes']}; the step's "
             f"peak allocation over the call {peak} B vs the predicted live "
@@ -4251,8 +4357,11 @@ def phase_dryrun(torch):
             if ran[k] <= 0 or k not in cap:
                 raise RuntimeError(f"{tag} {name}: {k} never launched "
                                    f"({ran})")
-            keep[(k, DRYRUN_MESH, "dryrun")] = cap[k]
-            launches[("dryrun", k, DRYRUN_MESH)] = ran[k]
+            keep[(k, mesh_shape, "dryrun")] = cap[k]
+            launches[("dryrun", k, mesh_shape)] = ran[k]
+            opts = {a: b for a, b in cap[k][1].items()
+                    if a in ("q_start", "t0", "window")}
+            log(f"{tag} {name} {k}: the kernel row's call {opts}")
         del logits, grp, solo, ps, batches
         gc.collect()
         torch.cuda.empty_cache()

@@ -41,7 +41,7 @@ from repro_torch.kernels.decode_attention.ref import (
 from repro_torch.kernels.runtime import (NO_WINDOW, check_launch,
                                          load_library, meta_calls,
                                          refuse_grad)
-from repro_torch.launch.costs import CostSummary
+from repro_torch.launch.costs import CostSummary, count_weight
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # blocks the split grid aims at: four 4-warp blocks per SM of the H100's
@@ -286,7 +286,7 @@ def decode_attention(q, ck, cv, pos, *, window=None, slopes=None,
         counting.cost.scaled_add(cost(
             q, ck, cv, counting.pos, window=window, causal=causal,
             kv_len=None if kv_len is None else counting.kv_len,
-            slopes=slopes), 1.0)
+            slopes=slopes), count_weight())
         n_split = _plan(q, ck, cv)[1][1]
         part = _partials(n_split, q.shape[0] * q.shape[2], cv.shape[-1],
                          q.device) if n_split > 1 else None  # as launched
@@ -344,7 +344,7 @@ def decode_attention_partials(q, ck, cv, pos, *, t0: int = 0, window=None,
         counting.cost.scaled_add(cost(
             q, ck, cv, counting.pos, window=window, causal=causal,
             kv_len=None if kv_len is None else counting.kv_len,
-            slopes=slopes, t0=t0, n_split=n_split), 1.0)
+            slopes=slopes, t0=t0, n_split=n_split), count_weight())
         m, l, acc = _partials(n_split, B * H, Dv, q.device)
         return (m.view(n_split, B, H), l.view(n_split, B, H),
                 acc.view(n_split, B, H, Dv))
@@ -375,7 +375,8 @@ def merge_partials(parts, dtype=torch.float32):
     counting = meta_calls()
     if m.device.type == "meta" and counting is not None:
         counting.cost.scaled_add(merge_cost(
-            S, B * H, Dv, torch.empty((), dtype=dtype).element_size()), 1.0)
+            S, B * H, Dv, torch.empty((), dtype=dtype).element_size()),
+            count_weight())
         return acc.new_empty((B, 1, H, Dv), dtype=dtype)
     if m.device.type != "cuda":
         raise ValueError(f"merge_partials: no kernel for device {m.device}")

@@ -28,7 +28,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.runtime import (NO_WINDOW, check_launch,
                                          load_library, meta_calls,
                                          refuse_grad)
-from repro_torch.launch.costs import CostSummary
+from repro_torch.launch.costs import CostSummary, count_weight
 
 # which kernel serves each dtype: the bf16 tensor-core kernel, or the f32
 # CUDA-core one
@@ -128,7 +128,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     counting = meta_calls()
     if q.device.type == "meta" and counting is not None:
         counting.cost.scaled_add(cost(q, k, v, q_start, window, causal,
-                                      slopes), 1.0)
+                                      slopes), count_weight())
         return q.new_empty(q.shape[:3] + v.shape[-1:])
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")

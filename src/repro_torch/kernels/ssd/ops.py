@@ -32,7 +32,7 @@ from repro_torch.kernels.runtime import (check_launch, load_library,
                                          meta_calls, refuse_grad,
                                          require_ints)
 from repro_torch.kernels.ssd.ref import ssd_chunked
-from repro_torch.launch.costs import CostSummary
+from repro_torch.launch.costs import CostSummary, count_weight
 
 # tokens per chunk of the kernel
 CHUNK = 128
@@ -124,7 +124,8 @@ def ssd(x, Bm, Cm, dt, A, D, state=None):
     refuse_grad("ssd (K4)", x, Bm, Cm, dt, A, D, state)
     counting = meta_calls()
     if x.device.type == "meta" and counting is not None:
-        counting.cost.scaled_add(cost(x, Bm, Cm, dt, A, D, state), 1.0)
+        counting.cost.scaled_add(cost(x, Bm, Cm, dt, A, D, state),
+                                 count_weight())
         B, S, H, p = x.shape
         out = (x.new_empty((B, S, H, p), dtype=torch.float32),
                x.new_empty((B, H, p, Bm.shape[-1]), dtype=torch.float32))

@@ -33,7 +33,7 @@ from repro_torch.kernels.runtime import (check_launch, load_library,
                                          meta_calls, refuse_grad,
                                          require_ints)
 from repro_torch.kernels.wkv6.ref import wkv6_chunked
-from repro_torch.launch.costs import CostSummary
+from repro_torch.launch.costs import CostSummary, count_weight
 
 # tokens per chunk of the kernel, in sub-blocks of SUB_BLOCK
 CHUNK = 64
@@ -118,7 +118,8 @@ def wkv6(r, k, v, lw, u, state=None):
     refuse_grad("wkv6 (K3)", r, k, v, lw, u, state)
     counting = meta_calls()
     if r.device.type == "meta" and counting is not None:
-        counting.cost.scaled_add(cost(r, k, v, lw, u, state), 1.0)
+        counting.cost.scaled_add(cost(r, k, v, lw, u, state),
+                                 count_weight())
         B, S, H, hd = r.shape
         out = (r.new_empty((B, S, H, hd), dtype=torch.float32),
                r.new_empty((B, H, hd, hd), dtype=torch.float32))

@@ -166,6 +166,31 @@ def collective_ops():
         _COLLECTIVE[0] -= 1
 
 
+# the weight at which the counts add (``counted_at``)
+_WEIGHT = [1.0]
+
+
+@contextlib.contextmanager
+def counted_at(weight: float):
+    """The counts made inside — :class:`StepCount`'s flops and bytes, the
+    kernels' meta costs (``kernels.runtime.count_meta_calls``) — add at
+    ``weight``: a slot standing in for its group runs each variant of a
+    computation whose work differs by slot (the causal span of a block of
+    query rows, a time shard under a window) at 1/n, so that it counts
+    the slots' mean."""
+    old = _WEIGHT[0]
+    _WEIGHT[0] = old * weight
+    try:
+        yield
+    finally:
+        _WEIGHT[0] = old
+
+
+def count_weight() -> float:
+    """The weight counts add at here (:func:`counted_at`; 1 outside)."""
+    return _WEIGHT[0]
+
+
 def _nbytes(t) -> int:
     """Bytes of the distinct elements of ``t``: a broadcast dim (stride 0,
     an ``expand``) is read once."""
@@ -309,11 +334,14 @@ class StepCount(TorchDispatchMode):
                 _nbytes(t) for t in ins if id(t) not in mutated) + (
                 sum(_nbytes(t) for t in outs) if src is None
                 else _nbytes(args[src]))
+            if _WEIGHT[0] != 1.0:
+                moved *= _WEIGHT[0]
             self.bytes_accessed += moved
             if _COLLECTIVE[0]:
                 self.collective_bytes += moved
         if info.flops is not None:
-            self.flops += info.flops(*args, **kwargs, out_val=out)
+            flops = info.flops(*args, **kwargs, out_val=out)
+            self.flops += flops if _WEIGHT[0] == 1.0 else flops * _WEIGHT[0]
         if info.fresh:
             self._track(outs, ins)
         return out

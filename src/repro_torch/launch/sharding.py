@@ -19,9 +19,11 @@ gives it where the KV heads do not take the model axis (MLA latents, GQA
 caches whose KV heads replicate) — over ``model``, or over ``data`` and
 ``model`` where the pool rows do not split over ``data`` — and its decode
 attention returns the split partials of K1 (``decode_attention_partials``),
-merged over the slots holding the other shards in time order.  The
-``head_dim`` fallback (query heads that do not divide the model axis) is
-not emulated: ``group_layout_rules`` raises for it.
+merged over the slots holding the other shards in time order.  Where the
+query heads do not divide the model axis the rules take the ``head_dim``
+fallback: each slot projects its head_dim columns of q/k/v, the model row
+gathers them whole (K/V replicate), and each slot's ``wo`` rows give a
+partial sum of the output, added over the row.
 
 Training over a group (``training.make_train_step(..., sh=)``) runs the
 reference's training rules through ``make_ctx``: a :class:`ShardingCtx`
@@ -30,10 +32,15 @@ of the mesh and ``make_rules`` at a train shape, which puts the batch on
 ``data``.  ``batch_specs``, ``cache_specs``, ``cache_shardings`` and
 ``param_shardings`` give each leaf's per-slot spec beside a meta tensor of
 its whole shape; ``param_axes`` is the reference's axes tree of a whole
-model.  The rules a slot step does not emulate — ``seq_act`` (the
-sequence-sharded residual stream), ``attn_seq_q`` and the ``head_dim``
-fallback — raise ``NotImplementedError`` (``check_group_rules``), in
-training and in the group forms of ``prefill`` / ``decode_step`` alike.
+model.  The three layout rules of the activations run as the reference
+lays them out, in training and in the group forms of ``prefill`` /
+``decode_step`` alike (``models.layers.GroupCtx.at_seq`` takes the
+guard's outcome on the activations' shapes): ``seq_act`` keeps each
+slot's sequence block of the residual stream between blocks (an
+all-gather over the model row before a mixer or an FFN, a reduce-scatter
+after the row-split output projection); ``attn_seq_q`` has each slot
+attend its block of the query rows over the whole K/V; the ``head_dim``
+fallback splits the attention weights' head_dim over ``model``.
 """
 from __future__ import annotations
 
@@ -230,33 +237,6 @@ def make_ctx(cfg: ModelConfig, mesh, shape: ShapeSpec,
     """The reference's ``make_ctx``: the mesh and ``make_rules`` of (cfg,
     mesh, shape)."""
     return ShardingCtx(mesh, make_rules(cfg, mesh, shape), cfg, stand_in)
-
-
-_UNPORTED_RULES = {
-    "seq_act": "the sequence-sharded residual stream (Megatron-SP)",
-    "attn_seq_q": "sequence-parallel attention for query heads that do not "
-                  "divide the model axis",
-    "head_dim": "attention weights split on head_dim",
-}
-
-
-def check_group_rules(rules: Dict[str, object], cfg: ModelConfig,
-                      form: str = "training") -> Dict[str, object]:
-    """``rules`` when the port's group ``form`` (its training step, or the
-    group forms of ``prefill`` / ``decode_step``) emulates them;
-    ``NotImplementedError`` naming each rule they set of ``seq_act``,
-    ``attn_seq_q`` and the ``head_dim`` fallback (ROADMAP A10(b)).  The
-    attention rules do not apply to a stack without attention (RWKV6,
-    whose zero query heads divide no model axis)."""
-    set_ = [f"{name!r} = {rules[name]!r} ({what})"
-            for name, what in _UNPORTED_RULES.items()
-            if rules.get(name) is not None
-            and (name == "seq_act" or cfg.n_heads > 0)]
-    if set_:
-        raise NotImplementedError(
-            f"the rules set {', '.join(set_)}, which the port's group "
-            f"{form} step does not emulate (ROADMAP A10(b))")
-    return rules
 
 
 def _meta(shape, dtype):
@@ -482,14 +462,8 @@ def thaw_rules(frozen) -> Dict[str, object]:
 
 def group_layout_rules(rules: Dict[str, object]) -> Dict[str, object]:
     """The layout the port's group steps run: the reference's serving
-    ``rules`` unchanged.  ``NotImplementedError`` for the attention
-    ``head_dim`` fallback (a partial score over the slots), which the
-    slots do not emulate (ROADMAP A10(b))."""
-    if rules.get("head_dim") is not None:
-        raise NotImplementedError(
-            "a device group whose query heads do not divide the model axis "
-            "takes the head_dim fallback, which the port does not emulate "
-            "(ROADMAP A10(b))")
+    ``rules`` unchanged, the ``head_dim`` fallback included (each slot
+    projects its head_dim columns; ``models.attention``)."""
     return dict(rules)
 
 
@@ -736,7 +710,7 @@ __all__ = [
     "DeviceGroup", "NULL_SH", "ShardingCtx", "as_device_group",
     "batch_specs", "block_param_axes", "block_param_shardings",
     "cache_axes_for", "cache_shardings", "cache_specs", "cache_tree_axes",
-    "check_group_rules", "embed_param_axes",
+    "embed_param_axes",
     "freeze_rules", "frozen_serving_rules", "fsdp_dim",
     "group_layout_rules", "guarded_spec", "make_ctx", "make_rules",
     "param_axes", "param_shardings", "pool_tree_shardings",

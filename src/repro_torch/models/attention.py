@@ -36,6 +36,17 @@ replicate (their count does not divide the model axis) the slot holds
 every KV head and attends its query heads over the KV heads they map to
 by their global indices; MLA's latent cache has no head axis.
 
+Where the query heads do not divide the model axis the reference's rules
+take the ``head_dim`` fallback and, at a train or prefill shape,
+``attn_seq_q``: :func:`gqa_full_split_group` projects each slot's
+head_dim columns, moves q to the slot's query rows with the whole
+head_dim (an all-to-all over the model row), gathers K/V and the QK-norm
+scales whole (the norm spans the head), attends the slot's rows — K2 at
+``q_start`` = prefix + its first row — and moves the output back to its
+columns for its ``wo`` rows, whose partial sums the model row adds.
+Decode gathers q / k / v whole and attends every head
+(:func:`gqa_decode_group`).
+
 Where the reference's rules shard the cache time axis (over ``model`` where
 KV heads replicate, and for MLA latents; over ``data`` too where the pool
 rows do not split over it), each slot holds a time shard of the cache
@@ -64,7 +75,8 @@ from repro_torch.kernels.decode_attention.ref import \
     decode_attention_partials_ref
 from repro_torch.kernels.runtime import NO_WINDOW, use_kernel
 from repro_torch.models.layers import (ParamBuilder, alibi_slopes,
-                                       apply_rope, gather_model, param_dtype,
+                                       apply_rope, exchange_model,
+                                       gather_model, param_dtype,
                                        rms_norm_simple, rope_angles)
 
 _NEG_INF = -1e30
@@ -108,10 +120,11 @@ def _dense_attn(q, k, v, bias):
 
 
 def _flash_attn(q, k, v, q_pos, kv_pos, window, slopes=None, q_start=0,
-                causal=True):
+                causal=True, skip=True):
     """Double-chunked online-softmax attention; causal (q-chunk, kv-chunk)
     pairs above the diagonal are skipped (queries at ``q_start +
-    arange(S)`` over keys ``arange(T)``)."""
+    arange(S)`` over keys ``arange(T)``) unless ``skip`` is False (every
+    pair computed, the mask alone keeping causality)."""
     B, S, H, D = q.shape
     T = k.shape[1]
     Dv = v.shape[-1]
@@ -131,7 +144,7 @@ def _flash_attn(q, k, v, q_pos, kv_pos, window, slopes=None, q_start=0,
                           device=q.device)
         for ki in range(n_kv):
             k_lo, k_hi = ki * KV_CHUNK, min(T, (ki + 1) * KV_CHUNK)
-            if causal and k_lo > q_start + q_hi - 1:
+            if skip and causal and k_lo > q_start + q_hi - 1:
                 continue  # above the causal diagonal
             kc, vc = k[:, k_lo:k_hi], v[:, k_lo:k_hi]
             kp = kv_pos[k_lo:k_hi]
@@ -152,16 +165,17 @@ def _flash_attn(q, k, v, q_pos, kv_pos, window, slopes=None, q_start=0,
 
 
 def attention_core(q, k, v, q_pos, kv_pos, window=None, slopes=None,
-                   causal=True, q_start=0):
+                   causal=True, q_start=0, skip=True):
     """Plain prefill attention (causal, or non-causal for the encoder and
-    cross attention): dense vs flash from the shapes."""
+    cross attention): dense vs flash from the shapes (``skip``: the flash
+    path's causal chunk skipping)."""
     window = _BIG_WINDOW if window is None else window
     S, T = q.shape[1], k.shape[1]
     if T <= DENSE_MAX_T and S * T <= DENSE_MAX_T * DENSE_MAX_T // 4:
         return _dense_attn(q, k, v, _mask_bias(q_pos, kv_pos, window,
                                                slopes, causal))
     return _flash_attn(q, k, v, q_pos, kv_pos, window, slopes, q_start,
-                       causal)
+                       causal, skip)
 
 
 def decode_attention_plain(q, ck, cv, pos, window=None, slopes=None,
@@ -278,10 +292,10 @@ def _kv_slice(cfg: ModelConfig, heads, n_local: int, k, v):
 
 
 def _attend_full(cfg: ModelConfig, q, k, v, positions, kv_pos, window,
-                 slopes, causal, q_start, backend):
+                 slopes, causal, q_start, backend, skip=True):
     """Prefill attention core: K2 on a CUDA tensor under the kernel
     backend, else the plain path over KV heads expanded to the query
-    heads."""
+    heads (``skip``: its causal chunk skipping)."""
     if use_kernel(backend, q):
         # kernel contract: queries at q_start + arange(S) over keys at
         # arange(T) — what the (chunked-)prefill call sites pass; GQA
@@ -292,7 +306,7 @@ def _attend_full(cfg: ModelConfig, q, k, v, positions, kv_pos, window,
     k_exp = torch.repeat_interleave(k, G, dim=2) if G > 1 else k
     v_exp = torch.repeat_interleave(v, G, dim=2) if G > 1 else v
     return attention_core(q, k_exp, v_exp, positions, kv_pos, window,
-                          slopes, causal=causal, q_start=q_start)
+                          slopes, causal=causal, q_start=q_start, skip=skip)
 
 
 def apply_gqa_full(params, cfg: ModelConfig, x, positions, window=None,
@@ -371,20 +385,42 @@ def _gqa_decode_qkv(params, cfg: ModelConfig, x, pos, cross: bool):
     """The decode step's q (B,1,H,hd), and for self attention its new k/v,
     normed and rotated."""
     q = _q_proj(params, cfg, x)
-    k = v = None
-    if not cross:
-        k, v = _kv_proj(params, cfg, x)
+    k, v = (None, None) if cross else _kv_proj(params, cfg, x)
+    return _decode_post(cfg, q, k, v, pos, params.get("q_norm"),
+                        params.get("k_norm"))
+
+
+def _decode_post(cfg: ModelConfig, q, k, v, pos, q_norm, k_norm):
+    """QK-norm (over the whole head_dim) and RoPE of a decode step's
+    projected q and, for self attention, new k (``k`` None: cross
+    attention, whose q is normed and not rotated)."""
+    if k is not None:
         if cfg.qk_norm:
-            q = rms_norm_simple(q, params["q_norm"], cfg.norm_eps)
-            k = rms_norm_simple(k, params["k_norm"], cfg.norm_eps)
+            q = rms_norm_simple(q, q_norm, cfg.norm_eps)
+            k = rms_norm_simple(k, k_norm, cfg.norm_eps)
         if cfg.pos_kind == "rope":
             cos, sin = rope_angles(pos.reshape(-1, 1), cfg.head_dim,
                                    cfg.rope_theta)
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
     elif cfg.qk_norm:
-        q = rms_norm_simple(q, params["q_norm"], cfg.norm_eps)
+        q = rms_norm_simple(q, q_norm, cfg.norm_eps)
     return q, k, v
+
+
+def _decode_attend(cfg: ModelConfig, q, cache_k, cache_v, pos, window, cross,
+                   kv_len, backend: str, heads=None):
+    """Single-query attention of ``q``'s heads (from ``heads``) over the
+    cache's KV heads they map to: K1 on a CUDA tensor under the kernel
+    backend, else the plain path."""
+    slopes = _slopes(cfg, q.device, heads, q.shape[2])
+    win = None if cross else window
+    ck, cv = _kv_slice(cfg, heads, q.shape[2], cache_k, cache_v)
+    if use_kernel(backend, q):
+        return decode_attention(q, ck, cv, pos, window=win, slopes=slopes,
+                                kv_len=kv_len, causal=not cross)
+    return decode_attention_plain(q, ck, cv, pos, win, slopes,
+                                  causal=not cross, kv_len=kv_len)
 
 
 def apply_gqa_decode(params, cfg: ModelConfig, x, cache_k, cache_v, pos,
@@ -405,15 +441,8 @@ def apply_gqa_decode(params, cfg: ModelConfig, x, cache_k, cache_v, pos,
     if not cross:
         write_token(cache_k, k, pos, active)
         write_token(cache_v, v, pos, active)
-    slopes = _slopes(cfg, x.device, heads, q.shape[2])
-    win = None if cross else window
-    ck, cv = _kv_slice(cfg, heads, q.shape[2], cache_k, cache_v)
-    if use_kernel(backend, x):
-        out = decode_attention(q, ck, cv, pos, window=win, slopes=slopes,
-                               kv_len=kv_len, causal=not cross)
-    else:
-        out = decode_attention_plain(q, ck, cv, pos, win, slopes,
-                                     causal=not cross, kv_len=kv_len)
+    out = _decode_attend(cfg, q, cache_k, cache_v, pos, window, cross,
+                         kv_len, backend, heads)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
     return y, cache_k, cache_v
 
@@ -596,24 +625,181 @@ def _partials_merged(ctxs, qs, ks, vs, poss, shards, heads, backend, name,
     ``name``, and the partials of the slot's heads from its ``time_row``
     merged in time order.  ``every``: each shard holds every KV head (they
     replicate; MLA's latent), and a slot computes the partials of every
-    query head, gathered over the model row; else it holds its own KV
-    heads' block and computes its own heads'.  ``slopes``: ALiBi's (H,)
+    query head, gathered over the model row (held whole already where the
+    slot's ``heads`` entry is None); else it holds its own KV heads' block
+    and computes its own heads'.  ``slopes``: ALiBi's (H,)
     slopes or None."""
-    q_all = gather_model(ctxs, qs, dim=2) if every else qs
+    q_all = gather_model(ctxs, qs, dim=2) \
+        if every and heads[0] is not None else qs
     kernel = use_kernel(backend, qs[0])
     run = decode_attention_partials if kernel \
         else decode_attention_partials_ref
     parts = []
-    for q, ck, cv, pos, kvl, sh, h, q_own in zip(q_all, ks, vs, poss,
-                                                 kv_lens, shards, heads, qs):
+    for c, q, ck, cv, pos, kvl, sh, h, q_own in zip(
+            ctxs, q_all, ks, vs, poss, kv_lens, shards, heads, qs):
         sl = slopes if slopes is None or every else \
             slopes[h or 0:(h or 0) + q_own.shape[2]]
-        parts.append(run(q, ck, cv, pos, t0=sh[0], window=window, slopes=sl,
-                         kv_len=kvl, causal=causal, scale=scale))
+        b, n = c.time_block(name)
+        w = ck.shape[1]
+
+        def part(i, q=q, ck=ck, cv=cv, pos=pos, sl=sl, kvl=kvl, w=w):
+            return run(q, ck, cv, pos, t0=i * w, window=window, slopes=sl,
+                       kv_len=kvl, causal=causal, scale=scale)
+
+        # the reached keys (and so the work) differ by shard: a stand-in
+        # slot counts every shard's call
+        parts.append(_slots_mean(c, n, b, part) if kernel else part(b))
     return [c.merge_partials(c.peers(parts, c.time_row(name)),
                              lo, lo + q.shape[2], q.dtype, kernel)
             for c, q, lo in zip(ctxs, qs, ((h or 0) if every else 0
                                            for h in heads))]
+
+
+# ---------------------------------------------------------------------------
+# The head_dim fallback and sequence-parallel attention on a device group
+# ---------------------------------------------------------------------------
+
+
+def head_dim_blocks(cfg: ModelConfig, params) -> int:
+    """The blocks of ``head_dim`` whose one a slot's GQA weights hold: the
+    model extent under the reference's ``head_dim`` fallback (query heads
+    that do not divide the model axis), else 1."""
+    return cfg.head_dim // params["wq"].shape[-1]
+
+
+def gqa_split(cfg: ModelConfig, aps, ctxs) -> bool:
+    """True where a group's full-sequence GQA runs
+    :func:`gqa_full_split_group`: its slots hold ``head_dim`` columns of
+    the weights, or attend a block of the query rows (``attn_seq_q``)."""
+    return head_dim_blocks(cfg, aps[0]) > 1 or ctxs[0].q_rows[1] > 1
+
+
+def _whole_hd(ctxs, parts, n_hd: int, dim: int = -1):
+    """Per slot: its ``head_dim`` columns ``parts`` (1 of ``n_hd`` blocks)
+    gathered over the model row into the whole head_dim."""
+    return parts if n_hd == 1 else gather_model(ctxs, parts, dim)
+
+
+def _qk_norms(ps, cfg: ModelConfig, ctxs, n_hd: int):
+    """Per slot: the whole QK-norm scales (q_norm, k_norm) — gathered over
+    the model row where they split on ``head_dim``: the RMS norm spans
+    the whole head — or (None, None) without QK-norm."""
+    if not cfg.qk_norm:
+        return [(None, None)] * len(ps)
+    return list(zip(_whole_hd(ctxs, [p["q_norm"] for p in ps], n_hd, 0),
+                    _whole_hd(ctxs, [p["k_norm"] for p in ps], n_hd, 0)))
+
+
+def _hd_cols(c, out, n_hd: int):
+    """The slot's ``head_dim`` columns of an attention output (B,S,H,hd)
+    that holds every column (its ``wo`` rows' input)."""
+    if n_hd == 1:
+        return out
+    w = out.shape[-1] // n_hd
+    return out.narrow(3, c.j * w, w)
+
+
+def _slots_mean(c, n: int, own: int, run):
+    """``run(own)``: a slot's variant ``own`` of a kernel call whose work
+    differs by slot (``n`` variants: its block of the query rows, or of
+    a cache's time shards).  A slot standing in for its group
+    (``GroupCtx.stand_in``, the dry run) runs every variant, each counted
+    at 1/n (``launch.costs.counted_at``), so that its count is the slots'
+    mean; it keeps its own variant's result."""
+    if not c.stand_in or n == 1:
+        return run(own)
+    from repro_torch.launch.costs import counted_at
+
+    with counted_at(1.0 / n):
+        outs = [run(i) for i in range(n)]
+    return outs[own]
+
+
+def gqa_encoder_kv_group(ps, cfg: ModelConfig, ctxs, enc_hs):
+    """:func:`gqa_encoder_kv` on a group: each slot's cross (k, v) of its
+    KV heads (or of every head, gathered whole over the model row from
+    the slots' ``head_dim`` columns under the fallback)."""
+    n_hd = head_dim_blocks(cfg, ps[0])
+    kvs = [gqa_encoder_kv(p, cfg, e) for p, e in zip(ps, enc_hs)]
+    return list(zip(_whole_hd(ctxs, [k for k, _ in kvs], n_hd),
+                    _whole_hd(ctxs, [v for _, v in kvs], n_hd)))
+
+
+def gqa_full_split_group(ps, cfg: ModelConfig, ctxs, xs, poss, window=None,
+                         prefixes=None, cross_kvs=None, encoder=False,
+                         backend: str = "kernel"):
+    """Full-sequence GQA on a group whose slots hold ``head_dim`` columns
+    of the weights (the reference's fallback where the query heads do not
+    divide the model axis) or attend their ``q_rows`` block of the
+    queries (``attn_seq_q``, sequence-parallel attention).
+
+    Each slot projects its columns; q moves to the layout the rules name —
+    the slot's query rows with the whole head_dim (an all-to-all over the
+    model row; its own rows of a whole q where the weights do not split)
+    — and K/V and the QK-norm scales are gathered whole (``kv_heads_act``
+    replicates them).  The slot attends its rows over every key — K2 at
+    ``q_start`` = prefix + its first row, the plain path computing every
+    (query, key) pair under the causal mask, so that the slots' eager
+    work differs only inside K2 — and its output moves back to its
+    head_dim columns for its ``wo`` rows.  A slot standing in for its
+    group counts every row block's K2 call at 1/n (:func:`_slots_mean`).  ``encoder``: the encoder's bidirectional self
+    attention (RoPE, no QK-norm); ``cross_kvs``: per-slot whole cross
+    (k, v), non-causal (no QK-norm or RoPE, as :func:`apply_gqa_full`).
+    Returns (per-slot outputs — partial sums over the model row where the
+    weights split, else whole; per-slot whole chunk (k, v), None for the
+    non-causal forms)."""
+    n = len(ctxs)
+    n_hd = head_dim_blocks(cfg, ps[0])
+    cols = 3 if n_hd > 1 else None
+    rows = 1 if ctxs[0].q_rows[1] > 1 else None
+    causal = cross_kvs is None and not encoder
+    prefixes = prefixes or [None] * n
+    qs = exchange_model(ctxs, [_q_proj(p, cfg, x) for p, x in zip(ps, xs)],
+                        cols, rows)
+    if cross_kvs is None:
+        kvs = [_kv_proj(p, cfg, x) for p, x in zip(ps, xs)]
+        cross_kvs = list(zip(_whole_hd(ctxs, [k for k, _ in kvs], n_hd),
+                             _whole_hd(ctxs, [v for _, v in kvs], n_hd)))
+    norms = _qk_norms(ps, cfg, ctxs, n_hd) if causal else [(None, None)] * n
+    slopes = None if encoder else _slopes(cfg, xs[0].device)
+    outs, kv_out = [], []
+    for c, q, (k, v), positions, pre, (qn, kn) in zip(
+            ctxs, qs, cross_kvs, poss, prefixes, norms):
+        b, nq = c.q_rows
+        w = positions.shape[0] // nq
+        lo = b * w
+        q_pos = positions[lo:lo + w]
+        if causal and cfg.qk_norm:
+            q = rms_norm_simple(q, qn, cfg.norm_eps)
+            k = rms_norm_simple(k, kn, cfg.norm_eps)
+        if (causal or encoder) and cfg.pos_kind == "rope":
+            cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+            q = apply_rope(q, cos[lo:lo + w], sin[lo:lo + w])
+            k = apply_rope(k, cos, sin)
+        P = 0
+        if causal:
+            kv_out.append((k, v))
+            if pre is not None:
+                P = pre[0].shape[1]
+                k = torch.cat([pre[0].to(k.dtype), k], dim=1)
+                v = torch.cat([pre[1].to(v.dtype), v], dim=1)
+            kv_pos = torch.arange(k.shape[1], device=q.device)
+        else:
+            kv_out.append(None)
+            kv_pos = positions if encoder else torch.arange(
+                k.shape[1], device=q.device)
+
+        def attend(i, q=q, k=k, v=v, P=P, kv_pos=kv_pos):
+            return _attend_full(
+                cfg, q, k, v, positions[i * w:(i + 1) * w], kv_pos,
+                window if causal else None, slopes, causal,
+                P + i * w if causal else 0, backend, skip=False)
+
+        outs.append(_slots_mean(c, nq, b, attend)
+                    if causal and use_kernel(backend, q) else attend(b))
+    outs = exchange_model(ctxs, outs, rows, cols)
+    return ([torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+             for o, p, x in zip(outs, ps, xs)], kv_out)
 
 
 def gqa_decode_group(ps, cfg: ModelConfig, ctxs, xs, ks, vs, poss,
@@ -626,27 +812,42 @@ def gqa_decode_group(ps, cfg: ModelConfig, ctxs, xs, ks, vs, poss,
     actives = actives or [None] * n
     kv_lens = kv_lens or [None] * n
     heads = heads or [None] * n
-    shards = _shards(ctxs, ks, "ck" if cross else "k")
-    if shards is None:
-        return [apply_gqa_decode(p, cfg, x, ck, cv, pos, window, act, cross,
-                                 kvl, backend, h)[0]
-                for p, x, ck, cv, pos, act, kvl, h in zip(
-                    ps, xs, ks, vs, poss, actives, kv_lens, heads)]
-    qs = []
-    for p, x, ck, cv, pos, act, sh in zip(ps, xs, ks, vs, poss, actives,
-                                          shards):
-        q, k, v = _gqa_decode_qkv(p, cfg, x, pos, cross)
+    n_hd = head_dim_blocks(cfg, ps[0])
+    if n_hd == 1:
+        qkvs = [_gqa_decode_qkv(p, cfg, x, pos, cross)
+                for p, x, pos in zip(ps, xs, poss)]
+    else:  # the head_dim fallback: q and the new k/v gathered whole
+        qs = _whole_hd(ctxs, [_q_proj(p, cfg, x) for p, x in zip(ps, xs)],
+                       n_hd)
+        kvs = [(None, None)] * n if cross else [
+            _kv_proj(p, cfg, x) for p, x in zip(ps, xs)]
         if not cross:
+            kvs = list(zip(_whole_hd(ctxs, [k for k, _ in kvs], n_hd),
+                           _whole_hd(ctxs, [v for _, v in kvs], n_hd)))
+        qkvs = [_decode_post(cfg, q, k, v, pos, qn, kn)
+                for q, (k, v), pos, (qn, kn) in zip(
+                    qs, kvs, poss, _qk_norms(ps, cfg, ctxs, n_hd))]
+    shards = _shards(ctxs, ks, "ck" if cross else "k")
+    if not cross:
+        for (_, k, v), ck, cv, pos, act, sh in zip(
+                qkvs, ks, vs, poss, actives, shards or [None] * n):
             write_token(ck, k, pos, act, sh)
             write_token(cv, v, pos, act, sh)
-        qs.append(q)
-    outs = _partials_merged(
-        ctxs, qs, ks, vs, poss, shards, heads, backend,
-        "ck" if cross else "k", ks[0].shape[2] == cfg.n_kv_heads,
-        _slopes(cfg, xs[0].device), window=None if cross else window,
-        kv_lens=kv_lens, causal=not cross)
-    return [torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
-            for o, p, x in zip(outs, ps, xs)]
+    qs = [q for q, _, _ in qkvs]
+    if shards is None:
+        outs = [_decode_attend(cfg, q, ck, cv, pos, window, cross, kvl,
+                               backend, h)
+                for q, ck, cv, pos, kvl, h in zip(qs, ks, vs, poss, kv_lens,
+                                                  heads)]
+    else:
+        outs = _partials_merged(
+            ctxs, qs, ks, vs, poss, shards, heads, backend,
+            "ck" if cross else "k", ks[0].shape[2] == cfg.n_kv_heads,
+            _slopes(cfg, xs[0].device), window=None if cross else window,
+            kv_lens=kv_lens, causal=not cross)
+    return [torch.einsum("bshk,hkd->bsd", _hd_cols(c, o, n_hd),
+                         p["wo"].to(x.dtype))
+            for c, o, p, x in zip(ctxs, outs, ps, xs)]
 
 
 def mla_decode_group(ps, cfg: ModelConfig, ctxs, xs, lats, krs, poss,

@@ -17,6 +17,10 @@ reference vmaps its rows).
 (``layers.GroupCtx``): the per-slot tensors and params are lists in slot
 order, the slots run the block's halves in lockstep, and the output
 projections' and the MLP's partial sums are added over each model row.
+Under ``seq_act`` a block's input and output are each slot's sequence
+block of the residual stream: each half's normed input is gathered over
+the model row (``_normed``) and its partial sums reduce-scattered back
+(``layers.reduce_out``).
 Attention on a slot that holds a time shard of its cache merges K1's
 partials over the row (``attention.gqa_decode_group``); the recurrent
 mixers gather their state heads (``ssm.*_group``).  The engine's pooled
@@ -40,8 +44,9 @@ from repro_torch.models import moe
 from repro_torch.models import ssm
 from repro_torch.models.layers import (NULL, ParamBuilder, apply_mlp,
                                        apply_norm, apply_rope, gather_model,
-                                       init_mlp, init_norm, mlp_group,
-                                       reduce_model, rope_angles)
+                                       gather_seq, init_mlp, init_norm,
+                                       mlp_group, reduce_out, rope_angles,
+                                       seq_block)
 
 _BIG = 1 << 30
 
@@ -210,17 +215,34 @@ def _first_head(cfg: ModelConfig, ctx, attn_params) -> int:
 
 def _attn_reduce(aps, cfg: ModelConfig, ctxs, parts):
     """The output projection's partials (``aps``: the slots' attention
-    params) summed over each model row (heads sharded), or the slots'
-    whole outputs."""
-    n = aps[0]["wo"].shape[0]
-    return parts if n == cfg.n_heads else reduce_model(ctxs, parts)
+    params; heads or ``head_dim`` rows of ``wo`` sharded) summed over each
+    model row, or the slots' whole outputs — onto the residual stream's
+    layout (``layers.reduce_out``)."""
+    whole = tuple(aps[0]["wo"].shape[:2]) == (cfg.n_heads, cfg.head_dim)
+    return reduce_out(ctxs, parts, not whole)
+
+
+def _normed(ps, cfg: ModelConfig, ctxs, hs, norm: str, concat=None):
+    """``norm(h)`` of each slot's residual block (``concat``: per-slot
+    tensors joined to h first, zamba2's embedding), gathered whole over
+    the model row under ``seq_act`` — a mixer's or an FFN's input."""
+    return gather_seq(ctxs, [
+        apply_norm(p[norm], cfg, h if e is None else torch.cat([h, e], -1))
+        for p, h, e in zip(ps, hs, concat or [None] * len(hs))])
 
 
 def _gqa_full_group(aps, cfg: ModelConfig, ctxs, xs, poss, win=None,
                     prefixes=None, cross_kvs=None, backend: str = "kernel"):
-    """``apply_gqa_full`` on each slot's heads, reduced over the row:
-    (per-slot output, per-slot chunk (k, v) or None)."""
+    """``apply_gqa_full`` on each slot's heads (or under the ``head_dim``
+    fallback / ``attn_seq_q``, ``attention.gqa_full_split_group``),
+    reduced over the row: (per-slot output, per-slot chunk (k, v) or
+    None)."""
     n = len(ctxs)
+    if attn.gqa_split(cfg, aps, ctxs):
+        outs, kvs = attn.gqa_full_split_group(aps, cfg, ctxs, xs, poss, win,
+                                              prefixes, cross_kvs,
+                                              backend=backend)
+        return _attn_reduce(aps, cfg, ctxs, outs), kvs
     prefixes = prefixes or [None] * n
     cross_kvs = cross_kvs or [None] * n
     outs = [attn.apply_gqa_full(a, cfg, x, positions, win, prefix_kv=pre,
@@ -263,8 +285,10 @@ def _ffn_group(ps, cfg: ModelConfig, ctxs, hs, rows_split: bool,
                moe_ep: bool = False, batch_moe: bool = False):
     """``_ffn`` on a group: ln2 -> MLP (TP) or MoE (per-row, the pure EP
     all-to-all over a (data, model) token grid when ``moe_ep``, or the
-    whole batch's routing when ``batch_moe``) -> residual."""
-    xs = [apply_norm(p["ln2"], cfg, h) for p, h in zip(ps, hs)]
+    whole batch's routing when ``batch_moe``) -> residual.  Under
+    ``seq_act`` the MoE routes the gathered rows, as without it, and
+    each slot keeps its block of the output."""
+    xs = _normed(ps, cfg, ctxs, hs, "ln2")
     fs = [p["ffn"] for p in ps]
     if not cfg.is_moe:
         ms = mlp_group(fs, cfg, ctxs, xs)
@@ -280,6 +304,8 @@ def _ffn_group(ps, cfg: ModelConfig, ctxs, hs, rows_split: bool,
                                       gather_model(ctxs, routed, dim=0))
     else:
         ms = moe.apply_moe_group(fs, cfg, ctxs, xs, rows_split)
+    if cfg.is_moe:
+        ms = [seq_block(c, m) for c, m in zip(ctxs, ms)]
     return [_residual(p, cfg, h, m, "post_ln2")
             for p, h, m in zip(ps, hs, ms)]
 
@@ -288,9 +314,7 @@ def _mlp_residual_group(ps, cfg: ModelConfig, ctxs, hs, norm="ln2",
                         concat=None):
     """``h + MLP(norm(h))`` on a group (``concat``: per-slot tensors joined
     to h before the norm, zamba2's embedding)."""
-    xs = [apply_norm(p[norm], cfg, h if e is None
-                     else torch.cat([h, e], dim=-1))
-          for p, h, e in zip(ps, hs, concat or [None] * len(hs))]
+    xs = _normed(ps, cfg, ctxs, hs, norm, concat)
     ms = mlp_group([p["ffn"] for p in ps], cfg, ctxs, xs)
     return [h + m for h, m in zip(hs, ms)]
 
@@ -314,12 +338,18 @@ def _attn_full_group(ps, cfg: ModelConfig, ctxs, hs, poss, layer_idx,
     h, per-slot cache entries of the chunk)."""
     win = window_for_layer(cfg, layer_idx)
     prefixes = prefixes or [None] * len(ctxs)
-    outs = [_mixer_full(p, cfg, apply_norm(p["ln1"], cfg, h), positions,
-                        win, pre, backend, _first_head(cfg, c, p["attn"]))
-            for p, c, h, positions, pre in zip(ps, ctxs, hs, poss,
-                                                prefixes)]
-    a = _attn_reduce([p["attn"] for p in ps], cfg, ctxs,
-                     [o[0] for o in outs])
+    xs = _normed(ps, cfg, ctxs, hs, "ln1")
+    aps = [p["attn"] for p in ps]
+    if cfg.attn_kind != "mla" and attn.gqa_split(cfg, aps, ctxs):
+        ys, kvs = attn.gqa_full_split_group(aps, cfg, ctxs, xs, poss, win,
+                                            prefixes, backend=backend)
+        outs = [(y, {"k": k, "v": v}) for y, (k, v) in zip(ys, kvs)]
+    else:
+        outs = [_mixer_full(p, cfg, x, positions, win, pre, backend,
+                            _first_head(cfg, c, p["attn"]))
+                for p, c, x, positions, pre in zip(ps, ctxs, xs, poss,
+                                                    prefixes)]
+    a = _attn_reduce(aps, cfg, ctxs, [o[0] for o in outs])
     return ([_residual(p, cfg, h, y, "post_ln1")
              for p, h, y in zip(ps, hs, a)], [o[1] for o in outs])
 
@@ -336,11 +366,11 @@ def decoder_block_batch_group(ps, cfg: ModelConfig, ctxs, hs, poss,
                                   backend)
     if not cfg.is_moe:
         return _ffn_group(ps, cfg, ctxs, hs, True), caches, {}
-    xs = [apply_norm(p["ln2"], cfg, h) for p, h in zip(ps, hs)]
+    xs = _normed(ps, cfg, ctxs, hs, "ln2")
     ms, aux = moe.apply_moe_batch_group([p["ffn"] for p in ps], cfg, ctxs,
                                         xs)
-    return [_residual(p, cfg, h, m, "post_ln2")
-            for p, h, m in zip(ps, hs, ms)], caches, aux
+    return [_residual(p, cfg, h, seq_block(c, m), "post_ln2")
+            for p, c, h, m in zip(ps, ctxs, hs, ms)], caches, aux
 
 
 def decoder_block_train_group(ps, cfg: ModelConfig, ctxs, hs, poss,
@@ -364,7 +394,7 @@ def decoder_block_decode_group(ps, cfg: ModelConfig, ctxs, hs, caches,
     ``batch_moe``: the MoE routes the whole batch (the group
     ``decode_step``; the pooled steps route rows).  Returns per-slot h."""
     win = window_for_layer(cfg, layer_idx)
-    xs = [apply_norm(p["ln1"], cfg, h) for p, h in zip(ps, hs)]
+    xs = _normed(ps, cfg, ctxs, hs, "ln1")
     a = _mixer_decode_group([p["attn"] for p in ps], cfg, ctxs, xs, caches,
                             poss, win, actives, backend)
     hs = [_residual(p, cfg, h, y, "post_ln1") for p, h, y in zip(ps, hs, a)]
@@ -374,11 +404,18 @@ def decoder_block_decode_group(ps, cfg: ModelConfig, ctxs, hs, caches,
 def encoder_block_full_group(ps, cfg: ModelConfig, ctxs, hs, poss,
                              backend: str = "kernel"):
     """:func:`encoder_block_full` on a group: bidirectional attention of
-    each slot's heads over its KV heads, reduced; the MLP.  Per-slot h."""
+    each slot's heads over its KV heads (or under the ``head_dim``
+    fallback / ``attn_seq_q``, ``attention.gqa_full_split_group``),
+    reduced; the MLP.  Per-slot h."""
+    xs = _normed(ps, cfg, ctxs, hs, "ln1")
+    aps = [p["attn"] for p in ps]
+    if attn.gqa_split(cfg, aps, ctxs):
+        ys = _attn_reduce(aps, cfg, ctxs, attn.gqa_full_split_group(
+            aps, cfg, ctxs, xs, poss, encoder=True, backend=backend)[0])
+        return _mlp_residual_group(ps, cfg, ctxs,
+                                   [h + y for h, y in zip(hs, ys)])
     parts = []
-    for p, c, h, positions in zip(ps, ctxs, hs, poss):
-        a = p["attn"]
-        x = apply_norm(p["ln1"], cfg, h)
+    for a, c, x, positions in zip(aps, ctxs, xs, poss):
         q = attn._q_proj(a, cfg, x)
         k, v = attn._kv_proj(a, cfg, x)
         if cfg.pos_kind == "rope":
@@ -390,7 +427,7 @@ def encoder_block_full_group(ps, cfg: ModelConfig, ctxs, hs, poss,
                                 None, False, 0, backend)
         parts.append(torch.einsum("bshk,hkd->bsd", out,
                                   a["wo"].to(x.dtype)))
-    ys = _attn_reduce([p["attn"] for p in ps], cfg, ctxs, parts)
+    ys = _attn_reduce(aps, cfg, ctxs, parts)
     return _mlp_residual_group(ps, cfg, ctxs,
                                [h + y for h, y in zip(hs, ys)])
 
@@ -402,15 +439,14 @@ def cross_decoder_block_full_group(ps, cfg: ModelConfig, ctxs, hs, poss,
     ``enc_kvs``: per-slot whole prefixes and cross (k, v) of the slot's
     KV heads (or None).  Returns (per-slot h, per-slot {"k", "v", "ck",
     "cv"})."""
-    n = len(ctxs)
-    xs = [apply_norm(p["ln1"], cfg, h) for p, h in zip(ps, hs)]
+    xs = _normed(ps, cfg, ctxs, hs, "ln1")
     ys, kvs = _gqa_full_group([p["self_attn"] for p in ps], cfg, ctxs, xs,
                               poss, prefixes=prefixes, backend=backend)
     hs = [h + y for h, y in zip(hs, ys)]
-    xs = [apply_norm(p["ln_cross"], cfg, h) for p, h in zip(ps, hs)]
-    enc_kvs = enc_kvs or [None] * n
-    ckvs = [attn.gqa_encoder_kv(p["cross_attn"], cfg, e) if ekv is None
-            else ekv for p, e, ekv in zip(ps, enc_hs, enc_kvs)]
+    xs = _normed(ps, cfg, ctxs, hs, "ln_cross")
+    ckvs = enc_kvs if enc_kvs and enc_kvs[0] is not None else \
+        attn.gqa_encoder_kv_group([p["cross_attn"] for p in ps], cfg, ctxs,
+                                  enc_hs)
     ys, _ = _gqa_full_group([p["cross_attn"] for p in ps], cfg, ctxs, xs,
                             poss, cross_kvs=ckvs, backend=backend)
     hs = _mlp_residual_group(ps, cfg, ctxs, [h + y for h, y in zip(hs, ys)])
@@ -423,13 +459,13 @@ def cross_decoder_block_decode_group(ps, cfg: ModelConfig, ctxs, hs,
                                      actives=None, backend: str = "kernel"):
     """:func:`cross_decoder_block_decode` on a group (the self caches
     written in place on ``actives`` rows).  Per-slot h."""
-    xs = [apply_norm(p["ln1"], cfg, h) for p, h in zip(ps, hs)]
+    xs = _normed(ps, cfg, ctxs, hs, "ln1")
     ys = _attn_decode_group([p["self_attn"] for p in ps], cfg, ctxs, xs,
                             [c["k"] for c in caches],
                             [c["v"] for c in caches], poss, None, actives,
                             backend)
     hs = [h + y for h, y in zip(hs, ys)]
-    xs = [apply_norm(p["ln_cross"], cfg, h) for p, h in zip(ps, hs)]
+    xs = _normed(ps, cfg, ctxs, hs, "ln_cross")
     ys = _attn_decode_group([p["cross_attn"] for p in ps], cfg, ctxs, xs,
                             [c["ck"] for c in caches],
                             [c["cv"] for c in caches], poss, backend=backend,
@@ -440,7 +476,7 @@ def cross_decoder_block_decode_group(ps, cfg: ModelConfig, ctxs, hs,
 def mamba_block_full_group(ps, cfg: ModelConfig, ctxs, hs,
                            backend: str = "kernel"):
     """:func:`mamba_block_full` on a group: (per-slot h, per-slot state)."""
-    xs = [apply_norm(p["ln"], cfg, h) for p, h in zip(ps, hs)]
+    xs = _normed(ps, cfg, ctxs, hs, "ln")
     ys, states = ssm.mamba_full_group([p["mixer"] for p in ps], cfg, ctxs,
                                       xs, backend)
     return [h + y for h, y in zip(hs, ys)], states
@@ -448,7 +484,7 @@ def mamba_block_full_group(ps, cfg: ModelConfig, ctxs, hs,
 
 def mamba_block_decode_group(ps, cfg: ModelConfig, ctxs, hs, states):
     """:func:`mamba_block_decode` on a group."""
-    xs = [apply_norm(p["ln"], cfg, h) for p, h in zip(ps, hs)]
+    xs = _normed(ps, cfg, ctxs, hs, "ln")
     ys, states = ssm.mamba_decode_group([p["mixer"] for p in ps], cfg, ctxs,
                                         xs, states)
     return [h + y for h, y in zip(hs, ys)], states
@@ -458,8 +494,7 @@ def zamba_shared_full_group(ps, cfg: ModelConfig, ctxs, hs, emb0s, poss,
                             backend: str = "kernel"):
     """:func:`zamba_shared_full` on a group (``ps``: the slots' shared
     params): (per-slot h, per-slot {"k", "v"})."""
-    xs = [apply_norm(p["ln1"], cfg, torch.cat([h, e], dim=-1))
-          for p, h, e in zip(ps, hs, emb0s)]
+    xs = _normed(ps, cfg, ctxs, hs, "ln1", emb0s)
     ys, kvs = _gqa_full_group([p["attn"] for p in ps], cfg, ctxs, xs, poss,
                               backend=backend)
     hs = _mlp_residual_group(ps, cfg, ctxs, [h + y for h, y in zip(hs, ys)],
@@ -471,8 +506,7 @@ def zamba_shared_decode_group(ps, cfg: ModelConfig, ctxs, hs, emb0s, caches,
                               poss, actives=None, backend: str = "kernel"):
     """:func:`zamba_shared_decode` on a group (K/V written in place on
     ``actives`` rows).  Per-slot h."""
-    xs = [apply_norm(p["ln1"], cfg, torch.cat([h, e], dim=-1))
-          for p, h, e in zip(ps, hs, emb0s)]
+    xs = _normed(ps, cfg, ctxs, hs, "ln1", emb0s)
     ys = _attn_decode_group([p["attn"] for p in ps], cfg, ctxs, xs,
                             [c["k"] for c in caches],
                             [c["v"] for c in caches], poss, None, actives,
@@ -484,11 +518,11 @@ def zamba_shared_decode_group(ps, cfg: ModelConfig, ctxs, hs, emb0s, caches,
 def rwkv_block_full_group(ps, cfg: ModelConfig, ctxs, hs,
                           backend: str = "kernel"):
     """:func:`rwkv_block_full` on a group: (per-slot h, per-slot state)."""
-    xs = [apply_norm(p["ln1"], cfg, h) for p, h in zip(ps, hs)]
+    xs = _normed(ps, cfg, ctxs, hs, "ln1")
     ys, tms = ssm.rwkv_tm_full_group([p["tm"] for p in ps], cfg, ctxs, xs,
                                      backend)
     hs = [h + y for h, y in zip(hs, ys)]
-    xs = [apply_norm(p["ln2"], cfg, h) for p, h in zip(ps, hs)]
+    xs = _normed(ps, cfg, ctxs, hs, "ln2")
     cms = ssm.rwkv_cm_group([p["cm"] for p in ps], cfg, ctxs, xs)
     return ([h + y for h, (y, _) in zip(hs, cms)],
             [{"wkv": tm["wkv"], "shift_tm": tm["shift"], "shift_cm": sh}
@@ -497,12 +531,12 @@ def rwkv_block_full_group(ps, cfg: ModelConfig, ctxs, hs,
 
 def rwkv_block_decode_group(ps, cfg: ModelConfig, ctxs, hs, states):
     """:func:`rwkv_block_decode` on a group."""
-    xs = [apply_norm(p["ln1"], cfg, h) for p, h in zip(ps, hs)]
+    xs = _normed(ps, cfg, ctxs, hs, "ln1")
     ys, tms = ssm.rwkv_tm_decode_group(
         [p["tm"] for p in ps], cfg, ctxs, xs,
         [{"wkv": st["wkv"], "shift": st["shift_tm"]} for st in states])
     hs = [h + y for h, y in zip(hs, ys)]
-    xs = [apply_norm(p["ln2"], cfg, h) for p, h in zip(ps, hs)]
+    xs = _normed(ps, cfg, ctxs, hs, "ln2")
     cms = ssm.rwkv_cm_group([p["cm"] for p in ps], cfg, ctxs, xs,
                             [st["shift_cm"] for st in states])
     return ([h + y for h, (y, _) in zip(hs, cms)],

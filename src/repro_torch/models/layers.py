@@ -7,12 +7,18 @@ Where the reference threads a ``ShardingCtx`` through every function and
 lets XLA partition the program, a device-group server here runs the same
 functions on each slot's shard and joins the slots with the explicit
 collectives of :class:`GroupCtx` (``NULL`` for a solo server): partial
-sums added in slot order, vocab shards concatenated.
+sums added in slot order, vocab shards concatenated; under ``seq_act``
+the residual stream holds each slot's sequence block, gathered before a
+mixer or an FFN (:func:`gather_seq`) and reduce-scattered after
+(:func:`reduce_out`); :meth:`GroupCtx.exchange` moves a tensor from one
+split over the model row to another (the ``head_dim`` columns of the
+attention <-> its query rows).
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import copy
 import functools
 import itertools
 import math
@@ -314,7 +320,17 @@ class GroupCtx:
     dry run's count at 256 / 512 slots): the per-slot lists hold its
     tensors alone, and they stand in for every peer's in a collective
     (:meth:`peers`).  Every slot of a cell has the same shard shapes, so
-    the collectives move what they would."""
+    the collectives move what they would.
+
+    ``seq`` and ``q_rows``: the slot's (block index, block count) of the
+    positions of a full-sequence pass — of the residual stream under
+    ``seq_act`` (Megatron-SP) and of the attention queries under
+    ``attn_seq_q`` — (0, 1) where the rule or the guard keeps them whole
+    (:meth:`at_seq` sets them for one pass; both rules name ``model``, so
+    the blocks lie along the model row)."""
+
+    seq = (0, 1)
+    q_rows = (0, 1)
 
     def __init__(self, mesh=None, slot: int = 0, rules=None,
                  whole_time=(), stand_in: bool = False):
@@ -338,6 +354,29 @@ class GroupCtx:
         self.n_model = self.sizes.get("model", 1)
         self.i = self.coords.get("data", 0)
         self.j = self.coords.get("model", 0)
+
+    def at_seq(self, n_rows: int, S: int) -> "GroupCtx":
+        """This slot for a pass over ``n_rows`` (the global batch) x ``S``
+        positions: a copy whose ``seq`` / ``q_rows`` are its blocks under
+        the ``seq_act`` / ``attn_seq_q`` rules after the reference's
+        divisibility guard on the activations' shapes ((B, S, d) and (B,
+        S, H, hd)), so a rule the guard drops (S = 1, or S not divisible
+        by the model extent) falls away as it does there."""
+        if self.mesh is None:
+            return self
+        from repro_torch.launch.sharding import guarded_spec
+
+        out = copy.copy(self)
+        for attr, axes in (("seq", ("batch", "seq_act", None)),
+                           ("q_rows", ("batch", "attn_seq_q", None, None))):
+            entry = guarded_spec(axes, (n_rows, S) + (1,) * (len(axes) - 2),
+                                 self.rules, self.mesh)[1]
+            if entry not in (None, "model"):
+                raise ValueError(f"a sequence split over {entry!r}: the "
+                                 "rules put it on 'model'")
+            setattr(out, attr, (0, 1) if entry is None
+                    else (self.j, self.n_model))
+        return out
 
     def peers(self, parts, slots) -> list:
         """The entries of the per-slot list ``parts`` of ``slots`` — on a
@@ -453,6 +492,49 @@ class GroupCtx:
                 out = out + self.to_here(p)
         return out
 
+    def reduce_scatter(self, parts, dim: int = 1):
+        """This slot's block (its model index's of ``len(parts)`` along
+        ``dim``) of the sum of a model row's partials ``parts`` (in row
+        order), added in slot order on this slot's device — the
+        all-reduce's sum, cut to the block the slot keeps.  Its wire bytes
+        by the ring model, (g-1)/g of the summed leaf, are half the
+        all-reduce's; the all-gather of the blocks makes up the rest."""
+        g = len(parts)
+        _record("reduce-scatter", parts[0], g, gathered=True,
+                nbytes=_nbytes(parts[0]) / g)
+        w = parts[0].shape[dim] // g
+        with collective_ops():
+            blocks = [self.to_here(p.narrow(dim, self.j * w, w))
+                      for p in parts]
+            out = blocks[0]
+            for b in blocks[1:]:
+                out = out + b
+        return out
+
+    def exchange(self, parts, src: Optional[int], dst: Optional[int]):
+        """A model row's tensor (``parts``, in row order) moved from a
+        split along dim ``src`` (slot j holding block j; None: whole on
+        every slot) to a split along dim ``dst`` (None: whole): this
+        slot's block — its own slice where ``src`` is None, an all-gather
+        where ``dst`` is None, else the all-to-all whose piece from each
+        peer is that peer's block of this slot's ``dst`` rows (the
+        ``head_dim`` columns <-> query rows of the attention)."""
+        g = len(parts)
+        mine = parts[self.j] if g > 1 else parts[0]
+        if src is None:
+            x = self.to_here(mine)
+            return x if dst is None else x.narrow(
+                dst, self.j * (x.shape[dst] // g), x.shape[dst] // g)
+        if dst is None:
+            return self.all_gather(parts, dim=src)
+        w = parts[0].shape[dst] // g
+        pieces = [p.narrow(dst, self.j * w, w) for p in parts]
+        if g > 1:
+            _record("all-to-all", pieces[0], g, point=True,
+                    nbytes=(g - 1) * _nbytes(pieces[0]))
+        with collective_ops():
+            return torch.cat([self.to_here(p) for p in pieces], dim=src)
+
     def gather_blocks(self, parts, idxs, shape):
         """A leaf of ``shape`` put together on this slot from its blocks
         ``parts`` (one a block, at the indices ``idxs``) — an all-gather of
@@ -554,6 +636,66 @@ def gather_model(ctxs, parts, dim: int = -1):
     return [c.all_gather(c.peers(parts, c.model_row()), dim) for c in ctxs]
 
 
+def seq_ctxs(ctxs, n_rows: int, S: int):
+    """The slots for a full-sequence pass over ``n_rows`` x ``S``
+    (:meth:`GroupCtx.at_seq`)."""
+    return [c.at_seq(n_rows, S) for c in ctxs]
+
+
+def seq_block(c: GroupCtx, x, dim: int = 1):
+    """The slot's ``seq`` block of a whole sequence ``x`` (``x`` itself
+    when the pass keeps it whole)."""
+    b, n = c.seq
+    if n == 1:
+        return x
+    w = x.shape[dim] // n
+    return x.narrow(dim, b * w, w)
+
+
+def gather_seq(ctxs, xs, dim: int = 1):
+    """Per slot: the whole sequence of its ``seq`` blocks ``xs``, gathered
+    over the model row in position order (``xs`` where it is whole) —
+    the Megatron-SP all-gather before a mixer or an FFN."""
+    if ctxs[0].seq[1] == 1:
+        return xs
+    return gather_model(ctxs, xs, dim)
+
+
+def reduce_out(ctxs, parts, partial: bool):
+    """A block half's output onto the residual stream: the model row's
+    partial sums (``partial``) added in slot order — all-reduced, or
+    reduce-scattered onto the slots' ``seq`` blocks under ``seq_act`` —
+    or each slot's whole output (cut to its ``seq`` block)."""
+    if not partial:
+        return [seq_block(c, p) for c, p in zip(ctxs, parts)]
+    if ctxs[0].seq[1] > 1:
+        return [c.reduce_scatter(c.peers(parts, c.model_row()))
+                for c in ctxs]
+    return reduce_model(ctxs, parts)
+
+
+def last_position(ctxs, hs):
+    """Per slot: the last position (B, 1, d) of the sequence whose ``seq``
+    blocks are ``hs`` — broadcast from the model row's last slot under
+    ``seq_act`` (its g - 1 sends, a (g-1)/g share on each slot)."""
+    if ctxs[0].seq[1] == 1:
+        return [h[:, -1:] for h in hs]
+    out = []
+    for c in ctxs:
+        row = c.model_row()
+        x = c.peers(hs, row)[-1][:, -1:]
+        _record("broadcast", x, len(row), point=True,
+                nbytes=(len(row) - 1) / len(row) * _nbytes(x))
+        out.append(c.to_here(x))
+    return out
+
+
+def exchange_model(ctxs, parts, src: Optional[int], dst: Optional[int]):
+    """Per slot: :meth:`GroupCtx.exchange` over its model row."""
+    return [c.exchange(c.peers(parts, c.model_row()), src, dst)
+            for c in ctxs]
+
+
 def gather_time(ctxs, shards, n: int, name: str = "k"):
     """Per slot: positions [0, n) of a cache leaf named ``name`` (time on
     dim 1) whose slots hold time shards — each shard's part of [0, n)
@@ -638,7 +780,8 @@ def _vocab_lo(ctx: GroupCtx, local: int, cfg: ModelConfig) -> int:
 def embed_tokens_group(ps, cfg: ModelConfig, ctxs, tokens):
     """Vocab-parallel lookup: each slot looks up the ids of its vocab
     shard (zero rows elsewhere) and the model row sums them — exactly the
-    one table row each id has.  ``ps``: per-slot embedding trees;
+    one table row each id has (reduce-scattered onto the slots' ``seq``
+    blocks under ``seq_act``).  ``ps``: per-slot embedding trees;
     ``tokens``: per-slot id tensors.  Returns per-slot (.., d)."""
     parts = []
     for p, c, tok in zip(ps, ctxs, tokens):
@@ -648,9 +791,7 @@ def embed_tokens_group(ps, cfg: ModelConfig, ctxs, tokens):
         ok = (local >= 0) & (local < table.shape[0])
         rows = F.embedding(local.clamp(0, table.shape[0] - 1), table)
         parts.append(torch.where(ok[..., None], rows, rows.new_zeros(())))
-    if ps[0]["tok"].shape[0] == cfg.padded_vocab:
-        return parts
-    return reduce_model(ctxs, parts)
+    return reduce_out(ctxs, parts, ps[0]["tok"].shape[0] != cfg.padded_vocab)
 
 
 def _shard_logits(p, cfg: ModelConfig, c: GroupCtx, h):
@@ -707,9 +848,8 @@ def lm_head_xent_group(ps, cfg: ModelConfig, ctxs, hs, labels):
 
 def mlp_group(ps, cfg: ModelConfig, ctxs, xs):
     """The MLP on column/row splits: each slot's ``wi``/``wg``/``wu``
-    columns and ``wo`` rows give a partial sum, which the model row adds;
-    a replicated MLP (``d_ff`` not divisible) is whole on each slot."""
+    columns and ``wo`` rows give a partial sum, which the model row adds
+    (:func:`reduce_out`); a replicated MLP (``d_ff`` not divisible) is
+    whole on each slot."""
     parts = [apply_mlp(p, cfg, x) for p, x in zip(ps, xs)]
-    if ps[0]["wo"].shape[0] == (cfg.d_ff):
-        return parts
-    return reduce_model(ctxs, parts)
+    return reduce_out(ctxs, parts, ps[0]["wo"].shape[0] != cfg.d_ff)

@@ -271,7 +271,10 @@ def forward_full(params, cfg: ModelConfig, batch, collect_caches=False,
     ``i``); each layer's group form (``blocks.*_group``; the decoder's
     :func:`blocks.decoder_block_train_group`, the MoE over the whole
     batch) runs once per layer, under ``remat`` recomputed in the
-    backward pass.  Returns (per-slot h, aux on slot 0's device, {})."""
+    backward pass (what it keeps is each layer's input: under ``seq_act``
+    the slot's sequence block).  Returns (per-slot h — the slot's ``seq``
+    block of the positions under ``seq_act`` — aux on slot 0's device,
+    {})."""
     if ctxs is not None:
         if collect_caches or cast is not None:
             raise ValueError("forward_full over a group collects no caches "
@@ -399,8 +402,12 @@ def _forward_full_group(ps, cfg: ModelConfig, batches, ctxs, backend: str,
                         remat: bool, collect=None):
     """:func:`forward_full` over a group (see there).  ``collect(seg, i,
     entries)``: called with each layer's per-slot cache entries (the
-    group ``prefill``'s)."""
-    from repro_torch.models.layers import embed_tokens_group
+    group ``prefill``'s).  Under ``seq_act`` the residual stream — the
+    embedding's output, every block's input and output, and the per-slot
+    h returned — is each slot's ``seq`` block of the positions (the
+    encoder's of the frames, gathered whole for the cross attention)."""
+    from repro_torch.models.layers import (embed_tokens_group, gather_seq,
+                                           seq_block)
 
     dev0 = batches[0]["tokens"].device
     # the MoE terms of the training step's loss (slot 0's scalars; the
@@ -409,27 +416,34 @@ def _forward_full_group(ps, cfg: ModelConfig, batches, ctxs, backend: str,
         "moe_aux_loss": torch.zeros((), device=dev0),
         "moe_drop_frac": torch.zeros((), device=dev0)}
     toks = [b["tokens"] for b in batches]
+    dctxs = _pass_ctxs(ctxs, batches, "tokens")
     poss = [torch.arange(t.shape[1], device=t.device) for t in toks]
     segs = [p["segments"] for p in ps]
     shared = [p.get("shared") for p in ps]
-    encs = None
+    encs = ectxs = None
     if cfg.is_enc_dec:
         frames = [b["frames"] for b in batches]
+        ectxs = _pass_ctxs(ctxs, batches, "frames")
         enc_poss = [torch.arange(f.shape[1], device=f.device)
                     for f in frames]
-        encs = [embed_frames({"frame_proj": p["embed"]["frame_proj"]}, cfg,
-                             f) for p, f in zip(ps, frames)]
+        encs = [seq_block(c, embed_frames(
+            {"frame_proj": p["embed"]["frame_proj"]}, cfg, f))
+            for c, p, f in zip(ectxs, ps, frames)]
     hs = emb0s = None
 
     def layer(seg, i, pl, hs, shared, emb0s, encs):
-        positions = enc_poss if seg.kind == "enc" else poss
-        return _full_layer_group(cfg, seg, pl, ctxs, hs, positions, i,
+        if seg.kind == "enc":
+            return _full_layer_group(cfg, seg, pl, ectxs, hs, enc_poss, i,
+                                     backend)
+        return _full_layer_group(cfg, seg, pl, dctxs, hs, poss, i,
                                  backend, shared, emb0s, encs)
 
     for seg in stack_plan(cfg):
         if seg.kind != "enc" and hs is None:
+            if encs is not None:  # the cross attention's keys: whole
+                encs = gather_seq(ectxs, encs)
             hs = emb0s = embed_tokens_group([p["embed"] for p in ps], cfg,
-                                            ctxs, toks)
+                                            dctxs, toks)
         for i, pl in enumerate(_slot_layers(segs, seg.name, seg.n)):
             if seg.kind == "enc":
                 encs = _call(remat, lambda *a: layer(*a)[0], seg, i, pl,
@@ -444,6 +458,16 @@ def _forward_full_group(ps, cfg: ModelConfig, batches, ctxs, backend: str,
                 hs, entries, _ = layer(seg, i, pl, hs, shared, emb0s, encs)
                 collect(seg, i, entries)
     return hs, aux_total, {}
+
+
+def _pass_ctxs(ctxs, batches, key: str):
+    """The slots for a full-sequence pass over the per-slot ``batches``'
+    ``key`` leaf (rows, positions): their ``seq`` / ``q_rows`` blocks at
+    the global batch (``layers.GroupCtx.at_seq``)."""
+    from repro_torch.models.layers import seq_ctxs
+
+    x = batches[0][key]
+    return seq_ctxs(ctxs, x.shape[0] * ctxs[0].row_block()[1], x.shape[1])
 
 
 def _slot_layers(ps, name: str, n: int):
@@ -515,10 +539,13 @@ def _loss_chunks(tokens):
 
 def _train_loss_group(ps, cfg: ModelConfig, batches, remat: bool, ctxs):
     """:func:`train_loss` over a group (see there)."""
-    from repro_torch.models.layers import lm_head_xent_group, row_heads
+    from repro_torch.models.layers import (gather_seq, lm_head_xent_group,
+                                           row_heads)
 
     hs, aux, _ = forward_full(ps, cfg, batches, backend="plain",
                               remat=remat, ctxs=ctxs)
+    # the vocab-parallel head takes every position on each model slot
+    hs = gather_seq(_pass_ctxs(ctxs, batches, "tokens"), hs)
     toks = [b["tokens"] for b in batches]
     B_l, S = toks[0].shape
     totals = [torch.zeros((), dtype=torch.float32, device=t.device)
@@ -566,10 +593,12 @@ def prefill(params, cfg: ModelConfig, batch, cache_len: Optional[int] = None,
     entries into each slot's shard of the caches as
     ``launch.sharding.cache_shardings`` lays them out
     (:func:`slot_decode_caches`: rows over the batch axes, KV heads or the
-    ``kv_time`` shards over ``model``).  Returns (per-slot logits of the
-    whole vocabulary, gathered over the model row; per-slot caches).
-    ``NotImplementedError`` for rules the group forms do not emulate
-    (``launch.sharding.check_group_rules``)."""
+    ``kv_time`` shards over ``model``).  Under ``seq_act`` the residual
+    stream is each slot's sequence block; under ``attn_seq_q`` each slot
+    attends its block of the query rows; under the ``head_dim`` fallback
+    each slot projects its head_dim columns (``blocks``,
+    ``attention.gqa_full_split_group``).  Returns (per-slot logits of the
+    whole vocabulary, gathered over the model row; per-slot caches)."""
     if ctxs is not None:
         return _prefill_group(params, cfg, batch, cache_len, backend, ctxs)
     h, _, caches = forward_full(params, cfg, batch, collect_caches=True,
@@ -651,10 +680,8 @@ def _write_entry(ctx, cache, entry):
 def _prefill_group(ps, cfg: ModelConfig, batches, cache_len, backend: str,
                    ctxs):
     """:func:`prefill` over a group (see there)."""
-    from repro_torch.launch.sharding import check_group_rules
-    from repro_torch.models.layers import lm_head_group
+    from repro_torch.models.layers import last_position, lm_head_group
 
-    check_group_rules(ctxs[0].rules, cfg, "prefill")
     toks = [b["tokens"] for b in batches]
     S = toks[0].shape[1]
     T = cache_len or S
@@ -673,7 +700,8 @@ def _prefill_group(ps, cfg: ModelConfig, batches, cache_len, backend: str,
         hs, _, _ = _forward_full_group(ps, cfg, batches, ctxs, backend,
                                        False, collect)
         logits = lm_head_group([p["embed"] for p in ps], cfg, ctxs,
-                               [h[:, -1:] for h in hs])
+                               last_position(
+                                   _pass_ctxs(ctxs, batches, "tokens"), hs))
     return [x[:, 0] for x in logits], caches
 
 
@@ -786,10 +814,8 @@ def _decode_layer_group(cfg: ModelConfig, seg: SegmentSpec, pl, cl, ctxs, hs,
 def _decode_step_group(ps, cfg: ModelConfig, caches, tokens, pos,
                        backend: str, ctxs):
     """:func:`decode_step` over a group (see there)."""
-    from repro_torch.launch.sharding import check_group_rules
     from repro_torch.models.layers import embed_tokens_group, lm_head_group
 
-    check_group_rules(ctxs[0].rules, cfg, "decode")
     hs = emb0s = embed_tokens_group([p["embed"] for p in ps], cfg, ctxs,
                                     [t[:, None] for t in tokens])
     poss = []

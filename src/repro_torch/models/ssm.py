@@ -29,8 +29,12 @@ rules never shard the recurrent states over ``model`` (``ssm_heads_act``
 has no rule), so every model slot holds them whole: the slots' new state
 heads (and Mamba2's conv-tail columns) are gathered in slot order after
 each step, which keeps the replicas equal.  Mamba2's gated norm spans all
-of ``d_inner``: its input is gathered over the row first.  The solo
-server runs them on its one ``NULL`` slot, with the solo functions' ops.
+of ``d_inner``: its input is gathered over the row first.  Under
+``seq_act`` a mixer takes the whole sequence (the blocks gather it over
+the model row first: the token shift, the causal conv and the scans read
+across the shards' boundaries) and hands back the slot's block of its
+output (``layers.reduce_out``).  The solo server runs them on its one
+``NULL`` slot, with the solo functions' ops.
 """
 from __future__ import annotations
 
@@ -42,8 +46,8 @@ from repro_torch.kernels.runtime import use_kernel
 from repro_torch.kernels.ssd import ssd, ssd_chunked
 from repro_torch.kernels.wkv6 import wkv6, wkv6_chunked
 from repro_torch.models.layers import (NULL, ParamBuilder, gather_model,
-                                       param_dtype, reduce_model,
-                                       rms_norm_simple)
+                                       param_dtype, reduce_out,
+                                       rms_norm_simple, seq_block)
 
 # per-step log-decay clamp for RWKV6 (the reference's stability bound)
 RWKV_MIN_LOG_W = -5.0
@@ -220,10 +224,6 @@ def _heads_of(n: int, hd: int, what: str, heads: int):
     return n // hd
 
 
-def _reduce_if(ctxs, parts, split: bool):
-    return reduce_model(ctxs, parts) if split else parts
-
-
 def _gather_if(ctxs, parts, split: bool, dim: int):
     return gather_model(ctxs, parts, dim) if split else parts
 
@@ -249,7 +249,7 @@ def rwkv_tm_full_group(ps, cfg: ModelConfig, ctxs, xs,
         ys.append(_rwkv_out(p, cfg, y, g, x, lo, n))
         wkvs.append(wkv_state)
     split = ps[0]["wr"].shape[1] != d
-    ys = _reduce_if(ctxs, ys, split)
+    ys = reduce_out(ctxs, ys, split)
     wkvs = _gather_if(ctxs, wkvs, split, 1)
     return ys, [{"wkv": w, "shift": x[:, -1].float()}
                 for w, x in zip(wkvs, xs)]
@@ -278,7 +278,7 @@ def rwkv_tm_decode_group(ps, cfg: ModelConfig, ctxs, xs, states):
         wkvs.append(torch.exp(lw)[..., None] * s + kv)
         ys.append(_rwkv_out(p, cfg, y[:, None], g, x, lo, n))
     split = ps[0]["wr"].shape[1] != d
-    ys = _reduce_if(ctxs, ys, split)
+    ys = reduce_out(ctxs, ys, split)
     wkvs = _gather_if(ctxs, wkvs, split, 1)
     return ys, [{"wkv": w, "shift": x[:, 0].float()}
                 for w, x in zip(wkvs, xs)]
@@ -286,7 +286,9 @@ def rwkv_tm_decode_group(ps, cfg: ModelConfig, ctxs, xs, states):
 
 def rwkv_cm_group(ps, cfg: ModelConfig, ctxs, xs, shift_states=None):
     """:func:`apply_rwkv_cm` on a group (``wk`` columns / ``wv`` rows per
-    slot, ``wr`` whole): per-slot (y, new shift state)."""
+    slot, ``wr`` whole): per-slot (y, new shift state); ``y`` on the
+    slot's ``seq`` block of the (whole) input positions under
+    ``seq_act``."""
     shift_states = shift_states or [None] * len(xs)
     kvs, rs, shifts = [], [], []
     for p, x, st in zip(ps, xs, shift_states):
@@ -302,9 +304,9 @@ def rwkv_cm_group(ps, cfg: ModelConfig, ctxs, xs, shift_states=None):
         kk = torch.square(F.relu(xk @ p["wk"].to(x.dtype)))
         kvs.append(kk @ p["wv"].to(x.dtype))
         rs.append(torch.sigmoid((xr @ p["wr"].to(x.dtype)).float()))
-    kvs = _reduce_if(ctxs, kvs, ps[0]["wk"].shape[1] != cfg.d_ff)
-    return [((r * kv.float()).to(x.dtype), sh)
-            for r, kv, x, sh in zip(rs, kvs, xs, shifts)]
+    kvs = reduce_out(ctxs, kvs, ps[0]["wk"].shape[1] != cfg.d_ff)
+    return [((seq_block(c, r) * kv.float()).to(x.dtype), sh)
+            for c, r, kv, x, sh in zip(ctxs, rs, kvs, xs, shifts)]
 
 
 def _slot_conv(p, cfg: ModelConfig, lo: int, n: int):
@@ -329,7 +331,7 @@ def _mamba_post_group(ps, cfg: ModelConfig, ctxs, gs, cols, split: bool):
         if split:
             g = g[..., lo:lo + n]
         outs.append(g @ p["out_proj"].to(g.dtype))
-    return _reduce_if(ctxs, outs, split)
+    return reduce_out(ctxs, outs, split)
 
 
 def mamba_full_group(ps, cfg: ModelConfig, ctxs, xs,

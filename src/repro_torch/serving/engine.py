@@ -630,8 +630,11 @@ class GeoServingSystem:
     ``serving_rules``): one group on every server, and the client's
     embedding and LM head vocab-parallel on it.  Not both.  Groups take
     every block kind under the reference's serving rules, cache time
-    shards included; rules that take the ``head_dim`` fallback raise
-    ``NotImplementedError`` (``launch.sharding.group_layout_rules``).
+    shards included, and the ``head_dim`` fallback where the query heads
+    do not divide the model axis: each slot projects its head_dim columns
+    of q / k / v, gathered whole over the model row, attends every head
+    and adds its ``wo`` rows' partial sum over the row
+    (``models.attention``).
     """
 
     def __init__(self, cfg: ModelConfig, params, problem: Problem,

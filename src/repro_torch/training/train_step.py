@@ -17,7 +17,7 @@ shards over the slots the rule splits them over, takes the gradients of
 every slot's leaves in one backward pass of ``models.train_loss(ctxs=)``,
 sums each leaf's gradient over the slots that hold its block in slot order
 (the data-parallel all-reduce, a reduce-scatter onto the ``embed_fsdp``
-shards), clips by the global norm with each element counted once, and
+shards; a leaf split on ``head_dim`` over its data column), clips by the global norm with each element counted once, and
 updates each slot's shard — AdamW's state mirroring the shards, Adafactor's
 whole on every slot (its factored moments are means over a whole leaf) — so
 replicas stay bit-equal.  The batch is per slot (``data.shard_batch(batch,
@@ -84,14 +84,12 @@ class GroupLayout:
     its ``embed_fsdp`` dim gathered (the gradient's replica set)."""
 
     def __init__(self, cfg: ModelConfig, sh):
-        from repro_torch.launch.sharding import (check_group_rules,
-                                                 fsdp_dim, param_axes,
+        from repro_torch.launch.sharding import (fsdp_dim, param_axes,
                                                  param_shardings,
                                                  replica_slots, slot_index)
         from repro_torch.models.layers import group_ctxs
         from repro_torch.models.model import init_params
 
-        check_group_rules(sh.rules, cfg, "training")
         self.cfg, self.sh, self.mesh = cfg, sh, sh.mesh
         self.like = init_params(cfg, None, "meta")
         axes = param_axes(cfg, self.like)
@@ -300,8 +298,7 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
     """Returns train_step(state, batch) -> (state, metrics); the returned
     state is ``state``, updated in place.  ``sh`` (a ``ShardingCtx`` over
     a mesh): the step over the group's slots, ``state`` a group state and
-    ``batch`` per-slot (see the module docstring);
-    ``NotImplementedError`` for rules it does not emulate."""
+    ``batch`` per-slot (see the module docstring)."""
     if sh is not None and sh.mesh is not None:
         return _group_train_step(cfg, opt, hp, GroupLayout(cfg, sh))
 

@@ -27,8 +27,8 @@ the CPU.
   is not slot 0's by those few scalar ops;
 * (g) ``lower_cell("llama3_2_1b", "decode_32k", False)`` at full width
   with every artifact key the reference's report reads; Qwen2.5-32B's
-  decode cell raises ``NotImplementedError`` naming ``attn_seq_q`` and
-  ``head_dim``;
+  decode cell (40 query heads on a model axis of 16: the ``head_dim``
+  fallback) counts too, its q / k / v gathered over the model row;
 * (h) ``report.markdown_table`` renders the port's artifacts.
 
 Tolerances: logits at rtol 2e-4 / atol 1e-5 (tests/test_torch_model.py;
@@ -393,8 +393,12 @@ def test_full_width_cell_and_unported_rules():
     # the collectives' own sums and copies: a part of the bytes
     assert 0 < art["collective_bytes"] < art["raw_cost"]["bytes_accessed"]
     json.dumps(art)
-    with pytest.raises(NotImplementedError, match="attn_seq_q.*head_dim"):
-        lower_cell("qwen2_5_32b", "decode_32k", False)
+    qwen = lower_cell("qwen2_5_32b", "decode_32k", False)
+    assert ARTIFACT_KEYS <= set(qwen) and qwen["fits_hbm_80g"]
+    assert qwen["raw_cost"]["flops"] > 0
+    coll = qwen["raw_cost"]["coll_by_kind"]
+    assert coll["all-gather"] > 0 and coll["merge"] > 0
+    json.dumps(qwen)
 
 
 def test_report_renders_artifacts(tmp_path):

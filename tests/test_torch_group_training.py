@@ -25,8 +25,9 @@ and the JAX reference's, in f32 on the CPU (a group's slots all name the
 * a group checkpoint (unsharded, the reference's npz + manifest format)
   restores into the solo port, into another group and into the
   reference; ``shard_batch`` over a mesh; ``launch.train`` over a CPU
-  group prints the solo launcher's losses; ``NotImplementedError`` for
-  ``seq_act`` and the attention rules the slots do not emulate.
+  group prints the solo launcher's losses; the rules that raised before
+  (``seq_act``, ``attn_seq_q``, the ``head_dim`` fallback) build and run
+  their step (tests/test_torch_group_rules.py holds them leaf by leaf).
 
 Tolerances (tests/test_torch_training.py's): losses at rtol 2e-4 / atol
 1e-5; a gradient or moment leaf at max|got - want| <= atol + rtol *
@@ -486,20 +487,31 @@ def test_launcher_model_parallel_prints_the_solo_losses():
 
 
 def test_unported_rules_raise():
-    """``seq_act`` (full-width Llama-3.2-1B at ``train_4k`` on a model axis
-    of 2: a remat stash above 8e9 bytes) and the attention rules for
+    """The rules this test once pinned as raising now run: ``seq_act``
+    (full-width Llama-3.2-1B at ``train_4k`` on a model axis of 2: a remat
+    stash above 8e9 bytes) builds its step, and the attention rules for
     query heads that do not divide the model axis (reduced Llama's 4 on
-    8) raise ``NotImplementedError`` naming the rule; RWKV6, which has no
-    attention, trains where its rules set ``attn_seq_q``."""
+    8: ``attn_seq_q`` and the ``head_dim`` fallback) take a step whose
+    loss is the solo step's; RWKV6, which has no attention, trains where
+    its rules set ``attn_seq_q``."""
     cfg = t_get_config("llama3_2_1b")
     sh = ctx(cfg, (1, 2))
     assert sh.rules["seq_act"] == "model"
     opt = make_optimizer_for(cfg, TrainHParams())
-    with pytest.raises(NotImplementedError, match="seq_act"):
-        make_train_step(cfg, opt, TrainHParams(), sh)
-    small = t_get_reduced_config("llama3_2_1b")
-    with pytest.raises(NotImplementedError, match="attn_seq_q"):
-        make_train_step(small, opt, TrainHParams(), ctx(small, (1, 8)))
+    make_train_step(cfg, opt, TrainHParams(), sh)
+    _, (small, np_params, hb, t_loss, _, _) = setup("llama3_2_1b")
+    sh = ctx(small, (1, 8))
+    assert (sh.rules["attn_seq_q"], sh.rules["head_dim"]) == ("model",
+                                                              "model")
+    hp = TrainHParams(learning_rate=LR)
+    opt = make_optimizer_for(small, hp)
+    state = init_train_state(None, small, opt,
+                             params=port_params(np_params), device="cpu",
+                             sh=sh)
+    _, metrics = make_train_step(small, opt, hp, sh)(
+        state, shard_batch(hb, sh.mesh, sh, device="cpu"))
+    np.testing.assert_allclose(float(metrics["loss"]), t_loss, rtol=2e-4,
+                               atol=1e-5)
     rwkv = t_get_reduced_config("rwkv6_7b")
     assert ctx(rwkv, (1, 2)).rules["attn_seq_q"] == "model"
     make_train_step(rwkv, make_optimizer_for(rwkv, TrainHParams()),

@@ -23,8 +23,8 @@ the CPU (a group's slots all name the ``cpu`` device).
   equal the solo ones;
 * calibrated τ over heterogeneous groups is not constant, with collective
   bytes on TP groups and none solo; ``mesh=`` with ``device_groups=``
-  raises, and so does a group whose rules take the ``head_dim`` fallback,
-  which the port does not emulate.
+  raises; a group whose rules take the ``head_dim`` fallback serves the
+  solo engine's run.
 
 Weights are the reference's ``init_params(PRNGKey(0), cfg)`` bridged with
 ``repro_torch.weights.from_reference``; prompts come from a seeded numpy
@@ -449,18 +449,18 @@ def test_mesh_rules_override_and_exclusive_spellings():
 
 
 def test_group_over_unported_kind_raises():
-    """Every block kind takes a group now; what a group still refuses is
-    the reference's ``head_dim`` fallback (query heads that do not divide
-    the model axis: reduced Llama's 4 heads on a (1, 8) group), a partial
-    score over the slots."""
-    from repro_torch.models import init_params
-
-    cfg = t_get_reduced_config("llama3_2_1b")
-    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="head_dim.*A10"):
-        TS.GeoServingSystem(cfg, params, problem(TC, cfg), R=2,
-                            max_new_tokens=4, max_sessions=4, device="cpu",
-                            mesh=cpu_mesh((1, 8)))
+    """Every block kind takes a group, and so does the reference's
+    ``head_dim`` fallback this test once pinned as raising (query heads
+    that do not divide the model axis: reduced Llama's 4 heads on a (1,
+    8) group): each slot projects its head_dim columns, and the run is
+    the solo engine's (tests/test_torch_group_rules_serving.py holds it
+    against the reference too)."""
+    system = port("llama3_2_1b", mesh=cpu_mesh((1, 8)))
+    srv = next(iter(system.servers.values()))
+    assert srv.mesh_rules["head_dim"] == "model"
+    got = serve(system, TC, jobs_for(system.cfg.vocab_size))
+    assert_same_run(got, solo_run("llama3_2_1b", "fused", "slab", None),
+                    **LOGIT_TOL)
 
 
 FAMILY_MESH = [("rwkv6_7b", (2, 4)), ("zamba2_7b", (2, 4)),

@@ -330,12 +330,13 @@ def test_prefill_and_decode_steps(arch):
 
 @pytest.mark.parametrize("arch", ["seamless_m4t_large_v2"])
 def test_later_slices_raise(arch):
-    """Device groups take encoder-decoder blocks now
-    (tests/test_torch_group_families.py); what is still a later slice of
-    the port (ROADMAP A10(b)) is the reference's ``head_dim`` fallback, a
+    """Device groups take encoder-decoder blocks
+    (tests/test_torch_group_families.py) and, since the slice this test
+    once pinned as raising, the reference's ``head_dim`` fallback too: a
     group whose query heads do not divide its model axis (the reduced
-    stack's 4 heads on a (1, 8) group): an engine asked for such a mesh or
-    device group raises, naming it."""
+    stack's 4 heads on a (1, 8) group), asked for as a mesh or as a
+    device group, serves a session with frames to the solo engine's
+    tokens and logits."""
     import repro_torch.core as TC
     from repro_torch.launch.mesh import GroupMesh
     from repro_torch.serving import GeoServingSystem
@@ -346,11 +347,30 @@ def test_later_slices_raise(arch):
     prob = TC.Problem(llm, [TC.ServerSpec(0, 1000.0, 0.01)], 1,
                       np.full((1, 1), 0.02), np.full((1, 1), 0.06),
                       workload=TC.Workload(4, 8))
+    rng = np.random.RandomState(0)
+    prompt = rng.randint(2, tcfg.vocab_size, 6)
+    frames = rng.randn(9, tcfg.frame_dim).astype(np.float32)
+
+    def run(**kw):
+        system = GeoServingSystem(tcfg, tparams, prob, device="cpu", **kw)
+        route, _ = TC.shortest_path_route(system.problem,
+                                          system.alive_placement(), 0)
+        sid = system.create_session(prompt, 0, route, 4, frames=frames)
+        assert system.try_admit_sessions([sid]) == [sid]
+        system.drain_prefill()
+        logits = [np.array(system.sessions[sid].last_logits)]
+        while system.sessions[sid].n_generated < 4:
+            system.decode_round([sid])
+            logits.append(np.array(system.sessions[sid].last_logits))
+        return list(system.sessions[sid].tokens), logits
+
+    want = run()
     mesh = GroupMesh(np.full((1, 8), "cpu", dtype=object))
     for kw in (dict(mesh=mesh), dict(device_groups={0: mesh})):
-        with pytest.raises(NotImplementedError,
-                           match="head_dim.*ROADMAP A10"):
-            GeoServingSystem(tcfg, tparams, prob, device="cpu", **kw)
+        got = run(**kw)
+        assert got[0] == want[0]
+        for a, b in zip(got[1], want[1]):
+            np.testing.assert_allclose(a, b, atol=5e-6, rtol=1e-4)
 
 
 def test_block_param_range_is_a_view():

@@ -10,7 +10,7 @@
 * the param axes of every block kind (``block_param_axes``) and of
   zamba2's shared block (``shared_param_axes``), and their specs, equal
   the reference's init axes, leaf by leaf; ``group_layout_rules`` keeps
-  the reference's rules and refuses the ``head_dim`` fallback;
+  the reference's rules, the ``head_dim`` fallback included;
 * ``freeze_rules`` / ``thaw_rules``, the ``DeviceGroup`` descriptor,
   hypothesis counterparts of the ``guarded_spec`` properties,
   ``shard`` / ``unshard``, and ``group_meshes`` (consecutive disjoint
@@ -213,15 +213,15 @@ def test_block_param_axes_match_reference_every_kind(arch):
 @pytest.mark.parametrize("shape", MESH_SHAPES)
 @pytest.mark.parametrize("arch", ["llama3_2_1b", "deepseek_v2_236b"])
 def test_group_layout_rules_keep_the_reference_rules(arch, shape):
-    """The group layout is the reference's serving rules, ``kv_time``
-    included; the ``head_dim`` fallback raises."""
+    """The group layout is the reference's serving rules, ``kv_time`` and
+    the ``head_dim`` fallback included (it once raised for the latter)."""
     cfg = get_reduced_config(arch)
     rules = TSH.serving_rules(cfg, _mesh(*shape), 4, 44)
-    if rules["head_dim"] is not None:
-        with pytest.raises(NotImplementedError, match="head_dim"):
-            TSH.group_layout_rules(rules)
-    else:
-        assert TSH.group_layout_rules(rules) == rules
+    assert TSH.group_layout_rules(rules) == rules
+    assert rules == RSH.serving_rules(cfg, _mesh(*shape), 4, 44)
+    heads_split = cfg.n_heads % shape[-1] == 0
+    assert (rules["head_dim"] is None) == (heads_split or
+                                           cfg.head_dim % shape[-1] != 0)
 
 
 def test_embed_param_axes_match_reference():
