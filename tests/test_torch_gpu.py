@@ -1184,6 +1184,62 @@ def test_split_page_axis_equals_solo_on_card(cuda, arch, mem):
             torch.testing.assert_close(a, b, atol=atol, rtol=1e-4)
 
 
+@pytest.mark.parametrize("arch", ["llama3_2_1b", "gemma3_4b"])
+def test_head_dim_group_equals_solo_on_card(cuda, arch):
+    """``chip_smoke.py`` [groups] (i) and the Gemma ``[dryrun]`` cells at
+    reduced width, in f32: 4 query heads on a (1, 8) group of card slots
+    take the ``head_dim`` fallback.  The engine (the cache's time axis
+    over the 8 slots: K1 partials and their merge, K2 on each slot) gives
+    the card's solo streams, virtual clocks and round_stats exactly,
+    logits within f32's 1e-5 of the solo logit scale (the head_dim
+    blocks' partial sums associate otherwise: 3e-7 to 7e-7 of the scale
+    on the CPU, as a (2, 4) group's heads); the group ``prefill`` under a
+    prefill cell's rules (``attn_seq_q``: K2 on each slot's 2 query rows
+    at q_start 2 j) gives the solo prefill's logits, held the same way."""
+    from repro_torch import kernels as K
+    import repro_torch.core as C
+    from repro_torch.configs import ShapeSpec, get_reduced_config
+    from repro_torch.launch.mesh import GroupMesh
+    from repro_torch.launch.sharding import make_ctx, shard, shard_params
+    from repro_torch.models import init_params, prefill
+    from repro_torch.models.layers import group_ctxs
+    from repro_torch.serving import GeoServingSystem
+
+    cfg = get_reduced_config(arch)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    kw = dict(R=2, max_new_tokens=4, max_sessions=4)
+    want = _group_drive(GeoServingSystem(
+        cfg, params, _group_problem(C, cfg.n_layers, 2), **kw), C)
+    mesh = GroupMesh(np.full((1, 8), "cuda", dtype=object))
+    names = ("decode_attention_partials", "merge_partials",
+             "flash_attention")
+    before = [getattr(K, n).launches for n in names]
+    got = _group_drive(GeoServingSystem(
+        cfg, params, _group_problem(C, cfg.n_layers, 2), mesh=mesh, **kw), C)
+    ran = [getattr(K, n).launches - b for n, b in zip(names, before)]
+    assert min(ran) > 0, dict(zip(names, ran))
+    assert got[0] == want[0] and got[1] == want[1] and got[3] == want[3]
+    for hg, hw in zip(got[2], want[2]):
+        for a, b in zip(hg, hw):
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    sh = make_ctx(cfg, mesh, ShapeSpec("prefill", 32, 2, "prefill"))
+    assert sh.rules["attn_seq_q"] == sh.rules["head_dim"] == "model"
+    tokens = torch.randint(2, cfg.vocab_size, (2, 16),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32).to(cuda)
+    solo, _ = prefill(params, cfg, {"tokens": tokens}, cache_len=32)
+    n0 = K.flash_attention.launches
+    logits, _ = prefill(shard_params(cfg, sh, params), cfg,
+                        [{"tokens": t} for t in shard(
+                            tokens, sh.spec(("batch", None), (2, 16)),
+                            mesh)], cache_len=32,
+                        ctxs=group_ctxs(mesh, sh.rules))
+    assert K.flash_attention.launches > n0
+    assert float((logits[0] - solo).abs().max()) <= \
+        1e-5 * float(solo.abs().max())
+
+
 @pytest.mark.parametrize("arch,optimizer", [("llama3_2_1b", "adamw"),
                                             ("deepseek_v2_236b", "adafactor"),
                                             ("zamba2_7b", "adamw")])
