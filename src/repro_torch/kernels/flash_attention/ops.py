@@ -61,17 +61,21 @@ def flash_attention_unsupported(*, causal: bool = True, window=None,
 
 def cost(q, k, v, q_start: int = 0, window=None,
          causal: bool = True, slopes=None) -> CostSummary:
-    """Bytes and flops of one call: q, k, v and the ALiBi slopes read
-    once, out written once; score and P·V flops over the causally valid
-    (query, key) pairs (inside the window when there is one), or over
-    every pair when non-causal."""
+    """Bytes and flops one call needs for these inputs: q and the ALiBi
+    slopes read once, the K/V rows the mask reaches read once (causal:
+    keys [q_start - window + 1, q_start + Sq) cut to [0, Skv); every key
+    when non-causal), out written once; score and P·V flops over the
+    causally valid (query, key) pairs (inside the window when there is
+    one), or over every pair when non-causal."""
     B, Sq, H, Dk = q.shape
-    Skv, Dv = k.shape[1], v.shape[-1]
+    Skv, Kv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     es = q.element_size()
     w = Skv + Sq if window is None else window
     pairs = Sq * Skv if not causal else causal_pairs(Sq, Skv, q_start, w)
-    nbytes = (q.numel() + k.numel() + v.numel() + B * Sq * H * Dv) * es \
-        + (0 if slopes is None else 4 * H)
+    keys = Skv if not causal else max(
+        0, min(Skv, q_start + Sq) - max(0, q_start - w + 1))
+    nbytes = (q.numel() + B * keys * Kv * (Dk + Dv) + B * Sq * H * Dv) \
+        * es + (0 if slopes is None else 4 * H)
     return CostSummary(flops=2 * B * H * pairs * (Dk + Dv),
                        bytes_accessed=nbytes)
 

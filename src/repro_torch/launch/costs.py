@@ -172,11 +172,12 @@ _WEIGHT = [1.0]
 
 @contextlib.contextmanager
 def counted_at(weight: float):
-    """The counts made inside — :class:`StepCount`'s flops and bytes, the
-    kernels' meta costs (``kernels.runtime.count_meta_calls``) — add at
-    ``weight``: a slot standing in for its group runs each variant of a
-    computation whose work differs by slot (the causal span of a block of
-    query rows, a time shard under a window) at 1/n, so that it counts
+    """The counts made inside — :class:`StepCount`'s flops, bytes and
+    live bytes (a storage made here counts at ``weight`` while it lives),
+    the kernels' meta costs (``kernels.runtime.count_meta_calls``) — add
+    at ``weight``: a slot standing in for its group runs each variant of
+    a computation whose work differs by slot (the causal span of a block
+    of query rows, a time shard under a window) at 1/n, so that it counts
     the slots' mean."""
     old = _WEIGHT[0]
     _WEIGHT[0] = old * weight
@@ -189,6 +190,16 @@ def counted_at(weight: float):
 def count_weight() -> float:
     """The weight counts add at here (:func:`counted_at`; 1 outside)."""
     return _WEIGHT[0]
+
+
+def set_count_weight(weight, scale: float = 1.0) -> float:
+    """Set the weight counts add at to ``weight`` (None: the current one)
+    times ``scale``, outside :func:`counted_at` — a stand-in's backward,
+    which runs after the forward's ``counted_at`` has ended
+    (``attention._slots_mean``); returns the old weight."""
+    old = _WEIGHT[0]
+    _WEIGHT[0] = (old if weight is None else weight) * scale
+    return old
 
 
 def _nbytes(t) -> int:
@@ -266,7 +277,8 @@ class StepCount(TorchDispatchMode):
       whole operand, where a ring all-reduce reads and writes it about
       twice;
     * ``live`` / ``peak`` — the bytes of the storages the step allocated
-      that are still alive, and their maximum: a storage counts from the
+      that are still alive (each at the weight it was made at,
+      :func:`counted_at`), and their maximum: a storage counts from the
       op that makes it until Python frees it.  Tensors that exist before
       the block (the step's arguments) are not counted.
 
@@ -299,6 +311,8 @@ class StepCount(TorchDispatchMode):
                 continue
             seen.add(id(st))
             n = st.nbytes()
+            if _WEIGHT[0] != 1.0:
+                n *= _WEIGHT[0]
             self.live += n
             weakref.finalize(st, self._free, n)
         if self.live > self.peak:

@@ -120,11 +120,10 @@ def _dense_attn(q, k, v, bias):
 
 
 def _flash_attn(q, k, v, q_pos, kv_pos, window, slopes=None, q_start=0,
-                causal=True, skip=True):
+                causal=True):
     """Double-chunked online-softmax attention; causal (q-chunk, kv-chunk)
     pairs above the diagonal are skipped (queries at ``q_start +
-    arange(S)`` over keys ``arange(T)``) unless ``skip`` is False (every
-    pair computed, the mask alone keeping causality)."""
+    arange(S)`` over keys ``arange(T)``)."""
     B, S, H, D = q.shape
     T = k.shape[1]
     Dv = v.shape[-1]
@@ -144,7 +143,7 @@ def _flash_attn(q, k, v, q_pos, kv_pos, window, slopes=None, q_start=0,
                           device=q.device)
         for ki in range(n_kv):
             k_lo, k_hi = ki * KV_CHUNK, min(T, (ki + 1) * KV_CHUNK)
-            if skip and causal and k_lo > q_start + q_hi - 1:
+            if causal and k_lo > q_start + q_hi - 1:
                 continue  # above the causal diagonal
             kc, vc = k[:, k_lo:k_hi], v[:, k_lo:k_hi]
             kp = kv_pos[k_lo:k_hi]
@@ -165,17 +164,16 @@ def _flash_attn(q, k, v, q_pos, kv_pos, window, slopes=None, q_start=0,
 
 
 def attention_core(q, k, v, q_pos, kv_pos, window=None, slopes=None,
-                   causal=True, q_start=0, skip=True):
+                   causal=True, q_start=0):
     """Plain prefill attention (causal, or non-causal for the encoder and
-    cross attention): dense vs flash from the shapes (``skip``: the flash
-    path's causal chunk skipping)."""
+    cross attention): dense vs flash from the shapes."""
     window = _BIG_WINDOW if window is None else window
     S, T = q.shape[1], k.shape[1]
     if T <= DENSE_MAX_T and S * T <= DENSE_MAX_T * DENSE_MAX_T // 4:
         return _dense_attn(q, k, v, _mask_bias(q_pos, kv_pos, window,
                                                slopes, causal))
     return _flash_attn(q, k, v, q_pos, kv_pos, window, slopes, q_start,
-                       causal, skip)
+                       causal)
 
 
 def decode_attention_plain(q, ck, cv, pos, window=None, slopes=None,
@@ -292,10 +290,10 @@ def _kv_slice(cfg: ModelConfig, heads, n_local: int, k, v):
 
 
 def _attend_full(cfg: ModelConfig, q, k, v, positions, kv_pos, window,
-                 slopes, causal, q_start, backend, skip=True):
+                 slopes, causal, q_start, backend):
     """Prefill attention core: K2 on a CUDA tensor under the kernel
     backend, else the plain path over KV heads expanded to the query
-    heads (``skip``: its causal chunk skipping)."""
+    heads."""
     if use_kernel(backend, q):
         # kernel contract: queries at q_start + arange(S) over keys at
         # arange(T) — what the (chunked-)prefill call sites pass; GQA
@@ -306,7 +304,7 @@ def _attend_full(cfg: ModelConfig, q, k, v, positions, kv_pos, window,
     k_exp = torch.repeat_interleave(k, G, dim=2) if G > 1 else k
     v_exp = torch.repeat_interleave(v, G, dim=2) if G > 1 else v
     return attention_core(q, k_exp, v_exp, positions, kv_pos, window,
-                          slopes, causal=causal, q_start=q_start, skip=skip)
+                          slopes, causal=causal, q_start=q_start)
 
 
 def apply_gqa_full(params, cfg: ModelConfig, x, positions, window=None,
@@ -642,13 +640,13 @@ def _partials_merged(ctxs, qs, ks, vs, poss, shards, heads, backend, name,
         b, n = c.time_block(name)
         w = ck.shape[1]
 
-        def part(i, q=q, ck=ck, cv=cv, pos=pos, sl=sl, kvl=kvl, w=w):
+        def part(i, q, ck, cv, pos=pos, sl=sl, kvl=kvl, w=w):
             return run(q, ck, cv, pos, t0=i * w, window=window, slopes=sl,
                        kv_len=kvl, causal=causal, scale=scale)
 
         # the reached keys (and so the work) differ by shard: a stand-in
         # slot counts every shard's call
-        parts.append(_slots_mean(c, n, b, part) if kernel else part(b))
+        parts.append(_slots_mean(c, n, b, part, q, ck, cv))
     return [c.merge_partials(c.peers(parts, c.time_row(name)),
                              lo, lo + q.shape[2], q.dtype, kernel)
             for c, q, lo in zip(ctxs, qs, ((h or 0) if every else 0
@@ -699,20 +697,72 @@ def _hd_cols(c, out, n_hd: int):
     return out.narrow(3, c.j * w, w)
 
 
-def _slots_mean(c, n: int, own: int, run):
-    """``run(own)``: a slot's variant ``own`` of a kernel call whose work
-    differs by slot (``n`` variants: its block of the query rows, or of
+def _slots_mean(c, n: int, own: int, run, *xs):
+    """``run(own, *xs)``: a slot's variant ``own`` of a computation whose
+    work differs by slot (``n`` variants: its block of the query rows, or of
     a cache's time shards).  A slot standing in for its group
     (``GroupCtx.stand_in``, the dry run) runs every variant, each counted
     at 1/n (``launch.costs.counted_at``), so that its count is the slots'
-    mean; it keeps its own variant's result."""
+    mean — the per-slot figure of a group whose slots do the same work
+    in total, as the reference's per-device count of one SPMD program
+    is, not its slowest slot's.  It keeps its own variant's result; under
+    autograd every variant's backward runs too, at 1/n, and only its own
+    passes gradients on (:class:`_Weight`)."""
     if not c.stand_in or n == 1:
-        return run(own)
+        return run(own, *xs)
     from repro_torch.launch.costs import counted_at
 
-    with counted_at(1.0 / n):
-        outs = [run(i) for i in range(n)]
-    return outs[own]
+    if not (torch.is_grad_enabled() and any(x.requires_grad for x in xs)):
+        with counted_at(1.0 / n):
+            return [run(i, *xs) for i in range(n)][own]
+    outs = []
+    for i in range(n):
+        box = {"keep": i == own}
+        with counted_at(1.0 / n):
+            ins = _Weight.apply(box, None, *xs)
+            outs.append(_Weight.apply(box, 1.0 / n, run(i, *ins))[0])
+    return _Join.apply(own, *outs)
+
+
+class _Weight(torch.autograd.Function):
+    """Identity marks around one variant of :func:`_slots_mean` on a
+    stand-in slot, for its backward's count: the mark on the variant's
+    output (``scale``) scales the counting weight, the mark on its inputs
+    (``scale`` None) restores it and passes gradients on only for the
+    slot's own variant (``box["keep"]``).  The engine runs a graph's
+    nodes in reverse creation order on one device, so the variant's
+    backward lies between the two."""
+
+    @staticmethod
+    def forward(ctx, box, scale, *xs):
+        ctx.box, ctx.scale = box, scale
+        ctx.set_materialize_grads(False)
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        from repro_torch.launch.costs import set_count_weight
+
+        box = ctx.box
+        if ctx.scale is not None:
+            box["old"] = set_count_weight(None, ctx.scale)
+            return (None, None) + gs
+        set_count_weight(box["old"])
+        return (None, None) + (gs if box["keep"] else (None,) * len(gs))
+
+
+class _Join(torch.autograd.Function):
+    """``outs[own]``, its backward sending the gradient to every
+    variant's output (so that each variant's backward runs)."""
+
+    @staticmethod
+    def forward(ctx, own, *outs):
+        ctx.n = len(outs)
+        return outs[own].view_as(outs[own])
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None,) + (g,) * ctx.n
 
 
 def gqa_encoder_kv_group(ps, cfg: ModelConfig, ctxs, enc_hs):
@@ -737,14 +787,15 @@ def gqa_full_split_group(ps, cfg: ModelConfig, ctxs, xs, poss, window=None,
     the slot's query rows with the whole head_dim (an all-to-all over the
     model row; its own rows of a whole q where the weights do not split)
     — and K/V and the QK-norm scales are gathered whole (``kv_heads_act``
-    replicates them).  The slot attends its rows over every key — K2 at
-    ``q_start`` = prefix + its first row, the plain path computing every
-    (query, key) pair under the causal mask, so that the slots' eager
-    work differs only inside K2 — and its output moves back to its
-    head_dim columns for its ``wo`` rows.  A slot standing in for its
-    group counts every row block's K2 call at 1/n (:func:`_slots_mean`).  ``encoder``: the encoder's bidirectional self
-    attention (RoPE, no QK-norm); ``cross_kvs``: per-slot whole cross
-    (k, v), non-causal (no QK-norm or RoPE, as :func:`apply_gqa_full`).
+    replicates them).  The slot attends its rows over the keys they
+    reach — K2 at ``q_start`` = prefix + its first row, or the plain path
+    skipping the chunks above the diagonal — and its output moves back
+    to its head_dim columns for its ``wo`` rows.  The causal work so
+    differs by row block: a slot standing in for its group counts every
+    block's at 1/n (:func:`_slots_mean`).  ``encoder``: the encoder's
+    bidirectional self attention (RoPE, no QK-norm); ``cross_kvs``:
+    per-slot whole cross (k, v), non-causal (no QK-norm or RoPE, as
+    :func:`apply_gqa_full`).
     Returns (per-slot outputs — partial sums over the model row where the
     weights split, else whole; per-slot whole chunk (k, v), None for the
     non-causal forms)."""
@@ -789,14 +840,14 @@ def gqa_full_split_group(ps, cfg: ModelConfig, ctxs, xs, poss, window=None,
             kv_pos = positions if encoder else torch.arange(
                 k.shape[1], device=q.device)
 
-        def attend(i, q=q, k=k, v=v, P=P, kv_pos=kv_pos):
+        def attend(i, q, k, v, P=P, kv_pos=kv_pos):
             return _attend_full(
                 cfg, q, k, v, positions[i * w:(i + 1) * w], kv_pos,
                 window if causal else None, slopes, causal,
-                P + i * w if causal else 0, backend, skip=False)
+                P + i * w if causal else 0, backend)
 
-        outs.append(_slots_mean(c, nq, b, attend)
-                    if causal and use_kernel(backend, q) else attend(b))
+        outs.append(_slots_mean(c, nq, b, attend, q, k, v) if causal
+                    else attend(b, q, k, v))
     outs = exchange_model(ctxs, outs, rows, cols)
     return ([torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
              for o, p, x in zip(outs, ps, xs)], kv_out)

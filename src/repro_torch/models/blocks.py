@@ -366,11 +366,36 @@ def decoder_block_batch_group(ps, cfg: ModelConfig, ctxs, hs, poss,
                                   backend)
     if not cfg.is_moe:
         return _ffn_group(ps, cfg, ctxs, hs, True), caches, {}
-    xs = _normed(ps, cfg, ctxs, hs, "ln2")
-    ms, aux = moe.apply_moe_batch_group([p["ffn"] for p in ps], cfg, ctxs,
-                                        xs)
-    return [_residual(p, cfg, h, seq_block(c, m), "post_ln2")
-            for p, c, h, m in zip(ps, ctxs, hs, ms)], caches, aux
+    fs, c0 = [p["ffn"] for p in ps], ctxs[0]
+    if moe.expert_alloc(cfg.n_experts) != cfg.n_experts and moe.ep_grid(
+            c0, hs[0].shape[0] * c0.row_block()[1],
+            hs[0].shape[1] * c0.seq[1]):
+        ms, aux = _moe_ep_batch(fs, cfg, ctxs, [
+            apply_norm(p["ln2"], cfg, h) for p, h in zip(ps, hs)])
+    else:
+        ms, aux = moe.apply_moe_batch_group(
+            fs, cfg, ctxs, _normed(ps, cfg, ctxs, hs, "ln2"))
+        ms = [seq_block(c, m) for c, m in zip(ctxs, ms)]
+    return [_residual(p, cfg, h, m, "post_ln2")
+            for p, h, m in zip(ps, hs, ms)], caches, aux
+
+
+def _moe_ep_batch(fs, cfg: ModelConfig, ctxs, xs):
+    """A whole batch's MoE through the pure-EP all-to-all
+    (``moe._apply_moe_ep``) with the reference's token grid: each slot
+    routes its block of the rows at its model index's block of the
+    positions — under ``seq_act`` its own block of the residual stream
+    (``xs``: each slot's normed block), else cut from the whole sequence.
+    Returns (per-slot outputs on the residual stream's layout, aux)."""
+    split = ctxs[0].seq[1] > 1
+    whole = gather_seq(ctxs, xs) if split and cfg.n_shared_experts else xs
+    loc = xs if split else [x.chunk(c.n_model, dim=1)[c.j]
+                            for c, x in zip(ctxs, xs)]
+    routed, aux = moe._apply_moe_ep(fs, cfg, ctxs, loc)
+    if not split:
+        routed = gather_model(ctxs, routed, dim=1)
+    return moe._shared_expert_group(fs, cfg, ctxs, whole, routed,
+                                    block=split), aux
 
 
 def decoder_block_train_group(ps, cfg: ModelConfig, ctxs, hs, poss,

@@ -54,7 +54,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (ParamBuilder, param_dtype,
-                                       reduce_model, row_heads)
+                                       reduce_model, reduce_out, row_heads)
 
 EP_PAD_GROUP = 256  # pad expert allocation to the full-chip EP group size
 EP_MIN_EXPERTS = 64  # only pad expert-rich archs
@@ -241,12 +241,20 @@ def _holder(ctx, b: int, n_blocks: int, f: Optional[int]) -> int:
     return ctx.slot_at(**coords)
 
 
-def _shared_expert_group(ps, cfg: ModelConfig, ctxs, xs, outs):
+def _shared_expert_group(ps, cfg: ModelConfig, ctxs, xs, outs,
+                         block: bool = False):
+    """``outs`` plus the shared expert of ``xs`` (whole sequences), its
+    column-split partials summed over the model row; ``block``: ``outs``
+    are the slots' ``seq`` blocks, and the shared expert's sum is
+    reduce-scattered onto them (``layers.reduce_out``)."""
     if not cfg.n_shared_experts:
         return outs
     parts = [(F.silu(x @ p["swg"].to(x.dtype)) * (x @ p["swu"].to(x.dtype)))
              @ p["swo"].to(x.dtype) for p, x in zip(ps, xs)]
-    if ps[0]["swo"].shape[0] < cfg.d_ff_expert * cfg.n_shared_experts:
+    split = ps[0]["swo"].shape[0] < cfg.d_ff_expert * cfg.n_shared_experts
+    if block:
+        parts = reduce_out(ctxs, parts, split)
+    elif split:
         parts = reduce_model(ctxs, parts)
     return [o + y for o, y in zip(outs, parts)]
 
@@ -372,50 +380,64 @@ def apply_moe_batch_group(ps, cfg: ModelConfig, ctxs, xs):
 def _ep_eligible(params, cfg: ModelConfig, ctx, x) -> bool:
     """The pure-EP path serves: a group, padded expert weights, and a
     (batch, seq) token grid the (data, model) slots divide."""
-    if ctx.mesh is None or params["wg"].shape[0] == cfg.n_experts:
+    return params["wg"].shape[0] != cfg.n_experts and \
+        ep_grid(ctx, x.shape[0], x.shape[1])
+
+
+def ep_grid(ctx, B: int, S: int) -> bool:
+    """A group whose (pod, data) x model slots divide a (B, S) token grid,
+    its rows over ``batch``: the reference's ``_ep_eligible`` but for its
+    test of padded expert weights."""
+    if ctx.mesh is None:
         return False
-    B, S = x.shape[0], x.shape[1]
-    return (S % ctx.n_model == 0 and B % ctx.n_data == 0
+    n_data = ctx.sizes.get("pod", 1) * ctx.n_data
+    return (S % ctx.n_model == 0 and B % n_data == 0
             and ctx.rules.get("batch") is not None)
 
 
 def _apply_moe_ep(ps, cfg: ModelConfig, ctxs, xs):
-    """Pure expert parallelism over the whole group (the reference's
-    shard_map body).  ``ps``: per-slot params, each holding its block of
-    ``E_alloc / n_slots`` padded experts whole; ``xs``: per-slot (B_l,
-    S_l, d) tokens, each slot's own.  Each slot routes its tokens with the
-    capacity of its ``T_l`` tokens, sends expert block ``t``'s slots to
+    """Pure expert parallelism over each pod's (data, model) slots (the
+    reference's shard_map body, its all-to-alls over those axes).
+    ``ps``: per-slot params, each holding its block of ``E_alloc /
+    n_ep`` padded experts whole; ``xs``: per-slot (B_l, S_l, d) tokens,
+    each slot's own.  Each slot routes its tokens with the capacity of
+    its ``T_l`` tokens, sends expert block ``t``'s slots to the pod's
     slot ``t`` (ascending source order), runs its experts and sends the
     outputs back.  Returns (per-slot routed outputs, aux) — aux over every
     slot's tokens, on slot 0's device; no shared expert."""
     E, k = cfg.n_experts, cfg.moe_top_k
-    n = len(ctxs)
     E_per = ps[0]["wg"].shape[0]
-    disp, tot = [], 0
-    for p, x in zip(ps, xs):
+    ep_axes = tuple(a for a in ("data", "model") if a in ctxs[0].sizes)
+    disp = []
+    for p, c, x in zip(ps, ctxs, xs):
         T_l = x.shape[0] * x.shape[1]
         xf = x.reshape(T_l, x.shape[-1])
         top_w, top_e, probs = router_topk(p, cfg, xf)
         C = max(8, int(np.ceil(T_l * k / E * cfg.capacity_factor / 8) * 8))
-        disp.append(_sort_dispatch(xf, top_w, top_e, E_per * n, C)
-                    + (probs,))
-        tot += T_l * k
-    ye = [_expert_mlp(torch.cat(
-        [c.receive(disp[s][0][t * E_per:(t + 1) * E_per], s)
-         for s in range(n)], dim=1), p["wg"], p["wu"], p["wo"])
-        for t, (p, c) in enumerate(zip(ps, ctxs))]
+        n_ep = len(c.line(ep_axes))
+        disp.append(_sort_dispatch(xf, top_w, top_e, E_per * n_ep, C)
+                    + (probs, T_l * k))
+    ye = []
+    for p, c in zip(ps, ctxs):
+        grp = c.line(ep_axes)
+        t = grp.index(c.slot)
+        ye.append(_expert_mlp(torch.cat(
+            [c.receive(d[0][t * E_per:(t + 1) * E_per], s)
+             for s, d in zip(grp, c.peers(disp, grp))], dim=1),
+            p["wg"], p["wu"], p["wo"]))
     outs = []
-    for s, (c, x) in enumerate(zip(ctxs, xs)):
-        xe, slot_of, slot_weight = disp[s][:3]
-        C = xe.shape[1]
-        ret = torch.cat([c.receive(ye[t][:, s * C:(s + 1) * C], t)
-                         for t in range(n)], dim=0)
-        outs.append(_combine(ret, slot_of, slot_weight).reshape(x.shape))
+    for c, x, d in zip(ctxs, xs, disp):
+        grp = c.line(ep_axes)
+        s, C = grp.index(c.slot), d[0].shape[1]
+        ret = torch.cat([c.receive(y[:, s * C:(s + 1) * C], t)
+                         for t, y in zip(grp, c.peers(ye, grp))], dim=0)
+        outs.append(_combine(ret, d[1], d[2]).reshape(x.shape))
     c0 = ctxs[0]
-    tot = float(max(tot, 1))
-    counts = sum(c0.to_here(d[3][0, :E].float()) for d in disp)
-    mean_prob = sum(c0.to_here(d[5].mean(dim=0)) for d in disp) / n
-    kept = sum(c0.to_here(d[4][0].float()) for d in disp)
+    every = c0.peers(disp, range(c0.mesh.devices.size))
+    tot = float(max(sum(d[6] for d in every), 1))
+    counts = sum(c0.to_here(d[3][0, :E].float()) for d in every)
+    mean_prob = sum(c0.to_here(d[5].mean(dim=0)) for d in every) / len(every)
+    kept = sum(c0.to_here(d[4][0].float()) for d in every)
     aux = {"moe_aux_loss": E * (counts / tot * mean_prob).sum(),
            "moe_drop_frac": 1.0 - kept / tot}
     return outs, aux

@@ -325,6 +325,24 @@ def test_kernel_bounds_unchanged(row):
         assert (round(got[0], 4), got[1]) == printed
 
 
+@pytest.mark.parametrize("q_start,window,keys", [
+    (1920, 1024, 1151), (0, 1024, 128), (1920, None, 2048),
+    (64, None, 192)])
+def test_k2_cost_reads_the_reached_keys(q_start, window, keys):
+    """K2's bytes count the K/V rows the causal span and the window reach
+    (a slot's 128 query rows at ``q_start`` over 2048 keys), and its flops
+    the reached (query, key) pairs, as a loop over the queries gives."""
+    q, k, v = _z(1, 128, 8, 256), _z(1, 2048, 4, 256), _z(1, 2048, 4, 256)
+    got = K.flash_attention_cost(q, k, v, q_start, window)
+    w = 1 << 30 if window is None else window
+    reach = [range(max(0, q_start + i - w + 1), q_start + i + 1)
+             for i in range(128)]
+    assert len(set().union(*reach)) == keys
+    es = q.element_size()
+    assert got.bytes_accessed == (2 * q.numel() + keys * 4 * 512) * es
+    assert got.flops == 2 * 8 * sum(len(r) for r in reach) * 512
+
+
 # ---------------------------------------------------------------------------
 # the pooled decode step's count
 # ---------------------------------------------------------------------------

@@ -360,6 +360,30 @@ def test_stand_in_counts_the_slot_loop(arch, kind):
         assert one["cost"].coll_by_kind["merge"] > 0
 
 
+@pytest.mark.parametrize("arch", ["llama3_2_1b", "gemma3_4b"])
+def test_stand_in_counts_the_slot_loop_in_training(arch):
+    """A train cell under ``attn_seq_q`` and the ``head_dim`` fallback (4
+    heads on a model row of 8), at a length where the plain attention
+    skips the chunks above each row block's diagonal, so that the slots'
+    work differs: the stand-in counts every block's forward and backward
+    at 1/8, the slot loop's flops exactly.  The remat recompute's early
+    stop is off in both, since in a lockstep slot loop it cuts the last
+    slot's recompute alone."""
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+
+    cfg = t_get_reduced_config(arch)
+    mesh = meta_mesh((1, 8))
+    shape = ShapeSpec("train", 4096, 2, "train")
+    rules = make_ctx(cfg, mesh, shape).rules
+    assert rules["attn_seq_q"] == rules["head_dim"] == "model"
+    with set_checkpoint_early_stop(False):
+        loop = count_cell(cell_specs(cfg, shape, mesh, stand_in=False),
+                          mesh, with_corrections=False)
+        one = count_cell(cell_specs(cfg, shape, mesh), mesh,
+                         with_corrections=False)
+    assert one["cost"].flops == loop["cost"].flops > 0
+
+
 # ---------------------------------------------------------------------------
 # (g) a full-width cell, (h) the report
 # ---------------------------------------------------------------------------

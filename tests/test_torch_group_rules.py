@@ -216,6 +216,69 @@ def test_seq_act_block_wire_bytes_equal_the_all_reduce(arch):
     assert sum(split.values()) == whole["all-reduce"]
 
 
+def _pad_experts(params, E_alloc):
+    """``params`` with every MoE layer's experts padded with zeros to
+    ``E_alloc`` (the router still picks among the first E)."""
+    ffn = params["segments"]["blocks"]["ffn"]
+    ffn.update({k: torch.cat([ffn[k], ffn[k].new_zeros(
+        (ffn[k].shape[0], E_alloc - ffn[k].shape[1]) + ffn[k].shape[2:])],
+        dim=1) for k in ("wg", "wu", "wo")})
+    return params
+
+
+@pytest.mark.parametrize("spec", [SEQ_ACT_SHAPE, SHAPES_BY_NAME["train_4k"]],
+                         ids=lambda s: s.name)
+def test_padded_moe_takes_pure_ep_over_sequence_blocks(spec, monkeypatch):
+    """DeepSeek-V2's 8 experts padded to 16 (``expert_alloc`` with the
+    padding thresholds lowered to the reduced config), which the rules put
+    over (data, model) as the reference's put a padded MoE: the training
+    step's MoE takes the pure-EP all-to-all (the reference's
+    ``_apply_moe_ep`` token grid: each slot routes its block of the rows
+    at its block of the positions — under ``seq_act`` its own block of
+    the residual stream), and with room for every token (capacity factor
+    8, so local and global capacities drop nothing) the loss, metrics
+    and every gradient leaf equal the solo port's on the same weights."""
+    from repro_torch.models import moe as TMOE
+
+    monkeypatch.setattr(TMOE, "EP_MIN_EXPERTS", 8)
+    monkeypatch.setattr(TMOE, "EP_PAD_GROUP", 16)
+    run = setup("deepseek_v2_236b")
+    cfg = run["cfg"].replace(capacity_factor=8.0)
+    sh = ctx(cfg, (2, 2), spec)
+    assert (sh.rules["experts"], sh.rules["expert_mlp"]) == (
+        ("data", "model"), None)
+    assert sh.rules["seq_act"] == ("model" if spec is SEQ_ACT_SHAPE
+                                   else None)
+    calls = []
+    real = TMOE._apply_moe_ep
+
+    def spy(ps, cfg, ctxs, xs):
+        calls.append(tuple(xs[0].shape))
+        return real(ps, cfg, ctxs, xs)
+
+    monkeypatch.setattr(TMOE, "_apply_moe_ep", spy)
+    lay = GroupLayout(cfg, sh)
+    loss, metrics, grads = lay.loss_and_grads(
+        lay.shard(_pad_experts(from_reference(run["np_params"], "cpu"),
+                               16)),
+        shard_batch(run["batch"], sh.mesh, sh, device="cpu"))
+    assert calls and set(calls) == {(B // 2, S // 2, cfg.d_model)}
+    grads = {p: g.numpy()
+             for p, g in tree_items(lay.unshard(lay.reduce_grads(grads)))}
+    live = tree_map(lambda p: p.requires_grad_(True), _pad_experts(
+        from_reference(run["np_params"], "cpu"), 16))
+    tl, tm = train_loss(live, cfg, shard_batch(run["batch"], device="cpu"))
+    tg = torch.autograd.grad(tl, tree_leaves(live), allow_unused=True,
+                             materialize_grads=True)
+    np.testing.assert_allclose(float(loss), float(tl.detach()), rtol=2e-4,
+                               atol=1e-5)
+    for k in tm:
+        np.testing.assert_allclose(float(metrics[k]), float(tm[k].detach()),
+                                   rtol=2e-4, atol=1e-5, err_msg=k)
+    for (path, _), g in zip(tree_items(live), tg):
+        assert_leaf_close(grads[path], g.numpy(), 1e-5, 2e-4, path)
+
+
 # ---------------------------------------------------------------------------
 # attn_seq_q and the head_dim fallback
 # ---------------------------------------------------------------------------
