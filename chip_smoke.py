@@ -2055,6 +2055,20 @@ def stash_bytes(fn):
         model_mod.checkpoint = real
 
 
+def _worst_leaf(got, want, tol):
+    """(the worst leaf's max|d| over atol + rtol max|want leaf|, its
+    path) of (path, tensor) pairs ``got`` against ``want`` by path."""
+    atol, rtol = tol
+    worst, where = 0.0, None
+    for path, x in got:
+        w = want[path]
+        ratio = float((x - w).abs().max()) / (
+            atol + rtol * float(w.abs().max()))
+        if ratio > worst:
+            worst, where = ratio, ".".join(path)
+    return worst, where
+
+
 def phase_train_group(torch):
     """[train group] Full-width Llama-3.2-1B, all 16 layers, f32 (TF32
     off), AdamW with remat: TRAIN_GROUP_STEPS steps of (B 8, S 128) solo,
@@ -2107,18 +2121,6 @@ def phase_train_group(torch):
     def weights():
         return init_params(cfg, torch.Generator(device="cuda")
                            .manual_seed(0), "cuda")
-
-    def worst_leaf(got, want, tol):
-        """(the worst leaf's max|d| over its bound, that leaf's path)."""
-        atol, rtol = tol
-        worst, where = 0.0, None
-        for path, x in got:
-            w = want[path]
-            ratio = float((x - w).abs().max()) / (
-                atol + rtol * float(w.abs().max()))
-            if ratio > worst:
-                worst, where = ratio, ".".join(path)
-        return worst, where
 
     def drive(label, state, step, batches):
         torch.cuda.reset_peak_memory_stats()
@@ -2180,7 +2182,7 @@ def phase_train_group(torch):
             batches = [shard_batch(h, mesh, sh, device="cuda") for h in host]
             (_, _, grads), stash = stash_bytes(lambda: lay.loss_and_grads(
                 lay.shard(weights()), batches[0]))
-            g_worst, g_leaf = worst_leaf(
+            g_worst, g_leaf = _worst_leaf(
                 tree_items(lay.unshard(lay.reduce_grads(grads))), solo_grads,
                 TRAIN_GROUP_GRAD_TOL)
             del grads
@@ -2195,7 +2197,7 @@ def phase_train_group(torch):
             seen[(shape, rules.name)] = (stats, stash)
             rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
                                                           solo_losses))
-            worst, where = worst_leaf(
+            worst, where = _worst_leaf(
                 tree_items(lay.unshard(state["params"])), solo,
                 TRAIN_GROUP_PARAM_TOL)
             flat = [tree_leaves(t) for t in state["params"]]
@@ -3753,11 +3755,22 @@ def _slot_row(torch, kind, args, kw):
                     k: v for k, v in kw.items() if k != "scale"}),
                 args[0].dtype, bf16_ulp_ok if cross else tol)
     causal = kw.get("causal", True)
+    lib = None if kw.get("slopes") is not None else \
+        (lambda q, k, v: sdpa(q, k, v, causal=causal))
+    if causal and lib is not None and (kw.get("window") is not None
+                                       or kw.get("q_start", 0)):
+        # a window or a chunk offset: the keys each query takes, as a
+        # boolean mask built once (outside the timed calls)
+        q0, Sq, Skv = kw.get("q_start", 0), args[0].shape[1], \
+            args[1].shape[1]
+        dev = args[0].device
+        diff = (q0 + torch.arange(Sq, device=dev))[:, None] \
+            - torch.arange(Skv, device=dev)[None, :]
+        win = kw.get("window")
+        ok = (diff >= 0) & (diff < (q0 + Sq if win is None else win))
+        lib = lambda q, k, v: sdpa(q, k, v, ok[None, None])  # noqa: E731
     return (args, lambda *a: K.flash_attention(*a, **kw),
-            lambda *a: K.attention_ref(*a, **kw),
-            None if kw.get("window") is not None or kw.get("q_start", 0) or
-            kw.get("slopes") is not None else
-            (lambda q, k, v: sdpa(q, k, v, causal=causal)),
+            lambda *a: K.attention_ref(*a, **kw), lib,
             K.flash_attention_cost(*args, **kw), args[0].dtype,
             tol if causal else bf16_ulp_ok)
 
@@ -4143,8 +4156,35 @@ DRYRUN_KINDS = {"decode_4k": ("decode_attention",),
                 "gemma_prefill_2k": ("flash_attention",),
                 "gemma_decode_4k": ("decode_attention_partials",
                                     "merge_partials")}
-# Gemma-3-4B at 6 of its 34 layers: five local (window 1024) and a global
-DRYRUN_DEPTH = {"gemma3_4b": 6}
+# Gemma-3-4B at 6 of its 34 layers: five local (window 1024) and a global;
+# DeepSeek-V2 and Llama-4-Scout at 1 layer for the train cells
+DRYRUN_DEPTH = {"gemma3_4b": 6, "deepseek_v2_236b": 1,
+                "llama4_scout_17b_a16e": 1}
+# [dryrun] train cells: full width in bf16, cut to DRYRUN_DEPTH, the
+# config's own optimizer, on (2, 2) slots at B 4 x S 256 (arch, name, the
+# production shape whose rules the cell runs under at the full depth, or
+# None for the cell's own): DeepSeek-V2 with Adafactor (its padded MoE
+# takes pure EP: 64 experts a slot), Llama-4-Scout with AdamW (its
+# unpadded MoE sends each expert holder its kept rows), also under
+# train_4k's rules, which set seq_act (each slot routes its own block of
+# the positions).  Each against an f32 twin: the same group shape and
+# rules at the config's reduced width against the solo step from the
+# same weights and batch (TRAIN_GROUP_* bounds); DeepSeek's twin pads
+# its experts (EP_MIN_EXPERTS / EP_PAD_GROUP lowered to the reduced
+# config, capacity factor 8 so that local and global capacities drop
+# nothing) so that it takes the same pure-EP path.
+DRYRUN_TRAIN = (("deepseek_v2_236b", "deepseek_train", None),
+                ("llama4_scout_17b_a16e", "scout_train", None),
+                ("llama4_scout_17b_a16e", "scout_train_4k_rules",
+                 "train_4k"))
+DRYRUN_TRAIN_MESH = (2, 2)
+DRYRUN_TRAIN_BATCH = (4, 256)
+TWIN_BATCH = (4, 64)
+TWIN_EP = {"deepseek_v2_236b": dict(EP_MIN_EXPERTS=8, EP_PAD_GROUP=16)}
+TWIN_CAPACITY = {"deepseek_v2_236b": 8.0}
+# a train cell whose remat stash passes 8e9 bytes at the reduced width, so
+# that make_rules sets seq_act there too (the CPU tests' cell)
+TWIN_SEQ_ACT = (1 << 20, 64)
 
 
 def _holds_pos(k, v, pos, t0):
@@ -4189,7 +4229,6 @@ def phase_dryrun(torch):
     from repro_torch import kernels as K
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.launch.dryrun import cell_specs, count_cell
-    from repro_torch.launch.mesh import GroupMesh
     from repro_torch.launch.sharding import make_ctx, shard, shard_params
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import init_params
@@ -4268,11 +4307,8 @@ def phase_dryrun(torch):
             log(f"{tag} {arch}: {cfg.n_layers} of {base.n_layers} layers, "
                 f"{sum(x.numel() for x in _leaves(params)) / 1e9:.2f} B "
                 f"params in bf16")
-        devs = np.empty(mesh_shape[0] * mesh_shape[1], dtype=object)
-        devs[:] = slot_devices(torch, devs.size)
-        mesh = GroupMesh(devs.reshape(mesh_shape))
-        meta = GroupMesh(np.full(mesh_shape, torch.device("meta"),
-                                 dtype=object))
+        mesh = _group_mesh(torch, mesh_shape)
+        meta = _group_mesh(torch, mesh_shape, torch.device("meta"))
         shape = ShapeSpec(name, seq, rows, kind)
         c0 = time.perf_counter()
         pred = count_cell(cell_specs(cfg, shape, meta, stand_in=False),
@@ -4368,11 +4404,281 @@ def phase_dryrun(torch):
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    for arch, name, rules in DRYRUN_TRAIN:
+        dryrun_train_cell(torch, tag, arch, name, rules, wrappers)
+        train_twin(torch, tag, arch, name, rules)
     rows = slot_kernel_rows(torch, keep, launches, tag=tag,
                             suffix={"dryrun": "_dryrun"},
                             where="in the measured calls (all slots)")
     log(f"{tag} phase {time.perf_counter() - t0:.1f} s")
     return rows
+
+
+def _group_mesh(torch, shape, device=None):
+    import numpy as np
+
+    from repro_torch.launch.mesh import GroupMesh
+
+    devs = np.empty(shape[0] * shape[1], dtype=object)
+    devs[:] = [device] * devs.size if device is not None else \
+        slot_devices(torch, devs.size)
+    return GroupMesh(devs.reshape(shape))
+
+
+def dryrun_train_cell(torch, tag, arch, name, rules_of, wrappers):
+    """One [dryrun] train cell (DRYRUN_TRAIN): the config at DRYRUN_DEPTH
+    layers in bf16 on DRYRUN_TRAIN_MESH cuda slots, one training step
+    (``make_train_step(..., sh)``, remat, ``make_optimizer_for``) at
+    DRYRUN_TRAIN_BATCH, counted first on meta slots of the mesh's shape
+    (``count_cell``: the slot loop, and slot 0 standing in).  Held
+    exactly: FlopCounterMode's flops of the card's step == the meta
+    count's aten flops; slot 0's argument bytes (its params' shards,
+    optimizer state, step and batch) == the predicted
+    ``argument_size_in_bytes``; the stand-in's flops, argument bytes and
+    wire bytes of every kind but the all-reduce == the slot loop's (the
+    loss and the MoE's aux terms are summed once a group, on slot 0,
+    whose scalar ops a stand-in counts whole: its bytes and all-reduce
+    differ by those, printed).  No kernel launches (training runs the
+    plain versions).  Printed: the card's peak allocation over the step
+    beside the predicted live peak of the slot loop and their ratio; a
+    second step's time by CUDA events, its slot collectives by kind with
+    their wire bytes and its host syncs (the unpadded MoE reads its sends'
+    sizes once a layer pass)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import SHAPES_BY_NAME, ShapeSpec, get_config
+    from repro_torch.data import make_batches, shard_batch
+    from repro_torch.launch.dryrun import cell_specs, count_cell
+    from repro_torch.launch.sharding import ShardingCtx, make_ctx
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import count_collectives
+    from repro_torch.models.model import tree_nbytes
+    from repro_torch.training import (TrainHParams, init_train_state,
+                                      make_optimizer_for, make_train_step)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = get_config(arch)
+    cfg = base.replace(n_layers=DRYRUN_DEPTH[arch])
+    rows, seq = DRYRUN_TRAIN_BATCH
+    shape = ShapeSpec(name, seq, rows, "train")
+    meta = _group_mesh(torch, DRYRUN_TRAIN_MESH, torch.device("meta"))
+    rules = None if rules_of is None else make_ctx(
+        base, meta, SHAPES_BY_NAME[rules_of]).rules
+    c0 = time.perf_counter()
+    pred = count_cell(cell_specs(cfg, shape, meta, stand_in=False,
+                                 rules=rules), meta, with_corrections=False)
+    full_s = time.perf_counter() - c0
+    c0 = time.perf_counter()
+    stand = count_cell(cell_specs(cfg, shape, meta, rules=rules), meta,
+                       with_corrections=False)
+    stand_s = time.perf_counter() - c0
+    a, b = pred["cost"].to_dict(), stand["cost"].to_dict()
+    kinds = {k: (a["coll_by_kind"].get(k), b["coll_by_kind"].get(k))
+             for k in set(a["coll_by_kind"]) | set(b["coll_by_kind"])}
+    log(f"{tag} {name}: stand-in vs slot loop: flops {b['flops']} / "
+        f"{a['flops']}, argument bytes "
+        f"{stand['memory']['argument_size_in_bytes']} / "
+        f"{pred['memory']['argument_size_in_bytes']}, bytes "
+        f"{b['bytes_accessed']:.6g} / {a['bytes_accessed']:.6g}, wire "
+        f"bytes by kind {kinds}")
+    if a["flops"] != b["flops"] or any(
+            x != y for k, (x, y) in kinds.items() if k != "all-reduce") or \
+            stand["memory"]["argument_size_in_bytes"] != \
+            pred["memory"]["argument_size_in_bytes"]:
+        raise RuntimeError(f"{tag} {name}: the stand-in count is not the "
+                           "slot loop's")
+    mesh = _group_mesh(torch, DRYRUN_TRAIN_MESH)
+    sh = make_ctx(cfg, mesh, shape) if rules is None else \
+        ShardingCtx(mesh, rules, cfg)
+    hp = TrainHParams()
+    opt = make_optimizer_for(cfg, hp)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    n_params = sum(x.numel() for x in _leaves(params))
+    state = init_train_state(None, cfg, opt, params=params, device="cuda",
+                             sh=sh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    batches = shard_batch(next(make_batches(cfg, rows, seq, seed=0)), mesh,
+                          sh, device="cuda")
+    args = (tree_nbytes(state["params"][0]) + tree_nbytes(state["opt"][0])
+            + tree_nbytes(batches[0]) + state["step"][0].numel()
+            * state["step"][0].element_size())
+    step = make_train_step(cfg, opt, hp, sh)
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        state, m = step(state, batches)
+    torch.cuda.synchronize()
+    flops = fc.get_total_flops()
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    ran = {n: w.launches for n, w in wrappers.items()}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with count_collectives() as coll:
+        ev[0].record()
+        (state, m2), sites = sync_sites(torch, step, state, batches)
+        ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1])
+    losses = [float(m["loss"]), float(m2["loss"])]
+    want_flops = round(pred["aten_flops"] * len(state["params"]))
+    live = pred["live_peak"] * len(state["params"])
+    mem = pred["memory"]
+    moe = {k: float(v) for k, v in m.items() if k.startswith("moe")}
+    log(f"{tag} {name} ({arch}, {cfg.n_layers} of {base.n_layers} layers, "
+        f"{n_params / 1e9:.3f} B params in bf16, {opt.name}, batch {rows} x "
+        f"{seq}) on {DRYRUN_TRAIN_MESH} slots (rules: seq_act "
+        f"{sh.rules['seq_act']}, experts {sh.rules['experts']}, expert_mlp "
+        f"{sh.rules['expert_mlp']}): flops FlopCounterMode {flops} vs meta "
+        f"count {want_flops}; slot 0's argument bytes allocated {args} vs "
+        f"predicted {mem['argument_size_in_bytes']}; the step's peak "
+        f"allocation {peak} B vs the predicted live peak {live:.0f} B over "
+        f"the slots (ratio card / predicted {peak / max(live, 1):.4f}); one "
+        f"slot alone {stand['live_peak']:.0f} B; predicted per-slot "
+        f"peak_hbm {mem['peak_hbm_bytes']} B; meta count {full_s:.2f} s "
+        f"(slot loop), {stand_s:.2f} s (stand-in); losses {losses}; MoE "
+        f"{moe}; second step {ms:.2f} ms by CUDA events, host syncs "
+        f"{len(sites)} ({sorted(set(sites))}), collectives {coll.calls} "
+        f"calls, wire bytes "
+        f"{ {k: round(v) for k, v in sorted(coll.by_kind.items())} } (all "
+        f"slots, {coll.wire:.6g} in all); kernel launches {ran}")
+    if flops != want_flops:
+        raise RuntimeError(f"{tag} {name}: flops {flops} != meta "
+                           f"{want_flops}")
+    if args != mem["argument_size_in_bytes"]:
+        raise RuntimeError(f"{tag} {name}: argument bytes {args} != "
+                           f"{mem['argument_size_in_bytes']}")
+    if any(ran.values()):
+        raise RuntimeError(f"{tag} {name}: a kernel launched in training "
+                           f"({ran})")
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"{tag} {name}: non-finite loss {losses}")
+    del state, batches, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_twin(torch, tag, arch, name, rules_of):
+    """The f32 twin of a [dryrun] train cell: the config's reduced width in
+    f32 (TF32 off), its own optimizer, on DRYRUN_TRAIN_MESH cuda slots
+    under the cell's kind of rules (its own; or, for a train_4k cell, a
+    cell whose remat stash sets seq_act, TWIN_SEQ_ACT), one step at
+    TWIN_BATCH against the solo step from the same weights and batch.
+    Held: the loss within TRAIN_GROUP_LOSS_RTOL, the first gradient's
+    leaves within TRAIN_GROUP_GRAD_TOL, the params after the step within
+    TRAIN_GROUP_PARAM_TOL, every replicated block of the params and the
+    optimizer state bit-equal across the slots that hold it, and the MoE
+    taking the cell's path (pure EP where the cell's experts are
+    padded)."""
+    from repro_torch.configs import ShapeSpec, get_reduced_config
+    from repro_torch.data import make_batches, shard_batch
+    from repro_torch.launch.sharding import make_ctx
+    from repro_torch.models import init_params, train_loss
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.training import (TrainHParams, init_train_state,
+                                      make_optimizer_for, make_train_step)
+    from repro_torch.training.optimizer import (tree_items, tree_leaves,
+                                                tree_map)
+    from repro_torch.training.train_step import GroupLayout
+
+    rows, seq = TWIN_BATCH
+    cfg = get_reduced_config(arch)
+    if arch in TWIN_CAPACITY:
+        cfg = cfg.replace(capacity_factor=TWIN_CAPACITY[arch])
+    saved = {k: getattr(moe_mod, k) for k in TWIN_EP.get(arch, {})}
+    for k, v in TWIN_EP.get(arch, {}).items():
+        setattr(moe_mod, k, v)
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ep = []
+    real_ep = moe_mod._apply_moe_ep
+
+    def spy(*a, **k):
+        ep.append(1)
+        return real_ep(*a, **k)
+
+    try:
+        mesh = _group_mesh(torch, DRYRUN_TRAIN_MESH)
+        spec = ShapeSpec("twin", seq, rows, "train") if rules_of is None \
+            else ShapeSpec("train_seq_act", *TWIN_SEQ_ACT, "train")
+        sh = make_ctx(cfg, mesh, spec)
+        hp = TrainHParams(learning_rate=3e-4)
+        opt = make_optimizer_for(cfg, hp)
+
+        def weights():
+            return init_params(cfg, torch.Generator(device="cuda")
+                               .manual_seed(0), "cuda")
+
+        host = next(make_batches(cfg, rows, seq, seed=0))
+        live = tree_map(lambda x: x.requires_grad_(True), weights())
+        loss, _ = train_loss(live, cfg, shard_batch(host, device="cuda"))
+        solo_grads = dict(zip([p for p, _ in tree_items(live)],
+                              torch.autograd.grad(loss, tree_leaves(live))))
+        del live
+        solo = init_train_state(None, cfg, opt, params=weights(),
+                                device="cuda")
+        solo, solo_m = make_train_step(cfg, opt, hp)(
+            solo, shard_batch(host, device="cuda"))
+        lay = GroupLayout(cfg, sh)
+        batches = shard_batch(host, mesh, sh, device="cuda")
+        moe_mod._apply_moe_ep = spy
+        _, _, grads = lay.loss_and_grads(lay.shard(weights()), batches)
+        g_worst, g_leaf = _worst_leaf(
+            tree_items(lay.unshard(lay.reduce_grads(grads))), solo_grads,
+            TRAIN_GROUP_GRAD_TOL)
+        state = init_train_state(None, cfg, opt, params=weights(),
+                                 device="cuda", sh=sh)
+        state, m = make_train_step(cfg, opt, hp, sh)(state, batches)
+        moe_mod._apply_moe_ep = real_ep
+        rel = abs(float(m["loss"]) - float(solo_m["loss"])) / abs(
+            float(solo_m["loss"]))
+        worst, where = _worst_leaf(tree_items(lay.unshard(state["params"])),
+                                   dict(tree_items(solo["params"])),
+                                   TRAIN_GROUP_PARAM_TOL)
+        flat = [tree_leaves(t) for t in state["params"]]
+        equal = all(torch.equal(flat[s][k], flat[o][k])
+                    for k, leaf in enumerate(lay.leaves)
+                    for s, o in enumerate(leaf["owners"]) if o != s)
+        if opt.replicated_state:
+            opts = [tree_leaves(o) for o in state["opt"]]
+            equal = equal and all(torch.equal(x, y) for o in opts[1:]
+                                  for x, y in zip(o, opts[0]))
+        else:
+            for which in ("m", "v"):
+                trees = [tree_leaves(o[which]) for o in state["opt"]]
+                equal = equal and all(
+                    torch.equal(trees[s][k], trees[o][k])
+                    for k, leaf in enumerate(lay.leaves)
+                    for s, o in enumerate(leaf["owners"]) if o != s)
+        padded = moe_mod.expert_alloc(cfg.n_experts) != cfg.n_experts
+        moe = {k: (float(m[k]), float(solo_m[k])) for k in m
+               if k.startswith("moe")}
+        log(f"{tag} {name} f32 twin ({cfg.name}, {opt.name}, batch {rows} "
+            f"x {seq}, rules seq_act {sh.rules['seq_act']}, experts "
+            f"{sh.rules['experts']}, pure EP {bool(ep)}): loss rel diff "
+            f"{rel:.3g} (bound {TRAIN_GROUP_LOSS_RTOL}); first gradient: "
+            f"worst leaf {g_leaf} at {g_worst:.3g} of its bound "
+            f"{TRAIN_GROUP_GRAD_TOL}; params after the step: worst leaf "
+            f"{where} at {worst:.3g} of its bound {TRAIN_GROUP_PARAM_TOL}; "
+            f"replicas (params and optimizer state) bit-equal: {equal}; "
+            f"MoE group / solo {moe}")
+        if rel > TRAIN_GROUP_LOSS_RTOL or worst > 1.0 or g_worst > 1.0 \
+                or not equal or bool(ep) != padded or \
+                (sh.rules["seq_act"] is not None) != (rules_of is not None):
+            raise RuntimeError(f"{tag} {name}: the f32 twin's group step "
+                               "is not the solo step")
+    finally:
+        moe_mod._apply_moe_ep = real_ep
+        for k, v in saved.items():
+            setattr(moe_mod, k, v)
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:

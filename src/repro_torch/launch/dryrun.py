@@ -54,7 +54,7 @@ import json
 import os
 import time
 import traceback
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -63,8 +63,9 @@ from repro_torch.configs import (ARCH_IDS, SHAPES_BY_NAME, ModelConfig,
 from repro_torch.kernels.runtime import count_meta_calls
 from repro_torch.launch import costs as C
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.launch.sharding import (batch_specs, cache_specs,
-                                         make_ctx, param_shardings, shard,
+from repro_torch.launch.sharding import (ShardingCtx, batch_specs,
+                                         cache_specs, make_ctx,
+                                         param_shardings, shard,
                                          shard_params, slot_devices,
                                          slot_index)
 from repro_torch.models.layers import (count_collectives, group_ctxs,
@@ -96,11 +97,15 @@ def input_specs(arch: str, shape_name: str, mesh) -> Dict:
 
 
 def cell_specs(cfg: ModelConfig, shape: ShapeSpec, mesh,
-               stand_in: bool = True) -> Dict:
+               stand_in: bool = True,
+               rules: Optional[Dict] = None) -> Dict:
     """:func:`input_specs` of any (config, shape, mesh) cell; ``stand_in``:
     its group steps run slot 0's body for every slot
-    (``models.layers.GroupCtx``)."""
-    sh = make_ctx(cfg, mesh, shape, stand_in)
+    (``models.layers.GroupCtx``); ``rules``: the rules the cell runs
+    under, in place of its own (e.g. a production cell's, at a batch cut
+    to fit a card)."""
+    sh = make_ctx(cfg, mesh, shape, stand_in) if rules is None else \
+        ShardingCtx(mesh, rules, cfg, stand_in)
     out: Dict = {"cfg": cfg, "shape": shape, "sh": sh}
     params, axes = init_params_shapes(cfg)
     out["params"] = params
@@ -262,10 +267,11 @@ def count_cell(spec: Dict, mesh, with_corrections: bool = True) -> Dict:
         lay = GroupLayout(cfg, sh)
         state = lay.init_state(spec["params"], opt)
         batches = _slot_batches(spec, mesh)
+        # the optimizer's state of the whole params (f32, whatever the
+        # params' dtype), each leaf's slot share by its spec
+        whole = opt.init(spec["params"])
         aliased = params + _nbytes(state["step"][0]) + _slot_bytes(
-            state["opt"][0] if opt.name != "adamw" else
-            {"m": spec["params"], "v": spec["params"]},
-            _opt_shardings(opt, spec["param_shardings"], state["opt"][0]),
+            whole, _opt_shardings(opt, spec["param_shardings"], whole),
             mesh)
         args = aliased + _pairs_bytes(spec["batch"], mesh)
         with count:

@@ -367,15 +367,14 @@ def decoder_block_batch_group(ps, cfg: ModelConfig, ctxs, hs, poss,
     if not cfg.is_moe:
         return _ffn_group(ps, cfg, ctxs, hs, True), caches, {}
     fs, c0 = [p["ffn"] for p in ps], ctxs[0]
+    # each slot's normed residual block: under seq_act its own positions
+    xs = [apply_norm(p["ln2"], cfg, h) for p, h in zip(ps, hs)]
     if moe.expert_alloc(cfg.n_experts) != cfg.n_experts and moe.ep_grid(
             c0, hs[0].shape[0] * c0.row_block()[1],
             hs[0].shape[1] * c0.seq[1]):
-        ms, aux = _moe_ep_batch(fs, cfg, ctxs, [
-            apply_norm(p["ln2"], cfg, h) for p, h in zip(ps, hs)])
+        ms, aux = _moe_ep_batch(fs, cfg, ctxs, xs)
     else:
-        ms, aux = moe.apply_moe_batch_group(
-            fs, cfg, ctxs, _normed(ps, cfg, ctxs, hs, "ln2"))
-        ms = [seq_block(c, m) for c, m in zip(ctxs, ms)]
+        ms, aux = moe.apply_moe_batch_group(fs, cfg, ctxs, xs)
     return [_residual(p, cfg, h, m, "post_ln2")
             for p, h, m in zip(ps, hs, ms)], caches, aux
 

@@ -579,12 +579,14 @@ class GroupCtx:
         return merge_partials_ref(*(torch.cat([p[i] for p in mine])
                                     for i in range(3)), dtype)
 
-    def receive(self, x, src: int, kind: str = "all-to-all"):
+    def receive(self, x, src: int, kind: str = "all-to-all", nbytes=None):
         """A point-to-point move of ``x`` from slot ``src`` to this slot
         (the sends of an all-to-all; ``kind`` names them in the count); a
-        slot's own data moves nothing."""
+        slot's own data moves nothing.  ``nbytes``: what the send puts on
+        the wire where that is less than ``x`` (a 0-d device tensor where
+        it depends on the data: :class:`CollectiveCount`)."""
         if src != self.slot:
-            _record(kind, x, 2, point=True)
+            _record(kind, x, 2, point=True, nbytes=nbytes)
         return self.to_here(x)
 
     def send(self, x, dst: int, kind: str):
@@ -718,11 +720,33 @@ _COLLECTIVES: contextvars.ContextVar = contextvars.ContextVar(
 class CollectiveCount:
     """Collectives recorded inside :func:`count_collectives`: ``wire`` —
     the bytes every slot's calls put on the wire, summed over slots —
-    by kind, and ``calls``."""
+    by kind, and ``calls``.  A send whose size depends on the data (the
+    MoE's kept rows) records a 0-d device tensor, which ``by_kind`` reads
+    on the host when it is asked for, after the step: nothing syncs
+    inside it."""
 
     def __init__(self):
-        self.by_kind: Dict[str, float] = {}
+        self._by_kind: Dict[str, float] = {}
+        self._pending: List = []
         self.calls = 0
+
+    def add(self, kind: str, wire) -> None:
+        if torch.is_tensor(wire):
+            self._pending.append((kind, wire))
+        else:
+            self._by_kind[kind] = self._by_kind.get(kind, 0.0) + wire
+        self.calls += 1
+
+    @property
+    def by_kind(self) -> Dict[str, float]:
+        if self._pending:
+            kinds, ws = zip(*self._pending)
+            self._pending = []
+            dev = ws[0].device
+            vals = torch.stack([w.to(dev).double() for w in ws]).tolist()
+            for kind, v in zip(kinds, vals):
+                self._by_kind[kind] = self._by_kind.get(kind, 0.0) + v
+        return self._by_kind
 
     @property
     def wire(self) -> float:
@@ -754,8 +778,9 @@ def _nbytes(x) -> int:
 def _record(kind: str, x, g: int, gathered: bool = False,
             point: bool = False, nbytes: Optional[float] = None):
     """Wire bytes of one slot's share of a collective over ``g`` slots of
-    operands like ``x`` (``nbytes`` of each when given; the reference's
-    ring factors: all-reduce 2(g-1)/g N, all-gather (g-1)/g N_out; a
+    operands like ``x`` (``nbytes`` of each when given — for a
+    point-to-point send, a 0-d device tensor too; the reference's ring
+    factors: all-reduce 2(g-1)/g N, all-gather (g-1)/g N_out; a
     point-to-point send N)."""
     rec = _COLLECTIVES.get()
     if rec is None and _OPEN_COUNTS:
@@ -764,13 +789,12 @@ def _record(kind: str, x, g: int, gathered: bool = False,
         return
     n = _nbytes(x) if nbytes is None else nbytes
     if point:
-        wire = float(n)
+        wire = n if torch.is_tensor(n) else float(n)
     elif gathered:
         wire = (g - 1) / g * n * g
     else:
         wire = 2.0 * (g - 1) / g * n
-    rec.by_kind[kind] = rec.by_kind.get(kind, 0.0) + wire
-    rec.calls += 1
+    rec.add(kind, wire)
 
 
 def _vocab_lo(ctx: GroupCtx, local: int, cfg: ModelConfig) -> int:

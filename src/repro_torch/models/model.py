@@ -29,7 +29,7 @@ from typing import Dict, List, Optional
 
 import torch
 from torch.utils._python_dispatch import _disable_current_modes
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
@@ -232,11 +232,18 @@ def _call(remat: bool, fn, *args):
     """``fn(*args)``; under ``remat`` nothing inside ``fn`` is kept for the
     backward pass, which runs ``fn`` again (the reference's
     ``jax.checkpoint(policy=nothing_saveable)`` around each scan step).
-    The stack draws no random numbers, so no RNG state is kept."""
+    The stack draws no random numbers, so no RNG state is kept.
+
+    The recompute runs ``fn`` whole: its early stop is off, for the
+    training step and the dry run's count alike.  Early stop ends a
+    recompute once the backward has what it needs, which in a group's
+    lockstep slot loop cuts the last slot's recompute alone, so a train
+    cell's count would depend on the slot that stands in."""
     if not remat:
         return fn(*args)
-    return checkpoint(fn, *args, use_reentrant=False,
-                      preserve_rng_state=False)
+    with set_checkpoint_early_stop(False):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
 
 
 def _caster(cast: Optional[torch.dtype]):

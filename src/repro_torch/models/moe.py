@@ -40,9 +40,11 @@ padded experts (DeepSeek): each slot routes its own tokens with a local
 capacity, sends each expert block's slots to the slot that holds it, and
 takes the outputs back — the all-to-all as per-slot sends in slot order;
 ``_ep_eligible`` is its gate.  ``apply_moe_batch_group`` is the
-training step's: the whole-batch routing of ``apply_moe`` over the data
-slots' rows (capacity positions and the aux terms summed over the data
-slots), each expert holder running the kept tokens of every row block.
+training step's: the whole-batch routing of ``apply_moe`` over the slots'
+token blocks (their rows, and under ``seq_act`` their positions), each
+choice ranked at its token's global index, each source putting only its
+kept rows into the holders' (n_local, C, d) blocks and taking back only
+their outputs.
 """
 from __future__ import annotations
 
@@ -53,8 +55,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import (ParamBuilder, param_dtype,
-                                       reduce_model, reduce_out, row_heads)
+from repro_torch.launch.costs import collective_ops
+from repro_torch.models.layers import (ParamBuilder, gather_seq, param_dtype,
+                                       reduce_model, reduce_out)
 
 EP_PAD_GROUP = 256  # pad expert allocation to the full-chip EP group size
 EP_MIN_EXPERTS = 64  # only pad expert-rich archs
@@ -108,13 +111,9 @@ def router_topk(params, cfg: ModelConfig, xf):
     return top_w, top_e, probs
 
 
-def _sort_dispatch(xf, top_w, top_e, E_slots: int, C: int, rows: int = 1,
-                   before=None):
+def _sort_dispatch(xf, top_w, top_e, E_slots: int, C: int, rows: int = 1):
     """Sort-based capacity dispatch of ``rows`` independent row groups of
     ``T = N / rows`` tokens each.  xf (N, d); top_w/top_e (N, k).
-    ``before`` (E_slots,): each expert's choices that precede these tokens
-    in a larger batch sharing the capacity (its first positions are
-    theirs; ``rows`` 1).
 
     Returns (xe (E_slots, rows * C, d), slot_of (N, k) — each choice's slot
     in the flattened buffer, ``E_slots * rows * C`` where dropped —,
@@ -135,8 +134,6 @@ def _sort_dispatch(xf, top_w, top_e, E_slots: int, C: int, rows: int = 1,
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(N * k, device=dev) - starts[sorted_key]
     r_s, e_s = sorted_key // E_slots, sorted_key % E_slots
-    if before is not None:
-        rank = rank + before[e_s]
     keep = rank < C
     slot = torch.where(keep, e_s * (rows * C) + r_s * C + rank, n_slots)
     slot_token = torch.full((n_slots + 1,), N, dtype=torch.long, device=dev)
@@ -303,76 +300,171 @@ def apply_moe_group(ps, cfg: ModelConfig, ctxs, xs, rows_split: bool):
 
 
 def apply_moe_batch_group(ps, cfg: ModelConfig, ctxs, xs):
-    """``apply_moe`` of the whole batch on a group, the training step's
-    MoE (and the group forms of ``prefill`` / ``decode_step``): ``xs``
-    per-slot (B_l, S, d) rows, each slot's block of the batch rows
-    (``GroupCtx.row_block``; every model slot of a row block routes its
-    rows alike).  The routing is the global batch's, as the reference's
-    shardings leave it: the capacity is that of all B * S tokens, each
-    expert's capacity positions run over the row blocks in row order (a
-    slot's local rank plus the counts of the row blocks before it,
-    gathered over its ``row_column``), the expert holders take the kept
-    tokens of every row block (of their pod, where the experts replicate
-    over pods), and the aux loss and drop fraction come from the
-    per-expert counts and router probabilities summed over the row
-    blocks.  Returns (per-slot outputs like ``xs``, aux) — aux on slot
-    0's device."""
+    """``apply_moe`` of the whole batch on a group: the training step's MoE
+    and the group forms of ``prefill`` / ``decode_step``.  ``xs``: per
+    slot, its tokens (B_l, S_l, d): its block of the batch rows
+    (``GroupCtx.row_block``) and, under ``seq_act``, its own block of
+    their positions (``GroupCtx.seq``), else every position (a model
+    row's slots then route alike).
+
+    The routing is the whole batch's, as the reference's shardings leave
+    it: the capacity is that of all B * S tokens, and each (token, choice)
+    takes its expert's capacity position at the token's global (row,
+    position) index — its rank among its row's choices of the expert on
+    this slot, after those of every earlier row and of the slots holding
+    the row's earlier positions (the token blocks' per-(row, expert)
+    counts, gathered).  Each expert holder's (n_local, C, d) block (the
+    reference's ``xe`` split over ``experts``) takes from each source
+    only its kept rows of the holder's experts, put at their positions;
+    the holder runs its experts on the block, the holders of a block add
+    their FFN shards' partial sums over the model row in slot order, and
+    each source takes back only its kept rows' outputs, from the holder
+    at its model index, and combines them.  The shared expert runs on
+    the whole sequence, cut (or reduce-scattered) to the slot's block.
+    The aux loss and drop fraction come from the per-expert counts, kept
+    choices and router probabilities summed over the token blocks.
+    Returns (per-slot outputs like ``xs``, aux) — aux on slot 0's
+    device.
+
+    Shapes come from sizes alone, so nothing syncs: a source's put and
+    take run over all its (token, choice) pairs, the ones it does not
+    send landing on a spare row of the block (or reading a zero row).
+    The count records what a put-based all-to-all moves, the kept rows
+    (with their int64 positions on the way out), as device values
+    (``layers.CollectiveCount``); on meta tensors (the dry run's count)
+    every source is taken to fill its even share of each expert's
+    capacity."""
     E, k = cfg.n_experts, cfg.moe_top_k
+    c0 = ctxs[0]
     n_local = ps[0]["wg"].shape[0]
+    n_blocks = expert_alloc(E) // n_local
+    n_real = -(-E // n_local)  # the blocks that hold a routed expert
     f_split = ps[0]["wg"].shape[-1] < cfg.d_ff_expert
-    T_l = xs[0].shape[0] * xs[0].shape[1]
-    T = T_l * ctxs[0].row_block()[1]
-    pods = "pod" in ctxs[0]._axes("experts")
+    split = c0.seq[1] > 1
+    B_l, S_l, d = xs[0].shape
+    N = B_l * S_l
+    bax = c0._axes("batch")
+    rank_axes = bax + (("model",) if split else ())
+    n_tok = len(c0.line(rank_axes))
+    T = N * n_tok
     C = _capacity(cfg, T)
+    even = min(N * k // E, C // n_tok)
+    m = min(k, n_local)  # the most choices a token has in one block
+    pods = "pod" in c0._axes("experts")
     routed = []
     for p, x in zip(ps, xs):
-        xf = x.reshape(T_l, x.shape[-1])
+        xf = x.reshape(N, d)
         top_w, top_e, probs = router_topk(p, cfg, xf)
-        key = top_e.reshape(-1)
-        counts = torch.zeros(E, dtype=torch.long, device=x.device)
-        routed.append((xf, top_w, top_e, probs,
-                       counts.scatter_add_(0, key, torch.ones_like(key))))
+        row = torch.arange(N, device=x.device).repeat_interleave(k) // S_l
+        key = row * E + top_e.reshape(-1)
+        cnt = torch.zeros(B_l * E, dtype=torch.long, device=x.device)
+        routed.append((xf, top_w, key, probs,
+                       cnt.scatter_add_(0, key, torch.ones_like(key))))
     disp = []
-    for c, (xf, top_w, top_e, _, _) in zip(ctxs, routed):
-        # each expert's choices on the earlier row blocks come first
-        col = c.all_gather([r[4][None] for r in c.peers(routed,
-                                                        c.row_column())],
-                           dim=0)
-        xe, slot_of, slot_weight, _, kept = _sort_dispatch(
-            xf, top_w, top_e, E, C, before=col[:c.row_block()[0]].sum(dim=0))
-        disp.append((xe, slot_of, slot_weight, kept[0], col.sum(dim=0)))
+    for c, (xf, top_w, key, _, cnt) in zip(ctxs, routed):
+        line = c.line(rank_axes)
+        # the choices of each expert before each of this slot's rows: of
+        # the earlier token blocks' rows, of this row on the earlier
+        # position blocks
+        G = c.all_gather([r[4][None] for r in c.peers(routed, line)],
+                         dim=0).reshape(-1, c.seq[1], B_l, E)
+        rb, j = divmod(line.index(c.slot), c.seq[1])
+        row_tot = G[rb].sum(dim=0)
+        before = (G[:rb].sum(dim=(0, 1, 2)) + torch.cumsum(row_tot, 0)
+                  - row_tot + G[rb, :j].sum(dim=0)).reshape(-1)
+        order = torch.argsort(key, stable=True)
+        skey = key[order]
+        pos = torch.empty_like(key)
+        pos[order] = (torch.arange(N * k, device=xf.device)
+                      - (torch.cumsum(cnt, 0) - cnt)[skey] + before[skey])
+        e = key % E
+        keep = pos < C
+        # each choice's slot in the whole batch's (E, C) buffer; E * C
+        # where it is dropped
+        gslot = torch.where(keep, e * C + pos, E * C)
+        q = {"xf": xf, "idx": [], "w": [], "sent": [],
+             "kept": torch.zeros(E, dtype=torch.long,
+                                 device=xf.device).scatter_add_(
+                 0, e, keep.long()),
+             "counts": G.sum(dim=(0, 1, 2))}
+        w = top_w.float()
+        for b in range(n_real):
+            lo, hi = b * n_local * C, min((b + 1) * n_local, E) * C
+            # each token's choices in block b, as rows of the block in
+            # slot order (its spare row past them): m columns hold them
+            idx = torch.where((gslot >= lo) & (gslot < hi), gslot - lo,
+                              max(0, hi - lo)).reshape(N, k)
+            w_b = w
+            if k > 1:
+                idx, col = torch.sort(idx, dim=1)
+                idx, w_b = idx[:, :m], w.gather(1, col[:, :m])
+            q["idx"].append(idx)
+            q["w"].append(w_b)
+            # the rows it sends block b: its kept choices of those experts
+            q["sent"].append(max(0, min(n_local, E - b * n_local)) * even
+                             if xf.is_meta else
+                             q["kept"][b * n_local:(b + 1) * n_local].sum())
+        disp.append(q)
+    src_axes = tuple(a for a in bax if pods or a != "pod") + \
+        (("model",) if split else ())
     ye = []
     for p, c in zip(ps, ctxs):
         e0 = _expert_block(c, cfg, n_local)
         n = max(0, min(n_local, E - e0))
-        # the kept tokens of every row block (disjoint buffer positions)
-        srcs = c.line(tuple(a for a in c._axes("batch")
-                            if pods or a != "pod"))
-        ye.append(None if n == 0 else _expert_mlp(
-            sum(c.receive(d[0][e0:e0 + n], t)
-                for t, d in zip(srcs, c.peers(disp, srcs))),
-            p["wg"][:n], p["wu"][:n], p["wo"][:n]))
-    n_blocks = expert_alloc(E) // n_local
+        if n == 0:
+            ye.append(None)
+            continue
+        b = e0 // n_local
+        block = torch.zeros((n * C + 1, d), dtype=xs[0].dtype,
+                            device=c.device)
+        srcs = c.line(src_axes)
+        for t, q in zip(srcs, c.peers(disp, srcs)):
+            x = c.receive(q["xf"], t, "moe-dispatch",
+                          q["sent"][b] * (d * q["xf"].element_size() + 8))
+            idx = c.to_here(q["idx"][b])
+            for i in range(idx.shape[1]):
+                block.index_put_((idx[:, i],), x)
+        y = _expert_mlp(block[:n * C].reshape(n, C, d), p["wg"][:n],
+                        p["wu"][:n], p["wo"][:n]).reshape(n * C, d)
+        ye.append(torch.cat([y, y.new_zeros((1, d))]))
+    if f_split:
+        # the FFN shards' partial sums, added over each block's model row
+        # (the holders of a block hold the same rows), as the reference's
+        # row-split expert projection all-reduces over ``model``
+        ye = [c.all_reduce_sum(c.peers(ye, c.model_row())) for c in ctxs]
     outs = []
-    for s, (c, x) in enumerate(zip(ctxs, xs)):
-        _, slot_of, slot_weight, _, _ = disp[s]
-        blocks = []
-        for b in range(-(-E // n_local)):
-            parts = c.peers(ye, [_holder(c, b, n_blocks, f) for f in
-                                 (range(c.n_model) if f_split else [None])])
-            blocks.append(c.all_reduce_sum(parts) if f_split else
-                          c.receive(parts[0], _holder(c, b, n_blocks, None)))
-        y = torch.cat(blocks, dim=0)
-        outs.append(_combine(y, slot_of, slot_weight).reshape(x.shape))
-    outs = _shared_expert_group(ps, cfg, ctxs, xs, outs)
-    c0 = ctxs[0]
-    heads = row_heads(ctxs)
-    counts = c0.to_here(disp[0][4]).float()
-    kept = sum(c0.to_here(d[3].float()) for d in c0.peers(disp, heads))
+    for c, x, q in zip(ctxs, xs, disp):
+        # each token adds its kept choices' weighted outputs in the order
+        # of their slots in the whole batch's buffer (apply_moe's): block
+        # by block, each block's in slot order; its other columns add 0.
+        # Top-1: a token's one choice lies in one block, its output the
+        # sum of the blocks' rows (zero rows elsewhere), weighted once
+        out, y = x.new_zeros((N, d)), None
+        for b in range(n_real):
+            h = _holder(c, b, n_blocks, c.j if f_split else None)
+            idx = q["idx"][b]
+            yh = c.peers(ye, [h])[0]
+            part = c.receive(yh[idx.reshape(-1).to(yh.device)], h,
+                             "moe-return", q["sent"][b] * d * yh.element_size())
+            if k == 1:
+                y = part if y is None else y + part
+                continue
+            part = part.reshape(N, idx.shape[1], d)
+            for i in range(idx.shape[1]):
+                out = out + part[:, i] * q["w"][b][:, i, None].to(out.dtype)
+        if k == 1:
+            out = out + y * q["w"][0].to(out.dtype)
+        outs.append(out.reshape(x.shape))
+    whole = gather_seq(ctxs, xs) if split and cfg.n_shared_experts else xs
+    outs = _shared_expert_group(ps, cfg, ctxs, whole, outs, block=split)
+    line = c0.line(rank_axes)
+    kept = sum(c0.to_here(q["kept"].sum().float())
+               for q in c0.peers(disp, line))
     mean_prob = sum(c0.to_here(r[3].sum(dim=0))
-                    for r in c0.peers(routed, heads)) / T
+                    for r in c0.peers(routed, line)) / T
     n_choices = max(T * k, 1)
-    aux = {"moe_aux_loss": E * (counts / n_choices * mean_prob).sum(),
+    aux = {"moe_aux_loss": E * (disp[0]["counts"].float() / n_choices
+                                * mean_prob).sum(),
            "moe_drop_frac": 1.0 - kept / n_choices}
     return outs, aux
 

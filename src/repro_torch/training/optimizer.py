@@ -15,6 +15,9 @@ under ``torch.no_grad()`` and writes the params and the state in place
 returns the same trees.  Leaves stay stacked ``(L, ...)`` as the param tree
 holds them: Adafactor factors over the last two dims of a stacked leaf and
 clips its update by the RMS of the whole leaf, as the reference does.
+A device group's step runs Adafactor's arithmetic (:class:`Factored`) on
+each slot's block of a leaf, its slot collectives in between
+(``training.train_step.GroupLayout.factored_update``).
 """
 from __future__ import annotations
 
@@ -25,19 +28,68 @@ import torch
 
 
 @dataclass(frozen=True)
+class Factored:
+    """Adafactor's arithmetic of one leaf, in the pieces that a device
+    group's step runs on each slot's block of the leaf between its slot
+    collectives: the squares that the moments average, a moment's decay,
+    the preconditioned update from the whole moments, and the update's
+    RMS clip and write."""
+    lr: float
+    decay: float
+    eps: float
+    clip_threshold: float
+    weight_decay: float
+
+    def rho(self, step):
+        return 1.0 - (step.float() + 1.0) ** (-self.decay)
+
+    def squares(self, g):
+        return torch.square(g.float()) + self.eps
+
+    def moment(self, old, mean, rho):
+        """The decayed moment: ``old`` moved toward this step's ``mean``."""
+        return rho * old + (1 - rho) * mean
+
+    def precondition(self, g, vr, vc=None, index=None):
+        """``g``'s update: scaled by the factored second moment ``vr`` x
+        ``vc`` (whole leaves' moments, the rows and columns of ``g``'s
+        block ``index`` taken from them) or, with ``vc`` None, by the full
+        moment ``vr`` of ``g``'s elements."""
+        g = g.float()
+        if vc is None:
+            return g * torch.rsqrt(torch.clamp(vr, min=self.eps))
+        denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
+                            min=self.eps)
+        r, c = vr / denom, vc
+        if index is not None:
+            r, c = r[index[:-1]], c[index[:-2] + index[-1:]]
+        prec = r[..., None] * c[..., None, :]
+        return g * torch.rsqrt(torch.clamp(prec, min=self.eps))
+
+    def apply(self, p, upd, mean_sq):
+        """Writes ``p`` less its update ``upd``, clipped by the RMS of the
+        whole leaf's update (``mean_sq``: its mean square)."""
+        rms = torch.sqrt(mean_sq + self.eps)
+        upd = upd / torch.clamp(rms / self.clip_threshold, min=1.0)
+        _write(p, p.float() - self.lr * (upd + self.weight_decay * p.float()))
+
+
+@dataclass(frozen=True)
 class Optimizer:
-    """``update(params, grads, state, step)``; ``leaf_update(p, g, s,
-    step, index=None)`` is one leaf's update from its WHOLE gradient and
-    state, written to ``p`` — the block ``index`` of the leaf where ``p``
-    is a slot's shard.  ``replicated_state``: the state is kept whole on
-    every slot of a group (Adafactor, whose factored moments are row and
-    column means over a whole leaf), else it mirrors the params' shards
-    (AdamW), as the reference's dry run shards them."""
+    """``update(params, grads, state, step)``.  ``factored``: Adafactor's
+    arithmetic (:class:`Factored`), whose state a device group keeps
+    whole on every slot (``replicated_state``; its factored moments are
+    row and column means over a whole leaf, and the reference's dry run
+    replicates them); without it (AdamW) the state mirrors the params'
+    shards."""
     init: Callable
     update: Callable
     name: str
-    leaf_update: Optional[Callable] = None
-    replicated_state: bool = False
+    factored: Optional[Factored] = None
+
+    @property
+    def replicated_state(self) -> bool:
+        return self.factored is not None
 
 
 def tree_items(tree, prefix: Tuple[str, ...] = ()) -> Iterator:
@@ -146,30 +198,20 @@ def make_adafactor(lr: float = 1e-4, decay: float = 0.8, eps: float = 1e-30,
 
         return {"stats": tree_map(one, params)}
 
+    fac = Factored(lr, decay, eps, clip_threshold, weight_decay)
+
     @torch.no_grad()
-    def leaf_update(p, g, s, step, index=None):
-        t = step.float() + 1.0
-        rho = 1.0 - t ** (-decay)
-        g = g.float()
-        g2 = torch.square(g) + eps
+    def leaf_update(p, g, s, step):
+        rho = fac.rho(step)
+        g2 = fac.squares(g)
         if "vr" in s:
-            vr = rho * s["vr"] + (1 - rho) * torch.mean(g2, dim=-1)
-            vc = rho * s["vc"] + (1 - rho) * torch.mean(g2, dim=-2)
-            denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
-                                min=eps)
-            prec = (vr / denom)[..., None] * vc[..., None, :]
-            upd = g * torch.rsqrt(torch.clamp(prec, min=eps))
-            s["vr"].copy_(vr)
-            s["vc"].copy_(vc)
+            s["vr"].copy_(fac.moment(s["vr"], torch.mean(g2, dim=-1), rho))
+            s["vc"].copy_(fac.moment(s["vc"], torch.mean(g2, dim=-2), rho))
+            upd = fac.precondition(g, s["vr"], s["vc"])
         else:
-            v = rho * s["v"] + (1 - rho) * g2
-            upd = g * torch.rsqrt(torch.clamp(v, min=eps))
-            s["v"].copy_(v)
-        rms = torch.sqrt(torch.mean(torch.square(upd)) + eps)
-        upd = upd / torch.clamp(rms / clip_threshold, min=1.0)
-        if index is not None:
-            upd = upd[index]
-        _write(p, p.float() - lr * (upd + weight_decay * p.float()))
+            s["v"].copy_(fac.moment(s["v"], g2, rho))
+            upd = fac.precondition(g, s["v"])
+        fac.apply(p, upd, torch.mean(torch.square(upd)))
 
     @torch.no_grad()
     def update(params, grads, state, step):
@@ -178,7 +220,7 @@ def make_adafactor(lr: float = 1e-4, decay: float = 0.8, eps: float = 1e-30,
         return params, state
 
     return Optimizer(init=init, update=update, name="adafactor",
-                     leaf_update=leaf_update, replicated_state=True)
+                     factored=fac)
 
 
 def make_optimizer(name: str, **kw) -> Optimizer:

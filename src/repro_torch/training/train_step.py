@@ -19,9 +19,10 @@ sums each leaf's gradient over the slots that hold its block in slot order
 (the data-parallel all-reduce, a reduce-scatter onto the ``embed_fsdp``
 shards; a leaf split on ``head_dim`` over its data column), clips by the global norm with each element counted once, and
 updates each slot's shard — AdamW's state mirroring the shards, Adafactor's
-whole on every slot (its factored moments are means over a whole leaf) — so
-replicas stay bit-equal.  The batch is per slot (``data.shard_batch(batch,
-mesh, sh)``).
+whole on every slot (its factored moments are means over a whole leaf)
+with its update computed on each slot's block
+(:meth:`GroupLayout.factored_update`) — so replicas stay bit-equal.  The
+batch is per slot (``data.shard_batch(batch, mesh, sh)``).
 
 ``int8_allreduce`` is the reference's compressed gradient all-reduce over a
 ``torch.distributed`` process group: a reduce-scatter of int8 chunks and
@@ -30,6 +31,7 @@ int8 quantisation and an all-gather.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -95,6 +97,7 @@ class GroupLayout:
         axes = param_axes(cfg, self.like)
         specs = param_shardings(cfg, sh, axes, self.like)
         self.ctxs = group_ctxs(sh.mesh, sh.rules, stand_in=sh.stand_in)
+        self._indices = {}
         n = len(self.ctxs)
         self.leaves = []
         for (_, x), (_, ax), (_, sp) in zip(tree_items(self.like),
@@ -214,19 +217,101 @@ class GroupLayout:
         every = range(int(self.mesh.devices.size))
         return [c.all_reduce_sum(c.peers(part, every)) for c in self.ctxs]
 
-    def whole_grads(self, slot_grads, s: int):
-        """Slot ``s``'s copy of each whole gradient leaf (an all-gather of
-        the blocks), for an optimizer whose state is whole on every
-        slot."""
-        flat = [tree_leaves(t) for t in slot_grads]
-        c = self.ctxs[s]
-        out = []
-        for k, leaf in enumerate(self.leaves):
-            owners = sorted(set(leaf["owners"]))
-            out.append(c.gather_blocks([f[k] for f in c.peers(flat, owners)],
-                                       [leaf["index"][t] for t in owners],
-                                       leaf["shape"]))
+    def _axes(self, k: int, dims) -> tuple:
+        """The mesh axes that split leaf ``k``'s ``dims``."""
+        sp, out = self.leaves[k]["spec"], ()
+        for d in dims:
+            e = sp[d] if d < len(sp) else None
+            out += () if e is None else e if isinstance(e, tuple) else (e,)
         return out
+
+    def _index(self, k: int, s: int):
+        """Slot ``s``'s block index of leaf ``k`` (any slot of the mesh,
+        the stand-in's peers too)."""
+        from repro_torch.launch.sharding import slot_index
+
+        hit = self._indices.get((k, s))
+        if hit is None:
+            leaf = self.leaves[k]
+            hit = self._indices[(k, s)] = slot_index(
+                leaf["shape"], leaf["spec"], self.mesh, s)
+        return hit
+
+    def _moment(self, k, fac, parts, summed, olds, rhos):
+        """Per slot, the whole new moment of leaf ``k`` (its state leaf
+        ``olds``, written in place) from the slots' ``parts``: sums of
+        the squares over dim ``summed`` of their blocks (None: the squares
+        themselves).  A slot adds the partial sums of the slots that split
+        that dim in slot order and divides by its whole length, decays its
+        block of the moment and gathers the whole moment from the blocks
+        of the slots that split the other dims."""
+        shape = self.leaves[k]["shape"]
+        kept = [d for d in range(len(shape)) if d != summed]
+        out = []
+        for s, c in enumerate(self.ctxs):
+            mean = parts[s]
+            if summed is not None:
+                mean = c.all_reduce_sum(c.peers(parts, sorted(
+                    c.line(self._axes(k, [summed]))))) / shape[summed]
+            idx = self._index(k, c.slot)
+            out.append(fac.moment(olds[s][tuple(idx[d] for d in kept)],
+                                  mean, rhos[s]))
+        for s, c in enumerate(self.ctxs):
+            line = c.line(self._axes(k, kept))
+            whole = c.gather_blocks(c.peers(out, line), [
+                tuple(self._index(k, t)[d] for d in kept) for t in line],
+                olds[s].shape)
+            olds[s].copy_(whole)
+        return out
+
+    def factored_update(self, fac, slot_params, slot_grads, slot_stats,
+                        steps):
+        """Adafactor's update (``fac``: ``Optimizer.factored``) of each
+        slot's blocks of the params from its blocks of the gradients, the
+        state whole on every slot and bit-equal across slots, as the
+        reference keeps it: the row and column means of the squares are
+        the slots' partial sums over the dim that a leaf's slots split,
+        added in slot order, then put together whole from the blocks of
+        the dims they keep (a gather); each slot preconditions its block
+        from the whole moments, and the update's RMS adds the sums of
+        squares of the slots that own a block (each element once) in slot
+        order.  A leaf at a time: no f32 temporary outgrows a slot's
+        block."""
+        params = [tree_leaves(t) for t in slot_params]
+        grads = [tree_leaves(t) for t in slot_grads]
+        stats = [[] for _ in self.ctxs]
+        for s, st in enumerate(slot_stats):
+            tree_map(lambda _, x, s=s: stats[s].append(x), self.like, st)
+        rhos = [fac.rho(t) for t in steps]
+        c0 = self.ctxs[0]
+        for k, leaf in enumerate(self.leaves):
+            shape = leaf["shape"]
+            g2 = [fac.squares(g[k]) for g in grads]
+            if len(shape) >= 2:
+                rows = [x.sum(dim=-1) for x in g2]
+                cols = [x.sum(dim=-2) for x in g2]
+                del g2
+                nd = len(shape)
+                self._moment(k, fac, rows, nd - 1,
+                             [st[k]["vr"] for st in stats], rhos)
+                self._moment(k, fac, cols, nd - 2,
+                             [st[k]["vc"] for st in stats], rhos)
+                upds = [fac.precondition(g[k], st[k]["vr"], st[k]["vc"],
+                                         self._index(k, c.slot))
+                        for g, st, c in zip(grads, stats, self.ctxs)]
+            else:
+                vs = self._moment(k, fac, g2, None,
+                                  [st[k]["v"] for st in stats], rhos)
+                del g2
+                upds = [fac.precondition(g[k], v)
+                        for g, v in zip(grads, vs)]
+            sqs = [torch.sum(torch.square(u)) for u in upds]
+            owners = sorted(c0.line(self._axes(k, range(len(shape)))))
+            n = math.prod(shape)
+            for s, c in enumerate(self.ctxs):
+                fac.apply(params[s][k], upds[s],
+                          c.all_reduce_sum(c.peers(sqs, owners)) / n)
+            del upds
 
     def init_state(self, params, opt: Optimizer):
         """A fresh group state of the whole ``params``: each slot's shards,
@@ -374,13 +459,10 @@ def _group_train_step(cfg: ModelConfig, opt: Optimizer, hp: TrainHParams,
         else:
             grads, metrics = grads_of(params, batch)
         grads = lay.reduce_grads(grads)
-        if opt.replicated_state:
-            for s in range(n_slots):
-                whole = iter(lay.whole_grads(grads, s))
-                index = iter(leaf["index"][s] for leaf in lay.leaves)
-                tree_map(lambda p, st, s=s: opt.leaf_update(
-                    p, next(whole), st, state["step"][s], next(index)),
-                    params[s], state["opt"][s]["stats"])
+        if opt.factored is not None:
+            lay.factored_update(opt.factored, params, grads,
+                                [o["stats"] for o in state["opt"]],
+                                state["step"])
         else:
             sqs = lay.global_sq(grads)
             for s in range(n_slots):

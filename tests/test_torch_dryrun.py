@@ -22,9 +22,12 @@ the CPU.
   slot counts (flops, bytes, wire bytes, argument bytes) on reduced
   (2, 4) cells — decode (the cache's time axis over ``model``: K1's
   partials merged) and prefill of the dense, recurrent, hybrid and
-  encoder-decoder stacks.  The training step and the MoE are left out:
-  their loss and aux scalars live on slot 0 alone, so a slot's average
-  is not slot 0's by those few scalar ops;
+  encoder-decoder stacks; of a train cell, its flops and argument bytes
+  (its loss and aux scalars live on slot 0 alone, so a slot's average
+  of bytes is not slot 0's by those few scalar ops) — Llama / Gemma
+  under ``attn_seq_q``, and the MoE stacks with and without ``seq_act``
+  (their expert sends' wire bytes too), under the dry run's own remat
+  setting;
 * (g) ``lower_cell("llama3_2_1b", "decode_32k", False)`` at full width
   with every artifact key the reference's report reads; Qwen2.5-32B's
   decode cell (40 query heads on a model axis of 16: the ``head_dim``
@@ -366,22 +369,74 @@ def test_stand_in_counts_the_slot_loop_in_training(arch):
     heads on a model row of 8), at a length where the plain attention
     skips the chunks above each row block's diagonal, so that the slots'
     work differs: the stand-in counts every block's forward and backward
-    at 1/8, the slot loop's flops exactly.  The remat recompute's early
-    stop is off in both, since in a lockstep slot loop it cuts the last
-    slot's recompute alone."""
-    from torch.utils.checkpoint import set_checkpoint_early_stop
-
+    at 1/8, the slot loop's flops exactly.  Both run under the dry run's
+    own remat setting (``models.model._call``: the recompute's early stop
+    off, as in the training step), with nothing set here."""
     cfg = t_get_reduced_config(arch)
     mesh = meta_mesh((1, 8))
     shape = ShapeSpec("train", 4096, 2, "train")
     rules = make_ctx(cfg, mesh, shape).rules
     assert rules["attn_seq_q"] == rules["head_dim"] == "model"
-    with set_checkpoint_early_stop(False):
-        loop = count_cell(cell_specs(cfg, shape, mesh, stand_in=False),
-                          mesh, with_corrections=False)
-        one = count_cell(cell_specs(cfg, shape, mesh), mesh,
-                         with_corrections=False)
+    loop = count_cell(cell_specs(cfg, shape, mesh, stand_in=False),
+                      mesh, with_corrections=False)
+    one = count_cell(cell_specs(cfg, shape, mesh), mesh,
+                     with_corrections=False)
     assert one["cost"].flops == loop["cost"].flops > 0
+
+
+@pytest.mark.parametrize("seq_act", [False, True], ids=["rows", "seq_act"])
+@pytest.mark.parametrize("arch", ["llama4_scout_17b_a16e",
+                                  "deepseek_v2_236b"])
+def test_stand_in_counts_the_slot_loop_in_moe_training(arch, seq_act):
+    """An MoE train cell on a (2, 2) meta mesh (the unpadded MoE's
+    kept-row sends, each source at its even share of the capacity on meta
+    tensors; DeepSeek-V2 with Adafactor's update on each slot's block),
+    under its own rules and under rules that set ``seq_act`` (a remat
+    stash past 8e9 bytes) at its small batch: the stand-in's flops,
+    argument bytes and MoE wire bytes are the slot loop's."""
+    cfg = t_get_reduced_config(arch)
+    mesh = meta_mesh((2, 2))
+    shape = ShapeSpec("train", 64, 4, "train")
+    rules = make_ctx(cfg, mesh, ShapeSpec("train_seq_act", 1 << 20, 64,
+                                          "train")).rules if seq_act \
+        else None
+    loop = count_cell(cell_specs(cfg, shape, mesh, stand_in=False,
+                                 rules=rules), mesh, with_corrections=False)
+    one = count_cell(cell_specs(cfg, shape, mesh, rules=rules), mesh,
+                     with_corrections=False)
+    assert one["cost"].flops == loop["cost"].flops > 0
+    assert one["memory"]["argument_size_in_bytes"] == \
+        loop["memory"]["argument_size_in_bytes"]
+    for kind in ("moe-dispatch", "moe-return"):
+        assert one["cost"].coll_by_kind[kind] == \
+            loop["cost"].coll_by_kind[kind] > 0
+
+
+def test_train_cell_counts_the_optimizer_state_in_f32():
+    """A bf16 train cell's argument bytes are slot 0's training state as
+    the group step holds it — the params' bf16 shards, AdamW's f32
+    moments of them, the step — and its batch block: the moments in f32
+    whatever the params' dtype, as both packages' optimizers keep them."""
+    from repro_torch.models.model import tree_nbytes
+    from repro_torch.training.train_step import (GroupLayout,
+                                                 make_optimizer_for)
+    from repro_torch.training import TrainHParams
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg = t_get_reduced_config("llama3_2_1b").replace(
+        param_dtype="bfloat16", act_dtype="bfloat16")
+    mesh = meta_mesh((2, 2))
+    shape = ShapeSpec("train", 64, 4, "train")
+    spec = cell_specs(cfg, shape, mesh)
+    got = count_cell(spec, mesh, with_corrections=False)
+    opt = make_optimizer_for(cfg, TrainHParams())
+    state = GroupLayout(cfg, spec["sh"]).init_state(spec["params"], opt)
+    moments = tree_nbytes(state["opt"][0])
+    assert moments == 8 * sum(x.numel() for x in
+                              tree_leaves(state["params"][0]))
+    assert got["memory"]["argument_size_in_bytes"] == (
+        tree_nbytes(state["params"][0]) + moments + 4
+        + 2 * 64 * 4)  # int32 tokens of the slot's 2 rows
 
 
 # ---------------------------------------------------------------------------

@@ -1242,17 +1242,22 @@ def test_head_dim_group_equals_solo_on_card(cuda, arch):
 
 @pytest.mark.parametrize("arch,optimizer", [("llama3_2_1b", "adamw"),
                                             ("deepseek_v2_236b", "adafactor"),
-                                            ("zamba2_7b", "adamw")])
+                                            ("zamba2_7b", "adamw"),
+                                            ("llama4_scout_17b_a16e",
+                                             "adamw")])
 def test_group_train_step_equals_solo_on_card(cuda, arch, optimizer):
     """``chip_smoke.py`` [train group] at reduced width: one f32 step over
     a (2, 2) group of card slots against the solo step on the card from
     the same weights and batch — the loss at rtol 1e-5, every gradient
     leaf (reduced over the slots and put back together) at max|d| <=
     atol + rtol max|solo| (1e-5, 2e-4; zamba2 C2's (1e-4, 1e-3)), no host
-    sync inside the step, replicas bit-equal."""
+    sync inside the step, replicas bit-equal.  Llama-4-Scout runs under
+    ``seq_act`` (a cell whose remat stash passes 8e9 bytes): its MoE
+    routes each slot's own block of the positions."""
     import warnings
 
-    from repro_torch.configs import SHAPES_BY_NAME, get_reduced_config
+    from repro_torch.configs import (SHAPES_BY_NAME, ShapeSpec,
+                                     get_reduced_config)
     from repro_torch.data import make_batches, shard_batch
     from repro_torch.launch.mesh import GroupMesh
     from repro_torch.launch.sharding import make_ctx
@@ -1272,7 +1277,11 @@ def test_group_train_step_equals_solo_on_card(cuda, arch, optimizer):
     want = torch.autograd.grad(loss, tree_leaves(live), allow_unused=True,
                                materialize_grads=True)
     mesh = GroupMesh(np.full((2, 2), "cuda", dtype=object))
-    sh = make_ctx(cfg, mesh, SHAPES_BY_NAME["train_4k"])
+    seq_act = arch == "llama4_scout_17b_a16e"
+    sh = make_ctx(cfg, mesh, ShapeSpec("train_seq_act", 1 << 20, 64,
+                                       "train") if seq_act
+                  else SHAPES_BY_NAME["train_4k"])
+    assert (sh.rules["seq_act"] == "model") == seq_act
     lay = GroupLayout(cfg, sh)
     batch = shard_batch(host, mesh, sh, device=cuda)
     g_loss, _, grads = lay.loss_and_grads(lay.shard(params), batch)

@@ -71,10 +71,14 @@ def ctx(cfg, shape, spec):
 
 
 @functools.lru_cache(maxsize=None)
-def setup(arch):
+def setup(arch, capacity_factor=None):
     """(reference loss, metrics, grads by path; port cfg, numpy params,
-    host batch, solo loss, metrics, grads by path)."""
+    host batch, solo loss, metrics, grads by path); ``capacity_factor``:
+    the MoE's in both configs, else the config's."""
     cfg, tcfg = get_reduced_config(arch), t_get_reduced_config(arch)
+    if capacity_factor is not None:
+        cfg = cfg.replace(capacity_factor=capacity_factor)
+        tcfg = tcfg.replace(capacity_factor=capacity_factor)
     params, _ = r_init_params(jax.random.PRNGKey(0), cfg)
     np_params = jax.tree.map(np.asarray, params)
     rb = next(r_make_batches(cfg, B, S, seed=0))
@@ -99,10 +103,10 @@ def setup(arch):
         cfg=tcfg, np_params=np_params, batch=hb)
 
 
-def group_grads(arch, shape, spec):
+def group_grads(arch, shape, spec, capacity_factor=None):
     """(loss, metrics, whole gradients by path) of the group's loss under
     the rules of ``spec`` on ``shape``."""
-    run = setup(arch)
+    run = setup(arch, capacity_factor)
     sh = ctx(run["cfg"], shape, spec)
     lay = GroupLayout(run["cfg"], sh)
     loss, metrics, grads = lay.loss_and_grads(
@@ -123,8 +127,8 @@ def assert_leaf_close(got, want, atol, rtol, what):
     assert err <= bound, (what, err, bound)
 
 
-def assert_matches(arch, loss, metrics, grads):
-    run = setup(arch)
+def assert_matches(arch, loss, metrics, grads, capacity_factor=None):
+    run = setup(arch, capacity_factor)
     atol, rtol = GRAD_TOL.get(arch, (1e-5, 2e-4))
     for name, (w_loss, w_metrics, w_grads) in (("solo", run["solo"]),
                                                ("reference", run["ref"])):
@@ -150,6 +154,38 @@ def test_seq_act_loss_and_grads_match_solo_and_reference(arch, shape):
     sh, loss, metrics, grads = group_grads(arch, shape, SEQ_ACT_SHAPE)
     assert sh.rules["seq_act"] == "model"
     assert_matches(arch, loss, metrics, grads)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)], ids=str)
+def test_seq_act_moe_routes_each_slots_block(shape, monkeypatch):
+    """Reduced Llama-4-Scout under ``seq_act``: the unpadded MoE routes each
+    slot's own (B_l, S/M, d) block of the residual stream, with no
+    sequence gathered before it, its capacity positions ranked at each
+    token's global (row, position) index; the loss, every gradient leaf,
+    the drop fraction and the aux loss are the solo step's and the
+    reference's, at the config's capacity factor (nothing dropped) and at
+    0.5 (a capacity of 8 a expert for 64 top-1 choices over 4 experts:
+    the ranking decides which are dropped)."""
+    from repro_torch.models import moe as TMOE
+
+    calls = []
+    real = TMOE.apply_moe_batch_group
+
+    def spy(ps, cfg, ctxs, xs):
+        calls.append(tuple(xs[0].shape))
+        return real(ps, cfg, ctxs, xs)
+
+    monkeypatch.setattr(TMOE, "apply_moe_batch_group", spy)
+    arch = "llama4_scout_17b_a16e"
+    d = setup(arch)["cfg"].d_model
+    for factor in (None, 0.5):
+        calls.clear()
+        sh, loss, metrics, grads = group_grads(arch, shape, SEQ_ACT_SHAPE,
+                                               factor)
+        assert sh.rules["seq_act"] == "model"
+        assert calls and set(calls) == {(B // shape[0], S // shape[1], d)}
+        assert (metrics["moe_drop_frac"] > 0) == (factor is not None)
+        assert_matches(arch, loss, metrics, grads, factor)
 
 
 @pytest.mark.parametrize("arch", ["llama3_2_1b", "zamba2_7b",

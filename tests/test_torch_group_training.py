@@ -389,6 +389,122 @@ def test_moe_routing_is_the_whole_batch(arch):
     assert whole != sum(halves) / 2
 
 
+def test_adafactor_update_keeps_f32_temporaries_to_a_block():
+    """Reduced DeepSeek-V2's Adafactor update on a meta (1, 8) group: no
+    f32 tensor that the update makes outgrows the largest block a slot
+    holds of any leaf (the moments are put together from the slots'
+    partial sums; the update is each slot's block), where the largest
+    whole leaf is several blocks."""
+    import math
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models import init_params
+
+    tcfg = t_get_reduced_config("deepseek_v2_236b")
+    assert tcfg.optimizer == "adafactor"
+    mesh = GroupMesh(np.full((1, 8), torch.device("meta"), dtype=object))
+    sh = make_ctx(tcfg, mesh, SHAPES_BY_NAME["train_4k"])
+    lay = GroupLayout(tcfg, sh)
+    opt = make_optimizer_for(tcfg, TrainHParams(learning_rate=LR))
+    whole = init_params(tcfg, None, "meta")
+    state = lay.init_state(whole, opt)
+    grads = [tree_map(torch.empty_like, t) for t in state["params"]]
+    block = max(x.numel() for t in state["params"] for x in tree_leaves(t))
+    leaf = max(x.numel() for x in tree_leaves(whole))
+
+    class Widest(TorchDispatchMode):
+        most = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for x in (out if isinstance(out, (tuple, list)) else [out]):
+                if torch.is_tensor(x) and x.dtype == torch.float32:
+                    self.most = max(self.most, math.prod(x.shape))
+            return out
+
+    with Widest() as w:
+        lay.factored_update(opt.factored, state["params"], grads,
+                            [o["stats"] for o in state["opt"]],
+                            state["step"])
+    assert 0 < w.most <= block < leaf
+
+
+@pytest.mark.parametrize("spec", [SHAPES_BY_NAME["train_4k"],
+                                  ShapeSpec("train_seq_act", 1 << 20, 64,
+                                            "train")],
+                         ids=lambda s: s.name)
+def test_moe_dispatch_sends_each_holder_its_kept_rows(spec):
+    """Reduced Llama-4-Scout's MoE on a (2, 2) group (experts over data, 2
+    a slot; their FFN over model): each source sends each holder of its
+    experts only its kept rows of those experts, each with its position
+    in the holder's block, and takes back the outputs of those rows from
+    the holder at its model index (the FFN shards' partial sums added
+    over the model row) — the counted wire bytes equal a count of the
+    kept choices from the whole batch's routing (``_sort_dispatch`` at
+    the global capacity), by token block and expert block — and the
+    outputs are ``apply_moe``'s of the whole batch.  Under ``seq_act`` a slot's
+    tokens are its row block's positions block.  Capacity factor 0.5:
+    some choices are dropped."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import seq_ctxs
+
+    _, (tcfg, np_params, _, _, _, _) = setup("llama4_scout_17b_a16e")
+    tcfg = tcfg.replace(capacity_factor=0.5)
+    sh = ctx(tcfg, (2, 2))
+    sh = make_ctx(tcfg, sh.mesh, spec)
+    lay = GroupLayout(tcfg, sh)
+    params = port_params(np_params)
+    fs = [tree_map(lambda x: x[0], p["segments"]["blocks"]["ffn"])
+          for p in lay.gather_fsdp(lay.shard(params))]
+    ffn = tree_map(lambda x: x[0], params["segments"]["blocks"]["ffn"])
+    ctxs = seq_ctxs(lay.ctxs, B, S)
+    M = ctxs[0].seq[1]
+    assert M == (2 if spec.name == "train_seq_act" else 1)
+    x = torch.randn(B, S, tcfg.d_model,
+                    generator=torch.Generator().manual_seed(0))
+    w = S // M
+    xs = [x[c.i * 2:(c.i + 1) * 2, (c.j if M > 1 else 0) * w:][:, :w]
+          for c in ctxs]
+    with count_collectives() as cc:
+        outs, aux = moe.apply_moe_batch_group(fs, tcfg, ctxs, xs)
+    want, want_aux = moe.apply_moe(ffn, tcfg, x)
+    for c, o, xi in zip(ctxs, outs, xs):
+        lo = (c.j if M > 1 else 0) * w
+        np.testing.assert_allclose(o.detach().numpy(), want[
+            c.i * 2:(c.i + 1) * 2, lo:lo + w].detach().numpy(), rtol=2e-4,
+            atol=1e-5)
+    for kk in want_aux:
+        np.testing.assert_allclose(float(aux[kk]), float(want_aux[kk]),
+                                   rtol=1e-5, atol=1e-7)
+    # the whole batch's routing: kept choices by (token block, expert block)
+    E, k, d = tcfg.n_experts, tcfg.moe_top_k, tcfg.d_model
+    C = moe._capacity(tcfg, B * S)
+    top_w, top_e, _ = moe.router_topk(ffn, tcfg, x.reshape(B * S, d))
+    slot_of = moe._sort_dispatch(x.reshape(B * S, d), top_w, top_e, E, C)[1]
+    kept = {}
+    for t, e in zip(*np.nonzero((slot_of < E * C).numpy())):
+        r, pos = divmod(int(t), S)
+        blk = (r // 2, pos // w if M > 1 else 0)
+        key = (blk, int(top_e[t, e]) // 2)
+        kept[key] = kept.get(key, 0) + 1
+    slots = [(i, j) for i in range(2) for j in range(2)]
+    dispatch = ret = 0
+    for h in slots:  # holder (expert block h[0], FFN shard h[1])
+        srcs = slots if M > 1 else [(i, h[1]) for i in range(2)]
+        for src in srcs:
+            rows = kept.get(((src[0], src[1] if M > 1 else 0), h[0]), 0)
+            if src != h:
+                dispatch += rows * (d * 4 + 8)
+    for src in slots:
+        for b in range(2):
+            rows = kept.get(((src[0], src[1] if M > 1 else 0), b), 0)
+            ret += rows * d * 4 if (b, src[1]) != src else 0
+    assert sum(kept.values()) < B * S * k  # some choices dropped
+    assert cc.by_kind["moe-dispatch"] == dispatch > 0
+    assert cc.by_kind["moe-return"] == ret > 0
+
+
 def test_group_checkpoint_restores_in_solo_group_and_reference(tmp_path):
     """A (2, 2) group's state after one step, saved unsharded: the solo
     port restores the same values, a (1, 2) group restores them into its
