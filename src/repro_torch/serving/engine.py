@@ -93,6 +93,7 @@ from repro_torch.serving.kv_cache import (CachePool, _ep_row_grid,
                                           pages_for, state_specs, to_device)
 from repro_torch.serving.sampling import (SamplingSpec, make_round_tail,
                                           sample_rows)
+from repro_torch.serving.trace import NULL as NULL_TRACER
 
 
 @dataclass
@@ -752,6 +753,9 @@ class GeoServingSystem:
         self._fault_cursor = 0
         self._dispatch_faults: set = set()
         self._base_taus = [float(s.tau) for s in problem.servers]
+        # spans and work counts of the rounds (``serving.trace``): off
+        # unless a caller installs a ``Tracer``
+        self.tracer = NULL_TRACER
 
     # ------------------------------------------------------------------
     def _client_group(self, mesh, mesh_rules):
@@ -946,50 +950,53 @@ class GeoServingSystem:
         """Claim slots for every session that fits (FIFO per client) and
         coalesce the admitted ones into bucket groups for batched prefill.
         Returns the admitted sids."""
-        admitted: List[EngineSession] = []
-        failed_clients: set = set()
-        for sid in sids:
-            sess = self.sessions[sid]
-            faulted = [j for j in sess.route.servers
-                       if j in self._dispatch_faults]
-            if faulted:
-                self._dispatch_faults.difference_update(faulted)
-                self.round_stats["dispatch_errors"] += 1
-                failed_clients.add(sess.client)
-                continue
-            if sess.client in failed_clients or not self.fits_session(sid):
-                failed_clients.add(sess.client)
-                continue
-            n_pages = (self._prompt_pages(sess)
-                       if self.cache_layout == "paged" else 0)
-            for j, k in zip(sess.route.servers, sess.route.blocks):
-                self.servers[j].admit(sid, k, n_pages=n_pages)
-            sess.start = now
-            admitted.append(sess)
-        if not admitted:
-            return []
-        if self.prefill_mode == "serial":
+        with self.tracer.span("admit"):
+            admitted: List[EngineSession] = []
+            failed_clients: set = set()
+            for sid in sids:
+                sess = self.sessions[sid]
+                faulted = [j for j in sess.route.servers
+                           if j in self._dispatch_faults]
+                if faulted:
+                    self._dispatch_faults.difference_update(faulted)
+                    self.round_stats["dispatch_errors"] += 1
+                    failed_clients.add(sess.client)
+                    continue
+                if sess.client in failed_clients or \
+                        not self.fits_session(sid):
+                    failed_clients.add(sess.client)
+                    continue
+                n_pages = (self._prompt_pages(sess)
+                           if self.cache_layout == "paged" else 0)
+                for j, k in zip(sess.route.servers, sess.route.blocks):
+                    self.servers[j].admit(sid, k, n_pages=n_pages)
+                sess.start = now
+                admitted.append(sess)
+            if not admitted:
+                return []
+            if self.prefill_mode == "serial":
+                for sess in admitted:
+                    self._prefill_serial(sess)
+                    self._finalize_prefill(sess, sess._h[:, -1:])
+                return [s.sid for s in admitted]
+            # groups by (route, bucket, encoder length): the encoder pass
+            # runs at the exact encoder length
+            groups: Dict[Tuple[Route, Optional[int], int],
+                         List[EngineSession]] = {}
             for sess in admitted:
-                self._prefill_serial(sess)
-                self._finalize_prefill(sess, sess._h[:, -1:])
+                sess.state = "prefilling"
+                b = bucket_for(self.prefill_buckets, sess.prompt_len,
+                               self.specs)
+                groups.setdefault((sess.route, b, sess.enc_len),
+                                  []).append(sess)
+            for (route, b, enc_len), members in groups.items():
+                self._prefill_groups.append(_PrefillGroup(
+                    route=route, bucket=b, members=members, enc_len=enc_len,
+                    hop_chunks={s.sid: [[] for _ in route.servers]
+                                for s in members},
+                    enc_inputs={s.sid: [None] * len(route.servers)
+                                for s in members}))
             return [s.sid for s in admitted]
-        # groups by (route, bucket, encoder length): the encoder pass runs
-        # at the exact encoder length
-        groups: Dict[Tuple[Route, Optional[int], int],
-                     List[EngineSession]] = {}
-        for sess in admitted:
-            sess.state = "prefilling"
-            b = bucket_for(self.prefill_buckets, sess.prompt_len, self.specs)
-            groups.setdefault((sess.route, b, sess.enc_len),
-                              []).append(sess)
-        for (route, b, enc_len), members in groups.items():
-            self._prefill_groups.append(_PrefillGroup(
-                route=route, bucket=b, members=members, enc_len=enc_len,
-                hop_chunks={s.sid: [[] for _ in route.servers]
-                            for s in members},
-                enc_inputs={s.sid: [None] * len(route.servers)
-                            for s in members}))
-        return [s.sid for s in admitted]
 
     # -- batched prefill ------------------------------------------------
     def has_pending_prefill(self) -> bool:
@@ -997,14 +1004,22 @@ class GeoServingSystem:
 
     def prefill_round(self) -> List[int]:
         """Advance every pending bucket group by ONE chunk round (all hops).
-        Returns the sids whose prompt completed (they emit a token)."""
+        Returns the sids whose prompt completed (they emit a token).
+
+        Spans (``self.tracer``): ``prefill_round`` > per group ``group``
+        > ``embed``; per hop ``hop`` (the counts ``work_run`` /
+        ``work_live``) > ``stage``, ``step``; per finished session
+        ``finalize`` > ``readback``."""
+        tr = self.tracer
         done: List[int] = []
         still: List[_PrefillGroup] = []
-        for g in self._prefill_groups:
-            done.extend(self._prefill_group_round(g))
-            if any(s.state == "prefilling" and s.prompt_len > g.offset
-                   for s in g.members):
-                still.append(g)
+        with tr.span("prefill_round"):
+            for g in self._prefill_groups:
+                with tr.span("group"):
+                    done.extend(self._prefill_group_round(g))
+                if any(s.state == "prefilling" and s.prompt_len > g.offset
+                       for s in g.members):
+                    still.append(g)
         self._prefill_groups = still
         return done
 
@@ -1088,47 +1103,63 @@ class GeoServingSystem:
         spans = {s.sid: min(s.prompt_len - g.offset, t_pad) for s in active}
         if self._is_enc_dec and g.offset == 0:
             self._prefill_enc_phase(g, active)
-        for s in active:
-            chunk = s.tokens[g.offset: g.offset + spans[s.sid]]
-            chunk = chunk + [0] * (t_pad - len(chunk))
-            s._h = self._embed([chunk])
-            if self._needs_emb0:
-                s._emb0 = s._h
+        tr = self.tracer
+        with tr.span("embed"):
+            for s in active:
+                chunk = s.tokens[g.offset: g.offset + spans[s.sid]]
+                chunk = chunk + [0] * (t_pad - len(chunk))
+                s._h = self._embed([chunk])
+                if self._needs_emb0:
+                    s._emb0 = s._h
         e = 0
         phase = "dec" if self._is_enc_dec else "all"
         for hop, (j, k) in enumerate(zip(g.route.servers, g.route.blocks)):
             srv = self.servers[j]
             lo, hi = max(e, self._n_enc), e + k
             if lo < hi:  # the hop hosts decoder-phase blocks
-                N = srv.pool.n_rows
-                h_buf = active[0]._h.new_zeros((N, t_pad,
-                                                active[0]._h.shape[-1]))
-                emb0_buf = h_buf.new_zeros(h_buf.shape) \
-                    if self._needs_emb0 else None
-                enc_buf = None
-                if self._is_enc_dec:
-                    enc_buf = active[0].enc_out.new_zeros(
-                        (N,) + tuple(active[0].enc_out.shape[1:]))
-                mask = np.zeros((srv.m, N), bool)
-                for s in active:
-                    row = srv.pool.rows[s.sid]
-                    # client-side failover cache: the UNPADDED chunk
-                    # entering this hop (stitched to the full prompt at
-                    # completion)
-                    g.hop_chunks[s.sid][hop].append(
-                        s._h[:, : spans[s.sid]])
-                    h_buf[row] = s._h[0]
-                    if emb0_buf is not None:
-                        emb0_buf[row] = s._emb0[0]
-                    if enc_buf is not None:
-                        enc_buf[row] = s.enc_out[0]
-                    mask[lo - srv.a: hi - srv.a, row] = True
-                h_out = srv.prefill_rows(h_buf, srv._mask(mask),
-                                         offset=g.offset, phase=phase,
-                                         emb0_rows=emb0_buf,
-                                         enc_rows=enc_buf)
-                for s in active:
-                    s._h = h_out[srv.pool.rows[s.sid]][None]
+                with tr.span("hop"):
+                    N = srv.pool.n_rows
+                    with tr.span("stage"):
+                        h_buf = active[0]._h.new_zeros(
+                            (N, t_pad, active[0]._h.shape[-1]))
+                        emb0_buf = h_buf.new_zeros(h_buf.shape) \
+                            if self._needs_emb0 else None
+                        enc_buf = None
+                        if self._is_enc_dec:
+                            enc_buf = active[0].enc_out.new_zeros(
+                                (N,) + tuple(active[0].enc_out.shape[1:]))
+                        mask = np.zeros((srv.m, N), bool)
+                        for s in active:
+                            row = srv.pool.rows[s.sid]
+                            # client-side failover cache: the UNPADDED
+                            # chunk entering this hop (stitched to the
+                            # full prompt at completion)
+                            g.hop_chunks[s.sid][hop].append(
+                                s._h[:, : spans[s.sid]])
+                            h_buf[row] = s._h[0]
+                            if emb0_buf is not None:
+                                emb0_buf[row] = s._emb0[0]
+                            if enc_buf is not None:
+                                enc_buf[row] = s.enc_out[0]
+                            mask[lo - srv.a: hi - srv.a, row] = True
+                        mask_dev = srv._mask(mask)
+                    if tr.on:
+                        # (layer, row, position) work: the step runs every
+                        # hosted layer of every pool row over the padded
+                        # chunk; a member's masked layers over its live
+                        # positions are what its prompt needs
+                        tr.count("work_run", mask.size * t_pad)
+                        tr.count("work_live", sum(
+                            int(mask[:, srv.pool.rows[s.sid]].sum())
+                            * spans[s.sid] for s in active))
+                    with tr.span("step"):
+                        h_out = srv.prefill_rows(h_buf, mask_dev,
+                                                 offset=g.offset,
+                                                 phase=phase,
+                                                 emb0_rows=emb0_buf,
+                                                 enc_rows=enc_buf)
+                    for s in active:
+                        s._h = h_out[srv.pool.rows[s.sid]][None]
             # eq. (1): the group's chunk travels the hop as ONE message;
             # each session is charged its own weighted k·τ^I (unchunked
             # groups bill the nominal l_in, chunked ones the actual span).
@@ -1157,8 +1188,9 @@ class GeoServingSystem:
                         stitched = {"enc": g.enc_inputs[s.sid][hop],
                                     "dec": stitched}
                     s.hop_inputs[hop].append(stitched)
-                self._finalize_prefill(s, s._h[:, spans[s.sid] - 1:
-                                               spans[s.sid]])
+                with tr.span("finalize"):
+                    self._finalize_prefill(s, s._h[:, spans[s.sid] - 1:
+                                                   spans[s.sid]])
                 done.append(s.sid)
         return done
 
@@ -1229,7 +1261,8 @@ class GeoServingSystem:
             np.asarray(topks, np.int64),
             np.asarray([s.sampling.seed for s in sessions], np.int64),
             np.asarray([s.n_generated for s in sessions], np.int64))
-        return [int(t) for t in toks.tolist()]
+        with self.tracer.span("readback"):  # the host sync
+            return [int(t) for t in toks.tolist()]
 
     def _route_per_token(self, sess: EngineSession) -> float:
         t = 0.0
@@ -1296,7 +1329,29 @@ class GeoServingSystem:
 
         Preempted sessions are resumed (FIFO) when they fit again.  The
         paged layout first grows every member's pages to cover its write
-        position, preempting victims under page pressure."""
+        position, preempting victims under page pressure.
+
+        Spans (``self.tracer``): ``decode_round`` > ``prep`` (faults,
+        resume, the group, the fused round's host buffers and embed); per
+        (hop, server) ``hop`` (the counts ``work_run`` / ``work_live``) >
+        ``stage``, ``step``; ``tail``, ``readback`` (the round's one host
+        sync), ``emit``."""
+        tr = self.tracer
+        with tr.span("decode_round"):
+            with tr.span("prep"):
+                group = self._decode_group(sids)
+                fused = self._round_inputs(group) \
+                    if group and self.decode_mode == "fused" else None
+            if not group:
+                return {}
+            if fused is None:
+                return self._decode_round_serial(group)
+            return self._decode_round_fused(group, *fused)
+
+    def _decode_group(self, sids: Optional[List[int]]
+                      ) -> List[EngineSession]:
+        """The sessions a decode round advances (see ``decode_round``),
+        after the round's faults, resumes and page growth."""
         explicit = sids is not None
         if self.fault_plan is not None:
             clock = [s.virtual_time + s.start
@@ -1326,11 +1381,7 @@ class GeoServingSystem:
                 group = self._ensure_page_capacity(group)
             if not group:
                 self._abort_stuck_head()
-        if not group:
-            return {}
-        if self.decode_mode == "serial":
-            return self._decode_round_serial(group)
-        return self._decode_round_fused(group)
+        return group
 
     # ------------------------------------------------------------------
     # Preemption (page pressure, capacity-starved failover deferral),
@@ -1527,10 +1578,10 @@ class GeoServingSystem:
                 out[sess.sid] = nxt
         return out
 
-    def _decode_round_fused(self, group: List[EngineSession]
-                            ) -> Dict[int, int]:
-        """Device-resident round over fixed-width (W, ...) buffers: the
-        ONLY host sync is the final batched token readback."""
+    def _round_inputs(self, group: List[EngineSession]) -> tuple:
+        """The fused round's inputs over fixed-width (W, ...) buffers:
+        (slot of each sid, embedded tokens (W, 1, d), positions, original
+        embeddings, encoder lengths), staged without a host sync."""
         if len(group) > self._round_width:
             self._round_width = len(group)
         W = self._round_width
@@ -1547,34 +1598,48 @@ class GeoServingSystem:
         emb0_round = h_round if self._needs_emb0 else None
         encl_round = to_device(encl_buf, self.device) \
             if self._is_enc_dec else None
-        h_round = self._traverse_fused(group, slot, h_round,
-                                       to_device(pos_buf, self.device),
+        return (slot, h_round, to_device(pos_buf, self.device), emb0_round,
+                encl_round)
+
+    def _decode_round_fused(self, group: List[EngineSession],
+                            slot: Dict[int, int], h_round, pos_round,
+                            emb0_round, encl_round) -> Dict[int, int]:
+        """Device-resident round over fixed-width (W, ...) buffers
+        (``_round_inputs``): the ONLY host sync is the final batched token
+        readback."""
+        tr = self.tracer
+        W = self._round_width
+        h_round = self._traverse_fused(group, slot, h_round, pos_round,
                                        emb0_round, encl_round)
         emit = [s for s in group if s.state == "active"]
         out: Dict[int, int] = {}
         if emit:
-            temps = np.zeros((W,), np.float32)
-            topks = np.zeros((W,), np.int64)
-            seeds = np.zeros((W,), np.int64)  # the full [0, 2**32) range
-            tindex = np.zeros((W,), np.int64)
-            for s in emit:
-                g = slot[s.sid]
-                temps[g], topks[g] = s.sampling.row_params()
-                seeds[g] = s.sampling.seed
-                tindex[g] = s.n_generated
-            toks_dev, logits_rows = self._round_tail(
-                self.params["embed"], h_round, temps, topks, seeds, tindex)
-            self.round_stats["tail_dispatches"] += 1
-            toks = toks_dev.cpu().numpy()  # THE one host sync of the round
-            for s in emit:
-                g = slot[s.sid]
-                s.pos += 1
-                s._logits_box = (logits_rows, g)  # lazy: sliced on read
-                nxt = int(toks[g])
-                s.tokens.append(nxt)
-                s.n_generated += 1
-                s.virtual_time += s.per_token_time
-                out[s.sid] = nxt
+            with tr.span("tail"):
+                temps = np.zeros((W,), np.float32)
+                topks = np.zeros((W,), np.int64)
+                seeds = np.zeros((W,), np.int64)  # the full [0, 2**32) range
+                tindex = np.zeros((W,), np.int64)
+                for s in emit:
+                    g = slot[s.sid]
+                    temps[g], topks[g] = s.sampling.row_params()
+                    seeds[g] = s.sampling.seed
+                    tindex[g] = s.n_generated
+                toks_dev, logits_rows = self._round_tail(
+                    self.params["embed"], h_round, temps, topks, seeds,
+                    tindex)
+                self.round_stats["tail_dispatches"] += 1
+            with tr.span("readback"):
+                toks = toks_dev.cpu().numpy()  # THE one host sync of the round
+            with tr.span("emit"):
+                for s in emit:
+                    g = slot[s.sid]
+                    s.pos += 1
+                    s._logits_box = (logits_rows, g)  # lazy: sliced on read
+                    nxt = int(toks[g])
+                    s.tokens.append(nxt)
+                    s.n_generated += 1
+                    s.virtual_time += s.per_token_time
+                    out[s.sid] = nxt
         self.round_stats["rounds"] += 1
         return out
 
@@ -1689,33 +1754,47 @@ class GeoServingSystem:
         only small index/mask vectors cross to the device, never
         activations back."""
 
+        tr = self.tracer
+
         def process_group(srv, members, progress):
             nonlocal h_round
-            N = srv.pool.n_rows
-            W = h_round.shape[0]
-            slot_of_row = np.full((N,), -1, np.int64)
-            row_of_slot = np.full((W,), -1, np.int64)
-            mask = np.zeros((srv.m, N), bool)
-            gidx = []
-            for s in members:
-                hop = progress[s.sid]
-                row = srv.pool.rows[s.sid]
-                e_lo, e_hi = self._hop_span(s, hop)
-                slot_of_row[row] = slot[s.sid]
-                row_of_slot[slot[s.sid]] = row
-                mask[max(e_lo, self._n_enc) - srv.a: e_hi - srv.a,
-                     row] = True
-                gidx.append(slot[s.sid])
-            # client-side failover cache: ONE device gather of the hop's
-            # member rows; each member keeps a lazy (buffer, index) record
-            h_in = h_round[srv._mask(np.asarray(gidx, np.int64))]
-            for i, s in enumerate(members):
-                s.hop_inputs[progress[s.sid]].append((h_in, i))
-            h_round = srv.round_rows(
-                h_round, pos_round, srv._mask(slot_of_row),
-                srv._mask(row_of_slot), srv._mask(mask), emb0_round,
-                encl_round)
-            self.round_stats["hop_dispatches"] += 1
+            with tr.span("hop"):
+                with tr.span("stage"):
+                    N = srv.pool.n_rows
+                    W = h_round.shape[0]
+                    slot_of_row = np.full((N,), -1, np.int64)
+                    row_of_slot = np.full((W,), -1, np.int64)
+                    mask = np.zeros((srv.m, N), bool)
+                    gidx = []
+                    for s in members:
+                        hop = progress[s.sid]
+                        row = srv.pool.rows[s.sid]
+                        e_lo, e_hi = self._hop_span(s, hop)
+                        slot_of_row[row] = slot[s.sid]
+                        row_of_slot[slot[s.sid]] = row
+                        mask[max(e_lo, self._n_enc) - srv.a: e_hi - srv.a,
+                             row] = True
+                        gidx.append(slot[s.sid])
+                    # client-side failover cache: ONE device gather of the
+                    # hop's member rows; each member keeps a lazy (buffer,
+                    # index) record
+                    h_in = h_round[srv._mask(np.asarray(gidx, np.int64))]
+                    for i, s in enumerate(members):
+                        s.hop_inputs[progress[s.sid]].append((h_in, i))
+                    slot_dev, row_dev, mask_dev = (
+                        srv._mask(slot_of_row), srv._mask(row_of_slot),
+                        srv._mask(mask))
+                if tr.on:
+                    # (layer, row) work: the step runs every hosted layer
+                    # of every pool row; the members' masked layers are
+                    # live
+                    tr.count("work_run", mask.size)
+                    tr.count("work_live", int(mask.sum()))
+                with tr.span("step"):
+                    h_round = srv.round_rows(
+                        h_round, pos_round, slot_dev, row_dev, mask_dev,
+                        emb0_round, encl_round)
+                self.round_stats["hop_dispatches"] += 1
 
         self._traverse_core(group, process_group)
         return h_round

@@ -1142,6 +1142,58 @@ def test_hetero_groups_bf16_first_step_on_card(cuda):
             0.025 * float(l_s.abs().max())
 
 
+def test_readback_spans_are_the_host_syncs_on_card(cuda):
+    """The program's ``readback`` spans (``serving/trace.py``) are its host
+    syncs: over one prefill round that finishes two sessions (one bucket
+    group) and one fused decode round, the synchronizing calls torch warns
+    about equal the readback spans, 2 + 1."""
+    import warnings
+
+    import repro_torch.core as C
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import GeoServingSystem
+    from repro_torch.serving.trace import Tracer
+
+    cfg = get_reduced_config("llama3_2_1b")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    system = GeoServingSystem(cfg, params,
+                              _group_problem(C, cfg.n_layers, 2), R=4,
+                              max_new_tokens=4, max_sessions=4,
+                              max_seq_len=64)
+    route, _ = C.shortest_path_route(system.problem,
+                                     system.alive_placement(), 0)
+    rng = np.random.RandomState(0)
+
+    def admit(lengths):
+        sids = [system.create_session(rng.randint(2, cfg.vocab_size, n), 0,
+                                      route, 3) for n in lengths]
+        assert system.try_admit_sessions(sids) == sids
+        return sids
+
+    # the same shapes once first: kernel builds and first launches
+    warm = admit((20, 27))
+    system.drain_prefill()
+    system.decode_round(warm)
+    for sid in warm:
+        system.retire_session(sid)
+    sids = admit((21, 30))
+    tr = system.tracer = Tracer()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            done = system.prefill_round()
+            out = system.decode_round(sids)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("called a synchronizing" in str(w.message)
+                for w in caught)
+    assert sorted(done) == sids and sorted(out) == sids
+    assert syncs == sum(s.name == "readback" for s in tr.spans) == 3
+
+
 @pytest.mark.parametrize("arch,mem", [("llama3_2_1b", 260.0),
                                       ("deepseek_v2_236b", 260.0),
                                       ("zamba2_7b", 520.0)])
