@@ -90,7 +90,8 @@ from repro_torch.serving.kv_cache import (CachePool, _ep_row_grid,
                                           make_pool_prefill_step,
                                           make_pool_round_step,
                                           new_state_pool_tree, page_blocks,
-                                          pages_for, state_specs, to_device)
+                                          pages_for, pool_row_view,
+                                          rows_split, state_specs, to_device)
 from repro_torch.serving.sampling import (SamplingSpec, make_round_tail,
                                           sample_rows)
 from repro_torch.serving.trace import NULL as NULL_TRACER
@@ -230,6 +231,10 @@ class BlockServer:
         if self.mesh is not None:
             layout = self._shard_params(layout)
         group = dict(mesh=self.mesh, rules=layout)
+        # a group whose pool rows shard over ``data`` holds each row on one
+        # slot: no step there runs on one row's views of the slot trees
+        self.row_calls = self.mesh is None or not rows_split(
+            layout, self.mesh, n_rows)
         if cache_layout == "paged":
             group["n_blocks"] = page_blocks(self.mesh, self.pool.slot_specs)
             self._step = make_paged_decode_step(
@@ -298,12 +303,26 @@ class BlockServer:
     def _mask(self, mask: np.ndarray) -> torch.Tensor:
         return to_device(mask, self.device)
 
-    def _pools(self) -> tuple:
+    def _layer_mask(self, lo: int, hi: int, n_rows: int, rows
+                    ) -> torch.Tensor:
+        """The device (m, n_rows) layer mask: blocks [lo, hi) on
+        ``rows``."""
+        mask = np.zeros((self.m, n_rows), bool)
+        mask[lo - self.a: hi - self.a, rows] = True
+        return self._mask(mask)
+
+    def _pools(self, row: Optional[int] = None) -> tuple:
         """The pool operands of a step: the state trees, and the device
-        page table on the paged layout."""
+        page table on the paged layout; with ``row``, that pool row's
+        views of them (``pool_row_view``)."""
+        paged = self.cache_layout == "paged"
         tree = self.pool.tree if self.mesh is None else self.pool.slot_trees
-        if self.cache_layout == "paged":
-            return tree, self.pool.page_table()
+        if row is not None:
+            tree = pool_row_view(tree, row, paged) if self.mesh is None \
+                else tuple(pool_row_view(t, row, paged) for t in tree)
+        if paged:
+            table = self.pool.page_table()
+            return tree, table if row is None else table[row:row + 1]
         return (tree,)
 
     # -- compute ------------------------------------------------------------
@@ -327,9 +346,8 @@ class BlockServer:
             N = self.pool.n_rows
             h_rows = h.new_zeros((N,) + tuple(h.shape[1:]))
             h_rows[row] = h[0]
-            mask = np.zeros((self.m, N), bool)
-            mask[lo - self.a: hi - self.a, row] = True
-            return self.prefill_rows(h_rows, self._mask(mask))[row][None]
+            return self.prefill_rows(
+                h_rows, self._layer_mask(lo, hi, N, row))[row][None]
         entries = []
         for l in range(lo, hi):
             kind = self.kinds[l - self.a]
@@ -361,16 +379,19 @@ class BlockServer:
         return h
 
     def prefill_rows(self, h_rows, layer_active, offset: int = 0,
-                     phase: str = "all", emb0_rows=None, enc_rows=None):
+                     phase: str = "all", emb0_rows=None, enc_rows=None,
+                     row: Optional[int] = None):
         """THE batched prefill: one pooled call prefills a (padded) prompt
         chunk starting at ``offset`` for every masked row, writing the
         chunk's state into the pool.  ``phase``: encoder vs decoder runs of
         enc-dec stacks (``make_pool_prefill_step``); ``emb0_rows``: the
         rows' original embeddings (hybrid stacks); ``enc_rows``: the rows'
-        encoder outputs (enc-dec stacks)."""
+        encoder outputs (enc-dec stacks).  ``row`` (servers with
+        ``row_calls``): the call runs over that one pool row, every
+        ``*_rows`` operand and the mask's row axis holding it alone."""
         assert self.alive, f"server {self.sid} is dead"
         return self._prefill_pool(self._step_params, self._step_shared,
-                                  *self._pools(), h_rows, emb0_rows,
+                                  *self._pools(row), h_rows, emb0_rows,
                                   layer_active, self.layer_ids, offset,
                                   enc_rows, phase)
 
@@ -417,9 +438,8 @@ class BlockServer:
             encl = np.zeros((N,), np.int64)
             encl[row] = enc_len
             encl_rows = self._mask(encl)
-        mask = np.zeros((self.m, N), bool)
-        mask[lo - self.a: hi - self.a, row] = True
-        h_out = self.decode_rows(h_rows, self._mask(pos_np), self._mask(mask),
+        h_out = self.decode_rows(h_rows, self._mask(pos_np),
+                                 self._layer_mask(lo, hi, N, row),
                                  emb0_rows, encl_rows)
         return h_out[row][None]
 
@@ -506,8 +526,7 @@ class BlockServer:
         from repro_torch.launch.mesh import GroupMesh
         from repro_torch.models.model import slot_zeros
         from repro_torch.serving.kv_cache import (group_pool_specs,
-                                                  new_paged_pool_tree,
-                                                  rows_split)
+                                                  new_paged_pool_tree)
 
         cfg, N = self.cfg, self.pool.n_rows
         T, enc_len = self.pool.max_len, self.pool.enc_len
@@ -1008,8 +1027,9 @@ class GeoServingSystem:
 
         Spans (``self.tracer``): ``prefill_round`` > per group ``group``
         > ``embed``; per hop ``hop`` (the counts ``work_run`` /
-        ``work_live``) > ``stage``, ``step``; per finished session
-        ``finalize`` > ``readback``."""
+        ``work_live``) > ``stage``, a ``step`` per call (a member each, on
+        servers with ``row_calls``); per finished session ``finalize`` >
+        ``readback``."""
         tr = self.tracer
         done: List[int] = []
         still: List[_PrefillGroup] = []
@@ -1050,9 +1070,8 @@ class GeoServingSystem:
         row.  Encoder blocks hold no pool state, so the pass needs no pool
         row and no padding rows, and a session's encoder output does not
         depend on the sessions prefilled beside it."""
-        mask = np.zeros((srv.m, 1), bool)
-        mask[lo - srv.a: hi - srv.a] = True
-        return srv.prefill_rows(h, srv._mask(mask), offset=0, phase="enc")
+        return srv.prefill_rows(h, srv._layer_mask(lo, hi, 1, 0), offset=0,
+                                phase="enc")
 
     def _prefill_enc_phase(self, g: _PrefillGroup,
                            active: List[EngineSession]):
@@ -1074,7 +1093,7 @@ class GeoServingSystem:
 
     def _prefill_group_round(self, g: _PrefillGroup) -> List[int]:
         """One chunk round for one bucket group: embed the (padded) chunk of
-        every member, run the pooled prefill per hop on device-staged rows,
+        every member, run the pooled prefill per hop (``_prefill_hop``),
         account the virtual clock, finalize completed members.  Enc-dec
         groups run their encoder phase first, at offset 0; encoder-only
         hops are traversed, and billed, only then."""
@@ -1118,48 +1137,22 @@ class GeoServingSystem:
             lo, hi = max(e, self._n_enc), e + k
             if lo < hi:  # the hop hosts decoder-phase blocks
                 with tr.span("hop"):
-                    N = srv.pool.n_rows
-                    with tr.span("stage"):
-                        h_buf = active[0]._h.new_zeros(
-                            (N, t_pad, active[0]._h.shape[-1]))
-                        emb0_buf = h_buf.new_zeros(h_buf.shape) \
-                            if self._needs_emb0 else None
-                        enc_buf = None
-                        if self._is_enc_dec:
-                            enc_buf = active[0].enc_out.new_zeros(
-                                (N,) + tuple(active[0].enc_out.shape[1:]))
-                        mask = np.zeros((srv.m, N), bool)
-                        for s in active:
-                            row = srv.pool.rows[s.sid]
-                            # client-side failover cache: the UNPADDED
-                            # chunk entering this hop (stitched to the
-                            # full prompt at completion)
-                            g.hop_chunks[s.sid][hop].append(
-                                s._h[:, : spans[s.sid]])
-                            h_buf[row] = s._h[0]
-                            if emb0_buf is not None:
-                                emb0_buf[row] = s._emb0[0]
-                            if enc_buf is not None:
-                                enc_buf[row] = s.enc_out[0]
-                            mask[lo - srv.a: hi - srv.a, row] = True
-                        mask_dev = srv._mask(mask)
-                    if tr.on:
-                        # (layer, row, position) work: the step runs every
-                        # hosted layer of every pool row over the padded
-                        # chunk; a member's masked layers over its live
-                        # positions are what its prompt needs
-                        tr.count("work_run", mask.size * t_pad)
-                        tr.count("work_live", sum(
-                            int(mask[:, srv.pool.rows[s.sid]].sum())
-                            * spans[s.sid] for s in active))
-                    with tr.span("step"):
-                        h_out = srv.prefill_rows(h_buf, mask_dev,
-                                                 offset=g.offset,
-                                                 phase=phase,
-                                                 emb0_rows=emb0_buf,
-                                                 enc_rows=enc_buf)
                     for s in active:
-                        s._h = h_out[srv.pool.rows[s.sid]][None]
+                        # client-side failover cache: the UNPADDED chunk
+                        # entering this hop (stitched to the full prompt
+                        # at completion)
+                        g.hop_chunks[s.sid][hop].append(
+                            s._h[:, : spans[s.sid]])
+                    n_rows = self._prefill_hop(srv, active, lo, hi,
+                                               g.offset, phase)
+                    if tr.on:
+                        # (layer, row, position) work: the calls run every
+                        # hosted layer of their rows over the padded chunk;
+                        # a member's masked layers over its live positions
+                        # are what its prompt needs
+                        tr.count("work_run", srv.m * n_rows * t_pad)
+                        tr.count("work_live", (hi - lo) * sum(
+                            spans[s.sid] for s in active))
             # eq. (1): the group's chunk travels the hop as ONE message;
             # each session is charged its own weighted k·τ^I (unchunked
             # groups bill the nominal l_in, chunked ones the actual span).
@@ -1193,6 +1186,57 @@ class GeoServingSystem:
                                                    spans[s.sid]])
                 done.append(s.sid)
         return done
+
+    def _prefill_hop(self, srv: BlockServer, active: List[EngineSession],
+                     lo: int, hi: int, offset: int, phase: str) -> int:
+        """One hop of a group's chunk round: blocks [lo, hi) of ``srv`` over
+        the members' ``_h`` (each (1, t_pad, d)), replaced by the hop's
+        output.  Returns the pool rows the calls ran, all calls together.
+
+        Where a pool row can be stepped alone (``srv.row_calls``: a solo
+        server, or a group whose rows do not shard over ``data``), each
+        member runs its own call over a batch of one row, its pool row: a
+        refill runs no row that holds no prompt, and a session's numbers
+        are a function of its own chunk and bucket whatever group it
+        shares.  A group whose rows shard over ``data`` holds each row on
+        one slot, so it keeps one call over every pool row, the members
+        staged into a zero ``(N, t_pad, d)`` buffer.  The layout chooses
+        the path; no option does."""
+        tr = self.tracer
+        if srv.row_calls:
+            with tr.span("stage"):
+                mask = srv._layer_mask(lo, hi, 1, 0)
+            for s in active:
+                with tr.span("step"):
+                    s._h = srv.prefill_rows(
+                        s._h, mask, offset=offset, phase=phase,
+                        emb0_rows=s._emb0, enc_rows=s.enc_out,
+                        row=srv.pool.rows[s.sid])
+            return len(active)
+        N = srv.pool.n_rows
+        rows = [srv.pool.rows[s.sid] for s in active]
+        with tr.span("stage"):
+            h_buf = active[0]._h.new_zeros((N,) + active[0]._h.shape[1:])
+            emb0_buf = h_buf.new_zeros(h_buf.shape) \
+                if self._needs_emb0 else None
+            enc_buf = None
+            if self._is_enc_dec:
+                enc_buf = active[0].enc_out.new_zeros(
+                    (N,) + tuple(active[0].enc_out.shape[1:]))
+            for s, row in zip(active, rows):
+                h_buf[row] = s._h[0]
+                if emb0_buf is not None:
+                    emb0_buf[row] = s._emb0[0]
+                if enc_buf is not None:
+                    enc_buf[row] = s.enc_out[0]
+            mask = srv._layer_mask(lo, hi, N, rows)
+        with tr.span("step"):
+            h_out = srv.prefill_rows(h_buf, mask, offset=offset,
+                                     phase=phase, emb0_rows=emb0_buf,
+                                     enc_rows=enc_buf)
+        for s, row in zip(active, rows):
+            s._h = h_out[row][None]
+        return N
 
     def _prefill_serial(self, sess: EngineSession):
         """One-session-per-call exact-length prefill (the reference path of
@@ -2044,27 +2088,33 @@ class GeoServingSystem:
 
     def _replay_chunked(self, sess: EngineSession, srv: BlockServer,
                         lo: int, hi: int, h_full, phase: str,
-                        enc_rows=None, emb0_full=None):
+                        enc_out=None, emb0_full=None):
         """Replay blocks [lo, hi) of one session's prompt through the
         pooled prefill programs, following its chunk plan — the one loop
-        the single-phase and enc-dec replays share."""
-        N = srv.pool.n_rows
-        d = h_full.shape[-1]
+        the single-phase and enc-dec replays share.  Each call has the
+        shape of the group round's (``_prefill_hop``): the session's pool
+        row alone where the server steps one row, else every pool row."""
         row = srv.pool.rows[sess.sid]
-        mask = np.zeros((srv.m, N), bool)
-        mask[lo - srv.a: hi - srv.a, row] = True
-        mask = srv._mask(mask)
+        one = srv.row_calls
+        N, r = (1, 0) if one else (srv.pool.n_rows, row)
+        d = h_full.shape[-1]
+        mask = srv._layer_mask(lo, hi, N, r)
+        enc_rows = enc_out
+        if enc_out is not None and not one:
+            enc_rows = enc_out.new_zeros((N,) + tuple(enc_out.shape[1:]))
+            enc_rows[r] = enc_out[0]
         outs = []
         for off, span, t_pad in self._prefill_plan(h_full.shape[1]):
             h_buf = h_full.new_zeros((N, t_pad, d))
-            h_buf[row, :span] = h_full[0, off: off + span]
+            h_buf[r, :span] = h_full[0, off: off + span]
             emb0_rows = None
             if emb0_full is not None:  # recurrent plan: one exact chunk
                 emb0_rows = h_buf.new_zeros(h_buf.shape)
-                emb0_rows[row] = emb0_full[0, off: off + t_pad]
+                emb0_rows[r] = emb0_full[0, off: off + t_pad]
             h_out = srv.prefill_rows(h_buf, mask, offset=off, phase=phase,
-                                     emb0_rows=emb0_rows, enc_rows=enc_rows)
-            outs.append(h_out[row][None, :span])
+                                     emb0_rows=emb0_rows, enc_rows=enc_rows,
+                                     row=row if one else None)
+            outs.append(h_out[r][None, :span])
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
     def _replay_prefill_encdec(self, sess: EngineSession, j: int, lo: int,
@@ -2093,11 +2143,8 @@ class GeoServingSystem:
                     torch.arange(hs_dec.shape[1], device=self.device),
                     enc_h=sess.enc_out)
             else:
-                enc_rows = sess.enc_out.new_zeros(
-                    (srv.pool.n_rows,) + tuple(sess.enc_out.shape[1:]))
-                enc_rows[srv.pool.rows[sess.sid]] = sess.enc_out[0]
                 hs_dec = self._replay_chunked(sess, srv, dlo, hi, hs_dec,
-                                              "dec", enc_rows=enc_rows)
+                                              "dec", enc_out=sess.enc_out)
         return hs_enc, hs_dec
 
     def _token_emb0(self, sess: EngineSession, pos: int):

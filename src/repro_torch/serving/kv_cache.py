@@ -849,7 +849,8 @@ def make_pool_prefill_step(cfg: ModelConfig, kinds: Tuple[str, ...],
       otherwise),
     * ``pool_trees``: per-run state trees (``CachePool.tree``), written in
       place on active rows: the chunk's K/V at [offset, offset + T), the
-      recurrent state whole,
+      recurrent state whole.  They may be one row's views
+      (``pool_row_view``), ``h`` then that row alone,
     * ``h``: (n_rows, T, d) right-padded hidden rows; ``emb0``: (n_rows, T,
       d) original embeddings for shared-attention blocks (None otherwise),
     * ``layer_active``: (n_layers, n_rows) bool tensor; ``layer_ids``:
@@ -1336,6 +1337,16 @@ def rows_split(rules: Dict, mesh, n_rows: int) -> bool:
     n_data = mesh.devices.shape[0]
     return (n_data > 1 and rules.get("batch") is not None
             and n_rows % n_data == 0)
+
+
+def pool_row_view(trees, row: int, paged: bool):
+    """One pool row of a server's per-run state trees, as views: each
+    leaf's row axis (the one after the layer axis) cut to ``row:row+1``;
+    on the paged layout the page arrays stay whole, their pages addressed
+    through that row of the page table.  A pooled step called on these
+    views over a batch of one row writes that pool row alone, in place."""
+    return tuple({k: x if paged and k in _LENGTH_KEYS else x[:, row:row + 1]
+                  for k, x in tree.items()} for tree in trees)
 
 
 def _row_slices(ctxs, n_rows: int, split: bool):

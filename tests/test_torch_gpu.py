@@ -1194,6 +1194,49 @@ def test_readback_spans_are_the_host_syncs_on_card(cuda):
     assert syncs == sum(s.name == "readback" for s in tr.spans) == 3
 
 
+@pytest.mark.parametrize("layout", ["slab", "paged"])
+def test_prefill_alone_equals_four_member_group_on_card(cuda, layout):
+    """A bf16 BLOOM stack at head dim 128: each session's tokens and
+    ``last_logits`` are bit-equal whether it is prefilled alone or in a
+    four-member bucket group.  Each member is prefilled in a one-row call
+    on its own pool row, so its GEMMs have the same shapes either way."""
+    import repro_torch.core as C
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import GeoServingSystem
+
+    cfg = get_reduced_config("bloom_176b").replace(
+        n_layers=4, d_model=1024, n_heads=8, n_kv_heads=8, head_dim=128,
+        d_ff=4096, param_dtype="bfloat16", act_dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(2, cfg.vocab_size, n) for n in (40, 53, 61, 47)]
+
+    def run(batch):
+        system = GeoServingSystem(cfg, params,
+                                  _group_problem(C, cfg.n_layers, 2), R=2,
+                                  max_new_tokens=4, max_sessions=4,
+                                  max_seq_len=96, cache_layout=layout)
+        route, _ = C.shortest_path_route(system.problem,
+                                         system.alive_placement(), 0)
+        sids = [system.create_session(p, 0, route, 4) for p in batch]
+        assert system.try_admit_sessions(sids) == sids
+        assert len(system._prefill_groups) == 1
+        system.drain_prefill()
+        first = [system.sessions[s].last_logits.clone() for s in sids]
+        for _ in range(3):
+            system.decode_round(sids)
+        return [(list(system.sessions[s].tokens), f,
+                 system.sessions[s].last_logits) for s, f in zip(sids, first)]
+
+    grouped = run(prompts)
+    for p, (tokens, first, last) in zip(prompts, grouped):
+        [(t_a, f_a, l_a)] = run([p])
+        assert t_a == tokens
+        assert torch.equal(f_a, first) and torch.equal(l_a, last)
+
+
 @pytest.mark.parametrize("arch,mem", [("llama3_2_1b", 260.0),
                                       ("deepseek_v2_236b", 260.0),
                                       ("zamba2_7b", 520.0)])
