@@ -405,9 +405,12 @@ PATH_KERNELS = {
     "chameleon_34b": ("decode_attention", "flash_attention"),
 }
 # served configurations cut in depth, and the extra prompt of a serve.
-# DeepSeek-V2's 60 layers of ~6.24 B params each, 256 expert slots
-# included, do not fit the card: 4 of them and the embedding and head take
-# ~52 GB.  A BLOOM-176B layer holds 2.466 B params (4.59 GiB in bf16) and
+# DeepSeek-V2's 60 layers of ~6.24 B params each do not fit the card: 4
+# of them and the embedding and head take ~52 GB.  That count holds 256
+# expert slots a layer, the reference's EP layout (``moe.expert_alloc``
+# pads 160 experts to 256); the published options' dropless layer holds
+# the 160 unpadded (3.97 B a layer; bench/configs/deepseekv2-l8.json).
+# A BLOOM-176B layer holds 2.466 B params (4.59 GiB in bf16) and
 # its tied embedding 3.60 B (6.70 GiB); 11 layers are 30.72 B params, 57.2
 # GiB.  The phase adds ~11.1 GiB to the params at its peak (the C5 twin's
 # f32 layer, 9.19 GiB, and a 16384-column f32 slice of the head; 10 layers
@@ -657,8 +660,9 @@ def phase_serve(torch, arch, captured, layout="slab", slab=None):
 
     moe_count = {"prefill": [0, 0], "decode": [0, 0]}  # [dropped, routed]
 
-    def count_moe(params_, cfg_, x, per_row=False):
-        out, aux = real["apply_moe"](params_, cfg_, x, per_row=per_row)
+    def count_moe(params_, cfg_, x, per_row=False, **kw):
+        out, aux = real["apply_moe"](params_, cfg_, x, per_row=per_row,
+                                     **kw)
         n = x.shape[1] * cfg_.moe_top_k  # (token, choice) pairs of a row
         c = moe_count["decode" if x.shape[1] == 1 else "prefill"]
         c[0] = c[0] + (aux["moe_drop_frac"] * n).sum()
@@ -1763,8 +1767,8 @@ def phase_parity_moe(torch, arch):
     real_moe = moe_mod.apply_moe
     dropped = [0.0, 0]  # (token, choice) pairs dropped, routed
 
-    def count_moe(p, c, x, per_row=False):
-        out, aux = real_moe(p, c, x, per_row=per_row)
+    def count_moe(p, c, x, per_row=False, **kw):
+        out, aux = real_moe(p, c, x, per_row=per_row, **kw)
         n = x.shape[1] * c.moe_top_k * (1 if per_row else x.shape[0])
         dropped[0] += float((aux["moe_drop_frac"] * n).sum())
         dropped[1] += n * (x.shape[0] if per_row else 1)
@@ -3771,8 +3775,9 @@ def _slot_row(torch, kind, args, kw):
         lib = lambda q, k, v: sdpa(q, k, v, ok[None, None])  # noqa: E731
     return (args, lambda *a: K.flash_attention(*a, **kw),
             lambda *a: K.attention_ref(*a, **kw), lib,
-            K.flash_attention_cost(*args, **kw), args[0].dtype,
-            tol if causal else bf16_ulp_ok)
+            K.flash_attention_cost(*args, **{
+                k: v for k, v in kw.items() if k != "scale"}),
+            args[0].dtype, tol if causal else bf16_ulp_ok)
 
 
 def slot_kernel_rows(torch, keep, launches, tag="[groups]",

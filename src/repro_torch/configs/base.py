@@ -10,6 +10,7 @@ config hashes/compares cleanly and can be closed over by jitted functions.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -69,6 +70,17 @@ class ModelConfig:
     qk_norm: bool = False
     pos_kind: str = "rope"  # "rope" | "alibi" | "none"
     rope_theta: float = 10_000.0
+    # YaRN rope scaling (``rope_scaling`` type "yarn"; 0: off): the rope
+    # frequencies blended between interpolated and extrapolated over the
+    # dims between the beta_fast / beta_slow rotation counts at the
+    # original context, and the softmax scale times mscale(factor,
+    # mscale_all_dim)^2 (MLA, as DeepSeek-V2 applies it)
+    yarn_factor: float = 0.0
+    yarn_original_max_pos: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
     sliding_window: int = 0  # >0: window size for local layers
     local_global_period: int = 0  # e.g. 6 => 5 local : 1 global (last in group)
     logit_softcap: float = 0.0
@@ -84,6 +96,22 @@ class ModelConfig:
     moe_top_k: int = 0
     d_ff_expert: int = 0
     capacity_factor: float = 1.25
+    # The published DeepSeek-V2 options, all off by default (the reference
+    # has none of them).  ``n_dense_layers`` leading blocks with a dense
+    # SwiGLU FFN of width ``d_ff`` (``first_k_dense_replace``; the experts'
+    # width is ``d_ff_expert``), in a segment of their own ahead of the MoE
+    # blocks; group-limited greedy
+    # routing over ``moe_n_group`` groups keeping ``moe_topk_group``;
+    # ``moe_norm_topk`` False keeps the softmax weights of the chosen
+    # experts and scales them by ``moe_routed_scale`` instead of
+    # renormalising; ``moe_dropless`` computes every (token, expert)
+    # choice (grouped expert products) instead of the capacity dispatch
+    n_dense_layers: int = 0
+    moe_n_group: int = 0
+    moe_topk_group: int = 0
+    moe_norm_topk: bool = True
+    moe_routed_scale: float = 1.0
+    moe_dropless: bool = False
 
     # --- SSM (mamba2 / rwkv6) ------------------------------------------------
     ssm_state: int = 0
@@ -163,6 +191,11 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def lead_config(self) -> "ModelConfig":
+        """The config the leading dense blocks run under: this one with a
+        dense FFN of width ``d_ff`` and no experts."""
+        return _lead_config(self)
+
     # ------------------------------------------------------------------
     # Parameter counting (for roofline MODEL_FLOPS and the BPRR s_m model)
     # ------------------------------------------------------------------
@@ -240,7 +273,9 @@ class ModelConfig:
             counts = [enc] * self.n_enc_layers + [dec] * self.n_dec_layers
         elif self.is_moe:
             blk = self._attn_params() + self._moe_params()
-            counts = [blk] * self.n_layers
+            lead = self._attn_params() + self._mlp_params()
+            counts = [lead] * self.n_dense_layers + \
+                [blk] * (self.n_layers - self.n_dense_layers)
         else:
             blk = self._attn_params() + self._mlp_params()
             counts = [blk] * self.n_layers
@@ -260,7 +295,15 @@ class ModelConfig:
         per_expert = 3 * self.d_model * self.d_ff_expert
         dense_moe = self.n_experts * per_expert
         active_moe = self.moe_top_k * per_expert
-        return self.param_count() - self.n_layers * (dense_moe - active_moe)
+        n_moe = self.n_layers - self.n_dense_layers
+        return self.param_count() - n_moe * (dense_moe - active_moe)
+
+
+@functools.lru_cache(maxsize=None)
+def _lead_config(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(cfg, family="dense", n_experts=0,
+                               n_shared_experts=0, moe_top_k=0,
+                               n_dense_layers=0)
 
 
 # ---------------------------------------------------------------------------

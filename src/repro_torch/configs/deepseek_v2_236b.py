@@ -3,9 +3,18 @@
 60L d_model=5120 128H d_ff(expert)=1536 vocab=102400, MoE 160 routed experts
 top-6 + 2 shared, MLA with kv_lora_rank=512 (+64 rope dims), q_lora_rank=1536.
 
-Deviation (documented in DESIGN.md §5): uniform MoE layers (the released model
-uses a dense first layer); per-device expert balance, routing, and cache
-behaviour are unaffected.
+This config is the reference's (``repro/configs``), which every parity test
+holds the port to: uniform MoE layers with renormalised plain top-6 routing,
+capacity dispatch, experts padded to 256 for expert parallelism, and plain
+RoPE (DESIGN.md §5).  The published model's options — a dense first layer
+(``n_dense_layers``, of width ``d_ff``), group-limited greedy routing
+(``moe_n_group`` / ``moe_topk_group``) with the weights x 16 and not
+renormalised (``moe_norm_topk``, ``moe_routed_scale``), dropless unpadded
+experts (``moe_dropless``) and YaRN (``yarn_*``) — exist in
+``ModelConfig``, off here.  ``bench/configs/deepseekv2-l8.json`` turns them
+on (through ``bench/families/deepseek_v2.py``), on solo servers, and
+``tests/test_torch_deepseek_v2_published.py`` holds them to a plain
+reference.
 """
 from repro_torch.configs.base import ModelConfig
 

@@ -6,7 +6,8 @@ kernels: bf16 on the tensor cores (``kernels/csrc/flash_attention_sm90.cu``,
 ``flash_attention`` takes (B,Sq,H,Dk) queries over unexpanded
 (B,Skv,Kv,Dk)/(B,Skv,Kv,Dv) keys/values with the reference's masking
 surface (causal/non-causal, ``window``, ALiBi ``slopes``, the chunked-prefill
-``q_start``, which the kernel takes at run time).  A CPU tensor goes to the
+``q_start``, which the kernel takes at run time) and an optional softmax
+``scale`` (default ``1/sqrt(Dk)``).  A CPU tensor goes to the
 plain version (``ref.py``); a CUDA tensor goes to the kernel, or the call
 raises — there is no fallback.  A meta tensor inside
 ``runtime.count_meta_calls`` adds the call's ``cost`` and returns an empty
@@ -115,19 +116,21 @@ def _launcher(dtype):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
-                    slopes=None, q_start: int = 0):
+                    slopes=None, q_start: int = 0,
+                    scale: Optional[float] = None):
     """q (B,Sq,H,Dk); k (B,Skv,Kv,Dk); v (B,Skv,Kv,Dv) -> (B,Sq,H,Dv).
 
     ``window``: optional int.  ``slopes``: optional (H,) f32.  ``q_start``:
     absolute position of the first query (queries [q_start, q_start+Sq)
-    over keys [0, Skv))."""
+    over keys [0, Skv)).  ``scale``: the scores' factor (None:
+    ``1/sqrt(Dk)``)."""
     reason = flash_attention_unsupported(causal=causal, window=window,
                                          slopes=slopes, q_start=q_start)
     if reason is not None:
         raise ValueError(f"flash_attention does not support {reason}")
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
-                             slopes=slopes, q_start=q_start)
+                             slopes=slopes, q_start=q_start, scale=scale)
     refuse_grad("flash_attention (K2)", q, k, v, slopes)
     counting = meta_calls()
     if q.device.type == "meta" and counting is not None:
@@ -179,7 +182,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if sl is None else sl.data_ptr(), out.data_ptr(), B, Sq, Skv,
         H, Kv, Dk, Dv, strides, win, int(bool(causal)), int(q_start),
-        1.0 / math.sqrt(Dk), stream)
+        1.0 / math.sqrt(Dk) if scale is None else float(scale), stream)
     if err < 0:
         raise ValueError(f"flash_attention: the kernel does not take "
                          f"Dk={Dk}, Dv={Dv}")

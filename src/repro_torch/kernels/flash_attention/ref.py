@@ -4,7 +4,7 @@ The same function as the CUDA kernel in ``kernels/csrc/flash_attention.cu``
 and the reference's ``attention_ref``: queries at ``q_start + arange(Sq)``
 over keys at ``arange(Skv)``, GQA by head groups, causal with an optional
 sliding ``window``, ALiBi ``slopes`` (H,), or non-causal Sq != Skv and
-Dv != Dk — in f32, with masked probabilities zeroed and the denominator
+Dv != Dk, the scores scaled by ``scale`` (default ``1/sqrt(Dk)``) — in f32, with masked probabilities zeroed and the denominator
 floored at 1e-30.  The wrapper in ``ops.py`` runs it for CPU tensors; on
 the card it is the kernel's oracle.
 """
@@ -20,13 +20,14 @@ NEG_INF = -1e30
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window=None, slopes=None,
-                  q_start: int = 0):
+                  q_start: int = 0, scale=None):
     """q (B,Sq,H,Dk); k (B,Skv,Kv,Dk); v (B,Skv,Kv,Dv) -> (B,Sq,H,Dv)."""
     B, Sq, H, Dk = q.shape
     Skv, Kv = k.shape[1], k.shape[2]
     G = H // Kv
     qg = q.reshape(B, Sq, Kv, G, Dk).float()
-    logits = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) / math.sqrt(Dk)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k.float())
+    logits = logits / math.sqrt(Dk) if scale is None else logits * scale
     q_pos = q_start + torch.arange(Sq, device=q.device)
     kv_pos = torch.arange(Skv, device=q.device)
     diff = q_pos[:, None] - kv_pos[None, :]  # (Sq, Skv)

@@ -300,7 +300,7 @@ def param_axes(cfg: ModelConfig, params):
                 for par, sub in axes.items()}}
         else:
             kind = {"mamba": "mamba", "rwkv": "rwkv", "enc": "enc",
-                    "dec": "dec"}.get(seg.kind, "decoder")
+                    "dec": "dec", "lead": "lead"}.get(seg.kind, "decoder")
             out["segments"][seg.name] = block_param_axes(cfg, kind, tree)
     if "shared" in params:
         out["shared"] = shared_param_axes(cfg, params["shared"])
@@ -595,7 +595,8 @@ def _leaf_axes(cfg: ModelConfig, parent: str, name: str):
     return _decoder_leaf_axes(cfg, parent, name)
 
 
-BLOCK_KINDS = ("decoder", "rwkv", "mamba", "mamba_shared", "enc", "dec")
+BLOCK_KINDS = ("decoder", "lead", "rwkv", "mamba", "mamba_shared", "enc",
+               "dec")
 
 
 def block_param_axes(cfg: ModelConfig, kind: str, tree):
@@ -605,6 +606,8 @@ def block_param_axes(cfg: ModelConfig, kind: str, tree):
     if kind not in BLOCK_KINDS:
         raise ValueError(f"unknown block kind {kind!r}; supported: "
                          + ", ".join(BLOCK_KINDS))
+    if kind == "lead":  # a leading dense decoder block
+        cfg = cfg.lead_config()
     return {parent: {name: ("layers",) + _leaf_axes(cfg, parent, name)
                      for name in sub}
             for parent, sub in tree.items()}

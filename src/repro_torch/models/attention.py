@@ -75,9 +75,10 @@ from repro_torch.kernels.decode_attention.ref import \
     decode_attention_partials_ref
 from repro_torch.kernels.runtime import NO_WINDOW, use_kernel
 from repro_torch.models.layers import (ParamBuilder, alibi_slopes,
-                                       apply_rope, exchange_model,
-                                       gather_model, param_dtype,
-                                       rms_norm_simple, rope_angles)
+                                       apply_rope, cfg_rope_angles,
+                                       exchange_model, gather_model,
+                                       param_dtype, rms_norm_simple,
+                                       rope_angles, yarn_mscale)
 
 _NEG_INF = -1e30
 _BIG_WINDOW = NO_WINDOW
@@ -499,13 +500,23 @@ def mla_keys(latent, krope):
     return latent.as_strided(latent.shape[:-1] + (width,), latent.stride())
 
 
+def mla_softmax_scale(cfg: ModelConfig) -> float:
+    """MLA's softmax scale: ``(nope + rope)^-1/2``, times ``mscale(factor,
+    yarn_mscale_all_dim)^2`` under YaRN (DeepSeek-V2's
+    ``softmax_scale``)."""
+    scale = 1.0 / math.sqrt(cfg.head_dim + cfg.rope_head_dim)
+    if cfg.yarn_factor and cfg.yarn_mscale_all_dim:
+        scale *= yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim) ** 2
+    return scale
+
+
 def _mla_q(params, cfg: ModelConfig, x, positions):
     nope, rope = cfg.head_dim, cfg.rope_head_dim
     cq = x @ params["wdq"].to(x.dtype)
     cq = rms_norm_simple(cq, params["q_norm"], cfg.norm_eps)
     q = torch.einsum("bsq,qhk->bshk", cq, params["wuq"].to(x.dtype))
     q_nope, q_rope = q[..., :nope], q[..., nope:]
-    cos, sin = rope_angles(positions, rope, cfg.rope_theta)
+    cos, sin = cfg_rope_angles(cfg, positions, rope)
     return q_nope, apply_rope(q_rope, cos, sin)
 
 
@@ -516,7 +527,7 @@ def mla_latent(params, cfg: ModelConfig, x, positions):
     ckv = x @ params["wdkv"].to(x.dtype)
     latent = rms_norm_simple(ckv[..., :lora], params["kv_norm"],
                              cfg.norm_eps)
-    cos, sin = rope_angles(positions, rope, cfg.rope_theta)
+    cos, sin = cfg_rope_angles(cfg, positions, rope)
     k_rope = apply_rope(ckv[..., lora:][:, :, None, :], cos, sin)[:, :, 0]
     return latent, k_rope
 
@@ -528,7 +539,9 @@ def apply_mla_full(params, cfg: ModelConfig, x, positions, prefix_kv=None,
     k_rope) of an already-prefilled prefix; they are up-projected with the
     chunk's and the chunk's queries attend over both.  On the kernel K2
     runs the per-head attention with Kv = H and (Dk, Dv) = (nope + rope,
-    nope); its default 1/sqrt(Dk) is the faithful scale."""
+    nope); its default 1/sqrt(Dk) is the faithful scale, which YaRN
+    multiplies (:func:`mla_softmax_scale`: K2's ``scale``, the plain
+    path's query scaled by the ratio)."""
     q_nope, q_rope = _mla_q(params, cfg, x, positions)
     latent, k_rope = mla_latent(params, cfg, x, positions)
     kv_out = (latent, k_rope)
@@ -547,9 +560,13 @@ def apply_mla_full(params, cfg: ModelConfig, x, positions, prefix_kv=None,
     krope_bc = k_rope[:, :, None, :].expand(k_nope.shape[:3]
                                             + (k_rope.shape[-1],))
     k = torch.cat([k_nope, krope_bc], dim=-1)
+    scale = mla_softmax_scale(cfg) if cfg.yarn_factor else None
     if use_kernel(backend, x):
-        out = flash_attention(q, k, v, causal=True, q_start=q_start)
+        out = flash_attention(q, k, v, causal=True, q_start=q_start,
+                              scale=scale)
     else:
+        if scale is not None:
+            q = q * (scale * math.sqrt(q.shape[-1]))
         out = attention_core(q, k, v, positions, kv_pos, q_start=q_start)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
     return y, kv_out
@@ -561,16 +578,16 @@ def apply_mla_decode(params, cfg: ModelConfig, x, cache_latent, cache_krope,
     kv head.  x (B,1,d); cache_latent (B,T,lora); cache_krope (B,T,rope);
     pos (B,).  Writes the new token's latent/k_rope at ``pos`` in place
     (``active`` rows only) and attends.  On the kernel K1 takes the
-    faithful 1/sqrt(nope + rope) scale; the plain path pre-scales q so the
-    helper's 1/sqrt(lora + rope) lands on it, as the reference's XLA
-    branch does.  Returns (y, cache_latent, cache_krope)."""
-    nope, rope = cfg.head_dim, cfg.rope_head_dim
+    faithful 1/sqrt(nope + rope) scale (:func:`mla_softmax_scale`); the
+    plain path pre-scales q so the helper's 1/sqrt(lora + rope) lands on
+    it, as the reference's XLA branch does.  Returns (y, cache_latent,
+    cache_krope)."""
     q_eff, new_latent, new_krope = _mla_decode_q(params, cfg, x, pos)
     write_token(cache_latent, new_latent, pos, active)
     write_token(cache_krope, new_krope, pos, active)
     keys = mla_keys(cache_latent, cache_krope)[:, :, None, :]
     values = cache_latent[:, :, None, :]
-    faithful = 1.0 / math.sqrt(nope + rope)
+    faithful = mla_softmax_scale(cfg)
     if use_kernel(backend, x):
         ctx = decode_attention(q_eff, keys, values, pos, scale=faithful)
     else:
@@ -922,7 +939,7 @@ def mla_decode_group(ps, cfg: ModelConfig, ctxs, xs, lats, krs, poss,
         qs.append(q_eff)
     keys = [mla_keys(lat, kr)[:, :, None, :] for lat, kr in zip(lats, krs)]
     values = [lat[:, :, None, :] for lat in lats]
-    faithful = 1.0 / math.sqrt(cfg.head_dim + cfg.rope_head_dim)
+    faithful = mla_softmax_scale(cfg)
     outs = _partials_merged(ctxs, qs, keys, values, poss, shards,
                             heads or [None] * n, backend, "latent", True,
                             scale=faithful, kv_lens=[None] * n)

@@ -61,7 +61,8 @@ def check_supported(cfg: ModelConfig):
 
 def stack_block_kinds(cfg: ModelConfig):
     """Per-block kind tuple (length ``cfg.n_layers``) in BPRR block order:
-    ``decoder`` for dense stacks, ``rwkv`` for RWKV6, for zamba2 ``mamba``
+    ``decoder`` for dense stacks (an MoE stack's ``n_dense_layers``
+    leading dense blocks ``lead``), ``rwkv`` for RWKV6, for zamba2 ``mamba``
     everywhere except the last block of each shared-attention period,
     ``mamba_shared`` (a mamba mixer followed by the parameter-shared
     attention+MLP block), and ``enc`` then ``dec`` blocks for
@@ -77,7 +78,15 @@ def stack_block_kinds(cfg: ModelConfig):
             else "mamba" for i in range(cfg.n_layers))
     if cfg.family == "ssm":
         return ("rwkv",) * cfg.n_layers
-    return ("decoder",) * cfg.n_layers
+    n_lead = cfg.n_dense_layers
+    return ("lead",) * n_lead + ("decoder",) * (cfg.n_layers - n_lead)
+
+
+def resolve_kind(cfg: ModelConfig, kind: str):
+    """(config, kind) a block of ``kind`` runs as: a ``lead`` block (a
+    leading dense block of an MoE stack) is a ``decoder`` block under
+    ``cfg.lead_config()``; every other kind is itself under ``cfg``."""
+    return (cfg.lead_config(), "decoder") if kind == "lead" else (cfg, kind)
 
 
 def window_for_layer(cfg: ModelConfig, layer_idx: int):
@@ -157,7 +166,7 @@ def decoder_block_full(params, cfg: ModelConfig, h, positions, layer_idx=0,
                            window_for_layer(cfg, layer_idx), prefix_kv,
                            backend)
     h, aux = _ffn(params, cfg, _residual(params, cfg, h, a, "post_ln1"),
-                  moe_rows)
+                  moe_rows, backend)
     return h, cache, aux
 
 
@@ -173,21 +182,24 @@ def decoder_block_attn_decode(params, cfg: ModelConfig, h, cache, pos,
     return _residual(params, cfg, h, a, "post_ln1"), cache
 
 
-def _ffn(params, cfg: ModelConfig, h, moe_rows: bool = False):
+def _ffn(params, cfg: ModelConfig, h, moe_rows: bool = False,
+         backend: str = "kernel", with_aux: bool = True):
     """ln2 -> MLP or MoE -> (sandwich post-norm) -> residual; returns (h,
     aux)."""
     x = apply_norm(params["ln2"], cfg, h)
     aux = {}
     if cfg.is_moe:
-        m, aux = moe.apply_moe(params["ffn"], cfg, x, per_row=moe_rows)
+        m, aux = moe.apply_moe(params["ffn"], cfg, x, per_row=moe_rows,
+                               backend=backend, with_aux=with_aux)
     else:
         m = apply_mlp(params["ffn"], cfg, x)
     return _residual(params, cfg, h, m, "post_ln2"), aux
 
 
-def decoder_block_ffn(params, cfg: ModelConfig, h, moe_rows: bool = False):
+def decoder_block_ffn(params, cfg: ModelConfig, h, moe_rows: bool = False,
+                      backend: str = "kernel"):
     """FFN half: ln2 -> MLP or MoE -> residual (position-free)."""
-    return _ffn(params, cfg, h, moe_rows)[0]
+    return _ffn(params, cfg, h, moe_rows, backend, with_aux=False)[0]
 
 
 def decoder_block_decode(params, cfg: ModelConfig, h, cache, pos,
@@ -198,7 +210,7 @@ def decoder_block_decode(params, cfg: ModelConfig, h, cache, pos,
     h, cache = decoder_block_attn_decode(params, cfg, h, cache, pos,
                                          layer_idx, active=active,
                                          backend=backend)
-    return decoder_block_ffn(params, cfg, h, moe_rows), cache
+    return decoder_block_ffn(params, cfg, h, moe_rows, backend), cache
 
 
 # ---------------------------------------------------------------------------
@@ -282,7 +294,8 @@ def _mixer_decode_group(aps, cfg: ModelConfig, ctxs, xs, caches, poss,
 
 
 def _ffn_group(ps, cfg: ModelConfig, ctxs, hs, rows_split: bool,
-               moe_ep: bool = False, batch_moe: bool = False):
+               moe_ep: bool = False, batch_moe: bool = False,
+               backend: str = "kernel"):
     """``_ffn`` on a group: ln2 -> MLP (TP) or MoE (per-row, the pure EP
     all-to-all over a (data, model) token grid when ``moe_ep``, or the
     whole batch's routing when ``batch_moe``) -> residual.  Under
@@ -290,12 +303,16 @@ def _ffn_group(ps, cfg: ModelConfig, ctxs, hs, rows_split: bool,
     each slot keeps its block of the output."""
     xs = _normed(ps, cfg, ctxs, hs, "ln2")
     fs = [p["ffn"] for p in ps]
+    if cfg.moe_dropless and ctxs[0].mesh is not None:
+        raise NotImplementedError("the dropless MoE serves on solo servers "
+                                  "only")
     if not cfg.is_moe:
         ms = mlp_group(fs, cfg, ctxs, xs)
     elif batch_moe:
         ms = moe.apply_moe_batch_group(fs, cfg, ctxs, xs)[0]
     elif ctxs[0].mesh is None:  # a solo server's one slot
-        ms = [moe.apply_moe(fs[0], cfg, xs[0], per_row=True)[0]]
+        ms = [moe.apply_moe(fs[0], cfg, xs[0], per_row=True,
+                            backend=backend, with_aux=False)[0]]
     elif moe_ep:
         # each model slot takes its chunk of the row block's rows
         loc = [x.chunk(c.n_model, dim=0)[c.j] for c, x in zip(ctxs, xs)]
@@ -329,7 +346,8 @@ def decoder_block_full_group(ps, cfg: ModelConfig, ctxs, hs, poss,
     Returns (per-slot h, per-slot cache entries of the chunk)."""
     hs, caches = _attn_full_group(ps, cfg, ctxs, hs, poss, layer_idx,
                                   prefixes, backend)
-    return _ffn_group(ps, cfg, ctxs, hs, rows_split), caches
+    return _ffn_group(ps, cfg, ctxs, hs, rows_split, backend=backend), \
+        caches
 
 
 def _attn_full_group(ps, cfg: ModelConfig, ctxs, hs, poss, layer_idx,
@@ -422,7 +440,8 @@ def decoder_block_decode_group(ps, cfg: ModelConfig, ctxs, hs, caches,
     a = _mixer_decode_group([p["attn"] for p in ps], cfg, ctxs, xs, caches,
                             poss, win, actives, backend)
     hs = [_residual(p, cfg, h, y, "post_ln1") for p, h, y in zip(ps, hs, a)]
-    return _ffn_group(ps, cfg, ctxs, hs, rows_split, moe_ep, batch_moe)
+    return _ffn_group(ps, cfg, ctxs, hs, rows_split, moe_ep, batch_moe,
+                      backend)
 
 
 def encoder_block_full_group(ps, cfg: ModelConfig, ctxs, hs, poss,

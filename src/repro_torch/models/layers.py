@@ -179,6 +179,71 @@ def rope_angles(positions, dim: int, theta: float):
     return torch.cos(ang), torch.sin(ang)
 
 
+def yarn_correction_range(dim: int, theta: float, original: int,
+                          beta_fast: float, beta_slow: float):
+    """YaRN's (low, high) rope dims: ``floor(d(beta_fast))`` and
+    ``ceil(d(beta_slow))``, clamped into [0, dim - 1], with ``d(r) = dim
+    ln(original / (2 pi r)) / (2 ln theta)`` the dim that turns ``r``
+    times over the original context."""
+    def d(r):
+        return dim * math.log(original / (r * 2 * math.pi)) / \
+            (2 * math.log(theta))
+    return (max(math.floor(d(beta_fast)), 0),
+            min(math.ceil(d(beta_slow)), dim - 1))
+
+
+def yarn_mscale(scale: float, mscale: float = 1.0) -> float:
+    """YaRN's attention factor ``0.1 mscale ln(scale) + 1`` (1 for
+    ``scale <= 1``)."""
+    return 1.0 if scale <= 1 else 0.1 * mscale * math.log(scale) + 1.0
+
+
+@functools.lru_cache(maxsize=None)
+def _yarn_inv_freq(dim: int, theta: float, factor: float, original: int,
+                   beta_fast: float, beta_slow: float, device: str):
+    exps = torch.arange(0, dim, 2, dtype=torch.float32) / dim
+    extra = 1.0 / torch.pow(float(theta), exps)
+    inter = 1.0 / (factor * torch.pow(float(theta), exps))
+    low, high = yarn_correction_range(dim, theta, original, beta_fast,
+                                      beta_slow)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32) - low)
+            / (high - low)).clamp(0, 1)
+    m = 1.0 - ramp  # 1: the extrapolated (original) frequency
+    return (inter * (1 - m) + extra * m).to(device)
+
+
+def yarn_inv_freq(dim: int, theta: float, factor: float, original: int,
+                  beta_fast: float, beta_slow: float, device=None):
+    """YaRN's rope frequencies: ``inter (1 - m) + extra m`` per rotated
+    pair ``i``, ``extra = theta^(-2i/dim)``, ``inter = extra / factor``,
+    ``m = 1 - clamp((i - low) / (high - low), 0, 1)``
+    (:func:`yarn_correction_range`).  (dim/2,) f32, built once per
+    device."""
+    return _yarn_inv_freq(dim, float(theta), float(factor), int(original),
+                          float(beta_fast), float(beta_slow),
+                          str(torch.device(device or "cpu")))
+
+
+def cfg_rope_angles(cfg: ModelConfig, positions, dim: int):
+    """cos/sin tables of ``dim`` rope dims under the config: plain RoPE at
+    ``rope_theta``, or with ``yarn_factor`` set YaRN's frequencies, the
+    tables times ``mscale(factor, yarn_mscale) / mscale(factor,
+    yarn_mscale_all_dim)``."""
+    if not cfg.yarn_factor:
+        return rope_angles(positions, dim, cfg.rope_theta)
+    freqs = yarn_inv_freq(dim, cfg.rope_theta, cfg.yarn_factor,
+                          cfg.yarn_original_max_pos, cfg.yarn_beta_fast,
+                          cfg.yarn_beta_slow, positions.device)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    m = yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale) / \
+        yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim)
+    if m == 1.0:
+        return torch.cos(ang), torch.sin(ang)
+    return torch.cos(ang) * m, torch.sin(ang) * m
+
+
 def apply_rope(x, cos, sin):
     """x: (..., S, H, D); cos/sin: (..., S, D/2) broadcast over heads.
     Tables in f32, rotation in x.dtype."""

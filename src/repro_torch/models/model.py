@@ -6,6 +6,11 @@ A stack is a list of segments (``stack_plan``) of stacked per-layer
 params, as in the reference:
 
 * dense:   ``[("blocks", decoder, n_layers)]``
+* MoE with ``n_dense_layers`` leading dense blocks (DeepSeek-V2's
+  ``first_k_dense_replace``): ``[("lead", lead, n_dense_layers),
+  ("blocks", decoder, n_layers - n_dense_layers)]``; a lead block is a
+  decoder block run under ``cfg.lead_config()`` (a dense SwiGLU FFN of
+  width ``d_ff``), so ``blocks`` stays the MoE run
 * rwkv6:   ``[("blocks", rwkv, n_layers)]``
 * enc-dec: ``[("enc", enc, n_enc_layers), ("dec", dec, n_dec_layers)]``;
   the encoder runs over the frames, the decoder over the tokens with
@@ -66,7 +71,7 @@ def tree_nbytes(tree) -> int:
 @dataclass(frozen=True)
 class SegmentSpec:
     name: str
-    kind: str  # decoder | enc | dec | rwkv | mamba | mega
+    kind: str  # decoder | lead | enc | dec | rwkv | mamba | mega
     n: int  # number of stacked steps
     blocks_per_step: int = 1
 
@@ -89,7 +94,9 @@ def stack_plan(cfg: ModelConfig) -> List[SegmentSpec]:
         return plan
     if cfg.family == "ssm":
         return [SegmentSpec("blocks", "rwkv", cfg.n_layers)]
-    return [SegmentSpec("blocks", "decoder", cfg.n_layers)]
+    n_lead = cfg.n_dense_layers
+    return ([SegmentSpec("lead", "lead", n_lead)] if n_lead else []) + \
+        [SegmentSpec("blocks", "decoder", cfg.n_layers - n_lead)]
 
 
 _SEG_INIT = {"decoder": B.init_decoder_block, "rwkv": B.init_rwkv_block,
@@ -115,7 +122,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
                 "mamba": B.init_mamba_block(pb, cfg)}
         else:
             pb = ParamBuilder(generator, device, lead=(seg.n,))
-            params["segments"][seg.name] = _SEG_INIT[seg.kind](pb, cfg)
+            c, kind = B.resolve_kind(cfg, seg.kind)
+            params["segments"][seg.name] = _SEG_INIT[kind](pb, c)
     if cfg.family == "hybrid":
         params["shared"] = B.init_zamba_shared(
             ParamBuilder(generator, device), cfg)
@@ -153,6 +161,11 @@ def block_param_range(params, cfg: ModelConfig, kind: str, lo: int, hi: int):
     copy: of just that range.  "mamba_shared" blocks return their mamba
     mixer params; the shared attention half lives in ``params["shared"]``."""
     segs = params["segments"]
+    if kind == "lead":
+        return tree_map(lambda x: x[lo:hi], segs["lead"])
+    if kind == "decoder" and cfg.n_dense_layers:
+        n = cfg.n_dense_layers
+        return tree_map(lambda x: x[lo - n:hi - n], segs["blocks"])
     if kind in ("decoder", "rwkv"):
         return tree_map(lambda x: x[lo:hi], segs["blocks"])
     if kind == "enc":
@@ -163,7 +176,7 @@ def block_param_range(params, cfg: ModelConfig, kind: str, lo: int, hi: int):
     if kind not in ("mamba", "mamba_shared"):
         B.check_supported(cfg)
         raise ValueError(f"unknown block kind {kind!r}; supported: decoder, "
-                         "rwkv, mamba, mamba_shared, enc, dec")
+                         "lead, rwkv, mamba, mamba_shared, enc, dec")
     n_mega = stack_plan(cfg)[0].n_blocks
     mega = tree_map(lambda x: x.reshape((-1,) + x.shape[2:]),
                     segs["mega"]["mamba"])  # views of contiguous leaves
@@ -301,8 +314,8 @@ def forward_full(params, cfg: ModelConfig, batch, collect_caches=False,
     aux_total = {"moe_aux_loss": torch.zeros((), device=tokens.device),
                  "moe_drop_frac": torch.zeros((), device=tokens.device)}
 
-    def decoder(p, h, i):
-        return B.decoder_block_full(p, cfg, h, positions, i, backend=backend)
+    def decoder(p, h, i, c=cfg):
+        return B.decoder_block_full(p, c, h, positions, i, backend=backend)
 
     def recurrent(p, h, blk):
         return blk(p, cfg, h, backend=backend)
@@ -319,10 +332,11 @@ def forward_full(params, cfg: ModelConfig, batch, collect_caches=False,
     for seg in stack_plan(cfg):
         seg_params = params["segments"][seg.name]
         entries = []
+        c, kind = B.resolve_kind(cfg, seg.kind)
         for i, p in enumerate(unstack(seg_params, seg.n)):
             p = up(p)
-            if seg.kind == "decoder":
-                h, cache, aux = _call(remat, decoder, p, h, i)
+            if kind == "decoder":
+                h, cache, aux = _call(remat, decoder, p, h, i, c)
                 for key, val in aux.items():
                     aux_total[key] = aux_total[key] + val
             elif seg.kind in ("rwkv", "mamba"):
@@ -380,9 +394,10 @@ def _full_layer_group(cfg: ModelConfig, seg: SegmentSpec, pl, ctxs, hs, poss,
     """One step of segment ``seg`` over a group's slots (``pl``: each
     slot's layer params; the decoder's MoE over the whole batch): (per-slot
     h, per-slot cache entries of the sequence or None, aux)."""
-    if seg.kind == "decoder":
-        return B.decoder_block_batch_group(pl, cfg, ctxs, hs, poss,
-                                           layer_idx, backend)
+    c, kind = B.resolve_kind(cfg, seg.kind)
+    if kind == "decoder":
+        return B.decoder_block_batch_group(pl, c, ctxs, hs, poss, layer_idx,
+                                           backend)
     if seg.kind == "enc":
         return B.encoder_block_full_group(pl, cfg, ctxs, hs, poss,
                                           backend), None, {}
@@ -762,10 +777,11 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos,
             continue  # no decode-time work: the cross K/V are cached
         seg_params = params["segments"][seg.name]
         cache = caches[seg.name]
+        seg_cfg, kind = B.resolve_kind(cfg, seg.kind)
         for i in range(seg.n):
             p, c = layer_params(seg_params, i), layer_params(cache, i)
-            if seg.kind == "decoder":
-                h, _ = B.decoder_block_decode(p, cfg, h, c, pos_t, i,
+            if kind == "decoder":
+                h, _ = B.decoder_block_decode(p, seg_cfg, h, c, pos_t, i,
                                               backend=backend)
             elif seg.kind == "dec":
                 h, _ = B.cross_decoder_block_decode(p, cfg, h, c, pos_t,
@@ -794,8 +810,9 @@ def _decode_layer_group(cfg: ModelConfig, seg: SegmentSpec, pl, cl, ctxs, hs,
     """One step of segment ``seg`` of the group ``decode_step`` (``pl`` /
     ``cl``: each slot's layer params and caches, written in place).
     Returns per-slot h."""
-    if seg.kind == "decoder":
-        return B.decoder_block_decode_group(pl, cfg, ctxs, hs, cl, poss,
+    c, kind = B.resolve_kind(cfg, seg.kind)
+    if kind == "decoder":
+        return B.decoder_block_decode_group(pl, c, ctxs, hs, cl, poss,
                                             layer_idx, backend=backend,
                                             batch_moe=True)
     if seg.kind == "dec":
@@ -885,7 +902,7 @@ def init_decode_caches(cfg: ModelConfig, batch_size: int, cache_len: int,
 
     caches: Dict = {}
     for seg in stack_plan(cfg):
-        if seg.kind == "decoder":
+        if B.resolve_kind(cfg, seg.kind)[1] == "decoder":
             caches[seg.name] = kv(seg.n)
         elif seg.kind == "dec":
             ckv = (seg.n, batch_size, enc_len or cache_len, cfg.n_kv_heads,

@@ -27,6 +27,20 @@ so nothing here reads a device value on the host.
 The expert products are plain ``torch.bmm`` calls: the reference computes
 them outside any Pallas kernel.
 
+DeepSeek-V2's published options (``ModelConfig``; all off by default, and
+the reference has none of them): group-limited greedy routing
+(``moe_n_group`` / ``moe_topk_group``: each group of experts scores its
+best member, the top groups are kept and the top-k taken inside them),
+the chosen softmax weights scaled by ``moe_routed_scale`` instead of
+renormalised (``moe_norm_topk`` False), and ``moe_dropless``: every
+(token, expert) choice is computed whatever the load.  The dropless layer
+sorts the choices by expert and runs the grouped expert products
+(``kernels.moe_experts.grouped_experts``) over them, the offsets counted
+on the device, so it syncs nothing and runs no expert that no token
+chose; a token's output is its own choices' weighted sum, whatever else
+the call holds, so ``per_row`` changes nothing there.  Its weights are
+not padded (``init_moe``): a solo server holds ``n_experts``.
+
 Device groups (``layers.GroupCtx``; the slots' tensors as lists in slot
 order).  ``apply_moe_group`` is the per-row layout on a group: each slot
 routes its rows (a model row's slots route the same rows alike), every
@@ -55,6 +69,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import moe_experts
+from repro_torch.kernels.runtime import use_kernel
 from repro_torch.launch.costs import collective_ops
 from repro_torch.models.layers import (ParamBuilder, gather_seq, param_dtype,
                                        reduce_model, reduce_out)
@@ -74,7 +90,7 @@ def expert_alloc(E: int) -> int:
 
 def init_moe(pb: ParamBuilder, cfg: ModelConfig):
     d, f, E = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
-    Ea = expert_alloc(E)
+    Ea = E if cfg.moe_dropless else expert_alloc(E)
     dt = param_dtype(cfg)
     c = pb.child()
     c.dense("router", (d, E), torch.float32)
@@ -103,11 +119,28 @@ def _top_k(probs, k: int):
 
 
 def router_topk(params, cfg: ModelConfig, xf):
-    """Softmax router with renormalised top-k weights.  xf: (N, d)."""
+    """Softmax router (f32) with renormalised top-k weights, or, with
+    ``moe_norm_topk`` off, the chosen softmax weights times
+    ``moe_routed_scale``; with ``moe_n_group``, group-limited greedy:
+    the top-k is taken among the experts of the ``moe_topk_group`` groups
+    whose best member scores highest.  xf: (N, d)."""
     logits = xf.float() @ params["router"].float()
     probs = torch.softmax(logits, dim=-1)
-    top_w, top_e = _top_k(probs, cfg.moe_top_k)  # (N, k)
-    top_w = top_w / top_w.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    scores = probs
+    if cfg.moe_n_group:
+        N, E = probs.shape
+        per = E // cfg.moe_n_group
+        best = probs.reshape(N, cfg.moe_n_group, per).amax(dim=-1)
+        kept = _top_k(best, cfg.moe_topk_group)[1]
+        keep = torch.zeros_like(best, dtype=torch.bool).scatter_(1, kept,
+                                                                 True)
+        scores = probs.masked_fill(
+            ~keep.repeat_interleave(per, dim=1), 0.0)
+    top_w, top_e = _top_k(scores, cfg.moe_top_k)  # (N, k)
+    if cfg.moe_norm_topk:
+        top_w = top_w / top_w.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    else:
+        top_w = top_w * cfg.moe_routed_scale
     return top_w, top_e, probs
 
 
@@ -179,7 +212,8 @@ def _shared_expert(params, cfg: ModelConfig, x, out):
     return out
 
 
-def apply_moe(params, cfg: ModelConfig, x, per_row: bool = False):
+def apply_moe(params, cfg: ModelConfig, x, per_row: bool = False,
+              backend: str = "kernel", with_aux: bool = True):
     """x (B, S, d) -> (out (B, S, d), aux): routed top-k experts plus the
     optional shared expert.
 
@@ -187,7 +221,13 @@ def apply_moe(params, cfg: ModelConfig, x, per_row: bool = False):
     S tokens (the engine's pooled steps; the reference vmaps its rows
     there); otherwise the B * S tokens share one capacity.  ``aux`` holds
     the load-balancing loss and the dropped share of the (token, choice)
-    pairs — 0-d tensors, or (B,) per row under ``per_row``."""
+    pairs — 0-d tensors, or (B,) per row under ``per_row``.
+    ``moe_dropless`` configs take :func:`apply_moe_dropless` (``backend``:
+    its expert products on the card's grouped GEMM, or the plain loop;
+    ``with_aux`` False: no aux terms, as serving reads none)."""
+    if cfg.moe_dropless:
+        return apply_moe_dropless(params, cfg, x, per_row, backend,
+                                  with_aux)
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.moe_top_k
     rows = B if per_row else 1
@@ -206,6 +246,53 @@ def apply_moe(params, cfg: ModelConfig, x, per_row: bool = False):
     mean_prob = probs.reshape(rows, T, E).mean(dim=1)
     aux = {"moe_aux_loss": E * (frac * mean_prob).sum(dim=-1),
            "moe_drop_frac": 1.0 - kept.float() / n_choices}
+    if not per_row:
+        aux = {key: v[0] for key, v in aux.items()}
+    return out, aux
+
+
+def apply_moe_dropless(params, cfg: ModelConfig, x, per_row: bool = False,
+                       backend: str = "kernel", with_aux: bool = True):
+    """:func:`apply_moe` with every (token, choice) pair computed: the N k
+    choices sorted by expert (stable, so in (token, choice) order within
+    an expert), their rows gathered, each expert's SwiGLU over its rows
+    alone (``kernels.moe_experts``: the grouped GEMM on the card under the
+    kernel backend, else the plain loop), the outputs put back in (token,
+    choice) order and each token's choices summed in f32 with their
+    weights.  Nothing is dropped, so ``moe_drop_frac`` is 0; ``per_row``
+    shapes the aux terms only, which ``with_aux`` False leaves out."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.moe_top_k
+    N = B * S
+    xf = x.reshape(N, d)
+    top_w, top_e, probs = router_topk(params, cfg, xf)
+    e = top_e.reshape(-1)
+    order = torch.argsort(e, stable=True)
+    counts = torch.zeros(E, dtype=torch.int32, device=x.device)
+    counts.scatter_add_(0, e, torch.ones_like(e, dtype=torch.int32))
+    offs = torch.cumsum(counts, 0, dtype=torch.int32)
+    rows = xf[order // k]
+    w = (params["wg"], params["wu"], params["wo"])
+    if use_kernel(backend, x):
+        ys = moe_experts.grouped_experts(rows, *w, offs)
+    else:
+        ys = moe_experts.grouped_experts_ref(rows, *w, offs)
+    y = torch.empty_like(ys)
+    y[order] = ys
+    out = (y.reshape(N, k, d).float() * top_w[..., None]).sum(dim=1)
+    out = _shared_expert(params, cfg, x, out.to(x.dtype).reshape(B, S, d))
+    if not with_aux:
+        return out, {}
+    rows_n = B if per_row else 1
+    T = N // rows_n
+    key = (torch.arange(N, device=x.device).repeat_interleave(k) // T) * E \
+        + e
+    per = torch.zeros(rows_n * E, dtype=torch.float32, device=x.device)
+    per.scatter_add_(0, key, torch.ones_like(key, dtype=torch.float32))
+    frac = per.reshape(rows_n, E) / max(T * k, 1)
+    mean_prob = probs.reshape(rows_n, T, E).mean(dim=1)
+    aux = {"moe_aux_loss": E * (frac * mean_prob).sum(dim=-1),
+           "moe_drop_frac": torch.zeros(rows_n, device=x.device)}
     if not per_row:
         aux = {key: v[0] for key, v in aux.items()}
     return out, aux
@@ -536,5 +623,6 @@ def _apply_moe_ep(ps, cfg: ModelConfig, ctxs, xs):
 
 
 __all__ = ["EP_MIN_EXPERTS", "EP_PAD_GROUP", "apply_moe",
-           "apply_moe_batch_group", "apply_moe_group", "expert_alloc",
+           "apply_moe_batch_group", "apply_moe_dropless", "apply_moe_group",
+           "expert_alloc",
            "init_moe", "router_topk"]

@@ -196,6 +196,9 @@ class BlockServer:
         self.specs = state_specs(cfg)[self.a: self.a + self.m]
         self.kinds = tuple(s.kind for s in self.specs)
         self.runs = kind_runs(self.kinds)
+        # hosted MoE layers (an MoE config's ``decoder`` blocks; its
+        # ``lead`` blocks are dense), for the hops' ``moe_*`` counts
+        self.n_moe = self.kinds.count("decoder") if cfg.is_moe else 0
         self.n_enc = cfg.n_enc_layers
         self.shared = params.get("shared")  # zamba2's shared attention
         # per-run stacked block params: views, so replicas share storage
@@ -350,11 +353,11 @@ class BlockServer:
                 h_rows, self._layer_mask(lo, hi, N, row))[row][None]
         entries = []
         for l in range(lo, hi):
-            kind = self.kinds[l - self.a]
+            cfg, kind = B.resolve_kind(self.cfg, self.kinds[l - self.a])
             p = self._layer_params(l - self.a)
             if kind == "decoder":
                 h, cache, _ = B.decoder_block_full(
-                    p, self.cfg, h, positions, l, backend=self.backend)
+                    p, cfg, h, positions, l, backend=self.backend)
             elif kind == "enc":
                 h = B.encoder_block_full(p, self.cfg, h, positions,
                                          backend=self.backend)
@@ -1153,6 +1156,8 @@ class GeoServingSystem:
                         tr.count("work_run", srv.m * n_rows * t_pad)
                         tr.count("work_live", (hi - lo) * sum(
                             spans[s.sid] for s in active))
+                        if srv.n_moe:
+                            self._count_moe(srv.n_moe * n_rows * t_pad)
             # eq. (1): the group's chunk travels the hop as ONE message;
             # each session is charged its own weighted k·τ^I (unchunked
             # groups bill the nominal l_in, chunked ones the actual span).
@@ -1687,6 +1692,13 @@ class GeoServingSystem:
         self.round_stats["rounds"] += 1
         return out
 
+    def _count_moe(self, n: int) -> None:
+        """Count on the open ``hop`` span the tokens its calls put through
+        MoE layers (hosted MoE layers x rows x positions, padding
+        included) and their routed (token, expert) pairs, from sizes."""
+        self.tracer.count("moe_tokens", n)
+        self.tracer.count("moe_pairs", n * self.cfg.moe_top_k)
+
     def _hop_span(self, sess: EngineSession, hop: int) -> Tuple[int, int]:
         e_lo = sum(sess.route.blocks[:hop])
         return e_lo, e_lo + sess.route.blocks[hop]
@@ -1834,6 +1846,8 @@ class GeoServingSystem:
                     # live
                     tr.count("work_run", mask.size)
                     tr.count("work_live", int(mask.sum()))
+                    if srv.n_moe:
+                        self._count_moe(srv.n_moe * N)
                 with tr.span("step"):
                     h_round = srv.round_rows(
                         h_round, pos_round, slot_dev, row_dev, mask_dev,

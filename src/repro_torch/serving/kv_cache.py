@@ -126,6 +126,7 @@ class StateSpec:
 
 _STATE_SPECS: Dict[str, StateSpec] = {
     "decoder": StateSpec("decoder"),
+    "lead": StateSpec("lead"),
     "rwkv": StateSpec("rwkv", recurrent=True),
     "mamba": StateSpec("mamba", recurrent=True),
     "mamba_shared": StateSpec("mamba_shared", recurrent=True,
@@ -185,6 +186,7 @@ def _state_tree(cfg: ModelConfig, kind: str, lead: Tuple[int, ...],
     _check_kind(kind)
     if kind == "enc":
         return {}
+    kind = B.resolve_kind(cfg, kind)[1]
     if kind == "decoder" and cfg.attn_kind == "mla":
         lora = cfg.kv_lora_rank
         return mla_cache_views(torch.zeros(
@@ -762,6 +764,7 @@ def _prefill_layer(cfg: ModelConfig, kind: str, ctxs, ps, cs, shared, hs,
     """One prefill layer of any block kind on the slots; writes its state
     into the layer's pool leaves ``cs`` on active rows."""
     T = hs[0].shape[1]
+    cfg, kind = B.resolve_kind(cfg, kind)
     if kind == "enc":
         return B.encoder_block_full_group(ps, cfg, ctxs, hs, poss, backend)
     if kind == "decoder":
@@ -882,6 +885,7 @@ def _decode_layer(cfg: ModelConfig, kind: str, ctxs, ps, cs, shared, hs,
                   split: bool, moe_ep: bool):
     """One decode layer of any block kind on the slots: attention caches
     written in place, recurrent states overwritten whole on active rows."""
+    cfg, kind = B.resolve_kind(cfg, kind)
     if kind == "decoder":
         return B.decoder_block_decode_group(ps, cfg, ctxs, hs, cs, poss,
                                             layer_id, acts, backend, split,

@@ -1406,3 +1406,137 @@ def test_group_train_step_equals_solo_on_card(cuda, arch, optimizer):
     for k, leaf in enumerate(lay.leaves):
         for s, owner in enumerate(leaf["owners"]):
             assert torch.equal(flat[s][k], flat[owner][k])
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V2's published options: grouped expert products, K2's scale
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("E,d,f,M", [(16, 64, 32, 50), (160, 512, 256, 768),
+                                     (160, 512, 256, 6144)])
+def test_grouped_experts_match_plain_on_card(cuda, E, d, f, M):
+    """The grouped GEMMs against the plain per-expert loop in bf16, with
+    half the rows on one expert and some experts empty; three launches and
+    no host sync."""
+    from repro_torch.kernels import grouped_experts, grouped_experts_ref
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    wg = torch.randn(E, d, f, generator=g, device="cuda") * d ** -0.5
+    wu = torch.randn(E, d, f, generator=g, device="cuda") * d ** -0.5
+    wo = torch.randn(E, f, d, generator=g, device="cuda") * f ** -0.5
+    wg, wu, wo = (w.bfloat16() for w in (wg, wu, wo))
+    e = torch.randint(0, E // 2, (M,), generator=g, device="cuda")
+    e[: M // 2] = 3
+    e = torch.sort(e).values
+    counts = torch.zeros(E, dtype=torch.int32, device="cuda")
+    counts.scatter_add_(0, e, torch.ones_like(e, dtype=torch.int32))
+    offs = torch.cumsum(counts, 0, dtype=torch.int32)
+    x = torch.randn(M, d, generator=g, device="cuda").bfloat16()
+    before = grouped_experts.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = grouped_experts(x, wg, wu, wo, offs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert grouped_experts.launches - before == 3
+    want = grouped_experts_ref(x, wg, wu, wo, offs)
+    torch.testing.assert_close(y.float(), want.float(), rtol=0,
+                               atol=TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype,Dk,Dv", [(torch.bfloat16, 192, 128),
+                                         (torch.float32, 24, 16)])
+def test_flash_scale_matches_plain_on_card(cuda, dtype, Dk, Dv):
+    """K2's ``scale`` (MLA under YaRN: 192^-1/2 x 1.2608^2) against the
+    plain version's, at a chunked-prefill offset."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q = _rn(g, 2, 64, 8, Dk, dtype=dtype)
+    k = _rn(g, 2, 96, 8, Dk, dtype=dtype)
+    v = _rn(g, 2, 96, 8, Dv, dtype=dtype)
+    scale = Dk ** -0.5 * 1.2608 ** 2
+    out = flash_attention(q, k, v, q_start=32, scale=scale)
+    want = attention_ref(q, k, v, q_start=32, scale=scale)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+    assert not torch.allclose(out.float(), flash_attention(
+        q, k, v, q_start=32).float(), atol=TOL[dtype])
+
+
+def test_readback_spans_on_a_deepseek_path_on_card(cuda):
+    """The published DeepSeek-V2 options (a leading dense block, group-
+    limited routing x 16, the dropless MoE on the grouped GEMMs, YaRN) at
+    a reduced size in bf16: a prefill round finishing two sessions and a
+    fused decode round make 2 + 1 host syncs, each a ``readback`` span,
+    and each hop that runs MoE layers counts their tokens and pairs."""
+    import sys
+    import warnings
+    from pathlib import Path
+
+    import repro_torch.core as C
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.serving import GeoServingSystem
+    from repro_torch.serving.trace import Tracer
+
+    sys.path.append(str(Path(__file__).resolve().parents[1] / "bench"))
+    from families import deepseek_v2 as fam
+
+    import json
+    c = json.loads((Path(__file__).resolve().parents[1] / "bench" /
+                    "configs" / "deepseekv2-l8.json").read_text())
+    c.update(hidden_size=64, num_attention_heads=4, num_key_value_heads=4,
+             q_lora_rank=48, kv_lora_rank=32, qk_nope_head_dim=16,
+             v_head_dim=16, qk_rope_head_dim=16, n_routed_experts=16,
+             n_group=4, topk_group=2, num_experts_per_tok=4,
+             moe_intermediate_size=32, intermediate_size=96, vocab_size=256,
+             num_hidden_layers=4)
+    c["rope_scaling"] = dict(c["rope_scaling"],
+                             original_max_position_embeddings=16)
+    cfg = fam.port_config(c, ModelConfig)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = {}
+    for path, shape, dt, kind, std in fam.weight_spec(c):
+        t = torch.randn(shape, generator=g, device="cuda") * std
+        t = (t + 1.0 if kind == "one" else t).to(getattr(torch, dt))
+        node = params
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = t
+    system = GeoServingSystem(cfg, params,
+                              _group_problem(C, cfg.n_layers, 2), R=4,
+                              max_new_tokens=4, max_sessions=4,
+                              max_seq_len=64, prefill_mode="batched",
+                              decode_mode="fused")
+    route, _ = C.shortest_path_route(system.problem,
+                                     system.alive_placement(), 0)
+    rng = np.random.RandomState(0)
+
+    def admit(lengths):
+        sids = [system.create_session(rng.randint(2, cfg.vocab_size, n), 0,
+                                      route, 3) for n in lengths]
+        assert system.try_admit_sessions(sids) == sids
+        return sids
+
+    warm = admit((20, 27))
+    system.drain_prefill()
+    system.decode_round(warm)
+    for sid in warm:
+        system.retire_session(sid)
+    sids = admit((21, 30))
+    tr = system.tracer = Tracer()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            done = system.prefill_round()
+            out = system.decode_round(sids)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("called a synchronizing" in str(w.message)
+                for w in caught)
+    assert sorted(done) == sids and sorted(out) == sids
+    assert syncs == sum(s.name == "readback" for s in tr.spans) == 3
+    hops = [s for s in tr.spans
+            if s.name == "hop" and "moe_tokens" in s.attrs]
+    assert hops and all(s.attrs["moe_pairs"] == 4 * s.attrs["moe_tokens"]
+                        for s in hops)
